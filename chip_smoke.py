@@ -1,0 +1,436 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (`pb_llm_tpu_torch`) on one NVIDIA card.
+
+    python3 chip_smoke.py            # the whole run, one card
+    python3 chip_smoke.py --profile  # also trace three decode steps
+
+Phases, in order; any failure raises and the exit code is not 0:
+
+1. set-up: the card's name and power limit (nvidia-smi), the kernels built
+   from `pb_llm_tpu_torch/csrc/` in parallel (one nvcc each), TF32 off;
+2. each kernel against its plain PyTorch version at the main path's shapes,
+   with its time (CUDA events, L2 flushed before every launch), the plain
+   version's time, one PyTorch library call's time as a yardstick, and the
+   least time the card could take (`bound_ms`);
+3. the same 2-layer full-width llama-7b engine on the card (kernels) and on
+   the CPU (the kernels' plain versions): prefill logits, teacher-forced
+   NLL and 8 greedy tokens;
+4. end to end: a 32-layer full-width random PBW-v2 llama-7b serving 16
+   requests through `ContinuousBatcher`; the kernels' launch counters are
+   zeroed just before and read just after, and must match the forwards run.
+
+The last two lines are the `kernels` JSON line and
+`{"ok": true, "device": {...}}`.  Without CUDA it exits 1 before any phase.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
+INT8_OPS_PER_S = 1979e12    # H100 SXM dense int8 tensor-core peak
+F32_FLOPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
+
+DEV = "cuda"
+MATMUL_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096))
+MATMUL_MS = (8, 512)                 # decode (8 slots) and batched prefill (4 x 128)
+ATTN_SHAPE = (8, 2048, 32, 32, 128)  # B, S, Hq, Hkv, D: 8 slots of max_seq 2048
+ATTN_MAX_LEN = 512
+HEADLINE_SHAPE = (8, 4096, 11008)  # (m, ic, oc) of the kernels line: the MLP at decode
+MATMUL_TOL = 1e-6     # of max|y|: int32 dots are exact, the epilogue rounds as the plain version
+ATTN_RTOL, ATTN_ATOL = 1e-4, 1e-5  # online softmax sums in another order than the plain version
+# GPU vs CPU engine on the same int8 arms: the f32 sums (rms_norm, row sums,
+# lm_head) run in another order on each device, so now and then one element
+# of x lands on the other side of an int8 rounding step; a salient weight
+# then moves its output by sx·hs·|code-128|, up to ~0.5·absmax/127, and two
+# layers carry that to the logits.  Measured on an H100: 2.0e-2 of max|logit|,
+# with equal greedy tokens and the NLL within 7e-4.
+LOGIT_TOL = 5e-2      # of max|logit|
+NLL_RTOL = 2e-3
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def bound(nbytes: float, ops: float, peak_ops: float):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak_ops
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+class Timer:
+    """Median device time of a callable (CUDA events around each call), with
+    the 50 MB L2 overwritten before every call: on the main path each layer
+    reads its own planes cold.  A ~1 ms spin kernel runs ahead of each call,
+    so the card is still busy when the host has queued it: the time is the
+    device's, not the host's (host overhead shows in the e2e phase)."""
+
+    def __init__(self):
+        self.flush_buf = torch.empty(128 << 20, dtype=torch.uint8, device=DEV)
+
+    def __call__(self, fn, iters: int = 20, warmup: int = 3) -> float:
+        for _ in range(warmup):
+            fn()
+        pairs = []
+        for _ in range(iters):
+            self.flush_buf.zero_()
+            torch.cuda._sleep(2_000_000)
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            fn()
+            e1.record()
+            pairs.append((e0, e1))
+        torch.cuda.synchronize()
+        return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+
+# ---------------------------------------------------------------------------
+# phase 1: set-up
+# ---------------------------------------------------------------------------
+
+def setup():
+    from pb_llm_tpu_torch.ops import _build
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    card = smi.splitlines()[0]
+    log(card)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    _build.build_all()
+    build_s = time.perf_counter() - t0
+    for name, text in _build.build_log.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"ptxas {name}: {line.strip()}")
+    log(json.dumps({"phase": "build", "seconds": build_s, "sources": list(_build.SOURCES)}))
+    return card
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def check_matmul(timer: Timer, card: str):
+    from pb_llm_tpu_torch.data.synthetic import random_packed_v2
+    from pb_llm_tpu_torch.ops import packed_matmul as pm
+
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    rows = []
+    for ic, oc in MATMUL_SHAPES:
+        p = random_packed_v2(ic, oc, gen, low_frac=0.9)
+        wb = torch.randn((ic, oc), generator=gen, device=DEV).to(torch.bfloat16)
+        for m in MATMUL_MS:
+            x = torch.randn((m, ic), generator=gen, device=DEV)
+            ops = pm.prepare_int8(x, p)
+            got = pm.launch_int8(ops, p)
+            torch.cuda.synchronize()
+            want = pm.pb_int8_matmul_plain(x, p)
+            err = (got - want).abs().max().item()
+            scale = want.abs().max().item()
+            if not (torch.isfinite(got).all() and err <= MATMUL_TOL * scale):
+                raise AssertionError(f"pb_int8_matmul m={m} {ic}x{oc}: max|err| {err} "
+                                     f"> {MATMUL_TOL} * {scale}")
+            xb = x.to(torch.bfloat16)
+            nbytes = (ops.x8.numel() + ops.xg8.numel() + 4 * (ops.sx.numel() + ops.rs.numel()
+                      + ops.rsg.numel() + ops.coef.numel()) + 4 * p.sign_packed.numel()
+                      + p.side_val.numel() + 4 * m * oc)
+            n_ops = 2 * m * oc * (ic + p.k_pad)
+            bound_ms, bound_by = bound(nbytes, n_ops, INT8_OPS_PER_S)
+            row = {"kernel": "pb_int8_matmul", "m": m, "ic": ic, "oc": oc, "k_pad": p.k_pad,
+                   "max_abs_err": err, "max_rel_err": err / scale,
+                   "kernel_ms": timer(lambda: pm.launch_int8(ops, p)),
+                   "wrapper_ms": timer(lambda: pm.pb_int8_matmul(x, p)),
+                   "plain_ms": timer(lambda: pm.pb_int8_matmul_plain(x, p), iters=5),
+                   "library_ms": timer(lambda: xb @ wb),
+                   "bound_ms": bound_ms, "bound_by": bound_by, "card": card}
+            log(json.dumps(row))
+            rows.append(row)
+        del p, wb
+    return rows
+
+
+def check_attention(timer: Timer, card: str):
+    from pb_llm_tpu_torch.ops import decode_attention as da
+
+    b, s, hq, hkv, d = ATTN_SHAPE
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    q = torch.randn((b, hq, d), generator=gen, device=DEV)
+    kv = []
+    for _ in range(2):
+        x = torch.randn((b, s, hkv, d), generator=gen, device=DEV)
+        sc = torch.clamp(x.abs().amax(-1, keepdim=True) / 127.0, min=1e-8)
+        kv += [torch.clamp(torch.round(x / sc), -127, 127).to(torch.int8), sc]
+    k, ks, v, vs = kv
+    lengths = torch.as_tensor(np.random.default_rng(2).integers(1, ATTN_MAX_LEN + 1, b), device=DEV)
+    lengths[0] = ATTN_MAX_LEN
+    scale = d ** -0.5
+    kw = dict(k_scale=ks, v_scale=vs)
+    got = da.decode_attention(q, k, v, lengths, scale, **kw)
+    torch.cuda.synchronize()
+    want = da.decode_attention_plain(q, k, v, lengths, scale, **kw)
+    err = (got - want).abs().max().item()
+    if not (torch.isfinite(got).all() and torch.all((got - want).abs() <= ATTN_ATOL + ATTN_RTOL * want.abs())):
+        raise AssertionError(f"decode_attention: max|err| {err} beyond rtol {ATTN_RTOL} atol {ATTN_ATOL}")
+
+    qs = (q * scale).contiguous()
+    lens = lengths.to(torch.int32)
+    n = int(lengths.max())
+    kd = (k[:, :n].float() * ks[:, :n]).to(torch.bfloat16).transpose(1, 2).contiguous()
+    vd = (v[:, :n].float() * vs[:, :n]).to(torch.bfloat16).transpose(1, 2).contiguous()
+    qd = q.to(torch.bfloat16)[:, :, None]
+    mask = (torch.arange(n, device=DEV)[None, :] < lengths[:, None])[:, None, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows_read = int(lengths.sum())
+    nbytes = 4 * 2 * b * hq * d + rows_read * hkv * (2 * d + 8) + 4 * b
+    bound_ms, bound_by = bound(nbytes, 4 * rows_read * hq * d, F32_FLOPS_PER_S)
+    row = {"kernel": "decode_attention", "B": b, "S": s, "Hq": hq, "Hkv": hkv, "D": d,
+           "lengths": lengths.tolist(), "max_abs_err": err,
+           "kernel_ms": timer(lambda: da.launch(qs, k, v, lens, ks, vs)),
+           "plain_ms": timer(lambda: da.decode_attention_plain(q, k, v, lengths, scale, **kw), iters=5),
+           "library_ms": timer(lambda: sdpa(qd, kd, vd, attn_mask=mask, scale=scale)),
+           "bound_ms": bound_ms, "bound_by": bound_by, "card": card}
+    log(json.dumps(row))
+    return row
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the same engine on the card and on the CPU
+# ---------------------------------------------------------------------------
+
+def llama7b(layers: int):
+    from pb_llm_tpu_torch.models.llama import LlamaConfig
+
+    return LlamaConfig(vocab_size=32000, hidden_size=4096, intermediate_size=11008,
+                       num_hidden_layers=layers, num_attention_heads=32,
+                       max_position_embeddings=2048)
+
+
+def run_parity(params, cfg, device, **ecfg_kw):
+    """Prefill logits, 8 greedy tokens and a teacher-forced NLL on one engine."""
+    from pb_llm_tpu_torch.models.registry import family_for
+    from pb_llm_tpu_torch.runtime.engine import Engine, EngineConfig
+
+    eng = Engine(params, cfg, family_for("llama"),
+                 EngineConfig(n_slots=2, max_seq=256, prefill_buckets=(64, 256), **ecfg_kw),
+                 device=device)
+    rng = np.random.default_rng(3)
+    toks = [eng.prefill(0, rng.integers(0, cfg.vocab_size, 40).tolist())]
+    logits = eng._prefill_logits[0].float().cpu()
+    toks += [eng.decode_step()[0] for _ in range(7)]
+    eng.prefill(1, rng.integers(0, cfg.vocab_size, 70).tolist())
+    nll = eng.forced_decode_nll(1, rng.integers(0, cfg.vocab_size, 4).tolist())
+    return logits, toks, nll
+
+
+def check_engine_parity():
+    from pb_llm_tpu_torch.data.synthetic import random_packed_llama
+    from pb_llm_tpu_torch.ops.kernel_config import KernelConfig
+
+    cfg = llama7b(2)
+    params = random_packed_llama(cfg, torch.Generator().manual_seed(4))
+    t0 = time.perf_counter()
+    g_logits, g_toks, g_nll = run_parity(params, cfg, DEV)
+    gpu_s = time.perf_counter() - t0
+    plain = KernelConfig(backend="pallas_interpret", decode_dot="int8", prefill="int8",
+                         decode_attention="pallas_interpret")
+    t0 = time.perf_counter()
+    c_logits, c_toks, c_nll = run_parity(params, cfg, "cpu", cache_dtype=torch.int8, kernels=plain)
+    cpu_s = time.perf_counter() - t0
+    scale = c_logits.abs().max().item()
+    err = (g_logits - c_logits).abs().max().item()
+    row = {"phase": "engine_parity", "layers": 2, "max_abs_logit_err": err, "max_abs_logit": scale,
+           "gpu_tokens": g_toks, "cpu_tokens": c_toks, "gpu_nll": g_nll, "cpu_nll": c_nll,
+           "gpu_s": gpu_s, "cpu_s": cpu_s}
+    log(json.dumps(row))
+    if not (np.isfinite(g_nll) and torch.isfinite(g_logits).all()):
+        raise AssertionError("engine parity: non-finite GPU output")
+    if err > LOGIT_TOL * scale:
+        raise AssertionError(f"engine parity: logits differ by {err} > {LOGIT_TOL} * {scale}")
+    if g_toks != c_toks:
+        raise AssertionError(f"engine parity: greedy tokens differ {g_toks} vs {c_toks}")
+    if abs(g_nll - c_nll) > NLL_RTOL * abs(c_nll):
+        raise AssertionError(f"engine parity: NLL {g_nll} vs {c_nll}")
+    return row
+
+
+# ---------------------------------------------------------------------------
+# phase 4: end to end
+# ---------------------------------------------------------------------------
+
+def packed_bytes(p) -> int:
+    return sum(t.numel() * t.element_size() for t in
+               (p.sign_packed, p.side_val, p.side_idx, p.low_scale, p.low_mean,
+                p.high_scale, p.high_zero))
+
+
+def serve_e2e(card: str, profile: bool):
+    from pb_llm_tpu_torch.data.synthetic import random_packed_llama
+    from pb_llm_tpu_torch.models.registry import family_for
+    from pb_llm_tpu_torch.ops import decode_attention as da
+    from pb_llm_tpu_torch.ops import packed_matmul as pm
+    from pb_llm_tpu_torch.runtime.batching import ContinuousBatcher, Request
+    from pb_llm_tpu_torch.runtime.engine import Engine, EngineConfig
+
+    cfg = llama7b(32)
+    t0 = time.perf_counter()
+    params = random_packed_llama(cfg, torch.Generator(device=DEV).manual_seed(5))
+    eng = Engine(params, cfg, family_for("llama"), EngineConfig(n_slots=8, max_seq=2048),
+                 device=DEV)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_linear = sum(1 for lp in params["layers"] for v in lp.values() if hasattr(v, "sign_packed"))
+    plane_bytes = sum(packed_bytes(v) for lp in params["layers"] for v in lp.values()
+                      if hasattr(v, "sign_packed"))
+    head_bytes = params["lm_head"]["w"].numel() * 4
+    assert eng.cache_dtype == torch.int8 and n_linear == 7 * cfg.num_hidden_layers
+
+    rng = np.random.default_rng(6)
+    # one short request first: the first forward initialises cuBLAS and the allocator
+    ContinuousBatcher(eng).run([Request(request_id=-1, prompt_ids=[1, 2, 3], max_new_tokens=2)])
+
+    forwards = {"prefill": 0, "decode": 0}
+    finite = torch.ones((), dtype=torch.bool, device=DEV)
+    step_ms, kv_rows = [], []
+    fwd, step = eng._forward, eng.decode_step
+
+    def counted_forward(ids, caches, pos):
+        nonlocal finite
+        forwards["decode" if isinstance(pos, torch.Tensor) else "prefill"] += 1
+        logits = fwd(ids, caches, pos)
+        finite = finite & torch.isfinite(logits).all()
+        return logits
+
+    def timed_step():
+        kv_rows.append(int(eng.lengths.sum()) + eng.ecfg.n_slots)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    eng._forward, eng.decode_step = counted_forward, timed_step
+    reqs = [Request(request_id=i, max_new_tokens=32,
+                    prompt_ids=rng.integers(0, cfg.vocab_size, int(rng.integers(20, 121))).tolist())
+            for i in range(16)]
+    batcher = ContinuousBatcher(eng)
+    pm.launches = 0
+    da.launches = 0
+    batcher.run(reqs)
+    torch.cuda.synchronize()
+    mm, att = pm.launches, da.launches
+    eng._forward, eng.decode_step = fwd, step
+
+    if not bool(finite):
+        raise AssertionError("e2e: non-finite logits")
+    if not all(r.done and len(r.output_ids) == 32 for r in reqs):
+        raise AssertionError("e2e: a request did not produce its 32 tokens")
+    if mm != n_linear * (forwards["prefill"] + forwards["decode"]) or mm == 0:
+        raise AssertionError(f"e2e: {mm} matmul launches for {forwards} forwards")
+    if att != cfg.num_hidden_layers * forwards["decode"] or att == 0:
+        raise AssertionError(f"e2e: {att} attention launches for {forwards} forwards")
+
+    kv_row_bytes = cfg.num_hidden_layers * cfg.kv_heads * (2 * cfg.head_dim + 8)
+    mean_rows = statistics.mean(kv_rows)
+    s = batcher.stats
+    row = {"phase": "e2e", "model": "llama-7b PBW-v2 (random planes, low_frac 0.9)",
+           "layers": cfg.num_hidden_layers, "slots": 8, "max_seq": 2048, "requests": len(reqs),
+           "generated_tokens": s.generated_tokens, "wall_s": s.wall_seconds,
+           "tokens_per_s": s.tokens_per_second, "decode_steps": len(step_ms),
+           "ms_per_decode_step_median": statistics.median(step_ms),
+           "ms_per_decode_step_mean": statistics.mean(step_ms),
+           "prefill_forwards": forwards["prefill"], "decode_forwards": forwards["decode"],
+           "matmul_launches": mm, "attention_launches": att,
+           "matmul_launches_per_decode_step": n_linear, "attention_launches_per_decode_step":
+           cfg.num_hidden_layers, "packed_plane_bytes": plane_bytes, "lm_head_bytes": head_bytes,
+           "mean_kv_rows_per_step": mean_rows,
+           "decode_step_bound_ms": (plane_bytes + head_bytes + mean_rows * kv_row_bytes)
+           / HBM_BYTES_PER_S * 1e3,
+           "build_s": build_s, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "card": card}
+    log(json.dumps(row))
+    if profile:
+        profile_decode(eng)
+    return row
+
+
+def profile_decode(eng) -> None:
+    """Device time by kernel over three decode steps of the full pool, and
+    the share of an unprofiled step the device sits idle."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+
+    for slot in range(eng.ecfg.n_slots):
+        eng.prefill(slot, list(range(1, 101)))
+    eng.decode_step()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(3):
+        eng.decode_step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t) * 1e3 / 3
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            eng.decode_step()
+        torch.cuda.synchronize()
+    by_name = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:  # kernels and copies on the card
+            us, n = by_name.get(ev.name, (0.0, 0))
+            by_name[ev.name] = (us + ev.time_range.elapsed_us(), n + 1)
+    busy_ms = sum(us for us, _ in by_name.values()) / 1e3 / 3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    log(json.dumps({"phase": "profile", "steps": 3, "ctx": 100, "step_ms": step_ms,
+                    "device_busy_ms_per_step": busy_ms if busy_ms else "not measured",
+                    "device_idle_share": (1 - busy_ms / step_ms) if busy_ms else "not measured",
+                    "top": [{"name": k[:80], "device_ms_per_step": us / 3e3, "launches_per_step": c / 3}
+                            for k, (us, c) in top]}))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--profile", action="store_true", help="trace three decode steps")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    card = setup()
+    timer = Timer()
+    mm_rows = check_matmul(timer, card)
+    att = check_attention(timer, card)
+    check_engine_parity()
+    e2e = serve_e2e(card, args.profile)
+
+    head = next(r for r in mm_rows if (r["m"], r["ic"], r["oc"]) == HEADLINE_SHAPE)
+    kernels = [
+        {"name": "pb_int8_matmul", "route": "cuda", "source": "pb_llm_tpu_torch/csrc/pb_int8_matmul.cu",
+         "replaces": "pb_llm_tpu/ops/pallas_pb.py:393", "launches": e2e["matmul_launches"],
+         "max_abs_err": max(r["max_abs_err"] for r in mm_rows), "ms": head["kernel_ms"],
+         "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+         "library_ms": head["library_ms"], "parity": "ok",
+         "shape": "m={} ic={} oc={} low_frac 0.9".format(*HEADLINE_SHAPE)},
+        {"name": "decode_attention", "route": "cuda", "source": "pb_llm_tpu_torch/csrc/decode_attention.cu",
+         "replaces": "pb_llm_tpu/ops/decode_attention.py:78", "launches": e2e["attention_launches"],
+         "max_abs_err": att["max_abs_err"], "ms": att["kernel_ms"], "plain_ms": att["plain_ms"],
+         "bound_ms": att["bound_ms"], "bound_by": att["bound_by"], "library_ms": att["library_ms"],
+         "parity": "ok", "shape": "B={} S={} Hq={} Hkv={} D={} int8".format(*ATTN_SHAPE)
+         + f", lengths <= {ATTN_MAX_LEN}"},
+    ]
+    log(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,396 @@
+"""PBW v2 — column-structured partially-binarized weights (port of the v2
+part of `pb_llm_tpu/core/pbw.py`).
+
+Per linear layer (logical weight W [oc, ic], planes over [ic, oc]):
+
+  sign_packed  int32 [ic/32, oc]    sign bitplane (uint32 bit pattern), zeroed
+                                    at salient rows (B' convention)
+  side_val     uint8 [k_pad(/2), oc] salient codes; row k holds the code for
+                                    column side_idx[k, t] of row group t
+  side_idx     int32 [k_pad, n_rg]  salient input columns (pad = shard width)
+  low_scale / low_mean  f32 [1, oc]
+  high_scale / high_zero f32 [oc]
+  bias         f32 [oc] | None
+
+Checkpoints use the JAX package's `planes.npz` + `manifest.json` layout
+(sign planes stored as uint32), so artifacts cross in both directions.
+PBW v1 (`PackedLinear`) is not ported yet (ROADMAP).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from . import packing
+
+
+@dataclasses.dataclass
+class PackedLinearV2:
+    """Column-structured partially-binarized linear (PBW v2); tensors plus
+    the same static fields and derived properties as the JAX dataclass."""
+
+    sign_packed: torch.Tensor  # int32 [low_bits * ic//32, oc]
+    side_val: torch.Tensor     # uint8 [ic_shards * k_pad_shard (/2), oc]
+    side_idx: torch.Tensor     # int32 [ic_shards * k_pad_shard, n_row_groups]
+    low_scale: torch.Tensor    # f32 [1, oc]
+    low_mean: torch.Tensor     # f32 [1, oc]
+    high_scale: torch.Tensor   # f32 [oc]
+    high_zero: torch.Tensor    # f32 [oc]
+    bias: Optional[torch.Tensor]
+    ic: int
+    oc: int
+    col_tile: int
+    pack_block: int = packing.PACK_BLOCK
+    k_pad_shard: int = 0
+    side_bits: int = 8
+    low_bits: int = 1
+    # the int8 matmul's [5, oc] coefficient rows, made on first use by
+    # `ops.packed_matmul`; not a checkpoint field, and `to` drops it
+    coef_cache: Optional[torch.Tensor] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
+
+    @property
+    def words_per_plane(self) -> int:
+        return self.sign_packed.shape[0] // self.low_bits
+
+    @property
+    def ic_local(self) -> int:
+        return self.words_per_plane * 32
+
+    @property
+    def oc_local(self) -> int:
+        return self.sign_packed.shape[1]
+
+    @property
+    def k_pad(self) -> int:
+        return self.side_val.shape[0] * (8 // self.side_bits)
+
+    @property
+    def k_pad_shard_local(self) -> int:
+        return self.k_pad_shard or self.k_pad
+
+    @property
+    def shards_local(self) -> int:
+        return self.k_pad // self.k_pad_shard_local
+
+    @property
+    def ic_shard_local(self) -> int:
+        return self.ic_local // self.shards_local
+
+    @property
+    def n_row_groups(self) -> int:
+        return self.side_idx.shape[1]
+
+    @property
+    def pack_block_local(self) -> int:
+        return min(self.pack_block, self.ic_shard_local)
+
+    @property
+    def device(self) -> torch.device:
+        return self.sign_packed.device
+
+    def to(self, device) -> "PackedLinearV2":
+        kw = {f: (None if getattr(self, f) is None else getattr(self, f).to(device))
+              for f in _FIELDS_V2}
+        return dataclasses.replace(self, **kw)
+
+    def effective_bits(self) -> float:
+        n = self.ic * self.oc
+        bits = self.sign_packed.numel() * 32 + self.side_val.numel() * 8 + self.side_idx.numel() * 32
+        bits += (self.low_scale.numel() + self.low_mean.numel()
+                 + self.high_scale.numel() + self.high_zero.numel()) * 32
+        return bits / n
+
+
+def unpack_side_codes(side_val: torch.Tensor, side_bits: int, shards: int = 1) -> torch.Tensor:
+    """Sidecar codes as unpacked uint8 [k_pad, oc].  side_bits=4: packed row
+    r of a shard segment holds slot rows r (low nibble) and r + kps/2 (high)."""
+    if side_bits == 8:
+        return side_val
+    if side_bits != 4:
+        raise ValueError(f"side_bits must be 4 or 8, got {side_bits}")
+    lo = side_val & 0x0F
+    hi = (side_val >> 4) & 0x0F
+    oc = side_val.shape[1]
+    return torch.cat([lo.reshape(shards, -1, oc), hi.reshape(shards, -1, oc)], dim=1).reshape(-1, oc)
+
+
+def column_structured_mask(metric, low_frac: float, col_tile: int, ic_shards: int = 1) -> torch.Tensor:
+    """Per row group of ``col_tile`` output channels, the top
+    round((1-low_frac)·ic_shard) input columns of the group-summed metric
+    are salient.  Returns mask [oc, ic] bool, True ⇔ binarized.  Ties keep
+    index order (stable argsort of -seg, as `jnp.argsort`)."""
+    metric = torch.as_tensor(metric, dtype=torch.float32)
+    oc, ic = metric.shape
+    if col_tile <= 0 or col_tile > oc:
+        col_tile = oc
+    if ic % ic_shards:
+        raise ValueError(f"ic {ic} not divisible by ic_shards {ic_shards}")
+    ic_s = ic // ic_shards
+    n_groups = -(-oc // col_tile)
+    k = int(round(ic_s * (1.0 - low_frac)))
+    rows = []
+    for t in range(n_groups):
+        blk = metric[t * col_tile : (t + 1) * col_tile]
+        agg = torch.sum(blk, dim=0)
+        salient_cols = torch.zeros(ic, dtype=torch.bool, device=metric.device)
+        if k:
+            for s in range(ic_shards):
+                order = torch.argsort(-agg[s * ic_s : (s + 1) * ic_s], stable=True)
+                salient_cols[s * ic_s + order[:k]] = True
+        rows.append((~salient_cols)[None, :].expand(blk.shape[0], ic))
+    return torch.cat(rows, dim=0)
+
+
+def _f32(a) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.float()
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def pack_linear_v2(w_q, mask, low_state: Dict, high_state: Dict, method: str,
+                   col_tile: int = 0, bias=None, pack_block: Optional[int] = None,
+                   k_multiple: int = 32, ic_shards: int = 1) -> Tuple[PackedLinearV2, Dict[str, float]]:
+    """Pack a fake-quantized weight ``w_q`` [oc, ic] with a column-structured
+    ``mask`` [oc, ic] (True ⇔ binarized) into the v2 layout (CPU tensors)."""
+    if method not in ("xnor", "sign", "rtn", "prune", "2bit", "4bit"):
+        raise ValueError(f"v2 cannot pack method {method!r}")
+    low_bits = {"2bit": 2, "4bit": 4}.get(method, 1)
+    w_q = _f32(w_q)
+    oc, ic = w_q.shape
+    if col_tile <= 0 or col_tile > oc:
+        col_tile = oc
+    if ic % 32:
+        raise ValueError("pack_linear_v2 requires ic % 32 == 0")
+    if ic % ic_shards:
+        raise ValueError(f"ic {ic} not divisible by ic_shards {ic_shards}")
+    if low_bits > 1 and ic_shards > 1:
+        raise ValueError("multi-bit low planes cannot use the shard-major sidecar layout")
+    ic_s = ic // ic_shards
+    salient = ~np.asarray(mask, dtype=bool)
+    n_rg = -(-oc // col_tile)
+
+    idx_cols: list = []
+    for t in range(n_rg):
+        blk = salient[t * col_tile : (t + 1) * col_tile]
+        if not (blk == blk[0:1]).all():
+            raise ValueError("mask is not column-structured within row groups; "
+                             "calibrate with mask_structure='column'")
+        idx_cols.append([np.nonzero(blk[0, s * ic_s : (s + 1) * ic_s])[0] for s in range(ic_shards)])
+    k_max = max((len(c) for cols in idx_cols for c in cols), default=0)
+    k_pad = max(k_multiple, -(-k_max // k_multiple) * k_multiple) if k_max else k_multiple
+
+    side_idx = np.full((ic_shards * k_pad, n_rg), ic_s, np.int32)
+    for t, cols in enumerate(idx_cols):
+        for s, c in enumerate(cols):
+            side_idx[s * k_pad : s * k_pad + len(c), t] = c
+
+    if method == "xnor":
+        low_mean, low_scale = _f32(low_state["mean"]), _f32(low_state["scale"])
+    elif method in ("2bit", "4bit"):
+        low_scale, low_mean = _f32(low_state["scale"]), _f32(low_state["zero"])
+    else:
+        s_ = _f32(low_state["scale"])
+        if method == "prune":
+            s_ = torch.zeros_like(s_)
+        low_mean = s_ / 2.0
+        low_scale = s_ / 2.0
+    if low_scale.shape[0] != 1:
+        raise ValueError("v2 requires groupsize == -1 (whole-row low groups)")
+
+    hs, hz = _f32(high_state["scale"]), _f32(high_state["zero"])
+    maxq = float(np.asarray(high_state.get("maxq", 255.0)))
+    codes = torch.clamp(torch.round(w_q / hs[:, None] + hz[:, None]), 0, maxq).to(torch.uint8).numpy()
+
+    side_val = np.zeros((ic_shards * k_pad, oc), np.uint8)
+    for t, cols in enumerate(idx_cols):
+        lo, hi = t * col_tile, min((t + 1) * col_tile, oc)
+        for s, c in enumerate(cols):
+            side_val[s * k_pad : s * k_pad + len(c), lo:hi] = codes[lo:hi, s * ic_s + c].T
+    side_bits = 4 if maxq <= 15 else 8
+    if side_bits == 4:
+        seg = side_val.reshape(ic_shards, k_pad, oc)
+        half = k_pad // 2
+        side_val = (seg[:, :half] | (seg[:, half:] << 4)).reshape(ic_shards * half, oc).astype(np.uint8)
+
+    sal_t = torch.as_tensor(salient.T)
+    if low_bits == 1:
+        bits = ((w_q.T - low_mean) >= 0) & ~sal_t
+        plane_list = [bits]
+    else:
+        scale_rows = torch.clamp(low_scale, min=1e-20)
+        codes_low = torch.clamp(torch.round(w_q.T / scale_rows + low_mean), 0, 2**low_bits - 1).to(torch.int32)
+        codes_low = torch.where(sal_t, 0, codes_low)
+        plane_list = [((codes_low >> j) & 1).bool() for j in range(low_bits)]
+    pack_block = pack_block or packing.default_pack_block(ic_s)
+    if ic_shards > 1 and ic_s % pack_block:
+        raise ValueError(f"pack_block {pack_block} must divide the ic shard width {ic_s}")
+
+    packed = PackedLinearV2(
+        sign_packed=torch.cat([packing.pack_bits(pl, pack_block) for pl in plane_list], dim=0),
+        side_val=torch.as_tensor(side_val),
+        side_idx=torch.as_tensor(side_idx),
+        low_scale=low_scale, low_mean=low_mean, high_scale=hs, high_zero=hz,
+        bias=None if bias is None else _f32(bias),
+        ic=ic, oc=oc, col_tile=col_tile, pack_block=pack_block, k_pad_shard=k_pad,
+        side_bits=side_bits, low_bits=low_bits,
+    )
+    w_rt = dequantize_v2(packed).T
+    diag = {"pack_mismatch": float(torch.mean(((w_rt - w_q).abs() > 1e-6).float())),
+            "salient_frac": float(salient.mean()),
+            "effective_bits": packed.effective_bits()}
+    return packed, diag
+
+
+def dequantize_v2(p: PackedLinearV2) -> torch.Tensor:
+    """Dense f32 [ic, oc] (the kernels' oracle)."""
+    ic, oc = p.ic_local, p.oc_local
+    shards, ic_s, kps = p.shards_local, p.ic_shard_local, p.k_pad_shard_local
+    dev = p.device
+    side_val = unpack_side_codes(p.side_val, p.side_bits, shards)
+    wpp = p.words_per_plane
+    if p.low_bits == 1:
+        bits = packing.unpack_bits(p.sign_packed, ic, p.pack_block_local).float()
+        w_bin = p.low_mean[0][None, :] + (2.0 * bits - 1.0) * p.low_scale[0][None, :]
+    else:
+        code = torch.zeros((ic, oc), dtype=torch.float32, device=dev)
+        for j in range(p.low_bits):
+            bits_j = packing.unpack_bits(p.sign_packed[j * wpp : (j + 1) * wpp], ic, p.pack_block_local)
+            code = code + (2.0 ** j) * bits_j.float()
+        w_bin = p.low_scale[0][None, :] * (code - p.low_mean[0][None, :])
+
+    codes = torch.zeros((ic_s + 1, shards, oc), dtype=torch.float32, device=dev)  # row ic_s = sink
+    m = torch.zeros((ic_s + 1, shards, oc), dtype=torch.float32, device=dev)
+    for t in range(p.n_row_groups):
+        lo, hi = t * p.col_tile, min((t + 1) * p.col_tile, oc)
+        for s in range(shards):
+            idx = p.side_idx[s * kps : (s + 1) * kps, t].long()
+            codes[idx, s, lo:hi] = side_val[s * kps : (s + 1) * kps, lo:hi].float()
+            m[idx, s, lo:hi] = 1.0
+    codes = codes[:ic_s].permute(1, 0, 2).reshape(ic, oc)
+    m = m[:ic_s].permute(1, 0, 2).reshape(ic, oc)
+    w_hi = p.high_scale[None, :] * (codes - p.high_zero[None, :])
+    return torch.where(m > 0, w_hi, w_bin)
+
+
+def matmul_reference_v2(x: torch.Tensor, p: PackedLinearV2) -> torch.Tensor:
+    y = x.float() @ dequantize_v2(p)
+    if p.bias is not None:
+        y = y + p.bias
+    return y
+
+
+def gather_x_v2(x: torch.Tensor, p: PackedLinearV2) -> torch.Tensor:
+    """[m, ic] → [m, total_k_pad, n_row_groups]; padding indices read an
+    appended zero column per shard."""
+    shards, ic_s, kps = p.shards_local, p.ic_shard_local, p.k_pad_shard_local
+    m = x.shape[0]
+    idx = p.side_idx.long()
+    if shards == 1:
+        x_aug = torch.cat([x, x.new_zeros((m, 1))], dim=1)
+        return x_aug[:, idx]
+    xs = x.reshape(m, shards, ic_s)
+    x_aug = torch.cat([xs, x.new_zeros((m, shards, 1))], dim=2)       # [m, S, ic_s+1]
+    idx = idx.reshape(shards, kps, p.n_row_groups)
+    gat = torch.stack([x_aug[:, s][:, idx[s]] for s in range(shards)], dim=1)  # [m, S, kps, n_rg]
+    return gat.reshape(m, shards * kps, p.n_row_groups)
+
+
+# ---------------------------------------------------------------------------
+# Serialization: the JAX package's planes.npz + manifest.json layout.
+# ---------------------------------------------------------------------------
+
+_FIELDS_V2 = ("sign_packed", "side_val", "side_idx", "low_scale", "low_mean",
+              "high_scale", "high_zero", "bias")
+
+
+def _to_numpy(f: str, v: torch.Tensor) -> np.ndarray:
+    a = v.detach().cpu().numpy()
+    return a.view(np.uint32) if f == "sign_packed" else a
+
+
+def _from_numpy(f: str, a: np.ndarray) -> torch.Tensor:
+    if f == "sign_packed":
+        a = np.ascontiguousarray(a).view(np.int32)
+    return torch.from_numpy(np.array(a))
+
+
+def save_pbw(path: str, layers: Dict[str, PackedLinearV2], extra_meta: Optional[dict] = None) -> None:
+    os.makedirs(path, exist_ok=True)
+    arrays = {}
+    meta = {"layers": {}, "extra": extra_meta or {}}
+    for name, p in layers.items():
+        if not isinstance(p, PackedLinearV2):
+            raise NotImplementedError("PBW v1 layers are not ported yet (ROADMAP: PBW v1)")
+        meta["layers"][name] = {
+            "format": "v2", "ic": p.ic, "oc": p.oc, "col_tile": p.col_tile,
+            "pack_block": p.pack_block, "k_pad_shard": p.k_pad_shard_local,
+            "side_bits": p.side_bits, "low_bits": p.low_bits,
+            "has_bias": p.bias is not None,
+        }
+        for f in _FIELDS_V2:
+            v = getattr(p, f)
+            if v is not None:
+                arrays[f"{name}::{f}"] = _to_numpy(f, v)
+    np.savez(os.path.join(path, "planes.npz"), **arrays)
+    with open(os.path.join(path, "manifest.json"), "w") as fh:
+        json.dump(meta, fh, indent=1)
+
+
+class _ShardedNpz:
+    """planes.npz-compatible view over per-layer shard files."""
+
+    def __init__(self, path: str, files: Dict[str, str]):
+        self._paths = {name: os.path.join(path, fname) for name, fname in files.items()}
+
+    def __contains__(self, key: str) -> bool:
+        name = key.split("::", 1)[0]
+        if name not in self._paths:
+            return False
+        with np.load(self._paths[name]) as z:
+            return key in z.files
+
+    def __getitem__(self, key: str) -> np.ndarray:
+        with np.load(self._paths[key.split("::", 1)[0]]) as z:
+            return z[key]
+
+
+def load_pbw(path: str) -> Tuple[Dict[str, PackedLinearV2], dict]:
+    """Load a PBW v2 artifact (monolithic or sharded) as CPU tensors."""
+    with open(os.path.join(path, "manifest.json")) as fh:
+        meta = json.load(fh)
+    z = _ShardedNpz(path, meta["files"]) if "files" in meta else np.load(os.path.join(path, "planes.npz"))
+    layers = {}
+    for name, lm in meta["layers"].items():
+        if lm.get("format") != "v2":
+            raise NotImplementedError(f"layer {name}: PBW v1 is not ported yet (ROADMAP: PBW v1)")
+        kw = {f: _from_numpy(f, z[f"{name}::{f}"]) for f in _FIELDS_V2 if f"{name}::{f}" in z}
+        kw.setdefault("bias", None)
+        layers[name] = PackedLinearV2(
+            ic=lm["ic"], oc=lm["oc"], col_tile=lm["col_tile"],
+            pack_block=lm.get("pack_block", packing.PACK_BLOCK),
+            k_pad_shard=lm.get("k_pad_shard", 0), side_bits=lm.get("side_bits", 8),
+            low_bits=lm.get("low_bits", 1), **kw)
+    return layers, meta["extra"]
+
+
+def install_pbw(params: Dict, layers: Dict[str, PackedLinearV2]) -> Dict:
+    """Install loaded layers (keys "layer_{i}/{name}") into a param tree,
+    replacing the dense leaves; each layer moves to its leaf's device.
+    Non-mutating."""
+    params = dict(params)
+    new_layers = [dict(lp) for lp in params["layers"]]
+    for key, packed in layers.items():
+        prefix, name = key.split("/", 1)
+        idx = int(prefix.split("_")[1])
+        old = new_layers[idx].get(name)
+        dev = old["w"].device if isinstance(old, dict) else packed.device
+        new_layers[idx][name] = packed.to(dev)
+    params["layers"] = new_layers
+    return params

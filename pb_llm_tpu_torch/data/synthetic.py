@@ -1,0 +1,94 @@
+"""Offline substitutes (port of the parts of `pb_llm_tpu/data/synthetic.py`
+the serving path needs): the byte tokenizer, plus random PBW-v2 weights
+made on a device from a seed, for smoke runs and kernel checks at real
+widths (the recipe of the JAX package's `bench_e2e.build_packed_llama`)."""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from ..core import packing
+from ..core.pbw import PackedLinearV2
+
+
+class ByteTokenizer:
+    """UTF-8 byte tokenizer. vocab: 0..255 bytes, 256 bos, 257 eos, 258 pad."""
+
+    vocab_size = 259
+    bos_token_id = 256
+    eos_token_id = 257
+    pad_token_id = 258
+
+    def encode(self, text: str):
+        return list(text.encode("utf-8"))
+
+    def decode(self, ids):
+        return bytes(i for i in ids if i < 256).decode("utf-8", errors="replace")
+
+    def __call__(self, text, **kw):
+        return {"input_ids": self.encode(text)}
+
+
+def random_packed_v2(ic: int, oc: int, generator: torch.Generator, *, low_frac: float = 0.9,
+                     col_tile: int = 0, side_bits: int = 8, pack_block: int = 0,
+                     bias: bool = False) -> PackedLinearV2:
+    """A PBW-v2 layer with random planes, made on the generator's device.
+
+    Each row group of ``col_tile`` output columns (0 = one global group) has
+    round((1-low_frac)·ic) random salient input columns; sign bits are
+    random and zero at salient rows (the B' convention), codes are random.
+    Scales follow bench_e2e.py: low ±0.01 around 0, high 0.004·(code − zero).
+    """
+    dev = generator.device
+    if col_tile <= 0 or col_tile > oc:
+        col_tile = oc
+    n_rg = -(-oc // col_tile)
+    k = int(round(ic * (1.0 - low_frac)))
+    k_pad = max(32, -(-k // 32) * 32)
+    side_idx = torch.full((k_pad, n_rg), ic, dtype=torch.int32, device=dev)
+    bits = torch.randint(0, 2, (ic, oc), generator=generator, device=dev, dtype=torch.int32)
+    for t in range(n_rg):
+        cols = torch.sort(torch.randperm(ic, generator=generator, device=dev)[:k]).values
+        side_idx[:k, t] = cols.to(torch.int32)
+        bits[cols[:, None], torch.arange(t * col_tile, min((t + 1) * col_tile, oc), device=dev)] = 0
+    pack_block = pack_block or packing.default_pack_block(ic)
+    rows = k_pad // 2 if side_bits == 4 else k_pad
+    side_val = torch.randint(0, 256, (rows, oc), generator=generator, device=dev,
+                             dtype=torch.int32).to(torch.uint8)
+
+    def full(shape, v):
+        return torch.full(shape, v, dtype=torch.float32, device=dev)
+
+    return PackedLinearV2(
+        sign_packed=packing.pack_bits(bits, pack_block), side_val=side_val, side_idx=side_idx,
+        low_scale=full((1, oc), 0.01), low_mean=full((1, oc), 0.0),
+        high_scale=full((oc,), 0.004), high_zero=full((oc,), 8.0 if side_bits == 4 else 128.0),
+        bias=torch.randn(oc, generator=generator, device=dev) * 0.01 if bias else None,
+        ic=ic, oc=oc, col_tile=col_tile, pack_block=pack_block, k_pad_shard=k_pad,
+        side_bits=side_bits, low_bits=1)
+
+
+def random_packed_llama(cfg, generator: torch.Generator, low_frac: float = 0.9) -> Dict[str, Any]:
+    """A llama parameter tree with every decoder linear a random PBW-v2
+    layer (global salient selection) and f32 embeddings / lm_head, all made
+    on the generator's device."""
+    dev = generator.device
+    h, ffn = cfg.hidden_size, cfg.intermediate_size
+    qo, kv = cfg.num_attention_heads * cfg.head_dim, cfg.kv_heads * cfg.head_dim
+    shapes = {"q_proj": (h, qo), "k_proj": (h, kv), "v_proj": (h, kv), "o_proj": (qo, h),
+              "gate_proj": (h, ffn), "up_proj": (h, ffn), "down_proj": (ffn, h)}
+
+    def normal(*shape):
+        return torch.randn(*shape, generator=generator, device=dev) * 0.02
+
+    layers = []
+    for _ in range(cfg.num_hidden_layers):
+        lp = {"input_layernorm": torch.ones(h, device=dev),
+              "post_attention_layernorm": torch.ones(h, device=dev)}
+        for name, (ic, oc) in shapes.items():
+            lp[name] = random_packed_v2(ic, oc, generator, low_frac=low_frac)
+        layers.append(lp)
+    return {"embed_tokens": normal(cfg.vocab_size, h), "layers": layers,
+            "norm": torch.ones(h, device=dev), "lm_head": {"w": normal(h, cfg.vocab_size), "b": None}}

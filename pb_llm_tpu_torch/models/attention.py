@@ -1,0 +1,148 @@
+"""Strip-cache attention helpers (port of the strip parts of
+`pb_llm_tpu/models/attention.py`): causal masking, the KV-cache write and
+the cached attention that accept a scalar position (prefill) or a per-slot
+position vector [B] (continuous-batching decode).
+
+Paged caches, flash attention and sequence parallelism are not ported yet
+(ROADMAP).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple, Union
+
+import torch
+
+Pos = Union[int, torch.Tensor]
+
+
+def full_causal_attention(q, k, v, scale, window: Optional[int] = None) -> torch.Tensor:
+    """No-cache path, q,k,v [B, T, H*, D]: the XLA masked-softmax branch
+    (flash attention is not ported yet)."""
+    from ..ops import kernel_config as _kc
+
+    impl = _kc.current().attention
+    if impl in ("flash", "flash_interpret"):
+        raise NotImplementedError("flash attention is not ported yet (ROADMAP Queue 2 item 5)")
+    t = q.shape[1]
+    return masked_softmax_attention(q, k, v, causal_allowed(0, t, t, None, window, q.device), scale)
+
+
+def causal_allowed(pos: Pos, t: int, s: int, kv_len_valid: Optional[Pos],
+                   window: Optional[int] = None, device=None) -> torch.Tensor:
+    """Boolean [*, 1, t, s] mask: query i at absolute position pos(+i) sees
+    cache rows at or before it, inside the valid length and, with
+    ``window``, within the last ``window`` positions."""
+    p = torch.as_tensor(pos, device=device)
+    dev = p.device
+    kpos = torch.arange(s, device=dev)
+    if p.dim() == 0:
+        qpos = p + torch.arange(t, device=dev)
+        allowed = kpos[None, :] <= qpos[:, None]
+        if window is not None:
+            allowed = allowed & (kpos[None, :] > qpos[:, None] - window)
+        if kv_len_valid is not None:
+            allowed = allowed & (kpos[None, :] < torch.as_tensor(kv_len_valid, device=dev))
+        return allowed[None, None]
+    qpos = p[:, None] + torch.arange(t, device=dev)[None, :]
+    allowed = kpos[None, None, :] <= qpos[:, :, None]
+    if window is not None:
+        allowed = allowed & (kpos[None, None, :] > qpos[:, :, None] - window)
+    if kv_len_valid is not None:
+        kl = torch.as_tensor(kv_len_valid, device=dev)
+        allowed = allowed & (kpos[None, None, :] < kl[:, None, None])
+    return allowed[:, None]
+
+
+def masked_softmax_attention(q, k, v, allowed, scale) -> torch.Tensor:
+    """q [B,t,Hq,d], k,v [B,s,H,d], allowed [*,1,t,s] → [B,t,Hq,d]; softmax
+    in float32."""
+    hq, hkv = q.shape[2], k.shape[2]
+    if hq != hkv:
+        k = torch.repeat_interleave(k, hq // hkv, dim=2)
+        v = torch.repeat_interleave(v, hq // hkv, dim=2)
+    scores = torch.einsum("bthd,bshd->bhts", q * scale, k)
+    scores = torch.where(allowed, scores.float(), -torch.inf)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhts,bshd->bthd", probs, v)
+
+
+def _scatter(buf: torch.Tensor, val: torch.Tensor, p: Pos) -> None:
+    """In place: write val [B, t, ...] into buf [B, S, ...] at rows p(+i)
+    (p an int, or a [B] tensor of per-slot rows).  The port updates the
+    cache in place where JAX returns a new array."""
+    t = val.shape[1]
+    if isinstance(p, int):
+        buf[:, p : p + t] = val.to(buf.dtype)
+        return
+    b = val.shape[0]
+    rows = torch.arange(b, device=buf.device)[:, None]
+    cols = p.to(buf.device)[:, None] + torch.arange(t, device=buf.device)[None, :]
+    buf[rows, cols] = val.to(buf.dtype)
+
+
+def quantize_kv(val: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Absmax int8 per (token, head): scale = max(absmax/127, 1e-8), round
+    half to even, clip ±127 (attention.py:234-241)."""
+    scale = torch.amax(val.abs(), dim=-1, keepdim=True) / 127.0
+    scale = torch.clamp(scale, min=1e-8)
+    return torch.clamp(torch.round(val / scale), -127, 127), scale
+
+
+def cache_update(cache: Dict[str, torch.Tensor], k, v, pos: Pos) -> Dict[str, torch.Tensor]:
+    """Write k/v [B, t, H, d] into the strip cache [B, S, H, d] at ``pos``
+    (in place; returns the same dict).  int8 caches ("k_scale"/"v_scale")
+    are quantized on write."""
+    if "k_pages" in cache:
+        raise NotImplementedError("paged KV caches are not ported yet (ROADMAP Queue 1 slice 3)")
+    p = pos if isinstance(pos, int) else torch.as_tensor(pos, device=cache["k"].device)
+    if "k_scale" in cache:
+        for name, val in (("k", k), ("v", v)):
+            qv, scale = quantize_kv(val)
+            _scatter(cache[name], qv, p)
+            _scatter(cache[f"{name}_scale"], scale, p)
+        return cache
+    _scatter(cache["k"], k, p)
+    _scatter(cache["v"], v, p)
+    return cache
+
+
+def cached_attention(kv_cache: Dict[str, torch.Tensor], q, k_new, v_new, pos: Pos,
+                     scale, window: Optional[int] = None) -> torch.Tensor:
+    """Attention over an already-updated strip cache; q [B, t, Hq, d] →
+    [B, t, Hq, d].  Batched single-token decode (vector pos, t == 1, no
+    window) takes the decode-attention kernel when the config says so; the
+    kernel bounds each slot's read by its own length, which replaces the
+    TPU path's power-of-two window switch (a device for XLA's static
+    shapes).  Everything else runs the masked softmax over the cache."""
+    if "k_pages" in kv_cache:
+        raise NotImplementedError("paged KV caches are not ported yet (ROADMAP Queue 1 slice 3)")
+    b, t, hq, d = q.shape
+    s = kv_cache["k"].shape[1]
+    p = torch.as_tensor(pos, device=q.device)
+    if p.dim() == 1 and t == 1 and window is None:
+        from ..ops import kernel_config as _kc
+
+        impl = _kc.current().decode_attention
+        if impl == "auto":
+            impl = "pallas" if q.device.type == "cuda" else "xla"
+        if impl in ("pallas", "pallas_q8", "pallas_interpret"):
+            from ..ops import decode_attention as _da
+
+            fn = _da.decode_attention_plain if impl == "pallas_interpret" else _da.decode_attention
+            out = fn(q[:, 0], kv_cache["k"], kv_cache["v"], p + 1, scale,
+                     k_scale=kv_cache.get("k_scale"), v_scale=kv_cache.get("v_scale"),
+                     q_int8=impl == "pallas_q8" and "k_scale" in kv_cache)
+            return out[:, None].to(q.dtype)
+    allowed = causal_allowed(p, t, s, p + t, window)
+    ck, cv = cache_kv(kv_cache, q.dtype)
+    return masked_softmax_attention(q, ck, cv, allowed, scale)
+
+
+def cache_kv(cache: Dict[str, torch.Tensor], dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(k, v) [B, S, H, d] in compute dtype, dequantizing int8 caches."""
+    if "k_scale" in cache:
+        k = cache["k"].to(dtype) * cache["k_scale"].to(dtype)
+        v = cache["v"].to(dtype) * cache["v_scale"].to(dtype)
+        return k, v
+    return cache["k"].to(dtype), cache["v"].to(dtype)

@@ -1,0 +1,37 @@
+"""Model-family registry (port of `pb_llm_tpu/models/registry.py`): the
+llama family (mistral rides it).  OPT is not ported yet (ROADMAP)."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Tuple
+
+from . import llama as _llama
+
+
+@dataclasses.dataclass(frozen=True)
+class Family:
+    name: str
+    forward: Callable  # (params, ids, cfg, kv_caches=None, pos=0) -> (logits, caches)
+    linear_names: Tuple[str, ...]
+    config_cls: type
+
+
+FAMILIES = {
+    "llama": Family(
+        name="llama",
+        forward=_llama.forward,
+        linear_names=_llama.LINEAR_NAMES,
+        config_cls=_llama.LlamaConfig,
+    ),
+}
+
+
+def family_for(model_name: str) -> Family:
+    """Substring dispatch, as in the JAX package."""
+    lowered = model_name.lower()
+    if "opt" in lowered:
+        raise NotImplementedError("the OPT family is not ported yet (ROADMAP Queue 1)")
+    if "llama" in lowered or "mistral" in lowered:
+        return FAMILIES["llama"]
+    raise NotImplementedError(f"unknown model family for {model_name!r}")

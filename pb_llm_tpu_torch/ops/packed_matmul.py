@@ -1,0 +1,184 @@
+"""PBW-v2 int8 matmul: the counterpart of `pb_llm_tpu/ops/pallas_pb.py`'s
+int8 path (`_planar_v2_int8_call` + `_planar_v2_int8_kernel`).
+
+    y = rs·β + (x8·B′)·sx·2scale + (sx·(xg8·V″) [+ 128·rsg])·hs + rsg·γ + bias
+
+x is quantized per row (absmax/127, round half to even, clip ±127); the
+bit-plane and sidecar products accumulate exactly in int32.  8-bit codes
+enter the sidecar dot offset-binary (V″ = code − 128) and the +128·rsg
+correction sits in the sidecar term itself (the code at pallas_pb.py:441,
+not the γ′ fold its docstring mentions).  4-bit codes enter as they are.
+
+`pb_int8_matmul` launches the CUDA kernel (`csrc/pb_int8_matmul.cu`) on a
+CUDA tensor and runs `pb_int8_matmul_plain` — the same arithmetic in plain
+PyTorch — on a CPU tensor.  `pb_matmul_v2` is the dispatch of
+`pb_matmul_pallas_v2` limited to what the serving path runs.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from ..core import packing
+from ..core.pbw import PackedLinearV2, gather_x_v2, matmul_reference_v2, unpack_side_codes
+from . import _build
+
+V2_PREFILL_M = 256  # pallas_pb._V2_PREFILL_M: decode below, prefill at or above
+
+launches = 0  # kernel launches of pb_int8_matmul (plain-version calls not counted)
+
+
+class Int8Operands(NamedTuple):
+    x8: torch.Tensor   # int8 [m, ic], natural column order
+    sx: torch.Tensor   # f32 [m]   per-row scale absmax/127
+    rs: torch.Tensor   # f32 [m]   exact f32 rowsum of x
+    xg8: torch.Tensor  # int8 [n_rg, m, k_pad] gathered salient x, same scale
+    rsg: torch.Tensor  # f32 [n_rg, m] exact f32 rowsum of the gathered x
+    coef: torch.Tensor  # f32 [5, oc]: 2·scale, β, γ, hs, bias
+
+
+def prepare_int8(x: torch.Tensor, p: PackedLinearV2) -> Int8Operands:
+    """x preparation of `_planar_v2_int8_call` (pallas_pb.py:471-495),
+    without the TPU byte permutation."""
+    xf = x.float()
+    absmax = torch.amax(xf.abs(), dim=1, keepdim=True)
+    sx = torch.clamp(absmax, min=1e-30) / 127.0
+    x8 = torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8)  # half to even
+    rs = torch.sum(xf, dim=1)
+    xg = gather_x_v2(xf, p).permute(2, 0, 1)                 # [n_rg, m, k_pad]
+    rsg = torch.sum(xg, dim=2)
+    xg8 = torch.clamp(torch.round(xg / sx[None]), -127, 127).to(torch.int8).contiguous()
+    return Int8Operands(x8.contiguous(), sx[:, 0].contiguous(), rs.contiguous(),
+                        xg8, rsg.contiguous(), _coef(p))
+
+
+def _coef(p: PackedLinearV2) -> torch.Tensor:
+    """The [5, oc] rows 2·scale, β, γ, hs, bias; made once per layer."""
+    if p.coef_cache is None:
+        scale = p.low_scale[0].float()
+        mean = p.low_mean[0].float()
+        beta = mean - scale
+        gamma = -p.high_scale * p.high_zero - beta
+        bias = p.bias if p.bias is not None else torch.zeros_like(scale)
+        p.coef_cache = torch.stack([2.0 * scale, beta, gamma, p.high_scale, bias], dim=0).contiguous()
+    return p.coef_cache
+
+
+def _epilogue(acc_b, acc_v, ops: Int8Operands, p: PackedLinearV2) -> torch.Tensor:
+    """f32 combination, one rounding per operation in the kernel's order."""
+    sx = ops.sx[:, None]
+    oc = p.oc_local
+    group = torch.arange(oc, device=acc_b.device) // p.col_tile
+    rsg = ops.rsg.t()[:, group]                              # [m, oc]
+    side_f = acc_v * sx
+    if p.side_bits == 8:
+        side_f = side_f + 128.0 * rsg
+    alpha2, beta, gamma, hs, bias = ops.coef
+    y_bin = (acc_b * sx) * alpha2
+    y = ops.rs[:, None] * beta + y_bin
+    y = y + side_f * hs
+    y = y + rsg * gamma
+    return y + bias
+
+
+def pb_int8_matmul_plain(x: torch.Tensor, p: PackedLinearV2) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: the same operands, integer dots
+    exact in float64 (|Σ| ≤ ic·127·255 < 2^53), the same f32 epilogue."""
+    ops = prepare_int8(x, p)
+    ic = p.ic_local
+    bits = packing.unpack_bits(p.sign_packed, ic, p.pack_block_local).to(torch.float64)
+    acc_b = (ops.x8.to(torch.float64) @ bits).float()
+    codes = unpack_side_codes(p.side_val, p.side_bits, p.shards_local).to(torch.float64)
+    if p.side_bits == 8:
+        codes = codes - 128.0
+    group = torch.arange(p.oc_local, device=x.device) // p.col_tile
+    acc_v = torch.empty((x.shape[0], p.oc_local), dtype=torch.float64, device=x.device)
+    for t in range(p.n_row_groups):
+        cols = group == t
+        acc_v[:, cols] = ops.xg8[t].to(torch.float64) @ codes[:, cols]
+    return _epilogue(acc_b, acc_v.float(), ops, p)
+
+
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+
+
+def pb_int8_matmul(x: torch.Tensor, p: PackedLinearV2) -> torch.Tensor:
+    """y = x @ dequant_v2(p) (+ bias) through the int8 path; x [m, ic] → f32
+    [m, oc].  CPU tensor: the plain version.  CUDA tensor: the kernel."""
+    if x.device.type == "cpu":
+        return pb_int8_matmul_plain(x, p)
+    if x.device.type != "cuda":
+        raise ValueError(f"pb_int8_matmul: unsupported device {x.device}")
+    if x.dim() != 2 or x.shape[1] != p.ic_local:
+        raise ValueError(f"pb_int8_matmul: x {tuple(x.shape)} does not match ic {p.ic_local}")
+    if p.low_bits != 1:
+        raise ValueError("pb_int8_matmul needs low_bits == 1")
+    for name in ("sign_packed", "side_val", "side_idx"):
+        t = getattr(p, name)
+        if t.device != x.device:
+            raise ValueError(f"pb_int8_matmul: {name} on {t.device}, x on {x.device}")
+    if p.sign_packed.dtype != torch.int32 or p.side_val.dtype != torch.uint8:
+        raise ValueError("pb_int8_matmul: sign_packed must be int32 and side_val uint8")
+    if not (p.sign_packed.is_contiguous() and p.side_val.is_contiguous()):
+        raise ValueError("pb_int8_matmul: planes must be contiguous")
+    if p.k_pad % 4:
+        raise ValueError(f"pb_int8_matmul: k_pad {p.k_pad} must be a multiple of 4")
+    return launch_int8(prepare_int8(x, p), p)
+
+
+def launch_int8(ops: Int8Operands, p: PackedLinearV2) -> torch.Tensor:
+    """Launch the CUDA kernel on prepared operands (all on one CUDA device)
+    on the current stream; counts one launch."""
+    m, ic = ops.x8.shape
+    oc = p.oc_local
+    out = torch.empty((m, oc), dtype=torch.float32, device=ops.x8.device)
+    lib = _build.load("pb_int8_matmul")
+    fn = lib.pb_int8_matmul
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    err = fn(ops.x8.data_ptr(), ops.sx.data_ptr(), ops.rs.data_ptr(), ops.xg8.data_ptr(),
+             ops.rsg.data_ptr(), p.sign_packed.data_ptr(), p.side_val.data_ptr(),
+             ops.coef.data_ptr(), out.data_ptr(),
+             m, ic, oc, p.pack_block_local, p.side_bits, p.k_pad, p.k_pad_shard_local,
+             p.col_tile, p.n_row_groups,
+             torch.cuda.current_stream(out.device).cuda_stream)
+    _build.check(err, "pb_int8_matmul")
+    global launches
+    launches += 1
+    return out
+
+
+def kernel_supported_v2(p: PackedLinearV2) -> bool:
+    """`pallas_pb.pallas_supported_v2`: the layouts the kernel arms take
+    (others run `matmul_reference_v2`, as in JAX)."""
+    ic, oc = p.ic_local, p.oc_local
+    if oc % 128 != 0 or ic % 32 != 0:
+        return False
+    if ic > p.pack_block_local and ic % p.pack_block_local != 0:
+        return False
+    return p.col_tile >= oc or oc % p.col_tile == 0
+
+
+def pb_matmul_v2(x: torch.Tensor, p: PackedLinearV2, plain: bool = False,
+                 decode_dot: str = "int8", prefill_int8: bool = True) -> torch.Tensor:
+    """Dispatch of `pb_matmul_pallas_v2` for the serving path: the int8
+    branch at every m when ``low_bits == 1`` (decode m < 256 with
+    decode_dot="int8", prefill m ≥ 256 with prefill_int8), otherwise
+    `matmul_reference_v2`.  ``plain`` runs the kernel's plain version
+    ("pallas_interpret")."""
+    m = x.shape[0]
+    if p.low_bits != 1:
+        return matmul_reference_v2(x, p)
+    if m >= V2_PREFILL_M and not prefill_int8:
+        raise NotImplementedError(
+            "the hybrid (exact) prefill kernel is not ported yet "
+            "(ROADMAP Queue 2 items 3-4: _planar_v2_kernel, _v2_dequant_kernel)")
+    if m < V2_PREFILL_M and decode_dot != "int8":
+        raise NotImplementedError(
+            f"decode_dot={decode_dot!r} is not ported yet (ROADMAP Queue 2: "
+            "f32/bf16 -> _planar_v2_kernel, pair -> _planar_v2_pair_kernel, "
+            "dma -> _planar_v2_dma_kernel)")
+    return pb_int8_matmul_plain(x, p) if plain else pb_int8_matmul(x, p)

@@ -1,0 +1,42 @@
+"""Slot-based strip KV cache (port of `pb_llm_tpu/runtime/kv_cache.py`):
+[n_slots, max_seq, kv_heads, head_dim] per decoder layer; decode runs the
+whole pool with inactive slots masked."""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List
+
+import torch
+
+
+def make_caches(cfg: Any, n_slots: int, max_seq: int, n_layers: int, kv_heads: int,
+                head_dim: int, dtype=torch.float32, device="cpu") -> List[Dict[str, torch.Tensor]]:
+    """dtype torch.int8 → absmax-quantized cache with per-(token, head) f32
+    scales (see models.attention.cache_update)."""
+    shape = (n_slots, max_seq, kv_heads, head_dim)
+    if dtype == torch.int8:
+        return [
+            {
+                "k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(shape[:3] + (1,), dtype=torch.float32, device=device),
+                "v_scale": torch.zeros(shape[:3] + (1,), dtype=torch.float32, device=device),
+            }
+            for _ in range(n_layers)
+        ]
+    return [
+        {"k": torch.zeros(shape, dtype=dtype, device=device),
+         "v": torch.zeros(shape, dtype=dtype, device=device)}
+        for _ in range(n_layers)
+    ]
+
+
+def cache_spec_for(cfg: Any, family_name: str):
+    if family_name == "llama":
+        return cfg.num_hidden_layers, cfg.kv_heads, cfg.head_dim
+    raise NotImplementedError(family_name)
+
+
+def bytes_per_slot(cfg: Any, family_name: str, max_seq: int, dtype_bytes: int = 4) -> int:
+    n_layers, kv_heads, head_dim = cache_spec_for(cfg, family_name)
+    return 2 * n_layers * max_seq * kv_heads * head_dim * dtype_bytes
