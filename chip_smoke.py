@@ -8,16 +8,26 @@ Phases, in order; any failure raises and the exit code is not 0:
 
 1. set-up: the card's name and power limit (nvidia-smi), the kernels built
    from `pb_llm_tpu_torch/csrc/` in parallel (one nvcc each), TF32 off;
-2. each kernel against its plain PyTorch version at the main path's shapes,
+2. each kernel against its plain PyTorch version at the main paths' shapes,
    with its time (CUDA events, L2 flushed before every launch), the plain
-   version's time, one PyTorch library call's time as a yardstick, and the
-   least time the card could take (`bound_ms`);
+   version's time, one PyTorch library call's time as a yardstick where one
+   call computes the same function, and the least time the card could take
+   (`bound_ms`): the int8 matmul and decode attention (serving), the
+   binary-part dequant, the exact f32 matmul and flash attention (the
+   producer and the exact arms);
 3. the same 2-layer full-width llama-7b engine on the card (kernels) and on
    the CPU (the kernels' plain versions): prefill logits, teacher-forced
-   NLL and 8 greedy tokens;
-4. end to end: a 32-layer full-width random PBW-v2 llama-7b serving 16
-   requests through `ContinuousBatcher`; the kernels' launch counters are
-   zeroed just before and read just after, and must match the forwards run.
+   NLL and 8 greedy tokens; once on the int8 arms, once on the exact arms
+   (`serve --decode_dot f32 --prefill_kernel hybrid`), whose f32 matmul
+   launches are counted;
+4. end to end, serving: a 32-layer full-width random PBW-v2 llama-7b
+   serving 16 requests through `ContinuousBatcher`; the launch counters are
+   zeroed just before and read just after, and must match the forwards run;
+5. end to end, the producer: a 2-layer full-width llama-7b calibrated by
+   GPTQ-PB into PBW v2 on synthetic text, then its windowed perplexity under
+   the exact hybrid prefill, with the kernels and with their plain versions
+   (which must agree); the launch counters are zeroed just before and read
+   just after.  One linear is also solved on the card and on the CPU.
 
 The last two lines are the `kernels` JSON line and
 `{"ok": true, "device": {...}}`.  Without CUDA it exits 1 before any phase.
@@ -55,6 +65,21 @@ ATTN_RTOL, ATTN_ATOL = 1e-4, 1e-5  # online softmax sums in another order than t
 # with equal greedy tokens and the NLL within 7e-4.
 LOGIT_TOL = 5e-2      # of max|logit|
 NLL_RTOL = 2e-3
+# The exact arms round nothing to int8 in the matmuls; only the int8 KV
+# cache (the serving default on the card) rounds k and v per row.  Measured
+# on an H100: 7.4e-4 of max|logit|, so their bound lies between that and
+# the int8 arms' 2.0e-2.
+LOGIT_TOL_EXACT = 5e-3  # of max|logit|
+DEQUANT_DTYPES = (torch.float32, torch.bfloat16)
+F32_CASES = ((8, 0), (512, 256))   # (m, col_tile): decode, global selection; row-grouped prefill
+F32_RTOL, F32_ATOL = 1e-4, 1e-4    # the JAX package's bound for its f32 kernel
+FLASH_CASES = ((4, 2048, 32, 128, True),   # B, T, H, D, causal: 4 eval windows of llama-7b
+               (1, 2000, 32, 128, True),   # T not a multiple of the 64-row tile
+               (1, 2048, 32, 128, False))
+FLASH_RTOL, FLASH_ATOL = 1e-4, 1e-4
+# producer: 2 layers at full width, the reference sweep's solver settings
+PTQ_NSAMPLES, PTQ_SEQLEN, PPL_BATCH, PPL_WINDOWS = 8, 2048, 4, 8
+PPL_RTOL = 5e-4       # kernels vs plain versions, the JAX golden test's bound
 
 
 def log(msg: str) -> None:
@@ -203,6 +228,110 @@ def check_attention(timer: Timer, card: str):
     return row
 
 
+def check_dequant(timer: Timer, card: str):
+    """Binary-part dequant (the hybrid prefill's first step), f32 and bf16,
+    bit for bit.  No single PyTorch call computes it: library_ms is null."""
+    from pb_llm_tpu_torch.data.synthetic import random_packed_v2
+    from pb_llm_tpu_torch.ops import prefill as pf
+
+    gen = torch.Generator(device=DEV).manual_seed(7)
+    rows = []
+    for ic, oc in MATMUL_SHAPES:
+        p = random_packed_v2(ic, oc, gen, low_frac=0.9)
+        for dt in DEQUANT_DTYPES:
+            got = pf.dequant_v2_binary(p, dt)
+            torch.cuda.synchronize()
+            want = pf.dequant_v2_binary_plain(p, dt)
+            if not torch.equal(got, want):
+                raise AssertionError(f"dequant {ic}x{oc} {dt}: differs from its plain version")
+            nbytes = 4 * p.sign_packed.numel() + 4 * 2 * oc + got.numel() * got.element_size()
+            bound_ms, bound_by = bound(nbytes, 2 * ic * oc, F32_FLOPS_PER_S)
+            coef = pf._dequant_coef(p)
+            row = {"kernel": "pb_dequant_v2", "ic": ic, "oc": oc, "dtype": str(dt), "max_abs_err": 0.0,
+                   "kernel_ms": timer(lambda: pf.launch_dequant(p, coef, dt)),
+                   "wrapper_ms": timer(lambda: pf.dequant_v2_binary(p, dt)),
+                   "plain_ms": timer(lambda: pf.dequant_v2_binary_plain(p, dt), iters=5),
+                   "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by, "card": card}
+            log(json.dumps(row))
+            rows.append(row)
+        del p
+    return rows
+
+
+def check_f32_matmul(timer: Timer, card: str):
+    """The exact f32 matmul at decode m with global selection and at prefill
+    m row-grouped (col_tile 256); library: f32 torch.matmul on the dense
+    weight (TF32 off)."""
+    from pb_llm_tpu_torch.core.pbw import dequantize_v2
+    from pb_llm_tpu_torch.data.synthetic import random_packed_v2
+    from pb_llm_tpu_torch.ops import packed_matmul as pm
+
+    gen = torch.Generator(device=DEV).manual_seed(8)
+    rows = []
+    for ic, oc in MATMUL_SHAPES:
+        for m, col_tile in F32_CASES:
+            p = random_packed_v2(ic, oc, gen, low_frac=0.9, col_tile=col_tile)
+            x = torch.randn((m, ic), generator=gen, device=DEV)
+            ops = pm.prepare_f32(x, p)
+            got = pm.launch_f32(ops, p)
+            torch.cuda.synchronize()
+            want = pm.pb_f32_matmul_plain(x, p)
+            err = (got - want).abs()
+            if not (torch.isfinite(got).all() and torch.all(err <= F32_ATOL + F32_RTOL * want.abs())):
+                raise AssertionError(f"pb_f32_matmul m={m} {ic}x{oc} col_tile={col_tile}: max|err| "
+                                     f"{err.max().item()} beyond rtol {F32_RTOL} atol {F32_ATOL}")
+            w = dequantize_v2(p)
+            nbytes = 4 * (ops.x.numel() + ops.xg.numel() + ops.rs.numel() + ops.rsg.numel()
+                          + ops.coef.numel() + p.sign_packed.numel() + m * oc) + p.side_val.numel()
+            bound_ms, bound_by = bound(nbytes, 2 * m * oc * (ic + p.k_pad), F32_FLOPS_PER_S)
+            row = {"kernel": "pb_f32_matmul", "m": m, "ic": ic, "oc": oc, "col_tile": p.col_tile,
+                   "k_pad": p.k_pad, "max_abs_err": err.max().item(),
+                   "kernel_ms": timer(lambda: pm.launch_f32(ops, p)),
+                   "wrapper_ms": timer(lambda: pm.pb_f32_matmul(x, p)),
+                   "plain_ms": timer(lambda: pm.pb_f32_matmul_plain(x, p), iters=5),
+                   "library_ms": timer(lambda: x @ w),
+                   "bound_ms": bound_ms, "bound_by": bound_by, "card": card}
+            log(json.dumps(row))
+            rows.append(row)
+            del p, w, ops
+    return rows
+
+
+def check_flash(timer: Timer, card: str):
+    """Flash attention at the eval windows' shapes; library: SDPA (f32) on
+    the same tensors."""
+    from pb_llm_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=DEV).manual_seed(9)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = []
+    for b, t, h, d, causal in FLASH_CASES:
+        q, k, v = (torch.randn((b, t, h, d), generator=gen, device=DEV) for _ in range(3))
+        scale = d ** -0.5
+        got = fa.flash_attention(q, k, v, scale, causal=causal)
+        torch.cuda.synchronize()
+        want = fa.flash_attention_plain(q, k, v, scale, causal=causal)
+        err = (got - want).abs()
+        if not (torch.isfinite(got).all() and torch.all(err <= FLASH_ATOL + FLASH_RTOL * want.abs())):
+            raise AssertionError(f"flash_attention {(b, t, h, d, causal)}: max|err| "
+                                 f"{err.max().item()} beyond rtol {FLASH_RTOL} atol {FLASH_ATOL}")
+        del want
+        qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+        pairs = b * h * (t * (t + 1) // 2 if causal else t * t)
+        bound_ms, bound_by = bound(4 * 4 * b * t * h * d, 4 * d * pairs, F32_FLOPS_PER_S)
+        row = {"kernel": "flash_attention", "B": b, "T": t, "H": h, "D": d, "causal": causal,
+               "max_abs_err": err.max().item(),
+               "kernel_ms": timer(lambda: fa.flash_attention(q, k, v, scale, causal=causal), iters=10),
+               "plain_ms": timer(lambda: fa.flash_attention_plain(q, k, v, scale, causal=causal),
+                                 iters=3, warmup=1),
+               "library_ms": timer(lambda: sdpa(qt, kt, vt, is_causal=causal, scale=scale), iters=10),
+               "bound_ms": bound_ms, "bound_by": bound_by, "card": card}
+        log(json.dumps(row))
+        rows.append(row)
+        del q, k, v, qt, kt, vt, err
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the same engine on the card and on the CPU
 # ---------------------------------------------------------------------------
@@ -232,34 +361,44 @@ def run_parity(params, cfg, device, **ecfg_kw):
     return logits, toks, nll
 
 
-def check_engine_parity():
-    from pb_llm_tpu_torch.data.synthetic import random_packed_llama
+def check_engine_parity(params, arms: str):
+    """``arms`` "int8": the serving defaults; "exact": decode_dot f32 and
+    the hybrid prefill, whose f32 matmul launches on the card are counted."""
+    from pb_llm_tpu_torch.ops import packed_matmul as pm
     from pb_llm_tpu_torch.ops.kernel_config import KernelConfig
 
     cfg = llama7b(2)
-    params = random_packed_llama(cfg, torch.Generator().manual_seed(4))
+    arm_kw = (dict(decode_dot="int8", prefill="int8") if arms == "int8"
+              else dict(decode_dot="f32", prefill="hybrid"))
+    card_kernels = None if arms == "int8" else KernelConfig(**arm_kw)
+    pm.f32_launches = 0
     t0 = time.perf_counter()
-    g_logits, g_toks, g_nll = run_parity(params, cfg, DEV)
+    g_logits, g_toks, g_nll = run_parity(params, cfg, DEV, kernels=card_kernels)
+    torch.cuda.synchronize()
     gpu_s = time.perf_counter() - t0
-    plain = KernelConfig(backend="pallas_interpret", decode_dot="int8", prefill="int8",
-                         decode_attention="pallas_interpret")
+    f32_launches = pm.f32_launches
+    plain = KernelConfig(backend="pallas_interpret", decode_attention="pallas_interpret", **arm_kw)
     t0 = time.perf_counter()
     c_logits, c_toks, c_nll = run_parity(params, cfg, "cpu", cache_dtype=torch.int8, kernels=plain)
     cpu_s = time.perf_counter() - t0
     scale = c_logits.abs().max().item()
     err = (g_logits - c_logits).abs().max().item()
-    row = {"phase": "engine_parity", "layers": 2, "max_abs_logit_err": err, "max_abs_logit": scale,
+    tol = LOGIT_TOL if arms == "int8" else LOGIT_TOL_EXACT
+    row = {"phase": "engine_parity", "arms": arms, "layers": 2, "max_abs_logit_err": err,
+           "max_abs_logit": scale, "err_over_max_logit": err / scale, "tol_over_max_logit": tol,
            "gpu_tokens": g_toks, "cpu_tokens": c_toks, "gpu_nll": g_nll, "cpu_nll": c_nll,
-           "gpu_s": gpu_s, "cpu_s": cpu_s}
+           "f32_matmul_launches": f32_launches, "gpu_s": gpu_s, "cpu_s": cpu_s}
     log(json.dumps(row))
     if not (np.isfinite(g_nll) and torch.isfinite(g_logits).all()):
-        raise AssertionError("engine parity: non-finite GPU output")
-    if err > LOGIT_TOL * scale:
-        raise AssertionError(f"engine parity: logits differ by {err} > {LOGIT_TOL} * {scale}")
+        raise AssertionError(f"engine parity ({arms}): non-finite GPU output")
+    if err > tol * scale:
+        raise AssertionError(f"engine parity ({arms}): logits differ by {err} > {tol} * {scale}")
     if g_toks != c_toks:
-        raise AssertionError(f"engine parity: greedy tokens differ {g_toks} vs {c_toks}")
+        raise AssertionError(f"engine parity ({arms}): greedy tokens differ {g_toks} vs {c_toks}")
     if abs(g_nll - c_nll) > NLL_RTOL * abs(c_nll):
-        raise AssertionError(f"engine parity: NLL {g_nll} vs {c_nll}")
+        raise AssertionError(f"engine parity ({arms}): NLL {g_nll} vs {c_nll}")
+    if arms == "exact" and f32_launches == 0:
+        raise AssertionError("engine parity (exact): the f32 matmul kernel never launched")
     return row
 
 
@@ -276,8 +415,6 @@ def packed_bytes(p) -> int:
 def serve_e2e(card: str, profile: bool):
     from pb_llm_tpu_torch.data.synthetic import random_packed_llama
     from pb_llm_tpu_torch.models.registry import family_for
-    from pb_llm_tpu_torch.ops import decode_attention as da
-    from pb_llm_tpu_torch.ops import packed_matmul as pm
     from pb_llm_tpu_torch.runtime.batching import ContinuousBatcher, Request
     from pb_llm_tpu_torch.runtime.engine import Engine, EngineConfig
 
@@ -324,11 +461,11 @@ def serve_e2e(card: str, profile: bool):
                     prompt_ids=rng.integers(0, cfg.vocab_size, int(rng.integers(20, 121))).tolist())
             for i in range(16)]
     batcher = ContinuousBatcher(eng)
-    pm.launches = 0
-    da.launches = 0
+    zero_counters()
     batcher.run(reqs)
     torch.cuda.synchronize()
-    mm, att = pm.launches, da.launches
+    launches = read_counters()
+    mm, att = launches["pb_int8_matmul"], launches["decode_attention"]
     eng._forward, eng.decode_step = fwd, step
 
     if not bool(finite):
@@ -339,6 +476,8 @@ def serve_e2e(card: str, profile: bool):
         raise AssertionError(f"e2e: {mm} matmul launches for {forwards} forwards")
     if att != cfg.num_hidden_layers * forwards["decode"] or att == 0:
         raise AssertionError(f"e2e: {att} attention launches for {forwards} forwards")
+    if launches["pb_dequant_v2"] or launches["pb_f32_matmul"] or launches["flash_attention"]:
+        raise AssertionError(f"e2e: the serving defaults launched an exact-arm kernel: {launches}")
 
     kv_row_bytes = cfg.num_hidden_layers * cfg.kv_heads * (2 * cfg.head_dim + 8)
     mean_rows = statistics.mean(kv_rows)
@@ -397,6 +536,160 @@ def profile_decode(eng) -> None:
                             for k, (us, c) in top]}))
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the producer
+# ---------------------------------------------------------------------------
+
+def zero_counters() -> None:
+    from pb_llm_tpu_torch.ops import decode_attention as da
+    from pb_llm_tpu_torch.ops import flash_attention as fa
+    from pb_llm_tpu_torch.ops import packed_matmul as pm
+    from pb_llm_tpu_torch.ops import prefill as pf
+
+    pm.launches = pm.f32_launches = da.launches = pf.launches = fa.launches = 0
+
+
+def read_counters() -> dict:
+    from pb_llm_tpu_torch.ops import decode_attention as da
+    from pb_llm_tpu_torch.ops import flash_attention as fa
+    from pb_llm_tpu_torch.ops import packed_matmul as pm
+    from pb_llm_tpu_torch.ops import prefill as pf
+
+    return {"pb_int8_matmul": pm.launches, "decode_attention": da.launches,
+            "pb_dequant_v2": pf.launches, "pb_f32_matmul": pm.f32_launches,
+            "flash_attention": fa.launches}
+
+
+def compare_solves(w, h, scfg, metrics=("magnitude", "hessian")):
+    """One linear's GPTQ-PB solve on the card and on the CPU from the same
+    (W, H): magnitude masks must be identical; hessian masks depend on
+    diag(Hinv) from two Cholesky factorizations, so near-ties may flip (the
+    count of differing columns is reported)."""
+    import dataclasses
+
+    from pb_llm_tpu_torch.calib.solver import gptq_pb
+
+    out = {}
+    for metric in metrics:
+        cfg = dataclasses.replace(scfg, salient_metric=metric)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g = gptq_pb(w, h, cfg)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        c = gptq_pb(w.cpu(), h.cpu(), cfg)
+        t2 = time.perf_counter()
+        g_mask = g["mask"].cpu()
+        cols = (g_mask != c["mask"]).any(dim=0)
+        wq = c["w_q"]
+        out[metric] = {"mask_cols_differing": int(cols.sum()), "ic": int(w.shape[1]),
+                       "w_q_rel_diff": float((g["w_q"].cpu() - wq).norm() / wq.norm()),
+                       "error_gpu": float(g["error"]), "error_cpu": float(c["error"]),
+                       "gpu_s": t1 - t0, "cpu_s": t2 - t1}
+    if out.get("magnitude", {}).get("mask_cols_differing"):
+        raise AssertionError(f"producer: magnitude masks differ between card and CPU: {out}")
+    return out
+
+
+def producer(card: str):
+    """run_ptq's path at llama-7b's width (2 layers): synthetic calibration
+    windows, GPTQ-PB with the reference sweep's settings (xnor, low_frac
+    0.9, hessian saliency, 8-bit salient codes) into PBW v2, then windowed
+    perplexity under the exact hybrid prefill (`pin_exact_prefill`)."""
+    from pb_llm_tpu_torch.calib.hessian import fold_coefficients, hessian_fold_chunk
+    from pb_llm_tpu_torch.calib.pipeline import quantize_model_ptq
+    from pb_llm_tpu_torch.calib.solver import SolverConfig
+    from pb_llm_tpu_torch.core.pbw import PackedLinearV2
+    from pb_llm_tpu_torch.data.loaders import get_loaders
+    from pb_llm_tpu_torch.data.synthetic import ByteTokenizer, synthetic_source
+    from pb_llm_tpu_torch.eval.ppl import perplexity
+    from pb_llm_tpu_torch.models.llama import init_params, rms_norm
+    from pb_llm_tpu_torch.models.registry import family_for
+    from pb_llm_tpu_torch.ops import kernel_config as kc
+
+    cfg = llama7b(2)
+    fam = family_for("llama")
+    tok, source = ByteTokenizer(), synthetic_source()
+    calib, _ = get_loaders("wikitext2", tok, nsamples=PTQ_NSAMPLES, seed=0, seqlen=PTQ_SEQLEN,
+                           flavor="ptq", source=source)
+    _, evaltok = get_loaders("wikitext2", tok, nsamples=2, seed=0, seqlen=PTQ_SEQLEN, flavor="ptq",
+                             source=source)
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(10), device=DEV)
+    scfg = SolverConfig(low_method="xnor", low_frac=0.9, high_bit=8, salient_metric="hessian",
+                        mask_structure="column")
+
+    # layer 0's q_proj input Hessian, for the card-vs-CPU solve below
+    lp0 = params["layers"][0]
+    with torch.inference_mode():
+        x0 = rms_norm(params["embed_tokens"][torch.as_tensor(calib, device=DEV)],
+                      lp0["input_layernorm"], cfg.rms_norm_eps)
+        h0 = hessian_fold_chunk(torch.zeros((cfg.hidden_size,) * 2, device=DEV), x0,
+                                *fold_coefficients(0, PTQ_NSAMPLES))
+        w0 = lp0["q_proj"]["w"].T.contiguous()
+    del x0
+
+    kc.pin_exact_prefill()  # as run_ptq / run_eval do
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    t0 = time.perf_counter()
+    params, report = quantize_model_ptq(params, cfg, fam, calib, scfg, fmt="packed_v2", log=None,
+                                        capture_batch=PTQ_NSAMPLES)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ppl = perplexity(params, cfg, fam.forward, evaltok, seqlen=PTQ_SEQLEN,
+                     window_limit=PPL_WINDOWS, window_batch=PPL_BATCH)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = read_counters()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    plain = kc.KernelConfig(backend="pallas_interpret", prefill="hybrid", attention="flash_interpret")
+    with kc.use_kernels(plain):
+        ppl_plain = perplexity(params, cfg, fam.forward, evaltok, seqlen=PTQ_SEQLEN,
+                               window_limit=PPL_WINDOWS, window_batch=PPL_BATCH)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    if read_counters() != launches:
+        raise AssertionError("producer: the plain-version perplexity launched a kernel")
+    solves = compare_solves(w0, h0, scfg)
+    # the same solve from a well-conditioned H (Gaussian inputs): the byte
+    # corpus has few distinct tokens, so layer 0's H has tiny rank and the
+    # error feedback amplifies the two devices' f32 rounding differences
+    xg = torch.randn((2 * cfg.hidden_size, cfg.hidden_size),
+                     generator=torch.Generator(device=DEV).manual_seed(11), device=DEV)
+    solves["gaussian_h"] = compare_solves(w0, (2.0 / xg.shape[0]) * (xg.T @ xg), scfg,
+                                          metrics=("hessian",))["hessian"]
+    del xg
+
+    n_packed = sum(isinstance(v, PackedLinearV2) for lp in params["layers"] for v in lp.values())
+    forwards = -(-PPL_WINDOWS // PPL_BATCH)
+    chunks = 1  # capture_batch == nsamples: one calibration chunk per layer
+    want = {"pb_dequant_v2": n_packed * (chunks + forwards),
+            "flash_attention": cfg.num_hidden_layers * (2 * chunks + forwards),
+            "pb_int8_matmul": 0, "decode_attention": 0, "pb_f32_matmul": 0}
+    row = {"phase": "producer", "model": "llama-7b widths, 2 layers, random-init f32 weights",
+           "calib": f"synthetic wikitext2 (ptq flavor), {PTQ_NSAMPLES} x {PTQ_SEQLEN}",
+           "calib_distinct_tokens": int(np.unique(calib).size),
+           "solver": "xnor low_frac 0.9 hessian high_bit 8, column masks, packed_v2",
+           "ppl_windows": PPL_WINDOWS, "ppl_batch": PPL_BATCH, "ppl": ppl, "ppl_plain": ppl_plain,
+           "ppl_rel_diff": abs(ppl - ppl_plain) / ppl_plain, "quantize_s": t1 - t0,
+           "ppl_s": t2 - t1, "ppl_plain_s": t3 - t2, "layer_seconds": report.layer_seconds,
+           "layer_output_mse": report.layer_output_mse, "total_gptq_error": sum(report.errors.values()),
+           "packed_linears": n_packed, "launches": launches, "peak_mem_gb": peak_gb,
+           "q_proj_card_vs_cpu": solves, "card": card}
+    log(json.dumps(row))
+    if n_packed != 7 * cfg.num_hidden_layers:
+        raise AssertionError(f"producer: {n_packed} packed linears")
+    if not (np.isfinite(ppl) and np.isfinite(ppl_plain)):
+        raise AssertionError(f"producer: perplexity {ppl} / {ppl_plain}")
+    if abs(ppl - ppl_plain) > PPL_RTOL * ppl_plain:
+        raise AssertionError(f"producer: ppl {ppl} (kernels) vs {ppl_plain} (plain versions)")
+    if launches != want:
+        raise AssertionError(f"producer: launches {launches}, expected {want}")
+    return row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true", help="trace three decode steps")
@@ -404,14 +697,27 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    from pb_llm_tpu_torch.data.synthetic import random_packed_llama
+
     card = setup()
     timer = Timer()
     mm_rows = check_matmul(timer, card)
     att = check_attention(timer, card)
-    check_engine_parity()
+    dq_rows = check_dequant(timer, card)
+    f32_rows = check_f32_matmul(timer, card)
+    fa_rows = check_flash(timer, card)
+    del timer
+    parity_params = random_packed_llama(llama7b(2), torch.Generator().manual_seed(4))
+    check_engine_parity(parity_params, "int8")
+    exact = check_engine_parity(parity_params, "exact")
+    del parity_params
     e2e = serve_e2e(card, args.profile)
+    prod = producer(card)
 
     head = next(r for r in mm_rows if (r["m"], r["ic"], r["oc"]) == HEADLINE_SHAPE)
+    dq = next(r for r in dq_rows if (r["ic"], r["oc"], r["dtype"]) == (4096, 11008, "torch.float32"))
+    f32 = next(r for r in f32_rows if (r["m"], r["ic"], r["oc"]) == HEADLINE_SHAPE)
+    fa = fa_rows[0]
     kernels = [
         {"name": "pb_int8_matmul", "route": "cuda", "source": "pb_llm_tpu_torch/csrc/pb_int8_matmul.cu",
          "replaces": "pb_llm_tpu/ops/pallas_pb.py:393", "launches": e2e["matmul_launches"],
@@ -425,6 +731,23 @@ def main(argv=None) -> int:
          "bound_ms": att["bound_ms"], "bound_by": att["bound_by"], "library_ms": att["library_ms"],
          "parity": "ok", "shape": "B={} S={} Hq={} Hkv={} D={} int8".format(*ATTN_SHAPE)
          + f", lengths <= {ATTN_MAX_LEN}"},
+        {"name": "pb_dequant_v2", "route": "cuda", "source": "pb_llm_tpu_torch/csrc/pb_dequant_v2.cu",
+         "replaces": "pb_llm_tpu/ops/pallas_pb.py:625", "launches": prod["launches"]["pb_dequant_v2"],
+         "max_abs_err": max(r["max_abs_err"] for r in dq_rows), "ms": dq["kernel_ms"],
+         "plain_ms": dq["plain_ms"], "bound_ms": dq["bound_ms"], "bound_by": dq["bound_by"],
+         "library_ms": None, "parity": "bit for bit", "shape": "ic=4096 oc=11008 f32 out"},
+        {"name": "pb_f32_matmul", "route": "cuda", "source": "pb_llm_tpu_torch/csrc/pb_f32_matmul.cu",
+         "replaces": "pb_llm_tpu/ops/pallas_pb.py:297", "launches": exact["f32_matmul_launches"],
+         "max_abs_err": max(r["max_abs_err"] for r in f32_rows), "ms": f32["kernel_ms"],
+         "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"],
+         "library_ms": f32["library_ms"], "parity": "ok",
+         "shape": "m={} ic={} oc={} low_frac 0.9, global selection".format(*HEADLINE_SHAPE)},
+        {"name": "flash_attention", "route": "cuda", "source": "pb_llm_tpu_torch/csrc/flash_attention.cu",
+         "replaces": "pb_llm_tpu/ops/flash_attention.py:29", "launches": prod["launches"]["flash_attention"],
+         "max_abs_err": max(r["max_abs_err"] for r in fa_rows), "ms": fa["kernel_ms"],
+         "plain_ms": fa["plain_ms"], "bound_ms": fa["bound_ms"], "bound_by": fa["bound_by"],
+         "library_ms": fa["library_ms"], "parity": "ok",
+         "shape": "B={} T={} H={} D={} causal f32".format(*FLASH_CASES[0][:4])},
     ]
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,7 +12,22 @@ a CPU tensor and launches the kernel (or raises) on a CUDA tensor.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """Full-f32 matmuls on the card inside the block (TF32 keeps ~3 digits);
+    the caller's setting comes back afterwards.  The parity paths (hybrid
+    prefill, calibration) run under it, as the reference disables TF32."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def resolve_device(device=None) -> torch.device:

@@ -1,0 +1,163 @@
+"""PTQ CLI (port of `pb_llm_tpu/cli/run_ptq.py`): the reference's
+`gptq_pb/run.py` arguments, the JAX package's extras (--format packed_v2,
+--save_pbw, --synthetic) and --device.  Runs on CUDA unless --device cpu.
+
+    python -m pb_llm_tpu_torch.cli.run_ptq huggyllama/llama-7b wikitext2 xnor \\
+        --low_frac 0.5 --synthetic --nsamples 2 --format packed_v2 --device cpu
+
+Calibrates layer by layer (GPTQ-PB), then evaluates windowed perplexity on
+wikitext2, ptb and c4 under the exact hybrid prefill (`pin_exact_prefill`).
+Offline only: --synthetic (byte tokenizer, synthetic corpora, a tiny
+random-init llama) is the one model source ported so far.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("model", type=str, help="model to load; e.g. `huggyllama/llama-7b`")
+    p.add_argument("dataset", type=str, choices=["wikitext2", "ptb", "c4"])
+    p.add_argument("low_quant_method", type=str, choices=["xnor", "sign", "no", "2bit", "4bit", "prune"])
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--nsamples", type=int, default=128)
+    p.add_argument("--percdamp", type=float, default=0.01)
+    p.add_argument("--low_frac", type=float, default=0)
+    p.add_argument("--blocksize", type=int, default=128)
+    p.add_argument("--groupsize", type=int, default=-1)
+    p.add_argument("--salient_metric", type=str, default="magnitude", choices=["magnitude", "hessian"])
+    p.add_argument("--high_bit", type=int, default=8)
+    p.add_argument("--high_sym", action="store_true", help="symmetric 8-bit range (HighQuantizer sym)")
+    p.add_argument("--high_mse", action="store_true", help="MSE clip search (HighQuantizer mse)")
+    p.add_argument("--minlayer", type=int, default=-1)
+    p.add_argument("--maxlayer", type=int, default=1000)
+    p.add_argument("--quant_only", type=str, default="")
+    p.add_argument("--invert", action="store_true")
+    p.add_argument("--save", action="store_true", help="HF save_pretrained (not ported yet)")
+    p.add_argument("--save_dir", type=str, default=None)
+    p.add_argument("--load_quantized", type=str, default=None,
+                   help="skip quantization; eval a dense checkpoint saved by utils.checkpoint")
+    p.add_argument("--disable_gptq", action="store_true")
+    p.add_argument("--ppl_batch", type=int, default=4, help="eval windows per forward")
+    p.add_argument("--capture_batch", type=int, default=8,
+                   help="calibration windows per Hessian-capture forward")
+    p.add_argument("--log_wandb", action="store_true", help="accepted for parity; unused")
+    p.add_argument("--format", dest="fmt", type=str, default="sim",
+                   choices=["sim", "packed", "packed_v2"])
+    p.add_argument("--mask_structure", type=str, default=None, choices=["element", "column"],
+                   help="salient-mask granularity (default: element; packed_v2 implies column)")
+    p.add_argument("--col_tile", type=int, default=0,
+                   help="output-row group width for column masks; 0 = one global column set")
+    p.add_argument("--save_pbw", type=str, default=None, help="directory for the PBW checkpoint")
+    p.add_argument("--mask_out", type=str, default=None, help="npz path for GPTQ masks")
+    p.add_argument("--synthetic", action="store_true",
+                   help="offline: synthetic corpus + byte tokenizer + random-init model")
+    p.add_argument("--metrics", type=str, default=None, help="JSONL metrics path")
+    p.add_argument("--stream", action="store_true", help="layer-streamed calibration (not ported yet)")
+    p.add_argument("--device", type=str, default=None, help="default: cuda")
+    return p
+
+
+def load_model_and_tokenizer(args, device):
+    """--synthetic: the JAX CLI's tiny llama config, weights from a torch
+    generator seeded 0 (so they differ from the JAX CLI's)."""
+    import torch
+
+    from ..models.registry import family_for
+
+    fam = family_for(args.model)
+    if not args.synthetic:
+        raise NotImplementedError("HF model import and tokenizers are not ported yet "
+                                  "(ROADMAP Queue 1: models/hf_import.py): use --synthetic")
+    from ..data.synthetic import ByteTokenizer
+    from ..models.llama import LlamaConfig, init_params
+
+    cfg = LlamaConfig(vocab_size=259, hidden_size=64, intermediate_size=128, num_hidden_layers=2,
+                      num_attention_heads=4, num_key_value_heads=4, max_position_embeddings=256)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device=device)
+    return params, cfg, fam, ByteTokenizer()
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    for flag, row in (("stream", "models/hf_stream.py"), ("save", "models/hf_export.py")):
+        if getattr(args, flag):
+            raise NotImplementedError(f"--{flag} is not ported yet (ROADMAP Queue 1, slice 6: {row})")
+    if args.fmt == "packed":
+        raise NotImplementedError("--format packed (PBW v1) is not ported yet (ROADMAP: PBW v1)")
+
+    from .. import resolve_device
+    from ..calib.pipeline import quantize_model_ptq, save_masks
+    from ..core.config import PTQJobConfig
+    from ..data.loaders import get_loaders
+    from ..data.synthetic import synthetic_source
+    from ..eval.ppl import perplexity
+    from ..interop import to_device
+    from ..ops.kernel_config import pin_exact_prefill
+    from ..utils.logging import MetricsLogger
+
+    pin_exact_prefill()  # parity: exact hybrid prefill unless the env chose an arm
+    device = resolve_device(args.device)
+    job = PTQJobConfig(
+        model=args.model, dataset=args.dataset, low_quant_method=args.low_quant_method,
+        low_frac=args.low_frac, high_bit=args.high_bit, salient_metric=args.salient_metric,
+        groupsize=args.groupsize, blocksize=args.blocksize, percdamp=args.percdamp,
+        nsamples=args.nsamples, seed=args.seed, minlayer=args.minlayer, maxlayer=args.maxlayer,
+        quant_only=args.quant_only, invert=args.invert, disable_gptq=args.disable_gptq,
+        high_sym=args.high_sym, high_mse=args.high_mse, fmt=args.fmt, mask_out=args.mask_out,
+        mask_structure=args.mask_structure or ("column" if args.fmt == "packed_v2" else "element"),
+        col_tile=args.col_tile,
+    )
+    log = MetricsLogger(args.metrics)
+    params, cfg, fam, tokenizer = load_model_and_tokenizer(args, device)
+    source = synthetic_source()
+    seqlen = min(cfg.seqlen, 128)
+
+    tick = time.time()
+    if args.load_quantized:
+        from ..utils.checkpoint import load_dense_checkpoint
+
+        if os.path.exists(os.path.join(args.load_quantized, "config.json")):
+            raise NotImplementedError("HF checkpoints are not ported yet (ROADMAP Queue 1: "
+                                      "models/hf_import.py)")
+        params, _ = load_dense_checkpoint(args.load_quantized)
+        params = to_device(params, device)
+        log.log("loaded_quantized", path=args.load_quantized)
+    elif job.low_frac:
+        calib, _ = get_loaders(job.dataset, tokenizer, nsamples=job.nsamples, seed=job.seed,
+                               seqlen=seqlen, flavor="ptq", source=source, model=job.model)
+        params, report = quantize_model_ptq(
+            params, cfg, fam, calib, job.solver(), fmt=job.fmt,
+            minlayer=job.minlayer, maxlayer=job.maxlayer, quant_only=job.quant_only,
+            invert=job.invert, log=lambda m: log.log("layer", msg=m),
+            capture_batch=args.capture_batch)
+        log.log("quantized", seconds=report.seconds, total_error=sum(report.errors.values()),
+                layer_seconds=report.layer_seconds)
+        if job.mask_out:
+            save_masks(job.mask_out, report.masks, job.low_frac)
+    print(f"quantization wall s: {time.time() - tick:.1f}")
+
+    for ds in job.eval_datasets:
+        _, evaltok = get_loaders(ds, tokenizer, nsamples=2, seed=job.seed, seqlen=seqlen,
+                                 flavor="ptq", source=source, model=job.model)
+        ppl = perplexity(params, cfg, fam.forward, evaltok, seqlen=seqlen,
+                         window_batch=args.ppl_batch)
+        log.log("ppl", dataset=ds, ppl=ppl)
+        print(f"{ds} perplexity: {ppl:.4f}")
+
+    if args.save_pbw and job.fmt == "packed_v2":
+        from ..core.pbw import PackedLinearV2, save_pbw
+
+        layers = {f"layer_{i}/{n}": leaf for i, lp in enumerate(params["layers"])
+                  for n, leaf in lp.items() if isinstance(leaf, PackedLinearV2)}
+        save_pbw(args.save_pbw, layers, {"model": job.model, "config": job.save_title})
+        print(f"PBW checkpoint saved to {args.save_pbw}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

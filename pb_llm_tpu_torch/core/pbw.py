@@ -148,21 +148,24 @@ def column_structured_mask(metric, low_frac: float, col_tile: int, ic_shards: in
     return torch.cat(rows, dim=0)
 
 
-def _f32(a) -> torch.Tensor:
+def _f32(a, device=None) -> torch.Tensor:
     if isinstance(a, torch.Tensor):
-        return a.float()
-    return torch.from_numpy(np.array(a, dtype=np.float32))
+        return a.float().to(device)
+    return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
 
 
 def pack_linear_v2(w_q, mask, low_state: Dict, high_state: Dict, method: str,
                    col_tile: int = 0, bias=None, pack_block: Optional[int] = None,
                    k_multiple: int = 32, ic_shards: int = 1) -> Tuple[PackedLinearV2, Dict[str, float]]:
     """Pack a fake-quantized weight ``w_q`` [oc, ic] with a column-structured
-    ``mask`` [oc, ic] (True ⇔ binarized) into the v2 layout (CPU tensors)."""
+    ``mask`` [oc, ic] (True ⇔ binarized) into the v2 layout, on ``w_q``'s
+    device (numpy inputs: the CPU).  Only the salient column lists of each
+    row group pass through the host."""
     if method not in ("xnor", "sign", "rtn", "prune", "2bit", "4bit"):
         raise ValueError(f"v2 cannot pack method {method!r}")
     low_bits = {"2bit": 2, "4bit": 4}.get(method, 1)
     w_q = _f32(w_q)
+    dev = w_q.device
     oc, ic = w_q.shape
     if col_tile <= 0 or col_tile > oc:
         col_tile = oc
@@ -173,16 +176,20 @@ def pack_linear_v2(w_q, mask, low_state: Dict, high_state: Dict, method: str,
     if low_bits > 1 and ic_shards > 1:
         raise ValueError("multi-bit low planes cannot use the shard-major sidecar layout")
     ic_s = ic // ic_shards
-    salient = ~np.asarray(mask, dtype=bool)
+    if isinstance(mask, torch.Tensor):
+        salient = ~mask.to(dev).bool()
+    else:
+        salient = ~torch.from_numpy(np.array(mask, dtype=bool)).to(dev)
     n_rg = -(-oc // col_tile)
 
     idx_cols: list = []
     for t in range(n_rg):
         blk = salient[t * col_tile : (t + 1) * col_tile]
-        if not (blk == blk[0:1]).all():
+        if not bool((blk == blk[0:1]).all()):
             raise ValueError("mask is not column-structured within row groups; "
                              "calibrate with mask_structure='column'")
-        idx_cols.append([np.nonzero(blk[0, s * ic_s : (s + 1) * ic_s])[0] for s in range(ic_shards)])
+        row = blk[0].cpu().numpy()
+        idx_cols.append([np.nonzero(row[s * ic_s : (s + 1) * ic_s])[0] for s in range(ic_shards)])
     k_max = max((len(c) for cols in idx_cols for c in cols), default=0)
     k_pad = max(k_multiple, -(-k_max // k_multiple) * k_multiple) if k_max else k_multiple
 
@@ -192,11 +199,11 @@ def pack_linear_v2(w_q, mask, low_state: Dict, high_state: Dict, method: str,
             side_idx[s * k_pad : s * k_pad + len(c), t] = c
 
     if method == "xnor":
-        low_mean, low_scale = _f32(low_state["mean"]), _f32(low_state["scale"])
+        low_mean, low_scale = _f32(low_state["mean"], dev), _f32(low_state["scale"], dev)
     elif method in ("2bit", "4bit"):
-        low_scale, low_mean = _f32(low_state["scale"]), _f32(low_state["zero"])
+        low_scale, low_mean = _f32(low_state["scale"], dev), _f32(low_state["zero"], dev)
     else:
-        s_ = _f32(low_state["scale"])
+        s_ = _f32(low_state["scale"], dev)
         if method == "prune":
             s_ = torch.zeros_like(s_)
         low_mean = s_ / 2.0
@@ -204,22 +211,23 @@ def pack_linear_v2(w_q, mask, low_state: Dict, high_state: Dict, method: str,
     if low_scale.shape[0] != 1:
         raise ValueError("v2 requires groupsize == -1 (whole-row low groups)")
 
-    hs, hz = _f32(high_state["scale"]), _f32(high_state["zero"])
-    maxq = float(np.asarray(high_state.get("maxq", 255.0)))
-    codes = torch.clamp(torch.round(w_q / hs[:, None] + hz[:, None]), 0, maxq).to(torch.uint8).numpy()
+    hs, hz = _f32(high_state["scale"], dev), _f32(high_state["zero"], dev)
+    maxq = float(_f32(high_state.get("maxq", 255.0)))
+    codes = torch.clamp(torch.round(w_q / hs[:, None] + hz[:, None]), 0, maxq).to(torch.uint8)
 
-    side_val = np.zeros((ic_shards * k_pad, oc), np.uint8)
+    side_val = torch.zeros((ic_shards * k_pad, oc), dtype=torch.uint8, device=dev)
     for t, cols in enumerate(idx_cols):
         lo, hi = t * col_tile, min((t + 1) * col_tile, oc)
         for s, c in enumerate(cols):
-            side_val[s * k_pad : s * k_pad + len(c), lo:hi] = codes[lo:hi, s * ic_s + c].T
+            rows = torch.as_tensor(s * ic_s + c, dtype=torch.long, device=dev)
+            side_val[s * k_pad : s * k_pad + len(c), lo:hi] = codes[lo:hi, rows].T
     side_bits = 4 if maxq <= 15 else 8
     if side_bits == 4:
         seg = side_val.reshape(ic_shards, k_pad, oc)
         half = k_pad // 2
-        side_val = (seg[:, :half] | (seg[:, half:] << 4)).reshape(ic_shards * half, oc).astype(np.uint8)
+        side_val = (seg[:, :half] | (seg[:, half:] << 4)).reshape(ic_shards * half, oc)
 
-    sal_t = torch.as_tensor(salient.T)
+    sal_t = salient.T
     if low_bits == 1:
         bits = ((w_q.T - low_mean) >= 0) & ~sal_t
         plane_list = [bits]
@@ -234,16 +242,16 @@ def pack_linear_v2(w_q, mask, low_state: Dict, high_state: Dict, method: str,
 
     packed = PackedLinearV2(
         sign_packed=torch.cat([packing.pack_bits(pl, pack_block) for pl in plane_list], dim=0),
-        side_val=torch.as_tensor(side_val),
-        side_idx=torch.as_tensor(side_idx),
+        side_val=side_val,
+        side_idx=torch.as_tensor(side_idx, device=dev),
         low_scale=low_scale, low_mean=low_mean, high_scale=hs, high_zero=hz,
-        bias=None if bias is None else _f32(bias),
+        bias=None if bias is None else _f32(bias, dev),
         ic=ic, oc=oc, col_tile=col_tile, pack_block=pack_block, k_pad_shard=k_pad,
         side_bits=side_bits, low_bits=low_bits,
     )
     w_rt = dequantize_v2(packed).T
     diag = {"pack_mismatch": float(torch.mean(((w_rt - w_q).abs() > 1e-6).float())),
-            "salient_frac": float(salient.mean()),
+            "salient_frac": float(salient.float().mean()),
             "effective_bits": packed.effective_bits()}
     return packed, diag
 

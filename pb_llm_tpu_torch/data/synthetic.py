@@ -1,16 +1,19 @@
-"""Offline substitutes (port of the parts of `pb_llm_tpu/data/synthetic.py`
-the serving path needs): the byte tokenizer, plus random PBW-v2 weights
-made on a device from a seed, for smoke runs and kernel checks at real
-widths (the recipe of the JAX package's `bench_e2e.build_packed_llama`)."""
+"""Offline substitutes (port of `pb_llm_tpu/data/synthetic.py`): the byte
+tokenizer and the deterministic synthetic corpora that plug into
+`data.loaders`, plus random PBW-v2 weights made on a device from a seed, for
+smoke runs and kernel checks at real widths (the recipe of the JAX
+package's `bench_e2e.build_packed_llama`)."""
 
 from __future__ import annotations
 
 from typing import Any, Dict
 
+import numpy as np
 import torch
 
 from ..core import packing
 from ..core.pbw import PackedLinearV2
+from .loaders import TextSource
 
 
 class ByteTokenizer:
@@ -29,6 +32,30 @@ class ByteTokenizer:
 
     def __call__(self, text, **kw):
         return {"input_ids": self.encode(text)}
+
+
+# the JAX package's word list, verbatim: the corpora are token-identical
+_WORDS = (
+    "the quantized llama ran over binary weights while salient outliers "
+    "kept eight bits of precision and the hessian chose which columns stay "
+    "dense on the tpu mesh with packed sign planes streaming from hbm"
+).split()
+
+
+def synthetic_texts(n_docs: int, seed: int, min_words: int = 20, max_words: int = 400):
+    rng = np.random.default_rng(seed)
+    docs = []
+    for _ in range(n_docs):
+        k = int(rng.integers(min_words, max_words))
+        docs.append(" ".join(_WORDS[i] for i in rng.integers(0, len(_WORDS), k)))
+    return docs
+
+
+def synthetic_source(n_docs: int = 200, seed: int = 0) -> TextSource:
+    """A TextSource covering every dataset/split the loaders ask for."""
+    keys = ["wikitext2/train", "wikitext2/test", "ptb/train", "ptb/test", "ptb/validation",
+            "c4/train", "c4/validation", "red_pajama/train", "english_quotes/train"]
+    return TextSource({key: synthetic_texts(n_docs, seed + i) for i, key in enumerate(keys)})
 
 
 def random_packed_v2(ic: int, oc: int, generator: torch.Generator, *, low_frac: float = 0.9,

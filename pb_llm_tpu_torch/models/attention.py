@@ -1,10 +1,10 @@
-"""Strip-cache attention helpers (port of the strip parts of
-`pb_llm_tpu/models/attention.py`): causal masking, the KV-cache write and
-the cached attention that accept a scalar position (prefill) or a per-slot
-position vector [B] (continuous-batching decode).
+"""Attention helpers (port of the strip and no-cache parts of
+`pb_llm_tpu/models/attention.py`): the no-cache full-sequence dispatch
+(flash attention or the masked softmax), causal masking, the KV-cache write
+and the cached attention that accept a scalar position (prefill) or a
+per-slot position vector [B] (continuous-batching decode).
 
-Paged caches, flash attention and sequence parallelism are not ported yet
-(ROADMAP).
+Paged caches and sequence parallelism are not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -16,16 +16,39 @@ import torch
 Pos = Union[int, torch.Tensor]
 
 
+def _flash_eligible(q: torch.Tensor) -> bool:
+    """"auto" picks flash on the card for windows of 1024 or more and head
+    dims divisible by 8, the rule of the JAX package on its chip
+    (`_flash_eligible`).  A head dim the kernel cannot take then raises
+    from `flash_attention`."""
+    t, d = q.shape[1], q.shape[3]
+    return t >= 1024 and d % 8 == 0 and q.device.type == "cuda"
+
+
 def full_causal_attention(q, k, v, scale, window: Optional[int] = None) -> torch.Tensor:
-    """No-cache path, q,k,v [B, T, H*, D]: the XLA masked-softmax branch
-    (flash attention is not ported yet)."""
+    """No-cache path, q,k,v [B, T, H*, D].  ``window`` (sliding window)
+    keeps the masked softmax; otherwise the configured attention arm:
+    "flash" the kernel, "flash_interpret" its plain version, "xla" the
+    masked softmax, "auto" flash where `_flash_eligible`."""
     from ..ops import kernel_config as _kc
 
-    impl = _kc.current().attention
-    if impl in ("flash", "flash_interpret"):
-        raise NotImplementedError("flash attention is not ported yet (ROADMAP Queue 2 item 5)")
     t = q.shape[1]
-    return masked_softmax_attention(q, k, v, causal_allowed(0, t, t, None, window, q.device), scale)
+    if window is not None:
+        return masked_softmax_attention(q, k, v, causal_allowed(0, t, t, None, window, q.device),
+                                        scale)
+    impl = _kc.current().attention
+    if impl == "auto":
+        impl = "flash" if _flash_eligible(q) else "xla"
+    if impl in ("flash", "flash_interpret"):
+        from ..ops import flash_attention as _fa
+
+        hq, hkv = q.shape[2], k.shape[2]
+        if hq != hkv:
+            k = torch.repeat_interleave(k, hq // hkv, dim=2)
+            v = torch.repeat_interleave(v, hq // hkv, dim=2)
+        fn = _fa.flash_attention_plain if impl == "flash_interpret" else _fa.flash_attention
+        return fn(q, k, v, float(scale), causal=True)
+    return masked_softmax_attention(q, k, v, causal_allowed(0, t, t, None, None, q.device), scale)
 
 
 def causal_allowed(pos: Pos, t: int, s: int, kv_len_valid: Optional[Pos],

@@ -11,7 +11,7 @@ layout are not ported yet (ROADMAP).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -111,16 +111,20 @@ def softmax_scale(head_dim: int) -> float:
 
 
 def decoder_layer(lp: Dict[str, Any], x: torch.Tensor, cfg: LlamaConfig, cos, sin,
-                  kv_cache: Optional[Dict[str, torch.Tensor]] = None, pos=0):
-    """One decoder block.  Returns (hidden, kv_cache updated in place)."""
+                  kv_cache: Optional[Dict[str, torch.Tensor]] = None, pos=0,
+                  linear_fn: Optional[Callable] = None):
+    """One decoder block.  Returns (hidden, kv_cache updated in place).
+    ``linear_fn(name, lin, x)`` replaces `apply_linear` (calibration uses it
+    to see each linear's input)."""
     if "qkv_proj" in lp or "gateup_proj" in lp:
         raise NotImplementedError("fused linears are not ported yet (ROADMAP: models/fusion.py)")
+    lf = linear_fn or (lambda name, lin, h: apply_linear(lin, h))
     b, t, _ = x.shape
     hd = cfg.head_dim
     h = rms_norm(x, lp["input_layernorm"], cfg.rms_norm_eps)
-    q = apply_linear(lp["q_proj"], h).reshape(b, t, cfg.num_attention_heads, hd)
-    k = apply_linear(lp["k_proj"], h).reshape(b, t, cfg.kv_heads, hd)
-    v = apply_linear(lp["v_proj"], h).reshape(b, t, cfg.kv_heads, hd)
+    q = lf("q_proj", lp["q_proj"], h).reshape(b, t, cfg.num_attention_heads, hd)
+    k = lf("k_proj", lp["k_proj"], h).reshape(b, t, cfg.kv_heads, hd)
+    v = lf("v_proj", lp["v_proj"], h).reshape(b, t, cfg.kv_heads, hd)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     scale = softmax_scale(hd)
@@ -130,11 +134,11 @@ def decoder_layer(lp: Dict[str, Any], x: torch.Tensor, cfg: LlamaConfig, cos, si
         attn = cached_attention(kv_cache, q, k, v, pos, scale, window=win)
     else:
         attn = full_causal_attention(q, k, v, scale, window=win)
-    x = x + apply_linear(lp["o_proj"], attn.reshape(b, t, cfg.num_attention_heads * hd))
+    x = x + lf("o_proj", lp["o_proj"], attn.reshape(b, t, cfg.num_attention_heads * hd))
     h = rms_norm(x, lp["post_attention_layernorm"], cfg.rms_norm_eps)
-    gate = apply_linear(lp["gate_proj"], h)
-    up = apply_linear(lp["up_proj"], h)
-    x = x + apply_linear(lp["down_proj"], torch.nn.functional.silu(gate) * up)
+    gate = lf("gate_proj", lp["gate_proj"], h)
+    up = lf("up_proj", lp["up_proj"], h)
+    x = x + lf("down_proj", lp["down_proj"], torch.nn.functional.silu(gate) * up)
     return x, kv_cache
 
 
@@ -145,13 +149,17 @@ def forward(params: Dict[str, Any], input_ids: torch.Tensor, cfg: LlamaConfig,
     if "layers_stacked" in params:
         raise NotImplementedError("scan_layers is not ported yet (ROADMAP: models/stacking.py)")
     x = params["embed_tokens"][input_ids]
-    t = input_ids.shape[1]
-    ar = torch.arange(t, device=input_ids.device)
-    positions = pos[:, None] + ar if isinstance(pos, torch.Tensor) and pos.dim() else pos + ar
-    cos, sin = rope_tables(cfg, positions)
-    cos, sin = cos.to(x.dtype), sin.to(x.dtype)
+    cos, sin = layer_rope(cfg, x, pos)
     for i, lp in enumerate(params["layers"]):
         cache_i = kv_caches[i] if kv_caches is not None else None
         x, _ = decoder_layer(lp, x, cfg, cos, sin, cache_i, pos)
     x = rms_norm(x, params["norm"], cfg.rms_norm_eps)
     return apply_linear(params["lm_head"], x), kv_caches
+
+
+def layer_rope(cfg: LlamaConfig, x: torch.Tensor, pos=0):
+    """cos/sin in x's dtype for the rows of x [B, T, ...] at ``pos``."""
+    ar = torch.arange(x.shape[1], device=x.device)
+    positions = pos[:, None] + ar if isinstance(pos, torch.Tensor) and pos.dim() else pos + ar
+    cos, sin = rope_tables(cfg, positions)
+    return cos.to(x.dtype), sin.to(x.dtype)

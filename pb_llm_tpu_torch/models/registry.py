@@ -13,14 +13,23 @@ from . import llama as _llama
 class Family:
     name: str
     forward: Callable  # (params, ids, cfg, kv_caches=None, pos=0) -> (logits, caches)
+    embed: Callable    # (params, ids, cfg) -> layer-0 input hidden states
+    decoder_layer: Callable  # (lp, x, cfg, linear_fn=None) -> (hidden, None)
     linear_names: Tuple[str, ...]
     config_cls: type
+
+
+def _llama_layer(lp, x, cfg, linear_fn=None):
+    cos, sin = _llama.layer_rope(cfg, x)
+    return _llama.decoder_layer(lp, x, cfg, cos, sin, linear_fn=linear_fn)
 
 
 FAMILIES = {
     "llama": Family(
         name="llama",
         forward=_llama.forward,
+        embed=lambda params, ids, cfg: params["embed_tokens"][ids],
+        decoder_layer=_llama_layer,
         linear_names=_llama.LINEAR_NAMES,
         config_cls=_llama.LlamaConfig,
     ),

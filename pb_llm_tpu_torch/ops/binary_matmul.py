@@ -1,8 +1,15 @@
-"""Packed-matmul dispatch (port of `pb_llm_tpu/ops/binary_matmul.py`).
+"""Packed-matmul dispatch (port of `pb_llm_tpu/ops/binary_matmul.py` and of
+`pallas_pb.pb_matmul_pallas_v2`).
 
 `pb_matmul` resolves `backend`, `decode_dot` and `prefill` from the active
 `KernelConfig` exactly as the JAX package does, with "on the TPU" read as
-"x lies on a CUDA device".
+"x lies on a CUDA device".  `pb_matmul_v2` then picks the arm by m:
+
+  * m ≥ 256: prefill "int8" (1-bit lows) → the int8 kernel; "hybrid" /
+    "hybrid_bf16" → `prefill.v2_prefill` (row-grouped layers fall through
+    to the exact f32 kernel there, as in JAX);
+  * m < 256: decode_dot "int8" (1-bit lows) → the int8 kernel; "f32" /
+    "bf16" → the exact f32 kernel; "pair" and "dma" are not ported yet.
 """
 
 from __future__ import annotations
@@ -11,11 +18,39 @@ import torch
 
 from ..core.pbw import PackedLinearV2, matmul_reference_v2
 from . import kernel_config as _kc
-from . import packed_matmul
+from . import packed_matmul, prefill
 
 
 def _resolve_decode_dot(kcfg: _kc.KernelConfig) -> str:
     return "int8" if kcfg.decode_dot == "auto" else kcfg.decode_dot
+
+
+def pb_matmul_v2(x: torch.Tensor, p: PackedLinearV2, plain: bool = False,
+                 prefill_bf16: bool = False, prefill_gather: str = "take",
+                 prefill_extract: str = "pallas", decode_dot: str = "f32",
+                 prefill_int8: bool = False) -> torch.Tensor:
+    """y = x @ dequant_v2(p) (+ bias); x [m, ic] → f32 [m, oc].  ``plain``
+    runs each kernel's plain version ("pallas_interpret")."""
+    m = x.shape[0]
+    if x.shape[1] != p.ic_local:
+        raise ValueError(f"x ic {x.shape[1]} != packed ic {p.ic_local}")
+    int8 = packed_matmul.pb_int8_matmul_plain if plain else packed_matmul.pb_int8_matmul
+    if m >= packed_matmul.V2_PREFILL_M:
+        if prefill_int8 and p.low_bits == 1:
+            return int8(x, p)
+        return prefill.v2_prefill(x, p, plain=plain,
+                                  dot_dtype=torch.bfloat16 if prefill_bf16 else torch.float32,
+                                  gather=prefill_gather, extract=prefill_extract)
+    if decode_dot == "int8" and p.low_bits == 1:
+        return int8(x, p)
+    if decode_dot == "dma" and p.n_row_groups == 1 and p.low_bits == 1:
+        raise NotImplementedError("decode_dot='dma' is not ported yet "
+                                  "(ROADMAP Queue 2: _planar_v2_dma_kernel)")
+    if decode_dot == "pair" and p.low_bits == 1:
+        raise NotImplementedError("decode_dot='pair' is not ported yet "
+                                  "(ROADMAP Queue 2: _planar_v2_pair_kernel)")
+    f32 = packed_matmul.pb_f32_matmul_plain if plain else packed_matmul.pb_f32_matmul
+    return f32(x, p, dot_dtype=torch.bfloat16 if decode_dot == "bf16" else torch.float32)
 
 
 def pb_matmul(x: torch.Tensor, p) -> torch.Tensor:
@@ -30,13 +65,12 @@ def pb_matmul(x: torch.Tensor, p) -> torch.Tensor:
         mode = "pallas" if (on_gpu and supported) else "xla"
     if mode == "pallas" and not supported:
         mode = "xla"
-    prefill = kcfg.prefill
-    if prefill == "auto":
-        prefill = "int8" if on_gpu else "hybrid"
+    prefill_arm = kcfg.prefill
+    if prefill_arm == "auto":
+        prefill_arm = "int8" if on_gpu else "hybrid"
     if mode in ("pallas", "pallas_interpret"):
-        if prefill == "hybrid_bf16" and x.shape[0] >= packed_matmul.V2_PREFILL_M:
-            raise NotImplementedError("prefill='hybrid_bf16' is not ported yet (ROADMAP Queue 2 item 4)")
-        return packed_matmul.pb_matmul_v2(
-            x, p, plain=mode == "pallas_interpret",
-            decode_dot=_resolve_decode_dot(kcfg), prefill_int8=prefill == "int8")
+        return pb_matmul_v2(
+            x, p, plain=mode == "pallas_interpret", prefill_bf16=prefill_arm == "hybrid_bf16",
+            prefill_gather=kcfg.prefill_gather, prefill_extract=kcfg.prefill_extract,
+            decode_dot=_resolve_decode_dot(kcfg), prefill_int8=prefill_arm == "int8")
     return matmul_reference_v2(x, p)

@@ -6,12 +6,13 @@ are identical.  In the port:
   * ``"pallas"`` means the hand-written CUDA kernel;
   * ``"pallas_interpret"`` means that kernel's plain PyTorch version;
   * ``"auto"`` mirrors JAX: on a CUDA tensor it picks what the TPU picks
-    (int8 matmul for decode and prefill, the decode-attention kernel), on a
-    CPU tensor what JAX picks on the CPU (`matmul_reference_v2`, the
-    masked-softmax attention).
+    (int8 matmul for decode and prefill, the decode-attention kernel, flash
+    attention for windows of 1024 or more), on a CPU tensor what JAX picks
+    on the CPU (`matmul_reference_v2`, the masked-softmax attention).
 
-Resolution order: innermost `use_kernels` context > `set_default` >
-env-var overrides > field defaults.  PyTorch
+Resolution order: innermost `use_kernels` context > per-field
+`set_field_default` overrides > `set_default` > env-var overrides > field
+defaults.  PyTorch
 runs eagerly, so there is no `wrap_jit`: the engine enters `use_kernels`
 around each of its calls.
 """
@@ -75,6 +76,7 @@ def from_env() -> KernelConfig:
 
 
 _default: Optional[KernelConfig] = None
+_field_overrides: dict = {}
 _tls = threading.local()
 
 
@@ -83,6 +85,23 @@ def set_default(cfg: Optional[KernelConfig]) -> None:
     the env/defaults resolution)."""
     global _default
     _default = cfg
+
+
+def set_field_default(**fields) -> None:
+    """Per-field process defaults, layered over `set_default` / the env vars
+    when `current()` resolves, so a setter pins only its own field."""
+    for f, v in fields.items():
+        if f not in _VALID or v not in _VALID[f]:
+            raise ValueError(f"KernelConfig.{f}={v!r} not in {_VALID.get(f)}")
+    _field_overrides.update(fields)
+
+
+def pin_exact_prefill() -> None:
+    """Parity CLIs (run_ptq / run_eval): pin the exact hybrid prefill unless
+    the env chose an arm — the fused int8 default rounds x per row in every
+    large-m matmul and would shift reported perplexities."""
+    if from_env().prefill == "auto":
+        set_field_default(prefill="hybrid")
 
 
 class use_kernels:
@@ -110,4 +129,7 @@ def current() -> KernelConfig:
         for cfg in reversed(stack):
             if cfg is not None:
                 return cfg
-    return _default if _default is not None else from_env()
+    base = _default if _default is not None else from_env()
+    if _field_overrides:
+        base = dataclasses.replace(base, **_field_overrides)
+    return base

@@ -1,5 +1,8 @@
-"""PBW-v2 int8 matmul: the counterpart of `pb_llm_tpu/ops/pallas_pb.py`'s
-int8 path (`_planar_v2_int8_call` + `_planar_v2_int8_kernel`).
+"""PBW-v2 packed matmuls: the counterparts of `pb_llm_tpu/ops/pallas_pb.py`'s
+int8 path (`_planar_v2_int8_call` + `_planar_v2_int8_kernel`) and exact f32
+path (`_planar_v2_call` + `_planar_v2_kernel`).
+
+int8 (`pb_int8_matmul`, `csrc/pb_int8_matmul.cu`):
 
     y = rs·β + (x8·B′)·sx·2scale + (sx·(xg8·V″) [+ 128·rsg])·hs + rsg·γ + bias
 
@@ -9,10 +12,19 @@ enter the sidecar dot offset-binary (V″ = code − 128) and the +128·rsg
 correction sits in the sidecar term itself (the code at pallas_pb.py:441,
 not the γ′ fold its docstring mentions).  4-bit codes enter as they are.
 
-`pb_int8_matmul` launches the CUDA kernel (`csrc/pb_int8_matmul.cu`) on a
-CUDA tensor and runs `pb_int8_matmul_plain` — the same arithmetic in plain
-PyTorch — on a CPU tensor.  `pb_matmul_v2` is the dispatch of
-`pb_matmul_pallas_v2` limited to what the serving path runs.
+f32 (`pb_f32_matmul`, `csrc/pb_f32_matmul.cu`):
+
+    y = rowsum(x)·β + (x·C)·2α + (xg·V)·hs + rowsum(xg)·γ + bias
+
+C = Σ_j 2^j·B_j is the low code from {0,1} bit planes (the JAX kernel's
+{0,2} planes with the 2 folded into α, which is exact), α = scale for
+1-bit lows and scale/2 for 2- and 4-bit lows; xg is x gathered at each row
+group's salient columns.  ``dot_dtype`` bf16 rounds x and xg to bf16 in the
+two products (decode_dot "bf16"); the row sums stay f32.
+
+Each wrapper launches its CUDA kernel on a CUDA tensor and runs its plain
+PyTorch version on a CPU tensor.  The dispatch of `pb_matmul_pallas_v2`
+lives in `ops.binary_matmul`.
 """
 
 from __future__ import annotations
@@ -22,13 +34,15 @@ from typing import NamedTuple
 
 import torch
 
+from .. import no_tf32
 from ..core import packing
-from ..core.pbw import PackedLinearV2, gather_x_v2, matmul_reference_v2, unpack_side_codes
+from ..core.pbw import PackedLinearV2, gather_x_v2, unpack_side_codes
 from . import _build
 
 V2_PREFILL_M = 256  # pallas_pb._V2_PREFILL_M: decode below, prefill at or above
 
 launches = 0  # kernel launches of pb_int8_matmul (plain-version calls not counted)
+f32_launches = 0  # kernel launches of pb_f32_matmul (plain-version calls not counted)
 
 
 class Int8Operands(NamedTuple):
@@ -52,18 +66,22 @@ def prepare_int8(x: torch.Tensor, p: PackedLinearV2) -> Int8Operands:
     rsg = torch.sum(xg, dim=2)
     xg8 = torch.clamp(torch.round(xg / sx[None]), -127, 127).to(torch.int8).contiguous()
     return Int8Operands(x8.contiguous(), sx[:, 0].contiguous(), rs.contiguous(),
-                        xg8, rsg.contiguous(), _coef(p))
+                        xg8, rsg.contiguous(), coef_rows(p))
 
 
-def _coef(p: PackedLinearV2) -> torch.Tensor:
-    """The [5, oc] rows 2·scale, β, γ, hs, bias; made once per layer."""
+def coef_rows(p: PackedLinearV2) -> torch.Tensor:
+    """The [5, oc] rows 2α, β, γ, hs, bias (2α = 2·scale for 1-bit lows,
+    scale for 2- and 4-bit lows); made once per layer."""
     if p.coef_cache is None:
         scale = p.low_scale[0].float()
         mean = p.low_mean[0].float()
-        beta = mean - scale
+        if p.low_bits == 1:
+            alpha2, beta = 2.0 * scale, mean - scale
+        else:
+            alpha2, beta = scale, -scale * mean
         gamma = -p.high_scale * p.high_zero - beta
         bias = p.bias if p.bias is not None else torch.zeros_like(scale)
-        p.coef_cache = torch.stack([2.0 * scale, beta, gamma, p.high_scale, bias], dim=0).contiguous()
+        p.coef_cache = torch.stack([alpha2, beta, gamma, p.high_scale, bias], dim=0).contiguous()
     return p.coef_cache
 
 
@@ -162,23 +180,102 @@ def kernel_supported_v2(p: PackedLinearV2) -> bool:
     return p.col_tile >= oc or oc % p.col_tile == 0
 
 
-def pb_matmul_v2(x: torch.Tensor, p: PackedLinearV2, plain: bool = False,
-                 decode_dot: str = "int8", prefill_int8: bool = True) -> torch.Tensor:
-    """Dispatch of `pb_matmul_pallas_v2` for the serving path: the int8
-    branch at every m when ``low_bits == 1`` (decode m < 256 with
-    decode_dot="int8", prefill m ≥ 256 with prefill_int8), otherwise
-    `matmul_reference_v2`.  ``plain`` runs the kernel's plain version
-    ("pallas_interpret")."""
-    m = x.shape[0]
-    if p.low_bits != 1:
-        return matmul_reference_v2(x, p)
-    if m >= V2_PREFILL_M and not prefill_int8:
-        raise NotImplementedError(
-            "the hybrid (exact) prefill kernel is not ported yet "
-            "(ROADMAP Queue 2 items 3-4: _planar_v2_kernel, _v2_dequant_kernel)")
-    if m < V2_PREFILL_M and decode_dot != "int8":
-        raise NotImplementedError(
-            f"decode_dot={decode_dot!r} is not ported yet (ROADMAP Queue 2: "
-            "f32/bf16 -> _planar_v2_kernel, pair -> _planar_v2_pair_kernel, "
-            "dma -> _planar_v2_dma_kernel)")
-    return pb_int8_matmul_plain(x, p) if plain else pb_int8_matmul(x, p)
+# ---------------------------------------------------------------------------
+# exact f32 matmul
+# ---------------------------------------------------------------------------
+
+_DOT_DTYPES = (torch.float32, torch.bfloat16)
+
+
+class F32Operands(NamedTuple):
+    x: torch.Tensor     # f32 [m, ic]
+    xg: torch.Tensor    # f32 [n_rg, m, k_pad] gathered salient x
+    rs: torch.Tensor    # f32 [m] rowsum of x
+    rsg: torch.Tensor   # f32 [n_rg, m] rowsum of xg
+    coef: torch.Tensor  # f32 [5, oc]: 2α, β, γ, hs, bias
+
+
+def prepare_f32(x: torch.Tensor, p: PackedLinearV2) -> F32Operands:
+    xf = x.float().contiguous()
+    xg = gather_x_v2(xf, p).permute(2, 0, 1).contiguous()
+    return F32Operands(xf, xg, torch.sum(xf, dim=1), torch.sum(xg, dim=2).contiguous(), coef_rows(p))
+
+
+def low_code(p: PackedLinearV2) -> torch.Tensor:
+    """C = Σ_j 2^j·B_j as f32 [ic, oc] (exact small integers)."""
+    wpp = p.words_per_plane
+    code = None
+    for j in range(p.low_bits):
+        bits = packing.unpack_bits(p.sign_packed[j * wpp : (j + 1) * wpp], p.ic_local,
+                                   p.pack_block_local).float()
+        code = bits if code is None else code + (2.0 ** j) * bits
+    return code
+
+
+def pb_f32_matmul_plain(x: torch.Tensor, p: PackedLinearV2, dot_dtype=torch.float32) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: the same operands, the two
+    products as f32 `torch.matmul`s of (bf16-rounded, for ``dot_dtype``
+    bf16) x against the exact codes, the kernel's f32 epilogue order."""
+    ops = prepare_f32(x, p)
+    xd = ops.x.to(dot_dtype).float()
+    codes = unpack_side_codes(p.side_val, p.side_bits, p.shards_local).float()
+    group = torch.arange(p.oc_local, device=x.device) // p.col_tile
+    acc_v = torch.empty((x.shape[0], p.oc_local), dtype=torch.float32, device=x.device)
+    with no_tf32():
+        acc_b = xd @ low_code(p)
+        for t in range(p.n_row_groups):
+            cols = group == t
+            acc_v[:, cols] = ops.xg[t].to(dot_dtype).float() @ codes[:, cols]
+    alpha2, beta, gamma, hs, bias = ops.coef
+    rsg = ops.rsg.t()[:, group]
+    y = ops.rs[:, None] * beta + acc_b * alpha2
+    y = y + acc_v * hs
+    y = y + rsg * gamma
+    return y + bias
+
+
+_F32_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+
+
+def pb_f32_matmul(x: torch.Tensor, p: PackedLinearV2, dot_dtype=torch.float32) -> torch.Tensor:
+    """y = x @ dequant_v2(p) (+ bias) through the exact f32 path; x [m, ic]
+    → f32 [m, oc].  CPU tensor: the plain version.  CUDA tensor: the kernel."""
+    if x.device.type == "cpu":
+        return pb_f32_matmul_plain(x, p, dot_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"pb_f32_matmul: unsupported device {x.device}")
+    if x.dim() != 2 or x.shape[1] != p.ic_local:
+        raise ValueError(f"pb_f32_matmul: x {tuple(x.shape)} does not match ic {p.ic_local}")
+    if dot_dtype not in _DOT_DTYPES:
+        raise ValueError(f"pb_f32_matmul: dot_dtype {dot_dtype} not in {_DOT_DTYPES}")
+    if p.low_bits not in (1, 2, 4):
+        raise ValueError(f"pb_f32_matmul: low_bits {p.low_bits} not in (1, 2, 4)")
+    for name in ("sign_packed", "side_val", "side_idx"):
+        t = getattr(p, name)
+        if t.device != x.device:
+            raise ValueError(f"pb_f32_matmul: {name} on {t.device}, x on {x.device}")
+    if p.sign_packed.dtype != torch.int32 or p.side_val.dtype != torch.uint8:
+        raise ValueError("pb_f32_matmul: sign_packed must be int32 and side_val uint8")
+    if not (p.sign_packed.is_contiguous() and p.side_val.is_contiguous()):
+        raise ValueError("pb_f32_matmul: planes must be contiguous")
+    return launch_f32(prepare_f32(x, p), p, dot_dtype)
+
+
+def launch_f32(ops: F32Operands, p: PackedLinearV2, dot_dtype=torch.float32) -> torch.Tensor:
+    """Launch the f32 kernel on prepared operands (all on one CUDA device)
+    on the current stream; counts one launch."""
+    m, ic = ops.x.shape
+    oc = p.oc_local
+    out = torch.empty((m, oc), dtype=torch.float32, device=ops.x.device)
+    fn = _build.load("pb_f32_matmul").pb_f32_matmul
+    fn.argtypes = _F32_ARGTYPES
+    fn.restype = ctypes.c_int
+    err = fn(ops.x.data_ptr(), ops.xg.data_ptr(), ops.rs.data_ptr(), ops.rsg.data_ptr(),
+             p.sign_packed.data_ptr(), p.side_val.data_ptr(), ops.coef.data_ptr(), out.data_ptr(),
+             m, ic, oc, p.pack_block_local, p.low_bits, p.side_bits, p.k_pad,
+             p.k_pad_shard_local, p.col_tile, int(dot_dtype == torch.bfloat16),
+             torch.cuda.current_stream(out.device).cuda_stream)
+    _build.check(err, "pb_f32_matmul")
+    global f32_launches
+    f32_launches += 1
+    return out

@@ -8,11 +8,15 @@ from typing import Any, Dict, List
 
 import torch
 
+from .. import resolve_device
+
 
 def make_caches(cfg: Any, n_slots: int, max_seq: int, n_layers: int, kv_heads: int,
-                head_dim: int, dtype=torch.float32, device="cpu") -> List[Dict[str, torch.Tensor]]:
+                head_dim: int, dtype=torch.float32, device=None) -> List[Dict[str, torch.Tensor]]:
     """dtype torch.int8 → absmax-quantized cache with per-(token, head) f32
-    scales (see models.attention.cache_update)."""
+    scales (see models.attention.cache_update).  ``device``: as every entry
+    point, CUDA unless the caller names another (`resolve_device`)."""
+    device = resolve_device(device)
     shape = (n_slots, max_seq, kv_heads, head_dim)
     if dtype == torch.int8:
         return [

@@ -8,8 +8,12 @@ card has none), so it runs there without the repository's conftest:
 
 Tolerances: the int8 matmul accumulates exactly in int32 and its f32
 epilogue rounds once per operation in the plain version's order, so the two
-agree bit for bit.  Decode attention sums in another order than the plain
-version (online softmax over warps): rtol 1e-4, atol 1e-5.
+agree bit for bit; so does the dequant kernel (one rounded multiply and add
+per value).  Decode attention sums in another order than the plain version
+(online softmax over warps): rtol 1e-4, atol 1e-5.  The exact f32 matmul
+and flash attention sum their products in another order than the plain
+versions' torch.matmul: rtol 1e-4, atol 1e-4, the JAX package's bounds for
+those kernels.
 """
 
 import numpy as np
@@ -19,7 +23,8 @@ import torch
 from pb_llm_tpu_torch.core import pbw
 from pb_llm_tpu_torch.data.synthetic import random_packed_v2
 from pb_llm_tpu_torch.ops import decode_attention as tda
-from pb_llm_tpu_torch.ops import packed_matmul
+from pb_llm_tpu_torch.ops import flash_attention as tfa
+from pb_llm_tpu_torch.ops import packed_matmul, prefill
 
 torch.set_num_threads(2)
 
@@ -112,3 +117,131 @@ def test_decode_attention_kernel_matches_plain(cuda, quantized, hq, hkv, d):
     want = tda.decode_attention_plain(*args, **kw)
     assert torch.equal(got[0], torch.zeros_like(got[0]))
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+def _lowbit_layer(ic, oc, low_bits, dev, seed=7):
+    """A 2- or 4-bit low layer: random code planes, scale and zero point."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    p = random_packed_v2(ic, oc, g, low_frac=0.9)
+    planes = [p.sign_packed] + [random_packed_v2(ic, oc, g, low_frac=0.9).sign_packed
+                                for _ in range(low_bits - 1)]
+    return pbw.PackedLinearV2(
+        sign_packed=torch.cat(planes, dim=0).contiguous(), side_val=p.side_val,
+        side_idx=p.side_idx, low_scale=torch.rand((1, oc), generator=g, device=dev) * 0.02,
+        low_mean=torch.full((1, oc), 2.0 ** (low_bits - 1), device=dev),
+        high_scale=p.high_scale, high_zero=p.high_zero, bias=None, ic=ic, oc=oc,
+        col_tile=p.col_tile, pack_block=p.pack_block, k_pad_shard=p.k_pad_shard,
+        side_bits=8, low_bits=low_bits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(LAYERS) + ["low2", "low4"])
+def test_dequant_kernel_matches_plain_bit_for_bit(cuda, name, dtype):
+    p = _lowbit_layer(256, 384, int(name[-1]), cuda) if name.startswith("low") else _layer(name, cuda)
+    before = prefill.launches
+    got = prefill.dequant_v2_binary(p, dtype)
+    torch.cuda.synchronize()
+    assert prefill.launches == before + 1
+    want = prefill.dequant_v2_binary_plain(p, dtype)
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dot_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(LAYERS) + ["shards8", "shards4", "low2", "low4"])
+@pytest.mark.parametrize("m", [1, 8, 300])
+def test_f32_matmul_kernel_matches_plain(cuda, name, m, dot_dtype):
+    p = _lowbit_layer(256, 384, int(name[-1]), cuda) if name.startswith("low") else _layer(name, cuda)
+    x = torch.randn((m, p.ic), generator=torch.Generator(device=cuda).manual_seed(m), device=cuda)
+    before = packed_matmul.f32_launches
+    got = packed_matmul.pb_f32_matmul(x, p, dot_dtype=dot_dtype)
+    torch.cuda.synchronize()
+    assert packed_matmul.f32_launches == before + 1
+    want = packed_matmul.pb_f32_matmul_plain(x, p, dot_dtype=dot_dtype)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gather", ["take", "dot"])
+def test_hybrid_prefill_on_the_card_matches_plain(cuda, gather):
+    p = _layer("side8", cuda)
+    x = torch.randn((300, p.ic), generator=torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    got = prefill.v2_prefill(x, p, gather=gather)
+    want = prefill.v2_prefill(x.cpu(), p.to("cpu"), gather=gather)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_hybrid_bf16_prefill_on_the_card_matches_plain(cuda):
+    """"hybrid_bf16": bf16 GEMMs with f32 output on the card against the
+    bf16-rounded operands multiplied in f32 on the CPU; the products are
+    exact either way, only the f32 sums run in another order."""
+    p = _layer("side8", cuda)
+    x = torch.randn((300, p.ic), generator=torch.Generator(device=cuda).manual_seed(1), device=cuda)
+    got = prefill.v2_prefill(x, p, dot_dtype=torch.bfloat16)
+    want = prefill.v2_prefill(x.cpu(), p.to("cpu"), dot_dtype=torch.bfloat16)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dots_bf16", [False, True])
+@pytest.mark.parametrize("b,t,s,h,d,causal,kv_len", [
+    (2, 128, 128, 4, 128, True, None),
+    (1, 100, 100, 2, 64, True, None),     # T not a multiple of the tile
+    (2, 77, 130, 3, 96, False, 101),      # non-causal, kv_len masking
+    (1, 64, 64, 2, 32, True, 0),          # no allowed key: zeros
+])
+def test_flash_attention_kernel_matches_plain(cuda, b, t, s, h, d, causal, kv_len, dots_bf16):
+    g = torch.Generator(device=cuda).manual_seed(t + d)
+    q = torch.randn((b, t, h, d), generator=g, device=cuda)
+    k, v = (torch.randn((b, s, h, d), generator=g, device=cuda) for _ in range(2))
+    args = (q, k, v, d ** -0.5)
+    kw = dict(causal=causal, kv_len=kv_len, dots_bf16=dots_bf16, return_residuals=True)
+    before = tfa.launches
+    out, m, l = tfa.flash_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert tfa.launches == before + 1
+    w_out, w_m, w_l = tfa.flash_attention_plain(*args, **kw)
+    assert torch.isfinite(out).all()
+    if kv_len == 0:
+        assert torch.equal(out, torch.zeros_like(out))
+    # bf16 weights round relative to the kernel's running max: bf16 precision
+    tol = 1e-2 if dots_bf16 else 1e-4
+    torch.testing.assert_close(out, w_out, rtol=tol, atol=tol)
+    torch.testing.assert_close(m, w_m, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(l, w_l, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_auto_attention_takes_flash_on_the_card(cuda):
+    """"auto" picks the kernel for windows of 1024 or more on a CUDA tensor,
+    GQA heads repeated first, as the JAX package does on its chip."""
+    from pb_llm_tpu_torch.models import attention as tattn
+    from pb_llm_tpu_torch.ops.kernel_config import KernelConfig, use_kernels
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q = torch.randn((1, 1024, 4, 64), generator=g, device=cuda)
+    k, v = (torch.randn((1, 1024, 2, 64), generator=g, device=cuda) for _ in range(2))
+    before = tfa.launches
+    with use_kernels(KernelConfig()):
+        got = tattn.full_causal_attention(q, k, v, 0.125)
+    torch.cuda.synchronize()
+    assert tfa.launches == before + 1
+    with use_kernels(KernelConfig(attention="xla")):
+        want = tattn.full_causal_attention(q, k, v, 0.125)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_auto_attention_raises_for_a_head_dim_the_kernel_cannot_take(cuda):
+    """A head dim of 256 is flash-eligible, as in the JAX package; the
+    kernel takes at most 128, so "auto" raises instead of quietly taking
+    the masked softmax."""
+    from pb_llm_tpu_torch.models import attention as tattn
+    from pb_llm_tpu_torch.ops.kernel_config import KernelConfig, use_kernels
+
+    q = torch.zeros((1, 1024, 2, 256), device=cuda)
+    with use_kernels(KernelConfig()), pytest.raises(ValueError, match="head_dim 256"):
+        tattn.full_causal_attention(q, q, q, 0.0625)

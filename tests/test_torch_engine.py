@@ -194,6 +194,18 @@ def test_entry_points_need_cuda_or_an_explicit_cpu(monkeypatch, packed_model):
         serve.main(["--model_id", "llama", "--synthetic", "--demo"])
 
 
+def test_make_caches_needs_cuda_or_an_explicit_device(monkeypatch):
+    """`make_caches` resolves its device like every entry point: no silent
+    CPU default."""
+    from pb_llm_tpu_torch.runtime import kv_cache
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        kv_cache.make_caches(None, 2, 16, 1, 2, 8, torch.int8)
+    caches = kv_cache.make_caches(None, 2, 16, 1, 2, 8, torch.int8, device="cpu")
+    assert caches[0]["k"].device.type == "cpu" and caches[0]["k_scale"].shape == (2, 16, 2, 1)
+
+
 @pytest.mark.parametrize("field,value", [("page_size", 16), ("spec_gamma", 2),
                                          ("prefill_chunk", 16), ("prefix_cache", True)])
 def test_unported_engine_modes_raise(packed_model, field, value):
