@@ -4,7 +4,9 @@
     python3 chip_smoke.py            # the whole run, one card
     python3 chip_smoke.py --profile  # also trace three decode steps
 
-Phases, in order; any failure raises and the exit code is not 0:
+Phases (they run in order, but 5 runs last: it pins the exact prefill for
+the rest of the process, as run_ptq does); any failure raises and the exit
+code is not 0:
 
 1. set-up: the card's name and power limit (nvidia-smi), the kernels built
    from `pb_llm_tpu_torch/csrc/` in parallel (one nvcc each), TF32 off;
@@ -14,7 +16,8 @@ Phases, in order; any failure raises and the exit code is not 0:
    call computes the same function, and the least time the card could take
    (`bound_ms`): the int8 matmul and decode attention (serving), the
    binary-part dequant, the exact f32 matmul and flash attention (the
-   producer and the exact arms);
+   producer and the exact arms), paged attention (the paged pool: decode,
+   speculative verify, chunk continuation, GQA);
 3. the same 2-layer full-width llama-7b engine on the card (kernels) and on
    the CPU (the kernels' plain versions): prefill logits, teacher-forced
    NLL and 8 greedy tokens; once on the int8 arms, once on the exact arms
@@ -27,7 +30,17 @@ Phases, in order; any failure raises and the exit code is not 0:
    GPTQ-PB into PBW v2 on synthetic text, then its windowed perplexity under
    the exact hybrid prefill, with the kernels and with their plain versions
    (which must agree); the launch counters are zeroed just before and read
-   just after.  One linear is also solved on the card and on the CPU.
+   just after.  One linear is also solved on the card and on the CPU;
+6a. paged serving invariants on a 2-layer full-width llama-7b: the int8
+   paged engine on the card against the CPU (phase 3's bounds), then, on
+   the exact arms, paged equals strip, prefix cache on equals off, chunked
+   equals one-shot, speculative equals plain, a preempting pool equals an
+   ample one, a self-draft model accepts >= 95% (greedy streams under the
+   margin rule);
+6b. end to end, paged serving: the 32-layer model of phase 4 behind a paged
+   int8 pool with the prefix cache and chunked prefill, 16 requests twice
+   (plain decode, then spec_gamma 4); the launch counters are zeroed just
+   before each pass and read just after, and must match the forwards run.
 
 The last two lines are the `kernels` JSON line and
 `{"ok": true, "device": {...}}`.  Without CUDA it exits 1 before any phase.
@@ -77,6 +90,28 @@ FLASH_CASES = ((4, 2048, 32, 128, True),   # B, T, H, D, causal: 4 eval windows 
                (1, 2000, 32, 128, True),   # T not a multiple of the 64-row tile
                (1, 2048, 32, 128, False))
 FLASH_RTOL, FLASH_ATOL = 1e-4, 1e-4
+PAGED_POOL = (1024, 16, 128)  # pages (+ the trash page), page size, table width (max_seq 2048)
+PAGED_CASES = (  # name, B, t, Hq, Hkv, D, int8 pages, largest base
+    ("decode_int8", 8, 1, 32, 32, 128, True, 511),     # 8 slots, lengths up to 512
+    ("decode_f32", 8, 1, 32, 32, 128, False, 511),
+    ("verify_t5_int8", 8, 5, 32, 32, 128, True, 507),  # spec_gamma 4
+    ("chunk_t256_int8", 4, 256, 32, 32, 128, True, 1024),  # prefill_chunk 256
+    ("decode_gqa_int8", 8, 1, 32, 8, 128, True, 511),
+)
+# phase 6a: 8 requests of 16 new tokens per run, pages of 16, f32 pages,
+# the exact matmul arms: under the int8 arms a 1e-7 difference in attention
+# can flip the int8 rounding of an activation and move the logits by up to
+# ~2e-2 of max|logit| (LOGIT_TOL above), which no margin rule separates
+# from a fault; the int8 paged engine is held to LOGIT_TOL instead
+INV_ECFG = dict(n_slots=8, max_seq=1024, prefill_buckets=(128, 512, 1024))
+INV_ARMS = dict(decode_dot="f32", prefill="hybrid")
+INV_NEW = 16
+# a greedy stream may differ from its counterpart only where, at the first
+# differing token, the reference run's two highest logits lie this close
+# (of max|logit|): two programs summing in other orders then pick either
+MARGIN = 1e-4
+SELF_DRAFT_ACCEPT = 0.95
+E2E_NEW = 32
 # producer: 2 layers at full width, the reference sweep's solver settings
 PTQ_NSAMPLES, PTQ_SEQLEN, PPL_BATCH, PPL_WINDOWS = 8, 2048, 4, 8
 PPL_RTOL = 5e-4       # kernels vs plain versions, the JAX golden test's bound
@@ -332,6 +367,82 @@ def check_flash(timer: Timer, card: str):
     return rows
 
 
+def check_paged_attention(timer: Timer, card: str):
+    """Paged attention on a pool of 1025 pages of 16 through shuffled
+    tables, at the paged serving path's shapes.  Library: SDPA over the same
+    K/V gathered into dense strips beforehand (bf16 for int8 pages, as for
+    decode attention; f32 for f32 pages); the gather is not timed."""
+    from pb_llm_tpu_torch.ops import paged_attention as tpa
+
+    n_pages, ps, maxp = PAGED_POOL
+    gen = torch.Generator(device=DEV).manual_seed(12)
+    rng = np.random.default_rng(13)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = []
+    for name, b, t, hq, hkv, d, int8, max_base in PAGED_CASES:
+        kv = [torch.randn((n_pages + 1, hkv, ps, d), generator=gen, device=DEV) for _ in range(2)]
+        if int8:
+            scaled = []
+            for x in kv:
+                sc = torch.clamp(x.abs().amax(-1) / 127.0, min=1e-8)
+                q8 = torch.clamp(torch.round(x / sc[..., None]), -127, 127).to(torch.int8)
+                scaled += [q8, sc]
+            k, ks, v, vs = scaled
+        else:
+            (k, v), ks, vs = kv, None, None
+        del kv
+        table = torch.randperm(n_pages, generator=gen, device=DEV)[: b * maxp].reshape(b, maxp)
+        table = table.to(torch.int32)
+        base = torch.as_tensor(rng.integers(0, max_base + 1, b), device=DEV)
+        base[0] = max_base
+        q = torch.randn((b, t, hq, d), generator=gen, device=DEV)
+        scale = d ** -0.5
+        got = tpa.paged_attention_multi(q, k, v, table, base, scale, ps, ks, vs)
+        torch.cuda.synchronize()
+        want = tpa.paged_attention_plain(q, k, v, table, base, scale, ps, ks, vs)
+        err = (got - want).abs()
+        if not (torch.isfinite(got).all() and torch.all(err <= ATTN_ATOL + ATTN_RTOL * want.abs())):
+            raise AssertionError(f"paged_attention {name}: max|err| {err.max().item()} beyond "
+                                 f"rtol {ATTN_RTOL} atol {ATTN_ATOL}")
+        qs, bs = (q * scale).contiguous(), base.to(torch.int32)
+
+        n = -(-int((base + t).max()) // ps)
+        idx = table[:, :n].long()
+        ldt = torch.bfloat16 if int8 else torch.float32
+
+        def dense(pages, sc):  # [B, Hkv, S, D] in the library's type
+            x = pages[idx].transpose(2, 3).reshape(b, n * ps, hkv, d).float()
+            if sc is not None:
+                x = x * sc[idx].transpose(2, 3).reshape(b, n * ps, hkv, 1)
+            return x.transpose(1, 2).to(ldt).contiguous()
+
+        kd, vd = dense(k, ks), dense(v, vs)
+        qd = q.transpose(1, 2).to(ldt).contiguous()
+        lim = base[:, None] + 1 + torch.arange(t, device=DEV)[None, :]
+        mask = (torch.arange(n * ps, device=DEV)[None, None, :] < lim[:, :, None])[:, None]
+        pairs = int(lim.sum())                 # (row, allowed key) pairs per q head
+        live = int((base + t).sum())           # keys read per kv head
+        row_bytes = 2 * d + 8 if int8 else 8 * d
+        nbytes = 4 * 2 * b * t * hq * d + live * hkv * row_bytes + 4 * (b * n + b)
+        bound_ms, bound_by = bound(nbytes, 4 * d * hq * pairs, F32_FLOPS_PER_S)
+        plain_iters = 3 if t > 8 else 5
+        row = {"kernel": "paged_attention", "case": name, "B": b, "t": t, "Hq": hq, "Hkv": hkv,
+               "D": d, "page": ps, "pages": n_pages + 1, "int8": int8,
+               "bases": base.tolist(), "max_abs_err": err.max().item(),
+               "kernel_ms": timer(lambda: tpa.launch(qs, k, v, table, bs, ks, vs, decode=t == 1)),
+               "wrapper_ms": timer(lambda: tpa.paged_attention_multi(q, k, v, table, base, scale,
+                                                                     ps, ks, vs)),
+               "plain_ms": timer(lambda: tpa.paged_attention_plain(q, k, v, table, base, scale, ps,
+                                                                   ks, vs), iters=plain_iters),
+               "library_ms": timer(lambda: sdpa(qd, kd, vd, attn_mask=mask, scale=scale,
+                                                enable_gqa=hq != hkv)),
+               "bound_ms": bound_ms, "bound_by": bound_by, "card": card}
+        log(json.dumps(row))
+        rows.append(row)
+        del k, v, ks, vs, kd, vd, got, want, err
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the same engine on the card and on the CPU
 # ---------------------------------------------------------------------------
@@ -361,30 +472,36 @@ def run_parity(params, cfg, device, **ecfg_kw):
     return logits, toks, nll
 
 
-def check_engine_parity(params, arms: str):
+def check_engine_parity(params, arms: str, page_size: int = 0):
     """``arms`` "int8": the serving defaults; "exact": decode_dot f32 and
-    the hybrid prefill, whose f32 matmul launches on the card are counted."""
+    the hybrid prefill, whose f32 matmul launches on the card are counted.
+    ``page_size``: the paged int8 pool instead of int8 strips (phase 6a),
+    whose paged-attention launches on the card are counted."""
     from pb_llm_tpu_torch.ops import packed_matmul as pm
+    from pb_llm_tpu_torch.ops import paged_attention as pa
     from pb_llm_tpu_torch.ops.kernel_config import KernelConfig
 
     cfg = llama7b(2)
     arm_kw = (dict(decode_dot="int8", prefill="int8") if arms == "int8"
               else dict(decode_dot="f32", prefill="hybrid"))
     card_kernels = None if arms == "int8" else KernelConfig(**arm_kw)
-    pm.f32_launches = 0
+    pm.f32_launches = pa.launches = 0
     t0 = time.perf_counter()
-    g_logits, g_toks, g_nll = run_parity(params, cfg, DEV, kernels=card_kernels)
+    g_logits, g_toks, g_nll = run_parity(params, cfg, DEV, kernels=card_kernels,
+                                         page_size=page_size)
     torch.cuda.synchronize()
     gpu_s = time.perf_counter() - t0
-    f32_launches = pm.f32_launches
+    f32_launches, paged_launches = pm.f32_launches, pa.launches
     plain = KernelConfig(backend="pallas_interpret", decode_attention="pallas_interpret", **arm_kw)
     t0 = time.perf_counter()
-    c_logits, c_toks, c_nll = run_parity(params, cfg, "cpu", cache_dtype=torch.int8, kernels=plain)
+    c_logits, c_toks, c_nll = run_parity(params, cfg, "cpu", cache_dtype=torch.int8, kernels=plain,
+                                         page_size=page_size)
     cpu_s = time.perf_counter() - t0
     scale = c_logits.abs().max().item()
     err = (g_logits - c_logits).abs().max().item()
     tol = LOGIT_TOL if arms == "int8" else LOGIT_TOL_EXACT
-    row = {"phase": "engine_parity", "arms": arms, "layers": 2, "max_abs_logit_err": err,
+    row = {"phase": "engine_parity", "arms": arms, "page_size": page_size, "layers": 2,
+           "paged_attention_launches": paged_launches, "max_abs_logit_err": err,
            "max_abs_logit": scale, "err_over_max_logit": err / scale, "tol_over_max_logit": tol,
            "gpu_tokens": g_toks, "cpu_tokens": c_toks, "gpu_nll": g_nll, "cpu_nll": c_nll,
            "f32_matmul_launches": f32_launches, "gpu_s": gpu_s, "cpu_s": cpu_s}
@@ -399,6 +516,8 @@ def check_engine_parity(params, arms: str):
         raise AssertionError(f"engine parity ({arms}): NLL {g_nll} vs {c_nll}")
     if arms == "exact" and f32_launches == 0:
         raise AssertionError("engine parity (exact): the f32 matmul kernel never launched")
+    if page_size and paged_launches == 0:
+        raise AssertionError("engine parity (paged): the paged-attention kernel never launched")
     return row
 
 
@@ -412,19 +531,14 @@ def packed_bytes(p) -> int:
                 p.high_scale, p.high_zero))
 
 
-def serve_e2e(card: str, profile: bool):
-    from pb_llm_tpu_torch.data.synthetic import random_packed_llama
+def serve_e2e(params, build_s: float, card: str, profile: bool):
     from pb_llm_tpu_torch.models.registry import family_for
     from pb_llm_tpu_torch.runtime.batching import ContinuousBatcher, Request
     from pb_llm_tpu_torch.runtime.engine import Engine, EngineConfig
 
     cfg = llama7b(32)
-    t0 = time.perf_counter()
-    params = random_packed_llama(cfg, torch.Generator(device=DEV).manual_seed(5))
     eng = Engine(params, cfg, family_for("llama"), EngineConfig(n_slots=8, max_seq=2048),
                  device=DEV)
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
     n_linear = sum(1 for lp in params["layers"] for v in lp.values() if hasattr(v, "sign_packed"))
     plane_bytes = sum(packed_bytes(v) for lp in params["layers"] for v in lp.values()
                       if hasattr(v, "sign_packed"))
@@ -476,8 +590,9 @@ def serve_e2e(card: str, profile: bool):
         raise AssertionError(f"e2e: {mm} matmul launches for {forwards} forwards")
     if att != cfg.num_hidden_layers * forwards["decode"] or att == 0:
         raise AssertionError(f"e2e: {att} attention launches for {forwards} forwards")
-    if launches["pb_dequant_v2"] or launches["pb_f32_matmul"] or launches["flash_attention"]:
-        raise AssertionError(f"e2e: the serving defaults launched an exact-arm kernel: {launches}")
+    if (launches["pb_dequant_v2"] or launches["pb_f32_matmul"] or launches["flash_attention"]
+            or launches["paged_attention_decode"] or launches["paged_attention_multi"]):
+        raise AssertionError(f"e2e: the strip serving defaults launched another kernel: {launches}")
 
     kv_row_bytes = cfg.num_hidden_layers * cfg.kv_heads * (2 * cfg.head_dim + 8)
     mean_rows = statistics.mean(kv_rows)
@@ -544,20 +659,24 @@ def zero_counters() -> None:
     from pb_llm_tpu_torch.ops import decode_attention as da
     from pb_llm_tpu_torch.ops import flash_attention as fa
     from pb_llm_tpu_torch.ops import packed_matmul as pm
+    from pb_llm_tpu_torch.ops import paged_attention as pa
     from pb_llm_tpu_torch.ops import prefill as pf
 
     pm.launches = pm.f32_launches = da.launches = pf.launches = fa.launches = 0
+    pa.launches = pa.decode_launches = pa.multi_launches = 0
 
 
 def read_counters() -> dict:
     from pb_llm_tpu_torch.ops import decode_attention as da
     from pb_llm_tpu_torch.ops import flash_attention as fa
     from pb_llm_tpu_torch.ops import packed_matmul as pm
+    from pb_llm_tpu_torch.ops import paged_attention as pa
     from pb_llm_tpu_torch.ops import prefill as pf
 
     return {"pb_int8_matmul": pm.launches, "decode_attention": da.launches,
             "pb_dequant_v2": pf.launches, "pb_f32_matmul": pm.f32_launches,
-            "flash_attention": fa.launches}
+            "flash_attention": fa.launches, "paged_attention_decode": pa.decode_launches,
+            "paged_attention_multi": pa.multi_launches}
 
 
 def compare_solves(w, h, scfg, metrics=("magnitude", "hessian")):
@@ -667,7 +786,8 @@ def producer(card: str):
     chunks = 1  # capture_batch == nsamples: one calibration chunk per layer
     want = {"pb_dequant_v2": n_packed * (chunks + forwards),
             "flash_attention": cfg.num_hidden_layers * (2 * chunks + forwards),
-            "pb_int8_matmul": 0, "decode_attention": 0, "pb_f32_matmul": 0}
+            "pb_int8_matmul": 0, "decode_attention": 0, "pb_f32_matmul": 0,
+            "paged_attention_decode": 0, "paged_attention_multi": 0}
     row = {"phase": "producer", "model": "llama-7b widths, 2 layers, random-init f32 weights",
            "calib": f"synthetic wikitext2 (ptq flavor), {PTQ_NSAMPLES} x {PTQ_SEQLEN}",
            "calib_distinct_tokens": int(np.unique(calib).size),
@@ -690,6 +810,254 @@ def producer(card: str):
     return row
 
 
+# ---------------------------------------------------------------------------
+# phase 6a: paged serving invariants
+# ---------------------------------------------------------------------------
+
+def serve_streams(params, cfg, prompts, draft_source=None, **ecfg_kw):
+    """Greedy streams of ``prompts`` (INV_NEW tokens each) through
+    ContinuousBatcher on the card, f32 KV unless told otherwise."""
+    from pb_llm_tpu_torch.models.registry import family_for
+    from pb_llm_tpu_torch.ops.kernel_config import KernelConfig
+    from pb_llm_tpu_torch.runtime.batching import ContinuousBatcher, Request
+    from pb_llm_tpu_torch.runtime.engine import Engine, EngineConfig
+
+    kw = dict(INV_ECFG, cache_dtype=torch.float32, kernels=KernelConfig(**INV_ARMS)) | ecfg_kw
+    eng = Engine(params, cfg, family_for("llama"), EngineConfig(**kw), device=DEV)
+    batcher = ContinuousBatcher(eng, draft_source=draft_source)
+    reqs = [Request(request_id=i, prompt_ids=list(p), max_new_tokens=INV_NEW)
+            for i, p in enumerate(prompts)]
+    batcher.run(reqs)
+    if not all(r.done and len(r.output_ids) == INV_NEW for r in reqs):
+        raise AssertionError(f"invariants {ecfg_kw}: a request did not produce its tokens")
+    return [r.output_ids for r in reqs], batcher
+
+
+def hold_streams(params, cfg, what: str, prompts, want, got) -> dict:
+    """``got`` must equal ``want`` (the reference run) request by request,
+    but for near-ties: at a request's first differing token the reference
+    run's two highest logits, re-scored by a one-shot strip prefill of its
+    own prefix, must lie within MARGIN of max|logit|.  Each such case is
+    printed; any other difference fails the run."""
+    from pb_llm_tpu_torch.models.registry import family_for
+    from pb_llm_tpu_torch.ops.kernel_config import KernelConfig
+    from pb_llm_tpu_torch.runtime.engine import Engine, EngineConfig
+
+    ties = []
+    for i, (w, g) in enumerate(zip(want, got)):
+        if w == g:
+            continue
+        k = next(j for j, (a, b) in enumerate(zip(w, g)) if a != b)
+        ref = Engine(params, cfg, family_for("llama"),
+                     EngineConfig(n_slots=1, max_seq=2048, prefill_buckets=(1024, 2048),
+                                  cache_dtype=torch.float32, kernels=KernelConfig(**INV_ARMS)),
+                     device=DEV)
+        ref.prefill(0, list(prompts[i]) + w[:k])
+        logits = ref._prefill_logits[0].float()
+        top2 = torch.topk(logits, 2).values
+        gap, scale = float(top2[0] - top2[1]), float(logits.abs().max())
+        tie = {"check": what, "request": i, "first_diff": k, "want": w[k], "got": g[k],
+               "top2_gap": gap, "max_abs_logit": scale, "gap_over_max": gap / scale}
+        log(json.dumps({"phase": "invariants_near_tie", **tie}))
+        if gap > MARGIN * scale:
+            raise AssertionError(f"invariants ({what}): request {i} differs at token {k} with a "
+                                 f"top-2 gap of {gap} > {MARGIN} * {scale}")
+        ties.append(tie)
+        del ref
+    return {"check": what, "requests": len(want), "equal": sum(w == g for w, g in zip(want, got)),
+            "near_ties": len(ties)}
+
+
+def paged_invariants(params, card: str):
+    """The JAX package's serving invariants at full width on the card: 2
+    layers of random PBW-v2 planes, the exact matmul arms (INV_ARMS), pages
+    of 16."""
+    from pb_llm_tpu_torch.models.registry import family_for
+    from pb_llm_tpu_torch.ops.kernel_config import KernelConfig
+    from pb_llm_tpu_torch.runtime.draft import ModelDraftSource
+    from pb_llm_tpu_torch.runtime.engine import Engine, EngineConfig
+
+    from pb_llm_tpu_torch.interop import to_device
+
+    cfg = llama7b(2)
+    params = to_device(params, DEV)  # once, not for each engine
+    v = cfg.vocab_size
+    rng = np.random.default_rng(14)
+
+    def rand(lo, hi):
+        return rng.integers(0, v, int(rng.integers(lo, hi + 1))).tolist()
+
+    short = [rand(20, 120) for _ in range(8)]
+    prefix = rng.integers(0, v, 96).tolist()
+    shared = [prefix + rand(20, 120) for _ in range(4)] + short[:4]
+    long = [rand(600, 1000) for _ in range(8)]
+    tight = [rand(116, 124) for _ in range(8)]  # all cross a page of 128 while decoding
+    t0 = time.perf_counter()
+    out = []
+    strip, _ = serve_streams(params, cfg, short)
+    paged, _ = serve_streams(params, cfg, short, page_size=16)
+    out.append(hold_streams(params, cfg, "paged vs strip", short, strip, paged))
+    off, _ = serve_streams(params, cfg, shared, page_size=16)
+    on, b_on = serve_streams(params, cfg, shared, page_size=16, prefix_cache=True)
+    out.append(hold_streams(params, cfg, "prefix cache on vs off", shared, off, on))
+    hits = b_on.engine.pool.prefix_hit_pages
+    one, _ = serve_streams(params, cfg, long, page_size=16)
+    chunked, _ = serve_streams(params, cfg, long, page_size=16, prefill_chunk=256)
+    out.append(hold_streams(params, cfg, "prefill_chunk 256 vs one-shot", long, one, chunked))
+    spec, b_spec = serve_streams(params, cfg, short, page_size=16, spec_gamma=4)
+    out.append(hold_streams(params, cfg, "spec_gamma 4 vs plain", short, paged, spec))
+    ample, _ = serve_streams(params, cfg, tight, page_size=16)
+    small, b_small = serve_streams(params, cfg, tight, page_size=16, n_pages=34)
+    out.append(hold_streams(params, cfg, "34 pages (preempting) vs ample", tight, ample, small))
+    draft = ModelDraftSource(Engine(params, cfg, family_for("llama"),
+                                    EngineConfig(**INV_ECFG, cache_dtype=torch.float32,
+                                                 kernels=KernelConfig(**INV_ARMS)), device=DEV))
+    selfd, b_self = serve_streams(params, cfg, short, draft_source=draft, page_size=16,
+                                  spec_gamma=4)
+    out.append(hold_streams(params, cfg, "self-draft spec vs plain", short, paged, selfd))
+    accept = b_self.stats.spec_accepted / max(b_self.stats.spec_drafted, 1)
+    torch.cuda.synchronize()
+    row = {"phase": "paged_invariants", "layers": 2, "page_size": 16, "arms": INV_ARMS,
+           "checks": out,
+           "prefix_hit_pages": hits, "preemptions": b_small.stats.preemptions,
+           "spec_prompt_lookup_accept": b_spec.stats.spec_accepted
+           / max(b_spec.stats.spec_drafted, 1), "self_draft_accept": accept,
+           "seconds": time.perf_counter() - t0, "card": card}
+    log(json.dumps(row))
+    if hits == 0:
+        raise AssertionError("invariants: the prefix cache never hit")
+    if b_small.stats.preemptions == 0:
+        raise AssertionError("invariants: the small pool never preempted")
+    if accept < SELF_DRAFT_ACCEPT:
+        raise AssertionError(f"invariants: self-draft acceptance {accept} < {SELF_DRAFT_ACCEPT}")
+    return row
+
+
+# ---------------------------------------------------------------------------
+# phase 6b: paged serving end to end
+# ---------------------------------------------------------------------------
+
+def paged_e2e(params, card: str):
+    """The 32-layer llama-7b of phase 4 behind `EngineConfig(n_slots=8,
+    max_seq=2048, page_size=16, prefix_cache=True, prefill_chunk=256)`, int8
+    pages: the same 16 requests on a fresh engine with plain decode (the
+    t = 1 kernel), then with spec_gamma 4 (every tick a t = 5 verify)."""
+    from pb_llm_tpu_torch.models.registry import family_for
+    from pb_llm_tpu_torch.runtime.batching import ContinuousBatcher, Request
+    from pb_llm_tpu_torch.runtime.engine import Engine, EngineConfig
+
+    cfg = llama7b(32)
+    v = cfg.vocab_size
+    rng = np.random.default_rng(15)
+
+    def rand(lo, hi):
+        return rng.integers(0, v, int(rng.integers(lo, hi + 1))).tolist()
+
+    prefix = rng.integers(0, v, 96).tolist()
+    shared = [prefix + rand(20, 120) for _ in range(8)]
+    long = [rand(600, 1000) for _ in range(4)]   # longer than a chunk: the chunked path
+    short = [rand(8, 32) for _ in range(4)]
+    prompts = []
+    for i in range(4):
+        prompts += [shared[2 * i], long[i], short[i], shared[2 * i + 1]]
+    n_linear, n_layers = 7 * cfg.num_hidden_layers, cfg.num_hidden_layers
+    rows = []
+    for gamma in (0, 4):
+        eng = Engine(params, cfg, family_for("llama"),
+                     EngineConfig(n_slots=8, max_seq=2048, page_size=16, prefix_cache=True,
+                                  prefill_chunk=256, spec_gamma=gamma), device=DEV)
+        assert eng.cache_dtype == torch.int8 and eng.pool.n_pages == 1024
+        pool_bytes = sum(t.numel() * t.element_size() for c in eng.caches
+                         for k, t in c.items() if k != "table")
+        ContinuousBatcher(eng).run([Request(request_id=-1, prompt_ids=[1, 2, 3],
+                                            max_new_tokens=2)])  # cuBLAS, allocator
+        forwards = {"prefill": 0, "decode": 0, "verify": 0, "window": 0}
+        finite = torch.ones((), dtype=torch.bool, device=DEV)
+        step_ms, chunk_steps = [], [0]
+        fwd, dec, spec, chunk = (eng._forward, eng.decode_step, eng.spec_decode_step,
+                                 eng.prefill_chunk_step)
+
+        def counted_forward(ids, caches, pos):
+            nonlocal finite
+            if "chunk_table" in caches[0]:
+                kind = "window"  # a chunk or a prefix-cache suffix
+            elif isinstance(pos, torch.Tensor):
+                kind = "decode" if np.asarray(ids).shape[1] == 1 else "verify"
+            else:
+                kind = "prefill"
+            forwards[kind] += 1
+            logits = fwd(ids, caches, pos)
+            finite = finite & torch.isfinite(logits).all()
+            return logits
+
+        def timed(fn):
+            def run(*a):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn(*a)
+                torch.cuda.synchronize()
+                if out:  # a tick with no decoding slot runs no forward
+                    step_ms.append((time.perf_counter() - t) * 1e3)
+                return out
+            return run
+
+        def counted_chunk(slot):
+            chunk_steps[0] += 1
+            return chunk(slot)
+
+        eng._forward, eng.prefill_chunk_step = counted_forward, counted_chunk
+        eng.decode_step, eng.spec_decode_step = timed(dec), timed(spec)
+        reqs = [Request(request_id=i, prompt_ids=p, max_new_tokens=E2E_NEW)
+                for i, p in enumerate(prompts)]
+        batcher = ContinuousBatcher(eng)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        hits0 = eng.pool.prefix_hit_pages
+        zero_counters()
+        batcher.run(reqs)
+        torch.cuda.synchronize()
+        launches = read_counters()
+        s = batcher.stats
+        n_fwd = sum(forwards.values())
+        row = {"phase": "paged_e2e", "pass": 1 if gamma == 0 else 2, "spec_gamma": gamma,
+               "model": "llama-7b PBW-v2 (random planes, low_frac 0.9)", "layers": n_layers,
+               "slots": 8, "max_seq": 2048, "page_size": 16, "pages": eng.pool.n_pages + 1,
+               "kv": "int8 pages", "requests": len(reqs), "generated_tokens": s.generated_tokens,
+               "wall_s": s.wall_seconds, "tokens_per_s": s.tokens_per_second,
+               "decode_steps": len(step_ms), "ms_per_step_median": statistics.median(step_ms),
+               "ms_per_step_mean": statistics.mean(step_ms), "forwards": forwards,
+               "chunk_steps": chunk_steps[0], "spec_drafted": s.spec_drafted,
+               "spec_accepted": s.spec_accepted,
+               "acceptance": s.spec_accepted / s.spec_drafted if s.spec_drafted else None,
+               "prefix_hit_pages": eng.pool.prefix_hit_pages - hits0,
+               "preemptions": s.preemptions, "pool_bytes": pool_bytes, "launches": launches,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card}
+        log(json.dumps(row))
+        eng._forward, eng.decode_step, eng.spec_decode_step = fwd, dec, spec
+        eng.prefill_chunk_step = chunk
+        if not bool(finite):
+            raise AssertionError(f"paged e2e pass {row['pass']}: non-finite logits")
+        if not all(r.done and len(r.output_ids) == E2E_NEW for r in reqs):
+            raise AssertionError(f"paged e2e pass {row['pass']}: a request lacks its tokens")
+        want = {"pb_int8_matmul": n_linear * n_fwd, "decode_attention": 0,
+                "pb_dequant_v2": 0, "pb_f32_matmul": 0, "flash_attention": 0,
+                "paged_attention_decode": n_layers * forwards["decode"],
+                "paged_attention_multi": n_layers * (forwards["verify"] + forwards["window"])}
+        if launches != want:
+            raise AssertionError(f"paged e2e pass {row['pass']}: launches {launches}, "
+                                 f"expected {want} for {forwards}")
+        if gamma == 0 and launches["paged_attention_decode"] == 0:
+            raise AssertionError("paged e2e pass 1: the decode kernel never launched")
+        if launches["paged_attention_multi"] == 0 or (gamma and forwards["verify"] == 0):
+            raise AssertionError(f"paged e2e pass {row['pass']}: no multi-query launch")
+        if row["prefix_hit_pages"] == 0 or chunk_steps[0] == 0:
+            raise AssertionError(f"paged e2e pass {row['pass']}: no prefix hit or no chunk")
+        rows.append(row)
+        del eng, batcher
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true", help="trace three decode steps")
@@ -706,18 +1074,28 @@ def main(argv=None) -> int:
     dq_rows = check_dequant(timer, card)
     f32_rows = check_f32_matmul(timer, card)
     fa_rows = check_flash(timer, card)
+    pa_rows = check_paged_attention(timer, card)
     del timer
     parity_params = random_packed_llama(llama7b(2), torch.Generator().manual_seed(4))
     check_engine_parity(parity_params, "int8")
     exact = check_engine_parity(parity_params, "exact")
+    t0 = time.perf_counter()
+    params = random_packed_llama(llama7b(32), torch.Generator(device=DEV).manual_seed(5))
+    torch.cuda.synchronize()
+    e2e = serve_e2e(params, time.perf_counter() - t0, card, args.profile)
+    check_engine_parity(parity_params, "int8", page_size=16)
+    paged_invariants(parity_params, card)
     del parity_params
-    e2e = serve_e2e(card, args.profile)
+    paged = paged_e2e(params, card)
+    del params
+    torch.cuda.empty_cache()
     prod = producer(card)
 
     head = next(r for r in mm_rows if (r["m"], r["ic"], r["oc"]) == HEADLINE_SHAPE)
     dq = next(r for r in dq_rows if (r["ic"], r["oc"], r["dtype"]) == (4096, 11008, "torch.float32"))
     f32 = next(r for r in f32_rows if (r["m"], r["ic"], r["oc"]) == HEADLINE_SHAPE)
     fa = fa_rows[0]
+    pa = next(r for r in pa_rows if r["case"] == "decode_int8")
     kernels = [
         {"name": "pb_int8_matmul", "route": "cuda", "source": "pb_llm_tpu_torch/csrc/pb_int8_matmul.cu",
          "replaces": "pb_llm_tpu/ops/pallas_pb.py:393", "launches": e2e["matmul_launches"],
@@ -748,6 +1126,14 @@ def main(argv=None) -> int:
          "plain_ms": fa["plain_ms"], "bound_ms": fa["bound_ms"], "bound_by": fa["bound_by"],
          "library_ms": fa["library_ms"], "parity": "ok",
          "shape": "B={} T={} H={} D={} causal f32".format(*FLASH_CASES[0][:4])},
+        {"name": "paged_attention", "route": "cuda", "source": "pb_llm_tpu_torch/csrc/paged_attention.cu",
+         "replaces": "pb_llm_tpu/ops/paged_attention.py:35",
+         "launches": sum(r["launches"]["paged_attention_decode"]
+                         + r["launches"]["paged_attention_multi"] for r in paged),
+         "max_abs_err": max(r["max_abs_err"] for r in pa_rows), "ms": pa["kernel_ms"],
+         "plain_ms": pa["plain_ms"], "bound_ms": pa["bound_ms"], "bound_by": pa["bound_by"],
+         "library_ms": pa["library_ms"], "parity": "ok",
+         "shape": "B=8 Hq=Hkv=32 D=128 int8 pages of 16 (1025), lengths <= 512, decode"},
     ]
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,13 +1,16 @@
-"""Serving demo CLI (port of `pb_llm_tpu/cli/serve.py`, strip-cache path):
-runs a batch of prompts through the continuous batcher and reports tokens/s.
+"""Serving demo CLI (port of `pb_llm_tpu/cli/serve.py`): runs a batch of
+prompts through the continuous batcher and reports tokens/s.
 
     python -m pb_llm_tpu_torch.cli.serve --model_id llama --synthetic --demo
+    python -m pb_llm_tpu_torch.cli.serve --model_id llama --synthetic --demo \
+        --page_size 8 --prefix_cache --prefill_chunk 16 --spec_gamma 3
     python -m pb_llm_tpu_torch.cli.serve --model_id huggyllama/llama-7b --synthetic \
         --pbw checkpoints/llama7b_pbw
 
 Runs on CUDA unless ``--device cpu`` is given.  ``--pbw`` installs a PBW v2
-checkpoint over the params the other flags build (HF import and dense
-checkpoints are not ported yet).
+checkpoint over the params the other flags build.  HF import, dense
+checkpoints, draft models from checkpoints, the HTTP front end, TP and
+scanned layers are not ported yet.
 """
 
 from __future__ import annotations
@@ -25,8 +28,33 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--temperature", type=float, default=0.0)
     p.add_argument("--kv_dtype", type=str, default="auto", choices=["auto", "int8", "f32"],
                    help="KV cache dtype; auto = int8 on CUDA, f32 on the CPU")
+    p.add_argument("--page_size", type=int, default=0,
+                   help="paged KV cache: page size in tokens (0 = fixed strips); memory per "
+                        "request becomes proportional to its length")
+    p.add_argument("--n_pages", type=int, default=0,
+                   help="page-pool size (0 = full strip capacity; fewer pages oversubscribe "
+                        "the slots, and the batcher preempts when the pool runs out)")
+    p.add_argument("--prefix_cache", action="store_true",
+                   help="prefix caching over the paged pool (requires --page_size): requests "
+                        "sharing a page-aligned prompt prefix reuse its cached KV pages and "
+                        "prefill only their suffix")
     p.add_argument("--prefill_batch", type=int, default=4,
                    help="prefill up to K same-bucket prompts in one forward")
+    p.add_argument("--prefill_chunk", type=int, default=0,
+                   help="chunked prefill: prompts longer than this prefill one chunk per tick, "
+                        "interleaved with decode steps (0 disables)")
+    p.add_argument("--spec_gamma", type=int, default=0,
+                   help="speculative decoding: verify this many draft tokens per decode step "
+                        "(greedy streams equal plain decode; 0 disables). Drafts come from "
+                        "prompt lookup unless a --draft_* flag is given")
+    p.add_argument("--draft_model_id", type=str, default=None,
+                   help="draft model for speculative decoding (HF id; not ported yet)")
+    p.add_argument("--draft_checkpoint", type=str, default=None,
+                   help="dense checkpoint dir for the draft model (not ported yet)")
+    p.add_argument("--draft_pbw", type=str, default=None,
+                   help="PBW packed checkpoint dir for the draft model (not ported yet)")
+    p.add_argument("--draft_synthetic", action="store_true",
+                   help="with --synthetic: a 1-layer synthetic draft model")
     p.add_argument("--decode_dot", type=str, default=None,
                    choices=["auto", "f32", "int8", "dma", "bf16", "pair"],
                    help="PBW-v2 decode dot arm (auto = int8; only int8 is ported)")
@@ -57,6 +85,15 @@ def main(argv=None) -> int:
     from ..runtime.engine import Engine, EngineConfig
     from ..runtime.sampler import SamplingParams
 
+    if args.draft_model_id or args.draft_checkpoint or args.draft_pbw or args.draft_synthetic:
+        if not args.spec_gamma:
+            raise SystemExit("--draft_* requires --spec_gamma > 0")
+        if args.draft_synthetic and not args.synthetic:
+            raise SystemExit("--draft_synthetic requires --synthetic")
+    if args.draft_model_id or args.draft_checkpoint or args.draft_pbw:
+        raise NotImplementedError("draft models from HF ids or checkpoints need hf_import, which "
+                                  "is not ported yet (ROADMAP Queue 1 slice 3): use "
+                                  "--draft_synthetic")
     device = resolve_device(args.device)
     fam = family_for(args.model_id)
     if not args.synthetic:
@@ -82,16 +119,33 @@ def main(argv=None) -> int:
         texts = [f"request {i}: the quick brown fox" for i in range(args.n_requests)]
 
     buckets = tuple(b for b in (32, 128, 512) if b < max_seq) + (max_seq,)
+    if args.page_size:
+        buckets = tuple(sorted({min(-(-b // args.page_size) * args.page_size, max_seq)
+                                for b in buckets}))
     over = {k: v for k, v in (("decode_dot", args.decode_dot),
                               ("prefill", args.prefill_kernel)) if v}
     kernels = dataclasses.replace(_kc.from_env(), **over) if over else None
     ecfg = EngineConfig(
         n_slots=args.slots, max_seq=max_seq, prefill_buckets=buckets,
         cache_dtype={"auto": "auto", "int8": torch.int8, "f32": torch.float32}[args.kv_dtype],
-        max_prefill_batch=args.prefill_batch, kernels=kernels)
+        max_prefill_batch=args.prefill_batch, kernels=kernels, page_size=args.page_size,
+        n_pages=args.n_pages, prefix_cache=args.prefix_cache, spec_gamma=args.spec_gamma,
+        prefill_chunk=args.prefill_chunk)
     eng = Engine(params, cfg, fam, ecfg, SamplingParams(temperature=args.temperature),
                  device=device, seed=args.seed)
-    batcher = ContinuousBatcher(eng)
+    draft_source = None
+    if args.draft_synthetic:
+        from ..runtime.draft import ModelDraftSource
+
+        dcfg = LlamaConfig(vocab_size=259, hidden_size=32, intermediate_size=64,
+                           num_hidden_layers=1, num_attention_heads=4, num_key_value_heads=4,
+                           max_position_embeddings=256)
+        dparams = init_params(dcfg, torch.Generator().manual_seed(args.seed + 1), device=device)
+        draft_source = ModelDraftSource(Engine(
+            dparams, dcfg, fam, EngineConfig(n_slots=args.slots, max_seq=max_seq,
+                                             prefill_buckets=buckets),
+            device=device, seed=args.seed))
+    batcher = ContinuousBatcher(eng, draft_source=draft_source)
     reqs = [Request(request_id=i, prompt_ids=tokenizer.encode(t)[: max_seq // 2],
                     max_new_tokens=args.max_new_tokens)
             for i, t in enumerate(texts)]
@@ -105,6 +159,11 @@ def main(argv=None) -> int:
     s = batcher.stats
     print(f"device={device} requests={len(done)} tokens={s.generated_tokens} "
           f"steps={s.decode_steps} wall={dt:.2f}s tokens/s={s.generated_tokens / dt:.1f}")
+    if args.spec_gamma:
+        print(f"spec drafted={s.spec_drafted} accepted={s.spec_accepted}")
+    if eng.pool is not None:
+        print(f"pages={eng.pool.n_pages} prefix_hit_pages={eng.pool.prefix_hit_pages} "
+              f"preemptions={s.preemptions}")
     return 0
 
 

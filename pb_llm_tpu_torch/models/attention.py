@@ -1,10 +1,9 @@
-"""Attention helpers (port of the strip and no-cache parts of
-`pb_llm_tpu/models/attention.py`): the no-cache full-sequence dispatch
-(flash attention or the masked softmax), causal masking, the KV-cache write
-and the cached attention that accept a scalar position (prefill) or a
-per-slot position vector [B] (continuous-batching decode).
-
-Paged caches and sequence parallelism are not ported yet (ROADMAP).
+"""Attention helpers (port of `pb_llm_tpu/models/attention.py` without its
+sequence-parallel parts): the no-cache full-sequence dispatch (flash
+attention or the masked softmax), causal masking, the KV-cache write and
+the cached attention over strip caches or a paged pool
+(`runtime.paged_kv`), at a scalar position (prefill, chunk) or a per-slot
+position vector [B] (continuous-batching decode, speculative verify).
 """
 
 from __future__ import annotations
@@ -101,7 +100,36 @@ def _scatter(buf: torch.Tensor, val: torch.Tensor, p: Pos) -> None:
     b = val.shape[0]
     rows = torch.arange(b, device=buf.device)[:, None]
     cols = p.to(buf.device)[:, None] + torch.arange(t, device=buf.device)[None, :]
-    buf[rows, cols] = val.to(buf.dtype)
+    # a slot parked at max_seq-1 (chunked prefill) writes its verify window
+    # onto its last row, which no request reads (JAX drops such writes)
+    buf[rows, cols.clamp(max=buf.shape[1] - 1)] = val.to(buf.dtype)
+
+
+def _paged_update(cache: Dict[str, torch.Tensor], k, v, pos: Pos) -> None:
+    """In place: k/v [B, t, Hkv, d] into the page pool.  Prefill (a
+    "slot_pages" [K, n] entry, scalar pos) writes whole pages; otherwise
+    each of a slot's t tokens (t == 1 at decode) looks up its page in the
+    table, clamped to the last position (a slot parked at max_seq-1 would
+    otherwise index past its table row)."""
+    from ..runtime import paged_kv
+
+    if "slot_pages" in cache:
+        def write(name, val):
+            paged_kv.write_prompts(cache[name], val, cache["slot_pages"])
+    else:
+        table, page = cache["table"], cache["k_pages"].shape[2]
+        p = torch.as_tensor(pos, device=table.device).long()
+        ptok = p[:, None] + torch.arange(k.shape[1], device=p.device)[None, :]
+        ptok = ptok.clamp(max=table.shape[1] * page - 1)
+        ids, off = torch.gather(table, 1, ptok // page).long(), ptok % page
+
+        def write(name, val):
+            paged_kv.write_tokens(cache[name], val, ids, off)
+    for name, val in (("k", k), ("v", v)):
+        if "k_scale_pages" in cache:
+            val, scale = quantize_kv(val)
+            write(f"{name}_scale_pages", scale[..., 0])
+        write(f"{name}_pages", val)
 
 
 def quantize_kv(val: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -113,11 +141,14 @@ def quantize_kv(val: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def cache_update(cache: Dict[str, torch.Tensor], k, v, pos: Pos) -> Dict[str, torch.Tensor]:
-    """Write k/v [B, t, H, d] into the strip cache [B, S, H, d] at ``pos``
-    (in place; returns the same dict).  int8 caches ("k_scale"/"v_scale")
-    are quantized on write."""
+    """Write k/v [B, t, H, d] into the strip cache [B, S, H, d] at ``pos``,
+    or into the paged pool ("k_pages"/"v_pages" + "table", see
+    `_paged_update`), in place; returns the same dict.  int8 caches
+    ("k_scale"/"v_scale", "k_scale_pages"/"v_scale_pages") are quantized
+    on write."""
     if "k_pages" in cache:
-        raise NotImplementedError("paged KV caches are not ported yet (ROADMAP Queue 1 slice 3)")
+        _paged_update(cache, k, v, pos)
+        return cache
     p = pos if isinstance(pos, int) else torch.as_tensor(pos, device=cache["k"].device)
     if "k_scale" in cache:
         for name, val in (("k", k), ("v", v)):
@@ -132,14 +163,21 @@ def cache_update(cache: Dict[str, torch.Tensor], k, v, pos: Pos) -> Dict[str, to
 
 def cached_attention(kv_cache: Dict[str, torch.Tensor], q, k_new, v_new, pos: Pos,
                      scale, window: Optional[int] = None) -> torch.Tensor:
-    """Attention over an already-updated strip cache; q [B, t, Hq, d] →
-    [B, t, Hq, d].  Batched single-token decode (vector pos, t == 1, no
-    window) takes the decode-attention kernel when the config says so; the
-    kernel bounds each slot's read by its own length, which replaces the
-    TPU path's power-of-two window switch (a device for XLA's static
-    shapes).  Everything else runs the masked softmax over the cache."""
+    """Attention over an already-updated cache; q [B, t, Hq, d] →
+    [B, t, Hq, d].
+
+    Strip caches: batched single-token decode (vector pos, t == 1, no
+    window) takes the decode-attention kernel when the config says so;
+    everything else runs the masked softmax over the cache.  Paged pools
+    read through the paged-attention kernel (`ops.paged_attention`): a
+    chunk or prefix suffix ("chunk_table", scalar pos) and a speculative
+    window (vector pos, t > 1) as windows with base = pos, a decode step
+    with lengths = pos + 1; one-shot prefill (scalar pos) attends its own
+    fresh K/V.  Both kernels bound each slot's read by its own length,
+    which replaces the TPU path's power-of-two window switch (a device for
+    XLA's static shapes)."""
     if "k_pages" in kv_cache:
-        raise NotImplementedError("paged KV caches are not ported yet (ROADMAP Queue 1 slice 3)")
+        return _paged_attention(kv_cache, q, k_new, v_new, pos, scale, window)
     b, t, hq, d = q.shape
     s = kv_cache["k"].shape[1]
     p = torch.as_tensor(pos, device=q.device)
@@ -160,6 +198,32 @@ def cached_attention(kv_cache: Dict[str, torch.Tensor], q, k_new, v_new, pos: Po
     allowed = causal_allowed(p, t, s, p + t, window)
     ck, cv = cache_kv(kv_cache, q.dtype)
     return masked_softmax_attention(q, ck, cv, allowed, scale)
+
+
+def _paged_attention(kv_cache, q, k_new, v_new, pos: Pos, scale, window) -> torch.Tensor:
+    if window is not None:
+        raise NotImplementedError(
+            "sliding-window attention requires strip caches — serve Mistral-family models "
+            "without --page_size")
+    from ..ops import paged_attention as _pa
+
+    kp, vp = kv_cache["k_pages"], kv_cache["v_pages"]
+    common = dict(page_size=kp.shape[2], k_scale_pages=kv_cache.get("k_scale_pages"),
+                  v_scale_pages=kv_cache.get("v_scale_pages"))
+    p = torch.as_tensor(pos, device=q.device)
+    if "chunk_table" in kv_cache:
+        # chunk continuation / prefix suffix: its rows are in the pages
+        # already; attend the slot's whole history through its table row
+        out = _pa.paged_attention_multi(q, kp, vp, kv_cache["chunk_table"], p[None], scale,
+                                        **common)
+    elif p.dim() == 0:  # one-shot prefill: the window is self-contained
+        return full_causal_attention(q, k_new, v_new, scale)
+    elif q.shape[1] == 1:
+        out = _pa.paged_attention(q[:, 0], kp, vp, kv_cache["table"], p + 1, scale,
+                                  **common)[:, None]
+    else:  # speculative verify: the window's rows are written already
+        out = _pa.paged_attention_multi(q, kp, vp, kv_cache["table"], p, scale, **common)
+    return out.to(q.dtype)
 
 
 def cache_kv(cache: Dict[str, torch.Tensor], dtype) -> Tuple[torch.Tensor, torch.Tensor]:

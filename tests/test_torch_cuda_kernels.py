@@ -13,7 +13,8 @@ per value).  Decode attention sums in another order than the plain version
 (online softmax over warps): rtol 1e-4, atol 1e-5.  The exact f32 matmul
 and flash attention sum their products in another order than the plain
 versions' torch.matmul: rtol 1e-4, atol 1e-4, the JAX package's bounds for
-those kernels.
+those kernels.  Paged attention, like decode attention, sums its online
+softmax in another order: rtol 1e-4, atol 1e-5.
 """
 
 import numpy as np
@@ -245,3 +246,135 @@ def test_auto_attention_raises_for_a_head_dim_the_kernel_cannot_take(cuda):
     q = torch.zeros((1, 1024, 2, 256), device=cuda)
     with use_kernels(KernelConfig()), pytest.raises(ValueError, match="head_dim 256"):
         tattn.full_causal_attention(q, q, q, 0.0625)
+
+
+def _paged_pool(n_pages, hkv, ps, d, quantized, g):
+    kv = [torch.randn((n_pages + 1, hkv, ps, d), generator=g, device=g.device) for _ in range(2)]
+    if not quantized:
+        return kv[0], kv[1], None, None
+    (k, ks), (v, vs) = _quant(kv[0]), _quant(kv[1])
+    return k, v, ks[..., 0].contiguous(), vs[..., 0].contiguous()
+
+
+PAGED_CASES = {
+    # name: (B, t, Hq, Hkv, D, page, n_pages, maxp, bases, quantized)
+    "decode_int8": (8, 1, 32, 32, 128, 16, 1024, 128, "len<=512", True),
+    "decode_f32": (8, 1, 32, 32, 128, 16, 1024, 128, "len<=512", False),
+    "verify_t5_int8": (8, 5, 32, 32, 128, 16, 1024, 128, "len<=512", True),
+    "chunk_t256_int8": (2, 256, 32, 32, 128, 16, 1024, 128, (1024, 512), True),
+    "gqa_decode_int8": (8, 1, 32, 8, 128, 16, 1024, 128, "len<=512", True),
+    "empty_slot_t1": (3, 1, 4, 4, 64, 16, 40, 8, (-1, 0, 70), True),
+    "t17_gqa4_page8": (3, 17, 8, 2, 64, 8, 60, 16, (0, 9, 100), True),
+    "t17_f32_page8": (2, 17, 4, 1, 32, 8, 30, 12, (3, 50), False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(PAGED_CASES))
+def test_paged_attention_kernel_matches_plain(cuda, name):
+    """The paged kernel against its plain version at chip_smoke.py's phase-2
+    shapes and at odd ones: an empty slot (base -1), t = 1 and 17, GQA 4:1,
+    pages of 8; shuffled tables over pools whose other pages hold NaN."""
+    from pb_llm_tpu_torch.ops import paged_attention as tpa
+
+    b, t, hq, hkv, d, ps, n_pages, maxp, bases, quantized = PAGED_CASES[name]
+    g = torch.Generator(device=cuda).manual_seed(len(name))
+    kp, vp, ks, vs = _paged_pool(n_pages, hkv, ps, d, quantized, g)
+    table = torch.randperm(n_pages, generator=g, device=cuda)[: b * maxp].reshape(b, maxp)
+    if bases == "len<=512":
+        base = torch.randint(0, 512 - t + 1, (b,), generator=g, device=cuda)
+        base[0] = 512 - t
+    else:
+        base = torch.tensor(bases, device=cuda)
+    limit = int((base + t).max())
+    used = table[:, : -(-limit // ps)].reshape(-1)
+    unused = torch.ones(n_pages + 1, dtype=torch.bool, device=cuda)
+    unused[used] = False
+    if not quantized:  # no key past a limit is read: poison the others
+        kp[unused], vp[unused] = float("nan"), float("nan")
+    q = torch.randn((b, t, hq, d), generator=g, device=cuda)
+    before = (tpa.launches, tpa.multi_launches)
+    got = tpa.paged_attention_multi(q, kp, vp, table.to(torch.int32), base, d ** -0.5, ps, ks, vs)
+    torch.cuda.synchronize()
+    assert (tpa.launches, tpa.multi_launches) == (before[0] + 1, before[1] + 1)
+    want = tpa.paged_attention_plain(q, kp, vp, table, base, d ** -0.5, ps, ks, vs)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    if (base < 0).any():
+        assert torch.equal(got[base < 0], torch.zeros_like(got[base < 0]))
+    if t == 1:
+        dec = tpa.paged_attention(q[:, 0], kp, vp, table, base + 1, d ** -0.5, ps, ks, vs)
+        torch.testing.assert_close(dec, got[:, 0], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_paged_attention_cuda_tensor_never_takes_the_plain_version(cuda, monkeypatch):
+    from pb_llm_tpu_torch.ops import paged_attention as tpa
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(tpa, "paged_attention_plain", refuse)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    kp, vp, ks, vs = _paged_pool(8, 2, 16, 64, True, g)
+    table = torch.arange(8, device=cuda, dtype=torch.int32).reshape(2, 4)
+    before = tpa.decode_launches
+    out = tpa.paged_attention(torch.randn((2, 4, 64), device=cuda), kp, vp, table,
+                              torch.tensor([5, 64], device=cuda), 0.125, 16, ks, vs)
+    torch.cuda.synchronize()
+    assert out.shape == (2, 4, 64) and tpa.decode_launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["f16_pages", "head_dim", "strided", "table_on_cpu"])
+def test_paged_attention_kernel_refuses_what_it_cannot_take(cuda, bad):
+    from pb_llm_tpu_torch.ops import paged_attention as tpa
+
+    g = torch.Generator(device=cuda).manual_seed(1)
+    d = 24 if bad == "head_dim" else 64  # int8 rows load 16 bytes at a time
+    kp, vp, ks, vs = _paged_pool(8, 2, 16, d, True, g)
+    table = torch.arange(8, device=cuda, dtype=torch.int32).reshape(2, 4)
+    q = torch.randn((2, 1, 4, d), device=cuda)
+    if bad == "f16_pages":
+        kp, vp, ks, vs = kp.half(), vp.half(), None, None
+    elif bad == "strided":
+        kp = torch.cat([kp, kp], dim=3)[..., :d]
+    elif bad == "table_on_cpu":
+        table = table.cpu()
+    with pytest.raises(ValueError):
+        tpa.paged_attention_multi(q, kp, vp, table, torch.tensor([3, 9], device=cuda), 0.1, 16,
+                                  ks, vs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(page_size=16), dict(page_size=16, spec_gamma=3),
+                                dict(page_size=16, prefill_chunk=32)])
+def test_paged_engine_on_the_card_matches_the_cpu(cuda, kw):
+    """A tiny f32-page llama engine on the card (kernels) and on the CPU
+    (plain versions): the same greedy streams, through both kernel modes."""
+    from pb_llm_tpu_torch.models.llama import LlamaConfig, init_params
+    from pb_llm_tpu_torch.models.registry import family_for
+    from pb_llm_tpu_torch.ops import paged_attention as tpa
+    from pb_llm_tpu_torch.runtime.batching import ContinuousBatcher, Request
+    from pb_llm_tpu_torch.runtime.engine import Engine, EngineConfig
+
+    cfg = LlamaConfig(vocab_size=128, hidden_size=128, intermediate_size=256, num_hidden_layers=2,
+                      num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=256)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    r = np.random.default_rng(0)
+    prompts = [r.integers(0, 128, n).tolist() for n in (5, 40, 12, 70)]
+    streams = []
+    before = (tpa.decode_launches, tpa.multi_launches)
+    for dev in (cuda, "cpu"):
+        eng = Engine(params, cfg, family_for("llama"),
+                     EngineConfig(n_slots=2, max_seq=128, prefill_buckets=(32, 128),
+                                  cache_dtype=torch.float32, **kw), device=dev)
+        reqs = [Request(request_id=i, prompt_ids=p, max_new_tokens=10)
+                for i, p in enumerate(prompts)]
+        ContinuousBatcher(eng).run(reqs)
+        streams.append([q.output_ids for q in reqs])
+    assert streams[0] == streams[1]
+    if kw.get("spec_gamma") or kw.get("prefill_chunk"):
+        assert tpa.multi_launches > before[1]
+    else:
+        assert tpa.decode_launches > before[0]

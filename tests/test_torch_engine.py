@@ -206,12 +206,19 @@ def test_make_caches_needs_cuda_or_an_explicit_device(monkeypatch):
     assert caches[0]["k"].device.type == "cpu" and caches[0]["k_scale"].shape == (2, 16, 2, 1)
 
 
-@pytest.mark.parametrize("field,value", [("page_size", 16), ("spec_gamma", 2),
-                                         ("prefill_chunk", 16), ("prefix_cache", True)])
-def test_unported_engine_modes_raise(packed_model, field, value):
+@pytest.mark.parametrize("mode", ["scan_layers", "fuse_linears", "draft_model_id"])
+def test_unported_engine_modes_raise(packed_model, mode):
+    """What the port still refuses, naming the ROADMAP item: scanned layers,
+    fused linears, and draft models from HF ids (they need hf_import)."""
     cfg, packed = packed_model
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port_engine(cfg, packed, **{field: value})
+        if mode == "draft_model_id":
+            from pb_llm_tpu_torch.cli import serve
+
+            serve.main(["--model_id", "llama", "--synthetic", "--device", "cpu",
+                        "--spec_gamma", "2", "--draft_model_id", "huggyllama/llama-7b"])
+        else:
+            _port_engine(cfg, packed, **{mode: True})
 
 
 def test_serve_cli_synthetic_demo_on_cpu(capsys):
@@ -220,6 +227,22 @@ def test_serve_cli_synthetic_demo_on_cpu(capsys):
     assert serve.main(["--model_id", "llama", "--synthetic", "--demo", "--device", "cpu",
                        "--n_requests", "5", "--max_new_tokens", "4"]) == 0
     assert "requests=5 tokens=20" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("extra", [
+    ["--page_size", "8", "--prefix_cache", "--prefill_chunk", "16", "--spec_gamma", "3"],
+    ["--page_size", "16", "--n_pages", "20", "--spec_gamma", "2", "--draft_synthetic"],
+])
+def test_serve_cli_paged_spec_chunked_demo_on_cpu(capsys, extra):
+    """The serving extensions through the CLI: paged pool, prefix cache,
+    chunked prefill and prompt-lookup spec; a synthetic draft model over an
+    oversubscribed pool (preemptions)."""
+    from pb_llm_tpu_torch.cli import serve
+
+    assert serve.main(["--model_id", "llama", "--synthetic", "--demo", "--device", "cpu",
+                       "--n_requests", "6", "--max_new_tokens", "8"] + extra) == 0
+    out = capsys.readouterr().out
+    assert "requests=6 tokens=48" in out and "spec drafted=" in out and "pages=" in out
 
 
 def test_serve_cli_pbw_checkpoint_on_cpu(tmp_path, capsys):
