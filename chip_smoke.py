@@ -4,9 +4,9 @@
     python3 chip_smoke.py            # the whole run, one card
     python3 chip_smoke.py --profile  # also trace three decode steps
 
-Phases (they run in order, but 5 runs last: it pins the exact prefill for
-the rest of the process, as run_ptq does); any failure raises and the exit
-code is not 0:
+Phases (they run in order, but the producers 5 and 8 run last: they pin the
+exact prefill for the rest of the process, as run_ptq does); any failure
+raises and the exit code is not 0:
 
 1. set-up: the card's name and power limit (nvidia-smi), the kernels built
    from `pb_llm_tpu_torch/csrc/` in parallel (one nvcc each), TF32 off;
@@ -17,7 +17,8 @@ code is not 0:
    (`bound_ms`): the int8 matmul and decode attention (serving), the
    binary-part dequant, the exact f32 matmul and flash attention (the
    producer and the exact arms), paged attention (the paged pool: decode,
-   speculative verify, chunk continuation, GQA);
+   speculative verify, chunk continuation, GQA), the PBW-v1 planar and
+   select matmuls (OPT-1.3B's and llama-7b's MLP shapes);
 3. the same 2-layer full-width llama-7b engine on the card (kernels) and on
    the CPU (the kernels' plain versions): prefill logits, teacher-forced
    NLL and 8 greedy tokens; once on the int8 arms, once on the exact arms
@@ -40,7 +41,16 @@ code is not 0:
 6b. end to end, paged serving: the 32-layer model of phase 4 behind a paged
    int8 pool with the prefix cache and chunked prefill, 16 requests twice
    (plain decode, then spec_gamma 4); the launch counters are zeroed just
-   before each pass and read just after, and must match the forwards run.
+   before each pass and read just after, and must match the forwards run;
+7a. a 2-layer full-width OPT-1.3B with random PBW-v1 planes (groups of
+   128) and random biases on the card (kernels) and on the CPU (plain
+   versions): prefill logits, teacher-forced NLL, 8 greedy tokens;
+7b. end to end, PBW-v1 serving: the 24-layer full-width OPT-1.3B through
+   `ContinuousBatcher`, int8 strips, phase 4's request mix; planar, select
+   and decode-attention launches must match the forwards run, by rows;
+8. end to end, the PBW-v1 producer: a 2-layer OPT-1.3B-width model
+   calibrated by GPTQ-PB (element masks, groups of 128) into PBW v1, then
+   its windowed perplexity with the kernels and with their plain versions.
 
 The last two lines are the `kernels` JSON line and
 `{"ok": true, "device": {...}}`.  Without CUDA it exits 1 before any phase.
@@ -49,6 +59,7 @@ The last two lines are the `kernels` JSON line and
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import statistics
 import subprocess
@@ -115,6 +126,18 @@ E2E_NEW = 32
 # producer: 2 layers at full width, the reference sweep's solver settings
 PTQ_NSAMPLES, PTQ_SEQLEN, PPL_BATCH, PPL_WINDOWS = 8, 2048, 4, 8
 PPL_RTOL = 5e-4       # kernels vs plain versions, the JAX golden test's bound
+# PBW v1: OPT-1.3B's three weight shapes and llama-7b's MLP; planar at
+# decode m, select at prefill m in f32 and bf16; whole-row and 128 groups
+V1_SHAPES = ((2048, 2048), (2048, 8192), (8192, 2048), (4096, 11008))
+V1_GROUPS = (-1, 128)
+V1_EXTRA = (dict(sidecar_bits=4), dict(low_bits=2))  # at 2048x8192, whole-row scales
+V1_HEADLINE = (2048, 8192)
+# planar and select sum their products in another order than the plain
+# versions' torch.matmul: the JAX package's bound for its f32 kernels.  The
+# bf16 select dot keeps it: a product of two bf16 values is exact in f32,
+# and only the f32 summation order differs
+V1_RTOL, V1_ATOL = 1e-4, 1e-4
+BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 tensor-core peak
 
 
 def log(msg: str) -> None:
@@ -443,9 +466,79 @@ def check_paged_attention(timer: Timer, card: str):
     return rows
 
 
+def v1_plane_bytes(p) -> int:
+    return sum(t.numel() * t.element_size() for t in
+               (p.sign_packed, p.mask_packed, p.sidecar, p.low_scale, p.low_mean, p.high_scale,
+                p.high_zero) + ((p.bias,) if p.bias is not None else ()))
+
+
+def check_v1_matmul(timer: Timer, card: str):
+    """The PBW-v1 planar kernel at decode m and the select kernel at prefill
+    m (f32 and bf16) against their plain versions, at OPT-1.3B's and
+    llama-7b's MLP shapes, whole-row and 128-row scale groups, plus one
+    nibble-code and one 2-bit-low layer.  Library: one torch.matmul of x
+    with the dense dequantized weight, f32 (TF32 off) and bf16."""
+    from pb_llm_tpu_torch.core.pbw import dequantize
+    from pb_llm_tpu_torch.data.synthetic import random_packed_v1
+    from pb_llm_tpu_torch.ops import packed_matmul_v1 as v1
+
+    gen = torch.Generator(device=DEV).manual_seed(17)
+    cases = [(ic, oc, dict(groupsize=gs)) for ic, oc in V1_SHAPES for gs in V1_GROUPS]
+    cases += [(*V1_HEADLINE, kw) for kw in V1_EXTRA]
+    rows = []
+    for ic, oc, kw in cases:
+        p = random_packed_v1(ic, oc, gen, low_frac=0.9, bias=True, **kw)
+        w = dequantize(p)
+        wb = w.to(torch.bfloat16)
+        for m, arm, dot in ((MATMUL_MS[0], "planar", torch.float32),
+                            (MATMUL_MS[1], "select", torch.float32),
+                            (MATMUL_MS[1], "select", torch.bfloat16)):
+            if kw.keys() - {"groupsize"} and dot == torch.bfloat16:
+                continue
+            x = torch.randn((m, ic), generator=gen, device=DEV)
+            if arm == "planar":
+                launch, wrapper, plain = (functools.partial(f, x, p) for f in (
+                    v1.launch_planar, v1.pb_planar_v1, v1.pb_planar_v1_plain))
+            else:
+                launch, wrapper, plain = (functools.partial(f, x, p, dot) for f in (
+                    v1.launch_select, v1.pb_select_v1, v1.pb_select_v1_plain))
+            got = launch()
+            torch.cuda.synchronize()
+            want = plain()
+            err = (got - want).abs()
+            name = f"pb_{arm}_v1 m={m} {ic}x{oc} {kw} {dot}"
+            if not (torch.isfinite(got).all() and torch.all(err <= V1_ATOL + V1_RTOL * want.abs())):
+                raise AssertionError(f"{name}: max|err| {err.max().item()} beyond rtol {V1_RTOL} "
+                                     f"atol {V1_ATOL}")
+            nbytes = 4 * (m * ic + m * oc) + v1_plane_bytes(p)
+            peak = BF16_FLOPS_PER_S if dot == torch.bfloat16 else F32_FLOPS_PER_S
+            bound_ms, bound_by = bound(nbytes, 2 * m * ic * oc, peak)
+            xb = x.to(torch.bfloat16)
+            row = {"kernel": f"pb_{arm}_v1", "m": m, "ic": ic, "oc": oc,
+                   "groupsize": p.groupsize, "sidecar_bits": p.sidecar_bits,
+                   "low_bits": p.low_bits, "dot": str(dot), "max_abs_err": err.max().item(),
+                   "kernel_ms": timer(launch), "wrapper_ms": timer(wrapper),
+                   "plain_ms": timer(plain, iters=5),
+                   "library_f32_ms": timer(lambda: x @ w), "library_bf16_ms": timer(lambda: xb @ wb),
+                   "bound_ms": bound_ms, "bound_by": bound_by, "card": card}
+            log(json.dumps(row))
+            rows.append(row)
+            del x, xb, got, want, err
+        del p, w, wb
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the same engine on the card and on the CPU
 # ---------------------------------------------------------------------------
+
+def opt13b(layers: int):
+    """`facebook/opt-1.3b`'s published config, cut to ``layers`` layers."""
+    from pb_llm_tpu_torch.models.opt import OPTConfig
+
+    return OPTConfig(vocab_size=50272, hidden_size=2048, ffn_dim=8192, num_hidden_layers=layers,
+                     num_attention_heads=32, max_position_embeddings=2048)
+
 
 def llama7b(layers: int):
     from pb_llm_tpu_torch.models.llama import LlamaConfig
@@ -455,12 +548,14 @@ def llama7b(layers: int):
                        max_position_embeddings=2048)
 
 
-def run_parity(params, cfg, device, **ecfg_kw):
-    """Prefill logits, 8 greedy tokens and a teacher-forced NLL on one engine."""
+def run_parity(params, cfg, device, family: str = "llama", **ecfg_kw):
+    """Prefill logits, 8 greedy tokens and a teacher-forced NLL on one engine:
+    prefills of 40 and 70 tokens (buckets 64 and 256), 7 decode steps and 3
+    teacher-forced ones, over 2 slots."""
     from pb_llm_tpu_torch.models.registry import family_for
     from pb_llm_tpu_torch.runtime.engine import Engine, EngineConfig
 
-    eng = Engine(params, cfg, family_for("llama"),
+    eng = Engine(params, cfg, family_for(family),
                  EngineConfig(n_slots=2, max_seq=256, prefill_buckets=(64, 256), **ecfg_kw),
                  device=device)
     rng = np.random.default_rng(3)
@@ -531,32 +626,26 @@ def packed_bytes(p) -> int:
                 p.high_scale, p.high_zero))
 
 
-def serve_e2e(params, build_s: float, card: str, profile: bool):
-    from pb_llm_tpu_torch.models.registry import family_for
+def run_counted(eng, reqs):
+    """Serve ``reqs`` through `ContinuousBatcher` on ``eng`` after one short
+    warm-up request (the first forward initialises cuBLAS and the
+    allocator), with the launch counters zeroed just before and read just
+    after.  Returns (batcher, launches, forwards, step_ms, kv_rows):
+    ``forwards`` holds (kind, rows) of each forward, kind "prefill" or
+    "decode"; ``step_ms`` each decode step's time (device synchronised);
+    ``kv_rows`` the KV rows each step attends.  Raises on non-finite logits
+    or a request short of its tokens."""
     from pb_llm_tpu_torch.runtime.batching import ContinuousBatcher, Request
-    from pb_llm_tpu_torch.runtime.engine import Engine, EngineConfig
 
-    cfg = llama7b(32)
-    eng = Engine(params, cfg, family_for("llama"), EngineConfig(n_slots=8, max_seq=2048),
-                 device=DEV)
-    n_linear = sum(1 for lp in params["layers"] for v in lp.values() if hasattr(v, "sign_packed"))
-    plane_bytes = sum(packed_bytes(v) for lp in params["layers"] for v in lp.values()
-                      if hasattr(v, "sign_packed"))
-    head_bytes = params["lm_head"]["w"].numel() * 4
-    assert eng.cache_dtype == torch.int8 and n_linear == 7 * cfg.num_hidden_layers
-
-    rng = np.random.default_rng(6)
-    # one short request first: the first forward initialises cuBLAS and the allocator
     ContinuousBatcher(eng).run([Request(request_id=-1, prompt_ids=[1, 2, 3], max_new_tokens=2)])
-
-    forwards = {"prefill": 0, "decode": 0}
+    forwards, step_ms, kv_rows = [], [], []
     finite = torch.ones((), dtype=torch.bool, device=DEV)
-    step_ms, kv_rows = [], []
     fwd, step = eng._forward, eng.decode_step
 
     def counted_forward(ids, caches, pos):
         nonlocal finite
-        forwards["decode" if isinstance(pos, torch.Tensor) else "prefill"] += 1
+        forwards.append(("decode" if isinstance(pos, torch.Tensor) else "prefill",
+                         int(np.asarray(ids).size)))
         logits = fwd(ids, caches, pos)
         finite = finite & torch.isfinite(logits).all()
         return logits
@@ -571,27 +660,52 @@ def serve_e2e(params, build_s: float, card: str, profile: bool):
         return out
 
     eng._forward, eng.decode_step = counted_forward, timed_step
-    reqs = [Request(request_id=i, max_new_tokens=32,
-                    prompt_ids=rng.integers(0, cfg.vocab_size, int(rng.integers(20, 121))).tolist())
-            for i in range(16)]
     batcher = ContinuousBatcher(eng)
     zero_counters()
     batcher.run(reqs)
     torch.cuda.synchronize()
     launches = read_counters()
-    mm, att = launches["pb_int8_matmul"], launches["decode_attention"]
     eng._forward, eng.decode_step = fwd, step
-
     if not bool(finite):
         raise AssertionError("e2e: non-finite logits")
-    if not all(r.done and len(r.output_ids) == 32 for r in reqs):
-        raise AssertionError("e2e: a request did not produce its 32 tokens")
+    if not all(r.done and len(r.output_ids) == r.max_new_tokens for r in reqs):
+        raise AssertionError("e2e: a request did not produce its tokens")
+    return batcher, launches, forwards, step_ms, kv_rows
+
+
+def e2e_requests(vocab: int):
+    """Phases 4 and 7b's mix: 16 requests of 20–120 random tokens, 32 new
+    tokens each."""
+    from pb_llm_tpu_torch.runtime.batching import Request
+
+    rng = np.random.default_rng(6)
+    return [Request(request_id=i, max_new_tokens=E2E_NEW,
+                    prompt_ids=rng.integers(0, vocab, int(rng.integers(20, 121))).tolist())
+            for i in range(16)]
+
+
+def serve_e2e(params, build_s: float, card: str, profile: bool):
+    from pb_llm_tpu_torch.models.registry import family_for
+    from pb_llm_tpu_torch.runtime.engine import Engine, EngineConfig
+
+    cfg = llama7b(32)
+    eng = Engine(params, cfg, family_for("llama"), EngineConfig(n_slots=8, max_seq=2048),
+                 device=DEV)
+    n_linear = sum(1 for lp in params["layers"] for v in lp.values() if hasattr(v, "sign_packed"))
+    plane_bytes = sum(packed_bytes(v) for lp in params["layers"] for v in lp.values()
+                      if hasattr(v, "sign_packed"))
+    head_bytes = params["lm_head"]["w"].numel() * 4
+    assert eng.cache_dtype == torch.int8 and n_linear == 7 * cfg.num_hidden_layers
+
+    reqs = e2e_requests(cfg.vocab_size)
+    batcher, launches, fwds, step_ms, kv_rows = run_counted(eng, reqs)
+    forwards = {kind: sum(k == kind for k, _ in fwds) for kind in ("prefill", "decode")}
+    mm, att = launches["pb_int8_matmul"], launches["decode_attention"]
     if mm != n_linear * (forwards["prefill"] + forwards["decode"]) or mm == 0:
         raise AssertionError(f"e2e: {mm} matmul launches for {forwards} forwards")
     if att != cfg.num_hidden_layers * forwards["decode"] or att == 0:
         raise AssertionError(f"e2e: {att} attention launches for {forwards} forwards")
-    if (launches["pb_dequant_v2"] or launches["pb_f32_matmul"] or launches["flash_attention"]
-            or launches["paged_attention_decode"] or launches["paged_attention_multi"]):
+    if launches != expect_launches(pb_int8_matmul=mm, decode_attention=att):
         raise AssertionError(f"e2e: the strip serving defaults launched another kernel: {launches}")
 
     kv_row_bytes = cfg.num_hidden_layers * cfg.kv_heads * (2 * cfg.head_dim + 8)
@@ -659,24 +773,33 @@ def zero_counters() -> None:
     from pb_llm_tpu_torch.ops import decode_attention as da
     from pb_llm_tpu_torch.ops import flash_attention as fa
     from pb_llm_tpu_torch.ops import packed_matmul as pm
+    from pb_llm_tpu_torch.ops import packed_matmul_v1 as v1
     from pb_llm_tpu_torch.ops import paged_attention as pa
     from pb_llm_tpu_torch.ops import prefill as pf
 
     pm.launches = pm.f32_launches = da.launches = pf.launches = fa.launches = 0
     pa.launches = pa.decode_launches = pa.multi_launches = 0
+    v1.planar_launches = v1.select_launches = 0
 
 
 def read_counters() -> dict:
     from pb_llm_tpu_torch.ops import decode_attention as da
     from pb_llm_tpu_torch.ops import flash_attention as fa
     from pb_llm_tpu_torch.ops import packed_matmul as pm
+    from pb_llm_tpu_torch.ops import packed_matmul_v1 as v1
     from pb_llm_tpu_torch.ops import paged_attention as pa
     from pb_llm_tpu_torch.ops import prefill as pf
 
     return {"pb_int8_matmul": pm.launches, "decode_attention": da.launches,
             "pb_dequant_v2": pf.launches, "pb_f32_matmul": pm.f32_launches,
             "flash_attention": fa.launches, "paged_attention_decode": pa.decode_launches,
-            "paged_attention_multi": pa.multi_launches}
+            "paged_attention_multi": pa.multi_launches, "pb_planar_v1": v1.planar_launches,
+            "pb_select_v1": v1.select_launches}
+
+
+def expect_launches(**counts) -> dict:
+    """read_counters()'s keys, each 0 unless given."""
+    return {k: counts.get(k, 0) for k in read_counters()}
 
 
 def compare_solves(w, h, scfg, metrics=("magnitude", "hessian")):
@@ -784,10 +907,8 @@ def producer(card: str):
     n_packed = sum(isinstance(v, PackedLinearV2) for lp in params["layers"] for v in lp.values())
     forwards = -(-PPL_WINDOWS // PPL_BATCH)
     chunks = 1  # capture_batch == nsamples: one calibration chunk per layer
-    want = {"pb_dequant_v2": n_packed * (chunks + forwards),
-            "flash_attention": cfg.num_hidden_layers * (2 * chunks + forwards),
-            "pb_int8_matmul": 0, "decode_attention": 0, "pb_f32_matmul": 0,
-            "paged_attention_decode": 0, "paged_attention_multi": 0}
+    want = expect_launches(pb_dequant_v2=n_packed * (chunks + forwards),
+                           flash_attention=cfg.num_hidden_layers * (2 * chunks + forwards))
     row = {"phase": "producer", "model": "llama-7b widths, 2 layers, random-init f32 weights",
            "calib": f"synthetic wikitext2 (ptq flavor), {PTQ_NSAMPLES} x {PTQ_SEQLEN}",
            "calib_distinct_tokens": int(np.unique(calib).size),
@@ -1039,10 +1160,9 @@ def paged_e2e(params, card: str):
             raise AssertionError(f"paged e2e pass {row['pass']}: non-finite logits")
         if not all(r.done and len(r.output_ids) == E2E_NEW for r in reqs):
             raise AssertionError(f"paged e2e pass {row['pass']}: a request lacks its tokens")
-        want = {"pb_int8_matmul": n_linear * n_fwd, "decode_attention": 0,
-                "pb_dequant_v2": 0, "pb_f32_matmul": 0, "flash_attention": 0,
-                "paged_attention_decode": n_layers * forwards["decode"],
-                "paged_attention_multi": n_layers * (forwards["verify"] + forwards["window"])}
+        want = expect_launches(
+            pb_int8_matmul=n_linear * n_fwd, paged_attention_decode=n_layers * forwards["decode"],
+            paged_attention_multi=n_layers * (forwards["verify"] + forwards["window"]))
         if launches != want:
             raise AssertionError(f"paged e2e pass {row['pass']}: launches {launches}, "
                                  f"expected {want} for {forwards}")
@@ -1058,6 +1178,181 @@ def paged_e2e(params, card: str):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phases 7a, 7b and 8: PBW v1 on the OPT family
+# ---------------------------------------------------------------------------
+
+def check_opt_parity(card: str):
+    """Phase 7a: 2 layers of full-width OPT-1.3B, random PBW-v1 planes in
+    groups of 128, random biases, int8 strips, on the card (kernels) and on
+    the CPU (plain versions).  Neither matmul rounds x to int8, so the
+    exact arms' logit bound holds.  run_parity's forwards take the planar
+    kernel 11 times a linear (the 40-token prefill, 7 + 3 decode steps) and
+    the select kernel once (the 70-token prefill in bucket 256)."""
+    from pb_llm_tpu_torch.data.synthetic import random_packed_opt
+    from pb_llm_tpu_torch.ops.kernel_config import KernelConfig
+
+    cfg = opt13b(2)
+    params = random_packed_opt(cfg, torch.Generator(device=DEV).manual_seed(16), groupsize=128)
+    n_linear = 6 * cfg.num_hidden_layers
+    zero_counters()
+    t0 = time.perf_counter()
+    g_logits, g_toks, g_nll = run_parity(params, cfg, DEV, family="opt")
+    torch.cuda.synchronize()
+    gpu_s = time.perf_counter() - t0
+    launches = read_counters()
+    plain = KernelConfig(backend="pallas_interpret", decode_attention="pallas_interpret")
+    t0 = time.perf_counter()
+    c_logits, c_toks, c_nll = run_parity(params, cfg, "cpu", family="opt", cache_dtype=torch.int8,
+                                         kernels=plain)
+    cpu_s = time.perf_counter() - t0
+    scale = c_logits.abs().max().item()
+    err = (g_logits - c_logits).abs().max().item()
+    row = {"phase": "opt_parity", "model": "OPT-1.3B widths, 2 layers, random PBW-v1 planes "
+           "(groups of 128, low_frac 0.9) and biases", "kv": "int8 strips",
+           "max_abs_logit_err": err, "max_abs_logit": scale, "err_over_max_logit": err / scale,
+           "tol_over_max_logit": LOGIT_TOL_EXACT, "gpu_tokens": g_toks, "cpu_tokens": c_toks,
+           "gpu_nll": g_nll, "cpu_nll": c_nll, "launches": launches, "gpu_s": gpu_s,
+           "cpu_s": cpu_s, "card": card}
+    log(json.dumps(row))
+    if not (np.isfinite(g_nll) and torch.isfinite(g_logits).all()):
+        raise AssertionError("OPT parity: non-finite GPU output")
+    if err > LOGIT_TOL_EXACT * scale:
+        raise AssertionError(f"OPT parity: logits differ by {err} > {LOGIT_TOL_EXACT} * {scale}")
+    if g_toks != c_toks:
+        raise AssertionError(f"OPT parity: greedy tokens differ {g_toks} vs {c_toks}")
+    if abs(g_nll - c_nll) > NLL_RTOL * abs(c_nll):
+        raise AssertionError(f"OPT parity: NLL {g_nll} vs {c_nll}")
+    want = expect_launches(pb_planar_v1=11 * n_linear, pb_select_v1=n_linear,
+                           decode_attention=10 * cfg.num_hidden_layers)
+    if launches != want:
+        raise AssertionError(f"OPT parity: launches {launches}, expected {want}")
+    return row
+
+
+def serve_v1_e2e(params, cfg, build_s: float, card: str):
+    """Phase 7b: the 24-layer full-width OPT-1.3B with random PBW-v1 planes
+    through `ContinuousBatcher`, `Engine(n_slots=8, max_seq=2048)`, int8
+    strips, phase 4's request mix.  Each forward's rows m decide, linear by
+    linear, which kernel it must have launched (`use_planar`)."""
+    from pb_llm_tpu_torch.core.pbw import PackedLinear
+    from pb_llm_tpu_torch.models.registry import family_for
+    from pb_llm_tpu_torch.ops.packed_matmul_v1 import use_planar
+    from pb_llm_tpu_torch.runtime.engine import Engine, EngineConfig
+
+    eng = Engine(params, cfg, family_for("opt"), EngineConfig(n_slots=8, max_seq=2048), device=DEV)
+    linears = [v for lp in params["layers"] for v in lp.values() if isinstance(v, PackedLinear)]
+    assert eng.cache_dtype == torch.int8 and len(linears) == 6 * cfg.num_hidden_layers
+    plane_bytes = sum(v1_plane_bytes(p) for p in linears)
+    head_bytes = params["embed_tokens"].numel() * params["embed_tokens"].element_size()
+    reqs = e2e_requests(cfg.vocab_size)
+    torch.cuda.reset_peak_memory_stats()
+    batcher, launches, forwards, step_ms, kv_rows = run_counted(eng, reqs)
+
+    planar = sum(use_planar(m, p) for _, m in forwards for p in linears)
+    n_decode = sum(kind == "decode" for kind, _ in forwards)
+    want = expect_launches(pb_planar_v1=planar, pb_select_v1=len(forwards) * len(linears) - planar,
+                           decode_attention=cfg.num_hidden_layers * n_decode)
+    kv_row_bytes = cfg.num_hidden_layers * cfg.num_attention_heads * (2 * cfg.head_dim + 8)
+    mean_rows = statistics.mean(kv_rows)
+    s = batcher.stats
+    row = {"phase": "v1_e2e", "model": "OPT-1.3B PBW v1 (random planes, low_frac 0.9, whole-row "
+           "scales)", "layers": cfg.num_hidden_layers, "slots": 8, "max_seq": 2048,
+           "kv": "int8 strips", "requests": len(reqs), "generated_tokens": s.generated_tokens,
+           "wall_s": s.wall_seconds, "tokens_per_s": s.tokens_per_second,
+           "decode_steps": len(step_ms), "ms_per_decode_step_median": statistics.median(step_ms),
+           "ms_per_decode_step_mean": statistics.mean(step_ms), "decode_forwards": n_decode,
+           "prefill_forward_rows": sorted(m for kind, m in forwards if kind == "prefill"),
+           "launches": launches, "planar_launches_per_decode_step": len(linears),
+           "packed_plane_bytes": plane_bytes, "tied_head_bytes": head_bytes,
+           "mean_kv_rows_per_step": mean_rows,
+           "decode_step_bound_ms": (plane_bytes + head_bytes + mean_rows * kv_row_bytes)
+           / HBM_BYTES_PER_S * 1e3,
+           "build_s": build_s, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card}
+    log(json.dumps(row))
+    if launches != want or not (launches["pb_planar_v1"] and launches["pb_select_v1"]):
+        raise AssertionError(f"v1 e2e: launches {launches}, expected {want} for {forwards}")
+    if not all(use_planar(m, p) for kind, m in forwards if kind == "decode" for p in linears):
+        raise AssertionError("v1 e2e: a decode step left the planar kernel")
+    return row
+
+
+def producer_v1(card: str):
+    """Phase 8: run_ptq's PBW-v1 path at OPT-1.3B's widths (2 layers):
+    synthetic calibration windows, GPTQ-PB (xnor, low_frac 0.9, hessian
+    saliency, element masks, groups of 128, 8-bit codes) into PBW v1
+    (`fmt="packed"`), then windowed perplexity with the kernels and with
+    their plain versions on the card."""
+    from pb_llm_tpu_torch.calib.pipeline import quantize_model_ptq
+    from pb_llm_tpu_torch.calib.solver import SolverConfig
+    from pb_llm_tpu_torch.core.pbw import PackedLinear
+    from pb_llm_tpu_torch.data.loaders import get_loaders
+    from pb_llm_tpu_torch.data.synthetic import ByteTokenizer, synthetic_source
+    from pb_llm_tpu_torch.eval.ppl import perplexity
+    from pb_llm_tpu_torch.models.opt import init_params
+    from pb_llm_tpu_torch.models.registry import family_for
+    from pb_llm_tpu_torch.ops import kernel_config as kc
+
+    cfg = opt13b(2)
+    fam = family_for("opt")
+    tok, source = ByteTokenizer(), synthetic_source()
+    calib, _ = get_loaders("wikitext2", tok, nsamples=PTQ_NSAMPLES, seed=0, seqlen=PTQ_SEQLEN,
+                           flavor="ptq", source=source)
+    _, evaltok = get_loaders("wikitext2", tok, nsamples=2, seed=0, seqlen=PTQ_SEQLEN, flavor="ptq",
+                             source=source)
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(19), device=DEV)
+    scfg = SolverConfig(low_method="xnor", low_frac=0.9, high_bit=8, salient_metric="hessian",
+                        groupsize=128)
+    kc.pin_exact_prefill()  # as run_ptq / run_eval do
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    t0 = time.perf_counter()
+    params, report = quantize_model_ptq(params, cfg, fam, calib, scfg, fmt="packed", log=None,
+                                        capture_batch=PTQ_NSAMPLES)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ppl = perplexity(params, cfg, fam.forward, evaltok, seqlen=PTQ_SEQLEN,
+                     window_limit=PPL_WINDOWS, window_batch=PPL_BATCH)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = read_counters()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    plain = kc.KernelConfig(backend="pallas_interpret", prefill="hybrid", attention="flash_interpret")
+    with kc.use_kernels(plain):
+        ppl_plain = perplexity(params, cfg, fam.forward, evaltok, seqlen=PTQ_SEQLEN,
+                               window_limit=PPL_WINDOWS, window_batch=PPL_BATCH)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    if read_counters() != launches:
+        raise AssertionError("v1 producer: the plain-version perplexity launched a kernel")
+    packed = [v for lp in params["layers"] for v in lp.values() if isinstance(v, PackedLinear)]
+    salient = float(np.mean([1.0 - m.mean() for m in report.masks.values()]))
+    forwards = -(-PPL_WINDOWS // PPL_BATCH)
+    chunks = 1  # capture_batch == nsamples: one calibration chunk per layer
+    want = expect_launches(pb_select_v1=len(packed) * (chunks + forwards),
+                           flash_attention=cfg.num_hidden_layers * (2 * chunks + forwards))
+    row = {"phase": "producer_v1", "model": "OPT-1.3B widths, 2 layers, random-init f32 weights",
+           "calib": f"synthetic wikitext2 (ptq flavor), {PTQ_NSAMPLES} x {PTQ_SEQLEN}",
+           "solver": "xnor low_frac 0.9 hessian high_bit 8 groupsize 128, element masks, packed",
+           "salient_frac": salient, "effective_bits": float(np.mean([p.effective_bits() for p in packed])),
+           "ppl_windows": PPL_WINDOWS, "ppl_batch": PPL_BATCH, "ppl": ppl, "ppl_plain": ppl_plain,
+           "ppl_rel_diff": abs(ppl - ppl_plain) / ppl_plain, "quantize_s": t1 - t0,
+           "ppl_s": t2 - t1, "ppl_plain_s": t3 - t2, "layer_seconds": report.layer_seconds,
+           "layer_output_mse": report.layer_output_mse, "total_gptq_error": sum(report.errors.values()),
+           "packed_linears": len(packed), "launches": launches, "peak_mem_gb": peak_gb, "card": card}
+    log(json.dumps(row))
+    if len(packed) != 6 * cfg.num_hidden_layers:
+        raise AssertionError(f"v1 producer: {len(packed)} packed linears")
+    if not (np.isfinite(ppl) and np.isfinite(ppl_plain)):
+        raise AssertionError(f"v1 producer: perplexity {ppl} / {ppl_plain}")
+    if abs(ppl - ppl_plain) > PPL_RTOL * ppl_plain:
+        raise AssertionError(f"v1 producer: ppl {ppl} (kernels) vs {ppl_plain} (plain versions)")
+    if launches != want:
+        raise AssertionError(f"v1 producer: launches {launches}, expected {want}")
+    return row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true", help="trace three decode steps")
@@ -1065,7 +1360,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    from pb_llm_tpu_torch.data.synthetic import random_packed_llama
+    from pb_llm_tpu_torch.data.synthetic import random_packed_llama, random_packed_opt
 
     card = setup()
     timer = Timer()
@@ -1075,6 +1370,7 @@ def main(argv=None) -> int:
     f32_rows = check_f32_matmul(timer, card)
     fa_rows = check_flash(timer, card)
     pa_rows = check_paged_attention(timer, card)
+    v1_rows = check_v1_matmul(timer, card)
     del timer
     parity_params = random_packed_llama(llama7b(2), torch.Generator().manual_seed(4))
     check_engine_parity(parity_params, "int8")
@@ -1089,13 +1385,26 @@ def main(argv=None) -> int:
     paged = paged_e2e(params, card)
     del params
     torch.cuda.empty_cache()
+    check_opt_parity(card)
+    t0 = time.perf_counter()
+    opt_params = random_packed_opt(opt13b(24), torch.Generator(device=DEV).manual_seed(18))
+    torch.cuda.synchronize()
+    v1_e2e = serve_v1_e2e(opt_params, opt13b(24), time.perf_counter() - t0, card)
+    del opt_params
+    torch.cuda.empty_cache()
     prod = producer(card)
+    prod_v1 = producer_v1(card)
 
     head = next(r for r in mm_rows if (r["m"], r["ic"], r["oc"]) == HEADLINE_SHAPE)
     dq = next(r for r in dq_rows if (r["ic"], r["oc"], r["dtype"]) == (4096, 11008, "torch.float32"))
     f32 = next(r for r in f32_rows if (r["m"], r["ic"], r["oc"]) == HEADLINE_SHAPE)
     fa = fa_rows[0]
     pa = next(r for r in pa_rows if r["case"] == "decode_int8")
+    planar = next(r for r in v1_rows if r["kernel"] == "pb_planar_v1" and (r["ic"], r["oc"]) ==
+                  V1_HEADLINE and r["groupsize"] == V1_HEADLINE[0] and r["sidecar_bits"] == 8
+                  and r["low_bits"] == 1)
+    select = next(r for r in v1_rows if r["kernel"] == "pb_select_v1" and (r["ic"], r["oc"]) ==
+                  V1_HEADLINE and r["groupsize"] == 128 and r["dot"] == "torch.float32")
     kernels = [
         {"name": "pb_int8_matmul", "route": "cuda", "source": "pb_llm_tpu_torch/csrc/pb_int8_matmul.cu",
          "replaces": "pb_llm_tpu/ops/pallas_pb.py:393", "launches": e2e["matmul_launches"],
@@ -1134,6 +1443,21 @@ def main(argv=None) -> int:
          "plain_ms": pa["plain_ms"], "bound_ms": pa["bound_ms"], "bound_by": pa["bound_by"],
          "library_ms": pa["library_ms"], "parity": "ok",
          "shape": "B=8 Hq=Hkv=32 D=128 int8 pages of 16 (1025), lengths <= 512, decode"},
+        {"name": "pb_planar_v1", "route": "cuda", "source": "pb_llm_tpu_torch/csrc/pb_planar_v1.cu",
+         "replaces": "pb_llm_tpu/ops/pallas_pb.py:148", "launches": v1_e2e["launches"]["pb_planar_v1"],
+         "max_abs_err": max(r["max_abs_err"] for r in v1_rows if r["kernel"] == "pb_planar_v1"),
+         "ms": planar["kernel_ms"], "plain_ms": planar["plain_ms"], "bound_ms": planar["bound_ms"],
+         "bound_by": planar["bound_by"], "library_ms": planar["library_f32_ms"], "parity": "ok",
+         "shape": "m=8 ic=2048 oc=8192 (OPT-1.3B fc1) low_frac 0.9, whole-row scales; library: "
+                  "f32 matmul on the dense weight"},
+        {"name": "pb_select_v1", "route": "cuda", "source": "pb_llm_tpu_torch/csrc/pb_select_v1.cu",
+         "replaces": "pb_llm_tpu/ops/pallas_pb.py:1297",
+         "launches": v1_e2e["launches"]["pb_select_v1"] + prod_v1["launches"]["pb_select_v1"],
+         "max_abs_err": max(r["max_abs_err"] for r in v1_rows if r["kernel"] == "pb_select_v1"),
+         "ms": select["kernel_ms"], "plain_ms": select["plain_ms"], "bound_ms": select["bound_ms"],
+         "bound_by": select["bound_by"], "library_ms": select["library_f32_ms"], "parity": "ok",
+         "shape": "m=512 ic=2048 oc=8192 f32, groups of 128; launches: phases 7b and 8; library: "
+                  "f32 matmul on the dense weight"},
     ]
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,14 +8,15 @@ reference's `quant_sequential`, `gptq_pb/run.py:34-189`):
         captured tensor (q/k/v share one input, gate/up another);
      b. per linear: the GPTQ-PB solve → fake-quant weight, salient mask and
         quantizer states;
-     c. write back as "sim" (dense fake-quant floats) or "packed_v2" (PBW v2
-        planes, packed on the layer's device);
+     c. write back as "sim" (dense fake-quant floats), "packed" (PBW v1
+        planes, element-wise masks and per-group scales) or "packed_v2"
+        (PBW v2 planes), packed on the layer's device;
      d. the quantized layer's outputs become the next layer's inputs.
 
 The whole model stays resident on its device; activations are kept per
-``capture_batch`` windows.  PBW v1 (``fmt="packed"``) and the layer-streamed
-variant (`quantize_model_ptq_streamed`, which needs `hf_stream`) are not
-ported yet.
+``capture_batch`` windows.  The layer-streamed variant
+(`quantize_model_ptq_streamed`, which needs `hf_stream`) is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -51,7 +52,7 @@ class PTQReport:
 
 
 def _ic(lin) -> int:
-    return lin.ic_local if isinstance(lin, pbw.PackedLinearV2) else lin["w"].shape[0]
+    return lin["w"].shape[0] if isinstance(lin, dict) else lin.ic_local
 
 
 def _sync(device: torch.device) -> None:
@@ -101,16 +102,22 @@ def _solve_layer_linears(lp, hs, i, solver_cfg: SolverConfig, fmt: str, pack_blo
         masks[key] = out["mask"].cpu().numpy()
         if log:
             log(f"{key}: error {errors[key]:.4f}")
-        if fmt == "packed_v2":
+        if fmt == "packed":
+            packed, diag = pbw.pack_linear(
+                out["w_q"], out["mask"], out["low_state"], out["high_state"],
+                solver_cfg.low_method, solver_cfg.groupsize, bias=lin.get("b"),
+                pack_block=pack_block)
+        elif fmt == "packed_v2":
             packed, diag = pbw.pack_linear_v2(
                 out["w_q"], out["mask"], out["low_state"], out["high_state"],
                 solver_cfg.low_method, col_tile=solver_cfg.col_tile, bias=lin.get("b"),
                 pack_block=pack_block, ic_shards=solver_cfg.ic_shards)
+        else:
+            lp[n] = {"w": out["w_q"].T.to(lin["w"].dtype).contiguous(), "b": lin.get("b")}
+        if fmt != "sim":
             if diag["pack_mismatch"] > 0 and log:
                 log(f"{key}: pack mismatch fraction {diag['pack_mismatch']:.2e}")
             lp[n] = packed
-        else:
-            lp[n] = {"w": out["w_q"].T.to(lin["w"].dtype).contiguous(), "b": lin.get("b")}
         del out
         _sync(dev)
         pack_s += time.time() - tp
@@ -123,7 +130,7 @@ def quantize_model_ptq(
     fam: Family,
     calib_ids,                       # [nsamples, seqlen] int
     solver_cfg: SolverConfig,
-    fmt: str = "sim",                # "sim" | "packed_v2"
+    fmt: str = "sim",                # "sim" | "packed" | "packed_v2"
     minlayer: int = -1,
     maxlayer: int = 100000,
     quant_only: str = "",
@@ -140,9 +147,7 @@ def quantize_model_ptq(
     masks) are checkpointed there, and a rerun skips solving those layers.
     ``capture_batch``: calibration windows per capture/propagate forward
     (the Hessian protocol is sample-sequential either way)."""
-    if fmt == "packed":
-        raise NotImplementedError("fmt='packed' (PBW v1) is not ported yet (ROADMAP: PBW v1)")
-    if fmt not in ("sim", "packed_v2"):
+    if fmt not in ("sim", "packed", "packed_v2"):
         raise ValueError(f"unknown fmt {fmt!r}")
     if fmt == "packed_v2" and solver_cfg.mask_structure != "column":
         raise ValueError("fmt='packed_v2' requires SolverConfig(mask_structure='column') "
@@ -169,7 +174,7 @@ def quantize_model_ptq(
             if not selected:
                 inps = propagate(lp)
                 continue
-            if resume_dir and _load_layer_ckpt(resume_dir, i, lp, errors, masks):
+            if resume_dir and _load_layer_ckpt(resume_dir, i, lp, errors, masks, device):
                 if log:
                     log(f"layer_{i}: resumed from checkpoint")
                 inps = propagate(lp)
@@ -229,15 +234,15 @@ def _save_layer_ckpt(resume_dir: str, i: int, lp: Dict[str, Any], names, errors,
                         **{k.replace("/", "__"): masks[k] for k in extra["mask_keys"]})
 
 
-def _load_layer_ckpt(resume_dir: str, i: int, lp: Dict[str, Any], errors, masks) -> bool:
+def _load_layer_ckpt(resume_dir: str, i: int, lp: Dict[str, Any], errors, masks,
+                     device: torch.device) -> bool:
     from ..utils import checkpoint as ckpt
 
     layer_dir = os.path.join(resume_dir, f"layer_{i}")
     if not os.path.exists(os.path.join(layer_dir, "manifest.json")):
         return False
     quantized, extra = ckpt.load_dense_checkpoint(layer_dir)
-    dev = lp["input_layernorm"].device
-    lp.update(to_device(quantized, dev))
+    lp.update(to_device(quantized, device))
     errors.update(extra.get("errors", {}))
     with np.load(os.path.join(layer_dir, "masks.npz")) as z:
         for k in z.files:

@@ -5,7 +5,8 @@ windowed perplexity on wikitext2 / ptb / c4 under the exact hybrid prefill
     python -m pb_llm_tpu_torch.cli.run_eval --model_id llama --synthetic \\
         --eval_ppl wikitext2 --device cpu
 
-``checkpoint`` is a dense checkpoint (`utils.checkpoint`) or a PBW v2
+``--synthetic`` builds the JAX CLIs' tiny llama or OPT (by --model_id);
+``checkpoint`` is a dense checkpoint (`utils.checkpoint`) or a PBW v1 or v2
 directory (installed over the model's linears).  Task suites (--tasks),
 sequence parallelism (--sp) and scanned layers (--scan_layers) are not
 ported yet.
@@ -20,7 +21,8 @@ import os
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Perplexity evaluation")
     p.add_argument("checkpoint", type=str, nargs="?", default=None,
-                   help="dense checkpoint dir (utils.checkpoint) or PBW v2 dir; omit for the base model")
+                   help="dense checkpoint dir (utils.checkpoint) or PBW v1/v2 dir; omit for the "
+                        "base model")
     p.add_argument("--model_id", type=str, required=True)
     p.add_argument("--tasks", type=str, default="", help="task suites (not ported yet)")
     p.add_argument("--eval_ppl", type=str, default="wikitext2,ptb,c4")
@@ -51,8 +53,6 @@ def main(argv=None) -> int:
         raise NotImplementedError("--scan_layers: models/stacking.py is not ported yet "
                                   "(ROADMAP Queue 1, slice 6)")
 
-    import torch
-
     from .. import resolve_device
     from ..data.loaders import get_eval_tokens, get_loaders
     from ..eval.ppl import perplexity
@@ -68,12 +68,9 @@ def main(argv=None) -> int:
     if not args.synthetic:
         raise NotImplementedError("HF model import and tokenizers are not ported yet "
                                   "(ROADMAP Queue 1: models/hf_import.py): use --synthetic")
-    from ..data.synthetic import ByteTokenizer, synthetic_source
-    from ..models.llama import LlamaConfig, init_params
+    from ..data.synthetic import ByteTokenizer, synthetic_model, synthetic_source
 
-    cfg = LlamaConfig(vocab_size=259, hidden_size=64, intermediate_size=128, num_hidden_layers=2,
-                      num_attention_heads=4, num_key_value_heads=4, max_position_embeddings=256)
-    params = init_params(cfg, torch.Generator().manual_seed(0), device=device)
+    cfg, params = synthetic_model(fam.name, device=device)
     tokenizer = ByteTokenizer()
     source = synthetic_source()
     seqlen = args.seqlen or 64

@@ -1,14 +1,17 @@
 """PTQ CLI (port of `pb_llm_tpu/cli/run_ptq.py`): the reference's
-`gptq_pb/run.py` arguments, the JAX package's extras (--format packed_v2,
---save_pbw, --synthetic) and --device.  Runs on CUDA unless --device cpu.
+`gptq_pb/run.py` arguments, the JAX package's extras (--format packed /
+packed_v2, --save_pbw, --synthetic) and --device.  Runs on CUDA unless
+--device cpu.
 
+    python -m pb_llm_tpu_torch.cli.run_ptq facebook/opt-synth wikitext2 xnor \\
+        --low_frac 0.5 --synthetic --nsamples 2 --format packed --save_pbw ck --device cpu
     python -m pb_llm_tpu_torch.cli.run_ptq huggyllama/llama-7b wikitext2 xnor \\
         --low_frac 0.5 --synthetic --nsamples 2 --format packed_v2 --device cpu
 
 Calibrates layer by layer (GPTQ-PB), then evaluates windowed perplexity on
 wikitext2, ptb and c4 under the exact hybrid prefill (`pin_exact_prefill`).
-Offline only: --synthetic (byte tokenizer, synthetic corpora, a tiny
-random-init llama) is the one model source ported so far.
+Offline only: --synthetic (byte tokenizer, synthetic corpora, the JAX CLIs'
+tiny random-init llama or OPT) is the one model source ported so far.
 """
 
 from __future__ import annotations
@@ -63,22 +66,17 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def load_model_and_tokenizer(args, device):
-    """--synthetic: the JAX CLI's tiny llama config, weights from a torch
-    generator seeded 0 (so they differ from the JAX CLI's)."""
-    import torch
-
+    """--synthetic: the JAX CLI's tiny config of the model's family, weights
+    from a torch generator seeded 0 (so they differ from the JAX CLI's)."""
     from ..models.registry import family_for
 
     fam = family_for(args.model)
     if not args.synthetic:
         raise NotImplementedError("HF model import and tokenizers are not ported yet "
                                   "(ROADMAP Queue 1: models/hf_import.py): use --synthetic")
-    from ..data.synthetic import ByteTokenizer
-    from ..models.llama import LlamaConfig, init_params
+    from ..data.synthetic import ByteTokenizer, synthetic_model
 
-    cfg = LlamaConfig(vocab_size=259, hidden_size=64, intermediate_size=128, num_hidden_layers=2,
-                      num_attention_heads=4, num_key_value_heads=4, max_position_embeddings=256)
-    params = init_params(cfg, torch.Generator().manual_seed(0), device=device)
+    cfg, params = synthetic_model(fam.name, device=device)
     return params, cfg, fam, ByteTokenizer()
 
 
@@ -87,8 +85,6 @@ def main(argv=None) -> int:
     for flag, row in (("stream", "models/hf_stream.py"), ("save", "models/hf_export.py")):
         if getattr(args, flag):
             raise NotImplementedError(f"--{flag} is not ported yet (ROADMAP Queue 1, slice 6: {row})")
-    if args.fmt == "packed":
-        raise NotImplementedError("--format packed (PBW v1) is not ported yet (ROADMAP: PBW v1)")
 
     from .. import resolve_device
     from ..calib.pipeline import quantize_model_ptq, save_masks
@@ -149,11 +145,11 @@ def main(argv=None) -> int:
         log.log("ppl", dataset=ds, ppl=ppl)
         print(f"{ds} perplexity: {ppl:.4f}")
 
-    if args.save_pbw and job.fmt == "packed_v2":
-        from ..core.pbw import PackedLinearV2, save_pbw
+    if args.save_pbw and job.fmt in ("packed", "packed_v2"):
+        from ..core.pbw import PackedLinear, PackedLinearV2, save_pbw
 
         layers = {f"layer_{i}/{n}": leaf for i, lp in enumerate(params["layers"])
-                  for n, leaf in lp.items() if isinstance(leaf, PackedLinearV2)}
+                  for n, leaf in lp.items() if isinstance(leaf, (PackedLinear, PackedLinearV2))}
         save_pbw(args.save_pbw, layers, {"model": job.model, "config": job.save_title})
         print(f"PBW checkpoint saved to {args.save_pbw}")
     return 0

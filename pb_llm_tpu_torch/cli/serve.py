@@ -4,11 +4,12 @@ prompts through the continuous batcher and reports tokens/s.
     python -m pb_llm_tpu_torch.cli.serve --model_id llama --synthetic --demo
     python -m pb_llm_tpu_torch.cli.serve --model_id llama --synthetic --demo \
         --page_size 8 --prefix_cache --prefill_chunk 16 --spec_gamma 3
-    python -m pb_llm_tpu_torch.cli.serve --model_id huggyllama/llama-7b --synthetic \
-        --pbw checkpoints/llama7b_pbw
+    python -m pb_llm_tpu_torch.cli.serve --model_id facebook/opt-synth --synthetic \
+        --pbw checkpoints/opt_pbw
 
-Runs on CUDA unless ``--device cpu`` is given.  ``--pbw`` installs a PBW v2
-checkpoint over the params the other flags build.  HF import, dense
+Runs on CUDA unless ``--device cpu`` is given.  ``--synthetic`` builds the
+JAX CLIs' tiny llama or OPT (by ``--model_id``); ``--pbw`` installs a PBW v1
+or v2 checkpoint over its linears.  HF import, dense
 checkpoints, draft models from checkpoints, the HTTP front end, TP and
 scanned layers are not ported yet.
 """
@@ -21,7 +22,7 @@ import argparse
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="continuous-batching serving demo")
     p.add_argument("--model_id", type=str, required=True)
-    p.add_argument("--pbw", type=str, default=None, help="PBW v2 packed checkpoint dir")
+    p.add_argument("--pbw", type=str, default=None, help="PBW v1 or v2 packed checkpoint dir")
     p.add_argument("--slots", type=int, default=8)
     p.add_argument("--max_seq", type=int, default=2048)
     p.add_argument("--max_new_tokens", type=int, default=32)
@@ -57,14 +58,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="with --synthetic: a 1-layer synthetic draft model")
     p.add_argument("--decode_dot", type=str, default=None,
                    choices=["auto", "f32", "int8", "dma", "bf16", "pair"],
-                   help="PBW-v2 decode dot arm (auto = int8; only int8 is ported)")
+                   help="PBW-v2 decode dot arm (auto = int8 on CUDA; all but pair and dma "
+                        "are ported; PBW v1 ignores it)")
     p.add_argument("--prefill_kernel", type=str, default=None,
                    choices=["auto", "int8", "hybrid", "hybrid_bf16"],
-                   help="PBW-v2 prefill arm (auto = int8 on CUDA; only int8 is ported)")
+                   help="PBW-v2 prefill arm (auto = int8 on CUDA; all are ported; PBW v1 "
+                        "reads only hybrid_bf16, a bf16 select dot)")
     p.add_argument("--prompts", type=str, default=None, help="file with one prompt per line")
     p.add_argument("--n_requests", type=int, default=16)
     p.add_argument("--synthetic", action="store_true",
-                   help="byte tokenizer + a tiny random llama (offline)")
+                   help="byte tokenizer + a tiny random llama or OPT (offline)")
     p.add_argument("--demo", action="store_true", help="run the built-in prompt batch and exit")
     p.add_argument("--device", type=str, default=None, help="default: cuda")
     p.add_argument("--seed", type=int, default=0)
@@ -98,12 +101,9 @@ def main(argv=None) -> int:
     fam = family_for(args.model_id)
     if not args.synthetic:
         raise NotImplementedError("HF model import is not ported yet (ROADMAP): use --synthetic")
-    from ..data.synthetic import ByteTokenizer
-    from ..models.llama import LlamaConfig, init_params
+    from ..data.synthetic import ByteTokenizer, synthetic_model
 
-    cfg = LlamaConfig(vocab_size=259, hidden_size=64, intermediate_size=128, num_hidden_layers=2,
-                      num_attention_heads=4, num_key_value_heads=4, max_position_embeddings=256)
-    params = init_params(cfg, torch.Generator().manual_seed(args.seed), device=device)
+    cfg, params = synthetic_model(fam.name, args.seed, device)
     tokenizer = ByteTokenizer()
     max_seq = min(args.max_seq, 128)
     if args.pbw:
@@ -137,10 +137,7 @@ def main(argv=None) -> int:
     if args.draft_synthetic:
         from ..runtime.draft import ModelDraftSource
 
-        dcfg = LlamaConfig(vocab_size=259, hidden_size=32, intermediate_size=64,
-                           num_hidden_layers=1, num_attention_heads=4, num_key_value_heads=4,
-                           max_position_embeddings=256)
-        dparams = init_params(dcfg, torch.Generator().manual_seed(args.seed + 1), device=device)
+        dcfg, dparams = synthetic_model(fam.name, args.seed + 1, device, draft=True)
         draft_source = ModelDraftSource(Engine(
             dparams, dcfg, fam, EngineConfig(n_slots=args.slots, max_seq=max_seq,
                                              prefill_buckets=buckets),

@@ -1,7 +1,24 @@
-"""PBW v2 — column-structured partially-binarized weights (port of the v2
-part of `pb_llm_tpu/core/pbw.py`).
+"""Partially-binarized weights: PBW v1 and v2 (port of
+`pb_llm_tpu/core/pbw.py`).
 
-Per linear layer (logical weight W [oc, ic], planes over [ic, oc]):
+PBW v1 (`PackedLinear`, element-wise salient mask), per linear layer
+(logical weight W [oc, ic], planes over [ic, oc]):
+
+  sign_packed  int32 [low_bits·ic/32, oc]  low-code bit planes, plane-major
+                                           (uint32 bit pattern), zeroed at
+                                           salient rows (B' convention)
+  mask_packed  int32 [ic/32, oc]           salient plane (bit 1 ⇔ high code)
+  sidecar      uint8 [ic, oc] | [ic/2, oc] high codes, zero where not
+                                           salient; nibbles when maxq ≤ 15
+  low_scale / low_mean  f32 [n_groups, oc] (2/4-bit lows: low_mean holds
+                                           the zero point)
+  high_scale / high_zero f32 [oc]
+  bias         f32 [oc] | None
+
+  w[i, o] = mask ? hs[o]·(sidecar[i, o] − hz[o])
+                 : low_mean[g(i), o] + (2·bit − 1)·low_scale[g(i), o]
+
+PBW v2 (`PackedLinearV2`, column-structured salient sidecar):
 
   sign_packed  int32 [ic/32, oc]    sign bitplane (uint32 bit pattern), zeroed
                                     at salient rows (B' convention)
@@ -13,8 +30,7 @@ Per linear layer (logical weight W [oc, ic], planes over [ic, oc]):
   bias         f32 [oc] | None
 
 Checkpoints use the JAX package's `planes.npz` + `manifest.json` layout
-(sign planes stored as uint32), so artifacts cross in both directions.
-PBW v1 (`PackedLinear`) is not ported yet (ROADMAP).
+(bit planes stored as uint32), so artifacts cross in both directions.
 """
 
 from __future__ import annotations
@@ -28,6 +44,187 @@ import numpy as np
 import torch
 
 from . import packing
+
+
+@dataclasses.dataclass
+class PackedLinear:
+    """Element-wise partially-binarized linear (PBW v1); tensors plus the
+    same static fields and derived properties as the JAX dataclass."""
+
+    sign_packed: torch.Tensor  # int32 [low_bits * ic//32, oc]
+    mask_packed: torch.Tensor  # int32 [ic//32, oc]
+    sidecar: torch.Tensor      # uint8 [ic, oc], or [ic//2, oc] nibbles
+    low_scale: torch.Tensor    # f32 [n_groups, oc]
+    low_mean: torch.Tensor     # f32 [n_groups, oc]
+    high_scale: torch.Tensor   # f32 [oc]
+    high_zero: torch.Tensor    # f32 [oc]
+    bias: Optional[torch.Tensor]
+    ic: int
+    oc: int
+    groupsize: int
+    pack_block: int = packing.PACK_BLOCK
+    sidecar_bits: int = 8
+    low_bits: int = 1
+    # the planar kernel's [3G+2, oc] coefficient rows, made on first use by
+    # `ops.packed_matmul_v1`; not a checkpoint field, and `to` drops it
+    coef_cache: Optional[torch.Tensor] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
+
+    @property
+    def n_groups(self) -> int:
+        return self.low_scale.shape[0]
+
+    @property
+    def ic_local(self) -> int:
+        return self.sidecar.shape[0] * (2 if self.sidecar_bits == 4 else 1)
+
+    @property
+    def words_per_plane(self) -> int:
+        return self.sign_packed.shape[0] // self.low_bits
+
+    @property
+    def oc_local(self) -> int:
+        return self.sidecar.shape[1]
+
+    @property
+    def groupsize_local(self) -> int:
+        return min(self.groupsize, self.ic_local)
+
+    @property
+    def pack_block_local(self) -> int:
+        return min(self.pack_block, self.ic_local)
+
+    @property
+    def device(self) -> torch.device:
+        return self.sign_packed.device
+
+    def to(self, device) -> "PackedLinear":
+        kw = {f: (None if getattr(self, f) is None else getattr(self, f).to(device))
+              for f in _FIELDS}
+        return dataclasses.replace(self, **kw)
+
+    def effective_bits(self) -> float:
+        """Bits of storage per logical weight."""
+        n = self.ic * self.oc
+        bits = (self.sign_packed.numel() + self.mask_packed.numel()) * 32 + self.sidecar.numel() * 8
+        bits += (self.low_scale.numel() + self.low_mean.numel()
+                 + self.high_scale.numel() + self.high_zero.numel()) * 32
+        return bits / n
+
+
+PACKABLE_METHODS = ("xnor", "sign", "rtn", "prune", "2bit", "4bit")
+_LOW_BITS = {"xnor": 1, "sign": 1, "rtn": 1, "prune": 1, "2bit": 2, "4bit": 4}
+
+
+def _low_params(low_state: Dict, method: str, dev) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(low_scale, low_mean) of a packable method: xnor keeps its mean and
+    scale, 2/4-bit lows their scale and zero point, and the {0, s} methods
+    (sign, rtn, prune) the two-point form mean' = scale' = s/2."""
+    if method == "xnor":
+        return _f32(low_state["scale"], dev), _f32(low_state["mean"], dev)
+    if method in ("2bit", "4bit"):
+        return _f32(low_state["scale"], dev), _f32(low_state["zero"], dev)
+    s = _f32(low_state["scale"], dev)
+    if method == "prune":
+        s = torch.zeros_like(s)
+    return s / 2.0, s / 2.0
+
+
+def pack_linear(w_q, mask, low_state: Dict, high_state: Dict, method: str, groupsize: int = -1,
+                bias=None, pack_block: Optional[int] = None) -> Tuple[PackedLinear, Dict[str, float]]:
+    """Pack a fake-quantized weight ``w_q`` [oc, ic] with its element-wise
+    ``mask`` [oc, ic] (True ⇔ binarized) into PBW v1 planes, on ``w_q``'s
+    device (numpy inputs: the CPU).  Returns the layer and {pack_mismatch:
+    fraction of entries whose dequantization differs from w_q}."""
+    if method not in PACKABLE_METHODS:
+        raise ValueError(f"method {method!r} is not 1-bit packable; use the 'sim' format")
+    w_q = _f32(w_q)
+    dev = w_q.device
+    oc, ic = w_q.shape
+    gs = ic if groupsize == -1 else groupsize
+    if ic % 32:
+        raise ValueError("pack_linear requires ic % 32 == 0 (pad upstream)")
+    if isinstance(mask, torch.Tensor):
+        salient = ~mask.to(dev).bool()
+    else:
+        salient = ~torch.from_numpy(np.array(mask, dtype=bool)).to(dev)
+    low_bits = _LOW_BITS[method]
+    low_scale, low_mean = _low_params(low_state, method, dev)
+
+    # grouped layouts cap the pack block at the group size so no bit-plane
+    # block straddles a scale group (the planar kernel's per-group terms)
+    if pack_block is None:
+        cap = gs if (gs < ic and ic % gs == 0 and gs % 32 == 0) else 2048
+        pack_block = packing.default_pack_block(ic, cap=cap)
+    sal_t = salient.T
+    if low_bits == 1:
+        mean_rows = torch.repeat_interleave(low_mean, gs, dim=0)[:ic]
+        plane_list = [((w_q.T - mean_rows) >= 0) & ~sal_t]
+    else:
+        scale_rows = torch.clamp(torch.repeat_interleave(low_scale, gs, dim=0)[:ic], min=1e-20)
+        zero_rows = torch.repeat_interleave(low_mean, gs, dim=0)[:ic]
+        codes_low = torch.clamp(torch.round(w_q.T / scale_rows + zero_rows), 0, 2**low_bits - 1)
+        codes_low = torch.where(sal_t, 0, codes_low.to(torch.int32))
+        plane_list = [((codes_low >> j) & 1).bool() for j in range(low_bits)]
+
+    hs, hz = _f32(high_state["scale"], dev), _f32(high_state["zero"], dev)
+    maxq = float(_f32(high_state.get("maxq", 255.0)))
+    sidecar_bits = 4 if maxq <= 15 and ic % 2 == 0 else 8
+    codes = torch.clamp(torch.round(w_q / hs[:, None] + hz[:, None]), 0, maxq)
+    sidecar = torch.where(salient, codes, 0).to(torch.uint8).T.contiguous()
+    if sidecar_bits == 4:
+        sidecar = packing.pack_nibbles(sidecar, pack_block)
+
+    packed = PackedLinear(
+        sign_packed=torch.cat([packing.pack_bits(pl, pack_block) for pl in plane_list], dim=0),
+        mask_packed=packing.pack_bits(sal_t, pack_block), sidecar=sidecar,
+        low_scale=low_scale, low_mean=low_mean, high_scale=hs, high_zero=hz,
+        bias=None if bias is None else _f32(bias, dev),
+        ic=ic, oc=oc, groupsize=gs, pack_block=pack_block, sidecar_bits=sidecar_bits,
+        low_bits=low_bits)
+    w_rt = dequantize(packed).T
+    return packed, {"pack_mismatch": float(torch.mean(((w_rt - w_q).abs() > 1e-6).float()))}
+
+
+def low_code(sign_packed: torch.Tensor, low_bits: int, ic: int, pack_block: int) -> torch.Tensor:
+    """C = Σ_j 2^j·B_j of plane-major bit planes, f32 [ic, oc] (exact small
+    integers)."""
+    wpp = sign_packed.shape[0] // low_bits
+    code = None
+    for j in range(low_bits):
+        bits = packing.unpack_bits(sign_packed[j * wpp : (j + 1) * wpp], ic, pack_block).float()
+        code = bits if code is None else code + (2.0 ** j) * bits
+    return code
+
+
+def sidecar_codes(p: PackedLinear) -> torch.Tensor:
+    """The high codes as uint8 [ic, oc] (nibbles unpacked)."""
+    if p.sidecar_bits == 4:
+        return packing.unpack_nibbles(p.sidecar, p.ic_local, p.pack_block_local)
+    return p.sidecar
+
+
+def dequantize(p: PackedLinear) -> torch.Tensor:
+    """Dense f32 [ic, oc] (the kernels' oracle), in the JAX function's
+    operation order."""
+    ic = p.ic_local
+    m = packing.unpack_bits(p.mask_packed, ic, p.pack_block_local).bool()
+    mean_rows = torch.repeat_interleave(p.low_mean, p.groupsize_local, dim=0)[:ic]
+    scale_rows = torch.repeat_interleave(p.low_scale, p.groupsize_local, dim=0)[:ic]
+    code = low_code(p.sign_packed, p.low_bits, ic, p.pack_block_local)
+    if p.low_bits == 1:
+        w_bin = mean_rows + (2.0 * code - 1.0) * scale_rows
+    else:
+        w_bin = scale_rows * (code - mean_rows)  # low_mean holds the zero point
+    w_hi = p.high_scale[None, :] * (sidecar_codes(p).float() - p.high_zero[None, :])
+    return torch.where(m, w_hi, w_bin)
+
+
+def matmul_reference(x: torch.Tensor, p: PackedLinear) -> torch.Tensor:
+    y = x.float() @ dequantize(p)
+    if p.bias is not None:
+        y = y + p.bias
+    return y
 
 
 @dataclasses.dataclass
@@ -198,16 +395,7 @@ def pack_linear_v2(w_q, mask, low_state: Dict, high_state: Dict, method: str,
         for s, c in enumerate(cols):
             side_idx[s * k_pad : s * k_pad + len(c), t] = c
 
-    if method == "xnor":
-        low_mean, low_scale = _f32(low_state["mean"], dev), _f32(low_state["scale"], dev)
-    elif method in ("2bit", "4bit"):
-        low_scale, low_mean = _f32(low_state["scale"], dev), _f32(low_state["zero"], dev)
-    else:
-        s_ = _f32(low_state["scale"], dev)
-        if method == "prune":
-            s_ = torch.zeros_like(s_)
-        low_mean = s_ / 2.0
-        low_scale = s_ / 2.0
+    low_scale, low_mean = _low_params(low_state, method, dev)
     if low_scale.shape[0] != 1:
         raise ValueError("v2 requires groupsize == -1 (whole-row low groups)")
 
@@ -262,15 +450,10 @@ def dequantize_v2(p: PackedLinearV2) -> torch.Tensor:
     shards, ic_s, kps = p.shards_local, p.ic_shard_local, p.k_pad_shard_local
     dev = p.device
     side_val = unpack_side_codes(p.side_val, p.side_bits, shards)
-    wpp = p.words_per_plane
+    code = low_code(p.sign_packed, p.low_bits, ic, p.pack_block_local)
     if p.low_bits == 1:
-        bits = packing.unpack_bits(p.sign_packed, ic, p.pack_block_local).float()
-        w_bin = p.low_mean[0][None, :] + (2.0 * bits - 1.0) * p.low_scale[0][None, :]
+        w_bin = p.low_mean[0][None, :] + (2.0 * code - 1.0) * p.low_scale[0][None, :]
     else:
-        code = torch.zeros((ic, oc), dtype=torch.float32, device=dev)
-        for j in range(p.low_bits):
-            bits_j = packing.unpack_bits(p.sign_packed[j * wpp : (j + 1) * wpp], ic, p.pack_block_local)
-            code = code + (2.0 ** j) * bits_j.float()
         w_bin = p.low_scale[0][None, :] * (code - p.low_mean[0][None, :])
 
     codes = torch.zeros((ic_s + 1, shards, oc), dtype=torch.float32, device=dev)  # row ic_s = sink
@@ -314,35 +497,61 @@ def gather_x_v2(x: torch.Tensor, p: PackedLinearV2) -> torch.Tensor:
 # Serialization: the JAX package's planes.npz + manifest.json layout.
 # ---------------------------------------------------------------------------
 
+_FIELDS = ("sign_packed", "mask_packed", "sidecar", "low_scale", "low_mean",
+           "high_scale", "high_zero", "bias")
 _FIELDS_V2 = ("sign_packed", "side_val", "side_idx", "low_scale", "low_mean",
               "high_scale", "high_zero", "bias")
+# static fields as checkpoint manifests name them
+STATIC = ("ic", "oc", "groupsize", "pack_block", "sidecar_bits", "low_bits")
+STATIC_V2 = ("ic", "oc", "col_tile", "pack_block", "k_pad_shard", "side_bits", "low_bits")
+_PLANES = ("sign_packed", "mask_packed")  # uint32 on disk, bit-identical int32 here
+
+
+def fields_of(p) -> Tuple[str, ...]:
+    return _FIELDS_V2 if isinstance(p, PackedLinearV2) else _FIELDS
 
 
 def _to_numpy(f: str, v: torch.Tensor) -> np.ndarray:
     a = v.detach().cpu().numpy()
-    return a.view(np.uint32) if f == "sign_packed" else a
+    return a.view(np.uint32) if f in _PLANES else a
 
 
 def _from_numpy(f: str, a: np.ndarray) -> torch.Tensor:
-    if f == "sign_packed":
+    if f in _PLANES:
         a = np.ascontiguousarray(a).view(np.int32)
     return torch.from_numpy(np.array(a))
 
 
-def save_pbw(path: str, layers: Dict[str, PackedLinearV2], extra_meta: Optional[dict] = None) -> None:
+def layer_from_arrays(static: Dict, arrays: Dict[str, np.ndarray], v2: bool):
+    """A PackedLinearV2 (``v2``) or PackedLinear from its static fields and
+    its numpy field arrays (bit planes as uint32 or int32); missing
+    optional fields take the JAX defaults."""
+    kw = {f: _from_numpy(f, a) for f, a in arrays.items()}
+    kw.setdefault("bias", None)
+    st = {f: int(static[f]) for f in (STATIC_V2 if v2 else STATIC) if static.get(f) is not None}
+    return (PackedLinearV2 if v2 else PackedLinear)(**st, **kw)
+
+
+def _manifest_entry(p) -> dict:
+    """A layer's entry in the JAX manifest: v2 carries "format", v1 none."""
+    if isinstance(p, PackedLinearV2):
+        return {"format": "v2", "ic": p.ic, "oc": p.oc, "col_tile": p.col_tile,
+                "pack_block": p.pack_block, "k_pad_shard": p.k_pad_shard_local,
+                "side_bits": p.side_bits, "low_bits": p.low_bits, "has_bias": p.bias is not None}
+    return {"ic": p.ic, "oc": p.oc, "groupsize": p.groupsize, "pack_block": p.pack_block,
+            "sidecar_bits": p.sidecar_bits, "low_bits": p.low_bits,
+            "has_bias": p.bias is not None}
+
+
+def save_pbw(path: str, layers: Dict, extra_meta: Optional[dict] = None) -> None:
+    """Write v1 and v2 layers (keys "layer_{i}/{name}") as the JAX package
+    does."""
     os.makedirs(path, exist_ok=True)
     arrays = {}
     meta = {"layers": {}, "extra": extra_meta or {}}
     for name, p in layers.items():
-        if not isinstance(p, PackedLinearV2):
-            raise NotImplementedError("PBW v1 layers are not ported yet (ROADMAP: PBW v1)")
-        meta["layers"][name] = {
-            "format": "v2", "ic": p.ic, "oc": p.oc, "col_tile": p.col_tile,
-            "pack_block": p.pack_block, "k_pad_shard": p.k_pad_shard_local,
-            "side_bits": p.side_bits, "low_bits": p.low_bits,
-            "has_bias": p.bias is not None,
-        }
-        for f in _FIELDS_V2:
+        meta["layers"][name] = _manifest_entry(p)
+        for f in fields_of(p):
             v = getattr(p, f)
             if v is not None:
                 arrays[f"{name}::{f}"] = _to_numpy(f, v)
@@ -369,26 +578,22 @@ class _ShardedNpz:
             return z[key]
 
 
-def load_pbw(path: str) -> Tuple[Dict[str, PackedLinearV2], dict]:
-    """Load a PBW v2 artifact (monolithic or sharded) as CPU tensors."""
+def load_pbw(path: str) -> Tuple[Dict, dict]:
+    """Load a PBW v1 or v2 artifact (monolithic or sharded) as CPU tensors."""
     with open(os.path.join(path, "manifest.json")) as fh:
         meta = json.load(fh)
     z = _ShardedNpz(path, meta["files"]) if "files" in meta else np.load(os.path.join(path, "planes.npz"))
     layers = {}
     for name, lm in meta["layers"].items():
-        if lm.get("format") != "v2":
-            raise NotImplementedError(f"layer {name}: PBW v1 is not ported yet (ROADMAP: PBW v1)")
-        kw = {f: _from_numpy(f, z[f"{name}::{f}"]) for f in _FIELDS_V2 if f"{name}::{f}" in z}
-        kw.setdefault("bias", None)
-        layers[name] = PackedLinearV2(
-            ic=lm["ic"], oc=lm["oc"], col_tile=lm["col_tile"],
-            pack_block=lm.get("pack_block", packing.PACK_BLOCK),
-            k_pad_shard=lm.get("k_pad_shard", 0), side_bits=lm.get("side_bits", 8),
-            low_bits=lm.get("low_bits", 1), **kw)
+        v2 = lm.get("format") == "v2"
+        static = dict(lm, pack_block=lm.get("pack_block", packing.PACK_BLOCK))
+        arrays = {f: z[f"{name}::{f}"] for f in (_FIELDS_V2 if v2 else _FIELDS)
+                  if f"{name}::{f}" in z}
+        layers[name] = layer_from_arrays(static, arrays, v2)
     return layers, meta["extra"]
 
 
-def install_pbw(params: Dict, layers: Dict[str, PackedLinearV2]) -> Dict:
+def install_pbw(params: Dict, layers: Dict) -> Dict:
     """Install loaded layers (keys "layer_{i}/{name}") into a param tree,
     replacing the dense leaves; each layer moves to its leaf's device.
     Non-mutating."""

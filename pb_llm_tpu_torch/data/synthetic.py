@@ -1,8 +1,8 @@
 """Offline substitutes (port of `pb_llm_tpu/data/synthetic.py`): the byte
 tokenizer and the deterministic synthetic corpora that plug into
-`data.loaders`, plus random PBW-v2 weights made on a device from a seed, for
-smoke runs and kernel checks at real widths (the recipe of the JAX
-package's `bench_e2e.build_packed_llama`)."""
+`data.loaders`, the CLIs' tiny random-init models, plus random PBW v1 and
+v2 weights made on a device from a seed, for smoke runs and kernel checks at
+real widths (the recipe of the JAX package's `bench_e2e.build_packed_llama`)."""
 
 from __future__ import annotations
 
@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 from ..core import packing
-from ..core.pbw import PackedLinearV2
+from ..core.pbw import PackedLinear, PackedLinearV2
 from .loaders import TextSource
 
 
@@ -119,3 +119,99 @@ def random_packed_llama(cfg, generator: torch.Generator, low_frac: float = 0.9) 
         layers.append(lp)
     return {"embed_tokens": normal(cfg.vocab_size, h), "layers": layers,
             "norm": torch.ones(h, device=dev), "lm_head": {"w": normal(h, cfg.vocab_size), "b": None}}
+
+
+def random_packed_v1(ic: int, oc: int, generator: torch.Generator, *, low_frac: float = 0.9,
+                     groupsize: int = -1, sidecar_bits: int = 8, low_bits: int = 1,
+                     bias: bool = False) -> PackedLinear:
+    """A PBW-v1 layer with random planes, made on the generator's device.
+
+    Each weight is salient with probability 1 − low_frac, independently
+    (an element-wise mask).  Low codes are random and zero at salient
+    positions (the B' convention), high codes random at salient positions
+    and zero elsewhere; the pack block is `core.pbw.pack_linear`'s.  Scales
+    vary by group and column: low scale 0.005–0.015 (1-bit lows: mean
+    ±0.002; 2/4-bit lows: the mid-code zero point), high scale 0.002–0.006
+    around the mid code."""
+    dev = generator.device
+    gs = ic if groupsize == -1 else groupsize
+    n_groups = -(-ic // gs)
+    cap = gs if (gs < ic and ic % gs == 0 and gs % 32 == 0) else 2048
+    pack_block = packing.default_pack_block(ic, cap=cap)
+
+    def uniform(shape, lo, hi):
+        return lo + (hi - lo) * torch.rand(shape, generator=generator, device=dev)
+
+    salient = torch.rand((ic, oc), generator=generator, device=dev) >= low_frac
+    codes_low = torch.randint(0, 2**low_bits, (ic, oc), generator=generator, device=dev,
+                              dtype=torch.int32) * ~salient
+    maxq = 15 if sidecar_bits == 4 else 255
+    codes = (torch.randint(0, maxq + 1, (ic, oc), generator=generator, device=dev,
+                           dtype=torch.int32) * salient).to(torch.uint8)
+    sidecar = packing.pack_nibbles(codes, pack_block) if sidecar_bits == 4 else codes
+    scale = uniform((n_groups, oc), 0.005, 0.015)
+    if low_bits == 1:
+        mean = uniform((n_groups, oc), -0.002, 0.002)
+    else:
+        mean = torch.full((n_groups, oc), (2**low_bits - 1) / 2, device=dev)
+    return PackedLinear(
+        sign_packed=torch.cat([packing.pack_bits((codes_low >> j) & 1, pack_block)
+                               for j in range(low_bits)], dim=0),
+        mask_packed=packing.pack_bits(salient, pack_block), sidecar=sidecar,
+        low_scale=scale, low_mean=mean, high_scale=uniform((oc,), 0.002, 0.006),
+        high_zero=torch.full((oc,), (maxq + 1) / 2, device=dev),
+        bias=torch.randn(oc, generator=generator, device=dev) * 0.01 if bias else None,
+        ic=ic, oc=oc, groupsize=gs, pack_block=pack_block, sidecar_bits=sidecar_bits,
+        low_bits=low_bits)
+
+
+def random_packed_opt(cfg, generator: torch.Generator, low_frac: float = 0.9,
+                      groupsize: int = -1) -> Dict[str, Any]:
+    """An OPT parameter tree with every decoder linear a random PBW-v1 layer
+    with a random bias, and f32 embeddings (the lm_head is tied to them),
+    all made on the generator's device."""
+    dev = generator.device
+    h, ffn = cfg.hidden_size, cfg.ffn_dim
+    shapes = {"q_proj": (h, h), "k_proj": (h, h), "v_proj": (h, h), "out_proj": (h, h),
+              "fc1": (h, ffn), "fc2": (ffn, h)}
+
+    def ln():
+        return {"w": torch.ones(h, device=dev), "b": torch.zeros(h, device=dev)}
+
+    def normal(*shape):
+        return torch.randn(*shape, generator=generator, device=dev) * 0.02
+
+    layers = []
+    for _ in range(cfg.num_hidden_layers):
+        lp = {"self_attn_layer_norm": ln(), "final_layer_norm": ln()}
+        for name, (ic, oc) in shapes.items():
+            lp[name] = random_packed_v1(ic, oc, generator, low_frac=low_frac,
+                                        groupsize=groupsize, bias=True)
+        layers.append(lp)
+    if cfg.embed_dim != h:
+        raise ValueError("random_packed_opt: word_embed_proj_dim must equal hidden_size")
+    return {"embed_tokens": normal(cfg.vocab_size, h),
+            "embed_positions": normal(cfg.max_position_embeddings + 2, h), "layers": layers,
+            "final_layer_norm": ln(), "project_in": None, "project_out": None}
+
+
+def synthetic_model(family: str, seed: int = 0, device=None, draft: bool = False):
+    """(cfg, params) of the JAX CLIs' tiny synthetic model of a family
+    (vocab 259, hidden 64, ffn 128, 2 layers, 4 heads, max_pos 256; with
+    ``draft`` the 1-layer draft model, hidden 32, ffn 64), weights from a
+    CPU torch generator seeded ``seed`` (so they differ from the JAX CLIs'),
+    placed on ``device``."""
+    gen = torch.Generator().manual_seed(seed)
+    h, ffn, layers = (32, 64, 1) if draft else (64, 128, 2)
+    if family == "opt":
+        from ..models.opt import OPTConfig, init_params
+
+        cfg = OPTConfig(vocab_size=259, hidden_size=h, ffn_dim=ffn, num_hidden_layers=layers,
+                        num_attention_heads=4, max_position_embeddings=256)
+    else:
+        from ..models.llama import LlamaConfig, init_params
+
+        cfg = LlamaConfig(vocab_size=259, hidden_size=h, intermediate_size=ffn,
+                          num_hidden_layers=layers, num_attention_heads=4, num_key_value_heads=4,
+                          max_position_embeddings=256)
+    return cfg, init_params(cfg, gen, device=device)

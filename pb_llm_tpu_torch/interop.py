@@ -1,12 +1,13 @@
 """Weight carry-over from the JAX package's parameter trees.
 
-`from_jax_params` turns a tree of numpy arrays shaped like
-`pb_llm_tpu.models.llama.init_params` output — ``embed_tokens``,
-``layers[i]`` (norm vectors, ``{"w", "b"}`` dense dicts, or PackedLinearV2
-leaves given as objects or dicts carrying its fields), ``norm`` and
-``lm_head`` — into the port's tree of torch tensors.  The caller converts
-JAX arrays with ``np.asarray`` first, so this module never sees a JAX
-type.  Sign planes arrive as uint32 and are kept as bit-identical int32.
+`from_jax_params` turns a tree of numpy arrays shaped like the output of
+`pb_llm_tpu.models.llama.init_params` or `models.opt.init_params` (norm
+vectors or LayerNorm ``{"w", "b"}`` dicts, ``{"w", "b"}`` dense linears,
+``None`` leaves such as OPT's absent ``project_in``, and PackedLinear /
+PackedLinearV2 leaves given as objects or dicts carrying their fields) into
+the port's tree of torch tensors.  The caller converts JAX arrays with
+``np.asarray`` first, so this module never sees a JAX type.  Bit planes
+arrive as uint32 and are kept as bit-identical int32.
 """
 
 from __future__ import annotations
@@ -16,33 +17,31 @@ from typing import Any
 import numpy as np
 import torch
 
-from .core.pbw import _FIELDS_V2, PackedLinearV2, _from_numpy
+from .core.pbw import _FIELDS, _FIELDS_V2, STATIC, STATIC_V2, PackedLinear, PackedLinearV2, \
+    layer_from_arrays
 
-_V2_STATIC = ("ic", "oc", "col_tile", "pack_block", "k_pad_shard", "side_bits", "low_bits")
 
-
-def packed_from_fields(obj: Any) -> PackedLinearV2:
-    """PackedLinearV2 from any object (or dict) with the v2 fields, whose
-    arrays convert with ``np.asarray``."""
+def packed_from_fields(obj: Any):
+    """PackedLinear (an object or dict with ``mask_packed``) or
+    PackedLinearV2 (with ``side_idx``) from its fields, whose arrays convert
+    with ``np.asarray``."""
     get = obj.get if isinstance(obj, dict) else (lambda k, d=None: getattr(obj, k, d))
-    kw = {}
-    for f in _FIELDS_V2:
-        v = get(f)
-        kw[f] = None if v is None else _from_numpy(f, np.asarray(v))
-    kw.update({f: int(get(f)) for f in _V2_STATIC if get(f) is not None})
-    return PackedLinearV2(**kw)
+    v2 = get("side_idx") is not None
+    arrays = {f: np.asarray(get(f)) for f in (_FIELDS_V2 if v2 else _FIELDS)
+              if get(f) is not None}
+    return layer_from_arrays({f: get(f) for f in (STATIC_V2 if v2 else STATIC)}, arrays, v2)
 
 
 def _is_packed(v: Any) -> bool:
     if isinstance(v, dict):
         return "sign_packed" in v
-    return hasattr(v, "sign_packed") and hasattr(v, "side_idx")
+    return hasattr(v, "sign_packed")
 
 
 def _convert(v: Any) -> Any:
     if v is None:
         return None
-    if isinstance(v, PackedLinearV2):
+    if isinstance(v, (PackedLinear, PackedLinearV2)):
         return v
     if _is_packed(v):
         return packed_from_fields(v)
@@ -54,7 +53,7 @@ def _convert(v: Any) -> Any:
 
 
 def from_jax_params(tree: Any) -> Any:
-    """The JAX package's llama parameter tree (numpy leaves) → the port's."""
+    """A JAX package parameter tree (numpy leaves) → the port's."""
     return _convert(tree)
 
 
@@ -65,7 +64,7 @@ def to_device(tree: Any, device) -> Any:
         return None
     if isinstance(tree, torch.Tensor):
         return tree.to(device)
-    if isinstance(tree, PackedLinearV2):
+    if isinstance(tree, (PackedLinear, PackedLinearV2)):
         return tree.to(device)
     if isinstance(tree, dict):
         return {k: to_device(v, device) for k, v in tree.items()}

@@ -1,5 +1,5 @@
 """Model-family registry (port of `pb_llm_tpu/models/registry.py`): the
-llama family (mistral rides it).  OPT is not ported yet (ROADMAP)."""
+llama family (mistral rides it) and the OPT family."""
 
 from __future__ import annotations
 
@@ -7,6 +7,7 @@ import dataclasses
 from typing import Callable, Tuple
 
 from . import llama as _llama
+from . import opt as _opt
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,6 +34,15 @@ FAMILIES = {
         linear_names=_llama.LINEAR_NAMES,
         config_cls=_llama.LlamaConfig,
     ),
+    "opt": Family(
+        name="opt",
+        forward=_opt.forward,
+        embed=_opt.embed,
+        decoder_layer=lambda lp, x, cfg, linear_fn=None: _opt.decoder_layer(
+            lp, x, cfg, linear_fn=linear_fn),
+        linear_names=_opt.LINEAR_NAMES,
+        config_cls=_opt.OPTConfig,
+    ),
 }
 
 
@@ -40,7 +50,7 @@ def family_for(model_name: str) -> Family:
     """Substring dispatch, as in the JAX package."""
     lowered = model_name.lower()
     if "opt" in lowered:
-        raise NotImplementedError("the OPT family is not ported yet (ROADMAP Queue 1)")
+        return FAMILIES["opt"]
     if "llama" in lowered or "mistral" in lowered:
         return FAMILIES["llama"]
     raise NotImplementedError(f"unknown model family for {model_name!r}")

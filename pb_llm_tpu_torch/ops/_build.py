@@ -22,7 +22,7 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build", "kerne
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = ("pb_int8_matmul", "decode_attention", "pb_dequant_v2", "pb_f32_matmul",
-           "flash_attention", "paged_attention")
+           "flash_attention", "paged_attention", "pb_planar_v1", "pb_select_v1")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

@@ -1,9 +1,13 @@
 """Packed-matmul dispatch (port of `pb_llm_tpu/ops/binary_matmul.py` and of
-`pallas_pb.pb_matmul_pallas_v2`).
+`pallas_pb.pb_matmul_pallas` / `pb_matmul_pallas_v2`).
 
 `pb_matmul` resolves `backend`, `decode_dot` and `prefill` from the active
 `KernelConfig` exactly as the JAX package does, with "on the TPU" read as
-"x lies on a CUDA device".  `pb_matmul_v2` then picks the arm by m:
+"x lies on a CUDA device".  For PBW v1, `pb_matmul_v1` takes the planar
+kernel at m < 256 where `packed_matmul_v1.planar_ok` holds and the select
+kernel otherwise; only prefill "hybrid_bf16" makes the select dot bf16, and
+v1 reads neither decode_dot nor the int8 prefill, as in JAX.  For PBW v2,
+`pb_matmul_v2` picks the arm by m:
 
   * m ≥ 256: prefill "int8" (1-bit lows) → the int8 kernel; "hybrid" /
     "hybrid_bf16" → `prefill.v2_prefill` (row-grouped layers fall through
@@ -16,9 +20,9 @@ from __future__ import annotations
 
 import torch
 
-from ..core.pbw import PackedLinearV2, matmul_reference_v2
+from ..core.pbw import PackedLinear, PackedLinearV2, matmul_reference, matmul_reference_v2
 from . import kernel_config as _kc
-from . import packed_matmul, prefill
+from . import packed_matmul, packed_matmul_v1, prefill
 
 
 def _resolve_decode_dot(kcfg: _kc.KernelConfig) -> str:
@@ -53,13 +57,25 @@ def pb_matmul_v2(x: torch.Tensor, p: PackedLinearV2, plain: bool = False,
     return f32(x, p, dot_dtype=torch.bfloat16 if decode_dot == "bf16" else torch.float32)
 
 
+def pb_matmul_v1(x: torch.Tensor, p: PackedLinear, plain: bool = False,
+                 prefill_bf16: bool = False) -> torch.Tensor:
+    """y = x @ dequantize(p) (+ bias); x [m, ic] → f32 [m, oc].  ``plain``
+    runs each kernel's plain version ("pallas_interpret")."""
+    if x.shape[1] != p.ic_local:
+        raise ValueError(f"x ic {x.shape[1]} != packed ic {p.ic_local}")
+    v1 = packed_matmul_v1
+    if v1.use_planar(x.shape[0], p):
+        return (v1.pb_planar_v1_plain if plain else v1.pb_planar_v1)(x, p)
+    fn = v1.pb_select_v1_plain if plain else v1.pb_select_v1
+    return fn(x, p, dot_dtype=torch.bfloat16 if prefill_bf16 else torch.float32)
+
+
 def pb_matmul(x: torch.Tensor, p) -> torch.Tensor:
     """y = x @ dequant(p) (+ bias) with the configured backend/arms."""
-    if not isinstance(p, PackedLinearV2):
-        raise NotImplementedError("PBW v1 (PackedLinear) is not ported yet (ROADMAP: PBW v1)")
     kcfg = _kc.current()
     on_gpu = x.device.type == "cuda"
-    supported = packed_matmul.kernel_supported_v2(p)
+    v2 = isinstance(p, PackedLinearV2)
+    supported = (packed_matmul.kernel_supported_v2 if v2 else packed_matmul_v1.kernel_supported_v1)(p)
     mode = kcfg.backend
     if mode == "auto":
         mode = "pallas" if (on_gpu and supported) else "xla"
@@ -68,6 +84,11 @@ def pb_matmul(x: torch.Tensor, p) -> torch.Tensor:
     prefill_arm = kcfg.prefill
     if prefill_arm == "auto":
         prefill_arm = "int8" if on_gpu else "hybrid"
+    if mode in ("pallas", "pallas_interpret") and not v2:
+        return pb_matmul_v1(x, p, plain=mode == "pallas_interpret",
+                            prefill_bf16=prefill_arm == "hybrid_bf16")
+    if not v2:
+        return matmul_reference(x, p)
     if mode in ("pallas", "pallas_interpret"):
         return pb_matmul_v2(
             x, p, plain=mode == "pallas_interpret", prefill_bf16=prefill_arm == "hybrid_bf16",

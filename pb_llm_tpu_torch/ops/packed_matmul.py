@@ -37,6 +37,7 @@ import torch
 from .. import no_tf32
 from ..core import packing
 from ..core.pbw import PackedLinearV2, gather_x_v2, unpack_side_codes
+from ..core.pbw import low_code as pbw_low_code
 from . import _build
 
 V2_PREFILL_M = 256  # pallas_pb._V2_PREFILL_M: decode below, prefill at or above
@@ -203,13 +204,7 @@ def prepare_f32(x: torch.Tensor, p: PackedLinearV2) -> F32Operands:
 
 def low_code(p: PackedLinearV2) -> torch.Tensor:
     """C = Σ_j 2^j·B_j as f32 [ic, oc] (exact small integers)."""
-    wpp = p.words_per_plane
-    code = None
-    for j in range(p.low_bits):
-        bits = packing.unpack_bits(p.sign_packed[j * wpp : (j + 1) * wpp], p.ic_local,
-                                   p.pack_block_local).float()
-        code = bits if code is None else code + (2.0 ** j) * bits
-    return code
+    return pbw_low_code(p.sign_packed, p.low_bits, p.ic_local, p.pack_block_local)
 
 
 def pb_f32_matmul_plain(x: torch.Tensor, p: PackedLinearV2, dot_dtype=torch.float32) -> torch.Tensor:

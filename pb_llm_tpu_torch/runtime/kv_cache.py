@@ -38,6 +38,8 @@ def make_caches(cfg: Any, n_slots: int, max_seq: int, n_layers: int, kv_heads: i
 def cache_spec_for(cfg: Any, family_name: str):
     if family_name == "llama":
         return cfg.num_hidden_layers, cfg.kv_heads, cfg.head_dim
+    if family_name == "opt":
+        return cfg.num_hidden_layers, cfg.num_attention_heads, cfg.head_dim
     raise NotImplementedError(family_name)
 
 

@@ -1,9 +1,9 @@
 """Checkpoint save/load for parameter trees (port of
 `pb_llm_tpu/utils/checkpoint.py`): one flat-key `weights.npz` plus a JSON
-manifest of the tree, in the JAX package's layout, so dense trees cross in
-both directions.  PBW-v2 leaves are stored field by field (kind
-"packed_v2"; sign planes as uint32, as in `core.pbw`).  PBW v1
-(`PackedLinear`, kind "packed") is not ported yet and raises.
+manifest of the tree, in the JAX package's layout, so trees cross in both
+directions.  Packed leaves are stored field by field, bit planes as uint32
+as in `core.pbw`: PBW v1 (`PackedLinear`) as kind "packed", PBW v2 as kind
+"packed_v2".
 
 Loaded tensors lie on the CPU; move them with `interop.to_device`.
 """
@@ -18,17 +18,18 @@ import numpy as np
 import torch
 
 from ..core import packing
-from ..core.pbw import _FIELDS_V2, PackedLinearV2, _from_numpy, _to_numpy
-
-_V2_STATIC = ("ic", "oc", "col_tile", "pack_block", "k_pad_shard", "side_bits", "low_bits")
+from ..core.pbw import _FIELDS, _FIELDS_V2, STATIC, STATIC_V2, PackedLinear, PackedLinearV2, \
+    _to_numpy, fields_of, layer_from_arrays
 
 
 def _flatten(tree: Any, prefix: str, arrays: Dict[str, np.ndarray], meta: Dict[str, Any]) -> None:
     if tree is None:
         meta[prefix] = {"kind": "none"}
-    elif isinstance(tree, PackedLinearV2):
-        meta[prefix] = {"kind": "packed_v2", **{f: getattr(tree, f) for f in _V2_STATIC}}
-        for f in _FIELDS_V2:
+    elif isinstance(tree, (PackedLinear, PackedLinearV2)):
+        v2 = isinstance(tree, PackedLinearV2)
+        meta[prefix] = {"kind": "packed_v2" if v2 else "packed",
+                        **{f: getattr(tree, f) for f in (STATIC_V2 if v2 else STATIC)}}
+        for f in fields_of(tree):
             v = getattr(tree, f)
             if v is not None:
                 arrays[f"{prefix}::{f}"] = _to_numpy(f, v)
@@ -58,14 +59,12 @@ def _unflatten(prefix: str, z, meta: Dict[str, Any]):
         return {k: _unflatten(f"{prefix}/{k}", z, meta) for k in m["keys"]}
     if kind == "list":
         return [_unflatten(f"{prefix}/{i}", z, meta) for i in range(m["n"])]
-    if kind == "packed_v2":
-        kw = {f: _from_numpy(f, z[f"{prefix}::{f}"]) for f in _FIELDS_V2 if f"{prefix}::{f}" in z}
-        kw.setdefault("bias", None)
-        static = {f: m[f] for f in _V2_STATIC if f in m}
-        static.setdefault("pack_block", packing.PACK_BLOCK)
-        return PackedLinearV2(**static, **kw)
-    if kind == "packed":
-        raise NotImplementedError(f"{prefix}: PBW v1 (PackedLinear) is not ported yet (ROADMAP: PBW v1)")
+    if kind in ("packed", "packed_v2"):
+        v2 = kind == "packed_v2"
+        arrays = {f: z[f"{prefix}::{f}"] for f in (_FIELDS_V2 if v2 else _FIELDS)
+                  if f"{prefix}::{f}" in z}
+        static = dict(m, pack_block=m.get("pack_block", packing.PACK_BLOCK))
+        return layer_from_arrays(static, arrays, v2)
     raise ValueError(kind)
 
 

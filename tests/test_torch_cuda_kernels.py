@@ -14,7 +14,12 @@ per value).  Decode attention sums in another order than the plain version
 and flash attention sum their products in another order than the plain
 versions' torch.matmul: rtol 1e-4, atol 1e-4, the JAX package's bounds for
 those kernels.  Paged attention, like decode attention, sums its online
-softmax in another order: rtol 1e-4, atol 1e-5.
+softmax in another order: rtol 1e-4, atol 1e-5.  The PBW-v1 planar and
+select kernels sum their products in another order than the plain
+versions' torch.matmul: rtol 1e-4, atol 1e-4 (the JAX package's bound for
+its f32 kernels); the select kernel's bf16 dot keeps the same bound, since
+a product of two bf16 values is exact in f32 and only the f32 summation
+order differs.
 """
 
 import numpy as np
@@ -378,3 +383,140 @@ def test_paged_engine_on_the_card_matches_the_cpu(cuda, kw):
         assert tpa.multi_launches > before[1]
     else:
         assert tpa.decode_launches > before[0]
+
+
+# ---------------------------------------------------------------------------
+# PBW v1: the planar and select kernels
+# ---------------------------------------------------------------------------
+
+V1_LAYERS = {
+    "whole_row": dict(ic=512, oc=256),
+    "groups128_oc384": dict(ic=512, oc=384, groupsize=128, bias=True),  # oc not a multiple of 512
+    "nibbles": dict(ic=1024, oc=256, sidecar_bits=4),
+    "groups128_nibbles_low2": dict(ic=512, oc=256, groupsize=128, sidecar_bits=4, low_bits=2,
+                                   bias=True),
+    "low4_oc640": dict(ic=256, oc=640, low_bits=4),
+    "short_ic": dict(ic=64, oc=128, bias=True),
+    "wide_groups": dict(ic=2048, oc=128, groupsize=128, low_bits=2),
+}
+
+
+def _v1_layer(name, dev):
+    from pb_llm_tpu_torch.data.synthetic import random_packed_v1
+
+    return random_packed_v1(generator=torch.Generator(device=dev).manual_seed(5), **V1_LAYERS[name])
+
+
+def _close(got, want, rtol=1e-4, atol=1e-4):
+    err = (got - want).abs()
+    assert torch.isfinite(got).all() and torch.all(err <= atol + rtol * want.abs()), err.max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(V1_LAYERS))
+@pytest.mark.parametrize("m", [1, 8, 255])
+def test_planar_v1_kernel_matches_plain(cuda, name, m):
+    from pb_llm_tpu_torch.ops import packed_matmul_v1 as v1
+
+    p = _v1_layer(name, cuda)
+    x = torch.randn((m, p.ic), generator=torch.Generator(device=cuda).manual_seed(m), device=cuda)
+    before = v1.planar_launches
+    got = v1.pb_planar_v1(x, p)
+    torch.cuda.synchronize()
+    assert v1.planar_launches == before + 1
+    _close(got, v1.pb_planar_v1_plain(x, p))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dot_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(V1_LAYERS))
+@pytest.mark.parametrize("m", [256, 512, 1000])
+def test_select_v1_kernel_matches_plain(cuda, name, m, dot_dtype):
+    from pb_llm_tpu_torch.ops import packed_matmul_v1 as v1
+
+    p = _v1_layer(name, cuda)
+    x = torch.randn((m, p.ic), generator=torch.Generator(device=cuda).manual_seed(m), device=cuda)
+    before = v1.select_launches
+    got = v1.pb_select_v1(x, p, dot_dtype)
+    torch.cuda.synchronize()
+    assert v1.select_launches == before + 1
+    _close(got, v1.pb_select_v1_plain(x, p, dot_dtype))
+
+
+@pytest.mark.cuda
+def test_select_v1_kernel_rebuilds_the_plain_weight_bit_for_bit(cuda):
+    """An identity x reads the rebuilt weight rows out one by one: the
+    kernel's blend is the plain version's, bit for bit."""
+    from pb_llm_tpu_torch.ops import packed_matmul_v1 as v1
+
+    for name in ("groups128_nibbles_low2", "whole_row"):
+        p = _v1_layer(name, cuda)
+        p.bias = None
+        eye = torch.eye(p.ic, device=cuda)
+        assert torch.equal(v1.pb_select_v1(eye, p), v1.select_weight(p))
+
+
+@pytest.mark.cuda
+def test_v1_dispatch_on_the_card_takes_the_kernels(cuda):
+    """"auto" on a CUDA tensor: planar below 256 rows, select from 256."""
+    from pb_llm_tpu_torch.ops import binary_matmul
+    from pb_llm_tpu_torch.ops import packed_matmul_v1 as v1
+
+    p = _v1_layer("groups128_oc384", cuda)
+    for m, arm in ((8, "planar"), (300, "select")):
+        x = torch.randn((m, p.ic), device=cuda)
+        before = (v1.planar_launches, v1.select_launches)
+        got = binary_matmul.pb_matmul(x, p)
+        torch.cuda.synchronize()
+        after = (v1.planar_launches, v1.select_launches)
+        assert after == (before[0] + (arm == "planar"), before[1] + (arm == "select"))
+        _close(got, pbw.matmul_reference(x, p))
+
+
+@pytest.mark.cuda
+def test_v1_wrappers_refuse_planes_off_the_card(cuda):
+    """A CUDA x with CPU planes raises; nothing falls back to the plain
+    version."""
+    from pb_llm_tpu_torch.data.synthetic import random_packed_v1
+    from pb_llm_tpu_torch.ops import packed_matmul_v1 as v1
+
+    p = random_packed_v1(256, 128, torch.Generator().manual_seed(0))
+    for fn, m in ((v1.pb_planar_v1, 8), (v1.pb_select_v1, 300)):
+        with pytest.raises(ValueError, match="device"):
+            fn(torch.zeros((m, 256), device=cuda), p)
+
+
+@pytest.mark.cuda
+def test_opt_v1_engine_on_the_card_matches_the_cpu(cuda):
+    """A tiny PBW-v1 OPT (groups of 64) on the card (kernels) and on the
+    CPU (plain versions, f32 strips): the same prefill logits (5e-3 of
+    max|logit|) and greedy streams; both kernels launch."""
+    from pb_llm_tpu_torch.data.synthetic import random_packed_opt
+    from pb_llm_tpu_torch.models.opt import OPTConfig
+    from pb_llm_tpu_torch.models.registry import family_for
+    from pb_llm_tpu_torch.ops import packed_matmul_v1 as v1
+    from pb_llm_tpu_torch.ops.kernel_config import KernelConfig
+    from pb_llm_tpu_torch.runtime.batching import ContinuousBatcher, Request
+    from pb_llm_tpu_torch.runtime.engine import Engine, EngineConfig
+
+    cfg = OPTConfig(vocab_size=256, hidden_size=128, ffn_dim=256, num_hidden_layers=2,
+                    num_attention_heads=4, max_position_embeddings=512)
+    params = random_packed_opt(cfg, torch.Generator().manual_seed(0), groupsize=64)
+    r = np.random.default_rng(0)
+    prompts = [r.integers(0, 256, n).tolist() for n in (5, 300, 12, 70)]
+    streams, logits = [], []
+    before = (v1.planar_launches, v1.select_launches)
+    for dev, kernels in ((cuda, None), ("cpu", KernelConfig(backend="pallas_interpret"))):
+        eng = Engine(params, cfg, family_for("opt"),
+                     EngineConfig(n_slots=2, max_seq=512, prefill_buckets=(32, 512),
+                                  cache_dtype=torch.float32, kernels=kernels), device=dev)
+        eng.prefill(0, prompts[1])
+        logits.append(eng._prefill_logits[0].float().cpu())
+        eng.release(0)
+        reqs = [Request(request_id=i, prompt_ids=p, max_new_tokens=8)
+                for i, p in enumerate(prompts)]
+        ContinuousBatcher(eng).run(reqs)
+        streams.append([q.output_ids for q in reqs])
+    assert (logits[0] - logits[1]).abs().max() <= 5e-3 * logits[1].abs().max()
+    assert streams[0] == streams[1]
+    assert v1.planar_launches > before[0] and v1.select_launches > before[1]

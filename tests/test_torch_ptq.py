@@ -360,9 +360,6 @@ def test_resume_dir_skips_solved_layers(tmp_path):
 
 def test_unported_pipeline_paths_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpipeline.quantize_model_ptq({}, None, None, np.zeros((1, 4)), tsolver.SolverConfig(),
-                                     fmt="packed")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         tpipeline.quantize_model_ptq_streamed()
 
 
@@ -393,11 +390,9 @@ def test_run_ptq_then_serve_the_checkpoint(tmp_path, capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("argv", [
-    ["facebook/opt-125m", "wikitext2", "xnor", "--synthetic", "--device", "cpu"],
     ["huggyllama/llama-7b", "wikitext2", "xnor", "--device", "cpu"],
     ["huggyllama/llama-7b", "wikitext2", "xnor", "--synthetic", "--stream"],
     ["huggyllama/llama-7b", "wikitext2", "xnor", "--synthetic", "--save"],
-    ["huggyllama/llama-7b", "wikitext2", "xnor", "--synthetic", "--format", "packed"],
 ])
 def test_run_ptq_unported_options_raise(argv, monkeypatch):
     from pb_llm_tpu_torch.cli import run_ptq
