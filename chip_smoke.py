@@ -50,7 +50,19 @@ raises and the exit code is not 0:
    and decode-attention launches must match the forwards run, by rows;
 8. end to end, the PBW-v1 producer: a 2-layer OPT-1.3B-width model
    calibrated by GPTQ-PB (element masks, groups of 128) into PBW v1, then
-   its windowed perplexity with the kernels and with their plain versions.
+   its windowed perplexity with the kernels and with their plain versions;
+9a. scanned layers, fused linears and the pair / dma decode arms on a
+   2-layer full-width llama-7b: on the exact arms, scan equals unrolled
+   (strips and pages, the stacked f32 kernel) and fused equals unfused
+   (greedy streams under the margin rule); the pair and dma arms on the
+   card against the CPU's plain versions (phase 3's bounds);
+9b. end to end on the 32-layer model of phase 4, int8 strips, phase 4's
+   request mix, three passes: scan_layers (the stacked int8 kernel),
+   fuse_linears + decode_dot pair, decode_dot dma; every launch counter
+   must match the forwards run, by rows.
+
+Phase 2 also holds the pair, dma and stacked int8 / f32 kernels (phase 9's
+paths) at llama-7b's shapes.
 
 The last two lines are the `kernels` JSON line and
 `{"ok": true, "device": {...}}`.  Without CUDA it exits 1 before any phase.
@@ -138,6 +150,11 @@ V1_HEADLINE = (2048, 8192)
 # and only the f32 summation order differs
 V1_RTOL, V1_ATOL = 1e-4, 1e-4
 BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 tensor-core peak
+# phase 2, the pair / dma / stacked kernels: decode and a 256-row window,
+# and the pair kernel on a fused q|k|v layer (3 row groups)
+ARM_MS = (8, 256)
+ARM_LAYERS = 2        # stacked kernels: layers of the [L] planes they index
+PAIR_REL = 1e-5       # of max|y|: x rounds to bf16 on both sides, only the f32 sum order differs
 
 
 def log(msg: str) -> None:
@@ -528,6 +545,102 @@ def check_v1_matmul(timer: Timer, card: str):
     return rows
 
 
+def matmul_bytes(p, m: int) -> int:
+    """The packed matmul's least bytes: sign planes, codes, x and y rows."""
+    return 4 * p.sign_packed.numel() + p.side_val.numel() + 4 * m * (p.ic_local + p.oc_local)
+
+
+def check_v2_arms(timer: Timer, card: str):
+    """Phase 9's kernels at llama-7b's decode shapes (random PBW-v2 planes,
+    low_frac 0.9): pair (and on a fused q|k|v layer), dma, and the stacked
+    int8 and f32 kernels on layer 1 of a 2-layer stack.  Library: the bf16
+    torch.matmul on the dense weight for pair and stacked int8, the f32
+    one for dma and stacked f32 (TF32 off)."""
+    from pb_llm_tpu_torch.core.pbw import dequantize_v2, merge_packed_linears_v2
+    from pb_llm_tpu_torch.data.synthetic import random_packed_v2
+    from pb_llm_tpu_torch.models import stacking
+    from pb_llm_tpu_torch.ops import decode_arms as da
+    from pb_llm_tpu_torch.ops import packed_matmul as pm
+
+    gen = torch.Generator(device=DEV).manual_seed(20)
+    rows = []
+
+    def record(kernel, p, m, got, want, launch, wrapper, plain, library, bf16, **extra):
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        scale = want.abs().max().item()
+        if kernel == "pb_pair_v2":
+            ok = err.max().item() <= PAIR_REL * scale
+        elif kernel == "pb_int8_matmul_stacked":
+            ok = err.max().item() <= MATMUL_TOL * scale
+        else:
+            ok = bool(torch.all(err <= F32_ATOL + F32_RTOL * want.abs()))
+        if not (torch.isfinite(got).all() and ok):
+            raise AssertionError(f"{kernel} m={m} {p.ic_local}x{p.oc_local}: max|err| "
+                                 f"{err.max().item()} (max|y| {scale})")
+        n_ops = 2 * m * p.oc_local * (p.ic_local + p.k_pad)
+        peak = {"pb_pair_v2": BF16_FLOPS_PER_S, "pb_int8_matmul_stacked": INT8_OPS_PER_S}.get(
+            kernel, F32_FLOPS_PER_S)
+        bound_ms, bound_by = bound(matmul_bytes(p, m), n_ops, peak)
+        row = {"kernel": kernel, "m": m, "ic": p.ic_local, "oc": p.oc_local, "k_pad": p.k_pad,
+               "row_groups": p.n_row_groups, "max_abs_err": err.max().item(),
+               "max_rel_err": err.max().item() / scale, "kernel_ms": timer(launch),
+               "wrapper_ms": timer(wrapper), "plain_ms": timer(plain, iters=5),
+               "library_ms": timer(library), "library": "bf16 matmul" if bf16 else "f32 matmul",
+               "bound_ms": bound_ms, "bound_by": bound_by, "card": card, **extra}
+        log(json.dumps(row))
+        rows.append(row)
+
+    for ic, oc in MATMUL_SHAPES:
+        layers = [random_packed_v2(ic, oc, gen, low_frac=0.9) for _ in range(ARM_LAYERS)]
+        p = layers[1]
+        sp = stacking.stack_layers({"layers": [{"w": q} for q in layers]})["layers_stacked"]["w"]
+        mk = stacking.StackedPackedLinearV2(sp, 1, torch.ones(1, dtype=torch.int32, device=DEV))
+        w = dequantize_v2(p)
+        wb = w.to(torch.bfloat16)
+        for m in ARM_MS:
+            x = torch.randn((m, ic), generator=gen, device=DEV)
+            xb = x.to(torch.bfloat16)
+            ops = da.prepare_pair(x, p)
+            record("pb_pair_v2", p, m, da.launch_pair(ops, p), da.pb_pair_v2_plain(x, p),
+                   lambda: da.launch_pair(ops, p), lambda: da.pb_pair_v2(x, p),
+                   lambda: da.pb_pair_v2_plain(x, p), lambda: xb @ wb, True)
+            ops = da.prepare_dma(x, p)
+            record("pb_dma_v2", p, m, da.launch_dma(ops, p), da.pb_dma_v2_plain(x, p),
+                   lambda: da.launch_dma(ops, p), lambda: da.pb_dma_v2(x, p),
+                   lambda: da.pb_dma_v2_plain(x, p), lambda: x @ w, False)
+            lp = pm.stacked_layer(mk)
+            ops = pm.prepare_int8(x, lp)
+            record("pb_int8_matmul_stacked", p, m, pm.launch_int8_stacked(ops, mk),
+                   pm.pb_int8_matmul_stacked_plain(x, mk),
+                   lambda: pm.launch_int8_stacked(ops, mk), lambda: pm.pb_int8_matmul_stacked(x, mk),
+                   lambda: pm.pb_int8_matmul_stacked_plain(x, mk), lambda: xb @ wb, True,
+                   flat_kernel_equal=torch.equal(pm.launch_int8_stacked(ops, mk),
+                                                 pm.launch_int8(ops, lp)))
+            ops = pm.prepare_f32(x, lp)
+            record("pb_f32_matmul_stacked", p, m, pm.launch_f32_stacked(ops, mk),
+                   pm.pb_f32_matmul_stacked_plain(x, mk),
+                   lambda: pm.launch_f32_stacked(ops, mk), lambda: pm.pb_f32_matmul_stacked(x, mk),
+                   lambda: pm.pb_f32_matmul_stacked_plain(x, mk), lambda: x @ w, False,
+                   flat_kernel_equal=torch.equal(pm.launch_f32_stacked(ops, mk),
+                                                 pm.launch_f32(ops, lp)))
+            del ops, lp
+        del layers, p, sp, mk, w, wb
+    # the pair kernel on a fused q|k|v layer: 3 row groups of 4096 columns
+    qkv = merge_packed_linears_v2([random_packed_v2(4096, 4096, gen, low_frac=0.9)
+                                   for _ in range(3)])
+    w = dequantize_v2(qkv).to(torch.bfloat16)
+    x = torch.randn((ARM_MS[0], 4096), generator=gen, device=DEV)
+    xb = x.to(torch.bfloat16)
+    ops = da.prepare_pair(x, qkv)
+    record("pb_pair_v2", qkv, ARM_MS[0], da.launch_pair(ops, qkv), da.pb_pair_v2_plain(x, qkv),
+           lambda: da.launch_pair(ops, qkv), lambda: da.pb_pair_v2(x, qkv),
+           lambda: da.pb_pair_v2_plain(x, qkv), lambda: xb @ w, True, layer="fused q|k|v")
+    if not all(r.get("flat_kernel_equal", True) for r in rows):
+        raise AssertionError("a stacked kernel differs from its flat kernel on the same layer")
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the same engine on the card and on the CPU
 # ---------------------------------------------------------------------------
@@ -770,6 +883,7 @@ def profile_decode(eng) -> None:
 # ---------------------------------------------------------------------------
 
 def zero_counters() -> None:
+    from pb_llm_tpu_torch.ops import decode_arms as arms
     from pb_llm_tpu_torch.ops import decode_attention as da
     from pb_llm_tpu_torch.ops import flash_attention as fa
     from pb_llm_tpu_torch.ops import packed_matmul as pm
@@ -780,9 +894,11 @@ def zero_counters() -> None:
     pm.launches = pm.f32_launches = da.launches = pf.launches = fa.launches = 0
     pa.launches = pa.decode_launches = pa.multi_launches = 0
     v1.planar_launches = v1.select_launches = 0
+    pm.stacked_launches = pm.stacked_f32_launches = arms.pair_launches = arms.dma_launches = 0
 
 
 def read_counters() -> dict:
+    from pb_llm_tpu_torch.ops import decode_arms as arms
     from pb_llm_tpu_torch.ops import decode_attention as da
     from pb_llm_tpu_torch.ops import flash_attention as fa
     from pb_llm_tpu_torch.ops import packed_matmul as pm
@@ -794,7 +910,9 @@ def read_counters() -> dict:
             "pb_dequant_v2": pf.launches, "pb_f32_matmul": pm.f32_launches,
             "flash_attention": fa.launches, "paged_attention_decode": pa.decode_launches,
             "paged_attention_multi": pa.multi_launches, "pb_planar_v1": v1.planar_launches,
-            "pb_select_v1": v1.select_launches}
+            "pb_select_v1": v1.select_launches, "pb_pair_v2": arms.pair_launches,
+            "pb_dma_v2": arms.dma_launches, "pb_int8_matmul_stacked": pm.stacked_launches,
+            "pb_f32_matmul_stacked": pm.stacked_f32_launches}
 
 
 def expect_launches(**counts) -> dict:
@@ -1353,6 +1471,121 @@ def producer_v1(card: str):
     return row
 
 
+# ---------------------------------------------------------------------------
+# phases 9a and 9b: scanned layers, fused linears, the pair and dma arms
+# ---------------------------------------------------------------------------
+
+def scan_fuse_parity(params, card: str):
+    """Phase 9a on 2 full-width llama-7b layers.  On the exact arms
+    (INV_ARMS, f32 KV): scan_layers equals unrolled over strips and over
+    pages of 16 (the stacked f32 kernel at decode), fuse_linears equals
+    unfused, under the margin rule.  Then the pair and dma arms on the card
+    against the CPU's plain versions (run_parity): dma is exact, held to
+    LOGIT_TOL_EXACT; pair rounds x to bf16, where a one-ulp difference in x
+    between the devices can move a rounding step, held to LOGIT_TOL."""
+    from pb_llm_tpu_torch.interop import to_device
+    from pb_llm_tpu_torch.ops.kernel_config import KernelConfig
+
+    cfg = llama7b(2)
+    params = to_device(params, DEV)
+    rng = np.random.default_rng(21)
+    short = [rng.integers(0, cfg.vocab_size, int(rng.integers(20, 121))).tolist() for _ in range(8)]
+    t0 = time.perf_counter()
+    out = []
+    zero_counters()
+    strip, _ = serve_streams(params, cfg, short)
+    scanned, _ = serve_streams(params, cfg, short, scan_layers=True)
+    out.append(hold_streams(params, cfg, "scan_layers vs unrolled (strips)", short, strip, scanned))
+    paged, _ = serve_streams(params, cfg, short, page_size=16)
+    paged_scan, _ = serve_streams(params, cfg, short, page_size=16, scan_layers=True)
+    out.append(hold_streams(params, cfg, "scan_layers vs unrolled (pages)", short, paged, paged_scan))
+    fused, _ = serve_streams(params, cfg, short, fuse_linears=True)
+    out.append(hold_streams(params, cfg, "fuse_linears vs unfused", short, strip, fused))
+    torch.cuda.synchronize()
+    launches = read_counters()
+    arms = []
+    for arm, tol in (("dma", LOGIT_TOL_EXACT), ("pair", LOGIT_TOL)):
+        kw = dict(decode_dot=arm, prefill="hybrid")
+        zero_counters()
+        g_logits, g_toks, g_nll = run_parity(params, cfg, DEV, kernels=KernelConfig(**kw))
+        torch.cuda.synchronize()
+        arm_launches = read_counters()
+        c_logits, c_toks, c_nll = run_parity(
+            params, cfg, "cpu", cache_dtype=torch.int8, kernels=KernelConfig(
+                backend="pallas_interpret", decode_attention="pallas_interpret", **kw))
+        scale = c_logits.abs().max().item()
+        err = (g_logits - c_logits).abs().max().item()
+        row = {"arm": arm, "max_abs_logit_err": err, "err_over_max_logit": err / scale,
+               "tol_over_max_logit": tol, "gpu_tokens": g_toks, "cpu_tokens": c_toks,
+               "gpu_nll": g_nll, "cpu_nll": c_nll, "launches": arm_launches}
+        arms.append(row)
+        if not (np.isfinite(g_nll) and torch.isfinite(g_logits).all()):
+            raise AssertionError(f"phase 9a ({arm}): non-finite GPU output")
+        if err > tol * scale or g_toks != c_toks or abs(g_nll - c_nll) > NLL_RTOL * abs(c_nll):
+            raise AssertionError(f"phase 9a ({arm}): card and CPU differ: {row}")
+        if arm_launches[f"pb_{arm}_v2"] == 0:
+            raise AssertionError(f"phase 9a ({arm}): the {arm} kernel never launched")
+    row = {"phase": "scan_fuse_parity", "layers": 2, "arms": INV_ARMS, "checks": out,
+           "launches": launches, "decode_arms_card_vs_cpu": arms,
+           "seconds": time.perf_counter() - t0, "card": card}
+    log(json.dumps(row))
+    if launches["pb_f32_matmul_stacked"] == 0:
+        raise AssertionError("phase 9a: the stacked f32 kernel never launched")
+    return row
+
+
+def serve_scan_fuse_e2e(params, card: str):
+    """Phase 9b: phase 4's 32-layer model, engine and request mix in three
+    passes, each on a fresh engine: (i) scan_layers on the int8 arms,
+    (ii) fuse_linears with decode_dot pair, (iii) decode_dot dma.  A forward
+    of m rows runs each packed linear once: (i) through the stacked int8
+    kernel where m <= 256, else the flat int8 kernel on the layer's views;
+    (ii) and (iii) through the pair / dma kernel where m < 256, else the
+    int8 prefill kernel; decode attention once a layer per decode step."""
+    from pb_llm_tpu_torch.models.registry import family_for
+    from pb_llm_tpu_torch.ops.kernel_config import KernelConfig
+    from pb_llm_tpu_torch.runtime.engine import Engine, EngineConfig
+
+    cfg = llama7b(32)
+    n_layers = cfg.num_hidden_layers
+    passes = (("scan_layers", dict(scan_layers=True), None, 7, "pb_int8_matmul_stacked", 256),
+              ("fuse_linears + pair", dict(fuse_linears=True), "pair", 4, "pb_pair_v2", 255),
+              ("dma", dict(), "dma", 7, "pb_dma_v2", 255))
+    rows = []
+    for name, ekw, arm, per_layer, kernel, max_rows in passes:
+        kernels = KernelConfig(decode_dot=arm) if arm else None
+        eng = Engine(params, cfg, family_for("llama"),
+                     EngineConfig(n_slots=8, max_seq=2048, kernels=kernels, **ekw), device=DEV)
+        assert eng.cache_dtype == torch.int8
+        torch.cuda.reset_peak_memory_stats()
+        batcher, launches, fwds, step_ms, _ = run_counted(eng, e2e_requests(cfg.vocab_size))
+        n_small = sum(m <= max_rows for _, m in fwds)
+        n_decode = sum(kind == "decode" for kind, _ in fwds)
+        n_lin = per_layer * n_layers
+        want = expect_launches(**{kernel: n_lin * n_small,
+                                  "pb_int8_matmul": n_lin * (len(fwds) - n_small),
+                                  "decode_attention": n_layers * n_decode})
+        s = batcher.stats
+        row = {"phase": "scan_fuse_e2e", "pass": name, "model": "llama-7b PBW-v2 (random planes, "
+               "low_frac 0.9)", "layers": n_layers, "slots": 8, "max_seq": 2048,
+               "kv": "int8 strips", "decode_dot": arm or "int8 (auto)",
+               "generated_tokens": s.generated_tokens, "wall_s": s.wall_seconds,
+               "tokens_per_s": s.tokens_per_second, "decode_steps": len(step_ms),
+               "ms_per_decode_step_median": statistics.median(step_ms),
+               "ms_per_decode_step_mean": statistics.mean(step_ms),
+               "forwards": len(fwds), "forwards_through_the_kernel": n_small,
+               "prefill_forward_rows": sorted(m for kind, m in fwds if kind == "prefill"),
+               "launches": launches, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "card": card}
+        log(json.dumps(row))
+        if launches != want or launches[kernel] == 0:
+            raise AssertionError(f"phase 9b ({name}): launches {launches}, expected {want}")
+        rows.append(row)
+        del eng, batcher
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true", help="trace three decode steps")
@@ -1371,6 +1604,7 @@ def main(argv=None) -> int:
     fa_rows = check_flash(timer, card)
     pa_rows = check_paged_attention(timer, card)
     v1_rows = check_v1_matmul(timer, card)
+    arm_rows = check_v2_arms(timer, card)
     del timer
     parity_params = random_packed_llama(llama7b(2), torch.Generator().manual_seed(4))
     check_engine_parity(parity_params, "int8")
@@ -1381,8 +1615,10 @@ def main(argv=None) -> int:
     e2e = serve_e2e(params, time.perf_counter() - t0, card, args.profile)
     check_engine_parity(parity_params, "int8", page_size=16)
     paged_invariants(parity_params, card)
+    scan_fuse = scan_fuse_parity(parity_params, card)
     del parity_params
     paged = paged_e2e(params, card)
+    arms_e2e = serve_scan_fuse_e2e(params, card)
     del params
     torch.cuda.empty_cache()
     check_opt_parity(card)
@@ -1459,6 +1695,33 @@ def main(argv=None) -> int:
          "shape": "m=512 ic=2048 oc=8192 f32, groups of 128; launches: phases 7b and 8; library: "
                   "f32 matmul on the dense weight"},
     ]
+
+    def arm_row(kernel, **match):
+        return next(r for r in arm_rows if r["kernel"] == kernel
+                    and (r["m"], r["ic"], r["oc"]) == HEADLINE_SHAPE
+                    and all(r.get(k) == v for k, v in match.items()))
+
+    def e2e_launches(kernel):
+        return sum(r["launches"][kernel] for r in arms_e2e)
+
+    for name, replaces, source, launches, library in (
+            ("pb_pair_v2", 334, "pb_pair_v2.cu", e2e_launches("pb_pair_v2"), "bf16"),
+            ("pb_dma_v2", 826, "pb_dma_v2.cu", e2e_launches("pb_dma_v2"), "f32"),
+            ("pb_int8_matmul_stacked", 953, "pb_int8_matmul.cu",
+             e2e_launches("pb_int8_matmul_stacked"), "bf16"),
+            ("pb_f32_matmul_stacked", 991, "pb_f32_matmul.cu",
+             scan_fuse["launches"]["pb_f32_matmul_stacked"], "f32")):
+        r = arm_row(name, row_groups=1)
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"pb_llm_tpu_torch/csrc/{source}",
+            "replaces": f"pb_llm_tpu/ops/pallas_pb.py:{replaces}", "launches": launches,
+            "max_abs_err": max(q["max_abs_err"] for q in arm_rows if q["kernel"] == name),
+            "ms": r["kernel_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"], "parity": "ok",
+            "shape": "m={} ic={} oc={} low_frac 0.9; library: {} matmul on the dense weight; "
+                     "launches: phase {}".format(*HEADLINE_SHAPE, library,
+                                                 "9a" if name.endswith("f32_matmul_stacked")
+                                                 else "9b")})
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

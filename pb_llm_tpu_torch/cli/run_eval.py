@@ -7,9 +7,10 @@ windowed perplexity on wikitext2 / ptb / c4 under the exact hybrid prefill
 
 ``--synthetic`` builds the JAX CLIs' tiny llama or OPT (by --model_id);
 ``checkpoint`` is a dense checkpoint (`utils.checkpoint`) or a PBW v1 or v2
-directory (installed over the model's linears).  Task suites (--tasks),
-sequence parallelism (--sp) and scanned layers (--scan_layers) are not
-ported yet.
+directory (installed over the model's linears).  ``--scan_layers`` stacks
+the layers (`models.stacking`); the eval windows (m >= 256 rows) take each
+layer's views through the ordinary dispatch, as in JAX.  Task suites
+(--tasks) and sequence parallelism (--sp) are not ported yet.
 """
 
 from __future__ import annotations
@@ -35,7 +36,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--synthetic", action="store_true")
     p.add_argument("--metrics", type=str, default=None)
     p.add_argument("--sp", type=int, default=1, help="sequence-parallel ways (not ported yet)")
-    p.add_argument("--scan_layers", action="store_true", help="stacked layers (not ported yet)")
+    p.add_argument("--scan_layers", action="store_true",
+                   help="stacked layers for the ppl forward (models.stacking)")
     p.add_argument("--vocab_limit", type=int, default=50257, help="task scoring (not ported yet)")
     p.add_argument("--num_fewshot", type=int, default=0, help="task scoring (not ported yet)")
     p.add_argument("--device", type=str, default=None, help="default: cuda")
@@ -49,9 +51,6 @@ def main(argv=None) -> int:
     if args.sp > 1:
         raise NotImplementedError("--sp: perplexity_sp and ring attention are not ported yet "
                                   "(ROADMAP Queue 1, slice 5)")
-    if args.scan_layers:
-        raise NotImplementedError("--scan_layers: models/stacking.py is not ported yet "
-                                  "(ROADMAP Queue 1, slice 6)")
 
     from .. import resolve_device
     from ..data.loaders import get_eval_tokens, get_loaders
@@ -87,6 +86,11 @@ def main(argv=None) -> int:
             layers, extra = load_pbw(args.checkpoint)
             params = install_pbw(params, layers)
         log.log("loaded_checkpoint", path=args.checkpoint, **{k: str(v) for k, v in extra.items()})
+
+    if args.scan_layers:
+        from ..models.stacking import stack_layers
+
+        params = stack_layers(params)
 
     for ds in [d for d in args.eval_ppl.split(",") if d]:
         if args.flavor == "qat":

@@ -7,11 +7,13 @@ prompts through the continuous batcher and reports tokens/s.
     python -m pb_llm_tpu_torch.cli.serve --model_id facebook/opt-synth --synthetic \
         --pbw checkpoints/opt_pbw
 
+    python -m pb_llm_tpu_torch.cli.serve --model_id llama --synthetic \
+        --pbw checkpoints/llama_pbw --scan_layers --fuse_linears --decode_dot pair
+
 Runs on CUDA unless ``--device cpu`` is given.  ``--synthetic`` builds the
 JAX CLIs' tiny llama or OPT (by ``--model_id``); ``--pbw`` installs a PBW v1
-or v2 checkpoint over its linears.  HF import, dense
-checkpoints, draft models from checkpoints, the HTTP front end, TP and
-scanned layers are not ported yet.
+or v2 checkpoint over its linears.  HF import, dense checkpoints, draft
+models from checkpoints, the HTTP front end and TP are not ported yet.
 """
 
 from __future__ import annotations
@@ -56,10 +58,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="PBW packed checkpoint dir for the draft model (not ported yet)")
     p.add_argument("--draft_synthetic", action="store_true",
                    help="with --synthetic: a 1-layer synthetic draft model")
+    p.add_argument("--scan_layers", action="store_true",
+                   help="stacked decoder layers: one loop over layer views, PBW-v2 linears "
+                        "through the stacked kernels")
+    p.add_argument("--fuse_linears", action="store_true",
+                   help="fuse q/k/v and gate/up into single packed matmuls (PBW v2 "
+                        "global-selection checkpoints; the same weights, fewer launches)")
     p.add_argument("--decode_dot", type=str, default=None,
                    choices=["auto", "f32", "int8", "dma", "bf16", "pair"],
-                   help="PBW-v2 decode dot arm (auto = int8 on CUDA; all but pair and dma "
-                        "are ported; PBW v1 ignores it)")
+                   help="PBW-v2 decode dot arm: auto = int8 on CUDA; f32 exact; dma exact, "
+                        "with a pipelined copy of the planes (one row group); bf16; pair, "
+                        "bf16 bit pairs on the tensor cores (dma and pair need 1-bit lows and "
+                        "take f32 otherwise; PBW v1 ignores it)")
     p.add_argument("--prefill_kernel", type=str, default=None,
                    choices=["auto", "int8", "hybrid", "hybrid_bf16"],
                    help="PBW-v2 prefill arm (auto = int8 on CUDA; all are ported; PBW v1 "
@@ -130,7 +140,8 @@ def main(argv=None) -> int:
         cache_dtype={"auto": "auto", "int8": torch.int8, "f32": torch.float32}[args.kv_dtype],
         max_prefill_batch=args.prefill_batch, kernels=kernels, page_size=args.page_size,
         n_pages=args.n_pages, prefix_cache=args.prefix_cache, spec_gamma=args.spec_gamma,
-        prefill_chunk=args.prefill_chunk)
+        prefill_chunk=args.prefill_chunk, scan_layers=args.scan_layers,
+        fuse_linears=args.fuse_linears)
     eng = Engine(params, cfg, fam, ecfg, SamplingParams(temperature=args.temperature),
                  device=device, seed=args.seed)
     draft_source = None

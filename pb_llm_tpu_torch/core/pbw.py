@@ -477,6 +477,36 @@ def matmul_reference_v2(x: torch.Tensor, p: PackedLinearV2) -> torch.Tensor:
     return y
 
 
+def merge_packed_linears_v2(ps) -> PackedLinearV2:
+    """Concatenate same-input v2 layers along oc into one layer with one row
+    group per part (col_tile = a part's oc, side_idx [k_pad, G]): the fused
+    q|k|v and gate|up serving layout.  Its dequantization is the concat of
+    the parts'.  Requires equal ic/oc/pack_block/side_bits/low_bits/k_pad,
+    global selection and un-sharded sidecars, and bias on all or none."""
+    p0 = ps[0]
+    for p in ps:
+        if not isinstance(p, PackedLinearV2):
+            raise ValueError("merge_packed_linears_v2 needs PackedLinearV2 parts")
+        if p.n_row_groups != 1 or p.shards_local != 1:
+            raise ValueError("parts must be global-selection, un-sharded")
+        if (p.ic, p.oc, p.pack_block, p.side_bits, p.low_bits, p.k_pad) != (
+                p0.ic, p0.oc, p0.pack_block, p0.side_bits, p0.low_bits, p0.k_pad):
+            raise ValueError("parts must agree on ic/oc/pack_block/side_bits/low_bits/k_pad")
+        if (p.bias is None) != (p0.bias is None):
+            raise ValueError("parts must uniformly have or lack bias")
+
+    def cat(f, dim):
+        return torch.cat([getattr(p, f) for p in ps], dim=dim)
+
+    return PackedLinearV2(
+        sign_packed=cat("sign_packed", 1), side_val=cat("side_val", 1),
+        side_idx=cat("side_idx", 1), low_scale=cat("low_scale", 1), low_mean=cat("low_mean", 1),
+        high_scale=cat("high_scale", 0), high_zero=cat("high_zero", 0),
+        bias=None if p0.bias is None else cat("bias", 0),
+        ic=p0.ic, oc=sum(p.oc for p in ps), col_tile=p0.oc, pack_block=p0.pack_block,
+        k_pad_shard=0, side_bits=p0.side_bits, low_bits=p0.low_bits)
+
+
 def gather_x_v2(x: torch.Tensor, p: PackedLinearV2) -> torch.Tensor:
     """[m, ic] → [m, total_k_pad, n_row_groups]; padding indices read an
     appended zero column per shard."""

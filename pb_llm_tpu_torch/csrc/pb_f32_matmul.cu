@@ -35,10 +35,24 @@
 // The f32 epilogue uses __fmul_rn/__fadd_rn in the plain PyTorch version's
 // order (pb_llm_tpu_torch/ops/packed_matmul.py::pb_f32_matmul_plain); the
 // products sum in another order than the plain version's torch.matmul.
+//
+// pb_f32_matmul_stacked replaces pallas_pb.py::_stacked_f32_kernel (entry
+// pb_matmul_pallas_v2_stacked with decode_dot f32, the scan_layers path):
+// the 1-bit function on layer li of [L, ic/32, oc] sign planes,
+// [L, k_pad(/2), oc] codes and an [L, 5, oc] coefficient array, li read by
+// the block from a device int32 (the counterpart of scalar prefetch).  It is
+// this file's kernel instantiated with STACKED, which offsets the three
+// plane pointers by li and runs the flat device code unchanged.  A layer's
+// slice of a stacked tensor is already a view in PyTorch, so the copy the
+// TPU kernel avoids never happens here; what the entry gives is a launch
+// whose arguments are the same for every layer (for a CUDA graph of the
+// layer loop, later work).  No speed is claimed.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "pb_v2_side.cuh"
 
 namespace {
 
@@ -57,24 +71,20 @@ __device__ __forceinline__ float dot_in(float v) {
   return BF16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
 }
 
-template <int SIDE_BITS>
-__device__ __forceinline__ float side_code(const uint8_t* __restrict__ side, int j, int col,
-                                           int oc, int kps) {
-  if (SIDE_BITS == 8) return (float)side[(size_t)j * oc + col];
-  const int half = kps / 2;
-  const int s = j / kps;
-  const int r = j - s * kps;
-  const uint8_t v = side[(size_t)(s * half + (r % half)) * oc + col];
-  return (float)(r < half ? (v & 15) : (v >> 4));
-}
-
-template <int LOW_BITS, int SIDE_BITS, bool BF16>
+template <int LOW_BITS, int SIDE_BITS, bool BF16, bool STACKED>
 __global__ void __launch_bounds__(THREADS)
 pb_f32_matmul_kernel(const float* __restrict__ x, const float* __restrict__ xg,
                      const float* __restrict__ rs, const float* __restrict__ rsg,
                      const uint32_t* __restrict__ sign, const uint8_t* __restrict__ side,
                      const float* __restrict__ coef, float* __restrict__ out, int m, int ic,
-                     int oc, int pack_block, int k_pad, int kps, int col_tile) {
+                     int oc, int pack_block, int k_pad, int kps, int col_tile,
+                     const int* __restrict__ layer) {
+  if (STACKED) {  // layer li of the stacked planes (unsharded, one row group)
+    const size_t li = (size_t)__ldg(layer);
+    sign += li * (size_t)LOW_BITS * (ic / 32) * oc;
+    side += li * (size_t)(SIDE_BITS == 4 ? k_pad / 2 : k_pad) * oc;
+    coef += li * 5 * (size_t)oc;
+  }
   __shared__ __align__(16) float xs[CHW * WSTRIDE];
   __shared__ float red_b[WARPS][TM][TN];
   __shared__ float red_v[WARPS][TM][TN];
@@ -190,21 +200,25 @@ pb_f32_matmul_kernel(const float* __restrict__ x, const float* __restrict__ xg,
   out[(size_t)row * oc + ocol] = y;
 }
 
-template <int LOW_BITS, int SIDE_BITS>
+template <int LOW_BITS, int SIDE_BITS, bool STACKED>
 void launch(dim3 grid, cudaStream_t st, bool bf16, const float* x, const float* xg,
             const float* rs, const float* rsg, const uint32_t* sign, const uint8_t* side,
             const float* coef, float* out, int m, int ic, int oc, int pack_block, int k_pad,
-            int kps, int col_tile) {
+            int kps, int col_tile, const int* layer) {
   if (bf16) {
-    pb_f32_matmul_kernel<LOW_BITS, SIDE_BITS, true><<<grid, THREADS, 0, st>>>(
-        x, xg, rs, rsg, sign, side, coef, out, m, ic, oc, pack_block, k_pad, kps, col_tile);
+    pb_f32_matmul_kernel<LOW_BITS, SIDE_BITS, true, STACKED><<<grid, THREADS, 0, st>>>(
+        x, xg, rs, rsg, sign, side, coef, out, m, ic, oc, pack_block, k_pad, kps, col_tile, layer);
   } else {
-    pb_f32_matmul_kernel<LOW_BITS, SIDE_BITS, false><<<grid, THREADS, 0, st>>>(
-        x, xg, rs, rsg, sign, side, coef, out, m, ic, oc, pack_block, k_pad, kps, col_tile);
+    pb_f32_matmul_kernel<LOW_BITS, SIDE_BITS, false, STACKED><<<grid, THREADS, 0, st>>>(
+        x, xg, rs, rsg, sign, side, coef, out, m, ic, oc, pack_block, k_pad, kps, col_tile, layer);
   }
 }
 
 }  // namespace
+
+#define PB_ARGS grid, st, bf, (const float*)x, (const float*)xg, (const float*)rs, \
+    (const float*)rsg, (const uint32_t*)sign, (const uint8_t*)side, (const float*)coef, \
+    (float*)out, m, ic, oc, pack_block, k_pad, kps, col_tile
 
 // x: f32 [m, ic]; xg: f32 [n_rg, m, k_pad]; rs: f32 [m]; rsg: f32 [n_rg, m];
 // sign: u32 [low_bits * ic/32, oc]; side: u8 [k_pad (/2), oc]; coef: f32
@@ -216,20 +230,42 @@ extern "C" int pb_f32_matmul(const void* x, const void* xg, const void* rs, cons
   dim3 grid((oc + TN - 1) / TN, (m + TM - 1) / TM);
   cudaStream_t st = (cudaStream_t)stream;
   const bool bf = dot_bf16 != 0;
-#define PB_ARGS grid, st, bf, (const float*)x, (const float*)xg, (const float*)rs, \
-    (const float*)rsg, (const uint32_t*)sign, (const uint8_t*)side, (const float*)coef, \
-    (float*)out, m, ic, oc, pack_block, k_pad, kps, col_tile
   if (side_bits != 8 && side_bits != 4) return (int)cudaErrorInvalidValue;
   const bool s8 = side_bits == 8;
+  const int* flat = nullptr;
   if (low_bits == 1) {
-    s8 ? launch<1, 8>(PB_ARGS) : launch<1, 4>(PB_ARGS);
+    s8 ? launch<1, 8, false>(PB_ARGS, flat) : launch<1, 4, false>(PB_ARGS, flat);
   } else if (low_bits == 2) {
-    s8 ? launch<2, 8>(PB_ARGS) : launch<2, 4>(PB_ARGS);
+    s8 ? launch<2, 8, false>(PB_ARGS, flat) : launch<2, 4, false>(PB_ARGS, flat);
   } else if (low_bits == 4) {
-    s8 ? launch<4, 8>(PB_ARGS) : launch<4, 4>(PB_ARGS);
+    s8 ? launch<4, 8, false>(PB_ARGS, flat) : launch<4, 4, false>(PB_ARGS, flat);
   } else {
     return (int)cudaErrorInvalidValue;
   }
-#undef PB_ARGS
   return (int)cudaGetLastError();
 }
+
+// sign: u32 [L, ic/32, oc]; side: u8 [L, k_pad(/2), oc]; coef: f32 [L, 5, oc];
+// layer: a device int32, the layer li; 1-bit lows, one row group, unsharded
+// (col_tile = oc, kps = k_pad); the rest as pb_f32_matmul with dot_bf16 0.
+extern "C" int pb_f32_matmul_stacked(const void* x, const void* xg, const void* rs,
+                                     const void* rsg, const void* sign, const void* side,
+                                     const void* coef, void* out, const void* layer, int m,
+                                     int ic, int oc, int pack_block, int side_bits, int k_pad,
+                                     void* stream) {
+  dim3 grid((oc + TN - 1) / TN, (m + TM - 1) / TM);
+  cudaStream_t st = (cudaStream_t)stream;
+  const bool bf = false;
+  const int kps = k_pad, col_tile = oc;
+  const int* li = (const int*)layer;
+  if (side_bits == 8) {
+    launch<1, 8, true>(PB_ARGS, li);
+  } else if (side_bits == 4) {
+    launch<1, 4, true>(PB_ARGS, li);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+#undef PB_ARGS

@@ -39,6 +39,18 @@
 // The f32 epilogue uses __fmul_rn/__fadd_rn in the plain PyTorch version's
 // order (pb_llm_tpu_torch/ops/packed_matmul.py::_epilogue), so the kernel
 // and its plain version agree to the last bit on the same operands.
+//
+// pb_int8_matmul_stacked replaces pallas_pb.py::_stacked_int8_kernel (entry
+// pb_matmul_pallas_v2_stacked, the scan_layers path): the same function on
+// layer li of [L, ic/32, oc] sign planes, [L, k_pad(/2), oc] codes and an
+// [L, 5, oc] coefficient array, with li read by the block from a device
+// int32 (the counterpart of the TPU kernel's scalar prefetch).  It is this
+// file's kernel instantiated with STACKED: the block offsets its three
+// plane pointers by li and runs the flat device code unchanged.  What it
+// buys on this card: a layer's slice of a stacked tensor is already a view
+// in PyTorch, so the per-layer copy the TPU kernel avoids never happens
+// here; what it gives is a launch whose arguments are the same for every
+// layer, which a CUDA graph of the layer loop needs.  No speed is claimed.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -72,14 +84,20 @@ __device__ __forceinline__ int side_code(const uint8_t* __restrict__ side, int j
   return r < half ? (v & 15) : (v >> 4);
 }
 
-template <int SIDE_BITS>
+template <int SIDE_BITS, bool STACKED>
 __global__ void __launch_bounds__(THREADS)
 pb_int8_matmul_kernel(const int8_t* __restrict__ x8, const float* __restrict__ sx,
                       const float* __restrict__ rs, const int8_t* __restrict__ xg8,
                       const float* __restrict__ rsg, const uint32_t* __restrict__ sign,
                       const uint8_t* __restrict__ side, const float* __restrict__ coef,
                       float* __restrict__ out, int m, int ic, int oc, int pack_block,
-                      int k_pad, int kps, int col_tile) {
+                      int k_pad, int kps, int col_tile, const int* __restrict__ layer) {
+  if (STACKED) {  // layer li of the stacked planes (unsharded, one row group)
+    const size_t li = (size_t)__ldg(layer);
+    sign += li * (size_t)(ic / 32) * oc;
+    side += li * (size_t)(SIDE_BITS == 4 ? k_pad / 2 : k_pad) * oc;
+    coef += li * 5 * (size_t)oc;
+  }
   __shared__ __align__(16) int xq[TM][CHW][8];
   __shared__ int red_b[WARPS][TM][TN];
   __shared__ int red_v[WARPS][TM][TN];
@@ -227,6 +245,27 @@ pb_int8_matmul_kernel(const int8_t* __restrict__ x8, const float* __restrict__ s
   out[(size_t)row * oc + ocol] = y;
 }
 
+template <bool STACKED>
+int launch(const void* x8, const void* sx, const void* rs, const void* xg8, const void* rsg,
+           const void* sign, const void* side, const void* coef, void* out, int m, int ic,
+           int oc, int pack_block, int side_bits, int k_pad, int kps, int col_tile,
+           const void* layer, void* stream) {
+  dim3 grid((oc + TN - 1) / TN, (m + TM - 1) / TM);
+  cudaStream_t st = (cudaStream_t)stream;
+#define PB_ARGS (const int8_t*)x8, (const float*)sx, (const float*)rs, (const int8_t*)xg8, \
+    (const float*)rsg, (const uint32_t*)sign, (const uint8_t*)side, (const float*)coef, \
+    (float*)out, m, ic, oc, pack_block, k_pad, kps, col_tile, (const int*)layer
+  if (side_bits == 8) {
+    pb_int8_matmul_kernel<8, STACKED><<<grid, THREADS, 0, st>>>(PB_ARGS);
+  } else if (side_bits == 4) {
+    pb_int8_matmul_kernel<4, STACKED><<<grid, THREADS, 0, st>>>(PB_ARGS);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+#undef PB_ARGS
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int pb_int8_matmul(const void* x8, const void* sx, const void* rs, const void* xg8,
@@ -235,18 +274,18 @@ extern "C" int pb_int8_matmul(const void* x8, const void* sx, const void* rs, co
                               int pack_block, int side_bits, int k_pad, int kps,
                               int col_tile, int n_rg, void* stream) {
   (void)n_rg;
-  dim3 grid((oc + TN - 1) / TN, (m + TM - 1) / TM);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (side_bits == 8) {
-    pb_int8_matmul_kernel<8><<<grid, THREADS, 0, st>>>(
-        (const int8_t*)x8, (const float*)sx, (const float*)rs, (const int8_t*)xg8,
-        (const float*)rsg, (const uint32_t*)sign, (const uint8_t*)side, (const float*)coef,
-        (float*)out, m, ic, oc, pack_block, k_pad, kps, col_tile);
-  } else {
-    pb_int8_matmul_kernel<4><<<grid, THREADS, 0, st>>>(
-        (const int8_t*)x8, (const float*)sx, (const float*)rs, (const int8_t*)xg8,
-        (const float*)rsg, (const uint32_t*)sign, (const uint8_t*)side, (const float*)coef,
-        (float*)out, m, ic, oc, pack_block, k_pad, kps, col_tile);
-  }
-  return (int)cudaGetLastError();
+  return launch<false>(x8, sx, rs, xg8, rsg, sign, side, coef, out, m, ic, oc, pack_block,
+                       side_bits, k_pad, kps, col_tile, nullptr, stream);
+}
+
+// sign: u32 [L, ic/32, oc]; side: u8 [L, k_pad(/2), oc]; coef: f32 [L, 5, oc];
+// layer: a device int32, the layer li; the rest as pb_int8_matmul (one row
+// group, unsharded: col_tile = oc, kps = k_pad).
+extern "C" int pb_int8_matmul_stacked(const void* x8, const void* sx, const void* rs,
+                                      const void* xg8, const void* rsg, const void* sign,
+                                      const void* side, const void* coef, void* out,
+                                      const void* layer, int m, int ic, int oc, int pack_block,
+                                      int side_bits, int k_pad, void* stream) {
+  return launch<true>(x8, sx, rs, xg8, rsg, sign, side, coef, out, m, ic, oc, pack_block,
+                      side_bits, k_pad, k_pad, oc, layer, stream);
 }

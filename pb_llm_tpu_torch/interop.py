@@ -5,7 +5,10 @@
 vectors or LayerNorm ``{"w", "b"}`` dicts, ``{"w", "b"}`` dense linears,
 ``None`` leaves such as OPT's absent ``project_in``, and PackedLinear /
 PackedLinearV2 leaves given as objects or dicts carrying their fields) into
-the port's tree of torch tensors.  The caller converts JAX arrays with
+the port's tree of torch tensors.  Trees after `models.stacking.stack_layers`
+(``layers_stacked`` with [L]-leading leaves, the int ``num_layers``) and
+after `models.fusion.fuse_parallel_linears` (row-grouped ``qkv_proj`` /
+``gateup_proj``) convert alike.  The caller converts JAX arrays with
 ``np.asarray`` first, so this module never sees a JAX type.  Bit planes
 arrive as uint32 and are kept as bit-identical int32.
 """
@@ -39,8 +42,8 @@ def _is_packed(v: Any) -> bool:
 
 
 def _convert(v: Any) -> Any:
-    if v is None:
-        return None
+    if v is None or isinstance(v, int):  # an int: num_layers of a stacked tree
+        return v
     if isinstance(v, (PackedLinear, PackedLinearV2)):
         return v
     if _is_packed(v):

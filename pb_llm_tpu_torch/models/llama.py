@@ -3,20 +3,22 @@
 HF `LlamaForCausalLM` numerics: RMSNorm in float32, rotary embeddings with
 the rotate-half convention, GQA, SwiGLU MLP, untied lm_head, optional
 sliding window (Mistral).  Params are a plain dict; every linear is a
-`models.linear` leaf (dense dict or PackedLinearV2).  Layers run unrolled;
-`scan_layers` / `layers_stacked` and the fused `qkv_proj` / `gateup_proj`
-layout are not ported yet (ROADMAP).
+`models.linear` leaf (dense dict or PackedLinearV2).  Layers run unrolled
+(``layers``) or as a loop over stacked layers (``layers_stacked``,
+`models.stacking`); a layer may carry the fused ``qkv_proj`` /
+``gateup_proj`` linears (`models.fusion`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from .. import resolve_device
 from .attention import cache_update, cached_attention, full_causal_attention
+from . import stacking
 from .linear import apply_linear
 
 
@@ -116,15 +118,20 @@ def decoder_layer(lp: Dict[str, Any], x: torch.Tensor, cfg: LlamaConfig, cos, si
     """One decoder block.  Returns (hidden, kv_cache updated in place).
     ``linear_fn(name, lin, x)`` replaces `apply_linear` (calibration uses it
     to see each linear's input)."""
-    if "qkv_proj" in lp or "gateup_proj" in lp:
-        raise NotImplementedError("fused linears are not ported yet (ROADMAP: models/fusion.py)")
     lf = linear_fn or (lambda name, lin, h: apply_linear(lin, h))
     b, t, _ = x.shape
     hd = cfg.head_dim
     h = rms_norm(x, lp["input_layernorm"], cfg.rms_norm_eps)
-    q = lf("q_proj", lp["q_proj"], h).reshape(b, t, cfg.num_attention_heads, hd)
-    k = lf("k_proj", lp["k_proj"], h).reshape(b, t, cfg.kv_heads, hd)
-    v = lf("v_proj", lp["v_proj"], h).reshape(b, t, cfg.kv_heads, hd)
+    if "qkv_proj" in lp:  # fused serving layout (models.fusion)
+        wq, wkv = cfg.num_attention_heads * hd, cfg.kv_heads * hd
+        qkv = lf("qkv_proj", lp["qkv_proj"], h)
+        q = qkv[..., :wq].reshape(b, t, cfg.num_attention_heads, hd)
+        k = qkv[..., wq : wq + wkv].reshape(b, t, cfg.kv_heads, hd)
+        v = qkv[..., wq + wkv :].reshape(b, t, cfg.kv_heads, hd)
+    else:
+        q = lf("q_proj", lp["q_proj"], h).reshape(b, t, cfg.num_attention_heads, hd)
+        k = lf("k_proj", lp["k_proj"], h).reshape(b, t, cfg.kv_heads, hd)
+        v = lf("v_proj", lp["v_proj"], h).reshape(b, t, cfg.kv_heads, hd)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     scale = softmax_scale(hd)
@@ -136,23 +143,32 @@ def decoder_layer(lp: Dict[str, Any], x: torch.Tensor, cfg: LlamaConfig, cos, si
         attn = full_causal_attention(q, k, v, scale, window=win)
     x = x + lf("o_proj", lp["o_proj"], attn.reshape(b, t, cfg.num_attention_heads * hd))
     h = rms_norm(x, lp["post_attention_layernorm"], cfg.rms_norm_eps)
-    gate = lf("gate_proj", lp["gate_proj"], h)
-    up = lf("up_proj", lp["up_proj"], h)
+    if "gateup_proj" in lp:  # fused serving layout (models.fusion)
+        gu = lf("gateup_proj", lp["gateup_proj"], h)
+        gate, up = gu[..., : gu.shape[-1] // 2], gu[..., gu.shape[-1] // 2 :]
+    else:
+        gate = lf("gate_proj", lp["gate_proj"], h)
+        up = lf("up_proj", lp["up_proj"], h)
     x = x + lf("down_proj", lp["down_proj"], torch.nn.functional.silu(gate) * up)
     return x, kv_cache
 
 
 def forward(params: Dict[str, Any], input_ids: torch.Tensor, cfg: LlamaConfig,
-            kv_caches: Optional[List[Dict[str, torch.Tensor]]] = None, pos=0):
+            kv_caches=None, pos=0, linear_fn: Optional[Callable] = None):
     """input_ids [B, T] → logits [B, T, V] (and the caches, updated in place).
-    ``pos``: an int (prefill) or a [B] tensor of per-slot positions."""
-    if "layers_stacked" in params:
-        raise NotImplementedError("scan_layers is not ported yet (ROADMAP: models/stacking.py)")
+    ``pos``: an int (prefill) or a [B] tensor of per-slot positions.
+    ``kv_caches``: per-layer dicts, or one dict with a leading [L] axis
+    under ``layers_stacked``."""
     x = params["embed_tokens"][input_ids]
     cos, sin = layer_rope(cfg, x, pos)
-    for i, lp in enumerate(params["layers"]):
-        cache_i = kv_caches[i] if kv_caches is not None else None
-        x, _ = decoder_layer(lp, x, cfg, cos, sin, cache_i, pos)
+    if stacking.is_stacked(params):
+        x = stacking.run_layers(
+            params, x, lambda lp, h, c: decoder_layer(lp, h, cfg, cos, sin, c, pos, linear_fn),
+            kv_caches, linear_fn)
+    else:
+        for i, lp in enumerate(params["layers"]):
+            cache_i = kv_caches[i] if kv_caches is not None else None
+            x, _ = decoder_layer(lp, x, cfg, cos, sin, cache_i, pos, linear_fn)
     x = rms_norm(x, params["norm"], cfg.rms_norm_eps)
     return apply_linear(params["lm_head"], x), kv_caches
 

@@ -5,20 +5,22 @@ offset, pre-LayerNorm blocks (statistics in float32), ReLU MLP, q-scaled
 attention, optional project_in / project_out (word_embed_proj_dim ≠
 hidden), the final LayerNorm, and an lm_head tied to ``embed_tokens``.
 Params are a plain dict; every linear is a `models.linear` leaf (dense
-dict, PackedLinear or PackedLinearV2).  Layers run unrolled;
-``layers_stacked`` needs `models/stacking.py`, which is not ported yet.
+dict, PackedLinear or PackedLinearV2).  Layers run unrolled (``layers``)
+or as a loop over stacked layers (``layers_stacked``, `models.stacking`); a
+layer may carry the fused ``qkv_proj`` linear (`models.fusion`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
 
 from .. import resolve_device
 from .attention import cache_update, cached_attention, full_causal_attention
+from . import stacking
 from .linear import apply_linear
 
 
@@ -109,8 +111,6 @@ def decoder_layer(lp: Dict[str, Any], x: torch.Tensor, cfg: OPTConfig,
     """One decoder block.  Returns (hidden, kv_cache updated in place).
     ``linear_fn(name, lin, x)`` replaces `apply_linear` (calibration uses it
     to see each linear's input)."""
-    if "qkv_proj" in lp:
-        raise NotImplementedError("fused linears are not ported yet (ROADMAP: models/fusion.py)")
     lf = linear_fn or (lambda name, lin, h: apply_linear(lin, h))
     b, t, _ = x.shape
     nh, hd = cfg.num_attention_heads, cfg.head_dim
@@ -118,9 +118,16 @@ def decoder_layer(lp: Dict[str, Any], x: torch.Tensor, cfg: OPTConfig,
 
     residual = x
     h = layer_norm(x, lp["self_attn_layer_norm"], eps) if cfg.do_layer_norm_before else x
-    q = lf("q_proj", lp["q_proj"], h).reshape(b, t, nh, hd)
-    k = lf("k_proj", lp["k_proj"], h).reshape(b, t, nh, hd)
-    v = lf("v_proj", lp["v_proj"], h).reshape(b, t, nh, hd)
+    if "qkv_proj" in lp:  # fused serving layout (models.fusion)
+        w = nh * hd
+        qkv = lf("qkv_proj", lp["qkv_proj"], h)
+        q = qkv[..., :w].reshape(b, t, nh, hd)
+        k = qkv[..., w : 2 * w].reshape(b, t, nh, hd)
+        v = qkv[..., 2 * w :].reshape(b, t, nh, hd)
+    else:
+        q = lf("q_proj", lp["q_proj"], h).reshape(b, t, nh, hd)
+        k = lf("k_proj", lp["k_proj"], h).reshape(b, t, nh, hd)
+        v = lf("v_proj", lp["v_proj"], h).reshape(b, t, nh, hd)
     scale = attention_scale(hd)
     if kv_cache is not None:
         kv_cache = cache_update(kv_cache, k, v, pos)
@@ -163,12 +170,18 @@ def head(params: Dict[str, Any], x: torch.Tensor, cfg: OPTConfig) -> torch.Tenso
 
 
 def forward(params: Dict[str, Any], input_ids: torch.Tensor, cfg: OPTConfig,
-            kv_caches: Optional[List[Dict[str, torch.Tensor]]] = None, pos=0):
+            kv_caches=None, pos=0, linear_fn: Optional[Callable] = None):
     """input_ids [B, T] → logits [B, T, V] (and the caches, updated in place).
-    ``pos``: an int (prefill) or a [B] tensor of per-slot positions."""
-    if "layers_stacked" in params:
-        raise NotImplementedError("scan_layers is not ported yet (ROADMAP: models/stacking.py)")
+    ``pos``: an int (prefill) or a [B] tensor of per-slot positions.
+    ``kv_caches``: per-layer dicts, or one dict with a leading [L] axis
+    under ``layers_stacked``."""
     x = embed(params, input_ids, cfg, pos)
-    for i, lp in enumerate(params["layers"]):
-        x, _ = decoder_layer(lp, x, cfg, kv_caches[i] if kv_caches is not None else None, pos)
+    if stacking.is_stacked(params):
+        x = stacking.run_layers(
+            params, x, lambda lp, h, c: decoder_layer(lp, h, cfg, c, pos, linear_fn),
+            kv_caches, linear_fn)
+    else:
+        for i, lp in enumerate(params["layers"]):
+            x, _ = decoder_layer(lp, x, cfg, kv_caches[i] if kv_caches is not None else None,
+                                 pos, linear_fn)
     return head(params, x, cfg), kv_caches

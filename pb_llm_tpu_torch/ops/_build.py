@@ -1,7 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-Each `csrc/*.cu` source has a plain C interface and is compiled on first
-use by ``nvcc -gencode arch=compute_90a,code=sm_90a`` into its own shared
+Each `csrc/*.cu` source (with the shared `csrc/*.cuh` headers) has a plain
+C interface and is compiled on first use by ``nvcc -gencode arch=compute_90a,code=sm_90a`` into its own shared
 library under ``build/kernels/`` at the repository root (listed in
 `.gitignore`), then loaded with ctypes.  A missing nvcc or a failed build
 raises.  `build_all` compiles every source in parallel (one nvcc each).
@@ -22,7 +22,8 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build", "kerne
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = ("pb_int8_matmul", "decode_attention", "pb_dequant_v2", "pb_f32_matmul",
-           "flash_attention", "paged_attention", "pb_planar_v1", "pb_select_v1")
+           "flash_attention", "paged_attention", "pb_planar_v1", "pb_select_v1", "pb_pair_v2",
+           "pb_dma_v2")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -37,10 +38,14 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as fh:
-        digest = hashlib.sha256(fh.read()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+    """The library's path, named by a hash of its source and of every
+    header in csrc/ (a header change rebuilds the sources)."""
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for f in [name + ".cu"] + headers:
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            h.update(fh.read())
+    return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:12]}.so")
 
 
 def _start(name: str):

@@ -12,8 +12,18 @@ v1 reads neither decode_dot nor the int8 prefill, as in JAX.  For PBW v2,
   * m ≥ 256: prefill "int8" (1-bit lows) → the int8 kernel; "hybrid" /
     "hybrid_bf16" → `prefill.v2_prefill` (row-grouped layers fall through
     to the exact f32 kernel there, as in JAX);
-  * m < 256: decode_dot "int8" (1-bit lows) → the int8 kernel; "f32" /
-    "bf16" → the exact f32 kernel; "pair" and "dma" are not ported yet.
+  * m < 256: decode_dot "int8" (1-bit lows) → the int8 kernel; "dma"
+    (1-bit lows, one row group) → the dma kernel; "pair" (1-bit lows) → the
+    pair kernel; "f32" / "bf16", and "dma" / "pair" outside their gates, →
+    the exact f32 kernel (bf16 dots for "bf16").  These are JAX's gates
+    (`pallas_pb.py:1263-1275`).
+
+`pb_matmul_stacked` takes a `models.stacking.StackedPackedLinearV2` marker
+(layer li of stacked v2 planes, the scan_layers path), as JAX's does: on
+the kernel arms, a layout `stacked_supported_v2` takes at m ≤ 256 runs the
+stacked int8 kernel for decode_dot "int8" and the stacked f32 kernel for
+any other arm (pair, dma and bf16 have no stacked variant); otherwise layer
+li's views take `pb_matmul`.
 """
 
 from __future__ import annotations
@@ -22,7 +32,7 @@ import torch
 
 from ..core.pbw import PackedLinear, PackedLinearV2, matmul_reference, matmul_reference_v2
 from . import kernel_config as _kc
-from . import packed_matmul, packed_matmul_v1, prefill
+from . import decode_arms, packed_matmul, packed_matmul_v1, prefill
 
 
 def _resolve_decode_dot(kcfg: _kc.KernelConfig) -> str:
@@ -48,11 +58,9 @@ def pb_matmul_v2(x: torch.Tensor, p: PackedLinearV2, plain: bool = False,
     if decode_dot == "int8" and p.low_bits == 1:
         return int8(x, p)
     if decode_dot == "dma" and p.n_row_groups == 1 and p.low_bits == 1:
-        raise NotImplementedError("decode_dot='dma' is not ported yet "
-                                  "(ROADMAP Queue 2: _planar_v2_dma_kernel)")
+        return (decode_arms.pb_dma_v2_plain if plain else decode_arms.pb_dma_v2)(x, p)
     if decode_dot == "pair" and p.low_bits == 1:
-        raise NotImplementedError("decode_dot='pair' is not ported yet "
-                                  "(ROADMAP Queue 2: _planar_v2_pair_kernel)")
+        return (decode_arms.pb_pair_v2_plain if plain else decode_arms.pb_pair_v2)(x, p)
     f32 = packed_matmul.pb_f32_matmul_plain if plain else packed_matmul.pb_f32_matmul
     return f32(x, p, dot_dtype=torch.bfloat16 if decode_dot == "bf16" else torch.float32)
 
@@ -95,3 +103,22 @@ def pb_matmul(x: torch.Tensor, p) -> torch.Tensor:
             prefill_gather=kcfg.prefill_gather, prefill_extract=kcfg.prefill_extract,
             decode_dot=_resolve_decode_dot(kcfg), prefill_int8=prefill_arm == "int8")
     return matmul_reference_v2(x, p)
+
+
+def pb_matmul_stacked(x: torch.Tensor, marker) -> torch.Tensor:
+    """y = x @ dequant_v2(layer marker.idx of marker.stacked) (+ bias): the
+    scan_layers path (JAX's `pb_matmul_stacked`)."""
+    kcfg = _kc.current()
+    pm = packed_matmul
+    supported = pm.stacked_supported_v2(marker.stacked) and x.shape[0] <= pm.STACKED_MAX_M
+    mode = kcfg.backend
+    if mode == "auto":
+        mode = "pallas" if (x.device.type == "cuda" and supported) else "xla"
+    if mode in ("pallas", "pallas_interpret") and supported:
+        plain = mode == "pallas_interpret"
+        if _resolve_decode_dot(kcfg) == "int8":
+            fn = pm.pb_int8_matmul_stacked_plain if plain else pm.pb_int8_matmul_stacked
+        else:
+            fn = pm.pb_f32_matmul_stacked_plain if plain else pm.pb_f32_matmul_stacked
+        return fn(x, marker)
+    return pb_matmul(x, pm.stacked_layer(marker))

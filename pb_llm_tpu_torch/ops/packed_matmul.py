@@ -22,6 +22,12 @@ C = Σ_j 2^j·B_j is the low code from {0,1} bit planes (the JAX kernel's
 group's salient columns.  ``dot_dtype`` bf16 rounds x and xg to bf16 in the
 two products (decode_dot "bf16"); the row sums stay f32.
 
+stacked (`pb_int8_matmul_stacked`, `pb_f32_matmul_stacked`): the int8 and
+f32 functions on layer li of a stacked layer (`models.stacking`, the
+scan_layers path; `pallas_pb.pb_matmul_pallas_v2_stacked`).  The kernels
+take the whole [L] planes, an [L, 5, oc] coefficient array made once, and a
+device pointer to li; the x preparation uses layer li's `side_idx` view.
+
 Each wrapper launches its CUDA kernel on a CUDA tensor and runs its plain
 PyTorch version on a CPU tensor.  The dispatch of `pb_matmul_pallas_v2`
 lives in `ops.binary_matmul`.
@@ -44,6 +50,8 @@ V2_PREFILL_M = 256  # pallas_pb._V2_PREFILL_M: decode below, prefill at or above
 
 launches = 0  # kernel launches of pb_int8_matmul (plain-version calls not counted)
 f32_launches = 0  # kernel launches of pb_f32_matmul (plain-version calls not counted)
+stacked_launches = 0  # kernel launches of pb_int8_matmul_stacked
+stacked_f32_launches = 0  # kernel launches of pb_f32_matmul_stacked
 
 
 class Int8Operands(NamedTuple):
@@ -72,17 +80,18 @@ def prepare_int8(x: torch.Tensor, p: PackedLinearV2) -> Int8Operands:
 
 def coef_rows(p: PackedLinearV2) -> torch.Tensor:
     """The [5, oc] rows 2α, β, γ, hs, bias (2α = 2·scale for 1-bit lows,
-    scale for 2- and 4-bit lows); made once per layer."""
+    scale for 2- and 4-bit lows); made once per layer.  For a stacked layer
+    (tensors with a leading [L] axis) the [L, 5, oc] rows of every layer."""
     if p.coef_cache is None:
-        scale = p.low_scale[0].float()
-        mean = p.low_mean[0].float()
+        scale = p.low_scale[..., 0, :].float()
+        mean = p.low_mean[..., 0, :].float()
         if p.low_bits == 1:
             alpha2, beta = 2.0 * scale, mean - scale
         else:
             alpha2, beta = scale, -scale * mean
         gamma = -p.high_scale * p.high_zero - beta
         bias = p.bias if p.bias is not None else torch.zeros_like(scale)
-        p.coef_cache = torch.stack([alpha2, beta, gamma, p.high_scale, bias], dim=0).contiguous()
+        p.coef_cache = torch.stack([alpha2, beta, gamma, p.high_scale, bias], dim=-2).contiguous()
     return p.coef_cache
 
 
@@ -129,23 +138,29 @@ def pb_int8_matmul(x: torch.Tensor, p: PackedLinearV2) -> torch.Tensor:
     [m, oc].  CPU tensor: the plain version.  CUDA tensor: the kernel."""
     if x.device.type == "cpu":
         return pb_int8_matmul_plain(x, p)
-    if x.device.type != "cuda":
-        raise ValueError(f"pb_int8_matmul: unsupported device {x.device}")
-    if x.dim() != 2 or x.shape[1] != p.ic_local:
-        raise ValueError(f"pb_int8_matmul: x {tuple(x.shape)} does not match ic {p.ic_local}")
+    check_operands(x, p, "pb_int8_matmul")
     if p.low_bits != 1:
         raise ValueError("pb_int8_matmul needs low_bits == 1")
-    for name in ("sign_packed", "side_val", "side_idx"):
-        t = getattr(p, name)
-        if t.device != x.device:
-            raise ValueError(f"pb_int8_matmul: {name} on {t.device}, x on {x.device}")
-    if p.sign_packed.dtype != torch.int32 or p.side_val.dtype != torch.uint8:
-        raise ValueError("pb_int8_matmul: sign_packed must be int32 and side_val uint8")
-    if not (p.sign_packed.is_contiguous() and p.side_val.is_contiguous()):
-        raise ValueError("pb_int8_matmul: planes must be contiguous")
     if p.k_pad % 4:
         raise ValueError(f"pb_int8_matmul: k_pad {p.k_pad} must be a multiple of 4")
     return launch_int8(prepare_int8(x, p), p)
+
+
+def check_operands(x: torch.Tensor, p: PackedLinearV2, what: str) -> None:
+    """What every PBW-v2 kernel takes: x [m, ic] on a CUDA device, the
+    planes on x's device, int32 sign words and uint8 codes, contiguous."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    if x.dim() != 2 or x.shape[1] != p.ic_local:
+        raise ValueError(f"{what}: x {tuple(x.shape)} does not match ic {p.ic_local}")
+    for name in ("sign_packed", "side_val", "side_idx"):
+        t = getattr(p, name)
+        if t.device != x.device:
+            raise ValueError(f"{what}: {name} on {t.device}, x on {x.device}")
+    if p.sign_packed.dtype != torch.int32 or p.side_val.dtype != torch.uint8:
+        raise ValueError(f"{what}: sign_packed must be int32 and side_val uint8")
+    if not (p.sign_packed.is_contiguous() and p.side_val.is_contiguous()):
+        raise ValueError(f"{what}: planes must be contiguous")
 
 
 def launch_int8(ops: Int8Operands, p: PackedLinearV2) -> torch.Tensor:
@@ -237,22 +252,11 @@ def pb_f32_matmul(x: torch.Tensor, p: PackedLinearV2, dot_dtype=torch.float32) -
     → f32 [m, oc].  CPU tensor: the plain version.  CUDA tensor: the kernel."""
     if x.device.type == "cpu":
         return pb_f32_matmul_plain(x, p, dot_dtype)
-    if x.device.type != "cuda":
-        raise ValueError(f"pb_f32_matmul: unsupported device {x.device}")
-    if x.dim() != 2 or x.shape[1] != p.ic_local:
-        raise ValueError(f"pb_f32_matmul: x {tuple(x.shape)} does not match ic {p.ic_local}")
+    check_operands(x, p, "pb_f32_matmul")
     if dot_dtype not in _DOT_DTYPES:
         raise ValueError(f"pb_f32_matmul: dot_dtype {dot_dtype} not in {_DOT_DTYPES}")
     if p.low_bits not in (1, 2, 4):
         raise ValueError(f"pb_f32_matmul: low_bits {p.low_bits} not in (1, 2, 4)")
-    for name in ("sign_packed", "side_val", "side_idx"):
-        t = getattr(p, name)
-        if t.device != x.device:
-            raise ValueError(f"pb_f32_matmul: {name} on {t.device}, x on {x.device}")
-    if p.sign_packed.dtype != torch.int32 or p.side_val.dtype != torch.uint8:
-        raise ValueError("pb_f32_matmul: sign_packed must be int32 and side_val uint8")
-    if not (p.sign_packed.is_contiguous() and p.side_val.is_contiguous()):
-        raise ValueError("pb_f32_matmul: planes must be contiguous")
     return launch_f32(prepare_f32(x, p), p, dot_dtype)
 
 
@@ -273,4 +277,124 @@ def launch_f32(ops: F32Operands, p: PackedLinearV2, dot_dtype=torch.float32) -> 
     _build.check(err, "pb_f32_matmul")
     global f32_launches
     f32_launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# stacked layers (scan_layers)
+# ---------------------------------------------------------------------------
+
+STACKED_MAX_M = 256  # pb_matmul_stacked: larger m takes the layer's views
+
+
+def stacked_supported_v2(sp: PackedLinearV2) -> bool:
+    """`pallas_pb.stacked_supported_v2`: global selection, 1-bit lows, an
+    unsharded sidecar, lane-aligned dims (sp's tensors carry the [L] axis)."""
+    _, wpp, oc = sp.sign_packed.shape
+    ic = wpp * 32
+    if sp.side_idx.shape[2] != 1 or sp.low_bits != 1:
+        return False
+    if sp.k_pad_shard and sp.k_pad_shard != sp.side_val.shape[1] * (8 // sp.side_bits):
+        return False
+    if oc % 128 or ic % 32:
+        return False
+    pb = min(sp.pack_block, ic)
+    return not (ic > pb and ic % pb)
+
+
+def stacked_layer(marker) -> PackedLinearV2:
+    """Layer li's views, with its row of the stacked coefficient cache."""
+    coef_rows(marker.stacked)
+    return marker.layer()
+
+
+def pb_int8_matmul_stacked_plain(x: torch.Tensor, marker) -> torch.Tensor:
+    """The flat plain version on layer li's views."""
+    return pb_int8_matmul_plain(x, stacked_layer(marker))
+
+
+def pb_f32_matmul_stacked_plain(x: torch.Tensor, marker) -> torch.Tensor:
+    """The flat plain version on layer li's views."""
+    return pb_f32_matmul_plain(x, stacked_layer(marker))
+
+
+def _check_stacked(x: torch.Tensor, marker, what: str) -> PackedLinearV2:
+    """The stacked kernels' conditions; returns layer li's views."""
+    p = stacked_layer(marker)
+    check_operands(x, p, what)
+    sp = marker.stacked
+    if not stacked_supported_v2(sp):
+        raise ValueError(f"{what}: layout not supported by the stacked kernels")
+    if not (sp.sign_packed.is_contiguous() and sp.side_val.is_contiguous()):
+        raise ValueError(f"{what}: stacked planes must be contiguous")
+    if marker.idx_t.device != x.device or marker.idx_t.dtype != torch.int32:
+        raise ValueError(f"{what}: the layer index must be a device int32 tensor")
+    return p
+
+
+def pb_int8_matmul_stacked(x: torch.Tensor, marker) -> torch.Tensor:
+    """y = x @ dequant_v2(layer li) (+ bias) through the int8 path, for a
+    `models.stacking.StackedPackedLinearV2` marker.  CPU tensor: the plain
+    version.  CUDA tensor: the stacked kernel."""
+    if x.device.type == "cpu":
+        return pb_int8_matmul_stacked_plain(x, marker)
+    p = _check_stacked(x, marker, "pb_int8_matmul_stacked")
+    if p.k_pad % 4:
+        raise ValueError(f"pb_int8_matmul_stacked: k_pad {p.k_pad} must be a multiple of 4")
+    return launch_int8_stacked(prepare_int8(x, p), marker)
+
+
+def pb_f32_matmul_stacked(x: torch.Tensor, marker) -> torch.Tensor:
+    """y = x @ dequant_v2(layer li) (+ bias) through the exact f32 path, for
+    a stacked marker.  CPU tensor: the plain version.  CUDA tensor: the
+    stacked kernel."""
+    if x.device.type == "cpu":
+        return pb_f32_matmul_stacked_plain(x, marker)
+    p = _check_stacked(x, marker, "pb_f32_matmul_stacked")
+    return launch_f32_stacked(prepare_f32(x, p), marker)
+
+
+_STACKED_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_STACKED_F32_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+
+def launch_int8_stacked(ops: Int8Operands, marker) -> torch.Tensor:
+    """Launch the stacked int8 kernel on layer li's prepared operands; it
+    reads the whole [L] planes and coefficients (``ops.coef`` is unused) and
+    li from ``marker.idx_t``.  Counts one launch."""
+    sp = marker.stacked
+    m, ic = ops.x8.shape
+    oc = sp.sign_packed.shape[2]
+    out = torch.empty((m, oc), dtype=torch.float32, device=ops.x8.device)
+    fn = _build.load("pb_int8_matmul").pb_int8_matmul_stacked
+    fn.argtypes = _STACKED_ARGTYPES
+    fn.restype = ctypes.c_int
+    err = fn(ops.x8.data_ptr(), ops.sx.data_ptr(), ops.rs.data_ptr(), ops.xg8.data_ptr(),
+             ops.rsg.data_ptr(), sp.sign_packed.data_ptr(), sp.side_val.data_ptr(),
+             coef_rows(sp).data_ptr(), out.data_ptr(), marker.idx_t.data_ptr(),
+             m, ic, oc, min(sp.pack_block, ic), sp.side_bits, ops.xg8.shape[2],
+             torch.cuda.current_stream(out.device).cuda_stream)
+    _build.check(err, "pb_int8_matmul_stacked")
+    global stacked_launches
+    stacked_launches += 1
+    return out
+
+
+def launch_f32_stacked(ops: F32Operands, marker) -> torch.Tensor:
+    """Launch the stacked f32 kernel on layer li's prepared operands (as
+    `launch_int8_stacked`).  Counts one launch."""
+    sp = marker.stacked
+    m, ic = ops.x.shape
+    oc = sp.sign_packed.shape[2]
+    out = torch.empty((m, oc), dtype=torch.float32, device=ops.x.device)
+    fn = _build.load("pb_f32_matmul").pb_f32_matmul_stacked
+    fn.argtypes = _STACKED_F32_ARGTYPES
+    fn.restype = ctypes.c_int
+    err = fn(ops.x.data_ptr(), ops.xg.data_ptr(), ops.rs.data_ptr(), ops.rsg.data_ptr(),
+             sp.sign_packed.data_ptr(), sp.side_val.data_ptr(), coef_rows(sp).data_ptr(),
+             out.data_ptr(), marker.idx_t.data_ptr(), m, ic, oc, min(sp.pack_block, ic),
+             sp.side_bits, ops.xg.shape[2], torch.cuda.current_stream(out.device).cuda_stream)
+    _build.check(err, "pb_f32_matmul_stacked")
+    global stacked_f32_launches
+    stacked_f32_launches += 1
     return out

@@ -7,7 +7,9 @@ decoding with greedy token-match or rejection-sampled verify.
 PyTorch runs eagerly, so there are no per-bucket compiled programs: each
 call runs the forward under this engine's `KernelConfig`
 (`ops.kernel_config.use_kernels`).  The KV caches and pages are updated in
-place.  Scanned layers and fused linears are not ported yet and raise.
+place.  ``scan_layers`` stacks the layers and the caches (`models.stacking`:
+the forward loops over layer views, PBW-v2 linears through the stacked
+kernels); ``fuse_linears`` merges q|k|v and gate|up (`models.fusion`).
 """
 
 from __future__ import annotations
@@ -60,12 +62,17 @@ class EngineConfig:
     # chunked prefill: prompts longer than this prefill one chunk per
     # scheduler tick, interleaved with decode steps; 0 disables
     prefill_chunk: int = 0
-    # not ported yet: anything but the defaults raises NotImplementedError
+    # stacked layers (models.stacking): params and caches carry a leading
+    # [L] axis; the forward loops over layer li's views and runs PBW-v2
+    # linears through the stacked kernels (one launch signature for every
+    # layer).  Composes with the paged pool: the stacked cache carries
+    # [L]-axis pages and table.
     scan_layers: bool = False
+    # fuse q/k/v and gate/up into single packed matmuls (models.fusion):
+    # 7 → 4 per llama block, the dequantized weights unchanged (each part
+    # keeps its salient columns and scales as a row group).  PBW-v2
+    # global-selection layers only; others stay unfused.
     fuse_linears: bool = False
-
-
-_NOT_PORTED = ("scan_layers", "fuse_linears")
 
 
 def resolve_cache_dtype(cache_dtype, device: torch.device):
@@ -83,8 +90,32 @@ class PoolExhausted(RuntimeError):
 
 def _with_extras(caches, **extras):
     """Per-call cache extras (``slot_pages`` / ``chunk_table``) in shallow
-    copies of the layer dicts; the page tensors stay shared."""
+    copies of the layer dicts, or broadcast over the stacked cache's [L]
+    axis (scan_layers); the page tensors stay shared."""
+    if isinstance(caches, dict):
+        n = caches["k_pages"].shape[0]
+        return dict(caches, **{k: v.expand(n, *v.shape) for k, v in extras.items()})
     return [dict(c, **extras) for c in caches]
+
+
+def _rows(caches, idx):
+    """Each layer's strip entries at ``idx`` (an index over [slots, rows]):
+    per-layer dicts, or one dict of [L]-leading tensors (scan_layers).  A
+    slice index gives views; a tensor index, copies (see `_set_rows`)."""
+    if isinstance(caches, dict):
+        return {k: v[(slice(None),) + idx] for k, v in caches.items()}
+    return [{k: v[idx] for k, v in c.items()} for c in caches]
+
+
+def _set_rows(caches, idx, new) -> None:
+    """Write `_rows` copies back into the strips at ``idx``."""
+    if isinstance(caches, dict):
+        for k, v in caches.items():
+            v[(slice(None),) + idx] = new[k]
+        return
+    for c, nc in zip(caches, new):
+        for k in c:
+            c[k][idx] = nc[k]
 
 
 class Engine:
@@ -92,10 +123,6 @@ class Engine:
 
     def __init__(self, params, cfg, fam: Family, ecfg: EngineConfig,
                  sampling: SamplingParams = SamplingParams(), device=None, seed: int = 0):
-        for f in _NOT_PORTED:
-            if getattr(ecfg, f):
-                raise NotImplementedError(
-                    f"EngineConfig.{f} is not ported yet (ROADMAP Queue 1 slice 6)")
         if ecfg.prefill_chunk:
             if ecfg.page_size and ecfg.prefill_chunk % ecfg.page_size:
                 raise ValueError(f"prefill_chunk {ecfg.prefill_chunk} must be a multiple of "
@@ -135,6 +162,16 @@ class Engine:
                 raise ValueError("prefix_cache requires a paged pool (page_size > 0)")
             self.caches = kvmod.make_caches(cfg, ecfg.n_slots, ecfg.max_seq, n_layers, kv_heads,
                                             head_dim, self.cache_dtype, self.device)
+        if ecfg.fuse_linears and "layers" in self.params:
+            from ..models.fusion import fuse_parallel_linears
+
+            self.params = fuse_parallel_linears(self.params, fam.name)
+        if ecfg.scan_layers:
+            from ..models import stacking
+
+            if not stacking.is_stacked(self.params):
+                self.params = stacking.stack_layers(self.params)
+            self.caches = stacking.stack_caches(self.caches)
         self.lengths = np.zeros(ecfg.n_slots, np.int32)
         self.active = np.zeros(ecfg.n_slots, bool)
         self.last_token = np.zeros(ecfg.n_slots, np.int32)
@@ -206,8 +243,13 @@ class Engine:
         return tuple(torch.as_tensor(a, device=self.device) for a in (temp, tk, tp))
 
     def _refresh_table(self) -> None:
-        """Copy the host page table into the device table all layers share."""
-        self.caches[0]["table"].copy_(torch.from_numpy(self.pool.table))
+        """Copy the host page table into the device table all layers share
+        (every layer's row of the stacked [L] table under scan_layers)."""
+        table = torch.from_numpy(self.pool.table)
+        if isinstance(self.caches, dict):
+            self.caches["table"][:] = table.to(self.device)
+        else:
+            self.caches[0]["table"].copy_(table)
 
     def _ensure_pages(self, slots_lengths) -> None:
         """Grow each (slot, length)'s pages; one table refresh if any grew."""
@@ -257,12 +299,10 @@ class Engine:
             slot_pages = self._tensor(np.stack([self.pool.table[s] for s, _ in pairs]))
             logits = self._forward(ids, _with_extras(self.caches, slot_pages=slot_pages), 0)
         else:
-            slots = torch.as_tensor([s for s, _ in pairs], device=self.device)
-            rows = [{k: v[slots, :bucket] for k, v in c.items()} for c in self.caches]
+            idx = (torch.as_tensor([s for s, _ in pairs], device=self.device), slice(None, bucket))
+            rows = _rows(self.caches, idx)
             logits = self._forward(ids, rows, 0)
-            for c, nc in zip(self.caches, rows):
-                for k in c:
-                    c[k][slots, :bucket] = nc[k]
+            _set_rows(self.caches, idx, rows)
         last = torch.as_tensor([n - 1 for n in lens], device=self.device)
         return logits[torch.arange(len(pairs), device=self.device), last]
 
@@ -318,7 +358,7 @@ class Engine:
         pages, trash-padded), attention through the slot's whole table row
         with base = offset."""
         if self.pool is None:
-            caches = [{k: v[slot : slot + 1] for k, v in c.items()} for c in self.caches]
+            caches = _rows(self.caches, (slice(slot, slot + 1),))
         else:
             caches = _with_extras(self.caches, slot_pages=self._tensor(chunk_pages[None]),
                                   chunk_table=self._tensor(self.pool.table[slot][None]))

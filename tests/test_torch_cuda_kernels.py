@@ -19,7 +19,13 @@ select kernels sum their products in another order than the plain
 versions' torch.matmul: rtol 1e-4, atol 1e-4 (the JAX package's bound for
 its f32 kernels); the select kernel's bf16 dot keeps the same bound, since
 a product of two bf16 values is exact in f32 and only the f32 summation
-order differs.
+order differs.  The pair kernel rounds x and xg to bf16 as its plain
+version does, the products are exact in f32 and only the f32 summation
+order differs: 1e-5 of max|y|.  The dma and stacked f32 kernels sum in
+another order than the plain version: rtol 1e-4, atol 1e-4.  The stacked
+int8 kernel, like the flat one, equals its plain version bit for bit, and
+each stacked kernel equals its flat kernel bit for bit on the same layer
+(the same device code and tiling).
 """
 
 import numpy as np
@@ -520,3 +526,161 @@ def test_opt_v1_engine_on_the_card_matches_the_cpu(cuda):
     assert (logits[0] - logits[1]).abs().max() <= 5e-3 * logits[1].abs().max()
     assert streams[0] == streams[1]
     assert v1.planar_launches > before[0] and v1.select_launches > before[1]
+
+
+# ---------------------------------------------------------------------------
+# the pair and dma decode arms, the stacked kernels (scan_layers)
+# ---------------------------------------------------------------------------
+
+def _arm_layer(name, dev):
+    if name == "fused3":
+        g = torch.Generator(device=dev).manual_seed(5)
+        return pbw.merge_packed_linears_v2([random_packed_v2(512, 256, g, bias=True)
+                                            for _ in range(3)])
+    if name == "wide_kpad":  # more code rows than the dma kernel keeps in shared memory
+        return random_packed_v2(8192, 128, torch.Generator(device=dev).manual_seed(6),
+                                low_frac=0.4)
+    return _layer(name, dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(LAYERS) + ["shards8", "shards4", "fused3"])
+@pytest.mark.parametrize("m", [1, 8, 100, 255])
+def test_pair_kernel_matches_plain(cuda, name, m):
+    from pb_llm_tpu_torch.ops import decode_arms
+
+    p = _arm_layer(name, cuda)
+    x = torch.randn((m, p.ic), generator=torch.Generator(device=cuda).manual_seed(m), device=cuda)
+    before = decode_arms.pair_launches
+    got = decode_arms.pb_pair_v2(x, p)
+    torch.cuda.synchronize()
+    assert decode_arms.pair_launches == before + 1
+    want = decode_arms.pb_pair_v2_plain(x, p)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["side8", "side4", "multiblock", "shards8", "shards4",
+                                  "wide_kpad"])
+@pytest.mark.parametrize("m", [1, 8, 100, 256])
+def test_dma_kernel_matches_plain(cuda, name, m):
+    from pb_llm_tpu_torch.ops import decode_arms
+
+    p = _arm_layer(name, cuda)
+    x = torch.randn((m, p.ic), generator=torch.Generator(device=cuda).manual_seed(m), device=cuda)
+    before = decode_arms.dma_launches
+    got = decode_arms.pb_dma_v2(x, p)
+    torch.cuda.synchronize()
+    assert decode_arms.dma_launches == before + 1
+    torch.testing.assert_close(got, decode_arms.pb_dma_v2_plain(x, p), rtol=1e-4, atol=1e-4)
+
+
+def _stacked(dev, side_bits=8, n=3):
+    from pb_llm_tpu_torch.models import stacking
+
+    g = torch.Generator(device=dev).manual_seed(side_bits)
+    layers = [random_packed_v2(512, 256, g, side_bits=side_bits, pack_block=128, bias=True)
+              for _ in range(n)]
+    sp = stacking.stack_layers({"layers": [{"w": p} for p in layers]})["layers_stacked"]["w"]
+    idx = torch.arange(n, dtype=torch.int32, device=dev)
+    return layers, [stacking.StackedPackedLinearV2(sp, li, idx[li : li + 1]) for li in range(n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side_bits", [8, 4])
+@pytest.mark.parametrize("m", [1, 8, 256])
+def test_stacked_kernels_match_plain_and_the_flat_kernels(cuda, side_bits, m):
+    layers, markers = _stacked(cuda, side_bits)
+    x = torch.randn((m, 512), generator=torch.Generator(device=cuda).manual_seed(m), device=cuda)
+    for p, mk in zip(layers, markers):
+        before = (packed_matmul.stacked_launches, packed_matmul.stacked_f32_launches)
+        i8 = packed_matmul.pb_int8_matmul_stacked(x, mk)
+        f32 = packed_matmul.pb_f32_matmul_stacked(x, mk)
+        torch.cuda.synchronize()
+        assert (packed_matmul.stacked_launches, packed_matmul.stacked_f32_launches) == (
+            before[0] + 1, before[1] + 1)
+        assert torch.equal(i8, packed_matmul.pb_int8_matmul_stacked_plain(x, mk))
+        torch.testing.assert_close(f32, packed_matmul.pb_f32_matmul_stacked_plain(x, mk),
+                                   rtol=1e-4, atol=1e-4)
+        assert torch.equal(i8, packed_matmul.pb_int8_matmul(x, p))
+        assert torch.equal(f32, packed_matmul.pb_f32_matmul(x, p))
+
+
+@pytest.mark.cuda
+def test_decode_arms_and_stacked_dispatch_on_the_card_take_the_kernels(cuda):
+    """decode_dot pair / dma on a CUDA tensor launch their kernels; a
+    stacked marker launches the stacked int8 kernel on "int8" and the
+    stacked f32 kernel on the other arms, at m <= 256."""
+    from pb_llm_tpu_torch.ops import binary_matmul, decode_arms
+    from pb_llm_tpu_torch.ops.kernel_config import KernelConfig, use_kernels
+
+    p = _layer("side8", cuda)
+    x = torch.randn((8, p.ic), device=cuda)
+    _, markers = _stacked(cuda)
+    xs = torch.randn((8, 512), device=cuda)
+
+    def counts():
+        return (decode_arms.pair_launches, decode_arms.dma_launches,
+                packed_matmul.stacked_launches, packed_matmul.stacked_f32_launches)
+
+    for arm, want in (("pair", (1, 0, 0, 1)), ("dma", (0, 1, 0, 1)), ("int8", (0, 0, 1, 0))):
+        before = counts()
+        with use_kernels(KernelConfig(decode_dot=arm)):
+            binary_matmul.pb_matmul(x, p) if arm != "int8" else None
+            binary_matmul.pb_matmul_stacked(xs, markers[1])
+        torch.cuda.synchronize()
+        assert tuple(a - b for a, b in zip(counts(), before)) == want, arm
+
+
+@pytest.mark.cuda
+def test_new_wrappers_refuse_planes_off_the_card(cuda):
+    from pb_llm_tpu_torch.ops import decode_arms
+
+    p = random_packed_v2(256, 128, torch.Generator().manual_seed(0))
+    for fn in (decode_arms.pb_pair_v2, decode_arms.pb_dma_v2):
+        with pytest.raises(ValueError, match="on cpu, x on cuda"):
+            fn(torch.zeros((8, 256), device=cuda), p)
+    _, markers = _stacked(torch.device("cpu"))
+    for fn in (packed_matmul.pb_int8_matmul_stacked, packed_matmul.pb_f32_matmul_stacked):
+        with pytest.raises(ValueError, match="on cpu, x on cuda"):
+            fn(torch.zeros((8, 512), device=cuda), markers[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(scan_layers=True),
+                                dict(scan_layers=True, fuse_linears=True, decode_dot="pair"),
+                                dict(fuse_linears=True, decode_dot="dma", page_size=16)])
+def test_scan_fuse_engine_on_the_card_matches_the_cpu(cuda, kw):
+    """A tiny PBW-v2 llama (hidden 256) on the card (kernels) and on the CPU
+    (plain versions, f32 strips or pages), exact f32 prefill: the same
+    prefill logits (5e-3 of max|logit|) and greedy streams."""
+    from pb_llm_tpu_torch.data.synthetic import random_packed_llama
+    from pb_llm_tpu_torch.models.llama import LlamaConfig
+    from pb_llm_tpu_torch.models.registry import family_for
+    from pb_llm_tpu_torch.ops.kernel_config import KernelConfig
+    from pb_llm_tpu_torch.runtime.batching import ContinuousBatcher, Request
+    from pb_llm_tpu_torch.runtime.engine import Engine, EngineConfig
+
+    kw = dict(kw)
+    arm = dict(decode_dot=kw.pop("decode_dot", "f32"), prefill="hybrid")
+    cfg = LlamaConfig(vocab_size=256, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=2, num_attention_heads=4, max_position_embeddings=512)
+    params = random_packed_llama(cfg, torch.Generator().manual_seed(0))
+    r = np.random.default_rng(0)
+    prompts = [r.integers(0, 256, n).tolist() for n in (5, 300, 12, 70)]
+    streams, logits = [], []
+    for dev, kernels in ((cuda, KernelConfig(**arm)),
+                         ("cpu", KernelConfig(backend="pallas_interpret", **arm))):
+        eng = Engine(params, cfg, family_for("llama"),
+                     EngineConfig(n_slots=2, max_seq=512, prefill_buckets=(32, 512),
+                                  cache_dtype=torch.float32, kernels=kernels, **kw), device=dev)
+        eng.prefill(0, prompts[1])
+        logits.append(eng._prefill_logits[0].float().cpu())
+        eng.release(0)
+        reqs = [Request(request_id=i, prompt_ids=p, max_new_tokens=8)
+                for i, p in enumerate(prompts)]
+        ContinuousBatcher(eng).run(reqs)
+        streams.append([q.output_ids for q in reqs])
+    assert (logits[0] - logits[1]).abs().max() <= 5e-3 * logits[1].abs().max()
+    assert streams[0] == streams[1]

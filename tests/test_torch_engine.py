@@ -206,19 +206,15 @@ def test_make_caches_needs_cuda_or_an_explicit_device(monkeypatch):
     assert caches[0]["k"].device.type == "cpu" and caches[0]["k_scale"].shape == (2, 16, 2, 1)
 
 
-@pytest.mark.parametrize("mode", ["scan_layers", "fuse_linears", "draft_model_id"])
-def test_unported_engine_modes_raise(packed_model, mode):
-    """What the port still refuses, naming the ROADMAP item: scanned layers,
-    fused linears, and draft models from HF ids (they need hf_import)."""
-    cfg, packed = packed_model
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if mode == "draft_model_id":
-            from pb_llm_tpu_torch.cli import serve
+@pytest.mark.parametrize("mode", ["draft_model_id"])
+def test_unported_engine_modes_raise(mode):
+    """What the port still refuses, naming the ROADMAP item: draft models
+    from HF ids (they need hf_import)."""
+    from pb_llm_tpu_torch.cli import serve
 
-            serve.main(["--model_id", "llama", "--synthetic", "--device", "cpu",
-                        "--spec_gamma", "2", "--draft_model_id", "huggyllama/llama-7b"])
-        else:
-            _port_engine(cfg, packed, **{mode: True})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        serve.main(["--model_id", "llama", "--synthetic", "--device", "cpu",
+                    "--spec_gamma", "2", "--draft_model_id", "huggyllama/llama-7b"])
 
 
 def test_serve_cli_synthetic_demo_on_cpu(capsys):

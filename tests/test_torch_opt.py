@@ -104,11 +104,6 @@ def test_registry_and_cache_spec():
     assert kv_cache.cache_spec_for(cfg, "opt") == (24, 32, 64)
 
 
-def test_layers_stacked_raises():
-    with pytest.raises(NotImplementedError, match="stacking"):
-        topt.forward({"layers_stacked": {}}, torch.zeros((1, 1), dtype=torch.long), topt.OPTConfig())
-
-
 def test_init_params_shapes_follow_jax():
     jcfg, jparams = _jax_opt(word_embed_proj_dim=32)
     tparams = topt.init_params(_tcfg(jcfg), torch.Generator().manual_seed(0), device="cpu")

@@ -16,7 +16,7 @@ from pb_llm_tpu.quant.high_quant import high_calibrate, high_quantize
 from pb_llm_tpu.quant.low_quant import low_calibrate, low_quantize
 from pb_llm_tpu_torch.core import pbw as tpbw
 from pb_llm_tpu_torch.interop import packed_from_fields
-from pb_llm_tpu_torch.ops import binary_matmul, packed_matmul, prefill
+from pb_llm_tpu_torch.ops import binary_matmul, decode_arms, packed_matmul, prefill
 from pb_llm_tpu_torch.ops.kernel_config import KernelConfig, use_kernels
 
 torch.set_num_threads(2)
@@ -97,8 +97,8 @@ def test_prepare_int8_matches_jax_quantization():
 
 def test_dispatch_arms():
     """The arm table of `pb_matmul` on CPU tensors: "auto" takes the
-    reference; the kernel arms' plain versions by decode_dot and prefill;
-    "pair" and "dma" are not ported yet and name their ROADMAP rows."""
+    reference; the kernel arms' plain versions by decode_dot and prefill,
+    "pair" and "dma" included."""
     jp, tp = _layer(256, 256)
     x = torch.from_numpy(np.random.default_rng(1).standard_normal((4, 256)).astype(np.float32))
     ref = tpbw.matmul_reference_v2(x, tp)
@@ -110,10 +110,10 @@ def test_dispatch_arms():
     with use_kernels(KernelConfig(backend="pallas_interpret", decode_dot="f32")):
         np.testing.assert_array_equal(binary_matmul.pb_matmul(x, tp).numpy(),
                                       packed_matmul.pb_f32_matmul_plain(x, tp).numpy())
-    for arm in ("pair", "dma"):
+    for arm, plain in (("pair", decode_arms.pb_pair_v2_plain), ("dma", decode_arms.pb_dma_v2_plain)):
         with use_kernels(KernelConfig(backend="pallas_interpret", decode_dot=arm)):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                binary_matmul.pb_matmul(x, tp)
+            np.testing.assert_array_equal(binary_matmul.pb_matmul(x, tp).numpy(),
+                                          plain(x, tp).numpy())
     x_big = torch.zeros((256, 256))
     with use_kernels(KernelConfig(backend="pallas_interpret", prefill="hybrid")):
         np.testing.assert_array_equal(binary_matmul.pb_matmul(x_big, tp).numpy(),

@@ -203,11 +203,3 @@ def test_pb_matmul_arm_table_matches_jax(arm, layer):
     with tkc.use_kernels(tkc.KernelConfig(backend="pallas_interpret", **kw)):
         got = binary_matmul.pb_matmul(torch.from_numpy(x), tp).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4 * np.abs(want).max())
-
-
-@pytest.mark.parametrize("arm", ["pair", "dma"])
-def test_unported_decode_arms_name_their_roadmap_rows(arm):
-    _, tp = _layer(128, 128)
-    with tkc.use_kernels(tkc.KernelConfig(backend="pallas_interpret", decode_dot=arm)):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 2: _planar_v2_{arm}_kernel"):
-            binary_matmul.pb_matmul(torch.zeros((4, 128)), tp)

@@ -402,7 +402,7 @@ def test_run_ptq_unported_options_raise(argv, monkeypatch):
         run_ptq.main(argv)
 
 
-@pytest.mark.parametrize("flag", [["--tasks", "boolq"], ["--sp", "2"], ["--scan_layers"]])
+@pytest.mark.parametrize("flag", [["--tasks", "boolq"], ["--sp", "2"]])
 def test_run_eval_unported_options_raise(flag):
     from pb_llm_tpu_torch.cli import run_eval
 
