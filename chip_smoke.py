@@ -14,10 +14,11 @@ raises and the exit code is not 0:
    with its time (CUDA events, L2 flushed before every launch), the plain
    version's time, one PyTorch library call's time as a yardstick where one
    call computes the same function, and the least time the card could take
-   (`bound_ms`): the int8 matmul and decode attention (serving), the
-   binary-part dequant, the exact f32 matmul and flash attention (the
+   (`bound_ms`): the int8 matmul and decode attention (serving; its int8,
+   bf16 and q8 arms), the binary-part dequant, the exact f32 matmul and flash attention (the
    producer and the exact arms), paged attention (the paged pool: decode,
-   speculative verify, chunk continuation, GQA), the PBW-v1 planar and
+   speculative verify, chunk continuation, GQA; int8, f32 and bf16 pages),
+   the PBW-v1 planar and
    select matmuls (OPT-1.3B's and llama-7b's MLP shapes);
 3. the same 2-layer full-width llama-7b engine on the card (kernels) and on
    the CPU (the kernels' plain versions): prefill logits, teacher-forced
@@ -59,7 +60,17 @@ raises and the exit code is not 0:
 9b. end to end on the 32-layer model of phase 4, int8 strips, phase 4's
    request mix, three passes: scan_layers (the stacked int8 kernel),
    fuse_linears + decode_dot pair, decode_dot dma; every launch counter
-   must match the forwards run, by rows.
+   must match the forwards run, by rows;
+10a. the bf16 and q8 KV arms on a 2-layer full-width llama-7b, card against
+   CPU under phase 3's bounds, in three engines: int8 strips with
+   decode_attention "pallas_q8", bf16 strips, a bf16 paged pool with the
+   prefix cache (the second prompt hits two cached pages);
+10b. end to end through HTTP: the 32-layer model of phase 4 behind
+   `serve_http` on 127.0.0.1, phase 4's 16 requests from 8 client threads
+   (every other one streamed as NDJSON), once for each engine of 10a (the
+   pages with prefill_chunk 256); every request must retire with its
+   tokens, a stream must equal its output_ids, /health and /stats must
+   answer, and every launch counter must match the forwards run.
 
 Phase 2 also holds the pair, dma and stacked int8 / f32 kernels (phase 9's
 paths) at llama-7b's shapes.
@@ -72,6 +83,7 @@ from __future__ import annotations
 
 import argparse
 import functools
+import gc
 import json
 import statistics
 import subprocess
@@ -90,6 +102,7 @@ MATMUL_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096))
 MATMUL_MS = (8, 512)                 # decode (8 slots) and batched prefill (4 x 128)
 ATTN_SHAPE = (8, 2048, 32, 32, 128)  # B, S, Hq, Hkv, D: 8 slots of max_seq 2048
 ATTN_MAX_LEN = 512
+ATTN_ARMS = ("int8", "bf16", "q8")  # decode attention's arms: int8 strips, bf16 strips, int8 q
 HEADLINE_SHAPE = (8, 4096, 11008)  # (m, ic, oc) of the kernels line: the MLP at decode
 MATMUL_TOL = 1e-6     # of max|y|: int32 dots are exact, the epilogue rounds as the plain version
 ATTN_RTOL, ATTN_ATOL = 1e-4, 1e-5  # online softmax sums in another order than the plain version
@@ -114,12 +127,16 @@ FLASH_CASES = ((4, 2048, 32, 128, True),   # B, T, H, D, causal: 4 eval windows 
                (1, 2048, 32, 128, False))
 FLASH_RTOL, FLASH_ATOL = 1e-4, 1e-4
 PAGED_POOL = (1024, 16, 128)  # pages (+ the trash page), page size, table width (max_seq 2048)
-PAGED_CASES = (  # name, B, t, Hq, Hkv, D, int8 pages, largest base
-    ("decode_int8", 8, 1, 32, 32, 128, True, 511),     # 8 slots, lengths up to 512
-    ("decode_f32", 8, 1, 32, 32, 128, False, 511),
-    ("verify_t5_int8", 8, 5, 32, 32, 128, True, 507),  # spec_gamma 4
-    ("chunk_t256_int8", 4, 256, 32, 32, 128, True, 1024),  # prefill_chunk 256
-    ("decode_gqa_int8", 8, 1, 32, 8, 128, True, 511),
+PAGED_CASES = (  # name, B, t, Hq, Hkv, D, pages, largest base
+    ("decode_int8", 8, 1, 32, 32, 128, "int8", 511),     # 8 slots, lengths up to 512
+    ("decode_f32", 8, 1, 32, 32, 128, "f32", 511),
+    ("verify_t5_int8", 8, 5, 32, 32, 128, "int8", 507),  # spec_gamma 4
+    ("chunk_t256_int8", 4, 256, 32, 32, 128, "int8", 1024),  # prefill_chunk 256
+    ("decode_gqa_int8", 8, 1, 32, 8, 128, "int8", 511),
+    ("decode_bf16", 8, 1, 32, 32, 128, "bf16", 511),
+    ("verify_t5_bf16", 8, 5, 32, 32, 128, "bf16", 507),
+    ("chunk_t256_bf16", 4, 256, 32, 32, 128, "bf16", 1024),
+    ("decode_gqa_bf16", 8, 1, 32, 8, 128, "bf16", 511),
 )
 # phase 6a: 8 requests of 16 new tokens per run, pages of 16, f32 pages,
 # the exact matmul arms: under the int8 arms a 1e-7 difference in attention
@@ -260,47 +277,68 @@ def check_matmul(timer: Timer, card: str):
 
 
 def check_attention(timer: Timer, card: str):
+    """Decode attention at the strip serving shape, one row per arm: int8
+    strips, bf16 strips, and the q8 arm (int8 q codes against int8
+    strips).  Library: SDPA in bf16 over the dequantized (or bf16) cache."""
     from pb_llm_tpu_torch.ops import decode_attention as da
 
     b, s, hq, hkv, d = ATTN_SHAPE
     gen = torch.Generator(device=DEV).manual_seed(1)
     q = torch.randn((b, hq, d), generator=gen, device=DEV)
+    x = [torch.randn((b, s, hkv, d), generator=gen, device=DEV) for _ in range(2)]
     kv = []
-    for _ in range(2):
-        x = torch.randn((b, s, hkv, d), generator=gen, device=DEV)
-        sc = torch.clamp(x.abs().amax(-1, keepdim=True) / 127.0, min=1e-8)
-        kv += [torch.clamp(torch.round(x / sc), -127, 127).to(torch.int8), sc]
+    for t in x:
+        sc = torch.clamp(t.abs().amax(-1, keepdim=True) / 127.0, min=1e-8)
+        kv += [torch.clamp(torch.round(t / sc), -127, 127).to(torch.int8), sc]
     k, ks, v, vs = kv
+    kb, vb = (t.to(torch.bfloat16) for t in x)
+    del x
     lengths = torch.as_tensor(np.random.default_rng(2).integers(1, ATTN_MAX_LEN + 1, b), device=DEV)
     lengths[0] = ATTN_MAX_LEN
     scale = d ** -0.5
-    kw = dict(k_scale=ks, v_scale=vs)
-    got = da.decode_attention(q, k, v, lengths, scale, **kw)
-    torch.cuda.synchronize()
-    want = da.decode_attention_plain(q, k, v, lengths, scale, **kw)
-    err = (got - want).abs().max().item()
-    if not (torch.isfinite(got).all() and torch.all((got - want).abs() <= ATTN_ATOL + ATTN_RTOL * want.abs())):
-        raise AssertionError(f"decode_attention: max|err| {err} beyond rtol {ATTN_RTOL} atol {ATTN_ATOL}")
-
     qs = (q * scale).contiguous()
     lens = lengths.to(torch.int32)
     n = int(lengths.max())
-    kd = (k[:, :n].float() * ks[:, :n]).to(torch.bfloat16).transpose(1, 2).contiguous()
-    vd = (v[:, :n].float() * vs[:, :n]).to(torch.bfloat16).transpose(1, 2).contiguous()
     qd = q.to(torch.bfloat16)[:, :, None]
     mask = (torch.arange(n, device=DEV)[None, :] < lengths[:, None])[:, None, None]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows_read = int(lengths.sum())
-    nbytes = 4 * 2 * b * hq * d + rows_read * hkv * (2 * d + 8) + 4 * b
-    bound_ms, bound_by = bound(nbytes, 4 * rows_read * hq * d, F32_FLOPS_PER_S)
-    row = {"kernel": "decode_attention", "B": b, "S": s, "Hq": hq, "Hkv": hkv, "D": d,
-           "lengths": lengths.tolist(), "max_abs_err": err,
-           "kernel_ms": timer(lambda: da.launch(qs, k, v, lens, ks, vs)),
-           "plain_ms": timer(lambda: da.decode_attention_plain(q, k, v, lengths, scale, **kw), iters=5),
-           "library_ms": timer(lambda: sdpa(qd, kd, vd, attn_mask=mask, scale=scale)),
-           "bound_ms": bound_ms, "bound_by": bound_by, "card": card}
-    log(json.dumps(row))
-    return row
+    rows = []
+    for arm in ATTN_ARMS:
+        if arm == "bf16":
+            ck, cv, kw = kb, vb, {}
+            kd, vd = (t[:, :n].transpose(1, 2).contiguous() for t in (kb, vb))
+            row_bytes = 2 * d * 2
+        else:
+            ck, cv = k, v
+            kw = dict(k_scale=ks, v_scale=vs, q_int8=arm == "q8")
+            kd = (k[:, :n].float() * ks[:, :n]).to(torch.bfloat16).transpose(1, 2).contiguous()
+            vd = (v[:, :n].float() * vs[:, :n]).to(torch.bfloat16).transpose(1, 2).contiguous()
+            row_bytes = 2 * d + 8
+        got = da.decode_attention(q, ck, cv, lengths, scale, **kw)
+        torch.cuda.synchronize()
+        want = da.decode_attention_plain(q, ck, cv, lengths, scale, **kw)
+        err = (got - want).abs().max().item()
+        if not (torch.isfinite(got).all()
+                and torch.all((got - want).abs() <= ATTN_ATOL + ATTN_RTOL * want.abs())):
+            raise AssertionError(f"decode_attention ({arm}): max|err| {err} beyond rtol "
+                                 f"{ATTN_RTOL} atol {ATTN_ATOL}")
+        nbytes = 4 * 2 * b * hq * d + rows_read * hkv * row_bytes + 4 * b
+        # q.k and p.v each take 2 operations a (row, q head, element): f32,
+        # or for q8 the q.k half in int8 (its time added at the int8 peak)
+        ops = 2 * rows_read * hq * d * (2 if arm != "q8" else 1 + F32_FLOPS_PER_S / INT8_OPS_PER_S)
+        bound_ms, bound_by = bound(nbytes, ops, F32_FLOPS_PER_S)
+        row = {"kernel": "decode_attention", "arm": arm, "B": b, "S": s, "Hq": hq, "Hkv": hkv,
+               "D": d, "lengths": lengths.tolist(), "max_abs_err": err,
+               "kernel_ms": timer(lambda: da.launch(qs, ck, cv, lens, **kw)),
+               "plain_ms": timer(lambda: da.decode_attention_plain(q, ck, cv, lengths, scale, **kw),
+                                 iters=5),
+               "library_ms": timer(lambda: sdpa(qd, kd, vd, attn_mask=mask, scale=scale)),
+               "bound_ms": bound_ms, "bound_by": bound_by, "card": card}
+        log(json.dumps(row))
+        rows.append(row)
+        del kd, vd, got, want
+    return rows
 
 
 def check_dequant(timer: Timer, card: str):
@@ -409,9 +447,10 @@ def check_flash(timer: Timer, card: str):
 
 def check_paged_attention(timer: Timer, card: str):
     """Paged attention on a pool of 1025 pages of 16 through shuffled
-    tables, at the paged serving path's shapes.  Library: SDPA over the same
-    K/V gathered into dense strips beforehand (bf16 for int8 pages, as for
-    decode attention; f32 for f32 pages); the gather is not timed."""
+    tables, at the paged serving path's shapes, over int8, f32 and bf16
+    pages.  Library: SDPA over the same K/V gathered into dense strips
+    beforehand (bf16 for int8 and bf16 pages, as for decode attention; f32
+    for f32 pages); the gather is not timed."""
     from pb_llm_tpu_torch.ops import paged_attention as tpa
 
     n_pages, ps, maxp = PAGED_POOL
@@ -419,8 +458,9 @@ def check_paged_attention(timer: Timer, card: str):
     rng = np.random.default_rng(13)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = []
-    for name, b, t, hq, hkv, d, int8, max_base in PAGED_CASES:
+    for name, b, t, hq, hkv, d, kind, max_base in PAGED_CASES:
         kv = [torch.randn((n_pages + 1, hkv, ps, d), generator=gen, device=DEV) for _ in range(2)]
+        int8 = kind == "int8"
         if int8:
             scaled = []
             for x in kv:
@@ -429,7 +469,8 @@ def check_paged_attention(timer: Timer, card: str):
                 scaled += [q8, sc]
             k, ks, v, vs = scaled
         else:
-            (k, v), ks, vs = kv, None, None
+            (k, v), ks, vs = [x.to(torch.bfloat16 if kind == "bf16" else torch.float32)
+                              for x in kv], None, None
         del kv
         table = torch.randperm(n_pages, generator=gen, device=DEV)[: b * maxp].reshape(b, maxp)
         table = table.to(torch.int32)
@@ -448,7 +489,7 @@ def check_paged_attention(timer: Timer, card: str):
 
         n = -(-int((base + t).max()) // ps)
         idx = table[:, :n].long()
-        ldt = torch.bfloat16 if int8 else torch.float32
+        ldt = torch.float32 if kind == "f32" else torch.bfloat16
 
         def dense(pages, sc):  # [B, Hkv, S, D] in the library's type
             x = pages[idx].transpose(2, 3).reshape(b, n * ps, hkv, d).float()
@@ -462,12 +503,12 @@ def check_paged_attention(timer: Timer, card: str):
         mask = (torch.arange(n * ps, device=DEV)[None, None, :] < lim[:, :, None])[:, None]
         pairs = int(lim.sum())                 # (row, allowed key) pairs per q head
         live = int((base + t).sum())           # keys read per kv head
-        row_bytes = 2 * d + 8 if int8 else 8 * d
+        row_bytes = {"int8": 2 * d + 8, "bf16": 4 * d, "f32": 8 * d}[kind]
         nbytes = 4 * 2 * b * t * hq * d + live * hkv * row_bytes + 4 * (b * n + b)
         bound_ms, bound_by = bound(nbytes, 4 * d * hq * pairs, F32_FLOPS_PER_S)
         plain_iters = 3 if t > 8 else 5
         row = {"kernel": "paged_attention", "case": name, "B": b, "t": t, "Hq": hq, "Hkv": hkv,
-               "D": d, "page": ps, "pages": n_pages + 1, "int8": int8,
+               "D": d, "page": ps, "pages": n_pages + 1, "kv": kind,
                "bases": base.tolist(), "max_abs_err": err.max().item(),
                "kernel_ms": timer(lambda: tpa.launch(qs, k, v, table, bs, ks, vs, decode=t == 1)),
                "wrapper_ms": timer(lambda: tpa.paged_attention_multi(q, k, v, table, base, scale,
@@ -661,10 +702,11 @@ def llama7b(layers: int):
                        max_position_embeddings=2048)
 
 
-def run_parity(params, cfg, device, family: str = "llama", **ecfg_kw):
+def run_parity(params, cfg, device, family: str = "llama", shared: int = 0, **ecfg_kw):
     """Prefill logits, 8 greedy tokens and a teacher-forced NLL on one engine:
     prefills of 40 and 70 tokens (buckets 64 and 256), 7 decode steps and 3
-    teacher-forced ones, over 2 slots."""
+    teacher-forced ones, over 2 slots.  ``shared``: the second prompt starts
+    with the first one's first ``shared`` tokens (a prefix-cache hit)."""
     from pb_llm_tpu_torch.models.registry import family_for
     from pb_llm_tpu_torch.runtime.engine import Engine, EngineConfig
 
@@ -672,10 +714,12 @@ def run_parity(params, cfg, device, family: str = "llama", **ecfg_kw):
                  EngineConfig(n_slots=2, max_seq=256, prefill_buckets=(64, 256), **ecfg_kw),
                  device=device)
     rng = np.random.default_rng(3)
-    toks = [eng.prefill(0, rng.integers(0, cfg.vocab_size, 40).tolist())]
+    first = rng.integers(0, cfg.vocab_size, 40).tolist()
+    toks = [eng.prefill(0, first)]
     logits = eng._prefill_logits[0].float().cpu()
     toks += [eng.decode_step()[0] for _ in range(7)]
-    eng.prefill(1, rng.integers(0, cfg.vocab_size, 70).tolist())
+    second = rng.integers(0, cfg.vocab_size, 70).tolist()
+    eng.prefill(1, first[:shared] + second[shared:])
     nll = eng.forced_decode_nll(1, rng.integers(0, cfg.vocab_size, 4).tolist())
     return logits, toks, nll
 
@@ -892,7 +936,8 @@ def zero_counters() -> None:
     from pb_llm_tpu_torch.ops import prefill as pf
 
     pm.launches = pm.f32_launches = da.launches = pf.launches = fa.launches = 0
-    pa.launches = pa.decode_launches = pa.multi_launches = 0
+    da.q8_launches = da.bf16_launches = 0
+    pa.launches = pa.decode_launches = pa.multi_launches = pa.bf16_launches = 0
     v1.planar_launches = v1.select_launches = 0
     pm.stacked_launches = pm.stacked_f32_launches = arms.pair_launches = arms.dma_launches = 0
 
@@ -912,7 +957,9 @@ def read_counters() -> dict:
             "paged_attention_multi": pa.multi_launches, "pb_planar_v1": v1.planar_launches,
             "pb_select_v1": v1.select_launches, "pb_pair_v2": arms.pair_launches,
             "pb_dma_v2": arms.dma_launches, "pb_int8_matmul_stacked": pm.stacked_launches,
-            "pb_f32_matmul_stacked": pm.stacked_f32_launches}
+            "pb_f32_matmul_stacked": pm.stacked_f32_launches,
+            "decode_attention_q8": da.q8_launches, "decode_attention_bf16": da.bf16_launches,
+            "paged_attention_bf16": pa.bf16_launches}
 
 
 def expect_launches(**counts) -> dict:
@@ -1586,6 +1633,263 @@ def serve_scan_fuse_e2e(params, card: str):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phases 10a and 10b: bf16 and q8 KV caches, and the HTTP front end
+# ---------------------------------------------------------------------------
+
+# the three KV layouts that reach the bf16 and q8 kernel arms: engine
+# options, decode_attention arm, the arm's launch counter
+KV_PASSES = (
+    ("int8 strips + pallas_q8", dict(cache_dtype=torch.int8), "pallas_q8",
+     "decode_attention_q8"),
+    ("bf16 strips", dict(cache_dtype=torch.bfloat16), "auto", "decode_attention_bf16"),
+    ("bf16 pages + prefix cache", dict(cache_dtype=torch.bfloat16, page_size=16,
+                                       prefix_cache=True), "auto", "paged_attention_bf16"),
+)
+SHARED_PREFIX = 32  # phase 10a's second prompt shares two pages of the first
+HTTP_CLIENTS = 8    # phase 10b's client threads
+
+
+def check_kv_parity(params, card: str):
+    """Phase 10a on 2 full-width llama-7b layers, the int8 matmul arms: each
+    of KV_PASSES on the card (kernels) against the CPU (plain versions;
+    "pallas_q8" on a CPU tensor takes the plain q8 arm) under phase 3's
+    bounds.  The second prompt shares 32 tokens with the first: over pages
+    it attaches two cached pages and prefills its suffix as a window."""
+    from pb_llm_tpu_torch.ops.kernel_config import KernelConfig
+
+    cfg = llama7b(2)
+    arm_kw = dict(decode_dot="int8", prefill="int8")
+    rows = []
+    for name, ekw, impl, counter in KV_PASSES:
+        zero_counters()
+        t0 = time.perf_counter()
+        g_logits, g_toks, g_nll = run_parity(params, cfg, DEV, shared=SHARED_PREFIX,
+                                             kernels=KernelConfig(decode_attention=impl, **arm_kw),
+                                             **ekw)
+        torch.cuda.synchronize()
+        gpu_s = time.perf_counter() - t0
+        launches = read_counters()
+        cpu_impl = "pallas_q8" if impl == "pallas_q8" else "pallas_interpret"
+        t0 = time.perf_counter()
+        c_logits, c_toks, c_nll = run_parity(
+            params, cfg, "cpu", shared=SHARED_PREFIX, kernels=KernelConfig(
+                backend="pallas_interpret", decode_attention=cpu_impl, **arm_kw), **ekw)
+        cpu_s = time.perf_counter() - t0
+        if read_counters() != launches:
+            raise AssertionError(f"phase 10a ({name}): the CPU run launched a kernel")
+        scale = c_logits.abs().max().item()
+        err = (g_logits - c_logits).abs().max().item()
+        row = {"phase": "kv_parity", "pass": name, "layers": 2, "max_abs_logit_err": err,
+               "max_abs_logit": scale, "err_over_max_logit": err / scale,
+               "tol_over_max_logit": LOGIT_TOL, "gpu_tokens": g_toks, "cpu_tokens": c_toks,
+               "gpu_nll": g_nll, "cpu_nll": c_nll, "launches": launches, "gpu_s": gpu_s,
+               "cpu_s": cpu_s, "card": card}
+        log(json.dumps(row))
+        if not (np.isfinite(g_nll) and torch.isfinite(g_logits).all()):
+            raise AssertionError(f"phase 10a ({name}): non-finite GPU output")
+        if err > LOGIT_TOL * scale or g_toks != c_toks or abs(g_nll - c_nll) > NLL_RTOL * abs(c_nll):
+            raise AssertionError(f"phase 10a ({name}): card and CPU differ: {row}")
+        if launches[counter] == 0:
+            raise AssertionError(f"phase 10a ({name}): the {counter} arm never launched")
+        if "page_size" in ekw and launches["paged_attention_multi"] == 0:
+            raise AssertionError(f"phase 10a ({name}): the prefix suffix took no window launch")
+        rows.append(row)
+    return rows
+
+
+def http_clients(port: int, prompts):
+    """POST each prompt to /generate from HTTP_CLIENTS threads (request i on
+    thread i % HTTP_CLIENTS), every other one with "stream": true.  Returns
+    per request (output_ids, streamed tokens or None, seconds)."""
+    import threading
+    import urllib.request
+
+    out = [None] * len(prompts)
+
+    def post(i):
+        body = {"prompt_ids": prompts[i], "max_new_tokens": E2E_NEW, "stream": i % 2 == 1}
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/generate",
+                                     data=json.dumps(body).encode(),
+                                     headers={"Content-Type": "application/json"})
+        t = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=600) as r:
+            text = r.read().decode()
+        if body["stream"]:
+            lines = [json.loads(line) for line in text.splitlines()]
+            streamed = [line["token"] for line in lines[:-1]]
+            out[i] = (lines[-1]["output_ids"], streamed, time.perf_counter() - t)
+        else:
+            out[i] = (json.loads(text)["output_ids"], None, time.perf_counter() - t)
+
+    def worker(w):
+        for i in range(w, len(prompts), HTTP_CLIENTS):
+            post(i)
+
+    threads = [threading.Thread(target=worker, args=(w,)) for w in range(HTTP_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return out
+
+
+def timed_direct(eng, vocab: int):
+    """Phase 4's requests through `ContinuousBatcher` on ``eng`` directly:
+    (tokens/s, ms of each decode step, device synchronised)."""
+    from pb_llm_tpu_torch.runtime.batching import ContinuousBatcher
+
+    step_ms, dec = [], eng.decode_step
+
+    def timed_step():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = dec()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    eng.decode_step = timed_step
+    batcher = ContinuousBatcher(eng)
+    batcher.run(e2e_requests(vocab))
+    del eng.decode_step  # the class's method again
+    return batcher.stats.tokens_per_second, step_ms
+
+
+def serve_http_e2e(params, card: str, phase4: dict):
+    """Phase 10b: the 32-layer llama-7b of phase 4 behind `serve_http` on
+    127.0.0.1, phase 4's 16 requests posted from 8 client threads (every
+    other one streamed), once for each of KV_PASSES (the pages with
+    prefill_chunk 256).  Each pass: a fresh engine, the counters zeroed
+    before the server starts and read after it and its scheduler have
+    stopped; every launch must match the forwards run.  The same requests
+    run through the batcher directly just before and just after the HTTP
+    run, each on a fresh engine of the same configuration (a used pool's
+    prefix cache would hit): the host's speed drifts within a call, so the
+    HTTP front end's cost is read against these, not against phase 4."""
+    import urllib.request
+
+    from pb_llm_tpu_torch.models.registry import family_for
+    from pb_llm_tpu_torch.ops.kernel_config import KernelConfig
+    from pb_llm_tpu_torch.runtime.batching import ContinuousBatcher, Request
+    from pb_llm_tpu_torch.runtime.engine import Engine, EngineConfig
+    from pb_llm_tpu_torch.runtime.server import serve_http
+
+    cfg = llama7b(32)
+    n_layers, n_linear = cfg.num_hidden_layers, 7 * cfg.num_hidden_layers
+    prompts = [r.prompt_ids for r in e2e_requests(cfg.vocab_size)]
+    rows = []
+    for name, ekw, impl, counter in KV_PASSES:
+        paged = "page_size" in ekw
+
+        def fresh_engine():
+            gc.collect()  # the last engine (patched methods form cycles), earlier phases'
+            torch.cuda.empty_cache()
+            eng = Engine(params, cfg, family_for("llama"),
+                         EngineConfig(n_slots=8, max_seq=2048, kernels=KernelConfig(
+                             decode_attention=impl), prefill_chunk=256 if paged else 0, **ekw),
+                         device=DEV)
+            ContinuousBatcher(eng).run([Request(request_id=-1, prompt_ids=[1, 2, 3],
+                                                max_new_tokens=2)])  # cuBLAS, allocator
+            return eng
+
+        direct = [timed_direct(fresh_engine(), cfg.vocab_size)]
+        eng = fresh_engine()
+        forwards = {"prefill": 0, "decode": 0, "window": 0}
+        finite = torch.ones((), dtype=torch.bool, device=DEV)
+        step_ms = []
+        fwd, dec = eng._forward, eng.decode_step
+
+        def counted_forward(ids, caches, pos):
+            nonlocal finite
+            if isinstance(caches, list) and "chunk_table" in caches[0]:
+                kind = "window"  # a chunk or a prefix-cache suffix
+            else:
+                kind = "decode" if isinstance(pos, torch.Tensor) else "prefill"
+            forwards[kind] += 1
+            logits = fwd(ids, caches, pos)
+            finite = finite & torch.isfinite(logits).all()
+            return logits
+
+        def timed_step():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = dec()
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            return out
+
+        eng._forward, eng.decode_step = counted_forward, timed_step
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counters()
+        server = serve_http(eng, host="127.0.0.1", port=0)
+        port = server.server_address[1]
+        t0 = time.perf_counter()
+        results = http_clients(port, prompts)
+        wall = time.perf_counter() - t0
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/health", timeout=60) as r:
+            health = json.loads(r.read())
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/stats", timeout=60) as r:
+            stats = json.loads(r.read())
+        server.shutdown()
+        server.server_close()
+        server.serving_loop.shutdown()
+        if server.serving_loop._thread.is_alive():
+            raise AssertionError(f"phase 10b ({name}): the scheduler thread did not stop")
+        torch.cuda.synchronize()
+        launches = read_counters()
+        del eng._forward, eng.decode_step  # the class's methods again
+        direct.append(timed_direct(fresh_engine(), cfg.vocab_size))
+        direct_ms = [statistics.median(ms) for _, ms in direct]
+        received = sum(len(ids) for ids, _, _ in results)
+        decode_fwd = forwards["decode"]
+        if paged:
+            want = expect_launches(pb_int8_matmul=n_linear * sum(forwards.values()),
+                                   paged_attention_decode=n_layers * decode_fwd,
+                                   paged_attention_multi=n_layers * forwards["window"],
+                                   paged_attention_bf16=n_layers * (decode_fwd
+                                                                    + forwards["window"]))
+        else:
+            want = expect_launches(pb_int8_matmul=n_linear * sum(forwards.values()),
+                                   decode_attention=n_layers * decode_fwd,
+                                   **{counter: n_layers * decode_fwd})
+        row = {"phase": "http_e2e", "pass": name, "model": "llama-7b PBW-v2 (random planes, "
+               "low_frac 0.9)", "layers": n_layers, "slots": 8, "max_seq": 2048,
+               "requests": len(prompts), "client_threads": HTTP_CLIENTS,
+               "streamed": sum(s is not None for _, s, _ in results),
+               "tokens_received": received, "client_wall_s": wall,
+               "client_tokens_per_s": received / wall,
+               "tokens_per_s": stats["tokens_per_second"], "stats": stats,
+               "request_s_median": statistics.median(t for _, _, t in results),
+               "decode_steps": len(step_ms), "ms_per_decode_step_median": statistics.median(step_ms),
+               "ms_per_decode_step_mean": statistics.mean(step_ms),
+               "direct_tokens_per_s_before_after": [tps for tps, _ in direct],
+               "direct_ms_per_decode_step_median_before_after": direct_ms,
+               "http_over_direct_step": statistics.median(step_ms) / statistics.mean(direct_ms),
+               "phase4_tokens_per_s": phase4["tokens_per_s"],
+               "phase4_ms_per_decode_step_median": phase4["ms_per_decode_step_median"],
+               "phase4_ms_per_decode_step_mean": phase4["ms_per_decode_step_mean"],
+               "forwards": forwards, "launches": launches,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card}
+        log(json.dumps(row))
+        if not bool(finite):
+            raise AssertionError(f"phase 10b ({name}): non-finite logits")
+        if not all(len(ids) == E2E_NEW for ids, _, _ in results):
+            raise AssertionError(f"phase 10b ({name}): a request lacks its tokens")
+        if not all(s is None or s == ids for ids, s, _ in results):
+            raise AssertionError(f"phase 10b ({name}): a stream differs from its output_ids")
+        if health != {"status": "ok"} or stats["generated_tokens"] != received:
+            raise AssertionError(f"phase 10b ({name}): /health {health}, /stats {stats}, "
+                                 f"{received} tokens received")
+        if launches != want or launches[counter] == 0:
+            raise AssertionError(f"phase 10b ({name}): launches {launches}, expected {want} "
+                                 f"for {forwards}")
+        rows.append(row)
+        del eng, server, fwd, dec
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true", help="trace three decode steps")
@@ -1598,7 +1902,8 @@ def main(argv=None) -> int:
     card = setup()
     timer = Timer()
     mm_rows = check_matmul(timer, card)
-    att = check_attention(timer, card)
+    att_rows = check_attention(timer, card)
+    att = att_rows[0]
     dq_rows = check_dequant(timer, card)
     f32_rows = check_f32_matmul(timer, card)
     fa_rows = check_flash(timer, card)
@@ -1616,9 +1921,11 @@ def main(argv=None) -> int:
     check_engine_parity(parity_params, "int8", page_size=16)
     paged_invariants(parity_params, card)
     scan_fuse = scan_fuse_parity(parity_params, card)
+    check_kv_parity(parity_params, card)
     del parity_params
     paged = paged_e2e(params, card)
     arms_e2e = serve_scan_fuse_e2e(params, card)
+    http_e2e = serve_http_e2e(params, card, e2e)
     del params
     torch.cuda.empty_cache()
     check_opt_parity(card)
@@ -1722,6 +2029,26 @@ def main(argv=None) -> int:
                      "launches: phase {}".format(*HEADLINE_SHAPE, library,
                                                  "9a" if name.endswith("f32_matmul_stacked")
                                                  else "9b")})
+    http = {r["pass"]: r["launches"] for r in http_e2e}
+    for (name, source, replaces, shape), (pass_name, _, _, counter), r in zip((
+            ("decode_attention_q8", "decode_attention.cu", "decode_attention.py:78",
+             "B={} S={} Hq={} Hkv={} D={} int8 strips, q8".format(*ATTN_SHAPE)),
+            ("decode_attention_bf16", "decode_attention.cu", "decode_attention.py:78",
+             "B={} S={} Hq={} Hkv={} D={} bf16 strips".format(*ATTN_SHAPE)),
+            ("paged_attention_bf16", "paged_attention.cu", "paged_attention.py:35",
+             "B=8 Hq=Hkv=32 D=128 bf16 pages of 16 (1025), decode")),
+            KV_PASSES, (next(r for r in att_rows if r["arm"] == "q8"),
+                        next(r for r in att_rows if r["arm"] == "bf16"),
+                        next(r for r in pa_rows if r["case"] == "decode_bf16"))):
+        errs = ([q["max_abs_err"] for q in pa_rows if q["kv"] == "bf16"]
+                if name.startswith("paged") else [r["max_abs_err"]])
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"pb_llm_tpu_torch/csrc/{source}",
+            "replaces": f"pb_llm_tpu/ops/{replaces}", "launches": http[pass_name][counter],
+            "max_abs_err": max(errs), "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "parity": "ok", "shape": shape + f", lengths <= {ATTN_MAX_LEN}; library: SDPA bf16; "
+                                             "launches: phase 10b"})
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

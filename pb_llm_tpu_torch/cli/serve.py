@@ -1,5 +1,6 @@
-"""Serving demo CLI (port of `pb_llm_tpu/cli/serve.py`): runs a batch of
-prompts through the continuous batcher and reports tokens/s.
+"""Serving CLI (port of `pb_llm_tpu/cli/serve.py`): runs a batch of prompts
+through the continuous batcher and reports tokens/s, or serves POST
+/generate over HTTP (`runtime.server`) with ``--http PORT``.
 
     python -m pb_llm_tpu_torch.cli.serve --model_id llama --synthetic --demo
     python -m pb_llm_tpu_torch.cli.serve --model_id llama --synthetic --demo \
@@ -9,27 +10,39 @@ prompts through the continuous batcher and reports tokens/s.
 
     python -m pb_llm_tpu_torch.cli.serve --model_id llama --synthetic \
         --pbw checkpoints/llama_pbw --scan_layers --fuse_linears --decode_dot pair
+    python -m pb_llm_tpu_torch.cli.serve --model_id llama --synthetic \
+        --kv_dtype bf16 --http 8000 --host 127.0.0.1
 
 Runs on CUDA unless ``--device cpu`` is given.  ``--synthetic`` builds the
-JAX CLIs' tiny llama or OPT (by ``--model_id``); ``--pbw`` installs a PBW v1
-or v2 checkpoint over its linears.  HF import, dense checkpoints, draft
-models from checkpoints, the HTTP front end and TP are not ported yet.
+JAX CLIs' tiny llama or OPT (by ``--model_id``); ``--checkpoint`` loads a
+dense checkpoint over it (`utils.checkpoint`, JAX's layout); ``--pbw``
+installs a PBW v1 or v2 checkpoint over its linears.  ``--http 0`` binds a
+free port and prints it (the JAX CLI reads 0 as "no HTTP").  Not ported
+yet: HF import (ROADMAP Queue 1 item 2), draft models from HF ids or
+checkpoints (the same item), ``--tp`` other than 1 (Queue 1 item 5).
 """
 
 from __future__ import annotations
 
 import argparse
+import threading
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="continuous-batching serving demo")
     p.add_argument("--model_id", type=str, required=True)
+    p.add_argument("--checkpoint", type=str, default=None,
+                   help="dense checkpoint dir (utils.checkpoint; JAX's layout)")
     p.add_argument("--pbw", type=str, default=None, help="PBW v1 or v2 packed checkpoint dir")
     p.add_argument("--slots", type=int, default=8)
     p.add_argument("--max_seq", type=int, default=2048)
     p.add_argument("--max_new_tokens", type=int, default=32)
     p.add_argument("--temperature", type=float, default=0.0)
-    p.add_argument("--kv_dtype", type=str, default="auto", choices=["auto", "int8", "f32"],
+    p.add_argument("--kv_int8", action="store_true",
+                   help="force the absmax-quantized int8 KV cache (composes with --page_size); "
+                        "already the CUDA default")
+    p.add_argument("--kv_dtype", type=str, default="auto",
+                   choices=["auto", "int8", "bf16", "f32"],
                    help="KV cache dtype; auto = int8 on CUDA, f32 on the CPU")
     p.add_argument("--page_size", type=int, default=0,
                    help="paged KV cache: page size in tokens (0 = fixed strips); memory per "
@@ -41,6 +54,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="prefix caching over the paged pool (requires --page_size): requests "
                         "sharing a page-aligned prompt prefix reuse its cached KV pages and "
                         "prefill only their suffix")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel ways (only 1: TP is not ported yet, ROADMAP Queue 1 "
+                        "item 5)")
     p.add_argument("--prefill_batch", type=int, default=4,
                    help="prefill up to K same-bucket prompts in one forward")
     p.add_argument("--prefill_chunk", type=int, default=0,
@@ -74,11 +90,20 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["auto", "int8", "hybrid", "hybrid_bf16"],
                    help="PBW-v2 prefill arm (auto = int8 on CUDA; all are ported; PBW v1 "
                         "reads only hybrid_bf16, a bf16 select dot)")
+    p.add_argument("--attention_impl", type=str, default=None,
+                   choices=["auto", "flash", "flash_interpret", "xla"],
+                   help="full-sequence attention arm (default: env or auto = flash on CUDA for "
+                        "windows of 1024 or more)")
     p.add_argument("--prompts", type=str, default=None, help="file with one prompt per line")
     p.add_argument("--n_requests", type=int, default=16)
     p.add_argument("--synthetic", action="store_true",
                    help="byte tokenizer + a tiny random llama or OPT (offline)")
-    p.add_argument("--demo", action="store_true", help="run the built-in prompt batch and exit")
+    p.add_argument("--demo", action="store_true",
+                   help="run the built-in prompt batch and exit (the default without --http)")
+    p.add_argument("--http", type=int, default=None, metavar="PORT",
+                   help="serve POST /generate, GET /health and GET /stats over HTTP on this "
+                        "port (0: a free one) until interrupted (runtime.server)")
+    p.add_argument("--host", type=str, default="0.0.0.0")
     p.add_argument("--device", type=str, default=None, help="default: cuda")
     p.add_argument("--seed", type=int, default=0)
     return p
@@ -107,6 +132,9 @@ def main(argv=None) -> int:
         raise NotImplementedError("draft models from HF ids or checkpoints need hf_import, which "
                                   "is not ported yet (ROADMAP Queue 1 slice 3): use "
                                   "--draft_synthetic")
+    if args.tp != 1:
+        raise NotImplementedError(f"--tp {args.tp}: tensor parallelism is not ported yet "
+                                  "(ROADMAP Queue 1 item 5)")
     device = resolve_device(args.device)
     fam = family_for(args.model_id)
     if not args.synthetic:
@@ -116,6 +144,10 @@ def main(argv=None) -> int:
     cfg, params = synthetic_model(fam.name, args.seed, device)
     tokenizer = ByteTokenizer()
     max_seq = min(args.max_seq, 128)
+    if args.checkpoint:
+        from ..utils.checkpoint import load_dense_checkpoint
+
+        params, _ = load_dense_checkpoint(args.checkpoint)  # the engine moves it to its device
     if args.pbw:
         from ..core.pbw import install_pbw, load_pbw
 
@@ -133,11 +165,15 @@ def main(argv=None) -> int:
         buckets = tuple(sorted({min(-(-b // args.page_size) * args.page_size, max_seq)
                                 for b in buckets}))
     over = {k: v for k, v in (("decode_dot", args.decode_dot),
-                              ("prefill", args.prefill_kernel)) if v}
+                              ("prefill", args.prefill_kernel),
+                              ("attention", args.attention_impl)) if v}
     kernels = dataclasses.replace(_kc.from_env(), **over) if over else None
+    cache_dtype = torch.int8 if args.kv_int8 else {
+        "auto": "auto", "int8": torch.int8, "bf16": torch.bfloat16,
+        "f32": torch.float32}[args.kv_dtype]
     ecfg = EngineConfig(
         n_slots=args.slots, max_seq=max_seq, prefill_buckets=buckets,
-        cache_dtype={"auto": "auto", "int8": torch.int8, "f32": torch.float32}[args.kv_dtype],
+        cache_dtype=cache_dtype,
         max_prefill_batch=args.prefill_batch, kernels=kernels, page_size=args.page_size,
         n_pages=args.n_pages, prefix_cache=args.prefix_cache, spec_gamma=args.spec_gamma,
         prefill_chunk=args.prefill_chunk, scan_layers=args.scan_layers,
@@ -153,6 +189,22 @@ def main(argv=None) -> int:
             dparams, dcfg, fam, EngineConfig(n_slots=args.slots, max_seq=max_seq,
                                              prefill_buckets=buckets),
             device=device, seed=args.seed))
+    if args.http is not None:
+        from ..runtime.server import serve_http
+
+        server = serve_http(eng, host=args.host, port=args.http, encode=tokenizer.encode,
+                            decode=tokenizer.decode, draft_source=draft_source)
+        print(f"serving on http://{args.host}:{server.server_address[1]} on {device}  "
+              f"(POST /generate, GET /health, GET /stats)", flush=True)
+        try:
+            _until_interrupted(server)
+        except KeyboardInterrupt:
+            pass
+        finally:
+            server.shutdown()
+            server.server_close()
+            server.serving_loop.shutdown()
+        return 0
     batcher = ContinuousBatcher(eng, draft_source=draft_source)
     reqs = [Request(request_id=i, prompt_ids=tokenizer.encode(t)[: max_seq // 2],
                     max_new_tokens=args.max_new_tokens)
@@ -173,6 +225,11 @@ def main(argv=None) -> int:
         print(f"pages={eng.pool.n_pages} prefix_hit_pages={eng.pool.prefix_hit_pages} "
               f"preemptions={s.preemptions}")
     return 0
+
+
+def _until_interrupted(server) -> None:
+    """Block while ``server`` serves (until Ctrl-C)."""
+    threading.Event().wait()
 
 
 if __name__ == "__main__":

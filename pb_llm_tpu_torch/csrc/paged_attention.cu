@@ -10,7 +10,9 @@
 //   out_{j,h} = sum_p softmax(s)_p * vscale_p * v_p
 //
 // Pages are head-major [P+1, Hkv, PS, D]: int8 with f32 scale planes
-// [P+1, Hkv, PS], or f32 without.  q arrives scaled by the softmax scale.
+// [P+1, Hkv, PS], or f32 or bf16 without (bf16 elements are widened with
+// __bfloat162float; the output stays f32 and the caller casts it to q's
+// type, as the TPU kernel writes q's type for unquantized pages).  q arrives scaled by the softmax scale.
 // Decode is t = 1 with base = length - 1; speculative verify, chunked
 // prefill and prefix-cache suffixes are windows of t rows whose own keys
 // are already in the pages.  A masked key weighs exactly 0, and a row with
@@ -18,9 +20,11 @@
 // row's limit is read: table entries there may name the trash page or
 // stale pages.  All arithmetic is f32.
 //
-// What bounds it on the H100.  Decode reads the live pages once: at B=8,
-// Hkv=32, D=128 int8 and lengths up to 512, some 17 MB, about 5 us at
-// 3.35 TB/s.  A window of t >= ~64 rows is bound by its operations: 4*D
+// What bounds it on the H100.  Decode reads the live pages once, per (key,
+// kv head) 2*D + 8 bytes for int8 pages, 2*D*2 for bf16, 2*D*4 for f32: at
+// chip_smoke.py's phase-2 decode shape (B=8, Hkv=32, D=128, lengths up to
+// 512, some 2900 live keys a kv head) about 25 MB for int8 pages, 7.4 us at
+// 3.35 TB/s, and 47 MB for bf16 pages, 14 us.  A window of t >= ~64 rows is bound by its operations: 4*D
 // multiply-adds per (row, allowed key); a 256-row chunk at base 1024 takes
 // 4.8e9 per slot at Hq=32, 72 us at 67 TFLOP/s f32.
 //
@@ -40,6 +44,7 @@
 // step's V rows coalesced, a lane owning 4 of the D columns.  f32 CUDA
 // cores; tensor cores and a split over keys across blocks are later work.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -80,6 +85,27 @@ struct Row<float> {
     out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
   }
   __device__ static void load4(const float* p, float* out) { load(p, out); }
+};
+
+template <>
+struct Row<__nv_bfloat16> {
+  static constexpr int EPL = 8;  // one 16-byte load
+  __device__ static void load(const __nv_bfloat16* p, float* out) {
+    const uint4 w = *reinterpret_cast<const uint4*>(p);
+    const unsigned ws[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ws[i]));
+      out[2 * i] = f.x;
+      out[2 * i + 1] = f.y;
+    }
+  }
+  __device__ static void load4(const __nv_bfloat16* p, float* out) {
+    const uint2 w = *reinterpret_cast<const uint2*>(p);
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w.x));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w.y));
+    out[0] = a.x; out[1] = a.y; out[2] = b.x; out[3] = b.y;
+  }
 };
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -272,30 +298,41 @@ int dispatch(int rw, dim3 grid, cudaStream_t st, const float* q, const void* kp,
   return (int)cudaErrorInvalidValue;
 }
 
+enum KvType { KV_F32 = 0, KV_INT8 = 1, KV_BF16 = 2 };
+
 }  // namespace
 
-// q: f32 [B, t, Hq, D], scaled; k_pages, v_pages: [P+1, Hkv, PS, D] int8
-// (quantized, with f32 ks/vs [P+1, Hkv, PS]) or f32; table: int32 [B, maxp];
-// base: int32 [B]; out: f32 [B, t, Hq, D].  rw in {1, 2, 4, 8} rows a warp,
-// 2**wk_log2 warps split one row group's keys; a block covers
-// (8 >> wk_log2) * rw window rows (the wrapper chooses both).
+// q: f32 [B, t, Hq, D], scaled; k_pages, v_pages: [P+1, Hkv, PS, D] of
+// kv_type KV_INT8 (with f32 ks/vs [P+1, Hkv, PS]), KV_F32 or KV_BF16;
+// table: int32 [B, maxp]; base: int32 [B]; out: f32 [B, t, Hq, D].  rw in
+// {1, 2, 4, 8} rows a warp, 2**wk_log2 warps split one row group's keys; a
+// block covers (8 >> wk_log2) * rw window rows (the wrapper chooses both).
 extern "C" int paged_attention(const void* q, const void* k_pages, const void* v_pages,
                                const void* ks, const void* vs, const void* table,
                                const void* base, void* out, int B, int t, int Hq, int Hkv, int D,
-                               int PS, int maxp, int quantized, int rw, int wk_log2,
+                               int PS, int maxp, int kv_type, int rw, int wk_log2,
                                void* stream) {
-  if (D % 4 != 0 || D > MAXD || (quantized && D % 16 != 0) || Hkv <= 0 || Hq % Hkv != 0 ||
-      wk_log2 < 0 || wk_log2 > 3)
+  const int epl = kv_type == KV_INT8 ? 16 : kv_type == KV_BF16 ? 8 : 4;
+  if (D % epl != 0 || D > MAXD || Hkv <= 0 || Hq % Hkv != 0 || wk_log2 < 0 || wk_log2 > 3)
     return (int)cudaErrorInvalidValue;
   const int rows = t * (Hq / Hkv);
   const int br = (WARPS >> wk_log2) * rw;
   dim3 grid(B, Hkv, (rows + br - 1) / br);
   cudaStream_t st = (cudaStream_t)stream;
-  if (quantized)
-    return dispatch<int8_t, true>(rw, grid, st, (const float*)q, k_pages, v_pages,
-                                  (const float*)ks, (const float*)vs, (const int*)table,
-                                  (const int*)base, (float*)out, t, Hq, Hkv, D, PS, maxp, wk_log2);
-  return dispatch<float, false>(rw, grid, st, (const float*)q, k_pages, v_pages, nullptr, nullptr,
-                                (const int*)table, (const int*)base, (float*)out, t, Hq, Hkv, D, PS,
-                                maxp, wk_log2);
+  switch (kv_type) {
+    case KV_INT8:
+      return dispatch<int8_t, true>(rw, grid, st, (const float*)q, k_pages, v_pages,
+                                    (const float*)ks, (const float*)vs, (const int*)table,
+                                    (const int*)base, (float*)out, t, Hq, Hkv, D, PS, maxp,
+                                    wk_log2);
+    case KV_F32:
+      return dispatch<float, false>(rw, grid, st, (const float*)q, k_pages, v_pages, nullptr,
+                                    nullptr, (const int*)table, (const int*)base, (float*)out, t,
+                                    Hq, Hkv, D, PS, maxp, wk_log2);
+    case KV_BF16:
+      return dispatch<__nv_bfloat16, false>(rw, grid, st, (const float*)q, k_pages, v_pages,
+                                            nullptr, nullptr, (const int*)table, (const int*)base,
+                                            (float*)out, t, Hq, Hkv, D, PS, maxp, wk_log2);
+  }
+  return (int)cudaErrorInvalidValue;
 }

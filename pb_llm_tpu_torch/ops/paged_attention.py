@@ -5,11 +5,17 @@ A query window q [B, t, Hq, D] attends the slot's keys through its page
 table: key p lives in page table[b, p // page] at offset p % page of the
 head-major pool [P+1, Hkv, page, D]; window row j sees keys p <= base[b] + j
 (its own rows are already written).  GQA is grouped: q head i reads kv
-head i // G.  int8 pages carry f32 scale planes [P+1, Hkv, page]: the K
+head i // G.  Pages are f32, bf16 or int8 (JAX's rule: int8 pages iff
+scale pages).  int8 pages carry f32 scale planes [P+1, Hkv, page]: the K
 scale multiplies the scores after the dot, the V scale folds into the
 probabilities.  q is scaled by ``scale`` here, in f32, before the kernel.
 A masked key weighs exactly 0 and a row with no allowed key returns 0.
-The output is f32.
+The output is f32; `models.attention` casts it to q's type, as the TPU
+kernel writes q's type for unquantized pages.
+
+Precision: over bf16 pages the TPU kernel dots q in q's type against the
+bf16 keys; the kernel and its plain version here widen each bf16 element to
+f32 and keep q, p and the sums in f32.
 
 `paged_attention` (decode, t = 1, ``lengths`` including the token just
 written) and `paged_attention_multi` (speculative verify, chunked prefill,
@@ -24,13 +30,16 @@ import ctypes
 import torch
 
 from . import _build
+from .decode_attention import KV_TYPES
 
 NEG_INF = -1e30
 
-# kernel launches (plain-version calls are not counted): all, and by entry
+# kernel launches (plain-version calls are not counted): all, by entry, and
+# over bf16 pages
 launches = 0
 decode_launches = 0
 multi_launches = 0
+bf16_launches = 0
 
 
 def _check_args(q, k_pages, v_pages, table, base, page_size, k_scale_pages, v_scale_pages):
@@ -123,11 +132,15 @@ def _call(q, k_pages, v_pages, table, base, scale, page_size, k_scale_pages, v_s
     _check_args(q, k_pages, v_pages, table, base, page_size, k_scale_pages, v_scale_pages)
     d = q.shape[3]
     quantized = k_scale_pages is not None
-    if not quantized and k_pages.dtype != torch.float32:
-        raise ValueError(f"paged_attention: unscaled pages must be float32, got {k_pages.dtype}")
-    if d % (16 if quantized else 4) or d > 128:
+    if not quantized and k_pages.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"paged_attention: unscaled pages must be float32 or bfloat16, got "
+                         f"{k_pages.dtype}")
+    if v_pages.dtype != k_pages.dtype:
+        raise ValueError(f"paged_attention: k pages are {k_pages.dtype}, v pages {v_pages.dtype}")
+    epl = _EPL[k_pages.dtype]
+    if d % epl or d > 128:
         raise ValueError(f"paged_attention: head_dim {d} must be at most 128 and a multiple of "
-                         f"{16 if quantized else 4} for {k_pages.dtype} pages")
+                         f"{epl} for {k_pages.dtype} pages")
     pools = [k_pages, v_pages] + ([k_scale_pages, v_scale_pages] if quantized else [])
     for x in pools:
         if x.device != q.device or not x.is_contiguous() or x.data_ptr() % 16:
@@ -144,6 +157,8 @@ def _call(q, k_pages, v_pages, table, base, scale, page_size, k_scale_pages, v_s
 
 
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+# elements of a K row one lane reads in one 16-byte load
+_EPL = {torch.int8: 16, torch.bfloat16: 8, torch.float32: 4}
 
 
 def _tiling(rows: int):
@@ -159,7 +174,8 @@ def _tiling(rows: int):
 def launch(qs, k_pages, v_pages, table, base, k_scale_pages=None, v_scale_pages=None,
            decode: bool = False) -> torch.Tensor:
     """Launch the CUDA kernel on checked operands (q already scaled, int32
-    table and base) on the current stream; counts one launch."""
+    table and base) on the current stream; the arm follows the pages' type;
+    counts one launch."""
     b, t, hq, d = qs.shape
     hkv, ps = k_pages.shape[1], k_pages.shape[2]
     quantized = k_scale_pages is not None
@@ -172,11 +188,12 @@ def launch(qs, k_pages, v_pages, table, base, k_scale_pages=None, v_scale_pages=
              k_scale_pages.data_ptr() if quantized else None,
              v_scale_pages.data_ptr() if quantized else None,
              table.data_ptr(), base.data_ptr(), out.data_ptr(), b, t, hq, hkv, d, ps,
-             table.shape[1], int(quantized), rw, wk_log2,
+             table.shape[1], KV_TYPES[k_pages.dtype], rw, wk_log2,
              torch.cuda.current_stream(qs.device).cuda_stream)
     _build.check(err, "paged_attention")
-    global launches, decode_launches, multi_launches
+    global launches, decode_launches, multi_launches, bf16_launches
     launches += 1
+    bf16_launches += k_pages.dtype == torch.bfloat16
     if decode:
         decode_launches += 1
     else:

@@ -18,7 +18,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from collections import deque
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -42,6 +42,10 @@ class Request:
     # retirement so callers see the whole stream
     preempted_output_ids: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
+    # streaming hook: called on the scheduler thread with each generated
+    # token, a Python int, as it is emitted (keep it non-blocking)
+    on_token: Optional[Callable[[int], None]] = dataclasses.field(
+        default=None, repr=False, compare=False)
 
 
 @dataclasses.dataclass
@@ -158,12 +162,15 @@ class ContinuousBatcher:
         return False
 
     def _emit(self, slot: int, req: Request, token: int, length: Optional[int] = None) -> None:
+        """Append one generated token: stats, streaming callback, retirement."""
         req.output_ids.append(token)
         if req.logprobs:
             lps = self.engine.token_logprobs.get(slot)
             if lps:
                 req.output_logprobs.append(lps.pop(0))
         self.stats.generated_tokens += 1
+        if req.on_token is not None:
+            req.on_token(int(token))
         self._maybe_retire(slot, token, length=length)
 
     def _maybe_retire(self, slot: int, token: int, length: Optional[int] = None) -> None:

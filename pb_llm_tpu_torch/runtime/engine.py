@@ -40,7 +40,7 @@ class EngineConfig:
     max_seq: int = 2048
     prefill_buckets: Sequence[int] = (32, 128, 512, 2048)
     # "auto" = int8 on CUDA, f32 on the CPU (resolved at Engine init); or a
-    # torch dtype (torch.int8 / torch.float32)
+    # torch dtype (torch.int8 / torch.bfloat16 / torch.float32)
     cache_dtype: Any = "auto"
     max_prefill_batch: int = 4
     # kernel arms for this engine (ops.kernel_config.KernelConfig; None =

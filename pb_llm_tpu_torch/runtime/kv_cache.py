@@ -14,7 +14,8 @@ from .. import resolve_device
 def make_caches(cfg: Any, n_slots: int, max_seq: int, n_layers: int, kv_heads: int,
                 head_dim: int, dtype=torch.float32, device=None) -> List[Dict[str, torch.Tensor]]:
     """dtype torch.int8 → absmax-quantized cache with per-(token, head) f32
-    scales (see models.attention.cache_update).  ``device``: as every entry
+    scales (see models.attention.cache_update); torch.bfloat16 or
+    torch.float32 → unscaled strips, written with a cast.  ``device``: as every entry
     point, CUDA unless the caller names another (`resolve_device`)."""
     device = resolve_device(device)
     shape = (n_slots, max_seq, kv_heads, head_dim)

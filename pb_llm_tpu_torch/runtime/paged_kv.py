@@ -172,9 +172,9 @@ class PagePool:
     def make_layer_cache(self, n_layers: int, kv_heads: int, head_dim: int,
                          dtype=torch.float32, device=None) -> List[Dict[str, torch.Tensor]]:
         """Per-layer paged cache dicts on ``device``: head-major pages
-        [P+1, Hkv, page, D] (the +1 is the trash page), f32 or int8 with f32
-        absmax scale planes [P+1, Hkv, page] (the scheme of the int8 strip
-        cache).  Every layer dict holds the SAME device table tensor [n_slots,
+        [P+1, Hkv, page, D] (the +1 is the trash page), f32, bf16, or int8
+        with f32 absmax scale planes [P+1, Hkv, page] (the scheme of the
+        int8 strip cache).  Every layer dict holds the SAME device table tensor [n_slots,
         maxp] int32; the engine refreshes it in place when the host table
         changes (JAX keeps one copy per layer only because it donates
         buffers)."""

@@ -25,13 +25,14 @@ from pb_llm_tpu_torch.runtime.engine import Engine, EngineConfig
 
 torch.set_num_threads(2)
 
-_JDTYPE = {"f32": jnp.float32, "int8": jnp.int8}
-_TDTYPE = {"f32": torch.float32, "int8": torch.int8}
+_JDTYPE = {"f32": jnp.float32, "int8": jnp.int8, "bf16": jnp.bfloat16}
+_TDTYPE = {"f32": torch.float32, "int8": torch.int8, "bf16": torch.bfloat16}
 
 
 class TinyLlama:
     """A 2-layer llama (hidden 64, 8 heads, ``kv_heads`` kv heads) in both
-    packages; ``cache_dtype`` is given as "f32" or "int8" to either side."""
+    packages; ``cache_dtype`` is given as "f32", "bf16" or "int8" to
+    either side."""
 
     def __init__(self, kv_heads: int = 4, seed: int = 0, layers: int = 2, hidden: int = 64,
                  family: str = "llama", **cfg_kw):

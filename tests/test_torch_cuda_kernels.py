@@ -10,7 +10,10 @@ Tolerances: the int8 matmul accumulates exactly in int32 and its f32
 epilogue rounds once per operation in the plain version's order, so the two
 agree bit for bit; so does the dequant kernel (one rounded multiply and add
 per value).  Decode attention sums in another order than the plain version
-(online softmax over warps): rtol 1e-4, atol 1e-5.  The exact f32 matmul
+(online softmax over warps): rtol 1e-4, atol 1e-5, on every arm (bf16
+strips widen each element to f32 as the plain version does; the q8 arm's
+scores are exact int32 dots on both sides, and a test reads them back
+exactly at unit scales).  The exact f32 matmul
 and flash attention sum their products in another order than the plain
 versions' torch.matmul: rtol 1e-4, atol 1e-4, the JAX package's bounds for
 those kernels.  Paged attention, like decode attention, sums its online
@@ -129,6 +132,162 @@ def test_decode_attention_kernel_matches_plain(cuda, quantized, hq, hkv, d):
     want = tda.decode_attention_plain(*args, **kw)
     assert torch.equal(got[0], torch.zeros_like(got[0]))
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm", ["bf16", "q8"])
+@pytest.mark.parametrize("hq,hkv,d", [(8, 2, 128), (4, 4, 64), (6, 1, 96), (32, 32, 128)])
+def test_decode_attention_bf16_and_q8_arms_match_plain(cuda, arm, hq, hkv, d):
+    """bf16 strips, and the q8 arm over int8 strips, against their plain
+    versions on the same card tensors; each launch counts on its arm."""
+    b, s = 4, 256
+    g = torch.Generator(device=cuda).manual_seed(hq * d + len(arm))
+    q, k, v = (torch.randn(shape, generator=g, device=cuda)
+               for shape in ((b, hq, d), (b, s, hkv, d), (b, s, hkv, d)))
+    lengths = torch.tensor([0, 1, 100, 256], dtype=torch.int32, device=cuda)
+    if arm == "bf16":
+        k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+        kw = {}
+    else:
+        (k, ks), (v, vs) = _quant(k), _quant(v)
+        kw = dict(k_scale=ks, v_scale=vs, q_int8=True)
+    args = (q, k, v, lengths, d ** -0.5)
+    before = (tda.launches, tda.bf16_launches, tda.q8_launches)
+    got = tda.decode_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert (tda.launches, tda.bf16_launches, tda.q8_launches) == (
+        before[0] + 1, before[1] + (arm == "bf16"), before[2] + (arm == "q8"))
+    want = tda.decode_attention_plain(*args, **kw)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2)])
+def test_decode_attention_q8_scores_are_exact_at_unit_scales(cuda, hq, hkv):
+    """The q8 arm's int32 scores, read back exactly.  q holds integers with
+    max|q| = 127 (qsc = 1, codes = q), K and V unit scales, and V row r is
+    the unit vector e_r, so out[h, r] = softmax(s)_r: log(out_r / out_0)
+    rounds to the integer s_r - s_0, which must equal the int64 dots of q
+    and K.  A slip in the packing of q's codes against the key words
+    changes some s_r by at least 1."""
+    b, s, d, n = 2, 128, 128, 90
+    g = torch.Generator(device=cuda).manual_seed(hq)
+    q = torch.randint(-3, 4, (b, hq, d), generator=g, device=cuda).float()
+    q[:, :, 5] = 127.0  # k[..., 5] = 0 below: max|q| = 127 adds nothing to a score
+    k = torch.randint(-1, 2, (b, s, hkv, d), generator=g, device=cuda).to(torch.int8)
+    k[..., 5] = 0
+    k[..., 16:] = 0  # scores of a few tens: exp keeps every weight a normal f32
+    v = torch.zeros((b, s, hkv, d), dtype=torch.int8, device=cuda)
+    v[:, torch.arange(d), :, torch.arange(d)] = 1
+    ones = torch.ones((b, s, hkv, 1), device=cuda)
+    lengths = torch.full((b,), n, dtype=torch.int32, device=cuda)
+    out = tda.decode_attention(q, k, v, lengths, 1.0, k_scale=ones, v_scale=ones, q_int8=True)
+    torch.cuda.synchronize()
+    want = torch.einsum("bkgd,bskd->bkgs", q.double().reshape(b, hkv, hq // hkv, d),
+                        k[:, :n].double()).reshape(b, hq, n)
+    got = torch.log(out[..., :n].double() / out[..., :1].double())
+    assert torch.equal(torch.round(got), want - want[..., :1])
+    assert (got - torch.round(got)).abs().max() < 1e-2
+
+
+@pytest.mark.cuda
+def test_bf16_head_dims_the_kernels_cannot_take_raise(cuda):
+    """bf16 rows load 8 elements a lane: decode takes d % 8 == 0 up to
+    256, paged attention d % 8 == 0 up to 128; others raise."""
+    from pb_llm_tpu_torch.ops import paged_attention as tpa
+
+    lengths = torch.tensor([3], device=cuda)
+    for d in (100, 264):
+        kv = torch.zeros((1, 8, 1, d), dtype=torch.bfloat16, device=cuda)
+        with pytest.raises(ValueError, match="head_dim"):
+            tda.decode_attention(torch.zeros((1, 1, d), device=cuda), kv, kv, lengths, 0.1)
+    kv = torch.zeros((1, 8, 1, 256), dtype=torch.bfloat16, device=cuda)
+    tda.decode_attention(torch.zeros((1, 1, 256), device=cuda), kv, kv, lengths, 0.1)
+    for d in (36, 136):
+        kp = torch.zeros((4, 1, 16, d), dtype=torch.bfloat16, device=cuda)
+        with pytest.raises(ValueError, match="head_dim"):
+            tpa.paged_attention(torch.zeros((1, 1, d), device=cuda), kp, kp,
+                                torch.zeros((1, 2), dtype=torch.int32, device=cuda), lengths,
+                                0.1, 16)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm", ["decode_bf16", "decode_q8", "paged_bf16"])
+def test_new_arms_raise_rather_than_fall_back(cuda, monkeypatch, arm):
+    """On a CUDA tensor the bf16 and q8 arms launch their kernel or raise:
+    with the build failing, the call raises and no plain version runs."""
+    from pb_llm_tpu_torch.ops import _build
+    from pb_llm_tpu_torch.ops import paged_attention as tpa
+
+    def broken(name):
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu")
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(_build, "load", broken)
+    monkeypatch.setattr(tda, "decode_attention_plain", refuse)
+    monkeypatch.setattr(tpa, "paged_attention_plain", refuse)
+    lengths = torch.tensor([3, 9], device=cuda)
+    q = torch.randn((2, 4, 64), device=cuda)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        if arm == "paged_bf16":
+            kp = torch.zeros((8, 2, 16, 64), dtype=torch.bfloat16, device=cuda)
+            table = torch.arange(8, dtype=torch.int32, device=cuda).reshape(2, 4)
+            tpa.paged_attention(q, kp, kp, table, lengths, 0.1, 16)
+        elif arm == "decode_bf16":
+            kv = torch.zeros((2, 16, 2, 64), dtype=torch.bfloat16, device=cuda)
+            tda.decode_attention(q, kv, kv, lengths, 0.1)
+        else:
+            kv, sc = _quant(torch.randn((2, 16, 2, 64), device=cuda))
+            tda.decode_attention(q, kv, kv, lengths, 0.1, k_scale=sc, v_scale=sc, q_int8=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16_strips", "bf16_pages", "int8_strips_q8"])
+def test_bf16_and_q8_engines_on_the_card_match_the_cpu(cuda, kv):
+    """A tiny llama (GQA 2:1) on the card (kernels) and on the CPU (plain
+    versions) over bf16 strips, bf16 pages of 16 (a chunked prefill, then
+    decode), and int8 strips with decode_attention "pallas_q8":
+    the same prefill logits (1e-3 of max|logit|) and teacher-forced NLL
+    (rtol 2e-3, chip_smoke.py's bound), with the arm's kernel launched."""
+    from pb_llm_tpu_torch.models.llama import LlamaConfig, init_params
+    from pb_llm_tpu_torch.models.registry import family_for
+    from pb_llm_tpu_torch.ops import paged_attention as tpa
+    from pb_llm_tpu_torch.ops.kernel_config import KernelConfig
+    from pb_llm_tpu_torch.runtime.engine import Engine, EngineConfig
+
+    cfg = LlamaConfig(vocab_size=128, hidden_size=128, intermediate_size=256, num_hidden_layers=2,
+                      num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=256)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    kw = dict(cache_dtype=torch.int8 if kv.startswith("int8") else torch.bfloat16)
+    if kv == "bf16_pages":
+        kw.update(page_size=16, prefill_chunk=32)
+    r = np.random.default_rng(1)
+    prompt, forced = r.integers(0, 128, 70).tolist(), r.integers(0, 128, 6).tolist()
+    counters = (lambda: tda.q8_launches) if kv.endswith("q8") else (
+        (lambda: tpa.bf16_launches) if kv == "bf16_pages" else (lambda: tda.bf16_launches))
+    before = counters()
+    logits, nll = [], []
+    for dev, decode in ((cuda, "auto"), ("cpu", "pallas_interpret")):
+        # on the CPU "pallas_q8" takes the wrapper, which runs the plain q8 arm
+        kernels = KernelConfig(decode_attention="pallas_q8" if kv.endswith("q8") else decode)
+        eng = Engine(params, cfg, family_for("llama"),
+                     EngineConfig(n_slots=2, max_seq=128, prefill_buckets=(32, 128),
+                                  kernels=kernels, **kw), device=dev)
+        if kv == "bf16_pages":
+            eng.start_chunked_prefill(0, prompt)
+            while eng.prefill_chunk_step(0) is None:
+                pass
+        else:
+            eng.prefill(0, prompt)
+        logits.append(eng._prefill_logits[0].float().cpu())
+        nll.append(eng.forced_decode_nll(0, forced))
+    assert counters() > before
+    assert (logits[0] - logits[1]).abs().max() <= 1e-3 * logits[1].abs().max()
+    assert abs(nll[0] - nll[1]) <= 2e-3 * abs(nll[1])
 
 
 def _lowbit_layer(ic, oc, low_bits, dev, seed=7):
@@ -259,24 +418,31 @@ def test_auto_attention_raises_for_a_head_dim_the_kernel_cannot_take(cuda):
         tattn.full_causal_attention(q, q, q, 0.0625)
 
 
-def _paged_pool(n_pages, hkv, ps, d, quantized, g):
+def _paged_pool(n_pages, hkv, ps, d, kind, g):
+    """(k, v, k scales, v scales) pages of ``kind`` "int8", "f32" or "bf16"."""
     kv = [torch.randn((n_pages + 1, hkv, ps, d), generator=g, device=g.device) for _ in range(2)]
-    if not quantized:
-        return kv[0], kv[1], None, None
+    if kind != "int8":
+        dt = torch.bfloat16 if kind == "bf16" else torch.float32
+        return kv[0].to(dt), kv[1].to(dt), None, None
     (k, ks), (v, vs) = _quant(kv[0]), _quant(kv[1])
     return k, v, ks[..., 0].contiguous(), vs[..., 0].contiguous()
 
 
 PAGED_CASES = {
-    # name: (B, t, Hq, Hkv, D, page, n_pages, maxp, bases, quantized)
-    "decode_int8": (8, 1, 32, 32, 128, 16, 1024, 128, "len<=512", True),
-    "decode_f32": (8, 1, 32, 32, 128, 16, 1024, 128, "len<=512", False),
-    "verify_t5_int8": (8, 5, 32, 32, 128, 16, 1024, 128, "len<=512", True),
-    "chunk_t256_int8": (2, 256, 32, 32, 128, 16, 1024, 128, (1024, 512), True),
-    "gqa_decode_int8": (8, 1, 32, 8, 128, 16, 1024, 128, "len<=512", True),
-    "empty_slot_t1": (3, 1, 4, 4, 64, 16, 40, 8, (-1, 0, 70), True),
-    "t17_gqa4_page8": (3, 17, 8, 2, 64, 8, 60, 16, (0, 9, 100), True),
-    "t17_f32_page8": (2, 17, 4, 1, 32, 8, 30, 12, (3, 50), False),
+    # name: (B, t, Hq, Hkv, D, page, n_pages, maxp, bases, pages)
+    "decode_int8": (8, 1, 32, 32, 128, 16, 1024, 128, "len<=512", "int8"),
+    "decode_f32": (8, 1, 32, 32, 128, 16, 1024, 128, "len<=512", "f32"),
+    "verify_t5_int8": (8, 5, 32, 32, 128, 16, 1024, 128, "len<=512", "int8"),
+    "chunk_t256_int8": (2, 256, 32, 32, 128, 16, 1024, 128, (1024, 512), "int8"),
+    "gqa_decode_int8": (8, 1, 32, 8, 128, 16, 1024, 128, "len<=512", "int8"),
+    "empty_slot_t1": (3, 1, 4, 4, 64, 16, 40, 8, (-1, 0, 70), "int8"),
+    "t17_gqa4_page8": (3, 17, 8, 2, 64, 8, 60, 16, (0, 9, 100), "int8"),
+    "t17_f32_page8": (2, 17, 4, 1, 32, 8, 30, 12, (3, 50), "f32"),
+    "decode_bf16": (8, 1, 32, 32, 128, 16, 1024, 128, "len<=512", "bf16"),
+    "verify_t5_bf16": (8, 5, 32, 32, 128, 16, 1024, 128, "len<=512", "bf16"),
+    "chunk_t256_bf16": (2, 256, 32, 32, 128, 16, 1024, 128, (1024, 512), "bf16"),
+    "gqa_decode_bf16": (8, 1, 32, 8, 128, 16, 1024, 128, "len<=512", "bf16"),
+    "t5_gqa4_bf16_page8_d40": (3, 5, 8, 2, 40, 8, 60, 16, (2, 9, 100), "bf16"),
 }
 
 
@@ -288,9 +454,9 @@ def test_paged_attention_kernel_matches_plain(cuda, name):
     pages of 8; shuffled tables over pools whose other pages hold NaN."""
     from pb_llm_tpu_torch.ops import paged_attention as tpa
 
-    b, t, hq, hkv, d, ps, n_pages, maxp, bases, quantized = PAGED_CASES[name]
+    b, t, hq, hkv, d, ps, n_pages, maxp, bases, kind = PAGED_CASES[name]
     g = torch.Generator(device=cuda).manual_seed(len(name))
-    kp, vp, ks, vs = _paged_pool(n_pages, hkv, ps, d, quantized, g)
+    kp, vp, ks, vs = _paged_pool(n_pages, hkv, ps, d, kind, g)
     table = torch.randperm(n_pages, generator=g, device=cuda)[: b * maxp].reshape(b, maxp)
     if bases == "len<=512":
         base = torch.randint(0, 512 - t + 1, (b,), generator=g, device=cuda)
@@ -301,13 +467,14 @@ def test_paged_attention_kernel_matches_plain(cuda, name):
     used = table[:, : -(-limit // ps)].reshape(-1)
     unused = torch.ones(n_pages + 1, dtype=torch.bool, device=cuda)
     unused[used] = False
-    if not quantized:  # no key past a limit is read: poison the others
+    if kind != "int8":  # no key past a limit is read: poison the others
         kp[unused], vp[unused] = float("nan"), float("nan")
     q = torch.randn((b, t, hq, d), generator=g, device=cuda)
-    before = (tpa.launches, tpa.multi_launches)
+    before = (tpa.launches, tpa.multi_launches, tpa.bf16_launches)
     got = tpa.paged_attention_multi(q, kp, vp, table.to(torch.int32), base, d ** -0.5, ps, ks, vs)
     torch.cuda.synchronize()
-    assert (tpa.launches, tpa.multi_launches) == (before[0] + 1, before[1] + 1)
+    assert (tpa.launches, tpa.multi_launches, tpa.bf16_launches) == (
+        before[0] + 1, before[1] + 1, before[2] + (kind == "bf16"))
     want = tpa.paged_attention_plain(q, kp, vp, table, base, d ** -0.5, ps, ks, vs)
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
@@ -327,7 +494,7 @@ def test_paged_attention_cuda_tensor_never_takes_the_plain_version(cuda, monkeyp
 
     monkeypatch.setattr(tpa, "paged_attention_plain", refuse)
     g = torch.Generator(device=cuda).manual_seed(0)
-    kp, vp, ks, vs = _paged_pool(8, 2, 16, 64, True, g)
+    kp, vp, ks, vs = _paged_pool(8, 2, 16, 64, "int8", g)
     table = torch.arange(8, device=cuda, dtype=torch.int32).reshape(2, 4)
     before = tpa.decode_launches
     out = tpa.paged_attention(torch.randn((2, 4, 64), device=cuda), kp, vp, table,
@@ -343,7 +510,7 @@ def test_paged_attention_kernel_refuses_what_it_cannot_take(cuda, bad):
 
     g = torch.Generator(device=cuda).manual_seed(1)
     d = 24 if bad == "head_dim" else 64  # int8 rows load 16 bytes at a time
-    kp, vp, ks, vs = _paged_pool(8, 2, 16, d, True, g)
+    kp, vp, ks, vs = _paged_pool(8, 2, 16, d, "int8", g)
     table = torch.arange(8, device=cuda, dtype=torch.int32).reshape(2, 4)
     q = torch.randn((2, 1, 4, d), device=cuda)
     if bad == "f16_pages":

@@ -78,11 +78,18 @@ def test_empty_slots_and_partial_windows():
 
 
 def test_q_int8_arm_not_ported():
+    """q_int8 over int8 strips runs the q8 arm now (it no longer raises) and
+    agrees with JAX's q8 kernel on this small input, at JAX's q8 bound
+    (tests/test_torch_kv_arms.py holds the arm at the JAX tests' shapes)."""
     q, k, v = _mk(1, 8, 2, 2, 32)
     ki, ks = _quant(k)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tda.decode_attention(T(q), T(ki), T(ki), T(np.array([3], np.int32)), 0.1,
-                             k_scale=T(ks), v_scale=T(ks), q_int8=True)
+    lengths = np.array([3], np.int32)
+    got = tda.decode_attention(T(q), T(ki), T(ki), T(lengths), 0.1,
+                               k_scale=T(ks), v_scale=T(ks), q_int8=True).numpy()
+    want = np.asarray(jax_decode_attention(
+        jnp.asarray(q), jnp.asarray(ki), jnp.asarray(ki), jnp.asarray(lengths), 0.1,
+        k_scale=jnp.asarray(ks), v_scale=jnp.asarray(ks), q_int8=True, interpret=True))
+    np.testing.assert_allclose(got, want, atol=5e-2)
 
 
 @pytest.mark.parametrize("quantized", [False, True])
