@@ -17,17 +17,21 @@ raises and the exit code is not 0:
    (`bound_ms`): the int8 matmul and decode attention (serving; its int8,
    bf16 and q8 arms), the binary-part dequant, the exact f32 matmul and flash attention (the
    producer and the exact arms), paged attention (the paged pool: decode,
-   speculative verify, chunk continuation, GQA; int8, f32 and bf16 pages),
-   the PBW-v1 planar and
-   select matmuls (OPT-1.3B's and llama-7b's MLP shapes);
+   speculative verify, chunk continuation, GQA; int8, f32 and bf16 pages;
+   windows on the tensor-core arm, timed beside the CUDA-core arm), the
+   PBW-v1 planar and select matmuls (OPT-1.3B's and llama-7b's MLP
+   shapes), and the int8 path's x preparation, bit for bit;
 3. the same 2-layer full-width llama-7b engine on the card (kernels) and on
    the CPU (the kernels' plain versions): prefill logits, teacher-forced
    NLL and 8 greedy tokens; once on the int8 arms, once on the exact arms
    (`serve --decode_dot f32 --prefill_kernel hybrid`), whose f32 matmul
    launches are counted;
 4. end to end, serving: a 32-layer full-width random PBW-v2 llama-7b
-   serving 16 requests through `ContinuousBatcher`; the launch counters are
-   zeroed just before and read just after, and must match the forwards run;
+   serving 16 requests through `ContinuousBatcher`, twice on one engine:
+   under `step_graph.eager()` (the decode step op by op), then graphed (the
+   default: one CUDA graph replayed a step); the launch counters are zeroed
+   just before each pass and read just after, and must match the forwards
+   run;
 5. end to end, the producer: a 2-layer full-width llama-7b calibrated by
    GPTQ-PB into PBW v2 on synthetic text, then its windowed perplexity under
    the exact hybrid prefill, with the kernels and with their plain versions
@@ -70,7 +74,19 @@ raises and the exit code is not 0:
    (every other one streamed as NDJSON), once for each engine of 10a (the
    pages with prefill_chunk 256); every request must retire with its
    tokens, a stream must equal its output_ids, /health and /stats must
-   answer, and every launch counter must match the forwards run.
+   answer, and every launch counter must match the forwards run;
+11a. the graphed decode step against `step_graph.eager()` on a 2-layer
+   full-width llama-7b, in eight engines (int8 strips; scan_layers;
+   fuse_linears + pair; dma; pallas_q8; bf16 strips; int8 and bf16 pages
+   with the prefix cache): 18 decode steps with slots admitted and released
+   between them, equal greedy tokens, bitwise-equal logits, equal launches;
+11b. paged windows on the tensor cores, card against CPU on 2 full-width
+   layers over int8 and bf16 pages with prefill_chunk 64 and the prefix
+   cache: on the exact matmul arms greedy tokens equal; on the int8 arms
+   the card teacher-forced on the CPU's tokens within phase 10a's bound at
+   every step, and each window arm's greedy stream logged where it parts.
+
+Phases 6b, 7b, 9b and 10b serve graphed: the default on the card.
 
 Phase 2 also holds the pair, dma and stacked int8 / f32 kernels (phase 9's
 paths) at llama-7b's shapes.
@@ -82,6 +98,7 @@ The last two lines are the `kernels` JSON line and
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import gc
 import json
@@ -137,7 +154,18 @@ PAGED_CASES = (  # name, B, t, Hq, Hkv, D, pages, largest base
     ("verify_t5_bf16", 8, 5, 32, 32, 128, "bf16", 507),
     ("chunk_t256_bf16", 4, 256, 32, 32, 128, "bf16", 1024),
     ("decode_gqa_bf16", 8, 1, 32, 8, 128, "bf16", 511),
+    ("verify_t5_gqa_int8", 8, 5, 32, 8, 128, "int8", 507),
+    ("verify_t5_gqa_bf16", 8, 5, 32, 8, 128, "bf16", 507),
+    ("chunk_t256_gqa_int8", 4, 256, 32, 8, 128, "int8", 1024),
+    ("chunk_t256_gqa_bf16", 4, 256, 32, 8, 128, "bf16", 1024),
 )
+# the window arm on the tensor cores (t > 1, int8 and bf16 pages) against
+# the plain version: the JAX oracle's bound (tests/test_torch_paged_attention.py)
+WINDOW_RTOL = WINDOW_ATOL = 2e-5
+WINDOW_TERMS = 2  # bf16 terms of q and of p: each product runs as two mma
+# phase 2, the x preparation of the int8 path: m as in MATMUL_MS, llama-7b's
+# two MLP shapes and a fused q|k|v layer (3 row groups)
+PREP_SHAPES = ((4096, 11008, 1), (11008, 4096, 1), (4096, 4096, 3))
 # phase 6a: 8 requests of 16 new tokens per run, pages of 16, f32 pages,
 # the exact matmul arms: under the int8 arms a 1e-7 difference in attention
 # can flip the int8 rounding of an activation and move the logits by up to
@@ -273,6 +301,65 @@ def check_matmul(timer: Timer, card: str):
             log(json.dumps(row))
             rows.append(row)
         del p, wb
+    return rows
+
+
+def check_prep(timer: Timer, card: str):
+    """The int8 path's x preparation (`csrc/pb_prep_int8.cu`) against the
+    eager `prepare_int8_plain`: codes and scales bit for bit, the row sums
+    within `packed_matmul.sum_bound` (``sum_err_over_bound``, the largest
+    ratio of a sum's difference to its bound).  ``plain_ms`` is
+    the plain sequence's device time; ``*_wall_ms`` the host's wall time of
+    a call (device synchronised after 20), which is what the eager sequence
+    costs a step.  No single PyTorch call computes it: library_ms is null."""
+    from pb_llm_tpu_torch.core.pbw import gather_x_v2, merge_packed_linears_v2
+    from pb_llm_tpu_torch.data.synthetic import random_packed_v2
+    from pb_llm_tpu_torch.ops import packed_matmul as pm
+
+    def wall_ms(fn, iters=20):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3 / iters
+
+    gen = torch.Generator(device=DEV).manual_seed(22)
+    rows = []
+    for ic, oc, parts in PREP_SHAPES:
+        ps = [random_packed_v2(ic, oc, gen, low_frac=0.9) for _ in range(parts)]
+        p = ps[0] if parts == 1 else merge_packed_linears_v2(ps)
+        for m in MATMUL_MS:
+            x = torch.randn((m, ic), generator=gen, device=DEV)
+            got = pm.prepare_int8(x, p)
+            torch.cuda.synchronize()
+            want = pm.prepare_int8_plain(x, p)
+            differ = [f for f in ("x8", "sx", "xg8")
+                      if not torch.equal(getattr(got, f), getattr(want, f))]
+            xg = gather_x_v2(x, p).permute(2, 0, 1)
+            abs_err = max((got.rs - want.rs).abs().max().item(),
+                          (got.rsg - want.rsg).abs().max().item())
+            sum_err = max(((got.rs - want.rs).abs() / pm.sum_bound(x, 1)).max().item(),
+                          ((got.rsg - want.rsg).abs() / pm.sum_bound(xg, 2)).max().item())
+            if differ or not sum_err <= 1.0:
+                raise AssertionError(f"pb_prep_int8 m={m} {ic}x{p.oc}: {differ} differ from the "
+                                     f"plain version; sums at {sum_err} of their bound")
+            n_rg, k_pad = p.n_row_groups, p.k_pad
+            nbytes = 4 * m * ic + m * ic + 4 * p.side_idx.numel() + n_rg * m * k_pad + 4 * m * (
+                2 + n_rg)
+            bound_ms, bound_by = bound(nbytes, 4 * m * (ic + n_rg * k_pad), F32_FLOPS_PER_S)
+            xf = x.contiguous()
+            row = {"kernel": "pb_prep_int8", "m": m, "ic": ic, "oc": p.oc, "row_groups": n_rg,
+                   "k_pad": k_pad, "max_abs_err": abs_err, "sum_err_over_bound": sum_err,
+                   "kernel_ms": timer(lambda: pm.launch_prep_int8(xf, p)),
+                   "plain_ms": timer(lambda: pm.prepare_int8_plain(x, p), iters=5),
+                   "kernel_wall_ms": wall_ms(lambda: pm.prepare_int8(x, p)),
+                   "plain_wall_ms": wall_ms(lambda: pm.prepare_int8_plain(x, p)),
+                   "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by, "card": card}
+            log(json.dumps(row))
+            rows.append(row)
+        del ps, p
     return rows
 
 
@@ -485,7 +572,17 @@ def check_paged_attention(timer: Timer, card: str):
         if not (torch.isfinite(got).all() and torch.all(err <= ATTN_ATOL + ATTN_RTOL * want.abs())):
             raise AssertionError(f"paged_attention {name}: max|err| {err.max().item()} beyond "
                                  f"rtol {ATTN_RTOL} atol {ATTN_ATOL}")
+        arm = tpa.window_arm(t, k.dtype)
+        both = t > 1 and kind != "f32"  # windows the tensor-core arm takes: time both arms
         qs, bs = (q * scale).contiguous(), base.to(torch.int32)
+        arm_err = {}
+        for a in (tpa.TENSOR_CORES, tpa.CUDA_CORES) if both else ():
+            e = (tpa.launch(qs, k, v, table, bs, ks, vs, _arm_for_timing=a) - want).abs()
+            arm_err[a] = e.max().item()
+            if a == tpa.TENSOR_CORES and not torch.all(e <= WINDOW_ATOL + WINDOW_RTOL * want.abs()):
+                raise AssertionError(f"paged_attention {name} (tensor cores): max|err| "
+                                     f"{arm_err[a]} beyond rtol {WINDOW_RTOL} atol {WINDOW_ATOL}")
+            del e
 
         n = -(-int((base + t).max()) // ps)
         idx = table[:, :n].long()
@@ -505,10 +602,15 @@ def check_paged_attention(timer: Timer, card: str):
         live = int((base + t).sum())           # keys read per kv head
         row_bytes = {"int8": 2 * d + 8, "bf16": 4 * d, "f32": 8 * d}[kind]
         nbytes = 4 * 2 * b * t * hq * d + live * hkv * row_bytes + 4 * (b * n + b)
-        bound_ms, bound_by = bound(nbytes, 4 * d * hq * pairs, F32_FLOPS_PER_S)
+        # q.k and p.v: 4*D operations a (row, allowed key) per q head; on the
+        # tensor cores each product runs once per bf16 term
+        bounds = {tpa.CUDA_CORES: bound(nbytes, 4 * d * hq * pairs, F32_FLOPS_PER_S),
+                  tpa.TENSOR_CORES: bound(nbytes, WINDOW_TERMS * 4 * d * hq * pairs,
+                                          BF16_FLOPS_PER_S)}
+        bound_ms, bound_by = bounds[arm]
         plain_iters = 3 if t > 8 else 5
-        row = {"kernel": "paged_attention", "case": name, "B": b, "t": t, "Hq": hq, "Hkv": hkv,
-               "D": d, "page": ps, "pages": n_pages + 1, "kv": kind,
+        row = {"kernel": "paged_attention", "case": name, "arm": arm, "B": b, "t": t, "Hq": hq,
+               "Hkv": hkv, "D": d, "page": ps, "pages": n_pages + 1, "kv": kind,
                "bases": base.tolist(), "max_abs_err": err.max().item(),
                "kernel_ms": timer(lambda: tpa.launch(qs, k, v, table, bs, ks, vs, decode=t == 1)),
                "wrapper_ms": timer(lambda: tpa.paged_attention_multi(q, k, v, table, base, scale,
@@ -518,6 +620,11 @@ def check_paged_attention(timer: Timer, card: str):
                "library_ms": timer(lambda: sdpa(qd, kd, vd, attn_mask=mask, scale=scale,
                                                 enable_gqa=hq != hkv)),
                "bound_ms": bound_ms, "bound_by": bound_by, "card": card}
+        for a, e in arm_err.items():  # both arms on the same inputs, in the same call
+            row[f"{a}_max_abs_err"] = e
+            row[f"{a}_ms"] = timer(lambda: tpa.launch(qs, k, v, table, bs, ks, vs,
+                                                        _arm_for_timing=a))
+            row[f"{a}_bound_ms"], row[f"{a}_bound_by"] = bounds[a]
         log(json.dumps(row))
         rows.append(row)
         del k, v, ks, vs, kd, vd, got, want, err
@@ -783,6 +890,31 @@ def packed_bytes(p) -> int:
                 p.high_scale, p.high_zero))
 
 
+def count_forwards(eng, on_forward):
+    """Route each forward of ``eng`` through ``on_forward(kind, rows, caches,
+    pos, logits)``: ``_forward`` runs prefills, chunk and prefix-suffix
+    windows and speculative verifies, ``_step_logits`` the decode steps
+    (graphed or eager).  Returns a function that restores the methods."""
+    fwd, step = eng._forward, eng._step_logits
+
+    def counted_forward(ids, caches, pos):
+        logits = fwd(ids, caches, pos)
+        on_forward(None, int(np.asarray(ids).size), caches, pos, logits)
+        return logits
+
+    def counted_step():
+        logits = step()
+        on_forward("decode", eng.ecfg.n_slots, None, None, logits)
+        return logits
+
+    eng._forward, eng._step_logits = counted_forward, counted_step
+
+    def restore():
+        del eng._forward, eng._step_logits  # the class's methods again
+
+    return restore
+
+
 def run_counted(eng, reqs):
     """Serve ``reqs`` through `ContinuousBatcher` on ``eng`` after one short
     warm-up request (the first forward initialises cuBLAS and the
@@ -797,15 +929,12 @@ def run_counted(eng, reqs):
     ContinuousBatcher(eng).run([Request(request_id=-1, prompt_ids=[1, 2, 3], max_new_tokens=2)])
     forwards, step_ms, kv_rows = [], [], []
     finite = torch.ones((), dtype=torch.bool, device=DEV)
-    fwd, step = eng._forward, eng.decode_step
+    step = eng.decode_step
 
-    def counted_forward(ids, caches, pos):
+    def on_forward(kind, rows, caches, pos, logits):
         nonlocal finite
-        forwards.append(("decode" if isinstance(pos, torch.Tensor) else "prefill",
-                         int(np.asarray(ids).size)))
-        logits = fwd(ids, caches, pos)
+        forwards.append((kind or "prefill", rows))
         finite = finite & torch.isfinite(logits).all()
-        return logits
 
     def timed_step():
         kv_rows.append(int(eng.lengths.sum()) + eng.ecfg.n_slots)
@@ -816,13 +945,15 @@ def run_counted(eng, reqs):
         step_ms.append((time.perf_counter() - t) * 1e3)
         return out
 
-    eng._forward, eng.decode_step = counted_forward, timed_step
+    restore = count_forwards(eng, on_forward)
+    eng.decode_step = timed_step
     batcher = ContinuousBatcher(eng)
     zero_counters()
     batcher.run(reqs)
     torch.cuda.synchronize()
     launches = read_counters()
-    eng._forward, eng.decode_step = fwd, step
+    restore()
+    del eng.decode_step
     if not bool(finite):
         raise AssertionError("e2e: non-finite logits")
     if not all(r.done and len(r.output_ids) == r.max_new_tokens for r in reqs):
@@ -841,8 +972,28 @@ def e2e_requests(vocab: int):
             for i in range(16)]
 
 
+def replay_ms(eng, iters: int = 20) -> float:
+    """Median device time of one replay of ``eng``'s decode-step graph (CUDA
+    events; the step's inputs as the last step left them)."""
+    g = eng._step.graph
+    g.replay()
+    pairs = []
+    for _ in range(iters):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        g.replay()
+        e1.record()
+        pairs.append((e0, e1))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+
 def serve_e2e(params, build_s: float, card: str, profile: bool):
+    """Phase 4: the same engine serves the same 16 requests twice, first
+    under `step_graph.eager()` (the decode step op by op), then graphed
+    (the default on the card).  Returns the graphed pass's row."""
     from pb_llm_tpu_torch.models.registry import family_for
+    from pb_llm_tpu_torch.runtime import step_graph
     from pb_llm_tpu_torch.runtime.engine import Engine, EngineConfig
 
     cfg = llama7b(32)
@@ -853,61 +1004,84 @@ def serve_e2e(params, build_s: float, card: str, profile: bool):
                       if hasattr(v, "sign_packed"))
     head_bytes = params["lm_head"]["w"].numel() * 4
     assert eng.cache_dtype == torch.int8 and n_linear == 7 * cfg.num_hidden_layers
-
-    reqs = e2e_requests(cfg.vocab_size)
-    batcher, launches, fwds, step_ms, kv_rows = run_counted(eng, reqs)
-    forwards = {kind: sum(k == kind for k, _ in fwds) for kind in ("prefill", "decode")}
-    mm, att = launches["pb_int8_matmul"], launches["decode_attention"]
-    if mm != n_linear * (forwards["prefill"] + forwards["decode"]) or mm == 0:
-        raise AssertionError(f"e2e: {mm} matmul launches for {forwards} forwards")
-    if att != cfg.num_hidden_layers * forwards["decode"] or att == 0:
-        raise AssertionError(f"e2e: {att} attention launches for {forwards} forwards")
-    if launches != expect_launches(pb_int8_matmul=mm, decode_attention=att):
-        raise AssertionError(f"e2e: the strip serving defaults launched another kernel: {launches}")
-
     kv_row_bytes = cfg.num_hidden_layers * cfg.kv_heads * (2 * cfg.head_dim + 8)
-    mean_rows = statistics.mean(kv_rows)
-    s = batcher.stats
-    row = {"phase": "e2e", "model": "llama-7b PBW-v2 (random planes, low_frac 0.9)",
-           "layers": cfg.num_hidden_layers, "slots": 8, "max_seq": 2048, "requests": len(reqs),
-           "generated_tokens": s.generated_tokens, "wall_s": s.wall_seconds,
-           "tokens_per_s": s.tokens_per_second, "decode_steps": len(step_ms),
-           "ms_per_decode_step_median": statistics.median(step_ms),
-           "ms_per_decode_step_mean": statistics.mean(step_ms),
-           "prefill_forwards": forwards["prefill"], "decode_forwards": forwards["decode"],
-           "matmul_launches": mm, "attention_launches": att,
-           "matmul_launches_per_decode_step": n_linear, "attention_launches_per_decode_step":
-           cfg.num_hidden_layers, "packed_plane_bytes": plane_bytes, "lm_head_bytes": head_bytes,
-           "mean_kv_rows_per_step": mean_rows,
-           "decode_step_bound_ms": (plane_bytes + head_bytes + mean_rows * kv_row_bytes)
-           / HBM_BYTES_PER_S * 1e3,
-           "build_s": build_s, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-           "card": card}
-    log(json.dumps(row))
+
+    rows = {}
+    for mode in ("eager", "graph"):
+        reqs = e2e_requests(cfg.vocab_size)
+        with step_graph.eager() if mode == "eager" else contextlib.nullcontext():
+            batcher, launches, fwds, step_ms, kv_rows = run_counted(eng, reqs)
+        forwards = {kind: sum(k == kind for k, _ in fwds) for kind in ("prefill", "decode")}
+        mm, att = launches["pb_int8_matmul"], launches["decode_attention"]
+        if mm != n_linear * (forwards["prefill"] + forwards["decode"]) or mm == 0:
+            raise AssertionError(f"e2e ({mode}): {mm} matmul launches for {forwards} forwards")
+        if att != cfg.num_hidden_layers * forwards["decode"] or att == 0:
+            raise AssertionError(f"e2e ({mode}): {att} attention launches for {forwards} forwards")
+        if launches != expect_launches(pb_int8_matmul=mm, pb_prep_int8=mm, decode_attention=att):
+            raise AssertionError(f"e2e ({mode}): the strip serving defaults launched another "
+                                 f"kernel: {launches}")
+        mean_rows = statistics.mean(kv_rows)
+        s = batcher.stats
+        row = {"phase": "e2e", "mode": mode,
+               "model": "llama-7b PBW-v2 (random planes, low_frac 0.9)",
+               "layers": cfg.num_hidden_layers, "slots": 8, "max_seq": 2048,
+               "requests": len(reqs), "generated_tokens": s.generated_tokens,
+               "wall_s": s.wall_seconds, "tokens_per_s": s.tokens_per_second,
+               "decode_steps": len(step_ms), "ms_per_decode_step_median": statistics.median(step_ms),
+               "ms_per_decode_step_mean": statistics.mean(step_ms),
+               "prefill_forwards": forwards["prefill"], "decode_forwards": forwards["decode"],
+               "matmul_launches": mm, "prep_launches": launches["pb_prep_int8"],
+               "attention_launches": att, "matmul_launches_per_decode_step": n_linear,
+               "attention_launches_per_decode_step": cfg.num_hidden_layers,
+               "packed_plane_bytes": plane_bytes, "lm_head_bytes": head_bytes,
+               "mean_kv_rows_per_step": mean_rows,
+               "decode_step_bound_ms": (plane_bytes + head_bytes + mean_rows * kv_row_bytes)
+               / HBM_BYTES_PER_S * 1e3,
+               "graph_replays": eng._step.replays, "build_s": build_s,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card}
+        if mode == "graph":
+            row["graph_replay_device_ms"] = replay_ms(eng)
+            row["graph_idle_share"] = 1 - row["graph_replay_device_ms"] / row[
+                "ms_per_decode_step_median"]
+            row["tokens_per_s_over_eager"] = row["tokens_per_s"] / rows["eager"]["tokens_per_s"]
+            row["step_median_over_eager"] = (row["ms_per_decode_step_median"]
+                                             / rows["eager"]["ms_per_decode_step_median"])
+        log(json.dumps(row))
+        rows[mode] = row
+    if rows["graph"]["graph_replays"] == 0:
+        raise AssertionError("e2e: the graphed pass replayed no graph")
     if profile:
-        profile_decode(eng)
-    return row
+        for mode in ("eager", "graph"):
+            profile_decode(eng, mode)
+    return rows["graph"]
 
 
-def profile_decode(eng) -> None:
-    """Device time by kernel over three decode steps of the full pool, and
-    the share of an unprofiled step the device sits idle."""
+def profile_decode(eng, mode: str) -> None:
+    """Device time by kernel over three decode steps of the full pool
+    (`torch.profiler`), and the share of an unprofiled step the device sits
+    idle; ``mode`` "eager" runs the steps under `step_graph.eager()`.  For
+    the graph, the replay's device time (CUDA events) stands beside the
+    trace's sum."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
 
-    for slot in range(eng.ecfg.n_slots):
-        eng.prefill(slot, list(range(1, 101)))
-    eng.decode_step()
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(3):
+    from pb_llm_tpu_torch.runtime import step_graph
+
+    with step_graph.eager() if mode == "eager" else contextlib.nullcontext():
+        for slot in range(eng.ecfg.n_slots):
+            eng.prefill(slot, list(range(1, 101)))
         eng.decode_step()
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t) * 1e3 / 3
-    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        eng.decode_step()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
         for _ in range(3):
             eng.decode_step()
         torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t) * 1e3 / 3
+        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                eng.decode_step()
+            torch.cuda.synchronize()
     by_name = {}
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:  # kernels and copies on the card
@@ -915,11 +1089,17 @@ def profile_decode(eng) -> None:
             by_name[ev.name] = (us + ev.time_range.elapsed_us(), n + 1)
     busy_ms = sum(us for us, _ in by_name.values()) / 1e3 / 3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    log(json.dumps({"phase": "profile", "steps": 3, "ctx": 100, "step_ms": step_ms,
-                    "device_busy_ms_per_step": busy_ms if busy_ms else "not measured",
-                    "device_idle_share": (1 - busy_ms / step_ms) if busy_ms else "not measured",
-                    "top": [{"name": k[:80], "device_ms_per_step": us / 3e3, "launches_per_step": c / 3}
-                            for k, (us, c) in top]}))
+    row = {"phase": "profile", "mode": mode, "steps": 3, "ctx": 100, "step_ms": step_ms,
+           "device_busy_ms_per_step": busy_ms if busy_ms else "not measured",
+           "device_idle_share": (1 - busy_ms / step_ms) if busy_ms else "not measured",
+           "top": [{"name": k[:80], "device_ms_per_step": us / 3e3, "launches_per_step": c / 3}
+                   for k, (us, c) in top]}
+    if mode == "graph":
+        row["graph_replay_device_ms"] = replay_ms(eng)
+        row["idle_share_from_replay"] = 1 - row["graph_replay_device_ms"] / step_ms
+    log(json.dumps(row))
+    for slot in range(eng.ecfg.n_slots):
+        eng.release(slot)
 
 
 # ---------------------------------------------------------------------------
@@ -927,39 +1107,16 @@ def profile_decode(eng) -> None:
 # ---------------------------------------------------------------------------
 
 def zero_counters() -> None:
-    from pb_llm_tpu_torch.ops import decode_arms as arms
-    from pb_llm_tpu_torch.ops import decode_attention as da
-    from pb_llm_tpu_torch.ops import flash_attention as fa
-    from pb_llm_tpu_torch.ops import packed_matmul as pm
-    from pb_llm_tpu_torch.ops import packed_matmul_v1 as v1
-    from pb_llm_tpu_torch.ops import paged_attention as pa
-    from pb_llm_tpu_torch.ops import prefill as pf
+    from pb_llm_tpu_torch.ops import counters
 
-    pm.launches = pm.f32_launches = da.launches = pf.launches = fa.launches = 0
-    da.q8_launches = da.bf16_launches = 0
-    pa.launches = pa.decode_launches = pa.multi_launches = pa.bf16_launches = 0
-    v1.planar_launches = v1.select_launches = 0
-    pm.stacked_launches = pm.stacked_f32_launches = arms.pair_launches = arms.dma_launches = 0
+    counters.zero()
 
 
 def read_counters() -> dict:
-    from pb_llm_tpu_torch.ops import decode_arms as arms
-    from pb_llm_tpu_torch.ops import decode_attention as da
-    from pb_llm_tpu_torch.ops import flash_attention as fa
-    from pb_llm_tpu_torch.ops import packed_matmul as pm
-    from pb_llm_tpu_torch.ops import packed_matmul_v1 as v1
-    from pb_llm_tpu_torch.ops import paged_attention as pa
-    from pb_llm_tpu_torch.ops import prefill as pf
+    """Every kernel's launches by kind (`ops.counters.KERNELS`)."""
+    from pb_llm_tpu_torch.ops import counters
 
-    return {"pb_int8_matmul": pm.launches, "decode_attention": da.launches,
-            "pb_dequant_v2": pf.launches, "pb_f32_matmul": pm.f32_launches,
-            "flash_attention": fa.launches, "paged_attention_decode": pa.decode_launches,
-            "paged_attention_multi": pa.multi_launches, "pb_planar_v1": v1.planar_launches,
-            "pb_select_v1": v1.select_launches, "pb_pair_v2": arms.pair_launches,
-            "pb_dma_v2": arms.dma_launches, "pb_int8_matmul_stacked": pm.stacked_launches,
-            "pb_f32_matmul_stacked": pm.stacked_f32_launches,
-            "decode_attention_q8": da.q8_launches, "decode_attention_bf16": da.bf16_launches,
-            "paged_attention_bf16": pa.bf16_launches}
+    return counters.read()
 
 
 def expect_launches(**counts) -> dict:
@@ -1260,21 +1417,17 @@ def paged_e2e(params, card: str):
         forwards = {"prefill": 0, "decode": 0, "verify": 0, "window": 0}
         finite = torch.ones((), dtype=torch.bool, device=DEV)
         step_ms, chunk_steps = [], [0]
-        fwd, dec, spec, chunk = (eng._forward, eng.decode_step, eng.spec_decode_step,
-                                 eng.prefill_chunk_step)
+        dec, spec, chunk = eng.decode_step, eng.spec_decode_step, eng.prefill_chunk_step
 
-        def counted_forward(ids, caches, pos):
+        def on_forward(kind, rows, caches, pos, logits):
             nonlocal finite
-            if "chunk_table" in caches[0]:
-                kind = "window"  # a chunk or a prefix-cache suffix
-            elif isinstance(pos, torch.Tensor):
-                kind = "decode" if np.asarray(ids).shape[1] == 1 else "verify"
-            else:
-                kind = "prefill"
+            if kind is None:
+                if "chunk_table" in caches[0]:
+                    kind = "window"  # a chunk or a prefix-cache suffix
+                else:
+                    kind = "verify" if isinstance(pos, torch.Tensor) else "prefill"
             forwards[kind] += 1
-            logits = fwd(ids, caches, pos)
             finite = finite & torch.isfinite(logits).all()
-            return logits
 
         def timed(fn):
             def run(*a):
@@ -1291,7 +1444,8 @@ def paged_e2e(params, card: str):
             chunk_steps[0] += 1
             return chunk(slot)
 
-        eng._forward, eng.prefill_chunk_step = counted_forward, counted_chunk
+        restore = count_forwards(eng, on_forward)
+        eng.prefill_chunk_step = counted_chunk
         eng.decode_step, eng.spec_decode_step = timed(dec), timed(spec)
         reqs = [Request(request_id=i, prompt_ids=p, max_new_tokens=E2E_NEW)
                 for i, p in enumerate(prompts)]
@@ -1319,15 +1473,17 @@ def paged_e2e(params, card: str):
                "preemptions": s.preemptions, "pool_bytes": pool_bytes, "launches": launches,
                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card}
         log(json.dumps(row))
-        eng._forward, eng.decode_step, eng.spec_decode_step = fwd, dec, spec
-        eng.prefill_chunk_step = chunk
+        restore()
+        del eng.decode_step, eng.spec_decode_step, eng.prefill_chunk_step
         if not bool(finite):
             raise AssertionError(f"paged e2e pass {row['pass']}: non-finite logits")
         if not all(r.done and len(r.output_ids) == E2E_NEW for r in reqs):
             raise AssertionError(f"paged e2e pass {row['pass']}: a request lacks its tokens")
+        windows = n_layers * (forwards["verify"] + forwards["window"])  # the tensor cores'
         want = expect_launches(
-            pb_int8_matmul=n_linear * n_fwd, paged_attention_decode=n_layers * forwards["decode"],
-            paged_attention_multi=n_layers * (forwards["verify"] + forwards["window"]))
+            pb_int8_matmul=n_linear * n_fwd, pb_prep_int8=n_linear * n_fwd,
+            paged_attention_decode=n_layers * forwards["decode"],
+            paged_attention_multi=windows, paged_attention_window=windows)
         if launches != want:
             raise AssertionError(f"paged e2e pass {row['pass']}: launches {launches}, "
                                  f"expected {want} for {forwards}")
@@ -1609,8 +1765,10 @@ def serve_scan_fuse_e2e(params, card: str):
         n_small = sum(m <= max_rows for _, m in fwds)
         n_decode = sum(kind == "decode" for kind, _ in fwds)
         n_lin = per_layer * n_layers
-        want = expect_launches(**{kernel: n_lin * n_small,
-                                  "pb_int8_matmul": n_lin * (len(fwds) - n_small),
+        n_int8 = len(fwds) - n_small  # forwards through the flat int8 kernel
+        n_prep = len(fwds) if kernel == "pb_int8_matmul_stacked" else n_int8
+        want = expect_launches(**{kernel: n_lin * n_small, "pb_int8_matmul": n_lin * n_int8,
+                                  "pb_prep_int8": n_lin * n_prep,
                                   "decode_attention": n_layers * n_decode})
         s = batcher.stats
         row = {"phase": "scan_fuse_e2e", "pass": name, "model": "llama-7b PBW-v2 (random planes, "
@@ -1798,18 +1956,15 @@ def serve_http_e2e(params, card: str, phase4: dict):
         forwards = {"prefill": 0, "decode": 0, "window": 0}
         finite = torch.ones((), dtype=torch.bool, device=DEV)
         step_ms = []
-        fwd, dec = eng._forward, eng.decode_step
+        dec = eng.decode_step
 
-        def counted_forward(ids, caches, pos):
+        def on_forward(kind, rows, caches, pos, logits):
             nonlocal finite
-            if isinstance(caches, list) and "chunk_table" in caches[0]:
-                kind = "window"  # a chunk or a prefix-cache suffix
-            else:
-                kind = "decode" if isinstance(pos, torch.Tensor) else "prefill"
+            if kind is None:  # a chunk or a prefix-cache suffix, or a prefill
+                kind = "window" if isinstance(caches, list) and "chunk_table" in caches[0] \
+                    else "prefill"
             forwards[kind] += 1
-            logits = fwd(ids, caches, pos)
             finite = finite & torch.isfinite(logits).all()
-            return logits
 
         def timed_step():
             torch.cuda.synchronize()
@@ -1819,7 +1974,8 @@ def serve_http_e2e(params, card: str, phase4: dict):
             step_ms.append((time.perf_counter() - t) * 1e3)
             return out
 
-        eng._forward, eng.decode_step = counted_forward, timed_step
+        restore = count_forwards(eng, on_forward)
+        eng.decode_step = timed_step
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         zero_counters()
@@ -1839,19 +1995,23 @@ def serve_http_e2e(params, card: str, phase4: dict):
             raise AssertionError(f"phase 10b ({name}): the scheduler thread did not stop")
         torch.cuda.synchronize()
         launches = read_counters()
-        del eng._forward, eng.decode_step  # the class's methods again
+        restore()
+        del eng.decode_step  # the class's method again
         direct.append(timed_direct(fresh_engine(), cfg.vocab_size))
         direct_ms = [statistics.median(ms) for _, ms in direct]
         received = sum(len(ids) for ids, _, _ in results)
         decode_fwd = forwards["decode"]
         if paged:
             want = expect_launches(pb_int8_matmul=n_linear * sum(forwards.values()),
+                                   pb_prep_int8=n_linear * sum(forwards.values()),
                                    paged_attention_decode=n_layers * decode_fwd,
                                    paged_attention_multi=n_layers * forwards["window"],
+                                   paged_attention_window=n_layers * forwards["window"],
                                    paged_attention_bf16=n_layers * (decode_fwd
                                                                     + forwards["window"]))
         else:
             want = expect_launches(pb_int8_matmul=n_linear * sum(forwards.values()),
+                                   pb_prep_int8=n_linear * sum(forwards.values()),
                                    decode_attention=n_layers * decode_fwd,
                                    **{counter: n_layers * decode_fwd})
         row = {"phase": "http_e2e", "pass": name, "model": "llama-7b PBW-v2 (random planes, "
@@ -1886,7 +2046,255 @@ def serve_http_e2e(params, card: str, phase4: dict):
             raise AssertionError(f"phase 10b ({name}): launches {launches}, expected {want} "
                                  f"for {forwards}")
         rows.append(row)
-        del eng, server, fwd, dec
+        del eng, server, dec, restore
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phases 11a and 11b: the decode step as one CUDA graph; the paged windows
+# ---------------------------------------------------------------------------
+
+# engine options and kernel-config options of each graph = eager pass
+GRAPH_PASSES = (
+    ("int8 strips", {}, {}),
+    ("scan_layers", dict(scan_layers=True), {}),
+    ("fuse_linears + pair", dict(fuse_linears=True), dict(decode_dot="pair")),
+    ("dma", {}, dict(decode_dot="dma")),
+    ("int8 strips + pallas_q8", {}, dict(decode_attention="pallas_q8")),
+    ("bf16 strips", dict(cache_dtype=torch.bfloat16), {}),
+    ("int8 pages + prefix cache", dict(page_size=16, prefix_cache=True), {}),
+    ("bf16 pages + prefix cache", dict(page_size=16, prefix_cache=True,
+                                       cache_dtype=torch.bfloat16), {}),
+)
+# (op, slot, prompt): 18 decode steps, slots admitted and released between
+GRAPH_PLAN = (("admit", 0, 0), ("admit", 1, 1), ("admit", 2, 2), ("steps", 6, None),
+              ("release", 1, None), ("admit", 1, 3), ("steps", 6, None), ("release", 0, None),
+              ("release", 2, None), ("admit", 3, 4), ("steps", 6, None))
+
+
+def graph_parity(params, card: str):
+    """Phase 11a on 2 full-width llama-7b layers, the int8 matmul arms:
+    each of GRAPH_PASSES twice on fresh engines, under `step_graph.eager()`
+    and graphed; GRAPH_PLAN admits and releases slots between decode steps
+    (prompts share a 32-token prefix: a prefix-cache hit over pages).  The
+    same greedy tokens, bitwise-equal logits of the active slots at every
+    decode step and the same launches by kind.  (An inactive slot's row is
+    not an output: over pages, every inactive slot writes its token into
+    the trash page at the same offset, and which duplicate write lands is
+    not fixed from run to run.)"""
+    from pb_llm_tpu_torch.interop import to_device
+    from pb_llm_tpu_torch.models.registry import family_for
+    from pb_llm_tpu_torch.ops.kernel_config import KernelConfig
+    from pb_llm_tpu_torch.runtime import step_graph
+    from pb_llm_tpu_torch.runtime.engine import Engine, EngineConfig
+
+    cfg = llama7b(2)
+    dparams = to_device(params, DEV)
+    rng = np.random.default_rng(21)
+    prefix = rng.integers(0, cfg.vocab_size, SHARED_PREFIX).tolist()
+    prompts = [prefix + rng.integers(0, cfg.vocab_size, n).tolist() for n in (8, 40, 20, 60, 30)]
+    rows = []
+    for name, ekw, kkw in GRAPH_PASSES:
+        runs = {}
+        for mode in ("eager", "graph"):
+            gc.collect()
+            eng = Engine(dparams, cfg, family_for("llama"),
+                         EngineConfig(n_slots=4, max_seq=256, prefill_buckets=(64, 256),
+                                      kernels=KernelConfig(**kkw), **ekw), device=DEV)
+            toks, logits = [], []
+
+            def on_forward(kind, rows_, caches, pos, lg, eng=eng):
+                if kind == "decode":  # the active slots' rows (see the docstring)
+                    logits.append(lg[torch.from_numpy(np.flatnonzero(eng.active)).to(DEV)])
+
+            restore = count_forwards(eng, on_forward)
+            zero_counters()
+            t0 = time.perf_counter()
+            with step_graph.eager() if mode == "eager" else contextlib.nullcontext():
+                for op, a, prompt in GRAPH_PLAN:
+                    if op == "admit":
+                        toks.append({a: eng.prefill(a, prompts[prompt])})
+                    elif op == "release":
+                        eng.release(a)
+                    else:
+                        toks += [eng.decode_step() for _ in range(a)]
+            torch.cuda.synchronize()
+            runs[mode] = (toks, logits, read_counters(), eng._step.replays,
+                          time.perf_counter() - t0)
+            restore()
+            del eng
+        (gt, gl, gla, grep, gs), (et, el, ela, erep, es) = runs["graph"], runs["eager"]
+        unequal = sum(not torch.equal(a, b) for a, b in zip(gl, el))
+        row = {"phase": "graph_parity", "pass": name, "layers": 2, "decode_steps": len(gl),
+               "tokens_equal": gt == et, "logit_steps_unequal": unequal,
+               "max_abs_logit_diff": max((a - b).abs().max().item() for a, b in zip(gl, el)),
+               "launches_equal": gla == ela, "graph_replays": grep, "graph_s": gs,
+               "eager_s": es, "launches": gla, "card": card}
+        log(json.dumps(row))
+        if len(gl) != len(el) or len(gl) < 16 or grep == 0 or erep != 0:
+            raise AssertionError(f"phase 11a ({name}): {len(gl)} / {len(el)} steps, "
+                                 f"{grep} / {erep} replays")
+        if gt != et or unequal or gla != ela:
+            raise AssertionError(f"phase 11a ({name}): graph and eager differ: {row}")
+        rows.append(row)
+    del dparams
+    torch.cuda.empty_cache()
+    return rows
+
+
+WINDOW_NEW = 6  # phase 11b: decode steps after each prompt
+
+
+def run_windows(params, cfg, dev, kernels, kind, prompts, forced=None):
+    """Phase 11b's engine: each prompt chunk-prefilled into its own slot
+    (pages of 16, prefill_chunk 64, the prefix cache), then WINDOW_NEW
+    decode steps; greedy, or with ``forced`` (the tokens of another run)
+    fed in teacher-forced.  Returns the argmax token and the logits of
+    every step (the prefill's and each decode step's), the launches by
+    kind and the prefix-hit pages."""
+    from pb_llm_tpu_torch.models.registry import family_for
+    from pb_llm_tpu_torch.runtime.engine import Engine, EngineConfig
+
+    eng = Engine(params, cfg, family_for("llama"),
+                 EngineConfig(n_slots=len(prompts), max_seq=256, prefill_buckets=(64, 256),
+                              page_size=16, prefix_cache=True, prefill_chunk=64,
+                              cache_dtype=kind, kernels=kernels), device=dev)
+    zero_counters()
+    steps, seen = [], []
+    step = eng._step_logits
+
+    def recorded():
+        out = step()
+        seen.append(out.float().cpu().clone())
+        return out
+
+    eng._step_logits = recorded
+    for slot, prompt in enumerate(prompts):
+        eng.start_chunked_prefill(slot, prompt)
+        while eng.prefill_chunk_step(slot) is None:
+            pass
+        steps.append(eng._prefill_logits[slot].float().cpu())
+        first = len(seen)
+        if forced is None:
+            for _ in range(WINDOW_NEW):
+                eng.decode_step()
+        else:
+            eng.forced_decode_nll(slot, forced[len(steps) - 1:len(steps) + WINDOW_NEW])
+        steps += [out[slot] for out in seen[first:]]
+    if dev == DEV:
+        torch.cuda.synchronize()
+    toks = [int(x.argmax()) for x in steps]
+    return toks, torch.stack(steps), read_counters(), eng.pool.prefix_hit_pages
+
+
+@contextlib.contextmanager
+def windows_on_cuda_cores():
+    """Route every paged window to the CUDA-core arm (the arm before the
+    tensor cores), for phase 11b's comparison of the two arms."""
+    from pb_llm_tpu_torch.ops import paged_attention as tpa
+
+    rule = tpa.window_arm
+    tpa.window_arm = lambda t, dtype: tpa.CUDA_CORES
+    try:
+        yield
+    finally:
+        tpa.window_arm = rule
+
+
+def first_parting(toks, c_toks, c_steps):
+    """The first token where a greedy stream parts from the CPU's, and the
+    CPU's top-2 logit gap there over max|logit|, or (None, None)."""
+    i = next((i for i, (a, b) in enumerate(zip(toks, c_toks)) if a != b), None)
+    if i is None:
+        return None, None
+    top = torch.topk(c_steps[i], 2).values
+    return i, (top[0] - top[1]).item() / c_steps[i].abs().max().item()
+
+
+def window_parity(params, card: str):
+    """Phase 11b on 2 full-width llama-7b layers over int8 and over bf16
+    pages with prefill_chunk 64 and the prefix cache: a 150-token prompt
+    prefilled in three chunks, a second one sharing its first 96 tokens (a
+    prefix hit, its suffix chunked from 64), 6 decode steps after each; the
+    card (the tensor-core window arm) against the CPU (plain versions).
+
+    Exact matmul arms: greedy tokens equal, prefill logits within
+    LOGIT_TOL_EXACT.  Int8 matmul arms (the serving default): a last-bit
+    difference between the devices can move an int8 rounding of x and the
+    logits by up to phase 10a's LOGIT_TOL, so where this random model's
+    top two logits lie closer, the greedy streams may part.  The card is
+    therefore also run teacher-forced on the CPU's tokens, and every step's
+    logits (2 prefills, 12 decode steps) must lie within LOGIT_TOL of the
+    CPU's; the steps whose argmax differs are logged.  The greedy streams
+    of both window arms (tensor and CUDA cores) are logged beside it: the
+    first token where each parts from the CPU's, and the CPU's top-2 gap
+    there."""
+    from pb_llm_tpu_torch.ops.kernel_config import KernelConfig
+
+    cfg = llama7b(2)
+    rng = np.random.default_rng(23)
+    first = rng.integers(0, cfg.vocab_size, 150).tolist()
+    prompts = (first, first[:96] + rng.integers(0, cfg.vocab_size, 50).tolist())
+    rows = []
+    for arms, arm_kw in (("int8", dict(decode_dot="int8", prefill="int8")),
+                         ("exact", INV_ARMS)):
+        card_kernels = KernelConfig(**arm_kw)
+        cpu_kernels = KernelConfig(backend="pallas_interpret",
+                                   decode_attention="pallas_interpret", **arm_kw)
+        for kind in (torch.int8, torch.bfloat16):
+            what = f"phase 11b ({arms} arms, {kind})"
+            c_toks, c_steps, c_launches, _ = run_windows(params, cfg, "cpu", cpu_kernels, kind,
+                                                         prompts)
+            if any(c_launches.values()):
+                raise AssertionError(f"{what}: the CPU run launched a kernel")
+            g_toks, g_steps, launches, hits = run_windows(params, cfg, DEV, card_kernels, kind,
+                                                          prompts)
+            prefill = [0, WINDOW_NEW + 1]
+            scale = c_steps[prefill].abs().max().item()
+            err = (g_steps[prefill] - c_steps[prefill]).abs().max().item()
+            part, gap = first_parting(g_toks, c_toks, c_steps)
+            row = {"phase": "window_parity", "arms": arms, "kv": str(kind), "layers": 2,
+                   "page_size": 16, "prefill_chunk": 64, "prefix_hit_pages": hits,
+                   "prefill_max_abs_logit_err": err, "prefill_max_abs_logit": scale,
+                   "prefill_err_over_max_logit": err / scale, "gpu_tokens": g_toks,
+                   "cpu_tokens": c_toks, "first_differing_token": part,
+                   "cpu_top2_gap_over_max_logit": gap, "launches": launches, "card": card}
+            if launches["paged_attention_window"] == 0 or hits == 0:
+                raise AssertionError(f"{what}: no tensor-core window launch or no prefix hit")
+            if not torch.isfinite(g_steps).all():
+                raise AssertionError(f"{what}: non-finite logits on the card")
+            if arms == "exact":
+                row["tol_over_max_logit"] = LOGIT_TOL_EXACT
+                log(json.dumps(row))
+                if err > LOGIT_TOL_EXACT * scale or part is not None:
+                    raise AssertionError(f"{what}: card and CPU differ: {row}")
+                rows.append(row)
+                continue
+            f_toks, f_steps, f_launches, _ = run_windows(params, cfg, DEV, card_kernels, kind,
+                                                         prompts, forced=c_toks)
+            with windows_on_cuda_cores():
+                cc_toks, _, cc_launches, _ = run_windows(params, cfg, DEV, card_kernels, kind,
+                                                         prompts)
+            cc_part, cc_gap = first_parting(cc_toks, c_toks, c_steps)
+            f_scale = c_steps.abs().max().item()
+            f_err = (f_steps - c_steps).abs().max().item()
+            row.update({
+                "tol_over_max_logit": LOGIT_TOL, "forced_max_abs_logit_err": f_err,
+                "forced_max_abs_logit": f_scale, "forced_err_over_max_logit": f_err / f_scale,
+                "forced_steps": len(f_toks),
+                "forced_argmax_differs_at": [i for i, (a, b) in enumerate(zip(f_toks, c_toks))
+                                             if a != b],
+                "cuda_cores_gpu_tokens": cc_toks, "cuda_cores_first_differing_token": cc_part,
+                "cuda_cores_cpu_top2_gap_over_max_logit": cc_gap,
+                "cuda_cores_launches": cc_launches})
+            log(json.dumps(row))
+            if not torch.isfinite(f_steps).all() or f_err > LOGIT_TOL * f_scale:
+                raise AssertionError(f"{what}: teacher-forced logits differ: {row}")
+            if f_launches["paged_attention_window"] == 0:
+                raise AssertionError(f"{what}: the teacher-forced run took no tensor-core window")
+            if cc_launches["paged_attention_window"] or not cc_launches["paged_attention_multi"]:
+                raise AssertionError(f"{what}: the CUDA-core run did not take the CUDA cores")
+            rows.append(row)
     return rows
 
 
@@ -1902,6 +2310,7 @@ def main(argv=None) -> int:
     card = setup()
     timer = Timer()
     mm_rows = check_matmul(timer, card)
+    prep_rows = check_prep(timer, card)
     att_rows = check_attention(timer, card)
     att = att_rows[0]
     dq_rows = check_dequant(timer, card)
@@ -1922,6 +2331,8 @@ def main(argv=None) -> int:
     paged_invariants(parity_params, card)
     scan_fuse = scan_fuse_parity(parity_params, card)
     check_kv_parity(parity_params, card)
+    graph_parity(parity_params, card)
+    window_parity(parity_params, card)
     del parity_params
     paged = paged_e2e(params, card)
     arms_e2e = serve_scan_fuse_e2e(params, card)
@@ -1980,8 +2391,8 @@ def main(argv=None) -> int:
          "shape": "B={} T={} H={} D={} causal f32".format(*FLASH_CASES[0][:4])},
         {"name": "paged_attention", "route": "cuda", "source": "pb_llm_tpu_torch/csrc/paged_attention.cu",
          "replaces": "pb_llm_tpu/ops/paged_attention.py:35",
-         "launches": sum(r["launches"]["paged_attention_decode"]
-                         + r["launches"]["paged_attention_multi"] for r in paged),
+         "launches": sum(r["launches"]["paged_attention_decode"] + r["launches"][
+             "paged_attention_multi"] - r["launches"]["paged_attention_window"] for r in paged),
          "max_abs_err": max(r["max_abs_err"] for r in pa_rows), "ms": pa["kernel_ms"],
          "plain_ms": pa["plain_ms"], "bound_ms": pa["bound_ms"], "bound_by": pa["bound_by"],
          "library_ms": pa["library_ms"], "parity": "ok",
@@ -2049,6 +2460,30 @@ def main(argv=None) -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "parity": "ok", "shape": shape + f", lengths <= {ATTN_MAX_LEN}; library: SDPA bf16; "
                                              "launches: phase 10b"})
+    win = next(r for r in pa_rows if r["case"] == "chunk_t256_int8")
+    prep = next(r for r in prep_rows if (r["m"], r["ic"], r["oc"]) == HEADLINE_SHAPE)
+    kernels += [
+        {"name": "paged_attention_window", "route": "cuda",
+         "source": "pb_llm_tpu_torch/csrc/paged_attention.cu",
+         "replaces": "pb_llm_tpu/ops/paged_attention.py:35",
+         "launches": sum(r["launches"]["paged_attention_window"] for r in paged),
+         "max_abs_err": max(r["tensor_cores_max_abs_err"] for r in pa_rows
+                            if "tensor_cores_max_abs_err" in r),
+         "ms": win["tensor_cores_ms"], "plain_ms": win["plain_ms"],
+         "bound_ms": win["tensor_cores_bound_ms"], "bound_by": win["tensor_cores_bound_by"],
+         "library_ms": win["library_ms"], "parity": "ok",
+         "cuda_cores_ms": win["cuda_cores_ms"],
+         "shape": "B=4 t=256 Hq=Hkv=32 D=128 int8 pages of 16 (1025), bases <= 1024, tensor "
+                  "cores (2 bf16 terms); library: SDPA bf16; launches: phase 6b"},
+        {"name": "pb_prep_int8", "route": "cuda", "source": "pb_llm_tpu_torch/csrc/pb_prep_int8.cu",
+         "replaces": "pb_llm_tpu/ops/pallas_pb.py:478",
+         "launches": e2e["prep_launches"],
+         "max_abs_err": max(r["max_abs_err"] for r in prep_rows), "ms": prep["kernel_ms"],
+         "plain_ms": prep["plain_ms"], "bound_ms": prep["bound_ms"], "bound_by": prep["bound_by"],
+         "library_ms": None, "parity": "codes bit for bit, sums within sum_bound",
+         "shape": "m={} ic={} oc={} (the x preparation XLA fuses into the int8 call); "
+                  "launches: phase 4, graphed".format(*HEADLINE_SHAPE)},
+    ]
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -23,7 +23,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = ("pb_int8_matmul", "decode_attention", "pb_dequant_v2", "pb_f32_matmul",
            "flash_attention", "paged_attention", "pb_planar_v1", "pb_select_v1", "pb_pair_v2",
-           "pb_dma_v2")
+           "pb_dma_v2", "pb_prep_int8")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

@@ -12,9 +12,9 @@ are identical.  In the port:
 
 Resolution order: innermost `use_kernels` context > per-field
 `set_field_default` overrides > `set_default` > env-var overrides > field
-defaults.  PyTorch
-runs eagerly, so there is no `wrap_jit`: the engine enters `use_kernels`
-around each of its calls.
+defaults.  There is no `wrap_jit`: the engine enters `use_kernels` around
+each of its calls, and its decode step, captured once as a CUDA graph
+(`runtime.step_graph`), keeps the arms resolved at capture.
 """
 
 from __future__ import annotations

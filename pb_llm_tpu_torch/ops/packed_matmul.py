@@ -28,6 +28,10 @@ scan_layers path; `pallas_pb.pb_matmul_pallas_v2_stacked`).  The kernels
 take the whole [L] planes, an [L, 5, oc] coefficient array made once, and a
 device pointer to li; the x preparation uses layer li's `side_idx` view.
 
+x preparation (`prepare_int8`, `csrc/pb_prep_int8.cu`): the int8 path's
+per-row absmax scale, int8 codes, row sums and gathered salient codes in
+one launch per linear, the operands both int8 kernels take.
+
 Each wrapper launches its CUDA kernel on a CUDA tensor and runs its plain
 PyTorch version on a CPU tensor.  The dispatch of `pb_matmul_pallas_v2`
 lives in `ops.binary_matmul`.
@@ -52,6 +56,7 @@ launches = 0  # kernel launches of pb_int8_matmul (plain-version calls not count
 f32_launches = 0  # kernel launches of pb_f32_matmul (plain-version calls not counted)
 stacked_launches = 0  # kernel launches of pb_int8_matmul_stacked
 stacked_f32_launches = 0  # kernel launches of pb_f32_matmul_stacked
+prep_launches = 0  # kernel launches of prepare_int8 (csrc/pb_prep_int8.cu)
 
 
 class Int8Operands(NamedTuple):
@@ -63,12 +68,15 @@ class Int8Operands(NamedTuple):
     coef: torch.Tensor  # f32 [5, oc]: 2·scale, β, γ, hs, bias
 
 
-def prepare_int8(x: torch.Tensor, p: PackedLinearV2) -> Int8Operands:
+def prepare_int8_plain(x: torch.Tensor, p: PackedLinearV2) -> Int8Operands:
     """x preparation of `_planar_v2_int8_call` (pallas_pb.py:471-495),
-    without the TPU byte permutation."""
+    without the TPU byte permutation: plain PyTorch.  The scale is a true
+    division on every device (on a CUDA tensor, ``t / 127.0`` multiplies by
+    a rounded reciprocal).  The row sums are f32 sums in torch.sum's order;
+    the kernel's differ from them by at most `sum_bound`."""
     xf = x.float()
     absmax = torch.amax(xf.abs(), dim=1, keepdim=True)
-    sx = torch.clamp(absmax, min=1e-30) / 127.0
+    sx = torch.clamp(absmax, min=1e-30) / absmax.new_tensor(127.0)
     x8 = torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8)  # half to even
     rs = torch.sum(xf, dim=1)
     xg = gather_x_v2(xf, p).permute(2, 0, 1)                 # [n_rg, m, k_pad]
@@ -76,6 +84,58 @@ def prepare_int8(x: torch.Tensor, p: PackedLinearV2) -> Int8Operands:
     xg8 = torch.clamp(torch.round(xg / sx[None]), -127, 127).to(torch.int8).contiguous()
     return Int8Operands(x8.contiguous(), sx[:, 0].contiguous(), rs.contiguous(),
                         xg8, rsg.contiguous(), coef_rows(p))
+
+
+def sum_bound(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """How far the kernel's row sums may lie from the plain version's along
+    ``dim`` (n terms, u = 2^-24): an f32 sum in any order lies within
+    (n - 1)·u/(1 - (n - 1)·u)·Σ|x| ≤ 1.5·(n - 1)·u·Σ|x| of the exact sum for
+    n·u ≤ 1/4, an f64 sum rounded once to f32 within (u + n·2^-53)·Σ|x|, so
+    the two lie within 2·n·u·Σ|x|."""
+    n = x.shape[dim]
+    return 2 * n * 2.0 ** -24 * x.abs().sum(dim=dim, dtype=torch.float64)
+
+
+def prepare_int8(x: torch.Tensor, p: PackedLinearV2) -> Int8Operands:
+    """The int8 path's x preparation: on a CPU tensor the plain version, on
+    a CUDA tensor one launch of `csrc/pb_prep_int8.cu` (the plain version's
+    codes and scales bit for bit, its sums within `sum_bound`)."""
+    if x.device.type == "cpu":
+        return prepare_int8_plain(x, p)
+    if x.device.type != "cuda":
+        raise ValueError(f"prepare_int8: unsupported device {x.device}")
+    if x.dim() != 2 or x.shape[1] != p.ic_local:
+        raise ValueError(f"prepare_int8: x {tuple(x.shape)} does not match ic {p.ic_local}")
+    idx = p.side_idx
+    if idx.device != x.device or idx.dtype != torch.int32 or not idx.is_contiguous():
+        raise ValueError("prepare_int8: side_idx must be a contiguous int32 tensor on x's device")
+    return launch_prep_int8(x.float().contiguous(), p)
+
+
+_PREP_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
+def launch_prep_int8(xf: torch.Tensor, p: PackedLinearV2) -> Int8Operands:
+    """Launch the x-preparation kernel on a contiguous f32 x (on the card)
+    on the current stream; counts one launch."""
+    m, ic = xf.shape
+    n_rg, k_pad = p.n_row_groups, p.k_pad
+    dev = xf.device
+    x8 = torch.empty((m, ic), dtype=torch.int8, device=dev)
+    sx = torch.empty(m, dtype=torch.float32, device=dev)
+    rs = torch.empty(m, dtype=torch.float32, device=dev)
+    xg8 = torch.empty((n_rg, m, k_pad), dtype=torch.int8, device=dev)
+    rsg = torch.empty((n_rg, m), dtype=torch.float32, device=dev)
+    fn = _build.load("pb_prep_int8").pb_prep_int8
+    fn.argtypes = _PREP_ARGTYPES
+    fn.restype = ctypes.c_int
+    err = fn(xf.data_ptr(), p.side_idx.data_ptr(), x8.data_ptr(), sx.data_ptr(), rs.data_ptr(),
+             xg8.data_ptr(), rsg.data_ptr(), m, ic, p.shards_local, p.k_pad_shard_local, n_rg,
+             torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "pb_prep_int8")
+    global prep_launches
+    prep_launches += 1
+    return Int8Operands(x8, sx, rs, xg8, rsg, coef_rows(p))
 
 
 def coef_rows(p: PackedLinearV2) -> torch.Tensor:
@@ -113,17 +173,22 @@ def _epilogue(acc_b, acc_v, ops: Int8Operands, p: PackedLinearV2) -> torch.Tenso
 
 
 def pb_int8_matmul_plain(x: torch.Tensor, p: PackedLinearV2) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: the same operands, integer dots
+    """Plain PyTorch version of x preparation and kernel."""
+    return int8_matmul_plain(prepare_int8_plain(x, p), p)
+
+
+def int8_matmul_plain(ops: Int8Operands, p: PackedLinearV2) -> torch.Tensor:
+    """Plain PyTorch version of the kernel on its operands: integer dots
     exact in float64 (|Σ| ≤ ic·127·255 < 2^53), the same f32 epilogue."""
-    ops = prepare_int8(x, p)
     ic = p.ic_local
     bits = packing.unpack_bits(p.sign_packed, ic, p.pack_block_local).to(torch.float64)
     acc_b = (ops.x8.to(torch.float64) @ bits).float()
     codes = unpack_side_codes(p.side_val, p.side_bits, p.shards_local).to(torch.float64)
     if p.side_bits == 8:
         codes = codes - 128.0
-    group = torch.arange(p.oc_local, device=x.device) // p.col_tile
-    acc_v = torch.empty((x.shape[0], p.oc_local), dtype=torch.float64, device=x.device)
+    dev = ops.x8.device
+    group = torch.arange(p.oc_local, device=dev) // p.col_tile
+    acc_v = torch.empty((ops.x8.shape[0], p.oc_local), dtype=torch.float64, device=dev)
     for t in range(p.n_row_groups):
         cols = group == t
         acc_v[:, cols] = ops.xg8[t].to(torch.float64) @ codes[:, cols]

@@ -20,7 +20,10 @@ f32 and keep q, p and the sums in f32.
 `paged_attention` (decode, t = 1, ``lengths`` including the token just
 written) and `paged_attention_multi` (speculative verify, chunked prefill,
 prefix-cache suffixes) launch `csrc/paged_attention.cu` on a CUDA tensor and
-run `paged_attention_plain` on a CPU tensor.
+run `paged_attention_plain` on a CPU tensor.  The source has two arms, and
+`window_arm` picks one by a fixed rule: windows (t > 1) over int8 or bf16
+pages take the tensor-core arm (q and p split into two bf16 terms each, f32
+sums), decode and f32 pages the CUDA-core arm.
 """
 
 from __future__ import annotations
@@ -34,12 +37,15 @@ from .decode_attention import KV_TYPES
 
 NEG_INF = -1e30
 
-# kernel launches (plain-version calls are not counted): all, by entry, and
-# over bf16 pages
+# kernel launches (plain-version calls are not counted): all, by entry,
+# over bf16 pages, and of the tensor-core window arm
 launches = 0
 decode_launches = 0
 multi_launches = 0
 bf16_launches = 0
+window_launches = 0
+
+TENSOR_CORES, CUDA_CORES = "tensor_cores", "cuda_cores"
 
 
 def _check_args(q, k_pages, v_pages, table, base, page_size, k_scale_pages, v_scale_pages):
@@ -157,6 +163,7 @@ def _call(q, k_pages, v_pages, table, base, scale, page_size, k_scale_pages, v_s
 
 
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+_WINDOW_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 # elements of a K row one lane reads in one 16-byte load
 _EPL = {torch.int8: 16, torch.bfloat16: 8, torch.float32: 4}
 
@@ -171,29 +178,47 @@ def _tiling(rows: int):
     return 8, 3 - (groups.bit_length() - 1)
 
 
+def window_arm(t: int, dtype: torch.dtype) -> str:
+    """The arm a launch takes: windows (t > 1) over int8 or bf16 pages on
+    the tensor cores, decode and f32 pages on the CUDA cores."""
+    return TENSOR_CORES if t > 1 and dtype in (torch.int8, torch.bfloat16) else CUDA_CORES
+
+
 def launch(qs, k_pages, v_pages, table, base, k_scale_pages=None, v_scale_pages=None,
-           decode: bool = False) -> torch.Tensor:
+           decode: bool = False, _arm_for_timing=None) -> torch.Tensor:
     """Launch the CUDA kernel on checked operands (q already scaled, int32
-    table and base) on the current stream; the arm follows the pages' type;
-    counts one launch."""
+    table and base) on the current stream; the arm follows `window_arm`.
+    ``_arm_for_timing`` forces one arm, only so that chip_smoke.py and the
+    card tests can time and check both on the same inputs.  Counts one
+    launch."""
     b, t, hq, d = qs.shape
     hkv, ps = k_pages.shape[1], k_pages.shape[2]
     quantized = k_scale_pages is not None
-    rw, wk_log2 = _tiling(t * (hq // hkv))
+    arm = _arm_for_timing or window_arm(t, k_pages.dtype)
     out = torch.empty((b, t, hq, d), dtype=torch.float32, device=qs.device)
-    fn = _build.load("paged_attention").paged_attention
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    err = fn(qs.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+    lib = _build.load("paged_attention")
+    stream = torch.cuda.current_stream(qs.device).cuda_stream
+    pages = (qs.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              k_scale_pages.data_ptr() if quantized else None,
              v_scale_pages.data_ptr() if quantized else None,
              table.data_ptr(), base.data_ptr(), out.data_ptr(), b, t, hq, hkv, d, ps,
-             table.shape[1], KV_TYPES[k_pages.dtype], rw, wk_log2,
-             torch.cuda.current_stream(qs.device).cuda_stream)
+             table.shape[1], KV_TYPES[k_pages.dtype])
+    if arm == TENSOR_CORES:
+        fn = lib.paged_attention_window
+        fn.argtypes = _WINDOW_ARGTYPES
+        fn.restype = ctypes.c_int
+        err = fn(*pages, stream)
+    else:
+        rw, wk_log2 = _tiling(t * (hq // hkv))
+        fn = lib.paged_attention
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+        err = fn(*pages, rw, wk_log2, stream)
     _build.check(err, "paged_attention")
-    global launches, decode_launches, multi_launches, bf16_launches
+    global launches, decode_launches, multi_launches, bf16_launches, window_launches
     launches += 1
     bf16_launches += k_pages.dtype == torch.bfloat16
+    window_launches += arm == TENSOR_CORES
     if decode:
         decode_launches += 1
     else:

@@ -4,12 +4,16 @@ whole slot pool with inactive slots masked, over strip caches or a paged
 pool (`runtime.paged_kv`) with prefix caching; chunked prefill; speculative
 decoding with greedy token-match or rejection-sampled verify.
 
-PyTorch runs eagerly, so there are no per-bucket compiled programs: each
-call runs the forward under this engine's `KernelConfig`
-(`ops.kernel_config.use_kernels`).  The KV caches and pages are updated in
-place.  ``scan_layers`` stacks the layers and the caches (`models.stacking`:
-the forward loops over layer views, PBW-v2 linears through the stacked
-kernels); ``fuse_linears`` merges q|k|v and gate|up (`models.fusion`).
+Each call runs the forward under this engine's `KernelConfig`
+(`ops.kernel_config.use_kernels`).  The decode step's forward, the program
+JAX jits once per engine, runs as one CUDA graph on the card
+(`runtime.step_graph`: captured on the second step, replayed from static
+buffers; `step_graph.eager()` runs it op by op); prefill buckets, chunks,
+speculative verify and sampling run eagerly.  The KV caches and pages are
+updated in place.  ``scan_layers`` stacks the layers and the caches
+(`models.stacking`: the forward loops over layer views, PBW-v2 linears
+through the stacked kernels); ``fuse_linears`` merges q|k|v and gate|up
+(`models.fusion`).
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from ..models.registry import Family
 from ..ops.kernel_config import use_kernels
 from . import kv_cache as kvmod
 from .sampler import SamplingParams, sample, sample_vec, spec_verify_sample
+from .step_graph import StepGraph
 
 
 def _chosen_logprob(logits: torch.Tensor, toks: torch.Tensor) -> torch.Tensor:
@@ -181,11 +186,17 @@ class Engine:
         self._prefill_logits: Dict[int, torch.Tensor] = {}
         self._chunk_jobs: Dict[int, list] = {}  # slot -> [prompt_ids, offset]
         self.token_logprobs: Dict[int, List[float]] = {}
+        # the decode step reads self.params and self.caches in place from
+        # here on (its CUDA graph holds their addresses): never reassign them
+        self._step = StepGraph(self)
 
     def _forward(self, ids: np.ndarray, caches, pos):
+        """A forward of host token ids [K, T] (prefill, chunk, verify)."""
+        return self._run(torch.as_tensor(ids, dtype=torch.long, device=self.device), caches, pos)
+
+    def _run(self, ids: torch.Tensor, caches, pos):
         with torch.inference_mode(), use_kernels(self.ecfg.kernels):
-            ids_t = torch.as_tensor(ids, dtype=torch.long, device=self.device)
-            logits, _ = self.fam.forward(self.params, ids_t, self.cfg, kv_caches=caches, pos=pos)
+            logits, _ = self.fam.forward(self.params, ids, self.cfg, kv_caches=caches, pos=pos)
         return logits
 
     def _tensor(self, a, dtype=torch.long) -> torch.Tensor:
@@ -466,9 +477,9 @@ class Engine:
     # ---------------- decode ----------------
 
     def _step_logits(self) -> torch.Tensor:
-        """One token for every slot at its own position; logits [n_slots, V]."""
-        pos = self._tensor(self.lengths)
-        return self._forward(self.last_token[:, None], self.caches, pos)[:, 0]
+        """One token for every slot at its own position; logits [n_slots, V]
+        (on the card, the step graph's buffer: read before the next step)."""
+        return self._step(self.last_token, self.lengths)
 
     def decode_step(self) -> Dict[int, int]:
         """Advance every active slot one token.  Returns {slot: token}."""

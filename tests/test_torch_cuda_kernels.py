@@ -26,10 +26,20 @@ order differs.  The pair kernel rounds x and xg to bf16 as its plain
 version does, the products are exact in f32 and only the f32 summation
 order differs: 1e-5 of max|y|.  The dma and stacked f32 kernels sum in
 another order than the plain version: rtol 1e-4, atol 1e-4.  The stacked
-int8 kernel, like the flat one, equals its plain version bit for bit, and
-each stacked kernel equals its flat kernel bit for bit on the same layer
-(the same device code and tiling).
+int8 kernel, like the flat one, equals its plain version on the same
+operands bit for bit, and each stacked kernel equals its flat kernel bit
+for bit on the same layer (the same device code and tiling).  The
+x-preparation kernel's codes and scales equal its plain version's bit for
+bit (IEEE division, rounding half to even); its row sums (f64, rounded
+once) lie within `packed_matmul.sum_bound` of the plain f32 sums, and x
+through both kernels within 1e-6 of max|y| of the plain versions
+(chip_smoke.py's MATMUL_TOL).  Paged attention's tensor-core window arm keeps rtol =
+atol = 2e-5 (the JAX oracle's bound) and the CUDA-core arm's rtol 1e-4,
+atol 1e-5.  The graphed decode step equals the eager one bit for bit (the
+same kernels on the same inputs).
 """
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -90,8 +100,11 @@ def test_int8_matmul_kernel_matches_plain(cuda, name, m):
     got = packed_matmul.pb_int8_matmul(x, p)
     torch.cuda.synchronize()
     assert packed_matmul.launches == before + 1
-    want = packed_matmul.pb_int8_matmul_plain(x, p)
+    ops = packed_matmul.prepare_int8(x, p)
+    want = packed_matmul.int8_matmul_plain(ops, p)
     assert torch.equal(got, want), (got - want).abs().max()
+    want = packed_matmul.pb_int8_matmul_plain(x, p)
+    assert (got - want).abs().max() <= 1e-6 * want.abs().max()
 
 
 @pytest.mark.cuda
@@ -767,7 +780,10 @@ def test_stacked_kernels_match_plain_and_the_flat_kernels(cuda, side_bits, m):
         torch.cuda.synchronize()
         assert (packed_matmul.stacked_launches, packed_matmul.stacked_f32_launches) == (
             before[0] + 1, before[1] + 1)
-        assert torch.equal(i8, packed_matmul.pb_int8_matmul_stacked_plain(x, mk))
+        ops = packed_matmul.prepare_int8(x, p)
+        assert torch.equal(i8, packed_matmul.int8_matmul_plain(ops, p))
+        want = packed_matmul.pb_int8_matmul_stacked_plain(x, mk)
+        assert (i8 - want).abs().max() <= 1e-6 * want.abs().max()
         torch.testing.assert_close(f32, packed_matmul.pb_f32_matmul_stacked_plain(x, mk),
                                    rtol=1e-4, atol=1e-4)
         assert torch.equal(i8, packed_matmul.pb_int8_matmul(x, p))
@@ -851,3 +867,239 @@ def test_scan_fuse_engine_on_the_card_matches_the_cpu(cuda, kw):
         streams.append([q.output_ids for q in reqs])
     assert (logits[0] - logits[1]).abs().max() <= 5e-3 * logits[1].abs().max()
     assert streams[0] == streams[1]
+
+
+# ---------------------------------------------------------------------------
+# the x preparation of the int8 path (csrc/pb_prep_int8.cu)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(LAYERS) + ["shards8", "shards4", "fused3"])
+@pytest.mark.parametrize("m", [1, 8, 300])
+def test_prep_int8_kernel_matches_plain_bit_for_bit(cuda, name, m):
+    """Codes and scales bit for bit (IEEE division, rint half to even); the
+    f64 row sums, rounded once to f32, within `sum_bound` of the plain f32
+    sums."""
+    p = _arm_layer(name, cuda)
+    x = torch.randn((m, p.ic), generator=torch.Generator(device=cuda).manual_seed(m), device=cuda)
+    x[0, :7] = torch.tensor([0.5, 1.5, 2.5, -0.5, -2.5, 0.0, 3.0], device=cuda)  # ties at sx = 1/42.33
+    if m > 1:
+        x[1] = 0.0  # an all-zero row: sx = 1e-30 / 127
+    before = packed_matmul.prep_launches
+    got = packed_matmul.prepare_int8(x, p)
+    torch.cuda.synchronize()
+    assert packed_matmul.prep_launches == before + 1
+    want = packed_matmul.prepare_int8_plain(x, p)
+    for f in ("x8", "sx", "xg8"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    xg = pbw.gather_x_v2(x, p).permute(2, 0, 1)
+    assert torch.all((got.rs - want.rs).abs() <= packed_matmul.sum_bound(x, 1))
+    assert torch.all((got.rsg - want.rsg).abs() <= packed_matmul.sum_bound(xg, 2))
+
+
+@pytest.mark.cuda
+def test_prep_int8_cuda_tensor_never_takes_the_plain_version(cuda, monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(packed_matmul, "prepare_int8_plain", refuse)
+    p = _layer("side8", cuda)
+    before = (packed_matmul.prep_launches, packed_matmul.launches)
+    y = packed_matmul.pb_int8_matmul(torch.randn((4, p.ic), device=cuda), p)
+    torch.cuda.synchronize()
+    assert y.shape == (4, p.oc)
+    assert (packed_matmul.prep_launches, packed_matmul.launches) == (before[0] + 1, before[1] + 1)
+
+
+# ---------------------------------------------------------------------------
+# paged attention's window arm on the tensor cores
+# ---------------------------------------------------------------------------
+
+WINDOW_CASES = {
+    # name: (t, Hq, Hkv, D, page, bases)
+    "verify_t5": (5, 32, 32, 128, 16, (507, 0, -1, 31, 256)),
+    "chunk_t256": (256, 8, 8, 128, 16, (1024, 256, -1)),
+    "gqa4_t17": (17, 16, 4, 128, 16, (64, 15, -1, 300)),
+    "gqa8_t64_page8": (64, 32, 4, 64, 8, (0, 7, 127, -1)),
+    "t3_d48_page8": (3, 4, 2, 48, 8, (16, 3, -1)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int8", "bf16"])
+@pytest.mark.parametrize("name", sorted(WINDOW_CASES))
+def test_paged_window_tensor_core_arm_matches_plain(cuda, name, kind):
+    """The tensor-core arm against the plain version (rtol = atol = 2e-5,
+    the JAX oracle's bound, and the CUDA-core arm's rtol 1e-4, atol 1e-5)
+    over ragged bases (an empty slot at -1, windows that start on a page
+    boundary), with every table entry past a slot's limit naming the trash
+    page, whose rows (and every page no window reads) hold NaN."""
+    from pb_llm_tpu_torch.ops import paged_attention as tpa
+
+    t, hq, hkv, d, ps, bases = WINDOW_CASES[name]
+    if kind == "int8" and d % 16:
+        pytest.skip("int8 pages take head dims that are multiples of 16")
+    b, n_pages = len(bases), 400
+    maxp = -(-(max(bases) + t) // ps) + 2
+    g = torch.Generator(device=cuda).manual_seed(t + d)
+    kp, vp, ks, vs = _paged_pool(n_pages, hkv, ps, d, kind, g)
+    trash = n_pages
+    table = torch.full((b, maxp), trash, dtype=torch.int32, device=cuda)
+    perm = torch.randperm(n_pages, generator=g, device=cuda).to(torch.int32)
+    used = 0
+    for i, bs in enumerate(bases):
+        n = -(-(bs + t) // ps) if bs + t > 0 else 0
+        table[i, :n] = perm[used : used + n]
+        used += n
+    unused = torch.ones(n_pages + 1, dtype=torch.bool, device=cuda)
+    unused[perm[:used].long()] = False
+    if kind == "int8":
+        ks[unused], vs[unused] = float("nan"), float("nan")
+    else:
+        kp[unused], vp[unused] = float("nan"), float("nan")
+    base = torch.tensor(bases, device=cuda)
+    q = torch.randn((b, t, hq, d), generator=g, device=cuda)
+    qs, bs = (q * d ** -0.5).contiguous(), base.to(torch.int32)
+    before = tpa.window_launches
+    got = tpa.launch(qs, kp, vp, table, bs, ks, vs, _arm_for_timing=tpa.TENSOR_CORES)
+    torch.cuda.synchronize()
+    assert tpa.window_launches == before + 1
+    want = tpa.paged_attention_plain(q, kp, vp, table, base, d ** -0.5, ps, ks, vs)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    assert torch.equal(got[base < 0][:, 0], torch.zeros_like(got[base < 0][:, 0]))
+    old = tpa.launch(qs, kp, vp, table, bs, ks, vs, _arm_for_timing=tpa.CUDA_CORES)
+    torch.testing.assert_close(got, old, rtol=2e-5, atol=2e-5)
+    before = (tpa.window_launches, tpa.multi_launches)
+    routed = tpa.paged_attention_multi(q, kp, vp, table, base, d ** -0.5, ps, ks, vs)
+    tc = tpa.window_arm(t, kp.dtype) == tpa.TENSOR_CORES
+    assert (tpa.window_launches, tpa.multi_launches) == (before[0] + tc, before[1] + 1)
+    assert torch.equal(routed, got if tc else old)
+
+
+@pytest.mark.cuda
+def test_window_arm_follows_the_rule(cuda):
+    from pb_llm_tpu_torch.ops import paged_attention as tpa
+
+    assert tpa.window_arm(5, torch.int8) == tpa.window_arm(256, torch.bfloat16) == tpa.TENSOR_CORES
+    assert tpa.window_arm(1, torch.int8) == tpa.window_arm(1, torch.bfloat16) == tpa.CUDA_CORES
+    assert tpa.window_arm(5, torch.float32) == tpa.CUDA_CORES
+    g = torch.Generator(device=cuda).manual_seed(3)
+    kp, vp, ks, vs = _paged_pool(8, 2, 16, 64, "f32", g)
+    table = torch.arange(8, device=cuda, dtype=torch.int32).reshape(2, 4)
+    before = tpa.window_launches
+    tpa.paged_attention_multi(torch.randn((2, 3, 4, 64), device=cuda), kp, vp, table,
+                              torch.tensor([3, 9], device=cuda), 0.1, 16, ks, vs)
+    torch.cuda.synchronize()
+    assert tpa.window_launches == before
+
+
+# ---------------------------------------------------------------------------
+# the decode step as one CUDA graph (runtime/step_graph.py)
+# ---------------------------------------------------------------------------
+
+GRAPH_CASES = {
+    "int8_strips": dict(),
+    "q8_strips": dict(decode_attention="pallas_q8"),
+    "bf16_strips": dict(cache_dtype=torch.bfloat16),
+    "f32_strips_f32_arm": dict(cache_dtype=torch.float32, decode_dot="f32"),
+    "int8_pages_prefix": dict(page_size=16, prefix_cache=True),
+    "bf16_pages": dict(page_size=16, cache_dtype=torch.bfloat16),
+    "scan": dict(scan_layers=True),
+    "scan_pages": dict(scan_layers=True, page_size=16),
+    "fuse_pair": dict(fuse_linears=True, decode_dot="pair"),
+    "dma": dict(decode_dot="dma"),
+}
+
+
+def _graph_run(cuda, kw, mode):
+    """A scripted run on a tiny PBW-v2 llama: slots admitted and released
+    between decode steps.  Returns (tokens, per-step logits, launches)."""
+    from pb_llm_tpu_torch.data.synthetic import random_packed_llama
+    from pb_llm_tpu_torch.models.llama import LlamaConfig
+    from pb_llm_tpu_torch.models.registry import family_for
+    from pb_llm_tpu_torch.ops import counters
+    from pb_llm_tpu_torch.ops.kernel_config import KernelConfig
+    from pb_llm_tpu_torch.runtime import step_graph
+    from pb_llm_tpu_torch.runtime.engine import Engine, EngineConfig
+
+    kw = dict(kw)
+    arms = {k: kw.pop(k) for k in ("decode_dot", "decode_attention") if k in kw}
+    cfg = LlamaConfig(vocab_size=256, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=2, num_attention_heads=4, max_position_embeddings=512)
+    params = random_packed_llama(cfg, torch.Generator().manual_seed(0))
+    eng = Engine(params, cfg, family_for("llama"),
+                 EngineConfig(n_slots=3, max_seq=256, prefill_buckets=(32, 128),
+                              kernels=KernelConfig(**arms), **kw), device=cuda)
+    r = np.random.default_rng(1)
+    prefix = r.integers(0, 256, 32).tolist()
+    prompts = [prefix + r.integers(0, 256, n).tolist() for n in (5, 40, 12, 70, 20)]
+    toks, logits = [], []
+    step = eng._step_logits
+
+    def recorded():  # each decode step's active rows, copied before the next step
+        out = step()
+        logits.append(out.cpu()[torch.from_numpy(eng.active)])
+        return out
+
+    eng._step_logits = recorded
+    plan = [("admit", 0, 0), ("admit", 1, 1), ("steps", 5), ("release", 0), ("admit", 0, 2),
+            ("steps", 6), ("release", 1), ("admit", 2, 3), ("steps", 4), ("release", 2),
+            ("admit", 1, 4), ("steps", 3)]
+    before = counters.read()
+    with step_graph.eager() if mode == "eager" else contextlib.nullcontext():
+        for op in plan:
+            if op[0] == "admit":
+                toks.append({op[1]: eng.prefill(op[1], prompts[op[2]])})
+            elif op[0] == "release":
+                eng.release(op[1])
+            else:
+                toks += [eng.decode_step() for _ in range(op[1])]
+    torch.cuda.synchronize()
+    after = counters.read()
+    return toks, logits, {k: after[k] - before[k] for k in after}, eng._step.replays
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(GRAPH_CASES))
+def test_step_graph_equals_eager(cuda, name):
+    """The graphed decode step against `step_graph.eager()`: the same greedy
+    tokens, bitwise-equal logits of the active slots (an inactive slot's
+    row reads the trash page, where inactive slots' duplicate writes land
+    in no fixed order), the same launches by kind."""
+    got = _graph_run(cuda, GRAPH_CASES[name], "graph")
+    want = _graph_run(cuda, GRAPH_CASES[name], "eager")
+    assert got[0] == want[0]
+    assert all(torch.equal(a, b) for a, b in zip(got[1], want[1]))
+    assert got[2] == want[2]
+    assert got[3] > 0 and want[3] == 0
+
+
+@pytest.mark.cuda
+def test_step_graph_capture_that_meets_a_host_sync_raises(cuda, monkeypatch):
+    """A decode forward that reads a device value on the host cannot be
+    captured: the capture raises, and no step falls back to eager."""
+    from pb_llm_tpu_torch.models import llama
+    from pb_llm_tpu_torch.models.llama import LlamaConfig, init_params
+    from pb_llm_tpu_torch.models.registry import family_for
+    from pb_llm_tpu_torch.runtime.engine import Engine, EngineConfig
+
+    cfg = LlamaConfig(vocab_size=128, hidden_size=128, intermediate_size=256, num_hidden_layers=2,
+                      num_attention_heads=4, max_position_embeddings=256)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    eng = Engine(params, cfg, family_for("llama"),
+                 EngineConfig(n_slots=2, max_seq=128, prefill_buckets=(32, 128)), device=cuda)
+    eng.prefill(0, [1, 2, 3])
+    norm = llama.rms_norm
+
+    def syncing(x, w, eps):
+        if float(x.abs().max()) < 0:  # a host read of a device value
+            raise AssertionError
+        return norm(x, w, eps)
+
+    monkeypatch.setattr(llama, "rms_norm", syncing)
+    eng.decode_step()  # the eager first step: a host read is allowed there
+    with pytest.raises(RuntimeError):
+        eng.decode_step()  # captures
+    assert eng._step.graph is None

@@ -203,3 +203,67 @@ def test_paged_cached_attention_matches_jax(quantized):
         got = tattn.cached_attention({n: T(a) for n, a in {**c, **extra}.items()}, T(q), None,
                                      None, tp, 0.25).numpy()
         np.testing.assert_allclose(got, want, **TOL)
+
+
+def _bf16_terms(x: torch.Tensor, n: int) -> torch.Tensor:
+    """x (f32) as the sum of n bf16 terms, each the bf16 rounding of what the
+    earlier terms left (the f32 remainders are exact), summed in f64."""
+    out, r = torch.zeros_like(x, dtype=torch.float64), x
+    for _ in range(n):
+        h = r.to(torch.bfloat16).float()
+        out, r = out + h.double(), r - h
+    return out
+
+
+def _window_arm_emulated(q, k, v, ks, vs, lim, scale, terms):
+    """The tensor-core window arm's arithmetic on dense keys [S, H, D]: q
+    (scaled) and the weights (V scale folded in) enter the products as
+    ``terms`` bf16 terms, the keys and values exactly, the sums in f64."""
+    qf = (q * scale).float()
+    s = torch.einsum("thd,shd->hts", _bf16_terms(qf, terms), k.double()).float()
+    s = s * ks.t()[:, None, :]
+    allowed = torch.arange(k.shape[0])[None, :] < lim[:, None]          # [t, S]
+    s = torch.where(allowed[None], s, tpa.NEG_INF)
+    p = torch.where(allowed[None], torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+    l = p.sum(-1, keepdim=True)
+    pv = _bf16_terms(p * vs.t()[:, None, :], terms)
+    out = torch.einsum("hts,shd->thd", pv, v.double()).float()
+    return out * torch.where(l == 0, 1.0, 1.0 / l).permute(1, 0, 2)
+
+
+@pytest.mark.parametrize("quantized", [True, False])
+def test_window_arm_needs_two_bf16_terms(quantized):
+    """Why the tensor-core arm splits q and p into two bf16 terms: with two
+    the emulated arm stays within rtol = atol = 2e-5 of the plain version
+    (and the CUDA-core arm's rtol 1e-4, atol 1e-5); with one it misses that
+    bound by more than 10x.  Keys are int8 codes or bf16 elements, exact in
+    bf16.  One slot, pages in order, a window of 16 rows at base 40."""
+    t, H, D, PS, base = 16, 4, 128, 16, 40
+    n = -(-(base + t) // PS)
+    r = np.random.default_rng(11)
+    q = torch.from_numpy(r.standard_normal((1, t, H, D)).astype(np.float32))
+    if quantized:
+        kp, vp, ks, vs = (T(a) for a in _pool(n, H, PS, D, True, 12))
+    else:
+        kp, vp = (T(r.standard_normal((n, H, PS, D)).astype(np.float32)).to(torch.bfloat16)
+                  for _ in range(2))
+        ks = vs = None
+    table = torch.arange(n, dtype=torch.int32)[None]
+    scale = D ** -0.5
+    want = tpa.paged_attention_plain(q, kp, vp, table, torch.tensor([base]), scale, PS, ks, vs)[0]
+
+    def dense(pages):
+        return pages.transpose(1, 2).reshape(n * PS, *pages.shape[1:2], *pages.shape[3:]).float()
+
+    k, v = dense(kp), dense(vp)
+    ksd = dense(ks[..., None])[..., 0] if quantized else torch.ones(n * PS, H)
+    vsd = dense(vs[..., None])[..., 0] if quantized else torch.ones(n * PS, H)
+    lim = base + 1 + torch.arange(t)
+    ratio = []
+    for terms in (1, 2):
+        got = _window_arm_emulated(q[0], k, v, ksd, vsd, lim, scale, terms)
+        ratio.append(((got - want).abs() / (2e-5 + 2e-5 * want.abs())).max().item())
+        if terms == 2:
+            torch.testing.assert_close(got, want, **TOL)
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    assert ratio[0] > 10 and ratio[1] <= 1, ratio
