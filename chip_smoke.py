@@ -14,10 +14,12 @@ raises and the exit code is not 0:
    with its time (CUDA events, L2 flushed before every launch), the plain
    version's time, one PyTorch library call's time as a yardstick where one
    call computes the same function, and the least time the card could take
-   (`bound_ms`): the int8 matmul and decode attention (serving; its int8,
-   bf16 and q8 arms), the binary-part dequant, the exact f32 matmul and flash attention (the
-   producer and the exact arms), paged attention (the paged pool: decode,
-   speculative verify, chunk continuation, GQA; int8, f32 and bf16 pages;
+   (`bound_ms`): the int8 matmul's two arms (dp4a and tensor cores, bit
+   for bit, at 1-1024 rows: the crossover M_TC) and decode attention
+   (serving; its int8, bf16 and q8 arms), the binary-part dequant, the
+   exact f32 matmul and flash attention (the producer and the exact arms),
+   paged attention (the paged pool: decode, speculative verify, chunk
+   continuation, GQA; int8, f32 and bf16 pages;
    windows on the tensor-core arm, timed beside the CUDA-core arm), the
    PBW-v1 planar and select matmuls (OPT-1.3B's and llama-7b's MLP
    shapes), and the int8 path's x preparation, bit for bit;
@@ -31,7 +33,8 @@ raises and the exit code is not 0:
    under `step_graph.eager()` (the decode step op by op), then graphed (the
    default: one CUDA graph replayed a step); the launch counters are zeroed
    just before each pass and read just after, and must match the forwards
-   run;
+   run (the int8 matmul by arm, by each forward's rows), and the prefill
+   forwards' synchronised wall time is summed (`prefill_ms_total`);
 5. end to end, the producer: a 2-layer full-width llama-7b calibrated by
    GPTQ-PB into PBW v2 on synthetic text, then its windowed perplexity under
    the exact hybrid prefill, with the kernels and with their plain versions
@@ -117,10 +120,12 @@ F32_FLOPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 DEV = "cuda"
 MATMUL_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096))
 MATMUL_MS = (8, 512)                 # decode (8 slots) and batched prefill (4 x 128)
+INT8_MS = (1, 8, 16, 32, 64, 128, 256, 512, 1024)  # the int8 arms' crossover rows, and prefill
 ATTN_SHAPE = (8, 2048, 32, 32, 128)  # B, S, Hq, Hkv, D: 8 slots of max_seq 2048
 ATTN_MAX_LEN = 512
 ATTN_ARMS = ("int8", "bf16", "q8")  # decode attention's arms: int8 strips, bf16 strips, int8 q
 HEADLINE_SHAPE = (8, 4096, 11008)  # (m, ic, oc) of the kernels line: the MLP at decode
+PREFILL_SHAPE = (512, 4096, 11008)  # and at prefill: the int8 matmul's tensor-core arm
 MATMUL_TOL = 1e-6     # of max|y|: int32 dots are exact, the epilogue rounds as the plain version
 ATTN_RTOL, ATTN_ATOL = 1e-4, 1e-5  # online softmax sums in another order than the plain version
 # GPU vs CPU engine on the same int8 arms: the f32 sums (rms_norm, row sums,
@@ -266,6 +271,11 @@ def setup():
 # ---------------------------------------------------------------------------
 
 def check_matmul(timer: Timer, card: str):
+    """The int8 matmul's two arms (dp4a, tensor cores) at every row count of
+    INT8_MS on llama-7b's three shapes: each arm bit for bit with the plain
+    version on its own operands, and within MATMUL_TOL of the plain version
+    of x preparation and kernel; times of both arms, the plain version and
+    the bf16 matmul of the same shape.  Logs the crossover per shape."""
     from pb_llm_tpu_torch.data.synthetic import random_packed_v2
     from pb_llm_tpu_torch.ops import packed_matmul as pm
 
@@ -274,32 +284,52 @@ def check_matmul(timer: Timer, card: str):
     for ic, oc in MATMUL_SHAPES:
         p = random_packed_v2(ic, oc, gen, low_frac=0.9)
         wb = torch.randn((ic, oc), generator=gen, device=DEV).to(torch.bfloat16)
-        for m in MATMUL_MS:
+        times = {}
+        for m in INT8_MS:
             x = torch.randn((m, ic), generator=gen, device=DEV)
-            ops = pm.prepare_int8(x, p)
-            got = pm.launch_int8(ops, p)
-            torch.cuda.synchronize()
-            want = pm.pb_int8_matmul_plain(x, p)
-            err = (got - want).abs().max().item()
-            scale = want.abs().max().item()
-            if not (torch.isfinite(got).all() and err <= MATMUL_TOL * scale):
-                raise AssertionError(f"pb_int8_matmul m={m} {ic}x{oc}: max|err| {err} "
-                                     f"> {MATMUL_TOL} * {scale}")
             xb = x.to(torch.bfloat16)
-            nbytes = (ops.x8.numel() + ops.xg8.numel() + 4 * (ops.sx.numel() + ops.rs.numel()
-                      + ops.rsg.numel() + ops.coef.numel()) + 4 * p.sign_packed.numel()
-                      + p.side_val.numel() + 4 * m * oc)
+            want = pm.pb_int8_matmul_plain(x, p)
+            scale = want.abs().max().item()
+            plain_ms = timer(lambda: pm.pb_int8_matmul_plain(x, p), iters=5)
+            library_ms = timer(lambda: xb @ wb)
+            nbytes = (m * ic + p.n_row_groups * m * p.k_pad + 4 * (2 * m + p.n_row_groups * m
+                      + 5 * oc) + 4 * p.sign_packed.numel() + p.side_val.numel() + 4 * m * oc)
             n_ops = 2 * m * oc * (ic + p.k_pad)
             bound_ms, bound_by = bound(nbytes, n_ops, INT8_OPS_PER_S)
-            row = {"kernel": "pb_int8_matmul", "m": m, "ic": ic, "oc": oc, "k_pad": p.k_pad,
-                   "max_abs_err": err, "max_rel_err": err / scale,
-                   "kernel_ms": timer(lambda: pm.launch_int8(ops, p)),
-                   "wrapper_ms": timer(lambda: pm.pb_int8_matmul(x, p)),
-                   "plain_ms": timer(lambda: pm.pb_int8_matmul_plain(x, p), iters=5),
-                   "library_ms": timer(lambda: xb @ wb),
-                   "bound_ms": bound_ms, "bound_by": bound_by, "card": card}
-            log(json.dumps(row))
-            rows.append(row)
+            picked = pm.int8_arm(m, p)
+            outs = {}
+            for arm in pm.ARMS:
+                ops = pm.prepare_int8(x, p, arm)
+                got = pm.launch_int8(ops, p)
+                torch.cuda.synchronize()
+                outs[arm] = got
+                exact = torch.equal(got, pm.int8_matmul_plain(ops, p))
+                err = (got - want).abs().max().item()
+                if not (torch.isfinite(got).all() and exact and err <= MATMUL_TOL * scale):
+                    raise AssertionError(f"pb_int8_matmul ({arm}) m={m} {ic}x{oc}: bit for bit "
+                                         f"{exact}, max|err| {err} against {MATMUL_TOL} * {scale}")
+                row = {"kernel": "pb_int8_matmul", "arm": arm, "picked": arm == picked, "m": m,
+                       "ic": ic, "oc": oc, "k_pad": p.k_pad, "bit_for_bit": exact,
+                       "max_abs_err": err, "max_rel_err": err / scale,
+                       "kernel_ms": timer(lambda: pm.launch_int8(ops, p)),
+                       "wrapper_ms": timer(lambda: pm.pb_int8_matmul(x, p)) if arm == picked
+                       else None, "plain_ms": plain_ms, "library_ms": library_ms,
+                       "bound_ms": bound_ms, "bound_by": bound_by, "card": card}
+                row["bound_share"] = bound_ms / row["kernel_ms"]
+                row["over_library"] = row["kernel_ms"] / library_ms
+                times[m, arm] = row["kernel_ms"]
+                log(json.dumps(row))
+                rows.append(row)
+                del ops
+            if not torch.equal(outs["dp4a"], outs["tc"]):
+                raise AssertionError(f"pb_int8_matmul m={m} {ic}x{oc}: the arms differ")
+            del x, xb, want, outs
+        wins = [m for m in INT8_MS if times[m, "tc"] <= times[m, "dp4a"]]
+        from_m = next((m for m in INT8_MS if all(k in wins for k in INT8_MS if k >= m)), None)
+        log(json.dumps({"phase": "int8_crossover", "ic": ic, "oc": oc,
+                        "dp4a_ms": [times[m, "dp4a"] for m in INT8_MS],
+                        "tc_ms": [times[m, "tc"] for m in INT8_MS], "m": list(INT8_MS),
+                        "tc_wins_from_m": from_m, "M_TC": pm.M_TC, "card": card}))
         del p, wb
     return rows
 
@@ -332,9 +362,10 @@ def check_prep(timer: Timer, card: str):
         p = ps[0] if parts == 1 else merge_packed_linears_v2(ps)
         for m in MATMUL_MS:
             x = torch.randn((m, ic), generator=gen, device=DEV)
-            got = pm.prepare_int8(x, p)
+            layout = pm.int8_arm(m, p)  # the main path's layout at m rows
+            got = pm.prepare_int8(x, p, layout)
             torch.cuda.synchronize()
-            want = pm.prepare_int8_plain(x, p)
+            want = pm.prepare_int8_plain(x, p, layout)
             differ = [f for f in ("x8", "sx", "xg8")
                       if not torch.equal(getattr(got, f), getattr(want, f))]
             xg = gather_x_v2(x, p).permute(2, 0, 1)
@@ -350,12 +381,13 @@ def check_prep(timer: Timer, card: str):
                 2 + n_rg)
             bound_ms, bound_by = bound(nbytes, 4 * m * (ic + n_rg * k_pad), F32_FLOPS_PER_S)
             xf = x.contiguous()
-            row = {"kernel": "pb_prep_int8", "m": m, "ic": ic, "oc": p.oc, "row_groups": n_rg,
+            row = {"kernel": "pb_prep_int8", "layout": layout, "m": m, "ic": ic, "oc": p.oc,
+                   "row_groups": n_rg,
                    "k_pad": k_pad, "max_abs_err": abs_err, "sum_err_over_bound": sum_err,
-                   "kernel_ms": timer(lambda: pm.launch_prep_int8(xf, p)),
-                   "plain_ms": timer(lambda: pm.prepare_int8_plain(x, p), iters=5),
-                   "kernel_wall_ms": wall_ms(lambda: pm.prepare_int8(x, p)),
-                   "plain_wall_ms": wall_ms(lambda: pm.prepare_int8_plain(x, p)),
+                   "kernel_ms": timer(lambda: pm.launch_prep_int8(xf, p, layout)),
+                   "plain_ms": timer(lambda: pm.prepare_int8_plain(x, p, layout), iters=5),
+                   "kernel_wall_ms": wall_ms(lambda: pm.prepare_int8(x, p, layout)),
+                   "plain_wall_ms": wall_ms(lambda: pm.prepare_int8_plain(x, p, layout)),
                    "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by, "card": card}
             log(json.dumps(row))
             rows.append(row)
@@ -758,13 +790,14 @@ def check_v2_arms(timer: Timer, card: str):
                    lambda: da.launch_dma(ops, p), lambda: da.pb_dma_v2(x, p),
                    lambda: da.pb_dma_v2_plain(x, p), lambda: x @ w, False)
             lp = pm.stacked_layer(mk)
-            ops = pm.prepare_int8(x, lp)
+            ops = pm.prepare_int8(x, lp, pm.int8_arm(m, lp))
             record("pb_int8_matmul_stacked", p, m, pm.launch_int8_stacked(ops, mk),
                    pm.pb_int8_matmul_stacked_plain(x, mk),
                    lambda: pm.launch_int8_stacked(ops, mk), lambda: pm.pb_int8_matmul_stacked(x, mk),
                    lambda: pm.pb_int8_matmul_stacked_plain(x, mk), lambda: xb @ wb, True,
                    flat_kernel_equal=torch.equal(pm.launch_int8_stacked(ops, mk),
-                                                 pm.launch_int8(ops, lp)))
+                                                 pm.launch_int8(ops, lp)),
+                   arm=ops.layout, flat_ms=timer(lambda: pm.launch_int8(ops, lp)))
             ops = pm.prepare_f32(x, lp)
             record("pb_f32_matmul_stacked", p, m, pm.launch_f32_stacked(ops, mk),
                    pm.pb_f32_matmul_stacked_plain(x, mk),
@@ -890,15 +923,23 @@ def packed_bytes(p) -> int:
                 p.high_scale, p.high_zero))
 
 
-def count_forwards(eng, on_forward):
+def count_forwards(eng, on_forward, forward_ms=None):
     """Route each forward of ``eng`` through ``on_forward(kind, rows, caches,
     pos, logits)``: ``_forward`` runs prefills, chunk and prefix-suffix
     windows and speculative verifies, ``_step_logits`` the decode steps
-    (graphed or eager).  Returns a function that restores the methods."""
+    (graphed or eager).  With a list ``forward_ms``, each ``_forward`` runs
+    between two device synchronisations and its wall ms is appended before
+    ``on_forward`` sees it.  Returns a function that restores the methods."""
     fwd, step = eng._forward, eng._step_logits
 
     def counted_forward(ids, caches, pos):
+        if forward_ms is not None:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
         logits = fwd(ids, caches, pos)
+        if forward_ms is not None:
+            torch.cuda.synchronize()
+            forward_ms.append((time.perf_counter() - t) * 1e3)
         on_forward(None, int(np.asarray(ids).size), caches, pos, logits)
         return logits
 
@@ -915,15 +956,32 @@ def count_forwards(eng, on_forward):
     return restore
 
 
+def int8_launches(rows, n_linear: int, p) -> dict:
+    """The int8 matmul's launches by arm for forwards of ``rows`` rows each,
+    ``n_linear`` packed linears a forward, under `packed_matmul.int8_arm`'s
+    rule on layer ``p`` (llama-7b's linears all take the tensor cores from
+    M_TC rows on)."""
+    from pb_llm_tpu_torch.ops import packed_matmul as pm
+
+    tc = sum(pm.int8_arm(r, p) == "tc" for r in rows)
+    return {"pb_int8_matmul": n_linear * (len(rows) - tc), "pb_int8_matmul_tc": n_linear * tc}
+
+
+def first_linear(params):
+    """A packed linear of the model: the layout the arm rule reads."""
+    return next(v for v in params["layers"][0].values() if hasattr(v, "sign_packed"))
+
+
 def run_counted(eng, reqs):
     """Serve ``reqs`` through `ContinuousBatcher` on ``eng`` after one short
     warm-up request (the first forward initialises cuBLAS and the
     allocator), with the launch counters zeroed just before and read just
-    after.  Returns (batcher, launches, forwards, step_ms, kv_rows):
-    ``forwards`` holds (kind, rows) of each forward, kind "prefill" or
-    "decode"; ``step_ms`` each decode step's time (device synchronised);
-    ``kv_rows`` the KV rows each step attends.  Raises on non-finite logits
-    or a request short of its tokens."""
+    after.  Returns (batcher, launches, forwards, step_ms, kv_rows,
+    prefill_ms): ``forwards`` holds (kind, rows) of each forward, kind
+    "prefill" or "decode"; ``step_ms`` each decode step's time (device
+    synchronised); ``kv_rows`` the KV rows each step attends;
+    ``prefill_ms`` each prefill forward's time (device synchronised).
+    Raises on non-finite logits or a request short of its tokens."""
     from pb_llm_tpu_torch.runtime.batching import ContinuousBatcher, Request
 
     ContinuousBatcher(eng).run([Request(request_id=-1, prompt_ids=[1, 2, 3], max_new_tokens=2)])
@@ -945,7 +1003,8 @@ def run_counted(eng, reqs):
         step_ms.append((time.perf_counter() - t) * 1e3)
         return out
 
-    restore = count_forwards(eng, on_forward)
+    prefill_ms = []
+    restore = count_forwards(eng, on_forward, prefill_ms)
     eng.decode_step = timed_step
     batcher = ContinuousBatcher(eng)
     zero_counters()
@@ -958,7 +1017,7 @@ def run_counted(eng, reqs):
         raise AssertionError("e2e: non-finite logits")
     if not all(r.done and len(r.output_ids) == r.max_new_tokens for r in reqs):
         raise AssertionError("e2e: a request did not produce its tokens")
-    return batcher, launches, forwards, step_ms, kv_rows
+    return batcher, launches, forwards, step_ms, kv_rows, prefill_ms
 
 
 def e2e_requests(vocab: int):
@@ -1010,16 +1069,18 @@ def serve_e2e(params, build_s: float, card: str, profile: bool):
     for mode in ("eager", "graph"):
         reqs = e2e_requests(cfg.vocab_size)
         with step_graph.eager() if mode == "eager" else contextlib.nullcontext():
-            batcher, launches, fwds, step_ms, kv_rows = run_counted(eng, reqs)
+            batcher, launches, fwds, step_ms, kv_rows, prefill_ms = run_counted(eng, reqs)
         forwards = {kind: sum(k == kind for k, _ in fwds) for kind in ("prefill", "decode")}
-        mm, att = launches["pb_int8_matmul"], launches["decode_attention"]
+        by_arm = int8_launches([m for _, m in fwds], n_linear, first_linear(params))
+        mm, att = sum(by_arm.values()), launches["decode_attention"]
         if mm != n_linear * (forwards["prefill"] + forwards["decode"]) or mm == 0:
             raise AssertionError(f"e2e ({mode}): {mm} matmul launches for {forwards} forwards")
         if att != cfg.num_hidden_layers * forwards["decode"] or att == 0:
             raise AssertionError(f"e2e ({mode}): {att} attention launches for {forwards} forwards")
-        if launches != expect_launches(pb_int8_matmul=mm, pb_prep_int8=mm, decode_attention=att):
-            raise AssertionError(f"e2e ({mode}): the strip serving defaults launched another "
-                                 f"kernel: {launches}")
+        if launches != expect_launches(**by_arm, pb_prep_int8=mm, decode_attention=att):
+            raise AssertionError(f"e2e ({mode}): launches {launches}, expected the int8 arms "
+                                 f"{by_arm} by rows (M_TC), {mm} x preparations and {att} "
+                                 f"attentions, nothing else")
         mean_rows = statistics.mean(kv_rows)
         s = batcher.stats
         row = {"phase": "e2e", "mode": mode,
@@ -1030,7 +1091,10 @@ def serve_e2e(params, build_s: float, card: str, profile: bool):
                "decode_steps": len(step_ms), "ms_per_decode_step_median": statistics.median(step_ms),
                "ms_per_decode_step_mean": statistics.mean(step_ms),
                "prefill_forwards": forwards["prefill"], "decode_forwards": forwards["decode"],
-               "matmul_launches": mm, "prep_launches": launches["pb_prep_int8"],
+               "prefill_ms_total": sum(prefill_ms),
+               "prefill_rows": sorted(m for k, m in fwds if k == "prefill"),
+               "matmul_launches": mm, "matmul_launches_by_arm": by_arm,
+               "prep_launches": launches["pb_prep_int8"],
                "attention_launches": att, "matmul_launches_per_decode_step": n_linear,
                "attention_launches_per_decode_step": cfg.num_hidden_layers,
                "packed_plane_bytes": plane_bytes, "lm_head_bytes": head_bytes,
@@ -1416,7 +1480,7 @@ def paged_e2e(params, card: str):
                                             max_new_tokens=2)])  # cuBLAS, allocator
         forwards = {"prefill": 0, "decode": 0, "verify": 0, "window": 0}
         finite = torch.ones((), dtype=torch.bool, device=DEV)
-        step_ms, chunk_steps = [], [0]
+        step_ms, chunk_steps, fwd_rows, fwd_ms, prefill_ms = [], [0], [], [], []
         dec, spec, chunk = eng.decode_step, eng.spec_decode_step, eng.prefill_chunk_step
 
         def on_forward(kind, rows, caches, pos, logits):
@@ -1426,7 +1490,10 @@ def paged_e2e(params, card: str):
                     kind = "window"  # a chunk or a prefix-cache suffix
                 else:
                     kind = "verify" if isinstance(pos, torch.Tensor) else "prefill"
+                if kind != "verify":
+                    prefill_ms.append(fwd_ms[-1])
             forwards[kind] += 1
+            fwd_rows.append(rows)
             finite = finite & torch.isfinite(logits).all()
 
         def timed(fn):
@@ -1444,7 +1511,7 @@ def paged_e2e(params, card: str):
             chunk_steps[0] += 1
             return chunk(slot)
 
-        restore = count_forwards(eng, on_forward)
+        restore = count_forwards(eng, on_forward, fwd_ms)
         eng.prefill_chunk_step = counted_chunk
         eng.decode_step, eng.spec_decode_step = timed(dec), timed(spec)
         reqs = [Request(request_id=i, prompt_ids=p, max_new_tokens=E2E_NEW)
@@ -1464,6 +1531,7 @@ def paged_e2e(params, card: str):
                "slots": 8, "max_seq": 2048, "page_size": 16, "pages": eng.pool.n_pages + 1,
                "kv": "int8 pages", "requests": len(reqs), "generated_tokens": s.generated_tokens,
                "wall_s": s.wall_seconds, "tokens_per_s": s.tokens_per_second,
+               "prefill_ms_total": sum(prefill_ms),
                "decode_steps": len(step_ms), "ms_per_step_median": statistics.median(step_ms),
                "ms_per_step_mean": statistics.mean(step_ms), "forwards": forwards,
                "chunk_steps": chunk_steps[0], "spec_drafted": s.spec_drafted,
@@ -1481,7 +1549,8 @@ def paged_e2e(params, card: str):
             raise AssertionError(f"paged e2e pass {row['pass']}: a request lacks its tokens")
         windows = n_layers * (forwards["verify"] + forwards["window"])  # the tensor cores'
         want = expect_launches(
-            pb_int8_matmul=n_linear * n_fwd, pb_prep_int8=n_linear * n_fwd,
+            **int8_launches(fwd_rows, n_linear, first_linear(params)),
+            pb_prep_int8=n_linear * n_fwd,
             paged_attention_decode=n_layers * forwards["decode"],
             paged_attention_multi=windows, paged_attention_window=windows)
         if launches != want:
@@ -1568,7 +1637,7 @@ def serve_v1_e2e(params, cfg, build_s: float, card: str):
     head_bytes = params["embed_tokens"].numel() * params["embed_tokens"].element_size()
     reqs = e2e_requests(cfg.vocab_size)
     torch.cuda.reset_peak_memory_stats()
-    batcher, launches, forwards, step_ms, kv_rows = run_counted(eng, reqs)
+    batcher, launches, forwards, step_ms, kv_rows, _ = run_counted(eng, reqs)
 
     planar = sum(use_planar(m, p) for _, m in forwards for p in linears)
     n_decode = sum(kind == "decode" for kind, _ in forwards)
@@ -1744,7 +1813,8 @@ def serve_scan_fuse_e2e(params, card: str):
     of m rows runs each packed linear once: (i) through the stacked int8
     kernel where m <= 256, else the flat int8 kernel on the layer's views;
     (ii) and (iii) through the pair / dma kernel where m < 256, else the
-    int8 prefill kernel; decode attention once a layer per decode step."""
+    int8 prefill kernel; decode attention once a layer per decode step.
+    The int8 kernels' launches are checked by arm (`int8_launches`)."""
     from pb_llm_tpu_torch.models.registry import family_for
     from pb_llm_tpu_torch.ops.kernel_config import KernelConfig
     from pb_llm_tpu_torch.runtime.engine import Engine, EngineConfig
@@ -1755,21 +1825,28 @@ def serve_scan_fuse_e2e(params, card: str):
               ("fuse_linears + pair", dict(fuse_linears=True), "pair", 4, "pb_pair_v2", 255),
               ("dma", dict(), "dma", 7, "pb_dma_v2", 255))
     rows = []
+    p0 = first_linear(params)
     for name, ekw, arm, per_layer, kernel, max_rows in passes:
         kernels = KernelConfig(decode_dot=arm) if arm else None
         eng = Engine(params, cfg, family_for("llama"),
                      EngineConfig(n_slots=8, max_seq=2048, kernels=kernels, **ekw), device=DEV)
         assert eng.cache_dtype == torch.int8
         torch.cuda.reset_peak_memory_stats()
-        batcher, launches, fwds, step_ms, _ = run_counted(eng, e2e_requests(cfg.vocab_size))
-        n_small = sum(m <= max_rows for _, m in fwds)
+        batcher, launches, fwds, step_ms, _, prefill_ms = run_counted(
+            eng, e2e_requests(cfg.vocab_size))
+        small = [m for _, m in fwds if m <= max_rows]  # through the pass's kernel
+        big = [m for _, m in fwds if m > max_rows]     # through the flat int8 kernel
         n_decode = sum(kind == "decode" for kind, _ in fwds)
         n_lin = per_layer * n_layers
-        n_int8 = len(fwds) - n_small  # forwards through the flat int8 kernel
-        n_prep = len(fwds) if kernel == "pb_int8_matmul_stacked" else n_int8
-        want = expect_launches(**{kernel: n_lin * n_small, "pb_int8_matmul": n_lin * n_int8,
-                                  "pb_prep_int8": n_lin * n_prep,
-                                  "decode_attention": n_layers * n_decode})
+        if kernel == "pb_int8_matmul_stacked":  # the stacked entry's two arms
+            arms = int8_launches(small, n_lin, p0)
+            own = {kernel: arms["pb_int8_matmul"], kernel + "_tc": arms["pb_int8_matmul_tc"]}
+            n_prep = len(fwds)
+        else:
+            own, n_prep = {kernel: n_lin * len(small)}, len(big)
+        want = expect_launches(**own, **int8_launches(big, n_lin, p0),
+                               pb_prep_int8=n_lin * n_prep, decode_attention=n_layers * n_decode)
+        n_small = len(small)
         s = batcher.stats
         row = {"phase": "scan_fuse_e2e", "pass": name, "model": "llama-7b PBW-v2 (random planes, "
                "low_frac 0.9)", "layers": n_layers, "slots": 8, "max_seq": 2048,
@@ -1780,10 +1857,11 @@ def serve_scan_fuse_e2e(params, card: str):
                "ms_per_decode_step_mean": statistics.mean(step_ms),
                "forwards": len(fwds), "forwards_through_the_kernel": n_small,
                "prefill_forward_rows": sorted(m for kind, m in fwds if kind == "prefill"),
+               "prefill_ms_total": sum(prefill_ms),
                "launches": launches, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
                "card": card}
         log(json.dumps(row))
-        if launches != want or launches[kernel] == 0:
+        if launches != want or sum(own.values()) == 0:
             raise AssertionError(f"phase 9b ({name}): launches {launches}, expected {want}")
         rows.append(row)
         del eng, batcher
@@ -1955,7 +2033,7 @@ def serve_http_e2e(params, card: str, phase4: dict):
         eng = fresh_engine()
         forwards = {"prefill": 0, "decode": 0, "window": 0}
         finite = torch.ones((), dtype=torch.bool, device=DEV)
-        step_ms = []
+        step_ms, fwd_rows = [], []
         dec = eng.decode_step
 
         def on_forward(kind, rows, caches, pos, logits):
@@ -1964,6 +2042,7 @@ def serve_http_e2e(params, card: str, phase4: dict):
                 kind = "window" if isinstance(caches, list) and "chunk_table" in caches[0] \
                     else "prefill"
             forwards[kind] += 1
+            fwd_rows.append(rows)
             finite = finite & torch.isfinite(logits).all()
 
         def timed_step():
@@ -2002,7 +2081,7 @@ def serve_http_e2e(params, card: str, phase4: dict):
         received = sum(len(ids) for ids, _, _ in results)
         decode_fwd = forwards["decode"]
         if paged:
-            want = expect_launches(pb_int8_matmul=n_linear * sum(forwards.values()),
+            want = expect_launches(**int8_launches(fwd_rows, n_linear, first_linear(params)),
                                    pb_prep_int8=n_linear * sum(forwards.values()),
                                    paged_attention_decode=n_layers * decode_fwd,
                                    paged_attention_multi=n_layers * forwards["window"],
@@ -2010,7 +2089,7 @@ def serve_http_e2e(params, card: str, phase4: dict):
                                    paged_attention_bf16=n_layers * (decode_fwd
                                                                     + forwards["window"]))
         else:
-            want = expect_launches(pb_int8_matmul=n_linear * sum(forwards.values()),
+            want = expect_launches(**int8_launches(fwd_rows, n_linear, first_linear(params)),
                                    pb_prep_int8=n_linear * sum(forwards.values()),
                                    decode_attention=n_layers * decode_fwd,
                                    **{counter: n_layers * decode_fwd})
@@ -2306,6 +2385,7 @@ def main(argv=None) -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     from pb_llm_tpu_torch.data.synthetic import random_packed_llama, random_packed_opt
+    from pb_llm_tpu_torch.ops import packed_matmul as pm
 
     card = setup()
     timer = Timer()
@@ -2349,7 +2429,8 @@ def main(argv=None) -> int:
     prod = producer(card)
     prod_v1 = producer_v1(card)
 
-    head = next(r for r in mm_rows if (r["m"], r["ic"], r["oc"]) == HEADLINE_SHAPE)
+    head = next(r for r in mm_rows if (r["m"], r["ic"], r["oc"]) == HEADLINE_SHAPE and r["picked"])
+    pre = {r["arm"]: r for r in mm_rows if (r["m"], r["ic"], r["oc"]) == PREFILL_SHAPE}
     dq = next(r for r in dq_rows if (r["ic"], r["oc"], r["dtype"]) == (4096, 11008, "torch.float32"))
     f32 = next(r for r in f32_rows if (r["m"], r["ic"], r["oc"]) == HEADLINE_SHAPE)
     fa = fa_rows[0]
@@ -2364,8 +2445,12 @@ def main(argv=None) -> int:
          "replaces": "pb_llm_tpu/ops/pallas_pb.py:393", "launches": e2e["matmul_launches"],
          "max_abs_err": max(r["max_abs_err"] for r in mm_rows), "ms": head["kernel_ms"],
          "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-         "library_ms": head["library_ms"], "parity": "ok",
-         "shape": "m={} ic={} oc={} low_frac 0.9".format(*HEADLINE_SHAPE)},
+         "library_ms": head["library_ms"], "parity": "bit for bit", "arm": head["arm"],
+         "shape": "m={} ic={} oc={} low_frac 0.9; launches: phase 4, both arms".format(
+             *HEADLINE_SHAPE),
+         "prefill": {k: pre["tc"][k] for k in ("m", "ic", "oc", "arm", "kernel_ms", "bound_ms",
+                                              "bound_by", "plain_ms", "library_ms")}
+         | {"dp4a_ms": pre["dp4a"]["kernel_ms"], "M_TC": pm.M_TC}},
         {"name": "decode_attention", "route": "cuda", "source": "pb_llm_tpu_torch/csrc/decode_attention.cu",
          "replaces": "pb_llm_tpu/ops/decode_attention.py:78", "launches": e2e["attention_launches"],
          "max_abs_err": att["max_abs_err"], "ms": att["kernel_ms"], "plain_ms": att["plain_ms"],
@@ -2414,13 +2499,13 @@ def main(argv=None) -> int:
                   "f32 matmul on the dense weight"},
     ]
 
-    def arm_row(kernel, **match):
+    def arm_row(kernel, m=HEADLINE_SHAPE[0], **match):
         return next(r for r in arm_rows if r["kernel"] == kernel
-                    and (r["m"], r["ic"], r["oc"]) == HEADLINE_SHAPE
+                    and (r["m"], r["ic"], r["oc"]) == (m, *HEADLINE_SHAPE[1:])
                     and all(r.get(k) == v for k, v in match.items()))
 
-    def e2e_launches(kernel):
-        return sum(r["launches"][kernel] for r in arms_e2e)
+    def e2e_launches(kernel):  # both arms of the int8 kernels
+        return sum(r["launches"][kernel] + r["launches"].get(kernel + "_tc", 0) for r in arms_e2e)
 
     for name, replaces, source, launches, library in (
             ("pb_pair_v2", 334, "pb_pair_v2.cu", e2e_launches("pb_pair_v2"), "bf16"),
@@ -2430,7 +2515,13 @@ def main(argv=None) -> int:
             ("pb_f32_matmul_stacked", 991, "pb_f32_matmul.cu",
              scan_fuse["launches"]["pb_f32_matmul_stacked"], "f32")):
         r = arm_row(name, row_groups=1)
-        kernels.append({
+        extra = {}
+        if name == "pb_int8_matmul_stacked":  # the window rows, beside the flat kernel
+            w = arm_row(name, m=ARM_MS[1], row_groups=1)
+            extra = {"arm": r["arm"], "at_m{}".format(ARM_MS[1]): {
+                "arm": w["arm"], "ms": w["kernel_ms"], "flat_ms": w["flat_ms"],
+                "bound_ms": w["bound_ms"], "library_ms": w["library_ms"]}}
+        kernels.append({**extra,
             "name": name, "route": "cuda", "source": f"pb_llm_tpu_torch/csrc/{source}",
             "replaces": f"pb_llm_tpu/ops/pallas_pb.py:{replaces}", "launches": launches,
             "max_abs_err": max(q["max_abs_err"] for q in arm_rows if q["kernel"] == name),

@@ -30,6 +30,17 @@
 // absmax (a max is exact in any order) and gathers, sums and quantizes row
 // group g's salient columns.  It allocates nothing: the wrapper owns the
 // outputs.
+//
+// For the int8 matmul's tensor-core arm (tc = 1) it writes the two code
+// arrays in that arm's layout (packed_matmul.tc_x_columns): each row of x8
+// in pallas_pb.py::byte_permute_x's order (within a pack block of g words,
+// column (8j + b)*g + i at b*4g + 4i + j), every bit run of 4g bytes
+// padded with zeros to 4*round_up(g, 8) and cut into 32-byte pieces of 8
+// words, the 8 runs' pieces of one word group side by side (256 bytes a
+// group: one stage of the arm, two 128-byte TMA boxes); each xg8 row
+// padded with zeros to a multiple of 32 slots.  The codes are the same
+// bytes, in other places; the sums add the same values in another order,
+// within the same bound.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -70,7 +81,7 @@ __global__ void __launch_bounds__(THREADS)
 pb_prep_int8_kernel(const float* __restrict__ x, const int* __restrict__ side_idx,
                     int8_t* __restrict__ x8, float* __restrict__ sx, float* __restrict__ rs,
                     int8_t* __restrict__ xg8, float* __restrict__ rsg, int m, int ic, int shards,
-                    int kps, int n_rg) {
+                    int kps, int n_rg, int pack_block, int tc) {
   __shared__ float red_f[THREADS / 32];
   __shared__ double red_d[THREADS / 32];
   const int r = blockIdx.x;
@@ -82,20 +93,40 @@ pb_prep_int8_kernel(const float* __restrict__ x, const int* __restrict__ side_id
   const float s = __fdiv_rn(fmaxf(block_max(amax, red_f), 1e-30f), 127.f);
 
   double sum = 0.0;
-  if (y == 0) {
+  if (y == 0 && !tc) {
     int8_t* out = x8 + (size_t)r * ic;
     for (int i = threadIdx.x; i < ic; i += THREADS) {
       const float v = xr[i];
       sum += (double)v;
       out[i] = quantize(v, s);
     }
+  } else if (y == 0) {
+    // byte-permuted, padded, grouped: full blocks of gf words (g8f padded),
+    // then the last; 256 bytes a word group s: run b's 32 bytes (words
+    // 8s..8s+7, 4 bytes each) at 32b
+    const int gf = pack_block / 32, g8f = (gf + 7) & ~7, nfull = ic / pack_block;
+    const int gl = (ic - nfull * pack_block) / 32, g8l = (gl + 7) & ~7;
+    const int full_bytes = nfull * 32 * g8f;
+    const int icp = full_bytes + 32 * g8l;
+    int8_t* out = x8 + (size_t)r * icp;
+    for (int o = threadIdx.x; o < icp; o += THREADS) {
+      const bool in_full = o < full_bytes;
+      const int blk = in_full ? o / (32 * g8f) : nfull;
+      const int g = in_full ? gf : gl;
+      const int rem = o - blk * 32 * g8f;
+      const int b = (rem & 255) >> 5, iw = 8 * (rem >> 8) + ((rem & 31) >> 2), j = rem & 3;
+      const float v = iw < g ? xr[blk * pack_block + (8 * j + b) * g + iw] : 0.f;
+      sum += (double)v;
+      out[o] = quantize(v, s);
+    }
   } else {
     const int g = y - 1;
     const int K = shards * kps;
+    const int kst = tc ? (K + 31) & ~31 : K;
     const int ic_s = ic / shards;
-    int8_t* out = xg8 + ((size_t)g * m + r) * K;
-    for (int k = threadIdx.x; k < K; k += THREADS) {
-      const int idx = side_idx[(size_t)k * n_rg + g];
+    int8_t* out = xg8 + ((size_t)g * m + r) * kst;
+    for (int k = threadIdx.x; k < kst; k += THREADS) {
+      const int idx = k < K ? side_idx[(size_t)k * n_rg + g] : ic_s;
       const float v = idx < ic_s ? xr[(k / kps) * ic_s + idx] : 0.f;
       sum += (double)v;
       out[k] = quantize(v, s);
@@ -116,16 +147,18 @@ pb_prep_int8_kernel(const float* __restrict__ x, const int* __restrict__ side_id
 
 // x: f32 [m, ic]; side_idx: int32 [shards * kps, n_rg]; out: x8 int8
 // [m, ic], sx, rs f32 [m], xg8 int8 [n_rg, m, shards * kps], rsg f32
-// [n_rg, m].  All contiguous, on one device.
+// [n_rg, m]; with tc, x8 [m, icp] and xg8 [n_rg, m, round_up(shards * kps,
+// 32)] in the tensor-core arm's layout (pack_block: the plane's local pack
+// block, a multiple of 32).  All contiguous, on one device.
 extern "C" int pb_prep_int8(const void* x, const void* side_idx, void* x8, void* sx, void* rs,
                             void* xg8, void* rsg, int m, int ic, int shards, int kps, int n_rg,
-                            void* stream) {
+                            int pack_block, int tc, void* stream) {
   if (m <= 0 || ic <= 0 || shards <= 0 || ic % shards != 0 || kps <= 0 || n_rg <= 0 ||
-      n_rg >= 65535)
+      n_rg >= 65535 || pack_block <= 0 || pack_block % 32 || ic % 32)
     return (int)cudaErrorInvalidValue;
   dim3 grid(m, 1 + n_rg);
   pb_prep_int8_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       (const float*)x, (const int*)side_idx, (int8_t*)x8, (float*)sx, (float*)rs, (int8_t*)xg8,
-      (float*)rsg, m, ic, shards, kps, n_rg);
+      (float*)rsg, m, ic, shards, kps, n_rg, pack_block, tc);
   return (int)cudaGetLastError();
 }

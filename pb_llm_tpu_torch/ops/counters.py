@@ -18,7 +18,8 @@ from typing import Dict, Tuple
 
 # name: (module under pb_llm_tpu_torch.ops, attribute)
 KERNELS: Dict[str, Tuple[str, str]] = {
-    "pb_int8_matmul": ("packed_matmul", "launches"),
+    "pb_int8_matmul": ("packed_matmul", "launches"),  # the dp4a arm
+    "pb_int8_matmul_tc": ("packed_matmul", "tc_launches"),  # the tensor-core arm
     "decode_attention": ("decode_attention", "launches"),
     "pb_dequant_v2": ("prefill", "launches"),
     "pb_f32_matmul": ("packed_matmul", "f32_launches"),
@@ -29,7 +30,8 @@ KERNELS: Dict[str, Tuple[str, str]] = {
     "pb_select_v1": ("packed_matmul_v1", "select_launches"),
     "pb_pair_v2": ("decode_arms", "pair_launches"),
     "pb_dma_v2": ("decode_arms", "dma_launches"),
-    "pb_int8_matmul_stacked": ("packed_matmul", "stacked_launches"),
+    "pb_int8_matmul_stacked": ("packed_matmul", "stacked_launches"),  # dp4a
+    "pb_int8_matmul_stacked_tc": ("packed_matmul", "stacked_tc_launches"),
     "pb_f32_matmul_stacked": ("packed_matmul", "stacked_f32_launches"),
     "decode_attention_q8": ("decode_attention", "q8_launches"),
     "decode_attention_bf16": ("decode_attention", "bf16_launches"),

@@ -32,6 +32,14 @@ x preparation (`prepare_int8`, `csrc/pb_prep_int8.cu`): the int8 path's
 per-row absmax scale, int8 codes, row sums and gathered salient codes in
 one launch per linear, the operands both int8 kernels take.
 
+int8 arms (`int8_arm`): the int8 kernel, flat and stacked, runs on the
+CUDA cores (`__dp4a`, x8 in natural column order) or on the int8 tensor
+cores (`wgmma`, x8 in `byte_permute_x`'s padded order grouped by word
+group, `tc_x_columns`; xg8 padded to 32 slots).  The operands carry their
+layout (`Int8Operands.layout`, named by its arm), the x preparation writes
+it, and the launch takes that arm.  Both arms and the plain version give
+the same bits on the same operands.
+
 Each wrapper launches its CUDA kernel on a CUDA tensor and runs its plain
 PyTorch version on a CPU tensor.  The dispatch of `pb_matmul_pallas_v2`
 lives in `ops.binary_matmul`.
@@ -40,6 +48,7 @@ lives in `ops.binary_matmul`.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -57,23 +66,145 @@ f32_launches = 0  # kernel launches of pb_f32_matmul (plain-version calls not co
 stacked_launches = 0  # kernel launches of pb_int8_matmul_stacked
 stacked_f32_launches = 0  # kernel launches of pb_f32_matmul_stacked
 prep_launches = 0  # kernel launches of prepare_int8 (csrc/pb_prep_int8.cu)
+tc_launches = 0  # kernel launches of pb_int8_matmul's tensor-core arm
+stacked_tc_launches = 0  # kernel launches of pb_int8_matmul_stacked's tensor-core arm
+
+# The int8 kernel's arms: "dp4a" (CUDA cores) below M_TC rows, "tc" (int8
+# tensor cores) from M_TC rows on, where the layout allows (`int8_arm`).
+# On an H100 (700 W) the tensor cores win alone from 8 rows on llama-7b's
+# three shapes (chip_smoke.py phase 2), but in the graphed decode step of 8
+# slots, kernel after kernel, they lose a quarter of a millisecond a step
+# (scripts/torch_int8_arm_ab.py): decode stays on the dp4a arm (PERF.md).
+M_TC = 16
+TC_OC = 128  # the tensor-core arm's output columns a block: one row group each
+ARMS = ("dp4a", "tc")  # also the names of their operand layouts
 
 
 class Int8Operands(NamedTuple):
-    x8: torch.Tensor   # int8 [m, ic], natural column order
+    x8: torch.Tensor   # int8 [m, ic] in natural column order; "tc": [m, icp], `tc_x_columns`
     sx: torch.Tensor   # f32 [m]   per-row scale absmax/127
     rs: torch.Tensor   # f32 [m]   exact f32 rowsum of x
-    xg8: torch.Tensor  # int8 [n_rg, m, k_pad] gathered salient x, same scale
+    xg8: torch.Tensor  # int8 [n_rg, m, k_pad] gathered salient x, same scale; "tc": k padded
     rsg: torch.Tensor  # f32 [n_rg, m] exact f32 rowsum of the gathered x
     coef: torch.Tensor  # f32 [5, oc]: 2·scale, β, γ, hs, bias
+    layout: str = "dp4a"  # the arm these operands are laid out for: "dp4a" or "tc"
 
 
-def prepare_int8_plain(x: torch.Tensor, p: PackedLinearV2) -> Int8Operands:
-    """x preparation of `_planar_v2_int8_call` (pallas_pb.py:471-495),
-    without the TPU byte permutation: plain PyTorch.  The scale is a true
-    division on every device (on a CUDA tensor, ``t / 127.0`` multiplies by
-    a rounded reciprocal).  The row sums are f32 sums in torch.sum's order;
-    the kernel's differ from them by at most `sum_bound`."""
+def tc_layout_ok(p: PackedLinearV2) -> bool:
+    """The layouts the tensor-core arm takes: oc a multiple of 16 (16-byte
+    code rows), each 128-column tile inside one row group, and nibble
+    sidecars in shard segments of a multiple of 16 slots (8 packed rows a
+    copy)."""
+    return (p.oc_local % 16 == 0 and (p.n_row_groups == 1 or p.col_tile % TC_OC == 0)
+            and (p.side_bits == 8 or p.k_pad_shard_local % 16 == 0))
+
+
+def int8_arm(m: int, p: PackedLinearV2) -> str:
+    """The int8 kernel's arm for ``m`` rows of x on layout ``p``: "tc" at
+    m >= M_TC where `tc_layout_ok`, else "dp4a".  The one place the arm is
+    chosen, for the flat and the stacked entry."""
+    return "tc" if m >= M_TC and tc_layout_ok(p) else "dp4a"
+
+
+@functools.lru_cache(maxsize=64)
+def padded_columns(ic: int, pack_block: int) -> torch.Tensor:
+    """For each byte of `byte_permute_x`'s padded row, the natural column it
+    holds, or ``ic`` for a padding zero (int64, CPU)."""
+    cols, off = [], 0
+    for rows in packing.block_sizes(ic, pack_block):
+        g = rows // packing.WORD_BITS
+        g8 = -(-g // 8) * 8
+        b = torch.arange(8).view(8, 1, 1)
+        i = torch.arange(g8).view(1, g8, 1)
+        j = torch.arange(4).view(1, 1, 4)
+        c = torch.where(i < g, off + (8 * j + b) * g + i, torch.tensor(ic))
+        cols.append(c.reshape(-1))
+        off += rows
+    return torch.cat(cols)
+
+
+@functools.lru_cache(maxsize=64)
+def _group_order(ic: int, pack_block: int) -> torch.Tensor:
+    """For each byte of the tensor-core arm's row, its place in
+    `byte_permute_x`'s padded row: each bit run of a pack block cut into
+    32-byte pieces (8 words), the 8 runs' pieces of one word group side by
+    side (256 bytes a group)."""
+    order, off = [], 0
+    for rows in packing.block_sizes(ic, pack_block):
+        g8 = -(-(rows // packing.WORD_BITS) // 8) * 8
+        s = torch.arange(g8 // 8).view(-1, 1, 1)
+        b = torch.arange(8).view(1, 8, 1)
+        k = torch.arange(32).view(1, 1, 32)
+        order.append((off + b * 4 * g8 + 32 * s + k).reshape(-1))
+        off += 32 * g8
+    return torch.cat(order)
+
+
+@functools.lru_cache(maxsize=64)
+def tc_x_columns(ic: int, pack_block: int) -> torch.Tensor:
+    """For each byte of a row of x8 in the tensor-core arm's layout, the
+    natural column it holds, or ``ic`` for a padding zero (int64, CPU):
+    `pallas_pb.byte_permute_x`'s order (within a pack block of g words,
+    column (8j + b)·g + i at b·4g + 4i + j), each bit run of 4g bytes padded
+    to 4·round_up(g, 8), then grouped by word group (`_group_order`), so a
+    group's 8 runs are 256 contiguous bytes: two 128-byte TMA boxes."""
+    return padded_columns(ic, pack_block)[_group_order(ic, pack_block)]
+
+
+def byte_permute_x(x8: torch.Tensor, ic: int, pack_block: int) -> torch.Tensor:
+    """x8 [m, ic] → [m, icp] in `pallas_pb.byte_permute_x`'s order, each bit
+    run padded with zeros to a multiple of 8 words."""
+    cols = padded_columns(ic, pack_block).to(x8.device)
+    return torch.cat([x8, x8.new_zeros((x8.shape[0], 1))], dim=1)[:, cols].contiguous()
+
+
+def group_runs(xp: torch.Tensor, ic: int, pack_block: int) -> torch.Tensor:
+    """`byte_permute_x`'s padded rows → the tensor-core arm's (`_group_order`)."""
+    return xp[:, _group_order(ic, pack_block).to(xp.device)].contiguous()
+
+
+def _from_tc_x(xp: torch.Tensor, ic: int, pack_block: int) -> torch.Tensor:
+    """The inverse of `group_runs` ∘ `byte_permute_x` (padding dropped)."""
+    cols = tc_x_columns(ic, pack_block).to(xp.device)
+    keep = cols < ic
+    out = xp.new_empty((xp.shape[0], ic))
+    out[:, cols[keep]] = xp[:, keep]
+    return out
+
+
+def _tc_slots(k: int) -> int:
+    """xg8's row width in the "tc" layout: k slots padded to a multiple of 32."""
+    return -(-k // 32) * 32
+
+
+def to_layout(ops: Int8Operands, p: PackedLinearV2, layout: str) -> Int8Operands:
+    """The same operands in the other arm's layout: "dp4a" (x8 [m, ic],
+    xg8 [n_rg, m, k_pad]) or "tc" (x8 [m, icp] in `tc_x_columns`' order,
+    xg8 [n_rg, m, round_up(k_pad, 32)] padded with zeros)."""
+    if layout == ops.layout:
+        return ops
+    pb = p.pack_block_local
+    if layout == "tc":
+        k = ops.xg8.shape[2]
+        xg8 = torch.nn.functional.pad(ops.xg8, (0, _tc_slots(k) - k)).contiguous()
+        x8 = group_runs(byte_permute_x(ops.x8, p.ic_local, pb), p.ic_local, pb)
+    elif layout == "dp4a":
+        xg8 = ops.xg8[..., :p.k_pad].contiguous()
+        x8 = _from_tc_x(ops.x8, p.ic_local, pb)
+    else:
+        raise ValueError(f"unknown int8 operand layout {layout!r}")
+    return ops._replace(x8=x8, xg8=xg8, layout=layout)
+
+
+def prepare_int8_plain(x: torch.Tensor, p: PackedLinearV2,
+                       layout: str = "dp4a") -> Int8Operands:
+    """x preparation of `_planar_v2_int8_call` (pallas_pb.py:471-495):
+    plain PyTorch, in natural column order (layout "dp4a") or in the
+    tensor-core arm's (layout "tc": the TPU byte permutation, padded and
+    grouped).  The scale is a true division on every device (on a CUDA
+    tensor, ``t / 127.0`` multiplies by a rounded reciprocal).  The row sums
+    are f32 sums in torch.sum's order; the kernel's differ from them by at
+    most `sum_bound`."""
     xf = x.float()
     absmax = torch.amax(xf.abs(), dim=1, keepdim=True)
     sx = torch.clamp(absmax, min=1e-30) / absmax.new_tensor(127.0)
@@ -82,8 +213,9 @@ def prepare_int8_plain(x: torch.Tensor, p: PackedLinearV2) -> Int8Operands:
     xg = gather_x_v2(xf, p).permute(2, 0, 1)                 # [n_rg, m, k_pad]
     rsg = torch.sum(xg, dim=2)
     xg8 = torch.clamp(torch.round(xg / sx[None]), -127, 127).to(torch.int8).contiguous()
-    return Int8Operands(x8.contiguous(), sx[:, 0].contiguous(), rs.contiguous(),
-                        xg8, rsg.contiguous(), coef_rows(p))
+    ops = Int8Operands(x8.contiguous(), sx[:, 0].contiguous(), rs.contiguous(),
+                       xg8, rsg.contiguous(), coef_rows(p))
+    return to_layout(ops, p, layout)
 
 
 def sum_bound(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -96,12 +228,15 @@ def sum_bound(x: torch.Tensor, dim: int) -> torch.Tensor:
     return 2 * n * 2.0 ** -24 * x.abs().sum(dim=dim, dtype=torch.float64)
 
 
-def prepare_int8(x: torch.Tensor, p: PackedLinearV2) -> Int8Operands:
-    """The int8 path's x preparation: on a CPU tensor the plain version, on
-    a CUDA tensor one launch of `csrc/pb_prep_int8.cu` (the plain version's
-    codes and scales bit for bit, its sums within `sum_bound`)."""
+def prepare_int8(x: torch.Tensor, p: PackedLinearV2, layout: str = "dp4a") -> Int8Operands:
+    """The int8 path's x preparation in ``layout`` ("dp4a" or "tc"): on
+    a CPU tensor the plain version, on a CUDA tensor one launch of
+    `csrc/pb_prep_int8.cu` (the plain version's codes and scales bit for
+    bit, its sums within `sum_bound`)."""
+    if layout not in ARMS:
+        raise ValueError(f"prepare_int8: unknown layout {layout!r}")
     if x.device.type == "cpu":
-        return prepare_int8_plain(x, p)
+        return prepare_int8_plain(x, p, layout)
     if x.device.type != "cuda":
         raise ValueError(f"prepare_int8: unsupported device {x.device}")
     if x.dim() != 2 or x.shape[1] != p.ic_local:
@@ -109,33 +244,39 @@ def prepare_int8(x: torch.Tensor, p: PackedLinearV2) -> Int8Operands:
     idx = p.side_idx
     if idx.device != x.device or idx.dtype != torch.int32 or not idx.is_contiguous():
         raise ValueError("prepare_int8: side_idx must be a contiguous int32 tensor on x's device")
-    return launch_prep_int8(x.float().contiguous(), p)
+    return launch_prep_int8(x.float().contiguous(), p, layout)
 
 
-_PREP_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_PREP_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
-def launch_prep_int8(xf: torch.Tensor, p: PackedLinearV2) -> Int8Operands:
+def launch_prep_int8(xf: torch.Tensor, p: PackedLinearV2, layout: str = "dp4a") -> Int8Operands:
     """Launch the x-preparation kernel on a contiguous f32 x (on the card)
-    on the current stream; counts one launch."""
+    on the current stream, writing ``layout``; counts one launch."""
     m, ic = xf.shape
     n_rg, k_pad = p.n_row_groups, p.k_pad
     dev = xf.device
-    x8 = torch.empty((m, ic), dtype=torch.int8, device=dev)
+    tc = layout == "tc"
+    if tc:
+        icp = _group_order(ic, p.pack_block_local).numel()
+        x8 = torch.empty((m, icp), dtype=torch.int8, device=dev)
+        xg8 = torch.empty((n_rg, m, _tc_slots(k_pad)), dtype=torch.int8, device=dev)
+    else:
+        x8 = torch.empty((m, ic), dtype=torch.int8, device=dev)
+        xg8 = torch.empty((n_rg, m, k_pad), dtype=torch.int8, device=dev)
     sx = torch.empty(m, dtype=torch.float32, device=dev)
     rs = torch.empty(m, dtype=torch.float32, device=dev)
-    xg8 = torch.empty((n_rg, m, k_pad), dtype=torch.int8, device=dev)
     rsg = torch.empty((n_rg, m), dtype=torch.float32, device=dev)
     fn = _build.load("pb_prep_int8").pb_prep_int8
     fn.argtypes = _PREP_ARGTYPES
     fn.restype = ctypes.c_int
     err = fn(xf.data_ptr(), p.side_idx.data_ptr(), x8.data_ptr(), sx.data_ptr(), rs.data_ptr(),
              xg8.data_ptr(), rsg.data_ptr(), m, ic, p.shards_local, p.k_pad_shard_local, n_rg,
-             torch.cuda.current_stream(dev).cuda_stream)
+             p.pack_block_local, int(tc), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "pb_prep_int8")
     global prep_launches
     prep_launches += 1
-    return Int8Operands(x8, sx, rs, xg8, rsg, coef_rows(p))
+    return Int8Operands(x8, sx, rs, xg8, rsg, coef_rows(p), layout)
 
 
 def coef_rows(p: PackedLinearV2) -> torch.Tensor:
@@ -178,8 +319,10 @@ def pb_int8_matmul_plain(x: torch.Tensor, p: PackedLinearV2) -> torch.Tensor:
 
 
 def int8_matmul_plain(ops: Int8Operands, p: PackedLinearV2) -> torch.Tensor:
-    """Plain PyTorch version of the kernel on its operands: integer dots
-    exact in float64 (|Σ| ≤ ic·127·255 < 2^53), the same f32 epilogue."""
+    """Plain PyTorch version of the kernel on its operands, in either
+    layout: integer dots exact in float64 (|Σ| ≤ ic·127·255 < 2^53), the
+    same f32 epilogue."""
+    ops = to_layout(ops, p, "dp4a")
     ic = p.ic_local
     bits = packing.unpack_bits(p.sign_packed, ic, p.pack_block_local).to(torch.float64)
     acc_b = (ops.x8.to(torch.float64) @ bits).float()
@@ -195,7 +338,7 @@ def int8_matmul_plain(ops: Int8Operands, p: PackedLinearV2) -> torch.Tensor:
     return _epilogue(acc_b, acc_v.float(), ops, p)
 
 
-_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 
 
 def pb_int8_matmul(x: torch.Tensor, p: PackedLinearV2) -> torch.Tensor:
@@ -208,7 +351,7 @@ def pb_int8_matmul(x: torch.Tensor, p: PackedLinearV2) -> torch.Tensor:
         raise ValueError("pb_int8_matmul needs low_bits == 1")
     if p.k_pad % 4:
         raise ValueError(f"pb_int8_matmul: k_pad {p.k_pad} must be a multiple of 4")
-    return launch_int8(prepare_int8(x, p), p)
+    return launch_int8(prepare_int8(x, p, int8_arm(x.shape[0], p)), p)
 
 
 def check_operands(x: torch.Tensor, p: PackedLinearV2, what: str) -> None:
@@ -228,10 +371,24 @@ def check_operands(x: torch.Tensor, p: PackedLinearV2, what: str) -> None:
         raise ValueError(f"{what}: planes must be contiguous")
 
 
+def _arm_of(ops: Int8Operands, p: PackedLinearV2, what: str) -> int:
+    """The C arm code the operands' layout names (0 dp4a, 1 tensor cores)."""
+    if ops.layout == "dp4a":
+        return 0
+    if ops.layout != "tc":
+        raise ValueError(f"{what}: unknown operand layout {ops.layout!r}")
+    if not tc_layout_ok(p):
+        raise ValueError(f"{what}: the tensor-core arm does not take this layout "
+                         f"(oc {p.oc_local}, col_tile {p.col_tile})")
+    return 1
+
+
 def launch_int8(ops: Int8Operands, p: PackedLinearV2) -> torch.Tensor:
     """Launch the CUDA kernel on prepared operands (all on one CUDA device)
-    on the current stream; counts one launch."""
-    m, ic = ops.x8.shape
+    on the current stream, in the arm their layout names; counts one launch
+    of that arm."""
+    arm = _arm_of(ops, p, "pb_int8_matmul")
+    m, ic = ops.sx.shape[0], p.ic_local
     oc = p.oc_local
     out = torch.empty((m, oc), dtype=torch.float32, device=ops.x8.device)
     lib = _build.load("pb_int8_matmul")
@@ -242,11 +399,13 @@ def launch_int8(ops: Int8Operands, p: PackedLinearV2) -> torch.Tensor:
              ops.rsg.data_ptr(), p.sign_packed.data_ptr(), p.side_val.data_ptr(),
              ops.coef.data_ptr(), out.data_ptr(),
              m, ic, oc, p.pack_block_local, p.side_bits, p.k_pad, p.k_pad_shard_local,
-             p.col_tile, p.n_row_groups,
-             torch.cuda.current_stream(out.device).cuda_stream)
+             p.col_tile, p.n_row_groups, arm, torch.cuda.current_stream(out.device).cuda_stream)
     _build.check(err, "pb_int8_matmul")
-    global launches
-    launches += 1
+    global launches, tc_launches
+    if arm:
+        tc_launches += 1
+    else:
+        launches += 1
     return out
 
 
@@ -406,7 +565,7 @@ def pb_int8_matmul_stacked(x: torch.Tensor, marker) -> torch.Tensor:
     p = _check_stacked(x, marker, "pb_int8_matmul_stacked")
     if p.k_pad % 4:
         raise ValueError(f"pb_int8_matmul_stacked: k_pad {p.k_pad} must be a multiple of 4")
-    return launch_int8_stacked(prepare_int8(x, p), marker)
+    return launch_int8_stacked(prepare_int8(x, p, int8_arm(x.shape[0], p)), marker)
 
 
 def pb_f32_matmul_stacked(x: torch.Tensor, marker) -> torch.Tensor:
@@ -419,29 +578,35 @@ def pb_f32_matmul_stacked(x: torch.Tensor, marker) -> torch.Tensor:
     return launch_f32_stacked(prepare_f32(x, p), marker)
 
 
-_STACKED_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_STACKED_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 _STACKED_F32_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 def launch_int8_stacked(ops: Int8Operands, marker) -> torch.Tensor:
     """Launch the stacked int8 kernel on layer li's prepared operands; it
     reads the whole [L] planes and coefficients (``ops.coef`` is unused) and
-    li from ``marker.idx_t``.  Counts one launch."""
+    li from ``marker.idx_t``, in the arm the operands' layout names.
+    Counts one launch of that arm."""
     sp = marker.stacked
-    m, ic = ops.x8.shape
+    arm = _arm_of(ops, stacked_layer(marker), "pb_int8_matmul_stacked")
+    m, ic = ops.sx.shape[0], sp.sign_packed.shape[1] * 32
     oc = sp.sign_packed.shape[2]
-    out = torch.empty((m, oc), dtype=torch.float32, device=ops.x8.device)
+    out = torch.empty((m, oc), dtype=torch.float32, device=ops.sx.device)
     fn = _build.load("pb_int8_matmul").pb_int8_matmul_stacked
     fn.argtypes = _STACKED_ARGTYPES
     fn.restype = ctypes.c_int
     err = fn(ops.x8.data_ptr(), ops.sx.data_ptr(), ops.rs.data_ptr(), ops.xg8.data_ptr(),
              ops.rsg.data_ptr(), sp.sign_packed.data_ptr(), sp.side_val.data_ptr(),
              coef_rows(sp).data_ptr(), out.data_ptr(), marker.idx_t.data_ptr(),
-             m, ic, oc, min(sp.pack_block, ic), sp.side_bits, ops.xg8.shape[2],
+             m, ic, oc, min(sp.pack_block, ic), sp.side_bits,
+             sp.side_val.shape[1] * (8 // sp.side_bits), sp.sign_packed.shape[0], arm,
              torch.cuda.current_stream(out.device).cuda_stream)
     _build.check(err, "pb_int8_matmul_stacked")
-    global stacked_launches
-    stacked_launches += 1
+    global stacked_launches, stacked_tc_launches
+    if arm:
+        stacked_tc_launches += 1
+    else:
+        stacked_launches += 1
     return out
 
 

@@ -28,7 +28,10 @@ order differs: 1e-5 of max|y|.  The dma and stacked f32 kernels sum in
 another order than the plain version: rtol 1e-4, atol 1e-4.  The stacked
 int8 kernel, like the flat one, equals its plain version on the same
 operands bit for bit, and each stacked kernel equals its flat kernel bit
-for bit on the same layer (the same device code and tiling).  The
+for bit on the same layer (the same device code and tiling).  The int8
+kernel's two arms (dp4a, tensor cores) sum the same integers exactly and
+share the epilogue, so they equal each other bit for bit on the same
+operands, each in its layout.  The
 x-preparation kernel's codes and scales equal its plain version's bit for
 bit (IEEE division, rounding half to even); its row sums (f64, rounded
 once) lie within `packed_matmul.sum_bound` of the plain f32 sums, and x
@@ -90,21 +93,54 @@ def _layer(name, dev):
     return random_packed_v2(generator=torch.Generator(device=dev).manual_seed(1), **LAYERS[name])
 
 
+# rows of x: decode, both sides of the arms' crossover M_TC, prefill
+INT8_MS = sorted({1, 8, packed_matmul.M_TC - 1, packed_matmul.M_TC, 256, 300, 513, 1024})
+_ARM_COUNTER = {"dp4a": "launches", "tc": "tc_launches"}
+
+
+def _int8_arms_agree(p, x):
+    """The flat kernel through the arm `int8_arm` picks (one launch of that
+    arm), against the plain version on the same operands bit for bit, and
+    the other arm on the same operands (moved to its layout) bit for bit
+    wherever the tensor cores take the layout.  Returns the kernel's y."""
+    arm = packed_matmul.int8_arm(x.shape[0], p)
+    counter = _ARM_COUNTER[arm]
+    before = getattr(packed_matmul, counter)
+    got = packed_matmul.pb_int8_matmul(x, p)
+    torch.cuda.synchronize()
+    assert getattr(packed_matmul, counter) == before + 1, arm
+    ops = packed_matmul.prepare_int8(x, p, arm)
+    plain = packed_matmul.int8_matmul_plain(ops, p)
+    assert torch.equal(got, plain), (got - plain).abs().max()
+    if packed_matmul.tc_layout_ok(p):
+        tc = packed_matmul.launch_int8(packed_matmul.to_layout(ops, p, "tc"), p)
+        dp4a = packed_matmul.launch_int8(packed_matmul.to_layout(ops, p, "dp4a"), p)
+        assert torch.equal(tc, dp4a), (tc - dp4a).abs().max()
+        assert torch.equal(tc, got)
+    want = packed_matmul.pb_int8_matmul_plain(x, p)
+    assert (got - want).abs().max() <= 1e-6 * want.abs().max()
+    return got
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(LAYERS) + ["shards8", "shards4"])
-@pytest.mark.parametrize("m", [1, 8, 300])
+@pytest.mark.parametrize("m", INT8_MS)
 def test_int8_matmul_kernel_matches_plain(cuda, name, m):
     p = _layer(name, cuda)
     x = torch.randn((m, p.ic), generator=torch.Generator(device=cuda).manual_seed(m), device=cuda)
-    before = packed_matmul.launches
-    got = packed_matmul.pb_int8_matmul(x, p)
-    torch.cuda.synchronize()
-    assert packed_matmul.launches == before + 1
-    ops = packed_matmul.prepare_int8(x, p)
-    want = packed_matmul.int8_matmul_plain(ops, p)
-    assert torch.equal(got, want), (got - want).abs().max()
-    want = packed_matmul.pb_int8_matmul_plain(x, p)
-    assert (got - want).abs().max() <= 1e-6 * want.abs().max()
+    _int8_arms_agree(p, x)
+
+
+@pytest.mark.cuda
+def test_int8_matmul_tensor_cores_at_llama_ragged_pack_block(cuda):
+    """llama-7b's ic = 11008 packs in blocks of 1376 (g = 43 words, bit runs
+    padded to 48): the tensor-core arm at prefill rows, bit for bit."""
+    p = random_packed_v2(11008, 128, torch.Generator(device=cuda).manual_seed(9),
+                         pack_block=1376)
+    assert packed_matmul.int8_arm(300, p) == "tc"
+    x = torch.randn((300, 11008), generator=torch.Generator(device=cuda).manual_seed(3),
+                    device=cuda)
+    _int8_arms_agree(p, x)
 
 
 @pytest.mark.cuda
@@ -767,26 +803,34 @@ def _stacked(dev, side_bits=8, n=3):
     return layers, [stacking.StackedPackedLinearV2(sp, li, idx[li : li + 1]) for li in range(n)]
 
 
+_STACKED_COUNTER = {"dp4a": "stacked_launches", "tc": "stacked_tc_launches"}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("side_bits", [8, 4])
-@pytest.mark.parametrize("m", [1, 8, 256])
+@pytest.mark.parametrize("m", [m for m in INT8_MS if m <= packed_matmul.STACKED_MAX_M])
 def test_stacked_kernels_match_plain_and_the_flat_kernels(cuda, side_bits, m):
     layers, markers = _stacked(cuda, side_bits)
     x = torch.randn((m, 512), generator=torch.Generator(device=cuda).manual_seed(m), device=cuda)
     for p, mk in zip(layers, markers):
-        before = (packed_matmul.stacked_launches, packed_matmul.stacked_f32_launches)
+        arm = packed_matmul.int8_arm(m, p)
+        counter = _STACKED_COUNTER[arm]
+        before = (getattr(packed_matmul, counter), packed_matmul.stacked_f32_launches)
         i8 = packed_matmul.pb_int8_matmul_stacked(x, mk)
         f32 = packed_matmul.pb_f32_matmul_stacked(x, mk)
         torch.cuda.synchronize()
-        assert (packed_matmul.stacked_launches, packed_matmul.stacked_f32_launches) == (
+        assert (getattr(packed_matmul, counter), packed_matmul.stacked_f32_launches) == (
             before[0] + 1, before[1] + 1)
-        ops = packed_matmul.prepare_int8(x, p)
+        ops = packed_matmul.prepare_int8(x, p, arm)
         assert torch.equal(i8, packed_matmul.int8_matmul_plain(ops, p))
+        assert torch.equal(i8, packed_matmul.launch_int8(ops, p))  # stacked = flat, same operands
+        for layout in ("dp4a", "tc"):  # both arms of the stacked entry, the same bits
+            assert torch.equal(i8, packed_matmul.launch_int8_stacked(
+                packed_matmul.to_layout(ops, p, layout), mk)), layout
         want = packed_matmul.pb_int8_matmul_stacked_plain(x, mk)
         assert (i8 - want).abs().max() <= 1e-6 * want.abs().max()
         torch.testing.assert_close(f32, packed_matmul.pb_f32_matmul_stacked_plain(x, mk),
                                    rtol=1e-4, atol=1e-4)
-        assert torch.equal(i8, packed_matmul.pb_int8_matmul(x, p))
         assert torch.equal(f32, packed_matmul.pb_f32_matmul(x, p))
 
 
@@ -876,20 +920,21 @@ def test_scan_fuse_engine_on_the_card_matches_the_cpu(cuda, kw):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(LAYERS) + ["shards8", "shards4", "fused3"])
 @pytest.mark.parametrize("m", [1, 8, 300])
-def test_prep_int8_kernel_matches_plain_bit_for_bit(cuda, name, m):
-    """Codes and scales bit for bit (IEEE division, rint half to even); the
-    f64 row sums, rounded once to f32, within `sum_bound` of the plain f32
-    sums."""
+@pytest.mark.parametrize("layout", ["dp4a", "tc"])
+def test_prep_int8_kernel_matches_plain_bit_for_bit(cuda, name, m, layout):
+    """Codes and scales bit for bit (IEEE division, rint half to even), in
+    either int8 arm's layout; the f64 row sums, rounded once to f32, within
+    `sum_bound` of the plain f32 sums."""
     p = _arm_layer(name, cuda)
     x = torch.randn((m, p.ic), generator=torch.Generator(device=cuda).manual_seed(m), device=cuda)
     x[0, :7] = torch.tensor([0.5, 1.5, 2.5, -0.5, -2.5, 0.0, 3.0], device=cuda)  # ties at sx = 1/42.33
     if m > 1:
         x[1] = 0.0  # an all-zero row: sx = 1e-30 / 127
     before = packed_matmul.prep_launches
-    got = packed_matmul.prepare_int8(x, p)
+    got = packed_matmul.prepare_int8(x, p, layout)
     torch.cuda.synchronize()
     assert packed_matmul.prep_launches == before + 1
-    want = packed_matmul.prepare_int8_plain(x, p)
+    want = packed_matmul.prepare_int8_plain(x, p, layout)
     for f in ("x8", "sx", "xg8"):
         assert torch.equal(getattr(got, f), getattr(want, f)), f
     xg = pbw.gather_x_v2(x, p).permute(2, 0, 1)
@@ -904,11 +949,16 @@ def test_prep_int8_cuda_tensor_never_takes_the_plain_version(cuda, monkeypatch):
 
     monkeypatch.setattr(packed_matmul, "prepare_int8_plain", refuse)
     p = _layer("side8", cuda)
-    before = (packed_matmul.prep_launches, packed_matmul.launches)
-    y = packed_matmul.pb_int8_matmul(torch.randn((4, p.ic), device=cuda), p)
-    torch.cuda.synchronize()
-    assert y.shape == (4, p.oc)
-    assert (packed_matmul.prep_launches, packed_matmul.launches) == (before[0] + 1, before[1] + 1)
+
+    def counts():
+        return (packed_matmul.prep_launches, packed_matmul.launches + packed_matmul.tc_launches)
+
+    for m in (4, 300):  # both arms
+        before = counts()
+        y = packed_matmul.pb_int8_matmul(torch.randn((m, p.ic), device=cuda), p)
+        torch.cuda.synchronize()
+        assert y.shape == (m, p.oc)
+        assert counts() == (before[0] + 1, before[1] + 1)
 
 
 # ---------------------------------------------------------------------------

@@ -100,7 +100,8 @@ def test_prepare_int8_on_the_cpu_is_the_plain_version(prep_layers):
     before = packed_matmul.prep_launches
     got, want = packed_matmul.prepare_int8(x, tp), packed_matmul.prepare_int8_plain(x, tp)
     assert packed_matmul.prep_launches == before
-    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert got.layout == want.layout == "dp4a"
+    assert all(torch.equal(a, b) for a, b in zip(got[:-1], want[:-1]))  # the tensors
 
 
 # ---------------------------------------------------------------------------
