@@ -17,7 +17,9 @@ raises and the exit code is not 0:
    (`bound_ms`): the int8 matmul's two arms (dp4a and tensor cores, bit
    for bit, at 1-1024 rows: the crossover M_TC) and decode attention
    (serving; its int8, bf16 and q8 arms), the binary-part dequant, the
-   exact f32 matmul and flash attention (the producer and the exact arms),
+   exact f32 matmul's two arms (f32 CUDA cores, bf16 tensor cores with x in
+   three terms; crossover F32_TC) and flash attention (the producer and the
+   exact arms),
    paged attention (the paged pool: decode, speculative verify, chunk
    continuation, GQA; int8, f32 and bf16 pages;
    windows on the tensor-core arm, timed beside the CUDA-core arm), the
@@ -62,8 +64,9 @@ raises and the exit code is not 0:
 9a. scanned layers, fused linears and the pair / dma decode arms on a
    2-layer full-width llama-7b: on the exact arms, scan equals unrolled
    (strips and pages, the stacked f32 kernel) and fused equals unfused
-   (greedy streams under the margin rule); the pair and dma arms on the
-   card against the CPU's plain versions (phase 3's bounds);
+   (greedy streams under the margin rule); the pair and dma arms, and
+   scan_layers on the exact arms, on the card against the CPU's plain
+   versions (phase 3's bounds);
 9b. end to end on the 32-layer model of phase 4, int8 strips, phase 4's
    request mix, three passes: scan_layers (the stacked int8 kernel),
    fuse_linears + decode_dot pair, decode_dot dma; every launch counter
@@ -91,8 +94,10 @@ raises and the exit code is not 0:
 
 Phases 6b, 7b, 9b and 10b serve graphed: the default on the card.
 
-Phase 2 also holds the pair, dma and stacked int8 / f32 kernels (phase 9's
-paths) at llama-7b's shapes.
+Phase 2 also holds the pair kernel's three arms ("mma", and the wgmma
+"split" and "tc" arms: crossover PAIR_TC), the dma kernel and the stacked
+int8 / f32 kernels (phase 9's paths) at llama-7b's shapes, each with its
+operands' preparation time where an arm has its own layout.
 
 The last two lines are the `kernels` JSON line and
 `{"ok": true, "device": {...}}`.  Without CUDA it exits 1 before any phase.
@@ -142,7 +147,9 @@ NLL_RTOL = 2e-3
 # the int8 arms' 2.0e-2.
 LOGIT_TOL_EXACT = 5e-3  # of max|logit|
 DEQUANT_DTYPES = (torch.float32, torch.bfloat16)
-F32_CASES = ((8, 0), (512, 256))   # (m, col_tile): decode, global selection; row-grouped prefill
+# (m, col_tile): decode, global selection; prefill row-grouped and global
+F32_CASES = ((8, 0), (512, 256), (512, 0))
+F32_CROSS_MS = (8, 16, 32, 64, 128, 256, 512)  # the f32 arms' crossover rows (global selection)
 F32_RTOL, F32_ATOL = 1e-4, 1e-4    # the JAX package's bound for its f32 kernel
 FLASH_CASES = ((4, 2048, 32, 128, True),   # B, T, H, D, causal: 4 eval windows of llama-7b
                (1, 2000, 32, 128, True),   # T not a multiple of the 64-row tile
@@ -205,6 +212,7 @@ BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 tensor-core peak
 ARM_MS = (8, 256)
 ARM_LAYERS = 2        # stacked kernels: layers of the [L] planes they index
 PAIR_REL = 1e-5       # of max|y|: x rounds to bf16 on both sides, only the f32 sum order differs
+PAIR_MS = (1, 8, 16, 32, 64, 128, 255)  # the pair arms' crossover rows (it serves m < 256)
 
 
 def log(msg: str) -> None:
@@ -490,42 +498,83 @@ def check_dequant(timer: Timer, card: str):
     return rows
 
 
+def f32_bounds(p, m: int, nbytes: int):
+    """The exact f32 function's bound two ways: on the f32 CUDA cores
+    (2·m·oc·(ic + k_pad) at 67 TFLOP/s) and on the bf16 tensor cores (three
+    terms of that at 989 TFLOP/s), each against its bytes."""
+    n_ops = 2 * m * p.oc_local * (p.ic_local + p.k_pad)
+    return bound(nbytes, n_ops, F32_FLOPS_PER_S), bound(nbytes, 3 * n_ops, BF16_FLOPS_PER_S)
+
+
 def check_f32_matmul(timer: Timer, card: str):
-    """The exact f32 matmul at decode m with global selection and at prefill
-    m row-grouped (col_tile 256); library: f32 torch.matmul on the dense
-    weight (TF32 off)."""
+    """The exact f32 matmul's two arms (`packed_matmul.f32_arm`: the f32
+    CUDA cores, the bf16 tensor cores with x in three terms) at F32_CASES on
+    llama-7b's three shapes: each within F32_RTOL / F32_ATOL of the plain
+    version, with both arms' kernel and preparation times, the plain
+    version's, the library call's (f32 torch.matmul on the dense weight, TF32
+    off) and the bound both ways; then the crossover rows F32_CROSS_MS
+    (global selection), both arms' kernel times.  One row per case and arm;
+    ``picked`` marks the arm the wrapper takes."""
     from pb_llm_tpu_torch.core.pbw import dequantize_v2
     from pb_llm_tpu_torch.data.synthetic import random_packed_v2
     from pb_llm_tpu_torch.ops import packed_matmul as pm
 
     gen = torch.Generator(device=DEV).manual_seed(8)
     rows = []
+
+    def arms(x, p):  # each arm's (prepare, launch)
+        return {"cores": (lambda: pm.prepare_f32(x, p), pm.launch_f32),
+                "tc": (lambda: pm.prepare_tc(x, p, 3), pm.launch_f32_tc)}
+
     for ic, oc in MATMUL_SHAPES:
         for m, col_tile in F32_CASES:
             p = random_packed_v2(ic, oc, gen, low_frac=0.9, col_tile=col_tile)
             x = torch.randn((m, ic), generator=gen, device=DEV)
-            ops = pm.prepare_f32(x, p)
-            got = pm.launch_f32(ops, p)
-            torch.cuda.synchronize()
             want = pm.pb_f32_matmul_plain(x, p)
-            err = (got - want).abs()
-            if not (torch.isfinite(got).all() and torch.all(err <= F32_ATOL + F32_RTOL * want.abs())):
-                raise AssertionError(f"pb_f32_matmul m={m} {ic}x{oc} col_tile={col_tile}: max|err| "
-                                     f"{err.max().item()} beyond rtol {F32_RTOL} atol {F32_ATOL}")
             w = dequantize_v2(p)
-            nbytes = 4 * (ops.x.numel() + ops.xg.numel() + ops.rs.numel() + ops.rsg.numel()
-                          + ops.coef.numel() + p.sign_packed.numel() + m * oc) + p.side_val.numel()
-            bound_ms, bound_by = bound(nbytes, 2 * m * oc * (ic + p.k_pad), F32_FLOPS_PER_S)
-            row = {"kernel": "pb_f32_matmul", "m": m, "ic": ic, "oc": oc, "col_tile": p.col_tile,
-                   "k_pad": p.k_pad, "max_abs_err": err.max().item(),
-                   "kernel_ms": timer(lambda: pm.launch_f32(ops, p)),
-                   "wrapper_ms": timer(lambda: pm.pb_f32_matmul(x, p)),
-                   "plain_ms": timer(lambda: pm.pb_f32_matmul_plain(x, p), iters=5),
-                   "library_ms": timer(lambda: x @ w),
-                   "bound_ms": bound_ms, "bound_by": bound_by, "card": card}
-            log(json.dumps(row))
-            rows.append(row)
-            del p, w, ops
+            nbytes = 4 * (x.numel() + p.n_row_groups * m * p.k_pad + m + p.n_row_groups * m
+                          + 5 * oc + p.sign_packed.numel() + m * oc) + p.side_val.numel()
+            (cores_ms, cores_by), (tc_ms, tc_by) = f32_bounds(p, m, nbytes)
+            plain_ms = timer(lambda: pm.pb_f32_matmul_plain(x, p), iters=5)
+            library_ms = timer(lambda: x @ w)
+            for arm, (prep, launch) in arms(x, p).items():
+                ops = prep()
+                got = launch(ops, p)
+                torch.cuda.synchronize()
+                err = (got - want).abs()
+                if not (torch.isfinite(got).all()
+                        and torch.all(err <= F32_ATOL + F32_RTOL * want.abs())):
+                    raise AssertionError(f"pb_f32_matmul ({arm}) m={m} {ic}x{oc} col_tile="
+                                         f"{col_tile}: max|err| {err.max().item()} beyond rtol "
+                                         f"{F32_RTOL} atol {F32_ATOL}")
+                row = {"kernel": "pb_f32_matmul", "arm": arm, "picked": pm.f32_arm(m, p) == arm,
+                       "m": m, "ic": ic, "oc": oc, "col_tile": p.col_tile, "k_pad": p.k_pad,
+                       "max_abs_err": err.max().item(),
+                       "kernel_ms": timer(lambda: launch(ops, p)), "prep_ms": timer(prep),
+                       "wrapper_ms": timer(lambda: pm.pb_f32_matmul(x, p))
+                       if pm.f32_arm(m, p) == arm else None,
+                       "plain_ms": plain_ms, "library_ms": library_ms,
+                       "bound_ms": tc_ms if arm == "tc" else cores_ms,
+                       "bound_by": tc_by if arm == "tc" else cores_by,
+                       "cuda_cores_bound_ms": cores_ms, "tensor_cores_bound_ms": tc_ms,
+                       "card": card}
+                row["over_library"] = row["kernel_ms"] / library_ms
+                log(json.dumps(row))
+                rows.append(row)
+                del ops, got
+            del p, w
+        p = random_packed_v2(ic, oc, gen, low_frac=0.9)
+        times = {}
+        for m in F32_CROSS_MS:
+            x = torch.randn((m, ic), generator=gen, device=DEV)
+            for arm, (prep, launch) in arms(x, p).items():
+                ops = prep()
+                times[m, arm] = timer(lambda: launch(ops, p))
+        log(json.dumps({"phase": "f32_crossover", "ic": ic, "oc": oc, "m": list(F32_CROSS_MS),
+                        "cores_ms": [times[m, "cores"] for m in F32_CROSS_MS],
+                        "tc_ms": [times[m, "tc"] for m in F32_CROSS_MS],
+                        "F32_TC": pm.F32_TC, "card": card}))
+        del p
     return rows
 
 
@@ -730,13 +779,78 @@ def matmul_bytes(p, m: int) -> int:
     return 4 * p.sign_packed.numel() + p.side_val.numel() + 4 * m * (p.ic_local + p.oc_local)
 
 
-def check_v2_arms(timer: Timer, card: str):
-    """Phase 9's kernels at llama-7b's decode shapes (random PBW-v2 planes,
-    low_frac 0.9): pair (and on a fused q|k|v layer), dma, and the stacked
-    int8 and f32 kernels on layer 1 of a 2-layer stack.  Library: the bf16
-    torch.matmul on the dense weight for pair and stacked int8, the f32
-    one for dma and stacked f32 (TF32 off)."""
+def check_pair_arms(timer: Timer, card: str):
+    """The pair kernel's three arms (`decode_arms.pair_arm`: "mma", the
+    mma.sync kernel; "split" and "tc", the wgmma code with and without its K
+    split over blocks) at every row count of PAIR_MS on llama-7b's three
+    shapes and on a fused q|k|v layer (3 row groups of 4096 columns): each
+    within PAIR_REL of max|y| of the plain version, with its kernel time and
+    its operands' preparation time, the plain version's, the bf16 matmul's on
+    the dense weight and the bound (bytes, or the bf16 tensor cores' 2·m·oc·
+    (ic + k_pad)).  ``picked`` marks the arm the wrapper takes; a crossover
+    line per layer gives the three arms' times by m."""
     from pb_llm_tpu_torch.core.pbw import dequantize_v2, merge_packed_linears_v2
+    from pb_llm_tpu_torch.data.synthetic import random_packed_v2
+    from pb_llm_tpu_torch.ops import decode_arms as da
+
+    gen = torch.Generator(device=DEV).manual_seed(21)
+    rows = []
+    layers = [(f"{ic}x{oc}", random_packed_v2(ic, oc, gen, low_frac=0.9))
+              for ic, oc in MATMUL_SHAPES]
+    layers.append(("fused q|k|v", merge_packed_linears_v2(
+        [random_packed_v2(4096, 4096, gen, low_frac=0.9) for _ in range(3)])))
+    for name, p in layers:
+        ic, oc = p.ic_local, p.oc_local
+        wb = dequantize_v2(p).to(torch.bfloat16)
+        times = {}
+        for m in PAIR_MS:
+            x = torch.randn((m, ic), generator=gen, device=DEV)
+            xb = x.to(torch.bfloat16)
+            want = da.pb_pair_v2_plain(x, p)
+            scale = want.abs().max().item()
+            plain_ms = timer(lambda: da.pb_pair_v2_plain(x, p), iters=5)
+            library_ms = timer(lambda: xb @ wb)
+            bound_ms, bound_by = bound(matmul_bytes(p, m), 2 * m * oc * (ic + p.k_pad),
+                                       BF16_FLOPS_PER_S)
+            for arm in da.PAIR_ARMS:
+                layout = "mma" if arm == "mma" else "tc"
+                ops = da.prepare_pair(x, p, layout)
+                got = da.launch_pair(ops, p, arm)
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                if not (torch.isfinite(got).all() and err <= PAIR_REL * scale):
+                    raise AssertionError(f"pb_pair_v2 ({arm}) m={m} {name}: max|err| {err} "
+                                         f"against {PAIR_REL} * {scale}")
+                row = {"kernel": "pb_pair_v2", "arm": arm, "picked": da.pair_arm(m, p) == arm,
+                       "layer": name, "m": m, "ic": ic, "oc": oc, "k_pad": p.k_pad,
+                       "row_groups": p.n_row_groups, "max_abs_err": err,
+                       "max_rel_err": err / scale, "kernel_ms": timer(lambda: da.launch_pair(
+                           ops, p, arm)),
+                       "prep_ms": timer(lambda: da.prepare_pair(x, p, layout)),
+                       "wrapper_ms": timer(lambda: da.pb_pair_v2(x, p))
+                       if da.pair_arm(m, p) == arm else None,
+                       "plain_ms": plain_ms, "library_ms": library_ms,
+                       "library": "bf16 matmul", "bound_ms": bound_ms, "bound_by": bound_by,
+                       "ksplit": da.pair_ksplit(p) if arm == "split" else 1, "card": card}
+                row["over_library"] = row["kernel_ms"] / library_ms
+                times[m, arm] = row["kernel_ms"]
+                log(json.dumps(row))
+                rows.append(row)
+                del ops, got
+        log(json.dumps({"phase": "pair_crossover", "layer": name, "m": list(PAIR_MS),
+                        **{f"{arm}_ms": [times[m, arm] for m in PAIR_MS] for arm in da.PAIR_ARMS},
+                        "PAIR_TC": da.PAIR_TC, "card": card}))
+        del wb
+    return rows
+
+
+def check_v2_arms(timer: Timer, card: str):
+    """Phase 9's other kernels at llama-7b's decode shapes (random PBW-v2
+    planes, low_frac 0.9): dma, and the stacked int8 and f32 kernels on
+    layer 1 of a 2-layer stack (the stacked f32 entry in both arms).
+    Library: the bf16 torch.matmul on the dense weight for stacked int8,
+    the f32 one for dma and stacked f32 (TF32 off)."""
+    from pb_llm_tpu_torch.core.pbw import dequantize_v2
     from pb_llm_tpu_torch.data.synthetic import random_packed_v2
     from pb_llm_tpu_torch.models import stacking
     from pb_llm_tpu_torch.ops import decode_arms as da
@@ -749,9 +863,7 @@ def check_v2_arms(timer: Timer, card: str):
         torch.cuda.synchronize()
         err = (got - want).abs()
         scale = want.abs().max().item()
-        if kernel == "pb_pair_v2":
-            ok = err.max().item() <= PAIR_REL * scale
-        elif kernel == "pb_int8_matmul_stacked":
+        if kernel == "pb_int8_matmul_stacked":
             ok = err.max().item() <= MATMUL_TOL * scale
         else:
             ok = bool(torch.all(err <= F32_ATOL + F32_RTOL * want.abs()))
@@ -759,8 +871,7 @@ def check_v2_arms(timer: Timer, card: str):
             raise AssertionError(f"{kernel} m={m} {p.ic_local}x{p.oc_local}: max|err| "
                                  f"{err.max().item()} (max|y| {scale})")
         n_ops = 2 * m * p.oc_local * (p.ic_local + p.k_pad)
-        peak = {"pb_pair_v2": BF16_FLOPS_PER_S, "pb_int8_matmul_stacked": INT8_OPS_PER_S}.get(
-            kernel, F32_FLOPS_PER_S)
+        peak = INT8_OPS_PER_S if kernel == "pb_int8_matmul_stacked" else F32_FLOPS_PER_S
         bound_ms, bound_by = bound(matmul_bytes(p, m), n_ops, peak)
         row = {"kernel": kernel, "m": m, "ic": p.ic_local, "oc": p.oc_local, "k_pad": p.k_pad,
                "row_groups": p.n_row_groups, "max_abs_err": err.max().item(),
@@ -781,10 +892,6 @@ def check_v2_arms(timer: Timer, card: str):
         for m in ARM_MS:
             x = torch.randn((m, ic), generator=gen, device=DEV)
             xb = x.to(torch.bfloat16)
-            ops = da.prepare_pair(x, p)
-            record("pb_pair_v2", p, m, da.launch_pair(ops, p), da.pb_pair_v2_plain(x, p),
-                   lambda: da.launch_pair(ops, p), lambda: da.pb_pair_v2(x, p),
-                   lambda: da.pb_pair_v2_plain(x, p), lambda: xb @ wb, True)
             ops = da.prepare_dma(x, p)
             record("pb_dma_v2", p, m, da.launch_dma(ops, p), da.pb_dma_v2_plain(x, p),
                    lambda: da.launch_dma(ops, p), lambda: da.pb_dma_v2(x, p),
@@ -798,25 +905,24 @@ def check_v2_arms(timer: Timer, card: str):
                    flat_kernel_equal=torch.equal(pm.launch_int8_stacked(ops, mk),
                                                  pm.launch_int8(ops, lp)),
                    arm=ops.layout, flat_ms=timer(lambda: pm.launch_int8(ops, lp)))
-            ops = pm.prepare_f32(x, lp)
-            record("pb_f32_matmul_stacked", p, m, pm.launch_f32_stacked(ops, mk),
-                   pm.pb_f32_matmul_stacked_plain(x, mk),
-                   lambda: pm.launch_f32_stacked(ops, mk), lambda: pm.pb_f32_matmul_stacked(x, mk),
-                   lambda: pm.pb_f32_matmul_stacked_plain(x, mk), lambda: x @ w, False,
-                   flat_kernel_equal=torch.equal(pm.launch_f32_stacked(ops, mk),
-                                                 pm.launch_f32(ops, lp)))
+            for arm in pm.F32_ARMS:  # both arms of the stacked entry, beside the flat arm
+                prep = ((lambda: pm.prepare_tc(x, lp, 3)) if arm == "tc"
+                        else (lambda: pm.prepare_f32(x, lp)))
+                flat = pm.launch_f32_tc if arm == "tc" else pm.launch_f32
+                ops = prep()
+                record("pb_f32_matmul_stacked", p, m, pm.launch_f32_stacked(ops, mk),
+                       pm.pb_f32_matmul_stacked_plain(x, mk),
+                       lambda: pm.launch_f32_stacked(ops, mk),
+                       lambda: pm.pb_f32_matmul_stacked(x, mk),
+                       lambda: pm.pb_f32_matmul_stacked_plain(x, mk), lambda: x @ w, False,
+                       flat_kernel_equal=torch.equal(pm.launch_f32_stacked(ops, mk),
+                                                     flat(ops, lp)),
+                       arm=arm, picked=pm.f32_arm(m, lp) == arm,
+                       flat_ms=timer(lambda: flat(ops, lp)), prep_ms=timer(prep),
+                       tensor_cores_bound_ms=f32_bounds(p, m, matmul_bytes(p, m))[1][0],
+                       tensor_cores_bound_by=f32_bounds(p, m, matmul_bytes(p, m))[1][1])
             del ops, lp
         del layers, p, sp, mk, w, wb
-    # the pair kernel on a fused q|k|v layer: 3 row groups of 4096 columns
-    qkv = merge_packed_linears_v2([random_packed_v2(4096, 4096, gen, low_frac=0.9)
-                                   for _ in range(3)])
-    w = dequantize_v2(qkv).to(torch.bfloat16)
-    x = torch.randn((ARM_MS[0], 4096), generator=gen, device=DEV)
-    xb = x.to(torch.bfloat16)
-    ops = da.prepare_pair(x, qkv)
-    record("pb_pair_v2", qkv, ARM_MS[0], da.launch_pair(ops, qkv), da.pb_pair_v2_plain(x, qkv),
-           lambda: da.launch_pair(ops, qkv), lambda: da.pb_pair_v2(x, qkv),
-           lambda: da.pb_pair_v2_plain(x, qkv), lambda: xb @ w, True, layer="fused q|k|v")
     if not all(r.get("flat_kernel_equal", True) for r in rows):
         raise AssertionError("a stacked kernel differs from its flat kernel on the same layer")
     return rows
@@ -842,16 +948,18 @@ def llama7b(layers: int):
                        max_position_embeddings=2048)
 
 
-def run_parity(params, cfg, device, family: str = "llama", shared: int = 0, **ecfg_kw):
+def run_parity(params, cfg, device, family: str = "llama", shared: int = 0,
+               buckets=(64, 256), **ecfg_kw):
     """Prefill logits, 8 greedy tokens and a teacher-forced NLL on one engine:
-    prefills of 40 and 70 tokens (buckets 64 and 256), 7 decode steps and 3
-    teacher-forced ones, over 2 slots.  ``shared``: the second prompt starts
-    with the first one's first ``shared`` tokens (a prefix-cache hit)."""
+    prefills of 40 and 70 tokens (by default in buckets of 64 and 256), 7
+    decode steps and 3 teacher-forced ones, over 2 slots.  ``shared``: the
+    second prompt starts with the first one's first ``shared`` tokens (a
+    prefix-cache hit)."""
     from pb_llm_tpu_torch.models.registry import family_for
     from pb_llm_tpu_torch.runtime.engine import Engine, EngineConfig
 
     eng = Engine(params, cfg, family_for(family),
-                 EngineConfig(n_slots=2, max_seq=256, prefill_buckets=(64, 256), **ecfg_kw),
+                 EngineConfig(n_slots=2, max_seq=256, prefill_buckets=buckets, **ecfg_kw),
                  device=device)
     rng = np.random.default_rng(3)
     first = rng.integers(0, cfg.vocab_size, 40).tolist()
@@ -866,7 +974,9 @@ def run_parity(params, cfg, device, family: str = "llama", shared: int = 0, **ec
 
 def check_engine_parity(params, arms: str, page_size: int = 0):
     """``arms`` "int8": the serving defaults; "exact": decode_dot f32 and
-    the hybrid prefill, whose f32 matmul launches on the card are counted.
+    the hybrid prefill, whose f32 matmul launches on the card are counted by
+    arm (decode's 8 rows on the CUDA cores, prefill windows below 256 rows
+    on the tensor cores).
     ``page_size``: the paged int8 pool instead of int8 strips (phase 6a),
     whose paged-attention launches on the card are counted."""
     from pb_llm_tpu_torch.ops import packed_matmul as pm
@@ -877,13 +987,14 @@ def check_engine_parity(params, arms: str, page_size: int = 0):
     arm_kw = (dict(decode_dot="int8", prefill="int8") if arms == "int8"
               else dict(decode_dot="f32", prefill="hybrid"))
     card_kernels = None if arms == "int8" else KernelConfig(**arm_kw)
-    pm.f32_launches = pa.launches = 0
+    pm.f32_launches = pm.f32_tc_launches = pa.launches = 0
     t0 = time.perf_counter()
     g_logits, g_toks, g_nll = run_parity(params, cfg, DEV, kernels=card_kernels,
                                          page_size=page_size)
     torch.cuda.synchronize()
     gpu_s = time.perf_counter() - t0
-    f32_launches, paged_launches = pm.f32_launches, pa.launches
+    f32_launches = {"cores": pm.f32_launches, "tc": pm.f32_tc_launches}
+    paged_launches = pa.launches
     plain = KernelConfig(backend="pallas_interpret", decode_attention="pallas_interpret", **arm_kw)
     t0 = time.perf_counter()
     c_logits, c_toks, c_nll = run_parity(params, cfg, "cpu", cache_dtype=torch.int8, kernels=plain,
@@ -906,8 +1017,9 @@ def check_engine_parity(params, arms: str, page_size: int = 0):
         raise AssertionError(f"engine parity ({arms}): greedy tokens differ {g_toks} vs {c_toks}")
     if abs(g_nll - c_nll) > NLL_RTOL * abs(c_nll):
         raise AssertionError(f"engine parity ({arms}): NLL {g_nll} vs {c_nll}")
-    if arms == "exact" and f32_launches == 0:
-        raise AssertionError("engine parity (exact): the f32 matmul kernel never launched")
+    if arms == "exact" and not all(f32_launches.values()):
+        raise AssertionError(f"engine parity (exact): an f32 matmul arm never launched "
+                             f"{f32_launches}")
     if page_size and paged_launches == 0:
         raise AssertionError("engine parity (paged): the paged-attention kernel never launched")
     return row
@@ -965,6 +1077,20 @@ def int8_launches(rows, n_linear: int, p) -> dict:
 
     tc = sum(pm.int8_arm(r, p) == "tc" for r in rows)
     return {"pb_int8_matmul": n_linear * (len(rows) - tc), "pb_int8_matmul_tc": n_linear * tc}
+
+
+def pair_launches(rows, n_linear: int, p) -> dict:
+    """The pair kernel's launches by arm for forwards of ``rows`` rows each
+    (all below 256), ``n_linear`` packed linears a forward, under
+    `decode_arms.pair_arm`'s rule on layer ``p`` (llama-7b's linears, fused
+    or not, all take the tensor-core code)."""
+    from pb_llm_tpu_torch.ops import decode_arms as da
+
+    names = {"mma": "pb_pair_v2", "split": "pb_pair_v2_split", "tc": "pb_pair_v2_tc"}
+    out = {k: 0 for k in names.values()}
+    for r in rows:
+        out[names[da.pair_arm(r, p)]] += n_linear
+    return out
 
 
 def first_linear(params):
@@ -1751,8 +1877,10 @@ def scan_fuse_parity(params, card: str):
     """Phase 9a on 2 full-width llama-7b layers.  On the exact arms
     (INV_ARMS, f32 KV): scan_layers equals unrolled over strips and over
     pages of 16 (the stacked f32 kernel at decode), fuse_linears equals
-    unfused, under the margin rule.  Then the pair and dma arms on the card
-    against the CPU's plain versions (run_parity): dma is exact, held to
+    unfused, under the margin rule.  Then the pair and dma arms, and
+    scan_layers on the exact arms (the stacked f32 entry's tensor-core arm
+    at its prefill windows), on the card against the CPU's plain versions
+    (run_parity): dma and the exact arms are exact, held to
     LOGIT_TOL_EXACT; pair rounds x to bf16, where a one-ulp difference in x
     between the devices can move a rounding step, held to LOGIT_TOL."""
     from pb_llm_tpu_torch.interop import to_device
@@ -1776,18 +1904,26 @@ def scan_fuse_parity(params, card: str):
     torch.cuda.synchronize()
     launches = read_counters()
     arms = []
-    for arm, tol in (("dma", LOGIT_TOL_EXACT), ("pair", LOGIT_TOL)):
+    # (arm, engine options, bound, the kernel that must launch): the decode
+    # arms (pair's prompts in 128-row windows: its "tc" arm, decode on
+    # "split"), and scan_layers on the exact arms, whose 64- and 256-row
+    # prefill windows take the stacked f32 entry's tensor-core arm
+    for arm, ekw, tol, kernel in (("dma", {}, LOGIT_TOL_EXACT, "pb_dma_v2"),
+                                  ("pair", dict(buckets=(128, 256)), LOGIT_TOL, "pb_pair_v2_tc"),
+                                  ("f32", dict(scan_layers=True), LOGIT_TOL_EXACT,
+                                   "pb_f32_matmul_stacked_tc")):
         kw = dict(decode_dot=arm, prefill="hybrid")
         zero_counters()
-        g_logits, g_toks, g_nll = run_parity(params, cfg, DEV, kernels=KernelConfig(**kw))
+        g_logits, g_toks, g_nll = run_parity(params, cfg, DEV, kernels=KernelConfig(**kw), **ekw)
         torch.cuda.synchronize()
         arm_launches = read_counters()
         c_logits, c_toks, c_nll = run_parity(
             params, cfg, "cpu", cache_dtype=torch.int8, kernels=KernelConfig(
-                backend="pallas_interpret", decode_attention="pallas_interpret", **kw))
+                backend="pallas_interpret", decode_attention="pallas_interpret", **kw), **ekw)
         scale = c_logits.abs().max().item()
         err = (g_logits - c_logits).abs().max().item()
-        row = {"arm": arm, "max_abs_logit_err": err, "err_over_max_logit": err / scale,
+        row = {"arm": arm, **{k: list(v) if isinstance(v, tuple) else v for k, v in ekw.items()},
+               "max_abs_logit_err": err, "err_over_max_logit": err / scale,
                "tol_over_max_logit": tol, "gpu_tokens": g_toks, "cpu_tokens": c_toks,
                "gpu_nll": g_nll, "cpu_nll": c_nll, "launches": arm_launches}
         arms.append(row)
@@ -1795,10 +1931,12 @@ def scan_fuse_parity(params, card: str):
             raise AssertionError(f"phase 9a ({arm}): non-finite GPU output")
         if err > tol * scale or g_toks != c_toks or abs(g_nll - c_nll) > NLL_RTOL * abs(c_nll):
             raise AssertionError(f"phase 9a ({arm}): card and CPU differ: {row}")
-        if arm_launches[f"pb_{arm}_v2"] == 0:
-            raise AssertionError(f"phase 9a ({arm}): the {arm} kernel never launched")
+        if sum(n for k, n in arm_launches.items() if k.startswith(kernel)) == 0:
+            raise AssertionError(f"phase 9a ({arm}): {kernel} never launched")
     row = {"phase": "scan_fuse_parity", "layers": 2, "arms": INV_ARMS, "checks": out,
            "launches": launches, "decode_arms_card_vs_cpu": arms,
+           "stacked_f32_tc_launches": arms[-1]["launches"]["pb_f32_matmul_stacked_tc"],
+           "pair_launches": {k: v for k, v in arms[1]["launches"].items() if "pair" in k},
            "seconds": time.perf_counter() - t0, "card": card}
     log(json.dumps(row))
     if launches["pb_f32_matmul_stacked"] == 0:
@@ -1842,6 +1980,8 @@ def serve_scan_fuse_e2e(params, card: str):
             arms = int8_launches(small, n_lin, p0)
             own = {kernel: arms["pb_int8_matmul"], kernel + "_tc": arms["pb_int8_matmul_tc"]}
             n_prep = len(fwds)
+        elif kernel == "pb_pair_v2":  # the pair kernel's arms, by rows
+            own, n_prep = pair_launches(small, n_lin, first_linear(eng.params)), len(big)
         else:
             own, n_prep = {kernel: n_lin * len(small)}, len(big)
         want = expect_launches(**own, **int8_launches(big, n_lin, p0),
@@ -2385,6 +2525,7 @@ def main(argv=None) -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     from pb_llm_tpu_torch.data.synthetic import random_packed_llama, random_packed_opt
+    from pb_llm_tpu_torch.ops import decode_arms as da
     from pb_llm_tpu_torch.ops import packed_matmul as pm
 
     card = setup()
@@ -2398,6 +2539,7 @@ def main(argv=None) -> int:
     fa_rows = check_flash(timer, card)
     pa_rows = check_paged_attention(timer, card)
     v1_rows = check_v1_matmul(timer, card)
+    pair_rows = check_pair_arms(timer, card)
     arm_rows = check_v2_arms(timer, card)
     del timer
     parity_params = random_packed_llama(llama7b(2), torch.Generator().manual_seed(4))
@@ -2432,7 +2574,9 @@ def main(argv=None) -> int:
     head = next(r for r in mm_rows if (r["m"], r["ic"], r["oc"]) == HEADLINE_SHAPE and r["picked"])
     pre = {r["arm"]: r for r in mm_rows if (r["m"], r["ic"], r["oc"]) == PREFILL_SHAPE}
     dq = next(r for r in dq_rows if (r["ic"], r["oc"], r["dtype"]) == (4096, 11008, "torch.float32"))
-    f32 = next(r for r in f32_rows if (r["m"], r["ic"], r["oc"]) == HEADLINE_SHAPE)
+    f32 = next(r for r in f32_rows if (r["m"], r["ic"], r["oc"]) == HEADLINE_SHAPE and r["picked"])
+    f32_pre = {r["arm"]: r for r in f32_rows
+               if (r["m"], r["ic"], r["oc"]) == PREFILL_SHAPE and r["col_tile"] == r["oc"]}
     fa = fa_rows[0]
     pa = next(r for r in pa_rows if r["case"] == "decode_int8")
     planar = next(r for r in v1_rows if r["kernel"] == "pb_planar_v1" and (r["ic"], r["oc"]) ==
@@ -2463,11 +2607,26 @@ def main(argv=None) -> int:
          "plain_ms": dq["plain_ms"], "bound_ms": dq["bound_ms"], "bound_by": dq["bound_by"],
          "library_ms": None, "parity": "bit for bit", "shape": "ic=4096 oc=11008 f32 out"},
         {"name": "pb_f32_matmul", "route": "cuda", "source": "pb_llm_tpu_torch/csrc/pb_f32_matmul.cu",
-         "replaces": "pb_llm_tpu/ops/pallas_pb.py:297", "launches": exact["f32_matmul_launches"],
-         "max_abs_err": max(r["max_abs_err"] for r in f32_rows), "ms": f32["kernel_ms"],
-         "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"],
-         "library_ms": f32["library_ms"], "parity": "ok",
-         "shape": "m={} ic={} oc={} low_frac 0.9, global selection".format(*HEADLINE_SHAPE)},
+         "replaces": "pb_llm_tpu/ops/pallas_pb.py:297",
+         "launches": exact["f32_matmul_launches"]["cores"],
+         "max_abs_err": max(r["max_abs_err"] for r in f32_rows if r["arm"] == "cores"),
+         "ms": f32["kernel_ms"], "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
+         "bound_by": f32["bound_by"], "library_ms": f32["library_ms"], "parity": "ok",
+         "arm": "cores", "F32_TC": pm.F32_TC,
+         "shape": "m={} ic={} oc={} low_frac 0.9, global selection; the f32 CUDA cores; "
+                  "launches: phase 3 (exact arms)".format(*HEADLINE_SHAPE)},
+        {"name": "pb_f32_matmul_tc", "route": "cuda", "source": "pb_llm_tpu_torch/csrc/pb_bf16_tc.cuh",
+         "replaces": "pb_llm_tpu/ops/pallas_pb.py:297",
+         "launches": exact["f32_matmul_launches"]["tc"],
+         "max_abs_err": max(r["max_abs_err"] for r in f32_rows if r["arm"] == "tc"),
+         "ms": f32_pre["tc"]["kernel_ms"], "plain_ms": f32_pre["tc"]["plain_ms"],
+         "bound_ms": f32_pre["tc"]["bound_ms"], "bound_by": f32_pre["tc"]["bound_by"],
+         "library_ms": f32_pre["tc"]["library_ms"], "parity": "ok", "arm": "tc",
+         "cuda_cores_ms": f32_pre["cores"]["kernel_ms"], "prep_ms": f32_pre["tc"]["prep_ms"],
+         "cuda_cores_bound_ms": f32_pre["tc"]["cuda_cores_bound_ms"],
+         "shape": "m={} ic={} oc={} low_frac 0.9, global selection; bf16 tensor cores, x in 3 "
+                  "terms (entry pb_f32_matmul_tc in pb_f32_matmul.cu); library: f32 matmul, TF32 "
+                  "off; launches: phase 3 (exact arms)".format(*PREFILL_SHAPE)},
         {"name": "flash_attention", "route": "cuda", "source": "pb_llm_tpu_torch/csrc/flash_attention.cu",
          "replaces": "pb_llm_tpu/ops/flash_attention.py:29", "launches": prod["launches"]["flash_attention"],
          "max_abs_err": max(r["max_abs_err"] for r in fa_rows), "ms": fa["kernel_ms"],
@@ -2504,23 +2663,57 @@ def main(argv=None) -> int:
                     and (r["m"], r["ic"], r["oc"]) == (m, *HEADLINE_SHAPE[1:])
                     and all(r.get(k) == v for k, v in match.items()))
 
-    def e2e_launches(kernel):  # both arms of the int8 kernels
-        return sum(r["launches"][kernel] + r["launches"].get(kernel + "_tc", 0) for r in arms_e2e)
+    def e2e_launches(kernel, arms=("", "_tc")):  # the kernel's launches over its arms
+        return sum(r["launches"].get(kernel + a, 0) for r in arms_e2e for a in arms)
 
+    def pair_row(m, arm):
+        return next(r for r in pair_rows if r["layer"] == "{}x{}".format(*HEADLINE_SHAPE[1:])
+                    and r["m"] == m and r["arm"] == arm)
+
+    pair_dec, pair_mma = pair_row(HEADLINE_SHAPE[0], "split"), pair_row(HEADLINE_SHAPE[0], "mma")
+    pair_tc, pair_tc_mma = pair_row(128, "tc"), pair_row(128, "mma")
+    kernels += [
+        {"name": "pb_pair_v2", "route": "cuda", "source": "pb_llm_tpu_torch/csrc/pb_pair_v2.cu",
+         "replaces": "pb_llm_tpu/ops/pallas_pb.py:334",
+         "launches": e2e_launches("pb_pair_v2", ("", "_split", "_tc")),
+         "max_abs_err": max(r["max_abs_err"] for r in pair_rows), "ms": pair_dec["kernel_ms"],
+         "plain_ms": pair_dec["plain_ms"], "bound_ms": pair_dec["bound_ms"],
+         "bound_by": pair_dec["bound_by"], "library_ms": pair_dec["library_ms"], "parity": "ok",
+         "arm": "split", "mma_ms": pair_mma["kernel_ms"], "prep_ms": pair_dec["prep_ms"],
+         "PAIR_TC": da.PAIR_TC, "split_launches": e2e_launches("pb_pair_v2", ("_split",)),
+         "mma_launches": e2e_launches("pb_pair_v2", ("",)),
+         "shape": "m={} ic={} oc={} low_frac 0.9; the split arm (wgmma, K split over blocks; "
+                  "pb_bf16_tc.cuh), the mma.sync arm's time beside; library: bf16 matmul on the "
+                  "dense weight; launches: phase 9b, every arm".format(*HEADLINE_SHAPE)},
+        {"name": "pb_pair_v2_tc", "route": "cuda", "source": "pb_llm_tpu_torch/csrc/pb_bf16_tc.cuh",
+         "replaces": "pb_llm_tpu/ops/pallas_pb.py:334",
+         "launches": e2e_launches("pb_pair_v2", ("_tc",))
+         + scan_fuse["pair_launches"]["pb_pair_v2_tc"],
+         "max_abs_err": max(r["max_abs_err"] for r in pair_rows if r["arm"] == "tc"),
+         "ms": pair_tc["kernel_ms"], "plain_ms": pair_tc["plain_ms"],
+         "bound_ms": pair_tc["bound_ms"], "bound_by": pair_tc["bound_by"],
+         "library_ms": pair_tc["library_ms"], "parity": "ok", "arm": "tc",
+         "mma_ms": pair_tc_mma["kernel_ms"], "prep_ms": pair_tc["prep_ms"],
+         "shape": "m=128 ic={} oc={} low_frac 0.9; wgmma and TMA, one bf16 term of x (entry "
+                  "pb_pair_v2_tc in pb_pair_v2.cu); library: bf16 matmul on the dense weight; "
+                  "launches: phases 9a (128-row prefill windows) and 9b (its prefill forwards "
+                  "below 256 rows come in 32-row windows: split)".format(*HEADLINE_SHAPE[1:])},
+    ]
     for name, replaces, source, launches, library in (
-            ("pb_pair_v2", 334, "pb_pair_v2.cu", e2e_launches("pb_pair_v2"), "bf16"),
             ("pb_dma_v2", 826, "pb_dma_v2.cu", e2e_launches("pb_dma_v2"), "f32"),
             ("pb_int8_matmul_stacked", 953, "pb_int8_matmul.cu",
              e2e_launches("pb_int8_matmul_stacked"), "bf16"),
             ("pb_f32_matmul_stacked", 991, "pb_f32_matmul.cu",
              scan_fuse["launches"]["pb_f32_matmul_stacked"], "f32")):
-        r = arm_row(name, row_groups=1)
+        r = arm_row(name, row_groups=1, **({"arm": "cores"} if "f32" in name else {}))
         extra = {}
         if name == "pb_int8_matmul_stacked":  # the window rows, beside the flat kernel
             w = arm_row(name, m=ARM_MS[1], row_groups=1)
             extra = {"arm": r["arm"], "at_m{}".format(ARM_MS[1]): {
                 "arm": w["arm"], "ms": w["kernel_ms"], "flat_ms": w["flat_ms"],
                 "bound_ms": w["bound_ms"], "library_ms": w["library_ms"]}}
+        if name == "pb_f32_matmul_stacked":
+            extra = {"arm": "cores"}
         kernels.append({**extra,
             "name": name, "route": "cuda", "source": f"pb_llm_tpu_torch/csrc/{source}",
             "replaces": f"pb_llm_tpu/ops/pallas_pb.py:{replaces}", "launches": launches,
@@ -2531,6 +2724,22 @@ def main(argv=None) -> int:
                      "launches: phase {}".format(*HEADLINE_SHAPE, library,
                                                  "9a" if name.endswith("f32_matmul_stacked")
                                                  else "9b")})
+    st = arm_row("pb_f32_matmul_stacked", m=ARM_MS[1], row_groups=1, arm="tc")
+    kernels.append({
+        "name": "pb_f32_matmul_stacked_tc", "route": "cuda",
+        "source": "pb_llm_tpu_torch/csrc/pb_bf16_tc.cuh", "replaces": "pb_llm_tpu/ops/pallas_pb.py:991",
+        "launches": scan_fuse["stacked_f32_tc_launches"],
+        "max_abs_err": max(q["max_abs_err"] for q in arm_rows
+                           if q["kernel"] == "pb_f32_matmul_stacked" and q["arm"] == "tc"),
+        "ms": st["kernel_ms"], "plain_ms": st["plain_ms"], "bound_ms": st["tensor_cores_bound_ms"],
+        "bound_by": st["tensor_cores_bound_by"], "library_ms": st["library_ms"], "parity": "ok",
+        "arm": "tc",
+        "flat_ms": st["flat_ms"], "prep_ms": st["prep_ms"],
+        "cuda_cores_ms": arm_row("pb_f32_matmul_stacked", m=ARM_MS[1], row_groups=1,
+                                 arm="cores")["kernel_ms"],
+        "shape": "m={} ic={} oc={} low_frac 0.9, layer 1 of 2; bf16 tensor cores, x in 3 terms "
+                 "(entry pb_f32_matmul_stacked_tc in pb_f32_matmul.cu); library: f32 matmul on "
+                 "the dense weight; launches: phase 9a".format(ARM_MS[1], *HEADLINE_SHAPE[1:])})
     http = {r["pass"]: r["launches"] for r in http_e2e}
     for (name, source, replaces, shape), (pass_name, _, _, counter), r in zip((
             ("decode_attention_q8", "decode_attention.cu", "decode_attention.py:78",

@@ -47,11 +47,19 @@
 // TPU kernel avoids never happens here; what the entry gives is a launch
 // whose arguments are the same for every layer (for a CUDA graph of the
 // layer loop, later work).  No speed is claimed.
+//
+// pb_f32_matmul_tc and pb_f32_matmul_stacked_tc: the same functions (1-bit
+// lows) on the bf16 tensor cores, x in three bf16 terms (one for dot bf16),
+// from packed_matmul.F32_TC rows of x on (packed_matmul.f32_arm):
+// pb_bf16_tc.cuh holds the device code and its notes.  Below F32_TC rows,
+// for 2- and 4-bit lows and for layouts the tensor-core arm does not take,
+// the kernel above runs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "pb_bf16_tc.cuh"
 #include "pb_v2_side.cuh"
 
 namespace {
@@ -269,3 +277,42 @@ extern "C" int pb_f32_matmul_stacked(const void* x, const void* xg, const void* 
 }
 
 #undef PB_ARGS
+
+// the tensor-core arm: xp bf16 [terms, m, icp] (packed_matmul.tc_pair_columns'
+// order, split_terms' planes); xgp bf16 [terms, n_rg, m, kst], kst =
+// round_up(k_pad, 64) zero-padded; terms 3 (dot f32) or 1 (dot bf16); the
+// rest as pb_f32_matmul with low_bits 1.  A 128-row x tile above 256 rows,
+// else 64.
+extern "C" int pb_f32_matmul_tc(const void* xp, const void* xgp, const void* rs, const void* rsg,
+                                const void* sign, const void* side, const void* coef, void* out,
+                                int m, int ic, int oc, int pack_block, int side_bits, int k_pad,
+                                int kps, int col_tile, int n_rg, int terms, void* stream) {
+  const bf16tc::Args A{xp, xgp, rs, rsg, sign, side, coef, out, nullptr, m, ic, oc, pack_block,
+                       k_pad, kps, col_tile, n_rg, 1, 1, nullptr};
+  if ((side_bits != 8 && side_bits != 4) || (terms != 1 && terms != 3) ||
+      !bf16tc::layout_ok(A, side_bits))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+#define PB_TC(T, S) (m <= 256 ? bf16tc::launch<T, S, false, 64>(A, st) \
+                              : bf16tc::launch<T, S, false, 128>(A, st))
+  if (terms == 3) return side_bits == 8 ? PB_TC(3, 8) : PB_TC(3, 4);
+  return side_bits == 8 ? PB_TC(1, 8) : PB_TC(1, 4);
+#undef PB_TC
+}
+
+// the stacked entry's tensor-core arm: three terms, m <= 256 (the 64-row
+// tile of the flat arm, so stacked equals flat bit for bit); sign, side and
+// coef as pb_f32_matmul_stacked, n_layers L; one row group, unsharded.
+extern "C" int pb_f32_matmul_stacked_tc(const void* xp, const void* xgp, const void* rs,
+                                        const void* rsg, const void* sign, const void* side,
+                                        const void* coef, void* out, const void* layer, int m,
+                                        int ic, int oc, int pack_block, int side_bits, int k_pad,
+                                        int n_layers, void* stream) {
+  const bf16tc::Args A{xp, xgp, rs, rsg, sign, side, coef, out, nullptr, m, ic, oc, pack_block,
+                       k_pad, k_pad, oc, 1, n_layers, 1, layer};
+  if ((side_bits != 8 && side_bits != 4) || m > 256 || !bf16tc::layout_ok(A, side_bits))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  return side_bits == 8 ? bf16tc::launch<3, 8, true, 64>(A, st)
+                        : bf16tc::launch<3, 4, true, 64>(A, st);
+}

@@ -96,6 +96,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "pb_sm90.cuh"
+
 namespace {
 
 constexpr int TM = 8;      // rows of x per block
@@ -292,12 +294,12 @@ pb_int8_matmul_kernel(const int8_t* __restrict__ x8, const float* __restrict__ s
 
 namespace tc {
 
+using namespace sm90;
+
 constexpr int THREADS = 256;  // 2 warpgroups, each 64 columns x all TN rows
 constexpr int STAGES = 4;     // the ring of TMA copies
 constexpr int NS = 2;         // A register sets: one read by the wgmma in flight, one made
 constexpr unsigned ONES = 0x01010101u;
-
-__host__ __device__ constexpr int up1024(int v) { return (v + 1023) & ~1023; }
 
 // a block's tile: OC = 128 columns (the wgmma's M, 64 a warpgroup), TN x
 // rows (its N).  A stage holds either a word group (x: two 128-byte atoms
@@ -334,36 +336,6 @@ __host__ __device__ __forceinline__ Geo geometry(int ic, int pb) {
   q.ngf = q.g8f / 8;
   q.ng = q.nfull * q.ngf + q.g8l / 8;
   return q;
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-__device__ __forceinline__ void expect(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void wait_phase(uint64_t* bar, int parity) {
-  asm volatile(
-      "{\n.reg .pred P1;\nLAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(smem_addr(bar)), "r"(parity) : "memory");
-}
-__device__ __forceinline__ void tma2(void* dst, const CUtensorMap* map, int c0, int c1,
-                                     uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3}], [%4];\n"
-      ::"r"(smem_addr(dst)), "l"((uint64_t)map), "r"(c0), "r"(c1), "r"(smem_addr(bar))
-      : "memory");
-}
-__device__ __forceinline__ void tma3(void* dst, const CUtensorMap* map, int c0, int c1, int c2,
-                                     uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4}], [%5];\n"
-      ::"r"(smem_addr(dst)), "l"((uint64_t)map), "r"(c0), "r"(c1), "r"(c2), "r"(smem_addr(bar))
-      : "memory");
 }
 
 template <int N>
@@ -403,22 +375,6 @@ struct Wgmma<128> {
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
   }
 };
-
-__device__ __forceinline__ void fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// a K-major operand in a 128-byte swizzled atom (rows of 128 bytes, 8 rows
-// = 1024 bytes apart): p is the atom plus the k32 step's 32-byte offset
-__device__ __forceinline__ uint64_t desc(const void* p) {
-  return (uint64_t)((smem_addr(p) >> 4) & 0x3FFF) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
 
 // The tensor maps (host side, `maps`): mx x8 [icp bytes, m rows]; mxg xg8
 // [kst bytes, m rows, n_rg]; msg the sign words [oc, L*ic/32] (u32); mcd
@@ -590,34 +546,6 @@ kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUtensorM
       }
     }
   }
-}
-
-// host: the five tensor maps of one launch
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-inline EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
-            cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = (EncodeTiled)p;
-  }
-  return fn;
-}
-
-inline bool encode(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* base,
-                   const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
-                   CUtensorMapSwizzle swizzle) {
-  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-  EncodeTiled fn = encoder();
-  return fn && fn(map, type, (cuuint32_t)rank, const_cast<void*>(base), dims, strides, box, ones,
-                  CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 struct Maps {

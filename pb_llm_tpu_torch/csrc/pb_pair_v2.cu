@@ -42,11 +42,20 @@
 // The f32 epilogue uses __fmul_rn/__fadd_rn in the plain PyTorch version's
 // order (pb_llm_tpu_torch/ops/packed_matmul.py::pb_f32_matmul_plain with
 // dot_dtype bf16); the products sum in another order than its torch.matmul.
+//
+// That kernel is the "mma" arm (decode_arms.pair_arm).  pb_pair_v2_tc runs
+// the same function on wgmma and TMA (pb_bf16_tc.cuh, one bf16 term of x,
+// with its notes): the "tc" arm from decode_arms.PAIR_TC rows on, and
+// below them the "split" arm, the same device code with its K loop split
+// over blocks (the ranges' sums added in a fixed order by a second kernel),
+// so that a decode launch fills the card.  Layouts the tensor-core code does
+// not take stay on the "mma" arm.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "pb_bf16_tc.cuh"
 #include "pb_v2_side.cuh"
 
 namespace {
@@ -216,4 +225,26 @@ extern "C" int pb_pair_v2(const void* xp, const void* xg, const void* rs, const 
   }
 #undef PB_ARGS
   return (int)cudaGetLastError();
+}
+
+// the tensor-core arms: xp bf16 [1, m, icp] (packed_matmul.tc_pair_columns'
+// order); xgp bf16 [1, n_rg, m, kst], kst = round_up(k_pad, 64)
+// zero-padded; part f32 [ksplit, 2, m, oc], the K split's workspace
+// (unused at ksplit 1); the rest as pb_pair_v2.  A 16-row x tile up to 16
+// rows, else 64.
+extern "C" int pb_pair_v2_tc(const void* xp, const void* xgp, const void* rs, const void* rsg,
+                             const void* sign, const void* side, const void* coef, void* out,
+                             void* part, int m, int ic, int oc, int pack_block, int side_bits,
+                             int k_pad, int kps, int col_tile, int n_rg, int ksplit,
+                             void* stream) {
+  const bf16tc::Args A{xp, xgp, rs, rsg, sign, side, coef, out, part, m, ic, oc, pack_block,
+                       k_pad, kps, col_tile, n_rg, 1, ksplit, nullptr};
+  if ((side_bits != 8 && side_bits != 4) || !bf16tc::layout_ok(A, side_bits))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (m <= 16)
+    return side_bits == 8 ? bf16tc::launch<1, 8, false, 16>(A, st)
+                          : bf16tc::launch<1, 4, false, 16>(A, st);
+  return side_bits == 8 ? bf16tc::launch<1, 8, false, 64>(A, st)
+                        : bf16tc::launch<1, 4, false, 64>(A, st);
 }

@@ -22,17 +22,21 @@ KERNELS: Dict[str, Tuple[str, str]] = {
     "pb_int8_matmul_tc": ("packed_matmul", "tc_launches"),  # the tensor-core arm
     "decode_attention": ("decode_attention", "launches"),
     "pb_dequant_v2": ("prefill", "launches"),
-    "pb_f32_matmul": ("packed_matmul", "f32_launches"),
+    "pb_f32_matmul": ("packed_matmul", "f32_launches"),  # the CUDA-core arm
+    "pb_f32_matmul_tc": ("packed_matmul", "f32_tc_launches"),  # the bf16 tensor-core arm
     "flash_attention": ("flash_attention", "launches"),
     "paged_attention_decode": ("paged_attention", "decode_launches"),
     "paged_attention_multi": ("paged_attention", "multi_launches"),
     "pb_planar_v1": ("packed_matmul_v1", "planar_launches"),
     "pb_select_v1": ("packed_matmul_v1", "select_launches"),
-    "pb_pair_v2": ("decode_arms", "pair_launches"),
+    "pb_pair_v2": ("decode_arms", "pair_launches"),  # the mma.sync arm
+    "pb_pair_v2_split": ("decode_arms", "pair_split_launches"),  # wgmma, K split over blocks
+    "pb_pair_v2_tc": ("decode_arms", "pair_tc_launches"),  # wgmma
     "pb_dma_v2": ("decode_arms", "dma_launches"),
     "pb_int8_matmul_stacked": ("packed_matmul", "stacked_launches"),  # dp4a
     "pb_int8_matmul_stacked_tc": ("packed_matmul", "stacked_tc_launches"),
     "pb_f32_matmul_stacked": ("packed_matmul", "stacked_f32_launches"),
+    "pb_f32_matmul_stacked_tc": ("packed_matmul", "stacked_f32_tc_launches"),
     "decode_attention_q8": ("decode_attention", "q8_launches"),
     "decode_attention_bf16": ("decode_attention", "bf16_launches"),
     "paged_attention_bf16": ("paged_attention", "bf16_launches"),

@@ -40,6 +40,15 @@ layout (`Int8Operands.layout`, named by its arm), the x preparation writes
 it, and the launch takes that arm.  Both arms and the plain version give
 the same bits on the same operands.
 
+f32 arms (`f32_arm`): the exact f32 kernel, flat and stacked, runs on the
+f32 CUDA cores (select-and-add) below F32_TC rows, and from there, for
+1-bit lows where the layout allows, on the bf16 tensor cores
+(`csrc/pb_bf16_tc.cuh`, shared with the pair arm): x and xg in three bf16
+terms that carry them exactly (`split_terms`; one term, bf16(x), for dot
+bf16), x in the TPU pair kernel's order padded and grouped by word group
+(`tc_pair_columns`), operands in `TcOperands` (`prepare_tc`), their plain
+version `tc_matmul_plain`.
+
 Each wrapper launches its CUDA kernel on a CUDA tensor and runs its plain
 PyTorch version on a CPU tensor.  The dispatch of `pb_matmul_pallas_v2`
 lives in `ops.binary_matmul`.
@@ -49,7 +58,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -68,6 +77,8 @@ stacked_f32_launches = 0  # kernel launches of pb_f32_matmul_stacked
 prep_launches = 0  # kernel launches of prepare_int8 (csrc/pb_prep_int8.cu)
 tc_launches = 0  # kernel launches of pb_int8_matmul's tensor-core arm
 stacked_tc_launches = 0  # kernel launches of pb_int8_matmul_stacked's tensor-core arm
+f32_tc_launches = 0  # kernel launches of pb_f32_matmul's tensor-core arm
+stacked_f32_tc_launches = 0  # kernel launches of pb_f32_matmul_stacked's tensor-core arm
 
 # The int8 kernel's arms: "dp4a" (CUDA cores) below M_TC rows, "tc" (int8
 # tensor cores) from M_TC rows on, where the layout allows (`int8_arm`).
@@ -451,15 +462,21 @@ def pb_f32_matmul_plain(x: torch.Tensor, p: PackedLinearV2, dot_dtype=torch.floa
     products as f32 `torch.matmul`s of (bf16-rounded, for ``dot_dtype``
     bf16) x against the exact codes, the kernel's f32 epilogue order."""
     ops = prepare_f32(x, p)
-    xd = ops.x.to(dot_dtype).float()
+    return plain_given_x(ops.x.to(dot_dtype).float(), ops.xg.to(dot_dtype).float(), ops, p)
+
+
+def plain_given_x(xd: torch.Tensor, xgd: torch.Tensor, ops: F32Operands,
+                  p: PackedLinearV2) -> torch.Tensor:
+    """The plain products of x and xg as the kernel takes them (``xd`` [m,
+    ic], ``xgd`` [n_rg, m, k_pad], f32) and the f32 epilogue on ``ops``."""
     codes = unpack_side_codes(p.side_val, p.side_bits, p.shards_local).float()
-    group = torch.arange(p.oc_local, device=x.device) // p.col_tile
-    acc_v = torch.empty((x.shape[0], p.oc_local), dtype=torch.float32, device=x.device)
+    group = torch.arange(p.oc_local, device=xd.device) // p.col_tile
+    acc_v = torch.empty((xd.shape[0], p.oc_local), dtype=torch.float32, device=xd.device)
     with no_tf32():
         acc_b = xd @ low_code(p)
         for t in range(p.n_row_groups):
             cols = group == t
-            acc_v[:, cols] = ops.xg[t].to(dot_dtype).float() @ codes[:, cols]
+            acc_v[:, cols] = xgd[t] @ codes[:, cols]
     alpha2, beta, gamma, hs, bias = ops.coef
     rsg = ops.rsg.t()[:, group]
     y = ops.rs[:, None] * beta + acc_b * alpha2
@@ -481,6 +498,8 @@ def pb_f32_matmul(x: torch.Tensor, p: PackedLinearV2, dot_dtype=torch.float32) -
         raise ValueError(f"pb_f32_matmul: dot_dtype {dot_dtype} not in {_DOT_DTYPES}")
     if p.low_bits not in (1, 2, 4):
         raise ValueError(f"pb_f32_matmul: low_bits {p.low_bits} not in (1, 2, 4)")
+    if f32_arm(x.shape[0], p) == "tc":
+        return launch_f32_tc(prepare_tc(x, p, terms_of(dot_dtype)), p)
     return launch_f32(prepare_f32(x, p), p, dot_dtype)
 
 
@@ -501,6 +520,192 @@ def launch_f32(ops: F32Operands, p: PackedLinearV2, dot_dtype=torch.float32) -> 
     _build.check(err, "pb_f32_matmul")
     global f32_launches
     f32_launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the bf16 tensor-core arm (pair and exact f32; csrc/pb_bf16_tc.cuh)
+# ---------------------------------------------------------------------------
+
+# The exact f32 kernel's arms: "cores" (select-and-add on the f32 CUDA
+# cores) below F32_TC rows, "tc" (wgmma bf16, x in three bf16 terms) from
+# F32_TC rows on, for 1-bit lows where the layout allows (`f32_arm`).  On an
+# H100 (700 W) the tensor cores take less time from 32 rows on all three of
+# llama-7b's shapes, the CUDA cores at 16 on two of them (chip_smoke.py
+# phase 2; PERF.md).
+F32_TC = 32
+F32_ARMS = ("cores", "tc")
+TC_GROUP = 256  # bf16 values of a word group (8 sign words) in a row of the arm's x
+TC_SLOTS = 64   # the arm's sidecar chunk: xg rows padded to a multiple of it
+
+
+def f32_arm(m: int, p: PackedLinearV2) -> str:
+    """The exact f32 kernel's arm for ``m`` rows of x on layout ``p``: "tc"
+    at m >= F32_TC for 1-bit lows where `tc_layout_ok`, else "cores" (the
+    reference's 2- and 4-bit ablations stay there).  The one place the arm
+    is chosen, for the flat and the stacked entry."""
+    return "tc" if m >= F32_TC and p.low_bits == 1 and tc_layout_ok(p) else "cores"
+
+
+def terms_of(dot_dtype) -> int:
+    """bf16 terms of x for the tensor-core arm: 3 carry an f32 x exactly, 1
+    is x rounded to bf16 (decode_dot "bf16", the pair arm)."""
+    return 1 if dot_dtype == torch.bfloat16 else 3
+
+
+def split_terms(x: torch.Tensor, terms: int) -> torch.Tensor:
+    """f32 x → [terms, *x.shape] bf16.  One term: bf16(x), nearest even.
+    Three: hi, mid, lo with x == hi + mid·2^-8 + lo·2^-16 exactly for every
+    finite f32 (subnormal and huge included): hi is x with its low 16 bits
+    cleared (truncation never rounds up past the largest f32), mid the same
+    on (x - hi)·2^8, lo = ((x - hi)·2^8 - mid)·2^8, each exact in bf16."""
+    if terms == 1:
+        return x.to(torch.bfloat16)[None]
+    if terms != 3:
+        raise ValueError(f"split_terms: terms {terms} not in (1, 3)")
+
+    def trunc(v):
+        return (v.contiguous().view(torch.int32) & -65536).view(torch.float32)
+
+    xf = x.float()
+    hi = trunc(xf)
+    r = (xf - hi) * 256.0
+    mid = trunc(r)
+    lo = (r - mid) * 256.0
+    return torch.stack([hi, mid, lo]).to(torch.bfloat16)
+
+
+def join_terms(planes: torch.Tensor) -> torch.Tensor:
+    """The f32 value of `split_terms`' planes (exact)."""
+    scale = (1.0, 2.0 ** -8, 2.0 ** -16)
+    out = planes[0].double()
+    for k in range(1, planes.shape[0]):
+        out = out + planes[k].double() * scale[k]
+    return out.float()
+
+
+@functools.lru_cache(maxsize=64)
+def pair_padded_columns(ic: int, pack_block: int) -> torch.Tensor:
+    """For each value of `pallas_pb.pair_permute_x`'s row with each bit
+    pair's run of 2g values padded to 2·round_up(g, 8), the natural column
+    it holds, or ``ic`` for a padding zero (int64, CPU): within a pack block
+    of g words, column p·2g8 + 2i + h holds weight row (p + 16h)·g + i."""
+    cols, off = [], 0
+    for rows in packing.block_sizes(ic, pack_block):
+        g = rows // packing.WORD_BITS
+        g8 = -(-g // 8) * 8
+        p = torch.arange(16).view(16, 1, 1)
+        i = torch.arange(g8).view(1, g8, 1)
+        h = torch.arange(2).view(1, 1, 2)
+        c = torch.where(i < g, off + (p + 16 * h) * g + i, torch.tensor(ic))
+        cols.append(c.reshape(-1))
+        off += rows
+    return torch.cat(cols)
+
+
+@functools.lru_cache(maxsize=64)
+def _pair_group_order(ic: int, pack_block: int) -> torch.Tensor:
+    """For each value of the arm's row, its place in `pair_padded_columns`'
+    row: each bit pair's run cut into 16-value pieces (8 words), the 16
+    runs' pieces of one word group side by side (TC_GROUP values a group)."""
+    order, off = [], 0
+    for rows in packing.block_sizes(ic, pack_block):
+        g8 = -(-(rows // packing.WORD_BITS) // 8) * 8
+        s = torch.arange(g8 // 8).view(-1, 1, 1)
+        p = torch.arange(16).view(1, 16, 1)
+        k = torch.arange(16).view(1, 1, 16)
+        order.append((off + p * 2 * g8 + 16 * s + k).reshape(-1))
+        off += 32 * g8
+    return torch.cat(order)
+
+
+@functools.lru_cache(maxsize=64)
+def tc_pair_columns(ic: int, pack_block: int) -> torch.Tensor:
+    """For each value of a row of x in the bf16 tensor-core arm's layout,
+    the natural column it holds, or ``ic`` for a padding zero (int64, CPU):
+    `pair_padded_columns` grouped by word group (`_pair_group_order`), so
+    word group u is values TC_GROUP·u.. of the row: in its 16-value piece of
+    bit pair p, value 2j + h is x of bit p + 16h of the group's word j."""
+    return pair_padded_columns(ic, pack_block)[_pair_group_order(ic, pack_block)]
+
+
+class TcOperands(NamedTuple):
+    """The bf16 tensor-core arm's operands: x and the gathered x as
+    ``terms`` bf16 planes (`split_terms`), x in `tc_pair_columns`' order."""
+    xp: torch.Tensor    # bf16 [terms, m, icp]
+    xgp: torch.Tensor   # bf16 [terms, n_rg, m, kst]: k_pad slots, zeros to a multiple of TC_SLOTS
+    f32: F32Operands    # rs, rsg, coef (and the f32 x and xg)
+
+
+_tc_cols: Dict[Tuple[int, int, str], torch.Tensor] = {}
+
+
+def _tc_columns_on(ic: int, pack_block: int, device) -> torch.Tensor:
+    """`tc_pair_columns` on ``device``, copied there once (a decode step
+    captured into a CUDA graph makes no host copy)."""
+    key = (ic, pack_block, str(device))
+    if key not in _tc_cols:
+        _tc_cols[key] = tc_pair_columns(ic, pack_block).to(device)
+    return _tc_cols[key]
+
+
+def prepare_tc(x: torch.Tensor, p: PackedLinearV2, terms: int) -> TcOperands:
+    """The tensor-core arm's operands (PyTorch ops on x's device)."""
+    ops = prepare_f32(x, p)
+    m, ic = ops.x.shape
+    cols = _tc_columns_on(ic, p.pack_block_local, x.device)
+    planes = split_terms(ops.x, terms)                                  # [T, m, ic]
+    xp = torch.cat([planes, planes.new_zeros((terms, m, 1))], dim=2)[:, :, cols].contiguous()
+    k = ops.xg.shape[2]
+    xgp = torch.nn.functional.pad(split_terms(ops.xg, terms), (0, -(-k // TC_SLOTS) * TC_SLOTS - k))
+    return TcOperands(xp, xgp.contiguous(), ops)
+
+
+def tc_x(ops: TcOperands, p: PackedLinearV2) -> torch.Tensor:
+    """The x [m, ic] f32 the arm's products take (`join_terms` of its
+    planes, back in natural column order; padding dropped)."""
+    ic = p.ic_local
+    cols = _tc_columns_on(ic, p.pack_block_local, ops.xp.device)
+    keep = cols < ic
+    xj = join_terms(ops.xp)
+    out = xj.new_empty((xj.shape[0], ic))
+    out[:, cols[keep]] = xj[:, keep]
+    return out
+
+
+def tc_matmul_plain(ops: TcOperands, p: PackedLinearV2) -> torch.Tensor:
+    """Plain PyTorch version of the tensor-core arm on its operands: the
+    products of the x and xg its planes carry, the f32 epilogue."""
+    return plain_given_x(tc_x(ops, p), join_terms(ops.xgp)[..., :p.k_pad], ops.f32, p)
+
+
+_TC_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+
+
+def _check_tc(ops: TcOperands, p: PackedLinearV2, what: str) -> None:
+    if p.low_bits != 1 or not tc_layout_ok(p):
+        raise ValueError(f"{what}: the tensor-core arm does not take this layout (low_bits "
+                         f"{p.low_bits}, oc {p.oc_local}, col_tile {p.col_tile})")
+
+
+def launch_f32_tc(ops: TcOperands, p: PackedLinearV2) -> torch.Tensor:
+    """Launch the exact f32 kernel's tensor-core arm on prepared operands
+    (all on one CUDA device) on the current stream; counts one launch."""
+    _check_tc(ops, p, "pb_f32_matmul")
+    terms, m, _ = ops.xp.shape
+    oc = p.oc_local
+    out = torch.empty((m, oc), dtype=torch.float32, device=ops.xp.device)
+    fn = _build.load("pb_f32_matmul").pb_f32_matmul_tc
+    fn.argtypes = _TC_ARGTYPES
+    fn.restype = ctypes.c_int
+    f = ops.f32
+    err = fn(ops.xp.data_ptr(), ops.xgp.data_ptr(), f.rs.data_ptr(), f.rsg.data_ptr(),
+             p.sign_packed.data_ptr(), p.side_val.data_ptr(), f.coef.data_ptr(), out.data_ptr(),
+             m, p.ic_local, oc, p.pack_block_local, p.side_bits, p.k_pad, p.k_pad_shard_local,
+             p.col_tile, p.n_row_groups, terms, torch.cuda.current_stream(out.device).cuda_stream)
+    _build.check(err, "pb_f32_matmul (tensor cores)")
+    global f32_tc_launches
+    f32_tc_launches += 1
     return out
 
 
@@ -575,11 +780,14 @@ def pb_f32_matmul_stacked(x: torch.Tensor, marker) -> torch.Tensor:
     if x.device.type == "cpu":
         return pb_f32_matmul_stacked_plain(x, marker)
     p = _check_stacked(x, marker, "pb_f32_matmul_stacked")
+    if f32_arm(x.shape[0], p) == "tc":
+        return launch_f32_stacked(prepare_tc(x, p, 3), marker)
     return launch_f32_stacked(prepare_f32(x, p), marker)
 
 
 _STACKED_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 _STACKED_F32_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_STACKED_F32_TC_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 def launch_int8_stacked(ops: Int8Operands, marker) -> torch.Tensor:
@@ -610,21 +818,40 @@ def launch_int8_stacked(ops: Int8Operands, marker) -> torch.Tensor:
     return out
 
 
-def launch_f32_stacked(ops: F32Operands, marker) -> torch.Tensor:
+def launch_f32_stacked(ops, marker) -> torch.Tensor:
     """Launch the stacked f32 kernel on layer li's prepared operands (as
-    `launch_int8_stacked`).  Counts one launch."""
+    `launch_int8_stacked`), in the arm the operands name: `F32Operands` the
+    CUDA cores, `TcOperands` (three terms) the tensor cores.  Counts one
+    launch of that arm."""
     sp = marker.stacked
-    m, ic = ops.x.shape
+    tc = isinstance(ops, TcOperands)
+    f = ops.f32 if tc else ops
+    m, ic = f.x.shape
     oc = sp.sign_packed.shape[2]
-    out = torch.empty((m, oc), dtype=torch.float32, device=ops.x.device)
-    fn = _build.load("pb_f32_matmul").pb_f32_matmul_stacked
-    fn.argtypes = _STACKED_F32_ARGTYPES
-    fn.restype = ctypes.c_int
-    err = fn(ops.x.data_ptr(), ops.xg.data_ptr(), ops.rs.data_ptr(), ops.rsg.data_ptr(),
-             sp.sign_packed.data_ptr(), sp.side_val.data_ptr(), coef_rows(sp).data_ptr(),
-             out.data_ptr(), marker.idx_t.data_ptr(), m, ic, oc, min(sp.pack_block, ic),
-             sp.side_bits, ops.xg.shape[2], torch.cuda.current_stream(out.device).cuda_stream)
+    out = torch.empty((m, oc), dtype=torch.float32, device=f.x.device)
+    lib = _build.load("pb_f32_matmul")
+    common = (f.rs.data_ptr(), f.rsg.data_ptr(), sp.sign_packed.data_ptr(),
+              sp.side_val.data_ptr(), coef_rows(sp).data_ptr(), out.data_ptr(),
+              marker.idx_t.data_ptr(), m, ic, oc, min(sp.pack_block, ic), sp.side_bits,
+              f.xg.shape[2], torch.cuda.current_stream(out.device).cuda_stream)
+    if tc:
+        _check_tc(ops, stacked_layer(marker), "pb_f32_matmul_stacked")
+        if ops.xp.shape[0] != 3:
+            raise ValueError("pb_f32_matmul_stacked: the tensor-core arm takes three terms")
+        fn = lib.pb_f32_matmul_stacked_tc
+        fn.argtypes = _STACKED_F32_TC_ARGTYPES
+        fn.restype = ctypes.c_int
+        err = fn(ops.xp.data_ptr(), ops.xgp.data_ptr(), *common[:-1], sp.sign_packed.shape[0],
+                 common[-1])
+    else:
+        fn = lib.pb_f32_matmul_stacked
+        fn.argtypes = _STACKED_F32_ARGTYPES
+        fn.restype = ctypes.c_int
+        err = fn(f.x.data_ptr(), f.xg.data_ptr(), *common)
     _build.check(err, "pb_f32_matmul_stacked")
-    global stacked_f32_launches
-    stacked_f32_launches += 1
+    global stacked_f32_launches, stacked_f32_tc_launches
+    if tc:
+        stacked_f32_tc_launches += 1
+    else:
+        stacked_f32_launches += 1
     return out

@@ -32,6 +32,7 @@ each replay adds the launches the capture recorded.
 from __future__ import annotations
 
 import contextlib
+import gc
 import weakref
 
 import numpy as np
@@ -107,6 +108,9 @@ class StepGraph:
         return self.logits
 
     def _capture(self) -> None:
+        # a dead engine's graph that the collector frees during the capture
+        # would reset it there, which ends the capture: collect first
+        gc.collect()
         before = counters.read(totals=True)
         graph = self.graph_cls()
         try:

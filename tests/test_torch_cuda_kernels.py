@@ -367,6 +367,9 @@ def test_dequant_kernel_matches_plain_bit_for_bit(cuda, name, dtype):
     assert got.dtype == dtype and torch.equal(got, want)
 
 
+_F32_COUNTER = {"cores": "f32_launches", "tc": "f32_tc_launches"}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dot_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("name", sorted(LAYERS) + ["shards8", "shards4", "low2", "low4"])
@@ -374,10 +377,11 @@ def test_dequant_kernel_matches_plain_bit_for_bit(cuda, name, dtype):
 def test_f32_matmul_kernel_matches_plain(cuda, name, m, dot_dtype):
     p = _lowbit_layer(256, 384, int(name[-1]), cuda) if name.startswith("low") else _layer(name, cuda)
     x = torch.randn((m, p.ic), generator=torch.Generator(device=cuda).manual_seed(m), device=cuda)
-    before = packed_matmul.f32_launches
+    counter = _F32_COUNTER[packed_matmul.f32_arm(m, p)]
+    before = getattr(packed_matmul, counter)
     got = packed_matmul.pb_f32_matmul(x, p, dot_dtype=dot_dtype)
     torch.cuda.synchronize()
-    assert packed_matmul.f32_launches == before + 1
+    assert getattr(packed_matmul, counter) == before + 1
     want = packed_matmul.pb_f32_matmul_plain(x, p, dot_dtype=dot_dtype)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
@@ -759,6 +763,10 @@ def _arm_layer(name, dev):
     return _layer(name, dev)
 
 
+_PAIR_COUNTER = {"mma": "pair_launches", "split": "pair_split_launches",
+                 "tc": "pair_tc_launches"}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(LAYERS) + ["shards8", "shards4", "fused3"])
 @pytest.mark.parametrize("m", [1, 8, 100, 255])
@@ -767,10 +775,11 @@ def test_pair_kernel_matches_plain(cuda, name, m):
 
     p = _arm_layer(name, cuda)
     x = torch.randn((m, p.ic), generator=torch.Generator(device=cuda).manual_seed(m), device=cuda)
-    before = decode_arms.pair_launches
+    counter = _PAIR_COUNTER[decode_arms.pair_arm(m, p)]
+    before = getattr(decode_arms, counter)
     got = decode_arms.pb_pair_v2(x, p)
     torch.cuda.synchronize()
-    assert decode_arms.pair_launches == before + 1
+    assert getattr(decode_arms, counter) == before + 1
     want = decode_arms.pb_pair_v2_plain(x, p)
     assert torch.isfinite(got).all()
     assert (got - want).abs().max() <= 1e-5 * want.abs().max()
@@ -804,6 +813,7 @@ def _stacked(dev, side_bits=8, n=3):
 
 
 _STACKED_COUNTER = {"dp4a": "stacked_launches", "tc": "stacked_tc_launches"}
+_STACKED_F32_COUNTER = {"cores": "stacked_f32_launches", "tc": "stacked_f32_tc_launches"}
 
 
 @pytest.mark.cuda
@@ -815,11 +825,12 @@ def test_stacked_kernels_match_plain_and_the_flat_kernels(cuda, side_bits, m):
     for p, mk in zip(layers, markers):
         arm = packed_matmul.int8_arm(m, p)
         counter = _STACKED_COUNTER[arm]
-        before = (getattr(packed_matmul, counter), packed_matmul.stacked_f32_launches)
+        f32_counter = _STACKED_F32_COUNTER[packed_matmul.f32_arm(m, p)]
+        before = (getattr(packed_matmul, counter), getattr(packed_matmul, f32_counter))
         i8 = packed_matmul.pb_int8_matmul_stacked(x, mk)
         f32 = packed_matmul.pb_f32_matmul_stacked(x, mk)
         torch.cuda.synchronize()
-        assert (getattr(packed_matmul, counter), packed_matmul.stacked_f32_launches) == (
+        assert (getattr(packed_matmul, counter), getattr(packed_matmul, f32_counter)) == (
             before[0] + 1, before[1] + 1)
         ops = packed_matmul.prepare_int8(x, p, arm)
         assert torch.equal(i8, packed_matmul.int8_matmul_plain(ops, p))
@@ -836,9 +847,10 @@ def test_stacked_kernels_match_plain_and_the_flat_kernels(cuda, side_bits, m):
 
 @pytest.mark.cuda
 def test_decode_arms_and_stacked_dispatch_on_the_card_take_the_kernels(cuda):
-    """decode_dot pair / dma on a CUDA tensor launch their kernels; a
-    stacked marker launches the stacked int8 kernel on "int8" and the
-    stacked f32 kernel on the other arms, at m <= 256."""
+    """decode_dot pair / dma on a CUDA tensor launch their kernels (pair at
+    8 rows its "split" arm); a stacked marker launches the stacked int8
+    kernel on "int8" and the stacked f32 kernel on the other arms, at
+    m <= 256 (8 rows: the CUDA-core arms)."""
     from pb_llm_tpu_torch.ops import binary_matmul, decode_arms
     from pb_llm_tpu_torch.ops.kernel_config import KernelConfig, use_kernels
 
@@ -848,7 +860,7 @@ def test_decode_arms_and_stacked_dispatch_on_the_card_take_the_kernels(cuda):
     xs = torch.randn((8, 512), device=cuda)
 
     def counts():
-        return (decode_arms.pair_launches, decode_arms.dma_launches,
+        return (decode_arms.pair_split_launches, decode_arms.dma_launches,
                 packed_matmul.stacked_launches, packed_matmul.stacked_f32_launches)
 
     for arm, want in (("pair", (1, 0, 0, 1)), ("dma", (0, 1, 0, 1)), ("int8", (0, 0, 1, 0))):
@@ -1153,3 +1165,155 @@ def test_step_graph_capture_that_meets_a_host_sync_raises(cuda, monkeypatch):
     with pytest.raises(RuntimeError):
         eng.decode_step()  # captures
     assert eng._step.graph is None
+
+
+# ---------------------------------------------------------------------------
+# the bf16 tensor-core arms of the pair and exact f32 kernels (pb_bf16_tc.cuh)
+# ---------------------------------------------------------------------------
+
+TC_LAYERS = ["side8", "side4", "rowgroups", "multiblock", "shards8", "shards4", "fused3"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm", ["split", "tc"])
+@pytest.mark.parametrize("name", TC_LAYERS)
+@pytest.mark.parametrize("m", [1, 8, 16, 17, 100, 255])
+def test_pair_tensor_core_arms_match_plain(cuda, name, m, arm):
+    """Either tensor-core arm on "tc" operands: within 1e-5 of max|y| of
+    the plain version on the same operands and of the plain version of x
+    (x rounds to bf16 on both sides; only the f32 sum order differs)."""
+    from pb_llm_tpu_torch.ops import decode_arms
+
+    p = _arm_layer(name, cuda)
+    x = torch.randn((m, p.ic), generator=torch.Generator(device=cuda).manual_seed(m), device=cuda)
+    ops = decode_arms.prepare_pair(x, p, "tc")
+    counter = _PAIR_COUNTER[arm]
+    before = getattr(decode_arms, counter)
+    got = decode_arms.launch_pair(ops, p, arm)
+    torch.cuda.synchronize()
+    assert getattr(decode_arms, counter) == before + 1
+    want = decode_arms.pb_pair_v2_plain(x, p)
+    assert torch.isfinite(got).all()
+    assert (got - decode_arms.pair_matmul_plain(ops, p)).abs().max() <= 1e-5 * want.abs().max()
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ic,oc", [(4096, 11008), (11008, 4096)])
+@pytest.mark.parametrize("m", [8, 128, 255])
+def test_pair_arms_at_llama_width(cuda, ic, oc, m):
+    """llama-7b's MLP shapes (ic = 11008 packs in blocks of 1376): the
+    three arms against the plain version, and the split arm the same bits
+    on two runs."""
+    from pb_llm_tpu_torch.ops import decode_arms
+
+    g = torch.Generator(device=cuda).manual_seed(ic + m)
+    p = random_packed_v2(ic, oc, g, low_frac=0.9)
+    x = torch.randn((m, ic), generator=g, device=cuda)
+    want = decode_arms.pb_pair_v2_plain(x, p)
+    tc = decode_arms.prepare_pair(x, p, "tc")
+    outs = {"mma": decode_arms.launch_pair(decode_arms.prepare_pair(x, p), p),
+            "split": decode_arms.launch_pair(tc, p, "split"),
+            "tc": decode_arms.launch_pair(tc, p, "tc")}
+    again = decode_arms.launch_pair(tc, p, "split")
+    torch.cuda.synchronize()
+    for arm, got in outs.items():
+        assert (got - want).abs().max() <= 1e-5 * want.abs().max(), arm
+    assert torch.equal(outs["split"], again)
+
+
+@pytest.mark.cuda
+def test_pair_split_arm_is_deterministic_and_graph_safe(cuda):
+    """The split arm's ranges add in a fixed order: the same bits on every
+    run, and under a CUDA graph's replay."""
+    from pb_llm_tpu_torch.ops import decode_arms
+
+    p = _arm_layer("fused3", cuda)
+    x = torch.randn((8, p.ic), generator=torch.Generator(device=cuda).manual_seed(3), device=cuda)
+    first = decode_arms.pb_pair_v2(x, p)
+    assert decode_arms.pair_arm(8, p) == "split" and decode_arms.pair_ksplit(p) > 1
+    runs = [decode_arms.pb_pair_v2(x, p) for _ in range(5)]
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        with torch.cuda.graph(graph, stream=stream):
+            captured = decode_arms.pb_pair_v2(x, p)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(first, r) for r in runs)
+    assert torch.equal(first, captured)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dot_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", TC_LAYERS[:-1])
+@pytest.mark.parametrize("m", [32, 100, 256, 300, 513])
+def test_f32_tensor_core_arm_matches_plain(cuda, name, m, dot_dtype):
+    """The tensor-core arm (three bf16 terms for f32, one for bf16) through
+    the wrapper from F32_TC rows on: within rtol = atol = 1e-4 of the plain
+    version, the JAX package's bound for its f32 kernel."""
+    p = _layer(name, cuda)
+    x = torch.randn((m, p.ic), generator=torch.Generator(device=cuda).manual_seed(m), device=cuda)
+    assert packed_matmul.f32_arm(m, p) == "tc"
+    before = packed_matmul.f32_tc_launches
+    got = packed_matmul.pb_f32_matmul(x, p, dot_dtype=dot_dtype)
+    torch.cuda.synchronize()
+    assert packed_matmul.f32_tc_launches == before + 1
+    ops = packed_matmul.prepare_tc(x, p, packed_matmul.terms_of(dot_dtype))
+    torch.testing.assert_close(got, packed_matmul.tc_matmul_plain(ops, p), rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got, packed_matmul.pb_f32_matmul_plain(x, p, dot_dtype=dot_dtype),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("col_tile", [0, 256])
+@pytest.mark.parametrize("ic,oc", [(4096, 4096), (4096, 11008), (11008, 4096)])
+def test_f32_tensor_core_arm_at_llama_width(cuda, ic, oc, col_tile):
+    """m = 512 on llama-7b's shapes, global selection and row groups of 256."""
+    g = torch.Generator(device=cuda).manual_seed(ic + oc + col_tile)
+    p = random_packed_v2(ic, oc, g, low_frac=0.9, col_tile=col_tile)
+    x = torch.randn((512, ic), generator=g, device=cuda)
+    assert packed_matmul.f32_arm(512, p) == "tc"
+    got = packed_matmul.pb_f32_matmul(x, p)
+    torch.testing.assert_close(got, packed_matmul.pb_f32_matmul_plain(x, p), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side_bits", [8, 4])
+@pytest.mark.parametrize("m", [32, 100, 256])
+def test_stacked_f32_tensor_core_arm_equals_flat(cuda, side_bits, m):
+    """The stacked entry's tensor-core arm on every layer: the flat arm's
+    bits on the same operands, and the plain version within 1e-4."""
+    layers, markers = _stacked(cuda, side_bits)
+    x = torch.randn((m, 512), generator=torch.Generator(device=cuda).manual_seed(m), device=cuda)
+    for p, mk in zip(layers, markers):
+        ops = packed_matmul.prepare_tc(x, p, 3)
+        before = packed_matmul.stacked_f32_tc_launches
+        got = packed_matmul.launch_f32_stacked(ops, mk)
+        torch.cuda.synchronize()
+        assert packed_matmul.stacked_f32_tc_launches == before + 1
+        assert torch.equal(got, packed_matmul.launch_f32_tc(ops, p))
+        torch.testing.assert_close(got, packed_matmul.pb_f32_matmul_stacked_plain(x, mk),
+                                   rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_tensor_core_arms_refuse_what_they_cannot_take(cuda):
+    """Tensor-core operands on a layout the arms do not take raise before
+    anything launches: no silent fallback."""
+    from pb_llm_tpu_torch.ops import decode_arms
+
+    p = _layer("side4_rowgroups", cuda)  # col_tile 64 splits a 128-column tile
+    x = torch.randn((40, p.ic), device=cuda)
+    assert decode_arms.pair_arm(40, p) == "mma" and packed_matmul.f32_arm(40, p) == "cores"
+    with pytest.raises(ValueError, match="tensor-core arm does not take"):
+        decode_arms.launch_pair(decode_arms.prepare_pair(x, p, "tc"), p, "tc")
+    with pytest.raises(ValueError, match="tensor-core arm does not take"):
+        packed_matmul.launch_f32_tc(packed_matmul.prepare_tc(x, p, 3), p)
+    low2 = _lowbit_layer(256, 384, 2, cuda)
+    with pytest.raises(ValueError, match="tensor-core arm does not take"):
+        packed_matmul.launch_f32_tc(packed_matmul.prepare_tc(torch.randn((40, 256), device=cuda),
+                                                             low2, 3), low2)
+    with pytest.raises(ValueError, match="does not take"):
+        decode_arms.launch_pair(decode_arms.prepare_pair(x, p), p, "tc")
