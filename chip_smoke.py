@@ -18,13 +18,16 @@ raises and the exit code is not 0:
    for bit, at 1-1024 rows: the crossover M_TC) and decode attention
    (serving; its int8, bf16 and q8 arms), the binary-part dequant, the
    exact f32 matmul's two arms (f32 CUDA cores, bf16 tensor cores with x in
-   three terms; crossover F32_TC) and flash attention (the producer and the
-   exact arms),
+   three terms; crossover F32_TC) and flash attention's two arms (bf16
+   tensor cores, q, k, p, v in bf16 terms, also dots_bf16; f32 CUDA cores;
+   the producers' eval windows),
    paged attention (the paged pool: decode, speculative verify, chunk
    continuation, GQA; int8, f32 and bf16 pages;
    windows on the tensor-core arm, timed beside the CUDA-core arm), the
    PBW-v1 planar and select matmuls (OPT-1.3B's and llama-7b's MLP
-   shapes), and the int8 path's x preparation, bit for bit;
+   shapes; the select kernel's two arms, bf16 tensor cores with x and w in
+   bf16 terms and f32 CUDA cores, and their crossover SELECT_TC), and the
+   int8 path's x preparation, bit for bit;
 3. the same 2-layer full-width llama-7b engine on the card (kernels) and on
    the CPU (the kernels' plain versions): prefill logits, teacher-forced
    NLL and 8 greedy tokens; once on the int8 arms, once on the exact arms
@@ -57,7 +60,9 @@ raises and the exit code is not 0:
    versions): prefill logits, teacher-forced NLL, 8 greedy tokens;
 7b. end to end, PBW-v1 serving: the 24-layer full-width OPT-1.3B through
    `ContinuousBatcher`, int8 strips, phase 4's request mix; planar, select
-   and decode-attention launches must match the forwards run, by rows;
+   (by arm) and decode-attention launches must match the forwards run, by
+   rows; the prefill forwards' synchronised time (`prefill_ms_total`), and
+   the mix served again with the select arm forced to "cores" and back;
 8. end to end, the PBW-v1 producer: a 2-layer OPT-1.3B-width model
    calibrated by GPTQ-PB (element masks, groups of 128) into PBW v1, then
    its windowed perplexity with the kernels and with their plain versions;
@@ -155,6 +160,7 @@ FLASH_CASES = ((4, 2048, 32, 128, True),   # B, T, H, D, causal: 4 eval windows 
                (1, 2000, 32, 128, True),   # T not a multiple of the 64-row tile
                (1, 2048, 32, 128, False))
 FLASH_RTOL, FLASH_ATOL = 1e-4, 1e-4
+FLASH_BF16_TOL = 1e-2  # dots_bf16: p rounds to bf16 against the running max (tests' bound)
 PAGED_POOL = (1024, 16, 128)  # pages (+ the trash page), page size, table width (max_seq 2048)
 PAGED_CASES = (  # name, B, t, Hq, Hkv, D, pages, largest base
     ("decode_int8", 8, 1, 32, 32, 128, "int8", 511),     # 8 slots, lengths up to 512
@@ -201,6 +207,7 @@ V1_SHAPES = ((2048, 2048), (2048, 8192), (8192, 2048), (4096, 11008))
 V1_GROUPS = (-1, 128)
 V1_EXTRA = (dict(sidecar_bits=4), dict(low_bits=2))  # at 2048x8192, whole-row scales
 V1_HEADLINE = (2048, 8192)
+SELECT_CROSS_MS = (1, 8, 64, 256, 512, 8192)  # the select arms' crossover rows
 # planar and select sum their products in another order than the plain
 # versions' torch.matmul: the JAX package's bound for its f32 kernels.  The
 # bf16 select dot keeps it: a product of two bf16 values is exact in f32,
@@ -579,8 +586,12 @@ def check_f32_matmul(timer: Timer, card: str):
 
 
 def check_flash(timer: Timer, card: str):
-    """Flash attention at the eval windows' shapes; library: SDPA (f32) on
-    the same tensors."""
+    """Flash attention at the eval windows' shapes, both arms ("tc", which
+    every call takes, and "cores") in the same call, f32 and, on "tc",
+    dots_bf16; library: SDPA (f32, and bf16 beside dots_bf16) on the same
+    tensors.  Bounds: the f32 CUDA cores' 4·D operations a (row, allowed
+    key) pair at 67 TFLOP/s, and the tensor cores' issued products × 2·D at
+    989 TFLOP/s."""
     from pb_llm_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device=DEV).manual_seed(9)
@@ -589,27 +600,51 @@ def check_flash(timer: Timer, card: str):
     for b, t, h, d, causal in FLASH_CASES:
         q, k, v = (torch.randn((b, t, h, d), generator=gen, device=DEV) for _ in range(3))
         scale = d ** -0.5
-        got = fa.flash_attention(q, k, v, scale, causal=causal)
-        torch.cuda.synchronize()
         want = fa.flash_attention_plain(q, k, v, scale, causal=causal)
-        err = (got - want).abs()
-        if not (torch.isfinite(got).all() and torch.all(err <= FLASH_ATOL + FLASH_RTOL * want.abs())):
-            raise AssertionError(f"flash_attention {(b, t, h, d, causal)}: max|err| "
-                                 f"{err.max().item()} beyond rtol {FLASH_RTOL} atol {FLASH_ATOL}")
-        del want
+        want_bf16 = fa.flash_attention_plain(q, k, v, scale, causal=causal, dots_bf16=True)
+        errs = {}
+        for arm, bf16 in (("tc", False), ("cores", False), ("tc", True)):
+            got = fa.flash_attention(q, k, v, scale, causal=causal, arm=arm, dots_bf16=bf16)
+            torch.cuda.synchronize()
+            ref, tol = (want_bf16, FLASH_BF16_TOL) if bf16 else (want, FLASH_RTOL)
+            err = (got - ref).abs()
+            if not (torch.isfinite(got).all() and torch.all(err <= tol + tol * ref.abs())):
+                raise AssertionError(f"flash_attention {arm} {(b, t, h, d, causal)} dots_bf16 "
+                                     f"{bf16}: max|err| {err.max().item()} beyond rtol = atol "
+                                     f"= {tol}")
+            errs[arm, bf16] = err.max().item()
+            del got, err
+        del want, want_bf16
         qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+        qb, kb, vb = (a.to(torch.bfloat16) for a in (qt, kt, vt))
         pairs = b * h * (t * (t + 1) // 2 if causal else t * t)
-        bound_ms, bound_by = bound(4 * 4 * b * t * h * d, 4 * d * pairs, F32_FLOPS_PER_S)
-        row = {"kernel": "flash_attention", "B": b, "T": t, "H": h, "D": d, "causal": causal,
-               "max_abs_err": err.max().item(),
-               "kernel_ms": timer(lambda: fa.flash_attention(q, k, v, scale, causal=causal), iters=10),
+        nbytes = 4 * 4 * b * t * h * d
+        n_tc = sum(len(pr) for pr in fa.tc_products(False))
+        bound_ms, bound_by = bound(nbytes, 2 * d * pairs * n_tc, BF16_FLOPS_PER_S)
+        cores_bound_ms, cores_bound_by = bound(nbytes, 4 * d * pairs, F32_FLOPS_PER_S)
+        bf16_bound_ms, _ = bound(nbytes, 4 * d * pairs, BF16_FLOPS_PER_S)
+
+        def arm_ms(arm, bf16=False):
+            return timer(lambda: fa.flash_attention(q, k, v, scale, causal=causal, arm=arm,
+                                                    dots_bf16=bf16), iters=10)
+
+        row = {"kernel": "flash_attention", "arm": fa.flash_arm(), "B": b, "T": t, "H": h,
+               "D": d, "causal": causal, "max_abs_err": errs["tc", False],
+               "cores_max_abs_err": errs["cores", False], "bf16_max_abs_err": errs["tc", True],
+               "kernel_ms": arm_ms("tc"), "cores_ms": arm_ms("cores"),
+               "bf16_ms": arm_ms("tc", True),
                "plain_ms": timer(lambda: fa.flash_attention_plain(q, k, v, scale, causal=causal),
                                  iters=3, warmup=1),
                "library_ms": timer(lambda: sdpa(qt, kt, vt, is_causal=causal, scale=scale), iters=10),
-               "bound_ms": bound_ms, "bound_by": bound_by, "card": card}
+               "library_bf16_ms": timer(lambda: sdpa(qb, kb, vb, is_causal=causal, scale=scale),
+                                        iters=10),
+               "bound_ms": bound_ms, "bound_by": bound_by, "tc_products": n_tc,
+               "cores_bound_ms": cores_bound_ms, "cores_bound_by": cores_bound_by,
+               "bf16_bound_ms": bf16_bound_ms, "card": card}
+        row["over_library"] = row["kernel_ms"] / row["library_ms"]
         log(json.dumps(row))
         rows.append(row)
-        del q, k, v, qt, kt, vt, err
+        del q, k, v, qt, kt, vt, qb, kb, vb
     return rows
 
 
@@ -722,8 +757,12 @@ def check_v1_matmul(timer: Timer, card: str):
     """The PBW-v1 planar kernel at decode m and the select kernel at prefill
     m (f32 and bf16) against their plain versions, at OPT-1.3B's and
     llama-7b's MLP shapes, whole-row and 128-row scale groups, plus one
-    nibble-code and one 2-bit-low layer.  Library: one torch.matmul of x
-    with the dense dequantized weight, f32 (TF32 off) and bf16."""
+    nibble-code and one 2-bit-low layer; the select kernel's two arms ("tc",
+    bf16 tensor cores, x and w in bf16 terms; "cores", f32 CUDA cores) in
+    the same call, each as its wrapper's whole call, with both bounds, and
+    a crossover line per shape (SELECT_CROSS_MS).  Library: one
+    torch.matmul of x with the dense dequantized weight, f32 (TF32 off) and
+    bf16."""
     from pb_llm_tpu_torch.core.pbw import dequantize
     from pb_llm_tpu_torch.data.synthetic import random_packed_v1
     from pb_llm_tpu_torch.ops import packed_matmul_v1 as v1
@@ -736,41 +775,86 @@ def check_v1_matmul(timer: Timer, card: str):
         p = random_packed_v1(ic, oc, gen, low_frac=0.9, bias=True, **kw)
         w = dequantize(p)
         wb = w.to(torch.bfloat16)
-        for m, arm, dot in ((MATMUL_MS[0], "planar", torch.float32),
-                            (MATMUL_MS[1], "select", torch.float32),
-                            (MATMUL_MS[1], "select", torch.bfloat16)):
+        for m, kernel, dot in ((MATMUL_MS[0], "planar", torch.float32),
+                               (MATMUL_MS[1], "select", torch.float32),
+                               (MATMUL_MS[1], "select", torch.bfloat16)):
             if kw.keys() - {"groupsize"} and dot == torch.bfloat16:
                 continue
             x = torch.randn((m, ic), generator=gen, device=DEV)
-            if arm == "planar":
-                launch, wrapper, plain = (functools.partial(f, x, p) for f in (
-                    v1.launch_planar, v1.pb_planar_v1, v1.pb_planar_v1_plain))
+            if kernel == "planar":
+                arms = {"planar": functools.partial(v1.launch_planar, x, p)}
+                wrapper, plain = (functools.partial(f, x, p) for f in (
+                    v1.pb_planar_v1, v1.pb_planar_v1_plain))
             else:
-                launch, wrapper, plain = (functools.partial(f, x, p, dot) for f in (
-                    v1.launch_select, v1.pb_select_v1, v1.pb_select_v1_plain))
-            got = launch()
-            torch.cuda.synchronize()
+                arms = {a: functools.partial(v1.launch_select, x, p, dot, a) for a in v1.SELECT_ARMS}
+                wrapper, plain = (functools.partial(f, x, p, dot) for f in (
+                    v1.pb_select_v1, v1.pb_select_v1_plain))
             want = plain()
-            err = (got - want).abs()
-            name = f"pb_{arm}_v1 m={m} {ic}x{oc} {kw} {dot}"
-            if not (torch.isfinite(got).all() and torch.all(err <= V1_ATOL + V1_RTOL * want.abs())):
-                raise AssertionError(f"{name}: max|err| {err.max().item()} beyond rtol {V1_RTOL} "
-                                     f"atol {V1_ATOL}")
+            errs = {}
+            for a, launch in arms.items():
+                got = launch()
+                torch.cuda.synchronize()
+                err = (got - want).abs()
+                if not (torch.isfinite(got).all() and torch.all(err <= V1_ATOL + V1_RTOL * want.abs())):
+                    raise AssertionError(f"pb_{kernel}_v1 ({a}) m={m} {ic}x{oc} {kw} {dot}: max|err| "
+                                         f"{err.max().item()} beyond rtol {V1_RTOL} atol {V1_ATOL}")
+                errs[a] = err.max().item()
+                del got, err
             nbytes = 4 * (m * ic + m * oc) + v1_plane_bytes(p)
             peak = BF16_FLOPS_PER_S if dot == torch.bfloat16 else F32_FLOPS_PER_S
-            bound_ms, bound_by = bound(nbytes, 2 * m * ic * oc, peak)
+            picked = "planar" if kernel == "planar" else v1.select_arm(m, p)
             xb = x.to(torch.bfloat16)
-            row = {"kernel": f"pb_{arm}_v1", "m": m, "ic": ic, "oc": oc,
+            row = {"kernel": f"pb_{kernel}_v1", "arm": picked, "m": m, "ic": ic, "oc": oc,
                    "groupsize": p.groupsize, "sidecar_bits": p.sidecar_bits,
-                   "low_bits": p.low_bits, "dot": str(dot), "max_abs_err": err.max().item(),
-                   "kernel_ms": timer(launch), "wrapper_ms": timer(wrapper),
+                   "low_bits": p.low_bits, "dot": str(dot), "max_abs_err": errs[picked],
+                   "kernel_ms": timer(arms[picked]), "wrapper_ms": timer(wrapper),
                    "plain_ms": timer(plain, iters=5),
                    "library_f32_ms": timer(lambda: x @ w), "library_bf16_ms": timer(lambda: xb @ wb),
-                   "bound_ms": bound_ms, "bound_by": bound_by, "card": card}
+                   "card": card}
+            # the CUDA cores' bound: 2·m·ic·oc at the f32 (or, bf16 dot, the bf16) rate; the
+            # tensor cores': the issued products × 2·m·ic·oc at the bf16 rate
+            bounds = dict.fromkeys(("cores", "planar"), bound(nbytes, 2 * m * ic * oc, peak))
+            if kernel == "select":
+                n_tc = len(v1.select_products(dot))
+                bounds["tc"] = bound(nbytes, n_tc * 2 * m * ic * oc, BF16_FLOPS_PER_S)
+                row["tc_products"] = n_tc
+                for a in v1.SELECT_ARMS:
+                    row[f"{a}_max_abs_err"] = errs[a]
+                    row[f"{a}_ms"] = row["kernel_ms"] if a == picked else timer(arms[a])
+                    row[f"{a}_bound_ms"], row[f"{a}_bound_by"] = bounds[a]
+            row["bound_ms"], row["bound_by"] = bounds[picked]
+            row["over_library_f32"] = row["kernel_ms"] / row["library_f32_ms"]
             log(json.dumps(row))
             rows.append(row)
-            del x, xb, got, want, err
-        del p, w, wb
+            del x, xb, want
+        if kw == dict(groupsize=-1):  # the select arms' crossover on this shape
+            times = {}
+            for m in SELECT_CROSS_MS:
+                x = torch.randn((m, ic), generator=gen, device=DEV)
+                it = 5 if m > 1024 else 20
+                for a in v1.SELECT_ARMS:
+                    times[m, a] = timer(functools.partial(v1.launch_select, x, p, torch.float32, a),
+                                        iters=it)
+                times[m, "library_f32"] = timer(lambda: x @ w, iters=it)
+                nbytes = 4 * (m * ic + m * oc) + v1_plane_bytes(p)
+                times[m, "tc_bound"] = bound(nbytes, len(v1.SELECT_TERMS) * 2 * m * ic * oc,
+                                             BF16_FLOPS_PER_S)[0]
+                times[m, "cores_bound"] = bound(nbytes, 2 * m * ic * oc, F32_FLOPS_PER_S)[0]
+                if m == SELECT_CROSS_MS[-1]:
+                    times[m, "plain"] = timer(functools.partial(v1.pb_select_v1_plain, x, p),
+                                              iters=3, warmup=1)
+                del x
+            log(json.dumps({"phase": "select_crossover", "ic": ic, "oc": oc,
+                            "m": list(SELECT_CROSS_MS),
+                            **{f"{a}_ms": [times[m, a] for m in SELECT_CROSS_MS]
+                               for a in (*v1.SELECT_ARMS, "library_f32", "tc_bound", "cores_bound")},
+                            "plain_ms_at_{}".format(SELECT_CROSS_MS[-1]):
+                                times[SELECT_CROSS_MS[-1], "plain"],
+                            "ksplit": [v1.select_ksplit(m, p, torch.cuda.get_device_properties(
+                                DEV).multi_processor_count) for m in SELECT_CROSS_MS],
+                            "SELECT_TC": v1.SELECT_TC, "card": card}))
+        del w, wb
+        del p
     return rows
 
 
@@ -1420,7 +1504,7 @@ def producer(card: str):
     forwards = -(-PPL_WINDOWS // PPL_BATCH)
     chunks = 1  # capture_batch == nsamples: one calibration chunk per layer
     want = expect_launches(pb_dequant_v2=n_packed * (chunks + forwards),
-                           flash_attention=cfg.num_hidden_layers * (2 * chunks + forwards))
+                           flash_attention_tc=cfg.num_hidden_layers * (2 * chunks + forwards))
     row = {"phase": "producer", "model": "llama-7b widths, 2 layers, random-init f32 weights",
            "calib": f"synthetic wikitext2 (ptq flavor), {PTQ_NSAMPLES} x {PTQ_SEQLEN}",
            "calib_distinct_tokens": int(np.unique(calib).size),
@@ -1704,9 +1788,11 @@ def check_opt_parity(card: str):
     the CPU (plain versions).  Neither matmul rounds x to int8, so the
     exact arms' logit bound holds.  run_parity's forwards take the planar
     kernel 11 times a linear (the 40-token prefill, 7 + 3 decode steps) and
-    the select kernel once (the 70-token prefill in bucket 256)."""
+    the select kernel once (the 70-token prefill in bucket 256), on the arm
+    `select_arm` picks for 256 rows."""
     from pb_llm_tpu_torch.data.synthetic import random_packed_opt
     from pb_llm_tpu_torch.ops.kernel_config import KernelConfig
+    from pb_llm_tpu_torch.ops.packed_matmul_v1 import select_arm
 
     cfg = opt13b(2)
     params = random_packed_opt(cfg, torch.Generator(device=DEV).manual_seed(16), groupsize=128)
@@ -1739,21 +1825,43 @@ def check_opt_parity(card: str):
         raise AssertionError(f"OPT parity: greedy tokens differ {g_toks} vs {c_toks}")
     if abs(g_nll - c_nll) > NLL_RTOL * abs(c_nll):
         raise AssertionError(f"OPT parity: NLL {g_nll} vs {c_nll}")
-    want = expect_launches(pb_planar_v1=11 * n_linear, pb_select_v1=n_linear,
+    p = next(v for v in params["layers"][0].values() if hasattr(v, "sign_packed"))
+    select = "pb_select_v1_tc" if select_arm(256, p) == "tc" else "pb_select_v1"
+    want = expect_launches(pb_planar_v1=11 * n_linear, **{select: n_linear},
                            decode_attention=10 * cfg.num_hidden_layers)
     if launches != want:
         raise AssertionError(f"OPT parity: launches {launches}, expected {want}")
     return row
 
 
+def v1_launches(forwards, linears, n_layers: int) -> dict:
+    """The launches a run of ``forwards`` (kind, rows) must show on PBW-v1
+    linears: planar where `use_planar`, else the select arm `select_arm`
+    picks, and one decode attention a layer a decode step."""
+    from pb_llm_tpu_torch.ops.packed_matmul_v1 import select_arm, use_planar
+
+    counts = {"pb_planar_v1": 0, "pb_select_v1": 0, "pb_select_v1_tc": 0}
+    for _, m in forwards:
+        for p in linears:
+            kind = "pb_planar_v1" if use_planar(m, p) else (
+                "pb_select_v1_tc" if select_arm(m, p) == "tc" else "pb_select_v1")
+            counts[kind] += 1
+    n_decode = sum(kind == "decode" for kind, _ in forwards)
+    return expect_launches(**counts, decode_attention=n_layers * n_decode)
+
+
 def serve_v1_e2e(params, cfg, build_s: float, card: str):
     """Phase 7b: the 24-layer full-width OPT-1.3B with random PBW-v1 planes
     through `ContinuousBatcher`, `Engine(n_slots=8, max_seq=2048)`, int8
     strips, phase 4's request mix.  Each forward's rows m decide, linear by
-    linear, which kernel it must have launched (`use_planar`)."""
+    linear, which kernel (and select arm) it must have launched
+    (`use_planar`, `select_arm`); the prefill forwards' synchronised time is
+    summed (`prefill_ms_total`).  The mix is then served twice more on the
+    same engine, the select kernel's arm forced to "cores" and back to the
+    rule's, for the two arms' prefill time in turns."""
     from pb_llm_tpu_torch.core.pbw import PackedLinear
     from pb_llm_tpu_torch.models.registry import family_for
-    from pb_llm_tpu_torch.ops.packed_matmul_v1 import use_planar
+    from pb_llm_tpu_torch.ops import packed_matmul_v1 as v1
     from pb_llm_tpu_torch.runtime.engine import Engine, EngineConfig
 
     eng = Engine(params, cfg, family_for("opt"), EngineConfig(n_slots=8, max_seq=2048), device=DEV)
@@ -1763,12 +1871,10 @@ def serve_v1_e2e(params, cfg, build_s: float, card: str):
     head_bytes = params["embed_tokens"].numel() * params["embed_tokens"].element_size()
     reqs = e2e_requests(cfg.vocab_size)
     torch.cuda.reset_peak_memory_stats()
-    batcher, launches, forwards, step_ms, kv_rows, _ = run_counted(eng, reqs)
+    batcher, launches, forwards, step_ms, kv_rows, prefill_ms = run_counted(eng, reqs)
 
-    planar = sum(use_planar(m, p) for _, m in forwards for p in linears)
+    want = v1_launches(forwards, linears, cfg.num_hidden_layers)
     n_decode = sum(kind == "decode" for kind, _ in forwards)
-    want = expect_launches(pb_planar_v1=planar, pb_select_v1=len(forwards) * len(linears) - planar,
-                           decode_attention=cfg.num_hidden_layers * n_decode)
     kv_row_bytes = cfg.num_hidden_layers * cfg.num_attention_heads * (2 * cfg.head_dim + 8)
     mean_rows = statistics.mean(kv_rows)
     s = batcher.stats
@@ -1779,17 +1885,36 @@ def serve_v1_e2e(params, cfg, build_s: float, card: str):
            "decode_steps": len(step_ms), "ms_per_decode_step_median": statistics.median(step_ms),
            "ms_per_decode_step_mean": statistics.mean(step_ms), "decode_forwards": n_decode,
            "prefill_forward_rows": sorted(m for kind, m in forwards if kind == "prefill"),
+           "prefill_ms_total": sum(prefill_ms), "SELECT_TC": v1.SELECT_TC,
            "launches": launches, "planar_launches_per_decode_step": len(linears),
            "packed_plane_bytes": plane_bytes, "tied_head_bytes": head_bytes,
            "mean_kv_rows_per_step": mean_rows,
            "decode_step_bound_ms": (plane_bytes + head_bytes + mean_rows * kv_row_bytes)
            / HBM_BYTES_PER_S * 1e3,
            "build_s": build_s, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card}
-    log(json.dumps(row))
-    if launches != want or not (launches["pb_planar_v1"] and launches["pb_select_v1"]):
+    if launches != want or not (launches["pb_planar_v1"] and launches["pb_select_v1_tc"]):
+        log(json.dumps(row))
         raise AssertionError(f"v1 e2e: launches {launches}, expected {want} for {forwards}")
-    if not all(use_planar(m, p) for kind, m in forwards if kind == "decode" for p in linears):
+    if not all(v1.use_planar(m, p) for kind, m in forwards if kind == "decode" for p in linears):
         raise AssertionError("v1 e2e: a decode step left the planar kernel")
+    # the select arms in turns: "cores" (SELECT_TC past every forward), then the rule again
+    turns = {}
+    rule = v1.SELECT_TC
+    for name, tc in (("cores", 1 << 30), ("rule", rule)):
+        v1.SELECT_TC = tc
+        try:
+            _, got, fwd, t_ms, _, p_ms = run_counted(eng, e2e_requests(cfg.vocab_size))
+        finally:
+            v1.SELECT_TC = rule
+        ok = (got == v1_launches(fwd, linears, cfg.num_hidden_layers) if name == "rule"
+              else got["pb_select_v1"] > 0 and got["pb_select_v1_tc"] == 0)
+        if not ok:
+            raise AssertionError(f"v1 e2e ({name} turn): launches {got}")
+        turns[name] = {"prefill_ms_total": sum(p_ms), "ms_per_decode_step_median":
+                       statistics.median(t_ms), "select_launches": got["pb_select_v1"]
+                       + got["pb_select_v1_tc"]}
+    row["turns"] = turns
+    log(json.dumps(row))
     return row
 
 
@@ -1808,6 +1933,7 @@ def producer_v1(card: str):
     from pb_llm_tpu_torch.models.opt import init_params
     from pb_llm_tpu_torch.models.registry import family_for
     from pb_llm_tpu_torch.ops import kernel_config as kc
+    from pb_llm_tpu_torch.ops.packed_matmul_v1 import select_arm
 
     cfg = opt13b(2)
     fam = family_for("opt")
@@ -1846,8 +1972,10 @@ def producer_v1(card: str):
     salient = float(np.mean([1.0 - m.mean() for m in report.masks.values()]))
     forwards = -(-PPL_WINDOWS // PPL_BATCH)
     chunks = 1  # capture_batch == nsamples: one calibration chunk per layer
-    want = expect_launches(pb_select_v1=len(packed) * (chunks + forwards),
-                           flash_attention=cfg.num_hidden_layers * (2 * chunks + forwards))
+    # every forward has at least PTQ_SEQLEN rows: one arm (select_arm) takes them all
+    arm = "pb_select_v1_tc" if select_arm(PTQ_SEQLEN, packed[0]) == "tc" else "pb_select_v1"
+    want = expect_launches(**{arm: len(packed) * (chunks + forwards)},
+                           flash_attention_tc=cfg.num_hidden_layers * (2 * chunks + forwards))
     row = {"phase": "producer_v1", "model": "OPT-1.3B widths, 2 layers, random-init f32 weights",
            "calib": f"synthetic wikitext2 (ptq flavor), {PTQ_NSAMPLES} x {PTQ_SEQLEN}",
            "solver": "xnor low_frac 0.9 hessian high_bit 8 groupsize 128, element masks, packed",
@@ -2527,6 +2655,7 @@ def main(argv=None) -> int:
     from pb_llm_tpu_torch.data.synthetic import random_packed_llama, random_packed_opt
     from pb_llm_tpu_torch.ops import decode_arms as da
     from pb_llm_tpu_torch.ops import packed_matmul as pm
+    from pb_llm_tpu_torch.ops import packed_matmul_v1 as v1
 
     card = setup()
     timer = Timer()
@@ -2584,6 +2713,10 @@ def main(argv=None) -> int:
                   and r["low_bits"] == 1)
     select = next(r for r in v1_rows if r["kernel"] == "pb_select_v1" and (r["ic"], r["oc"]) ==
                   V1_HEADLINE and r["groupsize"] == 128 and r["dot"] == "torch.float32")
+    select_launches = {a: v1_e2e["launches"][k] + prod_v1["launches"][k]
+                       for a, k in (("cores", "pb_select_v1"), ("tc", "pb_select_v1_tc"))}
+    flash_launches = {a: prod["launches"][k] + prod_v1["launches"][k]
+                      for a, k in (("cores", "flash_attention"), ("tc", "flash_attention_tc"))}
     kernels = [
         {"name": "pb_int8_matmul", "route": "cuda", "source": "pb_llm_tpu_torch/csrc/pb_int8_matmul.cu",
          "replaces": "pb_llm_tpu/ops/pallas_pb.py:393", "launches": e2e["matmul_launches"],
@@ -2628,11 +2761,25 @@ def main(argv=None) -> int:
                   "terms (entry pb_f32_matmul_tc in pb_f32_matmul.cu); library: f32 matmul, TF32 "
                   "off; launches: phase 3 (exact arms)".format(*PREFILL_SHAPE)},
         {"name": "flash_attention", "route": "cuda", "source": "pb_llm_tpu_torch/csrc/flash_attention.cu",
-         "replaces": "pb_llm_tpu/ops/flash_attention.py:29", "launches": prod["launches"]["flash_attention"],
+         "replaces": "pb_llm_tpu/ops/flash_attention.py:29", "launches": sum(flash_launches.values()),
+         "max_abs_err": max(r["cores_max_abs_err"] for r in fa_rows), "ms": fa["cores_ms"],
+         "plain_ms": fa["plain_ms"], "bound_ms": fa["cores_bound_ms"],
+         "bound_by": fa["cores_bound_by"], "library_ms": fa["library_ms"], "parity": "ok",
+         "arm": "cores", "arm_launches": flash_launches,
+         "shape": "B={} T={} H={} D={} causal f32; the f32 CUDA-core arm (only a call that "
+                  "names it); launches: phases 5 and 8, both arms".format(*FLASH_CASES[0][:4])},
+        {"name": "flash_attention_tc", "route": "cuda",
+         "source": "pb_llm_tpu_torch/csrc/flash_attention.cu",
+         "replaces": "pb_llm_tpu/ops/flash_attention.py:29", "launches": flash_launches["tc"],
          "max_abs_err": max(r["max_abs_err"] for r in fa_rows), "ms": fa["kernel_ms"],
          "plain_ms": fa["plain_ms"], "bound_ms": fa["bound_ms"], "bound_by": fa["bound_by"],
-         "library_ms": fa["library_ms"], "parity": "ok",
-         "shape": "B={} T={} H={} D={} causal f32".format(*FLASH_CASES[0][:4])},
+         "library_ms": fa["library_ms"], "parity": "ok", "arm": "tc",
+         "cuda_cores_ms": fa["cores_ms"], "cuda_cores_bound_ms": fa["cores_bound_ms"],
+         "dots_bf16_ms": fa["bf16_ms"], "dots_bf16_library_ms": fa["library_bf16_ms"],
+         "shape": "B={} T={} H={} D={} causal f32; bf16 tensor cores (entry flash_attention_tc: "
+                  "wgmma, TMA; q, k in 3 bf16 terms, p, v in 2; 9 products), the terms launch "
+                  "included; library: SDPA f32; launches: phases 5 and 8".format(
+                      *FLASH_CASES[0][:4])},
         {"name": "paged_attention", "route": "cuda", "source": "pb_llm_tpu_torch/csrc/paged_attention.cu",
          "replaces": "pb_llm_tpu/ops/paged_attention.py:35",
          "launches": sum(r["launches"]["paged_attention_decode"] + r["launches"][
@@ -2649,13 +2796,25 @@ def main(argv=None) -> int:
          "shape": "m=8 ic=2048 oc=8192 (OPT-1.3B fc1) low_frac 0.9, whole-row scales; library: "
                   "f32 matmul on the dense weight"},
         {"name": "pb_select_v1", "route": "cuda", "source": "pb_llm_tpu_torch/csrc/pb_select_v1.cu",
-         "replaces": "pb_llm_tpu/ops/pallas_pb.py:1297",
-         "launches": v1_e2e["launches"]["pb_select_v1"] + prod_v1["launches"]["pb_select_v1"],
-         "max_abs_err": max(r["max_abs_err"] for r in v1_rows if r["kernel"] == "pb_select_v1"),
-         "ms": select["kernel_ms"], "plain_ms": select["plain_ms"], "bound_ms": select["bound_ms"],
-         "bound_by": select["bound_by"], "library_ms": select["library_f32_ms"], "parity": "ok",
-         "shape": "m=512 ic=2048 oc=8192 f32, groups of 128; launches: phases 7b and 8; library: "
-                  "f32 matmul on the dense weight"},
+         "replaces": "pb_llm_tpu/ops/pallas_pb.py:1297", "launches": sum(select_launches.values()),
+         "max_abs_err": max(r["cores_max_abs_err"] for r in v1_rows if r["kernel"] == "pb_select_v1"),
+         "ms": select["cores_ms"], "plain_ms": select["plain_ms"], "bound_ms": select["cores_bound_ms"],
+         "bound_by": select["cores_bound_by"], "library_ms": select["library_f32_ms"],
+         "parity": "ok", "arm": "cores", "arm_launches": select_launches,
+         "shape": "m=512 ic=2048 oc=8192 f32, groups of 128; the f32 CUDA-core arm (below "
+                  "SELECT_TC = {} rows); launches: phases 7b and 8, both arms; library: f32 "
+                  "matmul on the dense weight".format(v1.SELECT_TC)},
+        {"name": "pb_select_v1_tc", "route": "cuda", "source": "pb_llm_tpu_torch/csrc/pb_select_v1.cu",
+         "replaces": "pb_llm_tpu/ops/pallas_pb.py:1297", "launches": select_launches["tc"],
+         "max_abs_err": max(r["tc_max_abs_err"] for r in v1_rows if r["kernel"] == "pb_select_v1"),
+         "ms": select["tc_ms"], "plain_ms": select["plain_ms"], "bound_ms": select["tc_bound_ms"],
+         "bound_by": select["tc_bound_by"], "library_ms": select["library_f32_ms"],
+         "parity": "ok", "arm": "tc", "cuda_cores_ms": select["cores_ms"],
+         "cuda_cores_bound_ms": select["cores_bound_ms"], "SELECT_TC": v1.SELECT_TC,
+         "shape": "m=512 ic=2048 oc=8192 f32, groups of 128; bf16 tensor cores (entry "
+                  "pb_select_v1_tc: wgmma, TMA; x and w in 3 bf16 terms, 6 products), the terms "
+                  "launch included; launches: phases 7b and 8; library: f32 matmul on the dense "
+                  "weight"},
     ]
 
     def arm_row(kernel, m=HEADLINE_SHAPE[0], **match):
@@ -2784,6 +2943,9 @@ def main(argv=None) -> int:
          "shape": "m={} ic={} oc={} (the x preparation XLA fuses into the int8 call); "
                   "launches: phase 4, graphed".format(*HEADLINE_SHAPE)},
     ]
+    idle = [k["name"] for k in kernels if not k["launches"]]
+    if idle:
+        raise AssertionError(f"kernels launched no time on the main paths: {idle}")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -127,46 +127,6 @@ __host__ __device__ __forceinline__ Geo geometry(int ic, int pb) {
   return q;
 }
 
-// wgmma m64nNk16 f32 += bf16 (A from registers, B K-major in shared memory)
-template <int N>
-struct Wgmma;
-template <>
-struct Wgmma<16> {
-  static __device__ __forceinline__ void run(float* d, const unsigned* a, uint64_t desc,
-                                                int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7}, "
-        "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
-  }
-};
-template <>
-struct Wgmma<64> {
-  static __device__ __forceinline__ void run(float* d, const unsigned* a, uint64_t desc,
-                                                int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
-  }
-};
-template <>
-struct Wgmma<128> {
-  static __device__ __forceinline__ void run(float* d, const unsigned* a, uint64_t desc,
-                                                int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
-  }
-};
-
 // the bf16 bits of an integer code <= 255 times 2^-8*plane (exact)
 __device__ __forceinline__ unsigned code_bf16(unsigned v, float scale) {
   return __float_as_uint((float)v * scale) >> 16;
@@ -298,7 +258,7 @@ kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUtensorM
         for (int r = 0; r < 4; ++r) a[p % NS][r] = ((w[r] >> p) & 0x00010001u) * one;
         fence();
         // bit pair p: box p/4, bytes 32(p%4)..
-        Wgmma<TN>::run(stg, a[p % NS], desc(sb + (p >> 2) * TN * 128 + 32 * (p & 3)), p > 0);
+        Bf16Rs<TN>::run(stg, a[p % NS], desc(sb + (p >> 2) * TN * 128 + 32 * (p & 3)), p > 0);
         commit();
         wait<NS - 1>();  // the set made next is free
       }
@@ -323,7 +283,7 @@ kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUtensorM
           a[kk % NS][r] = code_bf16(v0, scale) | (code_bf16(v1, scale) << 16);
         }
         fence();
-        Wgmma<TN>::run(stg, a[kk % NS], desc(sb + 32 * kk), kk > 0);
+        Bf16Rs<TN>::run(stg, a[kk % NS], desc(sb + 32 * kk), kk > 0);
         commit();
         wait<NS - 1>();
       }

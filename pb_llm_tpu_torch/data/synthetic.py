@@ -6,7 +6,7 @@ real widths (the recipe of the JAX package's `bench_e2e.build_packed_llama`)."""
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -123,7 +123,7 @@ def random_packed_llama(cfg, generator: torch.Generator, low_frac: float = 0.9) 
 
 def random_packed_v1(ic: int, oc: int, generator: torch.Generator, *, low_frac: float = 0.9,
                      groupsize: int = -1, sidecar_bits: int = 8, low_bits: int = 1,
-                     bias: bool = False) -> PackedLinear:
+                     bias: bool = False, pack_block: Optional[int] = None) -> PackedLinear:
     """A PBW-v1 layer with random planes, made on the generator's device.
 
     Each weight is salient with probability 1 − low_frac, independently
@@ -132,12 +132,13 @@ def random_packed_v1(ic: int, oc: int, generator: torch.Generator, *, low_frac: 
     and zero elsewhere; the pack block is `core.pbw.pack_linear`'s.  Scales
     vary by group and column: low scale 0.005–0.015 (1-bit lows: mean
     ±0.002; 2/4-bit lows: the mid-code zero point), high scale 0.002–0.006
-    around the mid code."""
+    around the mid code; ``pack_block`` overrides it (scale groups may then
+    lie inside a pack block)."""
     dev = generator.device
     gs = ic if groupsize == -1 else groupsize
     n_groups = -(-ic // gs)
     cap = gs if (gs < ic and ic % gs == 0 and gs % 32 == 0) else 2048
-    pack_block = packing.default_pack_block(ic, cap=cap)
+    pack_block = pack_block or packing.default_pack_block(ic, cap=cap)
 
     def uniform(shape, lo, hi):
         return lo + (hi - lo) * torch.rand(shape, generator=generator, device=dev)

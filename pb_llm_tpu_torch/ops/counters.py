@@ -24,11 +24,13 @@ KERNELS: Dict[str, Tuple[str, str]] = {
     "pb_dequant_v2": ("prefill", "launches"),
     "pb_f32_matmul": ("packed_matmul", "f32_launches"),  # the CUDA-core arm
     "pb_f32_matmul_tc": ("packed_matmul", "f32_tc_launches"),  # the bf16 tensor-core arm
-    "flash_attention": ("flash_attention", "launches"),
+    "flash_attention": ("flash_attention", "launches"),  # the CUDA-core arm
+    "flash_attention_tc": ("flash_attention", "tc_launches"),  # the bf16 tensor-core arm
     "paged_attention_decode": ("paged_attention", "decode_launches"),
     "paged_attention_multi": ("paged_attention", "multi_launches"),
     "pb_planar_v1": ("packed_matmul_v1", "planar_launches"),
-    "pb_select_v1": ("packed_matmul_v1", "select_launches"),
+    "pb_select_v1": ("packed_matmul_v1", "select_launches"),  # the CUDA-core arm
+    "pb_select_v1_tc": ("packed_matmul_v1", "select_tc_launches"),  # the bf16 tensor-core arm
     "pb_pair_v2": ("decode_arms", "pair_launches"),  # the mma.sync arm
     "pb_pair_v2_split": ("decode_arms", "pair_split_launches"),  # wgmma, K split over blocks
     "pb_pair_v2_tc": ("decode_arms", "pair_tc_launches"),  # wgmma

@@ -24,7 +24,8 @@ with w_bin = mean + (2·C − 1)·scale (1-bit lows) or scale·(C − zero) (2-
 and 4-bit lows) and w_hi = hs·(V − hz), each operation rounded once in f32
 as `_reconstruct_tile` writes it.  ``dot_dtype`` bf16 (prefill
 "hybrid_bf16") rounds x and w to bf16; the products are exact in f32 and
-sum in f32.
+sum in f32.  Two arms (`select_arm`): "cores", the f32 CUDA cores, and
+"tc", the bf16 tensor cores with x and w in bf16 terms (`SELECT_TERMS`).
 
 Each wrapper launches its CUDA kernel on a CUDA tensor and runs its plain
 PyTorch version on a CPU tensor.
@@ -33,19 +34,35 @@ PyTorch version on a CPU tensor.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from .. import no_tf32
 from ..core import packing
 from ..core.pbw import PackedLinear, low_code, sidecar_codes
-from . import _build
+from . import _build, bf16_terms
 
 V1_PLANAR_M = 256                    # pb_matmul_pallas: planar below, select at or above
 _PLANAR_VMEM_CAP = 12 * 1024 * 1024  # pallas_pb._PLANAR_VMEM_CAP
 
+# The select kernel's arms: "cores" (f32 CUDA cores), "tc" (bf16 tensor
+# cores) from SELECT_TC rows, measured on an H100 (PERF.md, §6: the select
+# crossover).
+SELECT_ARMS = ("cores", "tc")
+SELECT_TC = 1
+# "tc" with an f32 dot: the products (x term, w term) it issues, in order,
+# x and w each in three bf16 terms (`bf16_terms.split`).  The fewest whose
+# CPU emulation stays within a third of the 1e-4 bound on y; all three of
+# w's terms meet x's first, so an identity x reads back w bit for bit
+# (tests/test_torch_tc_terms.py).  A bf16 dot issues (0, 0) alone.
+SELECT_TERMS = ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0))
+_TC_OC, _TC_ROWS, _TC_STAGE = 128, 128, 64  # arm "tc": a block's columns and x rows, a stage's k
+SPLIT_MIN_STAGES = 8  # arm "tc"'s K split: the fewest stages a range takes
+
 planar_launches = 0  # kernel launches of pb_planar_v1 (plain-version calls not counted)
-select_launches = 0  # kernel launches of pb_select_v1 (plain-version calls not counted)
+select_launches = 0  # launches of pb_select_v1's arm "cores" (plain-version calls not counted)
+select_tc_launches = 0  # launches of its arm "tc"
 
 _DOT_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -232,37 +249,103 @@ def pb_select_v1_plain(x: torch.Tensor, p: PackedLinear, dot_dtype=torch.float32
 
 
 _SELECT_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+_SELECT_TC_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 
 
-def pb_select_v1(x: torch.Tensor, p: PackedLinear, dot_dtype=torch.float32) -> torch.Tensor:
+def select_arm(m: int, p: PackedLinear) -> str:
+    """The select kernel's arm for ``m`` rows of x: "tc" from SELECT_TC rows,
+    else "cores".  The one place the arm is chosen."""
+    return "tc" if m >= SELECT_TC else "cores"
+
+
+def select_ksplit(m: int, p: PackedLinear, sms: int) -> int:
+    """Arm "tc"'s K split on a card of ``sms`` multiprocessors: a grid of
+    fewer blocks (128 columns by 128 rows of x each) than multiprocessors
+    cuts K into that many more ranges, each of at least SPLIT_MIN_STAGES
+    stages; a second launch adds the ranges' sums in range order."""
+    blocks = (p.oc_local // _TC_OC) * -(-m // _TC_ROWS)
+    stages = -(-p.ic_local // _TC_STAGE)
+    return max(1, min(sms // blocks, stages // SPLIT_MIN_STAGES))
+
+
+def select_products(dot_dtype) -> tuple:
+    """The (x term, w term) products arm "tc" issues for ``dot_dtype``."""
+    return ((0, 0),) if dot_dtype == torch.bfloat16 else SELECT_TERMS
+
+
+def tc_x_order(ic: int, pack_block: int) -> torch.Tensor:
+    """Arm "tc"'s column order of x: position 32·W + b (global sign word W,
+    bit b) holds weight row (W // g)·32g + b·g + W % g, g the words of a
+    pack block (int64, CPU)."""
+    g = min(ic, pack_block) // 32
+    w = torch.arange(ic // 32).view(-1, 1)
+    b = torch.arange(32).view(1, -1)
+    return ((w // g) * 32 * g + b * g + w % g).reshape(-1)
+
+
+def select_x_terms_plain(x: torch.Tensor, p: PackedLinear, dot_dtype=torch.float32) -> torch.Tensor:
+    """Plain version of arm "tc"'s x preparation: x's bf16 terms [terms, m,
+    ic] in `tc_x_order`."""
+    order = tc_x_order(p.ic_local, p.pack_block_local).to(x.device)
+    return bf16_terms.split(x.float()[:, order], bf16_terms.count(select_products(dot_dtype))[0])
+
+
+def pb_select_v1(x: torch.Tensor, p: PackedLinear, dot_dtype=torch.float32,
+                 arm: Optional[str] = None) -> torch.Tensor:
     """y = x @ w (+ bias) through the select path; x [m, ic] → f32 [m, oc].
-    CPU tensor: the plain version.  CUDA tensor: the kernel."""
+    CPU tensor: the plain version.  CUDA tensor: the kernel's arm ``arm``,
+    by default `select_arm`'s."""
     if x.device.type == "cpu":
         return pb_select_v1_plain(x, p, dot_dtype)
     _check(x, p, "pb_select_v1")
     if dot_dtype not in _DOT_DTYPES:
         raise ValueError(f"pb_select_v1: dot_dtype {dot_dtype} not in {_DOT_DTYPES}")
     x = x.float().contiguous()
-    return launch_select(x if x.data_ptr() % 16 == 0 else x.clone(), p, dot_dtype)
+    x = x if x.data_ptr() % 16 == 0 else x.clone()
+    return launch_select(x, p, dot_dtype, select_arm(x.shape[0], p) if arm is None else arm)
 
 
-def launch_select(x: torch.Tensor, p: PackedLinear, dot_dtype=torch.float32) -> torch.Tensor:
-    """Launch the select kernel on a checked layer and contiguous, 16-byte
-    aligned f32 x on the current stream; counts one launch."""
+def launch_select(x: torch.Tensor, p: PackedLinear, dot_dtype, arm: str,
+                  scratch: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch arm ``arm`` of the select kernel on a checked layer and
+    contiguous, 16-byte aligned f32 x on the current stream; counts one
+    launch of that arm.  Arm "tc" writes x's terms into ``scratch`` (bf16
+    [terms, m, ic], made here when not given) first, in the same call."""
+    if arm not in SELECT_ARMS:
+        raise ValueError(f"pb_select_v1: arm {arm!r} not in {SELECT_ARMS}")
     m, ic = x.shape
     oc = p.oc_local
     out = torch.empty((m, oc), dtype=torch.float32, device=x.device)
-    fn = _build.load("pb_select_v1").pb_select_v1
-    fn.argtypes = _SELECT_ARGTYPES
+    lib = _build.load("pb_select_v1")
+    planes = (p.sign_packed.data_ptr(), p.mask_packed.data_ptr(), p.sidecar.data_ptr(),
+              p.low_scale.data_ptr(), p.low_mean.data_ptr(), p.high_scale.data_ptr(),
+              p.high_zero.data_ptr(), None if p.bias is None else p.bias.data_ptr())
+    shape = (m, ic, oc, p.pack_block_local, p.low_bits, p.sidecar_bits, p.groupsize_local,
+             p.n_groups, int(dot_dtype == torch.bfloat16))
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    global select_launches, select_tc_launches
+    if arm == "cores":
+        fn = lib.pb_select_v1
+        fn.argtypes = _SELECT_ARGTYPES
+        fn.restype = ctypes.c_int
+        _build.check(fn(x.data_ptr(), *planes, out.data_ptr(), *shape, stream), "pb_select_v1")
+        select_launches += 1
+        return out
+    if p.sign_packed.data_ptr() % 16 or p.mask_packed.data_ptr() % 16:
+        raise ValueError("pb_select_v1 (tc): sign and mask planes must be 16-byte aligned (TMA)")
+    terms = bf16_terms.count(select_products(dot_dtype))[0]
+    if scratch is None:
+        scratch = torch.empty((terms, m, ic), dtype=torch.bfloat16, device=x.device)
+    elif scratch.shape != (terms, m, ic) or scratch.dtype != torch.bfloat16:
+        raise ValueError(f"pb_select_v1 (tc): scratch {tuple(scratch.shape)} {scratch.dtype}, "
+                         f"want {(terms, m, ic)} bf16")
+    ksplit = select_ksplit(m, p, torch.cuda.get_device_properties(x.device).multi_processor_count)
+    part = torch.empty((ksplit, m, oc), dtype=torch.float32, device=x.device) if ksplit > 1 else None
+    fn = lib.pb_select_v1_tc
+    fn.argtypes = _SELECT_TC_ARGTYPES
     fn.restype = ctypes.c_int
-    err = fn(x.data_ptr(), p.sign_packed.data_ptr(), p.mask_packed.data_ptr(),
-             p.sidecar.data_ptr(), p.low_scale.data_ptr(), p.low_mean.data_ptr(),
-             p.high_scale.data_ptr(), p.high_zero.data_ptr(),
-             None if p.bias is None else p.bias.data_ptr(), out.data_ptr(),
-             m, ic, oc, p.pack_block_local, p.low_bits, p.sidecar_bits, p.groupsize_local,
-             p.n_groups, int(dot_dtype == torch.bfloat16),
-             torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "pb_select_v1")
-    global select_launches
-    select_launches += 1
+    _build.check(fn(x.data_ptr(), scratch.data_ptr(), *planes, out.data_ptr(),
+                    None if part is None else part.data_ptr(), *shape, ksplit, stream),
+                 "pb_select_v1_tc")
+    select_tc_launches += 1
     return out

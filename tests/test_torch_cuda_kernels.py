@@ -20,9 +20,13 @@ those kernels.  Paged attention, like decode attention, sums its online
 softmax in another order: rtol 1e-4, atol 1e-5.  The PBW-v1 planar and
 select kernels sum their products in another order than the plain
 versions' torch.matmul: rtol 1e-4, atol 1e-4 (the JAX package's bound for
-its f32 kernels); the select kernel's bf16 dot keeps the same bound, since
-a product of two bf16 values is exact in f32 and only the f32 summation
-order differs.  The pair kernel rounds x and xg to bf16 as its plain
+its f32 kernels), on both select arms (the tensor-core arm's f32 dot takes
+x and w in three bf16 terms each, six products); the select kernel's bf16
+dot keeps the same bound, since a product of two bf16 values is exact in
+f32 and only the f32 summation order differs.  Flash attention's
+tensor-core arm keeps the CUDA-core arm's bounds (q and k in three bf16
+terms, p and v in two).  Each tensor-core arm's first launch writes its
+bf16 terms bit for bit as their plain version.  The pair kernel rounds x and xg to bf16 as its plain
 version does, the products are exact in f32 and only the f32 summation
 order differs: 1e-5 of max|y|.  The dma and stacked f32 kernels sum in
 another order than the plain version: rtol 1e-4, atol 1e-4.  The stacked
@@ -409,24 +413,32 @@ def test_hybrid_bf16_prefill_on_the_card_matches_plain(cuda):
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dots_bf16", [False, True])
-@pytest.mark.parametrize("b,t,s,h,d,causal,kv_len", [
+FLASH_KERNEL_CASES = [
     (2, 128, 128, 4, 128, True, None),
     (1, 100, 100, 2, 64, True, None),     # T not a multiple of the tile
     (2, 77, 130, 3, 96, False, 101),      # non-causal, kv_len masking
     (1, 64, 64, 2, 32, True, 0),          # no allowed key: zeros
-])
-def test_flash_attention_kernel_matches_plain(cuda, b, t, s, h, d, causal, kv_len, dots_bf16):
+    (1, 150, 150, 2, 40, True, None),     # a head dim the tc arm pads to 64
+    (1, 2048, 2048, 2, 128, True, None),  # an eval window: 32 key tiles
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm", ["tc", "cores"])
+@pytest.mark.parametrize("dots_bf16", [False, True])
+@pytest.mark.parametrize("b,t,s,h,d,causal,kv_len", FLASH_KERNEL_CASES)
+def test_flash_attention_kernel_matches_plain(cuda, b, t, s, h, d, causal, kv_len, dots_bf16,
+                                              arm):
     g = torch.Generator(device=cuda).manual_seed(t + d)
     q = torch.randn((b, t, h, d), generator=g, device=cuda)
     k, v = (torch.randn((b, s, h, d), generator=g, device=cuda) for _ in range(2))
     args = (q, k, v, d ** -0.5)
     kw = dict(causal=causal, kv_len=kv_len, dots_bf16=dots_bf16, return_residuals=True)
-    before = tfa.launches
-    out, m, l = tfa.flash_attention(*args, **kw)
+    before = (tfa.launches, tfa.tc_launches)
+    out, m, l = tfa.flash_attention(*args, **kw, arm=arm)
     torch.cuda.synchronize()
-    assert tfa.launches == before + 1
+    assert (tfa.launches, tfa.tc_launches) == (before[0] + (arm == "cores"),
+                                               before[1] + (arm == "tc"))
     w_out, w_m, w_l = tfa.flash_attention_plain(*args, **kw)
     assert torch.isfinite(out).all()
     if kv_len == 0:
@@ -439,6 +451,34 @@ def test_flash_attention_kernel_matches_plain(cuda, b, t, s, h, d, causal, kv_le
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dots_bf16", [False, True])
+def test_flash_tc_terms_match_their_plain_version(cuda, dots_bf16):
+    """Arm "tc"'s first launch writes q's, k's and v's bf16 terms (head dim
+    padded, v transposed, keys padded) bit for bit as `tc_terms_plain`."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    b, t, s, h, d = 2, 70, 75, 3, 40
+    q = torch.randn((b, t, h, d), generator=g, device=cuda)
+    k, v = (torch.randn((b, s, h, d), generator=g, device=cuda) for _ in range(2))
+    scratch = [torch.full(sh, float("nan"), dtype=torch.bfloat16, device=cuda)
+               for sh in tfa.tc_scratch(b, t, s, h, d, dots_bf16)]
+    tfa.flash_attention(q, k, v, d ** -0.5, dots_bf16=dots_bf16, arm="tc", scratch=scratch)
+    torch.cuda.synchronize()
+    for got, want in zip(scratch, tfa.tc_terms_plain(q, k, v, dots_bf16)):
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.cuda
+def test_flash_dispatch_takes_tc_and_refuses_unknown_arms(cuda):
+    q = torch.randn((1, 64, 2, 64), device=cuda)
+    before = (tfa.launches, tfa.tc_launches)
+    tfa.flash_attention(q, q, q, 0.125)
+    torch.cuda.synchronize()
+    assert (tfa.launches, tfa.tc_launches) == (before[0], before[1] + 1)
+    with pytest.raises(ValueError, match="arm"):
+        tfa.flash_attention(q, q, q, 0.125, arm="plain")
+
+
+@pytest.mark.cuda
 def test_auto_attention_takes_flash_on_the_card(cuda):
     """"auto" picks the kernel for windows of 1024 or more on a CUDA tensor,
     GQA heads repeated first, as the JAX package does on its chip."""
@@ -448,11 +488,11 @@ def test_auto_attention_takes_flash_on_the_card(cuda):
     g = torch.Generator(device=cuda).manual_seed(3)
     q = torch.randn((1, 1024, 4, 64), generator=g, device=cuda)
     k, v = (torch.randn((1, 1024, 2, 64), generator=g, device=cuda) for _ in range(2))
-    before = tfa.launches
+    before = tfa.tc_launches
     with use_kernels(KernelConfig()):
         got = tattn.full_causal_attention(q, k, v, 0.125)
     torch.cuda.synchronize()
-    assert tfa.launches == before + 1
+    assert tfa.tc_launches == before + 1
     with use_kernels(KernelConfig(attention="xla")):
         want = tattn.full_causal_attention(q, k, v, 0.125)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
@@ -625,12 +665,16 @@ V1_LAYERS = {
     "short_ic": dict(ic=64, oc=128, bias=True),
     "wide_groups": dict(ic=2048, oc=128, groupsize=128, low_bits=2),
 }
+# the select kernel also takes scale groups inside a pack block (the planar one does not)
+V1_SELECT_LAYERS = {**V1_LAYERS, "groups64_in_blocks512": dict(
+    ic=1024, oc=256, groupsize=64, pack_block=512, sidecar_bits=4, bias=True)}
 
 
 def _v1_layer(name, dev):
     from pb_llm_tpu_torch.data.synthetic import random_packed_v1
 
-    return random_packed_v1(generator=torch.Generator(device=dev).manual_seed(5), **V1_LAYERS[name])
+    return random_packed_v1(generator=torch.Generator(device=dev).manual_seed(5),
+                            **V1_SELECT_LAYERS[name])
 
 
 def _close(got, want, rtol=1e-4, atol=1e-4):
@@ -654,19 +698,38 @@ def test_planar_v1_kernel_matches_plain(cuda, name, m):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("arm", ["tc", "cores"])
 @pytest.mark.parametrize("dot_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("name", sorted(V1_LAYERS))
+@pytest.mark.parametrize("name", sorted(V1_SELECT_LAYERS))
 @pytest.mark.parametrize("m", [256, 512, 1000])
-def test_select_v1_kernel_matches_plain(cuda, name, m, dot_dtype):
+def test_select_v1_kernel_matches_plain(cuda, name, m, dot_dtype, arm):
     from pb_llm_tpu_torch.ops import packed_matmul_v1 as v1
 
     p = _v1_layer(name, cuda)
     x = torch.randn((m, p.ic), generator=torch.Generator(device=cuda).manual_seed(m), device=cuda)
-    before = v1.select_launches
-    got = v1.pb_select_v1(x, p, dot_dtype)
+    before = (v1.select_launches, v1.select_tc_launches)
+    got = v1.pb_select_v1(x, p, dot_dtype, arm=arm)
     torch.cuda.synchronize()
-    assert v1.select_launches == before + 1
+    assert (v1.select_launches, v1.select_tc_launches) == (before[0] + (arm == "cores"),
+                                                           before[1] + (arm == "tc"))
     _close(got, v1.pb_select_v1_plain(x, p, dot_dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dot_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["nibbles", "groups64_in_blocks512", "short_ic"])
+def test_select_v1_tc_terms_match_their_plain_version(cuda, name, dot_dtype):
+    """Arm "tc"'s first launch writes x's bf16 terms in its word-by-word
+    column order bit for bit as `select_x_terms_plain`."""
+    from pb_llm_tpu_torch.ops import packed_matmul_v1 as v1
+
+    p = _v1_layer(name, cuda)
+    x = torch.randn((37, p.ic), generator=torch.Generator(device=cuda).manual_seed(2), device=cuda)
+    want = v1.select_x_terms_plain(x, p, dot_dtype)
+    scratch = torch.full(want.shape, float("nan"), dtype=torch.bfloat16, device=cuda)
+    v1.launch_select(x, p, dot_dtype, "tc", scratch=scratch)
+    torch.cuda.synchronize()
+    assert torch.equal(scratch.view(torch.int16), want.view(torch.int16))
 
 
 @pytest.mark.cuda
@@ -684,19 +747,27 @@ def test_select_v1_kernel_rebuilds_the_plain_weight_bit_for_bit(cuda):
 
 @pytest.mark.cuda
 def test_v1_dispatch_on_the_card_takes_the_kernels(cuda):
-    """"auto" on a CUDA tensor: planar below 256 rows, select from 256."""
+    """"auto" on a CUDA tensor: planar below 256 rows, select from 256 on
+    the arm `select_arm` picks; an unknown arm raises."""
     from pb_llm_tpu_torch.ops import binary_matmul
     from pb_llm_tpu_torch.ops import packed_matmul_v1 as v1
 
     p = _v1_layer("groups128_oc384", cuda)
-    for m, arm in ((8, "planar"), (300, "select")):
+
+    def counts():
+        return {"planar": v1.planar_launches, "cores": v1.select_launches,
+                "tc": v1.select_tc_launches}
+
+    for m in (8, 300):
+        arm = "planar" if m < v1.V1_PLANAR_M else v1.select_arm(m, p)
         x = torch.randn((m, p.ic), device=cuda)
-        before = (v1.planar_launches, v1.select_launches)
+        before = counts()
         got = binary_matmul.pb_matmul(x, p)
         torch.cuda.synchronize()
-        after = (v1.planar_launches, v1.select_launches)
-        assert after == (before[0] + (arm == "planar"), before[1] + (arm == "select"))
+        assert counts() == {k: n + (k == arm) for k, n in before.items()}
         _close(got, pbw.matmul_reference(x, p))
+    with pytest.raises(ValueError, match="arm"):
+        v1.pb_select_v1(torch.zeros((300, p.ic), device=cuda), p, arm="plain")
 
 
 @pytest.mark.cuda
@@ -731,7 +802,7 @@ def test_opt_v1_engine_on_the_card_matches_the_cpu(cuda):
     r = np.random.default_rng(0)
     prompts = [r.integers(0, 256, n).tolist() for n in (5, 300, 12, 70)]
     streams, logits = [], []
-    before = (v1.planar_launches, v1.select_launches)
+    before = (v1.planar_launches, v1.select_launches + v1.select_tc_launches)
     for dev, kernels in ((cuda, None), ("cpu", KernelConfig(backend="pallas_interpret"))):
         eng = Engine(params, cfg, family_for("opt"),
                      EngineConfig(n_slots=2, max_seq=512, prefill_buckets=(32, 512),
@@ -745,7 +816,8 @@ def test_opt_v1_engine_on_the_card_matches_the_cpu(cuda):
         streams.append([q.output_ids for q in reqs])
     assert (logits[0] - logits[1]).abs().max() <= 5e-3 * logits[1].abs().max()
     assert streams[0] == streams[1]
-    assert v1.planar_launches > before[0] and v1.select_launches > before[1]
+    assert v1.planar_launches > before[0]
+    assert v1.select_launches + v1.select_tc_launches > before[1]
 
 
 # ---------------------------------------------------------------------------
