@@ -14,9 +14,11 @@ raises and the exit code is not 0:
    with its time (CUDA events, L2 flushed before every launch), the plain
    version's time, one PyTorch library call's time as a yardstick where one
    call computes the same function, and the least time the card could take
-   (`bound_ms`): the int8 matmul's two arms (dp4a and tensor cores, bit
-   for bit, at 1-1024 rows: the crossover M_TC) and decode attention
-   (serving; its int8, bf16 and q8 arms), the binary-part dequant, the
+   (`bound_ms`): the int8 matmul's arms (dp4a, the tensor cores, and up to
+   16 rows their K-split decode arm "split", bit for bit, at 1-1024 rows:
+   the crossover M_TC) and decode attention (serving; its int8, bf16 and
+   q8 cache arms, each in the "split" and "slot" kernel arms), the
+   binary-part dequant, the
    exact f32 matmul's two arms (f32 CUDA cores, bf16 tensor cores with x in
    three terms; crossover F32_TC) and flash attention's two arms (bf16
    tensor cores, q, k, p, v in bf16 terms, also dots_bf16; f32 CUDA cores;
@@ -130,7 +132,7 @@ F32_FLOPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 DEV = "cuda"
 MATMUL_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096))
 MATMUL_MS = (8, 512)                 # decode (8 slots) and batched prefill (4 x 128)
-INT8_MS = (1, 8, 16, 32, 64, 128, 256, 512, 1024)  # the int8 arms' crossover rows, and prefill
+INT8_MS = (1, 8, 15, 16, 32, 64, 128, 256, 512, 1024)  # the int8 arms' crossover rows, prefill
 ATTN_SHAPE = (8, 2048, 32, 32, 128)  # B, S, Hq, Hkv, D: 8 slots of max_seq 2048
 ATTN_MAX_LEN = 512
 ATTN_ARMS = ("int8", "bf16", "q8")  # decode attention's arms: int8 strips, bf16 strips, int8 q
@@ -286,11 +288,13 @@ def setup():
 # ---------------------------------------------------------------------------
 
 def check_matmul(timer: Timer, card: str):
-    """The int8 matmul's two arms (dp4a, tensor cores) at every row count of
-    INT8_MS on llama-7b's three shapes: each arm bit for bit with the plain
-    version on its own operands, and within MATMUL_TOL of the plain version
-    of x preparation and kernel; times of both arms, the plain version and
-    the bf16 matmul of the same shape.  Logs the crossover per shape."""
+    """The int8 matmul's arms (dp4a; tensor cores "tc"; and up to
+    SPLIT_MAX_M rows their decode arm "split") at every row count of INT8_MS
+    on llama-7b's three shapes: each arm bit for bit with the plain version
+    on its own operands and with the other arms, and within MATMUL_TOL of
+    the plain version of x preparation and kernel; times of every arm, the
+    plain version and the bf16 matmul of the same shape.  Logs the crossover
+    per shape."""
     from pb_llm_tpu_torch.data.synthetic import random_packed_v2
     from pb_llm_tpu_torch.ops import packed_matmul as pm
 
@@ -314,8 +318,10 @@ def check_matmul(timer: Timer, card: str):
             picked = pm.int8_arm(m, p)
             outs = {}
             for arm in pm.ARMS:
-                ops = pm.prepare_int8(x, p, arm)
-                got = pm.launch_int8(ops, p)
+                if arm == "split" and m > pm.SPLIT_MAX_M:
+                    continue
+                ops = pm.prepare_int8(x, p, pm.layout_of(arm))
+                got = pm.launch_int8(ops, p, arm)
                 torch.cuda.synchronize()
                 outs[arm] = got
                 exact = torch.equal(got, pm.int8_matmul_plain(ops, p))
@@ -326,25 +332,29 @@ def check_matmul(timer: Timer, card: str):
                 row = {"kernel": "pb_int8_matmul", "arm": arm, "picked": arm == picked, "m": m,
                        "ic": ic, "oc": oc, "k_pad": p.k_pad, "bit_for_bit": exact,
                        "max_abs_err": err, "max_rel_err": err / scale,
-                       "kernel_ms": timer(lambda: pm.launch_int8(ops, p)),
+                       "kernel_ms": timer(lambda: pm.launch_int8(ops, p, arm)),
                        "wrapper_ms": timer(lambda: pm.pb_int8_matmul(x, p)) if arm == picked
                        else None, "plain_ms": plain_ms, "library_ms": library_ms,
                        "bound_ms": bound_ms, "bound_by": bound_by, "card": card}
+                if arm == "split":
+                    row["ksplit"] = pm.int8_ksplit(p)
                 row["bound_share"] = bound_ms / row["kernel_ms"]
                 row["over_library"] = row["kernel_ms"] / library_ms
                 times[m, arm] = row["kernel_ms"]
                 log(json.dumps(row))
                 rows.append(row)
                 del ops
-            if not torch.equal(outs["dp4a"], outs["tc"]):
+            if not all(torch.equal(outs["dp4a"], o) for o in outs.values()):
                 raise AssertionError(f"pb_int8_matmul m={m} {ic}x{oc}: the arms differ")
             del x, xb, want, outs
         wins = [m for m in INT8_MS if times[m, "tc"] <= times[m, "dp4a"]]
         from_m = next((m for m in INT8_MS if all(k in wins for k in INT8_MS if k >= m)), None)
         log(json.dumps({"phase": "int8_crossover", "ic": ic, "oc": oc,
                         "dp4a_ms": [times[m, "dp4a"] for m in INT8_MS],
-                        "tc_ms": [times[m, "tc"] for m in INT8_MS], "m": list(INT8_MS),
-                        "tc_wins_from_m": from_m, "M_TC": pm.M_TC, "card": card}))
+                        "tc_ms": [times[m, "tc"] for m in INT8_MS],
+                        "split_ms": [times.get((m, "split")) for m in INT8_MS], "m": list(INT8_MS),
+                        "tc_wins_from_m": from_m, "M_TC": pm.M_TC,
+                        "DECODE_ARM": pm.DECODE_ARM, "card": card}))
         del p, wb
     return rows
 
@@ -377,7 +387,7 @@ def check_prep(timer: Timer, card: str):
         p = ps[0] if parts == 1 else merge_packed_linears_v2(ps)
         for m in MATMUL_MS:
             x = torch.randn((m, ic), generator=gen, device=DEV)
-            layout = pm.int8_arm(m, p)  # the main path's layout at m rows
+            layout = pm.layout_of(pm.int8_arm(m, p))  # the main path's layout at m rows
             got = pm.prepare_int8(x, p, layout)
             torch.cuda.synchronize()
             want = pm.prepare_int8_plain(x, p, layout)
@@ -411,9 +421,11 @@ def check_prep(timer: Timer, card: str):
 
 
 def check_attention(timer: Timer, card: str):
-    """Decode attention at the strip serving shape, one row per arm: int8
-    strips, bf16 strips, and the q8 arm (int8 q codes against int8
-    strips).  Library: SDPA in bf16 over the dequantized (or bf16) cache."""
+    """Decode attention at the strip serving shape, one row per cache arm:
+    int8 strips, bf16 strips, and the q8 arm (int8 q codes against int8
+    strips); each in both kernel arms, "split" (the default: kernel_ms) and
+    "slot" (slot_ms), in one call.  Library: SDPA in bf16 over the
+    dequantized (or bf16) cache."""
     from pb_llm_tpu_torch.ops import decode_attention as da
 
     b, s, hq, hkv, d = ATTN_SHAPE
@@ -449,22 +461,26 @@ def check_attention(timer: Timer, card: str):
             kd = (k[:, :n].float() * ks[:, :n]).to(torch.bfloat16).transpose(1, 2).contiguous()
             vd = (v[:, :n].float() * vs[:, :n]).to(torch.bfloat16).transpose(1, 2).contiguous()
             row_bytes = 2 * d + 8
-        got = da.decode_attention(q, ck, cv, lengths, scale, **kw)
-        torch.cuda.synchronize()
         want = da.decode_attention_plain(q, ck, cv, lengths, scale, **kw)
-        err = (got - want).abs().max().item()
-        if not (torch.isfinite(got).all()
-                and torch.all((got - want).abs() <= ATTN_ATOL + ATTN_RTOL * want.abs())):
-            raise AssertionError(f"decode_attention ({arm}): max|err| {err} beyond rtol "
-                                 f"{ATTN_RTOL} atol {ATTN_ATOL}")
+        errs = {}
+        for kernel_arm in da.ARMS:
+            got = da.decode_attention(q, ck, cv, lengths, scale, **kw, arm=kernel_arm)
+            torch.cuda.synchronize()
+            errs[kernel_arm] = (got - want).abs().max().item()
+            if not (torch.isfinite(got).all()
+                    and torch.all((got - want).abs() <= ATTN_ATOL + ATTN_RTOL * want.abs())):
+                raise AssertionError(f"decode_attention ({arm}, {kernel_arm}): max|err| "
+                                     f"{errs[kernel_arm]} beyond rtol {ATTN_RTOL} atol {ATTN_ATOL}")
         nbytes = 4 * 2 * b * hq * d + rows_read * hkv * row_bytes + 4 * b
         # q.k and p.v each take 2 operations a (row, q head, element): f32,
         # or for q8 the q.k half in int8 (its time added at the int8 peak)
         ops = 2 * rows_read * hq * d * (2 if arm != "q8" else 1 + F32_FLOPS_PER_S / INT8_OPS_PER_S)
         bound_ms, bound_by = bound(nbytes, ops, F32_FLOPS_PER_S)
         row = {"kernel": "decode_attention", "arm": arm, "B": b, "S": s, "Hq": hq, "Hkv": hkv,
-               "D": d, "lengths": lengths.tolist(), "max_abs_err": err,
+               "D": d, "lengths": lengths.tolist(), "max_abs_err": errs["split"],
+               "slot_max_abs_err": errs["slot"], "kernel_arm": "split",
                "kernel_ms": timer(lambda: da.launch(qs, ck, cv, lens, **kw)),
+               "slot_ms": timer(lambda: da.launch(qs, ck, cv, lens, **kw, arm="slot")),
                "plain_ms": timer(lambda: da.decode_attention_plain(q, ck, cv, lengths, scale, **kw),
                                  iters=5),
                "library_ms": timer(lambda: sdpa(qd, kd, vd, attn_mask=mask, scale=scale)),
@@ -981,14 +997,18 @@ def check_v2_arms(timer: Timer, card: str):
                    lambda: da.launch_dma(ops, p), lambda: da.pb_dma_v2(x, p),
                    lambda: da.pb_dma_v2_plain(x, p), lambda: x @ w, False)
             lp = pm.stacked_layer(mk)
-            ops = pm.prepare_int8(x, lp, pm.int8_arm(m, lp))
-            record("pb_int8_matmul_stacked", p, m, pm.launch_int8_stacked(ops, mk),
-                   pm.pb_int8_matmul_stacked_plain(x, mk),
-                   lambda: pm.launch_int8_stacked(ops, mk), lambda: pm.pb_int8_matmul_stacked(x, mk),
-                   lambda: pm.pb_int8_matmul_stacked_plain(x, mk), lambda: xb @ wb, True,
-                   flat_kernel_equal=torch.equal(pm.launch_int8_stacked(ops, mk),
-                                                 pm.launch_int8(ops, lp)),
-                   arm=ops.layout, flat_ms=timer(lambda: pm.launch_int8(ops, lp)))
+            picked = pm.int8_arm(m, lp)
+            for arm in dict.fromkeys((picked, "dp4a")):  # the picked arm, dp4a beside it
+                ops = pm.prepare_int8(x, lp, pm.layout_of(arm))
+                record("pb_int8_matmul_stacked", p, m, pm.launch_int8_stacked(ops, mk, arm),
+                       pm.pb_int8_matmul_stacked_plain(x, mk),
+                       lambda: pm.launch_int8_stacked(ops, mk, arm),
+                       lambda: pm.pb_int8_matmul_stacked(x, mk),
+                       lambda: pm.pb_int8_matmul_stacked_plain(x, mk), lambda: xb @ wb, True,
+                       flat_kernel_equal=torch.equal(pm.launch_int8_stacked(ops, mk, arm),
+                                                     pm.launch_int8(ops, lp, arm)),
+                       arm=arm, picked=arm == picked,
+                       flat_ms=timer(lambda: pm.launch_int8(ops, lp, arm)))
             for arm in pm.F32_ARMS:  # both arms of the stacked entry, beside the flat arm
                 prep = ((lambda: pm.prepare_tc(x, lp, 3)) if arm == "tc"
                         else (lambda: pm.prepare_f32(x, lp)))
@@ -1152,15 +1172,28 @@ def count_forwards(eng, on_forward, forward_ms=None):
     return restore
 
 
-def int8_launches(rows, n_linear: int, p) -> dict:
+INT8_COUNTERS = {"dp4a": "pb_int8_matmul", "tc": "pb_int8_matmul_tc",
+                 "split": "pb_int8_matmul_split"}
+
+
+def int8_launches(rows, n_linear: int, p, kernel: str = "pb_int8_matmul") -> dict:
     """The int8 matmul's launches by arm for forwards of ``rows`` rows each,
     ``n_linear`` packed linears a forward, under `packed_matmul.int8_arm`'s
-    rule on layer ``p`` (llama-7b's linears all take the tensor cores from
-    M_TC rows on)."""
+    rule on layer ``p`` (llama-7b's linears all take the tensor cores: "tc"
+    from M_TC rows on, DECODE_ARM below); ``kernel`` the entry's counter
+    prefix ("pb_int8_matmul_stacked" for the stacked entry)."""
     from pb_llm_tpu_torch.ops import packed_matmul as pm
 
-    tc = sum(pm.int8_arm(r, p) == "tc" for r in rows)
-    return {"pb_int8_matmul": n_linear * (len(rows) - tc), "pb_int8_matmul_tc": n_linear * tc}
+    out = {c.replace("pb_int8_matmul", kernel): 0 for c in INT8_COUNTERS.values()}
+    for r in rows:
+        out[INT8_COUNTERS[pm.int8_arm(r, p)].replace("pb_int8_matmul", kernel)] += n_linear
+    return out
+
+
+def attention_launches(n: int) -> dict:
+    """The strip decode attention's counters for ``n`` launches of its
+    default arm, "split"."""
+    return {"decode_attention": n, "decode_attention_split": n}
 
 
 def pair_launches(rows, n_linear: int, p) -> dict:
@@ -1287,7 +1320,7 @@ def serve_e2e(params, build_s: float, card: str, profile: bool):
             raise AssertionError(f"e2e ({mode}): {mm} matmul launches for {forwards} forwards")
         if att != cfg.num_hidden_layers * forwards["decode"] or att == 0:
             raise AssertionError(f"e2e ({mode}): {att} attention launches for {forwards} forwards")
-        if launches != expect_launches(**by_arm, pb_prep_int8=mm, decode_attention=att):
+        if launches != expect_launches(**by_arm, pb_prep_int8=mm, **attention_launches(att)):
             raise AssertionError(f"e2e ({mode}): launches {launches}, expected the int8 arms "
                                  f"{by_arm} by rows (M_TC), {mm} x preparations and {att} "
                                  f"attentions, nothing else")
@@ -1305,7 +1338,9 @@ def serve_e2e(params, build_s: float, card: str, profile: bool):
                "prefill_rows": sorted(m for k, m in fwds if k == "prefill"),
                "matmul_launches": mm, "matmul_launches_by_arm": by_arm,
                "prep_launches": launches["pb_prep_int8"],
-               "attention_launches": att, "matmul_launches_per_decode_step": n_linear,
+               "attention_launches": att,
+               "attention_split_launches": launches["decode_attention_split"],
+               "matmul_launches_per_decode_step": n_linear,
                "attention_launches_per_decode_step": cfg.num_hidden_layers,
                "packed_plane_bytes": plane_bytes, "lm_head_bytes": head_bytes,
                "mean_kv_rows_per_step": mean_rows,
@@ -1828,7 +1863,7 @@ def check_opt_parity(card: str):
     p = next(v for v in params["layers"][0].values() if hasattr(v, "sign_packed"))
     select = "pb_select_v1_tc" if select_arm(256, p) == "tc" else "pb_select_v1"
     want = expect_launches(pb_planar_v1=11 * n_linear, **{select: n_linear},
-                           decode_attention=10 * cfg.num_hidden_layers)
+                           **attention_launches(10 * cfg.num_hidden_layers))
     if launches != want:
         raise AssertionError(f"OPT parity: launches {launches}, expected {want}")
     return row
@@ -1847,7 +1882,7 @@ def v1_launches(forwards, linears, n_layers: int) -> dict:
                 "pb_select_v1_tc" if select_arm(m, p) == "tc" else "pb_select_v1")
             counts[kind] += 1
     n_decode = sum(kind == "decode" for kind, _ in forwards)
-    return expect_launches(**counts, decode_attention=n_layers * n_decode)
+    return expect_launches(**counts, **attention_launches(n_layers * n_decode))
 
 
 def serve_v1_e2e(params, cfg, build_s: float, card: str):
@@ -2105,15 +2140,14 @@ def serve_scan_fuse_e2e(params, card: str):
         n_decode = sum(kind == "decode" for kind, _ in fwds)
         n_lin = per_layer * n_layers
         if kernel == "pb_int8_matmul_stacked":  # the stacked entry's two arms
-            arms = int8_launches(small, n_lin, p0)
-            own = {kernel: arms["pb_int8_matmul"], kernel + "_tc": arms["pb_int8_matmul_tc"]}
-            n_prep = len(fwds)
+            own, n_prep = int8_launches(small, n_lin, p0, kernel), len(fwds)
         elif kernel == "pb_pair_v2":  # the pair kernel's arms, by rows
             own, n_prep = pair_launches(small, n_lin, first_linear(eng.params)), len(big)
         else:
             own, n_prep = {kernel: n_lin * len(small)}, len(big)
         want = expect_launches(**own, **int8_launches(big, n_lin, p0),
-                               pb_prep_int8=n_lin * n_prep, decode_attention=n_layers * n_decode)
+                               pb_prep_int8=n_lin * n_prep,
+                               **attention_launches(n_layers * n_decode))
         n_small = len(small)
         s = batcher.stats
         row = {"phase": "scan_fuse_e2e", "pass": name, "model": "llama-7b PBW-v2 (random planes, "
@@ -2359,7 +2393,7 @@ def serve_http_e2e(params, card: str, phase4: dict):
         else:
             want = expect_launches(**int8_launches(fwd_rows, n_linear, first_linear(params)),
                                    pb_prep_int8=n_linear * sum(forwards.values()),
-                                   decode_attention=n_layers * decode_fwd,
+                                   **attention_launches(n_layers * decode_fwd),
                                    **{counter: n_layers * decode_fwd})
         row = {"phase": "http_e2e", "pass": name, "model": "llama-7b PBW-v2 (random planes, "
                "low_frac 0.9)", "layers": n_layers, "slots": 8, "max_seq": 2048,
@@ -2700,7 +2734,8 @@ def main(argv=None) -> int:
     prod = producer(card)
     prod_v1 = producer_v1(card)
 
-    head = next(r for r in mm_rows if (r["m"], r["ic"], r["oc"]) == HEADLINE_SHAPE and r["picked"])
+    at_head = {r["arm"]: r for r in mm_rows if (r["m"], r["ic"], r["oc"]) == HEADLINE_SHAPE}
+    head, split = at_head["dp4a"], at_head["split"]
     pre = {r["arm"]: r for r in mm_rows if (r["m"], r["ic"], r["oc"]) == PREFILL_SHAPE}
     dq = next(r for r in dq_rows if (r["ic"], r["oc"], r["dtype"]) == (4096, 11008, "torch.float32"))
     f32 = next(r for r in f32_rows if (r["m"], r["ic"], r["oc"]) == HEADLINE_SHAPE and r["picked"])
@@ -2722,18 +2757,45 @@ def main(argv=None) -> int:
          "replaces": "pb_llm_tpu/ops/pallas_pb.py:393", "launches": e2e["matmul_launches"],
          "max_abs_err": max(r["max_abs_err"] for r in mm_rows), "ms": head["kernel_ms"],
          "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-         "library_ms": head["library_ms"], "parity": "bit for bit", "arm": head["arm"],
-         "shape": "m={} ic={} oc={} low_frac 0.9; launches: phase 4, both arms".format(
-             *HEADLINE_SHAPE),
+         "library_ms": head["library_ms"], "parity": "bit for bit", "arm": "dp4a",
+         "arm_launches": e2e["matmul_launches_by_arm"],
+         "shape": "m={} ic={} oc={} low_frac 0.9; the dp4a arm; launches: phase 4, every "
+                  "arm".format(*HEADLINE_SHAPE),
          "prefill": {k: pre["tc"][k] for k in ("m", "ic", "oc", "arm", "kernel_ms", "bound_ms",
                                               "bound_by", "plain_ms", "library_ms")}
          | {"dp4a_ms": pre["dp4a"]["kernel_ms"], "M_TC": pm.M_TC}},
+        {"name": "pb_int8_matmul_split", "route": "cuda",
+         "source": "pb_llm_tpu_torch/csrc/pb_int8_matmul.cu",
+         "replaces": "pb_llm_tpu/ops/pallas_pb.py:393",
+         "launches": e2e["matmul_launches_by_arm"]["pb_int8_matmul_split"],
+         "max_abs_err": max(r["max_abs_err"] for r in mm_rows if r["arm"] == "split"),
+         "ms": split["kernel_ms"], "plain_ms": split["plain_ms"], "bound_ms": split["bound_ms"],
+         "bound_by": split["bound_by"], "library_ms": split["library_ms"], "parity": "bit for bit",
+         "arm": "split", "dp4a_ms": head["kernel_ms"], "tc_ms": at_head["tc"]["kernel_ms"],
+         "ksplit": split["ksplit"], "DECODE_ARM": pm.DECODE_ARM,
+         "shape": "m={} ic={} oc={} low_frac 0.9; int8 tensor cores (split_kernel: wgmma, TMA, "
+                  "the K stages in ksplit ranges, a cluster a tile); launches: phase 4".format(
+                      *HEADLINE_SHAPE)},
         {"name": "decode_attention", "route": "cuda", "source": "pb_llm_tpu_torch/csrc/decode_attention.cu",
          "replaces": "pb_llm_tpu/ops/decode_attention.py:78", "launches": e2e["attention_launches"],
-         "max_abs_err": att["max_abs_err"], "ms": att["kernel_ms"], "plain_ms": att["plain_ms"],
+         "max_abs_err": att["slot_max_abs_err"], "ms": att["slot_ms"], "plain_ms": att["plain_ms"],
          "bound_ms": att["bound_ms"], "bound_by": att["bound_by"], "library_ms": att["library_ms"],
-         "parity": "ok", "shape": "B={} S={} Hq={} Hkv={} D={} int8".format(*ATTN_SHAPE)
-         + f", lengths <= {ATTN_MAX_LEN}"},
+         "parity": "ok", "arm": "slot",
+         "arm_launches": {"split": e2e["attention_split_launches"],
+                          "slot": e2e["attention_launches"] - e2e["attention_split_launches"]},
+         "shape": "B={} S={} Hq={} Hkv={} D={} int8".format(*ATTN_SHAPE)
+         + f", lengths <= {ATTN_MAX_LEN}; the slot arm (a block a slot and head, only a call "
+           "that names it); launches: phase 4, both arms"},
+        {"name": "decode_attention_split", "route": "cuda",
+         "source": "pb_llm_tpu_torch/csrc/decode_attention.cu",
+         "replaces": "pb_llm_tpu/ops/decode_attention.py:78",
+         "launches": e2e["attention_split_launches"], "max_abs_err": att["max_abs_err"],
+         "ms": att["kernel_ms"], "plain_ms": att["plain_ms"], "bound_ms": att["bound_ms"],
+         "bound_by": att["bound_by"], "library_ms": att["library_ms"], "parity": "ok",
+         "arm": "split", "slot_ms": att["slot_ms"],
+         "shape": "B={} S={} Hq={} Hkv={} D={} int8".format(*ATTN_SHAPE)
+         + f", lengths <= {ATTN_MAX_LEN}; the split arm (64 rows a block, a merge launch; "
+           "the time covers both); library: SDPA bf16; launches: phase 4"},
         {"name": "pb_dequant_v2", "route": "cuda", "source": "pb_llm_tpu_torch/csrc/pb_dequant_v2.cu",
          "replaces": "pb_llm_tpu/ops/pallas_pb.py:625", "launches": prod["launches"]["pb_dequant_v2"],
          "max_abs_err": max(r["max_abs_err"] for r in dq_rows), "ms": dq["kernel_ms"],
@@ -2861,10 +2923,11 @@ def main(argv=None) -> int:
     for name, replaces, source, launches, library in (
             ("pb_dma_v2", 826, "pb_dma_v2.cu", e2e_launches("pb_dma_v2"), "f32"),
             ("pb_int8_matmul_stacked", 953, "pb_int8_matmul.cu",
-             e2e_launches("pb_int8_matmul_stacked"), "bf16"),
+             e2e_launches("pb_int8_matmul_stacked", ("", "_tc", "_split")), "bf16"),
             ("pb_f32_matmul_stacked", 991, "pb_f32_matmul.cu",
              scan_fuse["launches"]["pb_f32_matmul_stacked"], "f32")):
-        r = arm_row(name, row_groups=1, **({"arm": "cores"} if "f32" in name else {}))
+        r = arm_row(name, row_groups=1, **({"arm": "cores"} if "f32" in name else
+                                           {"arm": "dp4a"} if "int8" in name else {}))
         extra = {}
         if name == "pb_int8_matmul_stacked":  # the window rows, beside the flat kernel
             w = arm_row(name, m=ARM_MS[1], row_groups=1)
@@ -2883,6 +2946,20 @@ def main(argv=None) -> int:
                      "launches: phase {}".format(*HEADLINE_SHAPE, library,
                                                  "9a" if name.endswith("f32_matmul_stacked")
                                                  else "9b")})
+    ss = arm_row("pb_int8_matmul_stacked", row_groups=1, arm="split")
+    kernels.append({
+        "name": "pb_int8_matmul_stacked_split", "route": "cuda",
+        "source": "pb_llm_tpu_torch/csrc/pb_int8_matmul.cu",
+        "replaces": "pb_llm_tpu/ops/pallas_pb.py:953",
+        "launches": e2e_launches("pb_int8_matmul_stacked", ("_split",)),
+        "max_abs_err": max(q["max_abs_err"] for q in arm_rows
+                           if q["kernel"] == "pb_int8_matmul_stacked" and q["arm"] == "split"),
+        "ms": ss["kernel_ms"], "plain_ms": ss["plain_ms"], "bound_ms": ss["bound_ms"],
+        "bound_by": ss["bound_by"], "library_ms": ss["library_ms"], "parity": "bit for bit",
+        "arm": "split", "flat_ms": ss["flat_ms"],
+        "dp4a_ms": arm_row("pb_int8_matmul_stacked", row_groups=1, arm="dp4a")["kernel_ms"],
+        "shape": "m={} ic={} oc={} low_frac 0.9, layer 1 of 2; the split arm; library: bf16 "
+                 "matmul on the dense weight; launches: phase 9b".format(*HEADLINE_SHAPE)})
     st = arm_row("pb_f32_matmul_stacked", m=ARM_MS[1], row_groups=1, arm="tc")
     kernels.append({
         "name": "pb_f32_matmul_stacked_tc", "route": "cuda",
@@ -2917,8 +2994,10 @@ def main(argv=None) -> int:
             "replaces": f"pb_llm_tpu/ops/{replaces}", "launches": http[pass_name][counter],
             "max_abs_err": max(errs), "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "parity": "ok", "shape": shape + f", lengths <= {ATTN_MAX_LEN}; library: SDPA bf16; "
-                                             "launches: phase 10b"})
+            "parity": "ok", **({} if name.startswith("paged") else {
+                "arm": "split", "slot_ms": r["slot_ms"]}),
+            "shape": shape + f", lengths <= {ATTN_MAX_LEN}; library: SDPA bf16; "
+                             "launches: phase 10b"})
     win = next(r for r in pa_rows if r["case"] == "chunk_t256_int8")
     prep = next(r for r in prep_rows if (r["m"], r["ic"], r["oc"]) == HEADLINE_SHAPE)
     kernels += [

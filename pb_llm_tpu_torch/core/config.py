@@ -34,7 +34,7 @@ class PTQJobConfig:
     disable_gptq: bool = False
     high_sym: bool = False
     high_mse: bool = False
-    fmt: str = "sim"                     # sim|packed_v2 (packed = PBW v1, not ported)
+    fmt: str = "sim"                     # sim|packed|packed_v2 (PBW v1 | PBW v2)
     mask_structure: str = "element"      # element|column (column → PBW v2-compatible)
     col_tile: int = 256                  # output-row group width of column masks
     eval_datasets: Sequence[str] = ("wikitext2", "ptb", "c4")

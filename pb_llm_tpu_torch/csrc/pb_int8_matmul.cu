@@ -1,5 +1,6 @@
-// pb_int8_matmul — PBW-v2 int8 packed matmul for Hopper (sm_90a), in two
-// arms: __dp4a on the CUDA cores, and wgmma int8 on the tensor cores.
+// pb_int8_matmul — PBW-v2 int8 packed matmul for Hopper (sm_90a), in three
+// arms: __dp4a on the CUDA cores, wgmma int8 on the tensor cores, and the
+// tensor cores' decode arm with its K split over a cluster of blocks.
 //
 // Replaces: pb_llm_tpu/ops/pallas_pb.py::_planar_v2_int8_kernel (entry
 // _planar_v2_int8_call).  Computes, for x [m, ic] quantized per row to int8
@@ -11,10 +12,10 @@
 // V'' = code - 128 for 8-bit codes (the +128*rsg correction), the 4-bit
 // code itself for nibble sidecars.  Both integer dots accumulate exactly in
 // int32 (|sum| <= ic*127*255 < 2^31), so the two arms, which sum in other
-// orders, give the same integers; the f32 epilogue uses __fmul_rn/__fadd_rn
-// in the plain PyTorch version's order
-// (pb_llm_tpu_torch/ops/packed_matmul.py::_epilogue), so either arm agrees
-// with the plain version, and with the other arm, to the last bit.
+// orders, give the same integers; the f32 epilogue (int8_y) uses
+// __fmul_rn/__fadd_rn in the plain PyTorch version's order
+// (pb_llm_tpu_torch/ops/packed_matmul.py::_epilogue), so every arm agrees
+// with the plain version, and with the other arms, to the last bit.
 //
 // Layout read as stored: bit b of word gi in pack block blk holds weight
 // row blk_off + b*g + gi (g = rows_in_block / 32).  Nibble sidecars pair
@@ -78,6 +79,34 @@
 // be a multiple of 16 and nibble shard segments of 16 slots; int8_arm
 // sends other layouts to the dp4a arm.
 //
+// The decode arm (tc::split_kernel, "split"; x8 in the tensor-core arm's
+// layout): below M_TC rows.  What bounds it: the bytes of the planes, some
+// 1 bit a weight plus k_pad bytes an output column (45 MB a llama-7b layer,
+// 13.6 us at 3.35 TB/s); at 8 rows the dp4a arm and the tensor-core arm
+// reached 9-11% of that, with one block of a tile's whole K loop a tile
+// (32 blocks at oc = 4096 for the tensor cores) and few loads in flight.
+// Design for that: the tensor-core device code with a narrow x tile (N = 8
+// rows up to 8, else 16: a stage is 6-8 KB of words and x, or 17-18 KB of
+// codes, so a ring of SPLIT_STAGES fits three blocks an SM), and the K
+// stages of a tile cut into ks ranges (packed_matmul.int8_ksplit: 1, 2, 4
+// or 8 from the layer's shape alone, so the tiles times the ranges come
+// near two blocks an SM), one block each, the ks blocks of a tile one
+// cluster.  A block asks for every stage of its range at once where the
+// ring holds them.  The ranges' int32 dots
+// meet in the cluster's distributed shared memory, added in range order,
+// and the block that owns 128/ks of the tile's columns runs the epilogue:
+// no partial sum touches device memory, and the sums, being exact, equal
+// the other arms' bit for bit.  Measured on an "NVIDIA H100 80GB HBM3,
+// 700.00 W" at m = 8 (chip_smoke.py phase 2, CUDA events, the launch's ~5 us
+// included): 0.0164 / 0.0199 / 0.0260 ms on 4096x4096 / 4096x11008 /
+// 11008x4096 against dp4a's 0.0237 / 0.0305 / 0.0512; in the graphed decode
+// step its 224 launches take 3.07 ms a step against dp4a's 5.02.  Variants
+// timed in one call: the TMA loads alone take 70% of its time; issuing a
+// stage's products back to back, rings of 2-4 stages, ranges of 2-8 and
+// no cross-block reduction each moved it by 10% or less.  What holds it back
+// is the copies themselves: 512-byte word rows and 128-byte code rows at
+// strides of oc words or bytes.
+//
 // pb_int8_matmul_stacked replaces pallas_pb.py::_stacked_int8_kernel (entry
 // pb_matmul_pallas_v2_stacked, the scan_layers path): the same function on
 // layer li of [L, ic/32, oc] sign planes, [L, k_pad(/2), oc] codes and an
@@ -95,6 +124,8 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <cooperative_groups.h>
 
 #include "pb_sm90.cuh"
 
@@ -125,6 +156,25 @@ __device__ __forceinline__ int side_code(const uint8_t* __restrict__ side, int j
   const int r = j - s * kps;
   const uint8_t v = side[(size_t)(s * half + (r % half)) * oc + col];
   return r < half ? (v & 15) : (v >> 4);
+}
+
+// y of x row `row`, column `col` from its two integer dots: one rounding per
+// operation, in the plain version's order (packed_matmul.py::_epilogue)
+template <int SIDE_BITS>
+__device__ __forceinline__ float int8_y(int ab, int av, int row, int col, int m, int oc, int t,
+                                        const float* __restrict__ sx,
+                                        const float* __restrict__ rs,
+                                        const float* __restrict__ rsg,
+                                        const float* __restrict__ coef) {
+  const float s = sx[row];
+  const float g_rs = rsg[(size_t)t * m + row];
+  float side_f = __fmul_rn((float)av, s);
+  if (SIDE_BITS == 8) side_f = __fadd_rn(side_f, __fmul_rn(128.0f, g_rs));
+  const float y_bin = __fmul_rn(__fmul_rn((float)ab, s), coef[col]);
+  float y = __fadd_rn(__fmul_rn(rs[row], coef[oc + col]), y_bin);
+  y = __fadd_rn(y, __fmul_rn(side_f, coef[3 * oc + col]));
+  y = __fadd_rn(y, __fmul_rn(g_rs, coef[2 * oc + col]));
+  return __fadd_rn(y, coef[4 * oc + col]);
 }
 
 template <int SIDE_BITS, bool STACKED>
@@ -270,22 +320,8 @@ pb_int8_matmul_kernel(const int8_t* __restrict__ x8, const float* __restrict__ s
     ab += red_b[w][mi][threadIdx.x % TN];
     av += red_v[w][mi][threadIdx.x % TN];
   }
-  const int n_rg_idx = ocol / col_tile;
-  const float s = sx[row];
-  const float g_rs = rsg[(size_t)n_rg_idx * m + row];
-  float side_f = __fmul_rn((float)av, s);
-  if (SIDE_BITS == 8) side_f = __fadd_rn(side_f, __fmul_rn(128.0f, g_rs));
-  const float alpha2 = coef[ocol];
-  const float beta = coef[oc + ocol];
-  const float gamma = coef[2 * oc + ocol];
-  const float hs = coef[3 * oc + ocol];
-  const float bias = coef[4 * oc + ocol];
-  const float y_bin = __fmul_rn(__fmul_rn((float)ab, s), alpha2);
-  float y = __fadd_rn(__fmul_rn(rs[row], beta), y_bin);
-  y = __fadd_rn(y, __fmul_rn(side_f, hs));
-  y = __fadd_rn(y, __fmul_rn(g_rs, gamma));
-  y = __fadd_rn(y, bias);
-  out[(size_t)row * oc + ocol] = y;
+  out[(size_t)row * oc + ocol] = int8_y<SIDE_BITS>(ab, av, row, ocol, m, oc, ocol / col_tile, sx,
+                                                   rs, rsg, coef);
 }
 
 // ---------------------------------------------------------------------------
@@ -298,6 +334,7 @@ using namespace sm90;
 
 constexpr int THREADS = 256;  // 2 warpgroups, each 64 columns x all TN rows
 constexpr int STAGES = 4;     // the ring of TMA copies
+constexpr int SPLIT_STAGES = 4;  // the decode arm's ring (three blocks an SM at 8 or 16 x rows)
 constexpr int NS = 2;         // A register sets: one read by the wgmma in flight, one made
 constexpr unsigned ONES = 0x01010101u;
 
@@ -317,7 +354,7 @@ struct Cfg {
   static constexpr int side_bytes = codes_at + SK * OC;
   static constexpr int stage = up1024(main_bytes > side_bytes ? main_bytes : side_bytes);
   static constexpr int total = STAGES * stage + 1024 + STAGES * 8;  // + alignment, mbarriers
-  static_assert(TN % 32 == 0 && TN <= 256, "tile shape");
+  static_assert(TN % 8 == 0 && TN <= 256, "tile shape");
 };
 
 // x8's byte-permuted, padded row: full pack blocks of g words (g8 =
@@ -340,6 +377,31 @@ __host__ __device__ __forceinline__ Geo geometry(int ic, int pb) {
 
 template <int N>
 struct Wgmma;
+template <>
+struct Wgmma<8> {
+  static __device__ __forceinline__ void run(int* d, const unsigned* a, uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, %8, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<16> {
+  static __device__ __forceinline__ void run(int* d, const unsigned* a, uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 {%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+          "+r"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
 template <>
 struct Wgmma<32> {
   static __device__ __forceinline__ void run(int* d, const unsigned* a, uint64_t desc) {
@@ -376,181 +438,271 @@ struct Wgmma<128> {
   }
 };
 
-// The tensor maps (host side, `maps`): mx x8 [icp bytes, m rows]; mxg xg8
-// [kst bytes, m rows, n_rg]; msg the sign words [oc, L*ic/32] (u32); mcd
-// the codes [oc, L*rows] (u8).  Boxes of 128 bytes, 128-byte swizzled, but
-// the sign words'.  Out-of-range rows and columns arrive as zeros.
-template <int SIDE_BITS, bool STACKED, int TN>
-__global__ void __launch_bounds__(THREADS, 1)
-kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUtensorMap mxg,
-       const __grid_constant__ CUtensorMap msg,
-       const __grid_constant__ CUtensorMap mcd, const float* __restrict__ sx,
-       const float* __restrict__ rs, const float* __restrict__ rsg,
-       const float* __restrict__ coef, float* __restrict__ out, int m, int ic, int oc,
-       int pack_block, int k_pad, int kps, int col_tile, const int* __restrict__ layer) {
-  using C = Cfg<TN>;
-  constexpr int STAGE = C::stage;
-  int li = 0;
-  if (STACKED) {
-    li = __ldg(layer);
-    coef += (size_t)li * 5 * oc;
-  }
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);  // 1024-aligned
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE);
-  const Geo G = geometry(ic, pack_block);
+// The tensor maps (host side, `maps`): x x8 [icp bytes, m rows]; xg xg8
+// [kst bytes, m rows, n_rg]; sg the sign words [oc, L*ic/32] (u32); cd the
+// codes [oc, L*rows] (u8).  Boxes of 128 bytes, 128-byte swizzled, but the
+// sign words'.  Out-of-range rows and columns arrive as zeros.
+struct Maps {
+  CUtensorMap x, xg, sg, cd;
+};
+
+// What a block reads where: its 128-column tile from oc0, its x rows from
+// m0, its row group t, layer li, and the layout's K stages (n_main word
+// groups, then sidecar chunks of SK slots; n_total in all).
+struct Where {
+  Geo G;
+  int n_main, n_total, oc0, m0, t, li, ic, code_rows, kps;
+};
+
+__device__ __forceinline__ Where where(int ic, int pack_block, int k_pad, int kps, int col_tile,
+                                       int side_bits, int oc0, int m0, int li) {
+  Where w;
+  w.G = geometry(ic, pack_block);
   const int kst = (k_pad + 31) & ~31;  // xg8's slots, padded with zeros
-  const int code_rows = SIDE_BITS == 4 ? k_pad / 2 : k_pad;
-  const int oc0 = blockIdx.x * OC;
-  const int m0 = blockIdx.y * TN;
-  const int t = oc0 / col_tile;  // the tile's row group (one group a tile)
-  const int n_main = G.ng;
-  const int n_total = n_main + (kst + SK - 1) / SK;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int gid = lane >> 2, q = lane & 3;
-  // warpgroup warp/4 owns columns 64*(warp/4)..; its warp w%4 the 16 from 16*(w%4)
-  const int wo = 64 * (warp >> 2) + 16 * (warp & 3);
+  w.n_main = w.G.ng;
+  w.n_total = w.n_main + (kst + SK - 1) / SK;
+  w.oc0 = oc0;
+  w.m0 = m0;
+  w.t = oc0 / col_tile;  // the tile's row group (one group a tile)
+  w.li = li;
+  w.ic = ic;
+  w.code_rows = side_bits == 4 ? k_pad / 2 : k_pad;
+  w.kps = kps;
+  return w;
+}
 
-  if (tid == 0) {
-    for (int i = 0; i < STAGES; ++i)
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bars + i)));
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  // stage st's copies, issued by thread 0: it states the bytes, then asks
-  auto load = [&](int st) {
-    uint8_t* sb = smem + (st % STAGES) * STAGE;
-    uint64_t* bar = bars + st % STAGES;
-    if (st < n_main) {  // word group st: bytes 256st.. of the x rows; 8 word rows
-      expect(bar, TN * 256 + 8 * OC * 4);
-      tma2(sb, &mx, 256 * st, m0, bar);
-      tma2(sb + TN * 128, &mx, 256 * st + 128, m0, bar);
-      const bool full = st < G.nfull * G.ngf;
-      const int blk = full ? st / G.ngf : G.nfull;
-      const int s = st - blk * G.ngf;
-      tma2(sb + TN * 256, &msg, oc0, li * (ic / 32) + blk * G.gf + 8 * s, bar);  // past g: zero x
-    } else {  // sidecar slots j0..j0+127: their xg bytes; the code rows of those slots
-      const int j0 = (st - n_main) * SK;
-      expect(bar, TN * SK + SK * OC);
-      tma3(sb, &mxg, j0, m0, t, bar);
-      uint8_t* cs = sb + C::codes_at;
-      if (SIDE_BITS == 8) {  // slots past k_pad meet zero xg
-        tma2(cs, &mcd, oc0, li * code_rows + j0, bar);
-      } else {  // 8 slots at a time: the packed rows of a shard segment's nibble half
-        for (int g = 0; g < SK / 8; ++g) {
-          const int j = j0 + 8 * g, sh = j / kps, r = j - sh * kps, half = kps / 2;
-          tma2(cs + g * 1024, &mcd, oc0, li * code_rows + sh * half + (r % half), bar);
-        }
-      }
-    }
-  };
-
-  int acc_b[TN / 2];
-  int acc_v[TN / 2];
-#pragma unroll
-  for (int e = 0; e < TN / 2; ++e) {
-    acc_b[e] = 0;
-    acc_v[e] = 0;
-  }
-
-  if (tid == 0)
-    for (int st = 0; st < STAGES - 1 && st < n_total; ++st) load(st);
-#pragma unroll 1
-  for (int st = 0; st < n_total; ++st) {
-    wait_phase(bars + st % STAGES, (st / STAGES) & 1);
-    __syncthreads();  // every warpgroup is done with stage st-1: its slot is free
-    if (tid == 0 && st + STAGES - 1 < n_total) load(st + STAGES - 1);
-    const uint8_t* sb = smem + (st % STAGES) * STAGE;
-    unsigned a[NS][4];  // NS sets: one read by the wgmma in flight, one being made
-    if (st < n_main) {
-      // the A register of unit u (k = 4u..4u+3) of row c holds bits b, b+8,
-      // b+16, b+24 of word u: rows gid, gid+8; units q, q+4
-      const uint32_t* ws = reinterpret_cast<const uint32_t*>(sb + TN * 256);
-      const int c = wo + gid;
-      const uint32_t w[4] = {ws[q * OC + c], ws[q * OC + c + 8], ws[(q + 4) * OC + c],
-                             ws[(q + 4) * OC + c + 8]};
-#pragma unroll
-      for (int b = 0; b < 8; ++b) {
-#pragma unroll
-        for (int r = 0; r < 4; ++r) a[b % NS][r] = (w[r] >> b) & ONES;
-        fence();
-        // run b: atom b/4, bytes 32(b%4)..
-        Wgmma<TN>::run(acc_b, a[b % NS], desc(sb + (b >> 2) * TN * 128 + 32 * (b & 3)));
-        commit();
-        wait<NS - 1>();  // the set made next is free
-      }
-    } else {
-      const uint8_t* cs = sb + C::codes_at;
-      const int j0 = (st - n_main) * SK;
-#pragma unroll
-      for (int kk = 0; kk < SK / 32; ++kk) {
-        int nib[2] = {0, 0};  // the nibble's shift of slots kk*32 + 4q (+16)
-        if (SIDE_BITS == 4) {
-#pragma unroll
-          for (int hh = 0; hh < 2; ++hh) {
-            const int j = j0 + kk * 32 + 16 * hh + 4 * q;
-            nib[hh] = (j % kps) >= kps / 2 ? 4 : 0;
-          }
-        }
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {  // r: column + 8*(r&1), slots + 16*(r>>1)
-          const int col = wo + gid + 8 * (r & 1);
-          const int j = kk * 32 + 16 * (r >> 1) + 4 * q;
-          unsigned v = 0;
-#pragma unroll
-          for (int u = 0; u < 4; ++u)  // the 128-byte swizzle: chunk ^ row % 8
-            v |= (unsigned)cs[(j + u) * 128 + (((col >> 4) ^ ((j + u) & 7)) << 4) + (col & 15)]
-                 << (8 * u);
-          a[kk % NS][r] = SIDE_BITS == 8 ? (v ^ 0x80808080u) : ((v >> nib[r >> 1]) & 0x0F0F0F0Fu);
-        }
-        fence();
-        Wgmma<TN>::run(acc_v, a[kk % NS], desc(sb + 32 * kk));
-        commit();
-        wait<NS - 1>();
-      }
-    }
-    wait<0>();  // the stage's shared memory is read before the ring reuses it
-  }
-
-  // epilogue: accumulator element 4i + e is column wo + gid + 8(e/2), x
-  // row 8i + 2q + e%2
-  {
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int col = oc0 + wo + gid + 8 * hr;
-      if (col >= oc) continue;
-      const float alpha2 = coef[col];
-      const float beta = coef[oc + col];
-      const float gamma = coef[2 * oc + col];
-      const float hs = coef[3 * oc + col];
-      const float bias = coef[4 * oc + col];
-#pragma unroll
-      for (int i = 0; i < TN / 8; ++i) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int row = m0 + 8 * i + 2 * q + e;
-          if (row >= m) continue;
-          const float s = sx[row];
-          const float g_rs = rsg[(size_t)t * m + row];
-          const int ab = acc_b[4 * i + 2 * hr + e], av = acc_v[4 * i + 2 * hr + e];
-          float side_f = __fmul_rn((float)av, s);
-          if (SIDE_BITS == 8) side_f = __fadd_rn(side_f, __fmul_rn(128.0f, g_rs));
-          const float y_bin = __fmul_rn(__fmul_rn((float)ab, s), alpha2);
-          float y = __fadd_rn(__fmul_rn(rs[row], beta), y_bin);
-          y = __fadd_rn(y, __fmul_rn(side_f, hs));
-          y = __fadd_rn(y, __fmul_rn(g_rs, gamma));
-          y = __fadd_rn(y, bias);
-          out[(size_t)row * oc + col] = y;
-        }
+// stage st's copies into the stage buffer sb, issued by one thread: it
+// states the bytes on the stage's mbarrier, then asks
+template <int SIDE_BITS, int TN>
+__device__ __forceinline__ void load_stage(const Maps* M, const Where& w, int st, uint8_t* sb,
+                                           uint64_t* bar) {
+  if (st < w.n_main) {  // word group st: bytes 256st.. of the x rows; 8 word rows
+    expect(bar, TN * 256 + 8 * OC * 4);
+    tma2(sb, &M->x, 256 * st, w.m0, bar);
+    tma2(sb + TN * 128, &M->x, 256 * st + 128, w.m0, bar);
+    const bool full = st < w.G.nfull * w.G.ngf;
+    const int blk = full ? st / w.G.ngf : w.G.nfull;
+    const int s = st - blk * w.G.ngf;
+    tma2(sb + TN * 256, &M->sg, w.oc0, w.li * (w.ic / 32) + blk * w.G.gf + 8 * s,
+         bar);  // past g: zero x
+  } else {  // sidecar slots j0..j0+127: their xg bytes; the code rows of those slots
+    const int j0 = (st - w.n_main) * SK;
+    expect(bar, TN * SK + SK * OC);
+    tma3(sb, &M->xg, j0, w.m0, w.t, bar);
+    uint8_t* cs = sb + Cfg<TN>::codes_at;
+    if (SIDE_BITS == 8) {  // slots past k_pad meet zero xg
+      tma2(cs, &M->cd, w.oc0, w.li * w.code_rows + j0, bar);
+    } else {  // 8 slots at a time: the packed rows of a shard segment's nibble half
+      for (int g = 0; g < SK / 8; ++g) {
+        const int j = j0 + 8 * g, sh = j / w.kps, r = j - sh * w.kps, half = w.kps / 2;
+        tma2(cs + g * 1024, &M->cd, w.oc0, w.li * w.code_rows + sh * half + (r % half), bar);
       }
     }
   }
 }
 
-struct Maps {
-  CUtensorMap x, xg, sg, cd;
-};
+// stage st's products on the stage buffer sb into a warpgroup's
+// accumulators (this warp's 16 columns from wo)
+template <int SIDE_BITS, int TN>
+__device__ __forceinline__ void mma_stage(const Where& w, int st, const uint8_t* sb, int wo,
+                                          int* acc_b, int* acc_v) {
+  const int lane = threadIdx.x & 31, gid = lane >> 2, q = lane & 3;
+  unsigned a[NS][4];  // NS sets: one read by the wgmma in flight, one being made
+  if (st < w.n_main) {
+    // the A register of unit u (k = 4u..4u+3) of row c holds bits b, b+8,
+    // b+16, b+24 of word u: rows gid, gid+8; units q, q+4
+    const uint32_t* ws = reinterpret_cast<const uint32_t*>(sb + TN * 256);
+    const int c = wo + gid;
+    const uint32_t wd[4] = {ws[q * OC + c], ws[q * OC + c + 8], ws[(q + 4) * OC + c],
+                            ws[(q + 4) * OC + c + 8]};
+#pragma unroll
+    for (int b = 0; b < 8; ++b) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) a[b % NS][r] = (wd[r] >> b) & ONES;
+      fence();
+      // run b: atom b/4, bytes 32(b%4)..
+      Wgmma<TN>::run(acc_b, a[b % NS], desc(sb + (b >> 2) * TN * 128 + 32 * (b & 3)));
+      commit();
+      wait<NS - 1>();  // the set made next is free
+    }
+  } else {
+    const uint8_t* cs = sb + Cfg<TN>::codes_at;
+    const int j0 = (st - w.n_main) * SK;
+#pragma unroll
+    for (int kk = 0; kk < SK / 32; ++kk) {
+      int nib[2] = {0, 0};  // the nibble's shift of slots kk*32 + 4q (+16)
+      if (SIDE_BITS == 4) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int j = j0 + kk * 32 + 16 * hh + 4 * q;
+          nib[hh] = (j % w.kps) >= w.kps / 2 ? 4 : 0;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {  // r: column + 8*(r&1), slots + 16*(r>>1)
+        const int col = wo + gid + 8 * (r & 1);
+        const int j = kk * 32 + 16 * (r >> 1) + 4 * q;
+        unsigned v = 0;
+#pragma unroll
+        for (int u = 0; u < 4; ++u)  // the 128-byte swizzle: chunk ^ row % 8
+          v |= (unsigned)cs[(j + u) * 128 + (((col >> 4) ^ ((j + u) & 7)) << 4) + (col & 15)]
+               << (8 * u);
+        a[kk % NS][r] = SIDE_BITS == 8 ? (v ^ 0x80808080u) : ((v >> nib[r >> 1]) & 0x0F0F0F0Fu);
+      }
+      fence();
+      Wgmma<TN>::run(acc_v, a[kk % NS], desc(sb + 32 * kk));
+      commit();
+      wait<NS - 1>();
+    }
+  }
+}
+
+// the stages s0..s1-1 through a ring of NST stage buffers (thread 0 asks
+// NST - 1 stages ahead of the products) into the accumulators
+template <int SIDE_BITS, int TN, int NST>
+__device__ __forceinline__ void run_stages(const Maps* M, const Where& w, int s0, int s1,
+                                           uint8_t* smem, uint64_t* bars, int wo, int* acc_b,
+                                           int* acc_v) {
+  constexpr int STAGE = Cfg<TN>::stage;
+  const int n = s1 - s0;
+  if (threadIdx.x == 0)
+    for (int i = 0; i < NST - 1 && i < n; ++i)
+      load_stage<SIDE_BITS, TN>(M, w, s0 + i, smem + i * STAGE, bars + i);
+#pragma unroll 1
+  for (int i = 0; i < n; ++i) {
+    wait_phase(bars + i % NST, (i / NST) & 1);
+    __syncthreads();  // every warpgroup is done with stage i-1: its buffer is free
+    if (threadIdx.x == 0 && i + NST - 1 < n) {
+      const int k = (i + NST - 1) % NST;
+      load_stage<SIDE_BITS, TN>(M, w, s0 + i + NST - 1, smem + k * STAGE, bars + k);
+    }
+    mma_stage<SIDE_BITS, TN>(w, s0 + i, smem + (i % NST) * STAGE, wo, acc_b, acc_v);
+    wait<0>();  // the stage's shared memory is read before the ring reuses it
+  }
+}
+
+// the dynamic shared memory, 1024-aligned: NST stage buffers, then NST
+// mbarriers (initialised here)
+template <int TN, int NST>
+__device__ __forceinline__ uint8_t* ring(uint64_t** bars) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  *bars = reinterpret_cast<uint64_t*>(smem + NST * Cfg<TN>::stage);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < NST; ++i)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(*bars + i)));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  return smem;
+}
+
+// warpgroup warp/4 owns columns 64*(warp/4)..; its warp w%4 the 16 from 16*(w%4)
+__device__ __forceinline__ int warp_cols() {
+  const int warp = threadIdx.x >> 5;
+  return 64 * (warp >> 2) + 16 * (warp & 3);
+}
+
+// Every K stage of a 128-column tile and TN x rows in one block; the
+// epilogue stores from the accumulator fragment (element 4i + e is column
+// wo + gid + 8(e/2), x row 8i + 2q + e%2), each store a full 32-byte sector
+// per 8 lanes.
+template <int SIDE_BITS, bool STACKED, int TN>
+__global__ void __launch_bounds__(THREADS, 1)
+kernel(const __grid_constant__ Maps M, const float* __restrict__ sx,
+       const float* __restrict__ rs, const float* __restrict__ rsg,
+       const float* __restrict__ coef, float* __restrict__ out, int m, int ic, int oc,
+       int pack_block, int k_pad, int kps, int col_tile, const int* __restrict__ layer) {
+  const int li = STACKED ? __ldg(layer) : 0;
+  if (STACKED) coef += (size_t)li * 5 * oc;
+  uint64_t* bars;
+  uint8_t* smem = ring<TN, STAGES>(&bars);
+  const Where w = where(ic, pack_block, k_pad, kps, col_tile, SIDE_BITS, blockIdx.x * OC,
+                        blockIdx.y * TN, li);
+  const int lane = threadIdx.x & 31, gid = lane >> 2, q = lane & 3, wo = warp_cols();
+  int acc_b[TN / 2];
+  int acc_v[TN / 2];
+#pragma unroll
+  for (int e = 0; e < TN / 2; ++e) acc_b[e] = acc_v[e] = 0;
+  run_stages<SIDE_BITS, TN, STAGES>(&M, w, 0, w.n_total, smem, bars, wo, acc_b, acc_v);
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int col = w.oc0 + wo + gid + 8 * hr;
+    if (col >= oc) continue;
+#pragma unroll
+    for (int i = 0; i < TN / 8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int row = w.m0 + 8 * i + 2 * q + e;
+        if (row >= m) continue;
+        out[(size_t)row * oc + col] = int8_y<SIDE_BITS>(
+            acc_b[4 * i + 2 * hr + e], acc_v[4 * i + 2 * hr + e], row, col, m, oc, w.t, sx, rs,
+            rsg, coef);
+      }
+    }
+  }
+}
+
+// The decode arm ("split"): m <= TN (8 or 16) x rows; the K stages of a
+// 128-column tile cut into ks = gridDim.y ranges (range r: stages r*n/ks
+// .. (r+1)*n/ks - 1, packed_matmul.int8_ranges), one block each, and the
+// ks blocks of a tile are one cluster.  Each block leaves its range's int32
+// dots in its shared memory; then each block adds, for 128/ks of the
+// tile's columns, the ranges' dots in range order through distributed
+// shared memory and runs the epilogue.  The sums are exact, so the arm
+// equals the others bit for bit, and nothing but the planes, x and y goes
+// through device memory.
+template <int SIDE_BITS, bool STACKED, int TN>
+__global__ void __launch_bounds__(THREADS, 2)
+split_kernel(const __grid_constant__ Maps M, const float* __restrict__ sx,
+             const float* __restrict__ rs, const float* __restrict__ rsg,
+             const float* __restrict__ coef, float* __restrict__ out, int m, int ic, int oc,
+             int pack_block, int k_pad, int kps, int col_tile, const int* __restrict__ layer) {
+  namespace cg = cooperative_groups;
+  const int li = STACKED ? __ldg(layer) : 0;
+  if (STACKED) coef += (size_t)li * 5 * oc;
+  uint64_t* bars;
+  uint8_t* smem = ring<TN, SPLIT_STAGES>(&bars);
+  const Where w = where(ic, pack_block, k_pad, kps, col_tile, SIDE_BITS, blockIdx.x * OC, 0, li);
+  const int ks = gridDim.y, r = blockIdx.y;
+  const int lane = threadIdx.x & 31, gid = lane >> 2, q = lane & 3, wo = warp_cols();
+  int acc_b[TN / 2];
+  int acc_v[TN / 2];
+#pragma unroll
+  for (int e = 0; e < TN / 2; ++e) acc_b[e] = acc_v[e] = 0;
+  run_stages<SIDE_BITS, TN, SPLIT_STAGES>(&M, w, r * w.n_total / ks, (r + 1) * w.n_total / ks,
+                                          smem, bars, wo, acc_b, acc_v);
+
+  // the range's dots: red[row][col], the bit plane's, then the sidecar's
+  __syncthreads();  // every warp is done with the ring
+  int* red = reinterpret_cast<int*>(smem);
+#pragma unroll
+  for (int i = 0; i < TN / 8; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int idx = (8 * i + 2 * q + (e & 1)) * OC + wo + gid + 8 * (e >> 1);
+      red[idx] = acc_b[4 * i + e];
+      red[TN * OC + idx] = acc_v[4 * i + e];
+    }
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();  // every range's dots are in its block's shared memory
+  const int cw = OC / ks;  // this block's columns: r*cw..
+  for (int idx = threadIdx.x; idx < TN * cw; idx += THREADS) {
+    const int row = idx / cw, lc = r * cw + idx % cw, col = w.oc0 + lc;
+    int ab = 0, av = 0;
+    for (int k = 0; k < ks; ++k) {  // range order
+      const int* rr = cluster.map_shared_rank(red, k);
+      ab += rr[row * OC + lc];
+      av += rr[TN * OC + row * OC + lc];
+    }
+    if (row < m && col < oc)
+      out[(size_t)row * oc + col] =
+          int8_y<SIDE_BITS>(ab, av, row, col, m, oc, w.t, sx, rs, rsg, coef);
+  }
+  cluster.sync();  // no block leaves while another reads its shared memory
+}
+
 
 // x8: [m, icp] bytes; xg8: [n_rg, m, kst]; sign: [L*ic/32, oc] u32; side:
 // [L*rows, oc] bytes
@@ -602,11 +754,52 @@ int launch_tc_as(const void* x8, const void* sx, const void* rs, const void* xg8
                 n_layers))
     return (int)cudaErrorInvalidValue;
   dim3 grid((oc + tc::OC - 1) / tc::OC, (m + TN - 1) / TN);
-  kern<<<grid, tc::THREADS, C::total, st>>>(M.x, M.xg, M.sg, M.cd, (const float*)sx,
-                                            (const float*)rs, (const float*)rsg,
-                                            (const float*)coef, (float*)out, m, ic, oc,
-                                            pack_block, k_pad, kps, col_tile, (const int*)layer);
+  kern<<<grid, tc::THREADS, C::total, st>>>(M, (const float*)sx, (const float*)rs,
+                                            (const float*)rsg, (const float*)coef, (float*)out, m,
+                                            ic, oc, pack_block, k_pad, kps, col_tile,
+                                            (const int*)layer);
   return (int)cudaGetLastError();
+}
+
+// the decode arm: TN x rows (8 or 16), ks K ranges a tile (a cluster of ks
+// blocks along y)
+template <int SIDE_BITS, bool STACKED, int TN>
+int launch_split_as(const void* x8, const void* sx, const void* rs, const void* xg8,
+                    const void* rsg, const void* sign, const void* side, const void* coef,
+                    void* out, int m, int ic, int oc, int pack_block, int k_pad, int kps,
+                    int col_tile, int n_rg, int n_layers, const void* layer, int ks,
+                    cudaStream_t st) {
+  constexpr int bytes = tc::SPLIT_STAGES * tc::Cfg<TN>::stage + 1024 + tc::SPLIT_STAGES * 8;
+  auto kern = tc::split_kernel<SIDE_BITS, STACKED, TN>;
+  static bool sized = false;
+  if (!sized) {
+    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e == cudaSuccess)  // several blocks an SM: all of its shared memory
+      e = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return (int)e;
+    sized = true;
+  }
+  tc::Maps M;
+  if (!tc::maps(&M, tc::OC, TN, SIDE_BITS, x8, xg8, sign, side, m, ic, oc, pack_block, k_pad, n_rg,
+                n_layers))
+    return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((oc + tc::OC - 1) / tc::OC, ks);
+  cfg.blockDim = dim3(tc::THREADS);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = ks;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, kern, M, (const float*)sx, (const float*)rs, (const float*)rsg, (const float*)coef,
+      (float*)out, m, ic, oc, pack_block, k_pad, kps, col_tile, (const int*)layer);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
 // the tensor-core arm's block tile: 128 columns x 64 rows up to 256 rows
@@ -622,16 +815,39 @@ int launch_tc(const void* x8, const void* sx, const void* rs, const void* xg8, c
 #undef PB_TC
 }
 
+// the decode arm's tile: 8 x rows up to 8, else 16
+template <int SIDE_BITS, bool STACKED>
+int launch_split(const void* x8, const void* sx, const void* rs, const void* xg8, const void* rsg,
+                 const void* sign, const void* side, const void* coef, void* out, int m, int ic,
+                 int oc, int pack_block, int k_pad, int kps, int col_tile, int n_rg,
+                 int n_layers, const void* layer, int ks, cudaStream_t st) {
+#define PB_SPLIT(TN) launch_split_as<SIDE_BITS, STACKED, TN>(x8, sx, rs, xg8, rsg, sign, side, \
+    coef, out, m, ic, oc, pack_block, k_pad, kps, col_tile, n_rg, n_layers, layer, ks, st)
+  return m <= 8 ? PB_SPLIT(8) : PB_SPLIT(16);
+#undef PB_SPLIT
+}
+
 template <bool STACKED>
 int launch(const void* x8, const void* sx, const void* rs, const void* xg8, const void* rsg,
            const void* sign, const void* side, const void* coef, void* out, int m, int ic,
            int oc, int pack_block, int side_bits, int k_pad, int kps, int col_tile, int n_rg,
-           int n_layers, const void* layer, int arm, void* stream) {
+           int n_layers, const void* layer, int ksplit, int arm, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (side_bits != 8 && side_bits != 4) return (int)cudaErrorInvalidValue;
-  if (arm == 1) {  // tensor cores: one row group a 128-column tile, 16-byte code rows
+  if (arm == 1 || arm == 2) {  // tensor cores: one row group a 128-column tile, 16-byte code rows
     if (oc % 16 || (col_tile < oc && col_tile % 128) || m <= 0 || (side_bits == 4 && kps % 16))
       return (int)cudaErrorInvalidValue;
+    if (arm == 2) {  // the decode arm: up to 16 rows, 1, 2, 4 or 8 K ranges
+      if (m > 16 || (ksplit != 1 && ksplit != 2 && ksplit != 4 && ksplit != 8))
+        return (int)cudaErrorInvalidValue;
+      return side_bits == 8
+                 ? launch_split<8, STACKED>(x8, sx, rs, xg8, rsg, sign, side, coef, out, m, ic,
+                                            oc, pack_block, k_pad, kps, col_tile, n_rg, n_layers,
+                                            layer, ksplit, st)
+                 : launch_split<4, STACKED>(x8, sx, rs, xg8, rsg, sign, side, coef, out, m, ic,
+                                            oc, pack_block, k_pad, kps, col_tile, n_rg, n_layers,
+                                            layer, ksplit, st);
+    }
     return side_bits == 8
                ? launch_tc<8, STACKED>(x8, sx, rs, xg8, rsg, sign, side, coef, out, m, ic, oc,
                                        pack_block, k_pad, kps, col_tile, n_rg, n_layers, layer, st)
@@ -655,16 +871,17 @@ int launch(const void* x8, const void* sx, const void* rs, const void* xg8, cons
 }  // namespace
 
 // arm: 0 = dp4a (x8 [m, ic] in natural order, xg8 [n_rg, m, k_pad]); 1 =
-// tensor cores (x8 [icp/16, m, 16]: byte_permute_x's order with padded bit
-// runs, in 16-byte chunks; xg8 [n_rg, kst/16, m, 16], kst = round_up(k_pad,
-// 32), zero-padded: pb_prep_int8's layouts).
+// tensor cores, 2 = their decode arm (m <= 16, ksplit K ranges a tile: 1, 2,
+// 4 or 8), both on x8 [m, icp] in byte_permute_x's order with padded bit
+// runs grouped by word group, xg8 [n_rg, m, kst], kst = round_up(k_pad, 32),
+// zero-padded (pb_prep_int8's "tc" layout).  ksplit is read by arm 2 only.
 extern "C" int pb_int8_matmul(const void* x8, const void* sx, const void* rs, const void* xg8,
                               const void* rsg, const void* sign, const void* side,
                               const void* coef, void* out, int m, int ic, int oc,
                               int pack_block, int side_bits, int k_pad, int kps,
-                              int col_tile, int n_rg, int arm, void* stream) {
+                              int col_tile, int n_rg, int ksplit, int arm, void* stream) {
   return launch<false>(x8, sx, rs, xg8, rsg, sign, side, coef, out, m, ic, oc, pack_block,
-                       side_bits, k_pad, kps, col_tile, n_rg, 1, nullptr, arm, stream);
+                       side_bits, k_pad, kps, col_tile, n_rg, 1, nullptr, ksplit, arm, stream);
 }
 
 // sign: u32 [L, ic/32, oc]; side: u8 [L, k_pad(/2), oc]; coef: f32 [L, 5, oc];
@@ -674,8 +891,8 @@ extern "C" int pb_int8_matmul_stacked(const void* x8, const void* sx, const void
                                       const void* xg8, const void* rsg, const void* sign,
                                       const void* side, const void* coef, void* out,
                                       const void* layer, int m, int ic, int oc, int pack_block,
-                                      int side_bits, int k_pad, int n_layers, int arm,
+                                      int side_bits, int k_pad, int n_layers, int ksplit, int arm,
                                       void* stream) {
   return launch<true>(x8, sx, rs, xg8, rsg, sign, side, coef, out, m, ic, oc, pack_block,
-                      side_bits, k_pad, k_pad, oc, 1, n_layers, layer, arm, stream);
+                      side_bits, k_pad, k_pad, oc, 1, n_layers, layer, ksplit, arm, stream);
 }

@@ -20,7 +20,9 @@ from typing import Dict, Tuple
 KERNELS: Dict[str, Tuple[str, str]] = {
     "pb_int8_matmul": ("packed_matmul", "launches"),  # the dp4a arm
     "pb_int8_matmul_tc": ("packed_matmul", "tc_launches"),  # the tensor-core arm
-    "decode_attention": ("decode_attention", "launches"),
+    "pb_int8_matmul_split": ("packed_matmul", "split_launches"),  # tensor cores, K split (decode)
+    "decode_attention": ("decode_attention", "launches"),  # both arms
+    "decode_attention_split": ("decode_attention", "split_launches"),  # the split arm
     "pb_dequant_v2": ("prefill", "launches"),
     "pb_f32_matmul": ("packed_matmul", "f32_launches"),  # the CUDA-core arm
     "pb_f32_matmul_tc": ("packed_matmul", "f32_tc_launches"),  # the bf16 tensor-core arm
@@ -37,6 +39,7 @@ KERNELS: Dict[str, Tuple[str, str]] = {
     "pb_dma_v2": ("decode_arms", "dma_launches"),
     "pb_int8_matmul_stacked": ("packed_matmul", "stacked_launches"),  # dp4a
     "pb_int8_matmul_stacked_tc": ("packed_matmul", "stacked_tc_launches"),
+    "pb_int8_matmul_stacked_split": ("packed_matmul", "stacked_split_launches"),
     "pb_f32_matmul_stacked": ("packed_matmul", "stacked_f32_launches"),
     "pb_f32_matmul_stacked_tc": ("packed_matmul", "stacked_f32_tc_launches"),
     "decode_attention_q8": ("decode_attention", "q8_launches"),

@@ -21,8 +21,16 @@ Qbd scratch) and p to bf16 before its PV dots; the port keeps q and p in f32
 in every arm, in the kernel and in its plain version.  The q8 arm rounds q
 to int8 codes on both.
 
-`decode_attention` launches `csrc/decode_attention.cu` on a CUDA tensor and
-runs `decode_attention_plain` on a CPU tensor.
+Arms of the kernel (`csrc/decode_attention.cu`; every cache type in each):
+"split" (the default): each slot's rows cut into splits of SPLIT_ROWS, one
+block a (split, slot, head), the splits merged in order by a second
+launch; the split count follows the cache's max_seq alone, so a captured
+step's grid holds for every length.  "slot": one block a (slot, head),
+online softmax row by row (the first design, kept as the yardstick).
+`split_plain` is the split arm's arithmetic in plain PyTorch.
+
+`decode_attention` launches the kernel on a CUDA tensor and runs
+`decode_attention_plain` on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -35,11 +43,15 @@ from . import _build
 
 NEG_INF = -1e30
 
-# kernel launches (plain-version calls are not counted): all arms, and the
-# q8 and bf16 arms on their own
+# kernel launches (plain-version calls are not counted): all arms, the split
+# arm, and the q8 and bf16 cache arms on their own
 launches = 0
+split_launches = 0
 q8_launches = 0
 bf16_launches = 0
+
+ARMS = ("split", "slot")
+SPLIT_ROWS = 64  # rows a split (csrc/decode_attention.cu: GROUPS * STEPS)
 
 
 # the kernel's cache-type codes (csrc/decode_attention.cu, csrc/paged_attention.cu)
@@ -108,11 +120,60 @@ def decode_attention_plain(q, k, v, lengths, scale, *, k_scale=None, v_scale=Non
     return out.reshape(b, hq, d)
 
 
+def split_plain(q, k, v, lengths, scale, *, k_scale=None, v_scale=None, q_int8=False,
+                split_rows=SPLIT_ROWS):
+    """The split arm's arithmetic in plain PyTorch (f32): per split of
+    ``split_rows`` rows its max m_c, exponential sum l_c and unnormalised
+    P·V (p scaled by v_scale), then the merge in split order: out =
+    Σ_c w_c·acc_c / Σ_c w_c·l_c, w_c = exp(m_c − max m); empty slots zeros."""
+    _check_args(q, k, v, lengths, k_scale, v_scale)
+    q_int8 = q_int8 and k_scale is not None
+    b, hq, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    qf = q.float() * scale
+    if q_int8:
+        qc, qsc = quantize_q(qf)
+        qf = qc.float()
+    lens = lengths.to(q.device).long()
+    out = torch.zeros((b, hq, d), dtype=torch.float32, device=q.device)
+    for bi in range(b):
+        n = min(int(lens[bi]), s)
+        if n == 0:
+            continue
+        parts = []
+        for r0 in range(0, n, split_rows):
+            r1 = min(r0 + split_rows, n)
+            kk = k[bi, r0:r1].float().repeat_interleave(g, dim=1)          # [r, hq, d]
+            vv = v[bi, r0:r1].float().repeat_interleave(g, dim=1)
+            sc = torch.einsum("hd,rhd->hr", qf[bi], kk)
+            if k_scale is not None:
+                sc = sc * k_scale[bi, r0:r1, :, 0].float().repeat_interleave(g, dim=1).t()
+            if q_int8:
+                sc = sc * qsc[bi][:, None]
+            mx = sc.amax(dim=1)
+            pw = torch.exp(sc - mx[:, None])
+            l = pw.sum(dim=1)
+            if v_scale is not None:
+                pw = pw * v_scale[bi, r0:r1, :, 0].float().repeat_interleave(g, dim=1).t()
+            parts.append((mx, l, torch.einsum("hr,rhd->hd", pw, vv)))
+        top = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+        lt = torch.zeros_like(top)
+        acc = torch.zeros((hq, d), dtype=torch.float32, device=q.device)
+        for mx, l, a in parts:
+            w = torch.exp(mx - top)
+            lt = lt + w * l
+            acc = acc + w[:, None] * a
+        out[bi] = acc / lt[:, None]
+    return out
+
+
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_SPLIT_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
 def decode_attention(q, k, v, lengths, scale, *, k_scale=None, v_scale=None,
-                     q_int8=False):
+                     q_int8=False, arm: str = "split"):
     """Batched single-token decode attention over a strip cache.
 
     q: [B, Hq, D] — NOT pre-scaled (``scale`` is folded in here).
@@ -122,6 +183,7 @@ def decode_attention(q, k, v, lengths, scale, *, k_scale=None, v_scale=None,
       effect over int8 caches only.
     lengths: [B] int — rows s < lengths[b] are attended (the just-written
       token included); the kernel reads no row past a slot's own length.
+    arm: the kernel's arm on a CUDA tensor, "split" or "slot" (`ARMS`).
     Returns [B, Hq, D] float32.  CPU tensor: the plain version; CUDA tensor:
     the kernel."""
     if q.device.type == "cpu":
@@ -129,6 +191,8 @@ def decode_attention(q, k, v, lengths, scale, *, k_scale=None, v_scale=None,
                                       v_scale=v_scale, q_int8=q_int8)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: unsupported device {q.device}")
+    if arm not in ARMS:
+        raise ValueError(f"decode_attention: unknown arm {arm!r}, not in {ARMS}")
     _check_args(q, k, v, lengths, k_scale, v_scale)
     b, hq, d = q.shape
     s, hkv = k.shape[1], k.shape[2]
@@ -154,31 +218,46 @@ def decode_attention(q, k, v, lengths, scale, *, k_scale=None, v_scale=None,
         raise ValueError("decode_attention: scales must be f32 [B, S, Hkv, 1]")
     qs = (q.float() * scale).contiguous()
     lens = lengths.to(device=q.device, dtype=torch.int32).contiguous()
-    return launch(qs, k, v, lens, k_scale, v_scale, q_int8=q_int8)
+    return launch(qs, k, v, lens, k_scale, v_scale, q_int8=q_int8, arm=arm)
 
 
-def launch(qs, k, v, lens, k_scale=None, v_scale=None, q_int8=False) -> torch.Tensor:
-    """Launch the CUDA kernel on checked operands (q already scaled, int32
-    lengths) on the current stream; the arm follows k's type and
-    ``q_int8``; counts one launch."""
+def launch(qs, k, v, lens, k_scale=None, v_scale=None, q_int8=False,
+           arm: str = "split") -> torch.Tensor:
+    """Launch the CUDA kernel's ``arm`` on checked operands (q already
+    scaled, int32 lengths) on the current stream; the cache arm follows k's
+    type and ``q_int8``; counts one launch (the split arm's two kernels are
+    one launch of the arm)."""
     b, hq, d = qs.shape
     s, hkv = k.shape[1], k.shape[2]
     quantized = k_scale is not None
     lpr_log2 = max(0, (d // _EPL[k.dtype] - 1).bit_length())  # lanes a row: 2**lpr_log2
     out = torch.empty((b, hq, d), dtype=torch.float32, device=qs.device)
     lib = _build.load("decode_attention")
-    fn = lib.decode_attention
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    err = fn(qs.data_ptr(), k.data_ptr(), v.data_ptr(),
-             k_scale.data_ptr() if quantized else None,
-             v_scale.data_ptr() if quantized else None,
-             lens.data_ptr(), out.data_ptr(), b, s, hq, hkv, d, KV_TYPES[k.dtype], int(q_int8),
-             lpr_log2,
-             torch.cuda.current_stream(qs.device).cuda_stream)
-    _build.check(err, "decode_attention")
-    global launches, q8_launches, bf16_launches
+    stream = torch.cuda.current_stream(qs.device).cuda_stream
+    scales = (k_scale.data_ptr() if quantized else None, v_scale.data_ptr() if quantized else None)
+    if arm == "split":
+        ns = -(-s // SPLIT_ROWS)
+        part = torch.empty((b, hq, ns, d), dtype=torch.float32, device=qs.device)
+        part_ml = torch.empty((b, hq, ns, 2), dtype=torch.float32, device=qs.device)
+        fn = lib.decode_attention_split
+        fn.argtypes = _SPLIT_ARGTYPES
+        fn.restype = ctypes.c_int
+        err = fn(qs.data_ptr(), k.data_ptr(), v.data_ptr(), *scales, lens.data_ptr(),
+                 out.data_ptr(), part.data_ptr(), part_ml.data_ptr(), b, s, hq, hkv, d,
+                 KV_TYPES[k.dtype], int(q_int8), lpr_log2, stream)
+    elif arm == "slot":
+        fn = lib.decode_attention
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+        err = fn(qs.data_ptr(), k.data_ptr(), v.data_ptr(), *scales, lens.data_ptr(),
+                 out.data_ptr(), b, s, hq, hkv, d, KV_TYPES[k.dtype], int(q_int8), lpr_log2,
+                 stream)
+    else:
+        raise ValueError(f"decode_attention: unknown arm {arm!r}, not in {ARMS}")
+    _build.check(err, f"decode_attention ({arm})")
+    global launches, split_launches, q8_launches, bf16_launches
     launches += 1
+    split_launches += arm == "split"
     q8_launches += bool(q_int8)
     bf16_launches += k.dtype == torch.bfloat16
     return out

@@ -33,12 +33,15 @@ per-row absmax scale, int8 codes, row sums and gathered salient codes in
 one launch per linear, the operands both int8 kernels take.
 
 int8 arms (`int8_arm`): the int8 kernel, flat and stacked, runs on the
-CUDA cores (`__dp4a`, x8 in natural column order) or on the int8 tensor
+CUDA cores ("dp4a", x8 in natural column order) or on the int8 tensor
 cores (`wgmma`, x8 in `byte_permute_x`'s padded order grouped by word
-group, `tc_x_columns`; xg8 padded to 32 slots).  The operands carry their
-layout (`Int8Operands.layout`, named by its arm), the x preparation writes
-it, and the launch takes that arm.  Both arms and the plain version give
-the same bits on the same operands.
+group, `tc_x_columns`; xg8 padded to 32 slots): "tc" at prefill rows,
+"split" at decode rows (8 or 16 x rows a block, the K stages of a tile cut
+into `int8_ksplit` ranges whose blocks add their int32 dots through
+distributed shared memory).  The operands carry their layout
+(`Int8Operands.layout`: "dp4a", or "tc" for both tensor-core arms), the x
+preparation writes it, and the launch takes an arm of that layout.  Every
+arm and the plain version give the same bits on the same operands.
 
 f32 arms (`f32_arm`): the exact f32 kernel, flat and stacked, runs on the
 f32 CUDA cores (select-and-add) below F32_TC rows, and from there, for
@@ -77,18 +80,27 @@ stacked_f32_launches = 0  # kernel launches of pb_f32_matmul_stacked
 prep_launches = 0  # kernel launches of prepare_int8 (csrc/pb_prep_int8.cu)
 tc_launches = 0  # kernel launches of pb_int8_matmul's tensor-core arm
 stacked_tc_launches = 0  # kernel launches of pb_int8_matmul_stacked's tensor-core arm
+split_launches = 0  # kernel launches of pb_int8_matmul's decode arm ("split")
+stacked_split_launches = 0  # kernel launches of pb_int8_matmul_stacked's decode arm
 f32_tc_launches = 0  # kernel launches of pb_f32_matmul's tensor-core arm
 stacked_f32_tc_launches = 0  # kernel launches of pb_f32_matmul_stacked's tensor-core arm
 
-# The int8 kernel's arms: "dp4a" (CUDA cores) below M_TC rows, "tc" (int8
-# tensor cores) from M_TC rows on, where the layout allows (`int8_arm`).
-# On an H100 (700 W) the tensor cores win alone from 8 rows on llama-7b's
-# three shapes (chip_smoke.py phase 2), but in the graphed decode step of 8
-# slots, kernel after kernel, they lose a quarter of a millisecond a step
-# (scripts/torch_int8_arm_ab.py): decode stays on the dp4a arm (PERF.md).
+# The int8 kernel's arms: below M_TC rows DECODE_ARM ("split", the int8
+# tensor cores with a K split over a cluster of blocks, or "dp4a", the CUDA
+# cores), from M_TC rows on "tc" (the int8 tensor cores, 64 or 128 x rows a
+# block), where the layout allows (`int8_arm`; else "dp4a").  On an H100
+# (700 W) "tc" wins alone from 8 rows on llama-7b's three shapes, but in the
+# graphed decode step of 8 slots it lost a quarter of a millisecond a step
+# (scripts/torch_int8_arm_ab.py), so it starts at M_TC.  DECODE_ARM is the
+# arm the graphed decode step ran faster in turns (PERF.md).
 M_TC = 16
-TC_OC = 128  # the tensor-core arm's output columns a block: one row group each
-ARMS = ("dp4a", "tc")  # also the names of their operand layouts
+DECODE_ARM = "split"
+TC_OC = 128  # the tensor-core arms' output columns a block: one row group each
+ARMS = ("dp4a", "split", "tc")
+LAYOUTS = ("dp4a", "tc")  # operand layouts: "tc" is both tensor-core arms'
+SPLIT_MAX_M = 16  # the split arm's x rows (its block's N)
+SPLIT_BLOCKS = 264  # the split arm's K ranges aim at this many blocks (two an SM)
+SPLIT_SK = 128  # the tensor-core arms' sidecar chunk (slots a stage)
 
 
 class Int8Operands(NamedTuple):
@@ -111,10 +123,50 @@ def tc_layout_ok(p: PackedLinearV2) -> bool:
 
 
 def int8_arm(m: int, p: PackedLinearV2) -> str:
-    """The int8 kernel's arm for ``m`` rows of x on layout ``p``: "tc" at
-    m >= M_TC where `tc_layout_ok`, else "dp4a".  The one place the arm is
-    chosen, for the flat and the stacked entry."""
-    return "tc" if m >= M_TC and tc_layout_ok(p) else "dp4a"
+    """The int8 kernel's arm for ``m`` rows of x on layout ``p``: where
+    `tc_layout_ok`, "tc" at m >= M_TC and DECODE_ARM below; "dp4a" on
+    layouts the tensor cores do not take.  The one place the arm is chosen,
+    for the flat and the stacked entry."""
+    if not tc_layout_ok(p):
+        return "dp4a"
+    return "tc" if m >= M_TC else DECODE_ARM
+
+
+def layout_of(arm: str) -> str:
+    """The operand layout an arm takes."""
+    if arm not in ARMS:
+        raise ValueError(f"unknown int8 arm {arm!r}")
+    return "dp4a" if arm == "dp4a" else "tc"
+
+
+def tc_stages(p: PackedLinearV2) -> Tuple[int, int]:
+    """The tensor-core arms' K stages of layout ``p``: (word groups of 8 sign
+    words, padded bit runs included; sidecar chunks of SPLIT_SK slots of
+    xg8's padded row), in the kernel's order: word groups first."""
+    groups = sum(-(-(rows // packing.WORD_BITS) // 8)
+                 for rows in packing.block_sizes(p.ic_local, p.pack_block_local))
+    return groups, -(-_tc_slots(p.k_pad) // SPLIT_SK)
+
+
+def int8_ksplit(p: PackedLinearV2) -> int:
+    """The split arm's K ranges a 128-column tile, from the layer's shape
+    alone (so a row's sums are the same whatever m is): the least power of
+    two that brings the tiles times the ranges to SPLIT_BLOCKS, at most 8
+    (a portable cluster) and at most the stages."""
+    tiles = -(-p.oc_local // TC_OC)
+    stages = sum(tc_stages(p))
+    ks = 1
+    while ks < 8 and ks * tiles < SPLIT_BLOCKS and 2 * ks <= stages:
+        ks *= 2
+    return ks
+
+
+def int8_ranges(p: PackedLinearV2) -> list:
+    """The split arm's K ranges of layout ``p``: range r is the stages
+    r·n // ks .. (r + 1)·n // ks - 1 of the n stages (`tc_stages`), as the
+    kernel's block y = r reads them."""
+    n, ks = sum(tc_stages(p)), int8_ksplit(p)
+    return [(r * n // ks, (r + 1) * n // ks) for r in range(ks)]
 
 
 @functools.lru_cache(maxsize=64)
@@ -189,9 +241,10 @@ def _tc_slots(k: int) -> int:
 
 
 def to_layout(ops: Int8Operands, p: PackedLinearV2, layout: str) -> Int8Operands:
-    """The same operands in the other arm's layout: "dp4a" (x8 [m, ic],
-    xg8 [n_rg, m, k_pad]) or "tc" (x8 [m, icp] in `tc_x_columns`' order,
-    xg8 [n_rg, m, round_up(k_pad, 32)] padded with zeros)."""
+    """The same operands in the other layout: "dp4a" (x8 [m, ic], xg8
+    [n_rg, m, k_pad]) or "tc" (both tensor-core arms': x8 [m, icp] in
+    `tc_x_columns`' order, xg8 [n_rg, m, round_up(k_pad, 32)] padded with
+    zeros)."""
     if layout == ops.layout:
         return ops
     pb = p.pack_block_local
@@ -244,7 +297,7 @@ def prepare_int8(x: torch.Tensor, p: PackedLinearV2, layout: str = "dp4a") -> In
     a CPU tensor the plain version, on a CUDA tensor one launch of
     `csrc/pb_prep_int8.cu` (the plain version's codes and scales bit for
     bit, its sums within `sum_bound`)."""
-    if layout not in ARMS:
+    if layout not in LAYOUTS:
         raise ValueError(f"prepare_int8: unknown layout {layout!r}")
     if x.device.type == "cpu":
         return prepare_int8_plain(x, p, layout)
@@ -349,7 +402,7 @@ def int8_matmul_plain(ops: Int8Operands, p: PackedLinearV2) -> torch.Tensor:
     return _epilogue(acc_b, acc_v.float(), ops, p)
 
 
-_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
 
 
 def pb_int8_matmul(x: torch.Tensor, p: PackedLinearV2) -> torch.Tensor:
@@ -362,7 +415,8 @@ def pb_int8_matmul(x: torch.Tensor, p: PackedLinearV2) -> torch.Tensor:
         raise ValueError("pb_int8_matmul needs low_bits == 1")
     if p.k_pad % 4:
         raise ValueError(f"pb_int8_matmul: k_pad {p.k_pad} must be a multiple of 4")
-    return launch_int8(prepare_int8(x, p, int8_arm(x.shape[0], p)), p)
+    arm = int8_arm(x.shape[0], p)
+    return launch_int8(prepare_int8(x, p, layout_of(arm)), p, arm)
 
 
 def check_operands(x: torch.Tensor, p: PackedLinearV2, what: str) -> None:
@@ -382,23 +436,55 @@ def check_operands(x: torch.Tensor, p: PackedLinearV2, what: str) -> None:
         raise ValueError(f"{what}: planes must be contiguous")
 
 
-def _arm_of(ops: Int8Operands, p: PackedLinearV2, what: str) -> int:
-    """The C arm code the operands' layout names (0 dp4a, 1 tensor cores)."""
-    if ops.layout == "dp4a":
-        return 0
-    if ops.layout != "tc":
+_ARM_CODES = {"dp4a": 0, "tc": 1, "split": 2}  # the C entries' arm argument
+
+
+def _arm_of(ops: Int8Operands, p: PackedLinearV2, arm, what: str) -> str:
+    """The arm a launch takes on ``ops``: ``arm``, or by default the arm
+    `int8_arm` picks for their rows where it takes their layout, else the
+    layout's own ("dp4a" or "tc").  Raises where the arm does not take the
+    operands' layout, the layer's layout, or their rows."""
+    if ops.layout not in LAYOUTS:
         raise ValueError(f"{what}: unknown operand layout {ops.layout!r}")
-    if not tc_layout_ok(p):
+    m = ops.sx.shape[0]
+    if arm is None:
+        arm = int8_arm(m, p)
+        if layout_of(arm) != ops.layout:
+            arm = ops.layout
+    if layout_of(arm) != ops.layout:
+        raise ValueError(f"{what}: arm {arm!r} takes the {layout_of(arm)!r} layout, "
+                         f"the operands are {ops.layout!r}")
+    if arm != "dp4a" and not tc_layout_ok(p):
         raise ValueError(f"{what}: the tensor-core arm does not take this layout "
                          f"(oc {p.oc_local}, col_tile {p.col_tile})")
-    return 1
+    if arm == "split" and m > SPLIT_MAX_M:
+        raise ValueError(f"{what}: the split arm takes at most {SPLIT_MAX_M} rows, got {m}")
+    return arm
 
 
-def launch_int8(ops: Int8Operands, p: PackedLinearV2) -> torch.Tensor:
+def _count(arm: str, stacked: bool) -> None:
+    global launches, tc_launches, split_launches
+    global stacked_launches, stacked_tc_launches, stacked_split_launches
+    if stacked:
+        if arm == "dp4a":
+            stacked_launches += 1
+        elif arm == "tc":
+            stacked_tc_launches += 1
+        else:
+            stacked_split_launches += 1
+    elif arm == "dp4a":
+        launches += 1
+    elif arm == "tc":
+        tc_launches += 1
+    else:
+        split_launches += 1
+
+
+def launch_int8(ops: Int8Operands, p: PackedLinearV2, arm=None) -> torch.Tensor:
     """Launch the CUDA kernel on prepared operands (all on one CUDA device)
-    on the current stream, in the arm their layout names; counts one launch
-    of that arm."""
-    arm = _arm_of(ops, p, "pb_int8_matmul")
+    on the current stream, in ``arm`` (by default as `_arm_of` says); counts
+    one launch of that arm."""
+    arm = _arm_of(ops, p, arm, "pb_int8_matmul")
     m, ic = ops.sx.shape[0], p.ic_local
     oc = p.oc_local
     out = torch.empty((m, oc), dtype=torch.float32, device=ops.x8.device)
@@ -410,13 +496,10 @@ def launch_int8(ops: Int8Operands, p: PackedLinearV2) -> torch.Tensor:
              ops.rsg.data_ptr(), p.sign_packed.data_ptr(), p.side_val.data_ptr(),
              ops.coef.data_ptr(), out.data_ptr(),
              m, ic, oc, p.pack_block_local, p.side_bits, p.k_pad, p.k_pad_shard_local,
-             p.col_tile, p.n_row_groups, arm, torch.cuda.current_stream(out.device).cuda_stream)
-    _build.check(err, "pb_int8_matmul")
-    global launches, tc_launches
-    if arm:
-        tc_launches += 1
-    else:
-        launches += 1
+             p.col_tile, p.n_row_groups, int8_ksplit(p), _ARM_CODES[arm],
+             torch.cuda.current_stream(out.device).cuda_stream)
+    _build.check(err, f"pb_int8_matmul ({arm})")
+    _count(arm, stacked=False)
     return out
 
 
@@ -770,7 +853,8 @@ def pb_int8_matmul_stacked(x: torch.Tensor, marker) -> torch.Tensor:
     p = _check_stacked(x, marker, "pb_int8_matmul_stacked")
     if p.k_pad % 4:
         raise ValueError(f"pb_int8_matmul_stacked: k_pad {p.k_pad} must be a multiple of 4")
-    return launch_int8_stacked(prepare_int8(x, p, int8_arm(x.shape[0], p)), marker)
+    arm = int8_arm(x.shape[0], p)
+    return launch_int8_stacked(prepare_int8(x, p, layout_of(arm)), marker, arm)
 
 
 def pb_f32_matmul_stacked(x: torch.Tensor, marker) -> torch.Tensor:
@@ -785,18 +869,19 @@ def pb_f32_matmul_stacked(x: torch.Tensor, marker) -> torch.Tensor:
     return launch_f32_stacked(prepare_f32(x, p), marker)
 
 
-_STACKED_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_STACKED_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 _STACKED_F32_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _STACKED_F32_TC_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
-def launch_int8_stacked(ops: Int8Operands, marker) -> torch.Tensor:
+def launch_int8_stacked(ops: Int8Operands, marker, arm=None) -> torch.Tensor:
     """Launch the stacked int8 kernel on layer li's prepared operands; it
     reads the whole [L] planes and coefficients (``ops.coef`` is unused) and
-    li from ``marker.idx_t``, in the arm the operands' layout names.
+    li from ``marker.idx_t``, in ``arm`` (by default as `_arm_of` says).
     Counts one launch of that arm."""
     sp = marker.stacked
-    arm = _arm_of(ops, stacked_layer(marker), "pb_int8_matmul_stacked")
+    p = stacked_layer(marker)
+    arm = _arm_of(ops, p, arm, "pb_int8_matmul_stacked")
     m, ic = ops.sx.shape[0], sp.sign_packed.shape[1] * 32
     oc = sp.sign_packed.shape[2]
     out = torch.empty((m, oc), dtype=torch.float32, device=ops.sx.device)
@@ -807,14 +892,10 @@ def launch_int8_stacked(ops: Int8Operands, marker) -> torch.Tensor:
              ops.rsg.data_ptr(), sp.sign_packed.data_ptr(), sp.side_val.data_ptr(),
              coef_rows(sp).data_ptr(), out.data_ptr(), marker.idx_t.data_ptr(),
              m, ic, oc, min(sp.pack_block, ic), sp.side_bits,
-             sp.side_val.shape[1] * (8 // sp.side_bits), sp.sign_packed.shape[0], arm,
-             torch.cuda.current_stream(out.device).cuda_stream)
-    _build.check(err, "pb_int8_matmul_stacked")
-    global stacked_launches, stacked_tc_launches
-    if arm:
-        stacked_tc_launches += 1
-    else:
-        stacked_launches += 1
+             sp.side_val.shape[1] * (8 // sp.side_bits), sp.sign_packed.shape[0],
+             int8_ksplit(p), _ARM_CODES[arm], torch.cuda.current_stream(out.device).cuda_stream)
+    _build.check(err, f"pb_int8_matmul_stacked ({arm})")
+    _count(arm, stacked=True)
     return out
 
 

@@ -33,9 +33,12 @@ another order than the plain version: rtol 1e-4, atol 1e-4.  The stacked
 int8 kernel, like the flat one, equals its plain version on the same
 operands bit for bit, and each stacked kernel equals its flat kernel bit
 for bit on the same layer (the same device code and tiling).  The int8
-kernel's two arms (dp4a, tensor cores) sum the same integers exactly and
-share the epilogue, so they equal each other bit for bit on the same
-operands, each in its layout.  The
+kernel's arms (dp4a, the tensor cores, and their K-split decode arm
+"split") sum the same integers exactly and share the epilogue, so they
+equal each other bit for bit on the same operands, each in its layout.
+Decode attention's two kernel arms ("split", "slot") keep its bounds; the
+split arm, captured in a CUDA graph and replayed with new lengths, equals
+an eager launch bit for bit (its merge adds the splits in a fixed order).  The
 x-preparation kernel's codes and scales equal its plain version's bit for
 bit (IEEE division, rounding half to even); its row sums (f64, rounded
 once) lie within `packed_matmul.sum_bound` of the plain f32 sums, and x
@@ -99,28 +102,34 @@ def _layer(name, dev):
 
 # rows of x: decode, both sides of the arms' crossover M_TC, prefill
 INT8_MS = sorted({1, 8, packed_matmul.M_TC - 1, packed_matmul.M_TC, 256, 300, 513, 1024})
-_ARM_COUNTER = {"dp4a": "launches", "tc": "tc_launches"}
+_ARM_COUNTER = {"dp4a": "launches", "tc": "tc_launches", "split": "split_launches"}
+
+
+def _arms_for(p, m):
+    """The int8 arms that take layout ``p`` at ``m`` rows."""
+    return [a for a in packed_matmul.ARMS
+            if (a == "dp4a" or packed_matmul.tc_layout_ok(p))
+            and (a != "split" or m <= packed_matmul.SPLIT_MAX_M)]
 
 
 def _int8_arms_agree(p, x):
     """The flat kernel through the arm `int8_arm` picks (one launch of that
     arm), against the plain version on the same operands bit for bit, and
-    the other arm on the same operands (moved to its layout) bit for bit
-    wherever the tensor cores take the layout.  Returns the kernel's y."""
+    every other arm that takes the layout and the rows on the same operands
+    (moved to its layout) bit for bit.  Returns the kernel's y."""
     arm = packed_matmul.int8_arm(x.shape[0], p)
     counter = _ARM_COUNTER[arm]
     before = getattr(packed_matmul, counter)
     got = packed_matmul.pb_int8_matmul(x, p)
     torch.cuda.synchronize()
     assert getattr(packed_matmul, counter) == before + 1, arm
-    ops = packed_matmul.prepare_int8(x, p, arm)
+    ops = packed_matmul.prepare_int8(x, p, packed_matmul.layout_of(arm))
     plain = packed_matmul.int8_matmul_plain(ops, p)
     assert torch.equal(got, plain), (got - plain).abs().max()
-    if packed_matmul.tc_layout_ok(p):
-        tc = packed_matmul.launch_int8(packed_matmul.to_layout(ops, p, "tc"), p)
-        dp4a = packed_matmul.launch_int8(packed_matmul.to_layout(ops, p, "dp4a"), p)
-        assert torch.equal(tc, dp4a), (tc - dp4a).abs().max()
-        assert torch.equal(tc, got)
+    for other in _arms_for(p, x.shape[0]):
+        y = packed_matmul.launch_int8(
+            packed_matmul.to_layout(ops, p, packed_matmul.layout_of(other)), p, other)
+        assert torch.equal(y, got), (other, (y - got).abs().max())
     want = packed_matmul.pb_int8_matmul_plain(x, p)
     assert (got - want).abs().max() <= 1e-6 * want.abs().max()
     return got
@@ -147,6 +156,69 @@ def test_int8_matmul_tensor_cores_at_llama_ragged_pack_block(cuda):
     _int8_arms_agree(p, x)
 
 
+_LLAMA_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096))
+_llama_cache = {}
+
+
+def _llama_stack(ic, oc, side_bits):
+    """Two random llama-7b-width layers (low_frac 0.9) and their stacked
+    markers, on the card, made once per module."""
+    from pb_llm_tpu_torch.models import stacking
+
+    key = (ic, oc, side_bits)
+    if key not in _llama_cache:
+        g = torch.Generator(device="cuda").manual_seed(ic + oc + side_bits)
+        layers = [random_packed_v2(ic, oc, g, low_frac=0.9, side_bits=side_bits) for _ in range(2)]
+        sp = stacking.stack_layers({"layers": [{"w": p} for p in layers]})["layers_stacked"]["w"]
+        idx = torch.arange(2, dtype=torch.int32, device="cuda")
+        _llama_cache.clear()  # one shape at a time on the card
+        _llama_cache[key] = layers, [stacking.StackedPackedLinearV2(sp, li, idx[li:li + 1])
+                                     for li in range(2)]
+    return _llama_cache[key]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ic,oc", _LLAMA_SHAPES)
+@pytest.mark.parametrize("side_bits", [8, 4])
+@pytest.mark.parametrize("m", range(1, packed_matmul.SPLIT_MAX_M))
+def test_int8_split_arm_at_llama_width_is_bit_exact(cuda, ic, oc, side_bits, m):
+    """The decode arm ("split": the tensor cores with the K split of
+    `int8_ksplit` over a cluster) at m = 1..15 on llama-7b's three shapes:
+    flat and stacked (layer 1 of 2), 8-bit and nibble sidecars, bit for bit
+    with the plain version and with the dp4a arm on the same operands."""
+    layers, markers = _llama_stack(ic, oc, side_bits)
+    p, mk = layers[1], markers[1]
+    x = torch.randn((m, ic), generator=torch.Generator(device=cuda).manual_seed(m), device=cuda)
+    ops = packed_matmul.prepare_int8(x, p, "tc")
+    before = (packed_matmul.split_launches, packed_matmul.stacked_split_launches)
+    got = packed_matmul.launch_int8(ops, p, "split")
+    stacked = packed_matmul.launch_int8_stacked(ops, mk, "split")
+    dp4a = packed_matmul.launch_int8(packed_matmul.to_layout(ops, p, "dp4a"), p, "dp4a")
+    torch.cuda.synchronize()
+    assert (packed_matmul.split_launches, packed_matmul.stacked_split_launches) == (
+        before[0] + 1, before[1] + 1)
+    plain = packed_matmul.int8_matmul_plain(ops, p)
+    assert torch.equal(got, plain), (got - plain).abs().max()
+    assert torch.equal(stacked, got) and torch.equal(dp4a, got)
+
+
+@pytest.mark.cuda
+def test_int8_split_arm_refuses_what_it_cannot_take(cuda):
+    """More rows than its tile, operands in the dp4a layout, a layout the
+    tensor cores do not take: each raises before anything launches."""
+    p = _layer("side8", cuda)
+    x = torch.randn((packed_matmul.SPLIT_MAX_M + 1, p.ic), device=cuda)
+    with pytest.raises(ValueError, match="at most"):
+        packed_matmul.launch_int8(packed_matmul.prepare_int8(x, p, "tc"), p, "split")
+    with pytest.raises(ValueError, match="layout"):
+        packed_matmul.launch_int8(packed_matmul.prepare_int8(x[:8], p, "dp4a"), p, "split")
+    q = _layer("side4_rowgroups", cuda)
+    assert packed_matmul.int8_arm(8, q) == "dp4a"
+    with pytest.raises(ValueError, match="does not take"):
+        packed_matmul.launch_int8(packed_matmul.prepare_int8(
+            torch.randn((8, q.ic), device=cuda), q, "tc"), q, "split")
+
+
 @pytest.mark.cuda
 def test_int8_matmul_kernel_matches_dense_at_unit_scale(cuda):
     """Integer x with absmax 127 per row: the int8 path is exact, so it
@@ -165,9 +237,10 @@ def _quant(x):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("arm", tda.ARMS)
 @pytest.mark.parametrize("quantized", [False, True])
 @pytest.mark.parametrize("hq,hkv,d", [(8, 2, 128), (4, 4, 64), (6, 1, 96)])
-def test_decode_attention_kernel_matches_plain(cuda, quantized, hq, hkv, d):
+def test_decode_attention_kernel_matches_plain(cuda, quantized, hq, hkv, d, arm):
     b, s = 4, 256
     g = torch.Generator(device=cuda).manual_seed(hq * d)
     q, k, v = (torch.randn(shape, generator=g, device=cuda)
@@ -178,21 +251,23 @@ def test_decode_attention_kernel_matches_plain(cuda, quantized, hq, hkv, d):
         (k, ks), (v, vs) = _quant(k), _quant(v)
         kw = dict(k_scale=ks, v_scale=vs)
     args = (q, k, v, lengths, d ** -0.5)
-    before = tda.launches
-    got = tda.decode_attention(*args, **kw)
+    before = (tda.launches, tda.split_launches)
+    got = tda.decode_attention(*args, **kw, arm=arm)
     torch.cuda.synchronize()
-    assert tda.launches == before + 1
+    assert (tda.launches, tda.split_launches) == (before[0] + 1, before[1] + (arm == "split"))
     want = tda.decode_attention_plain(*args, **kw)
     assert torch.equal(got[0], torch.zeros_like(got[0]))
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kernel_arm", tda.ARMS)
 @pytest.mark.parametrize("arm", ["bf16", "q8"])
 @pytest.mark.parametrize("hq,hkv,d", [(8, 2, 128), (4, 4, 64), (6, 1, 96), (32, 32, 128)])
-def test_decode_attention_bf16_and_q8_arms_match_plain(cuda, arm, hq, hkv, d):
+def test_decode_attention_bf16_and_q8_arms_match_plain(cuda, arm, hq, hkv, d, kernel_arm):
     """bf16 strips, and the q8 arm over int8 strips, against their plain
-    versions on the same card tensors; each launch counts on its arm."""
+    versions on the same card tensors, in both kernel arms; each launch
+    counts on its arm."""
     b, s = 4, 256
     g = torch.Generator(device=cuda).manual_seed(hq * d + len(arm))
     q, k, v = (torch.randn(shape, generator=g, device=cuda)
@@ -206,7 +281,7 @@ def test_decode_attention_bf16_and_q8_arms_match_plain(cuda, arm, hq, hkv, d):
         kw = dict(k_scale=ks, v_scale=vs, q_int8=True)
     args = (q, k, v, lengths, d ** -0.5)
     before = (tda.launches, tda.bf16_launches, tda.q8_launches)
-    got = tda.decode_attention(*args, **kw)
+    got = tda.decode_attention(*args, **kw, arm=kernel_arm)
     torch.cuda.synchronize()
     assert (tda.launches, tda.bf16_launches, tda.q8_launches) == (
         before[0] + 1, before[1] + (arm == "bf16"), before[2] + (arm == "q8"))
@@ -216,8 +291,9 @@ def test_decode_attention_bf16_and_q8_arms_match_plain(cuda, arm, hq, hkv, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("arm", tda.ARMS)
 @pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2)])
-def test_decode_attention_q8_scores_are_exact_at_unit_scales(cuda, hq, hkv):
+def test_decode_attention_q8_scores_are_exact_at_unit_scales(cuda, hq, hkv, arm):
     """The q8 arm's int32 scores, read back exactly.  q holds integers with
     max|q| = 127 (qsc = 1, codes = q), K and V unit scales, and V row r is
     the unit vector e_r, so out[h, r] = softmax(s)_r: log(out_r / out_0)
@@ -235,13 +311,82 @@ def test_decode_attention_q8_scores_are_exact_at_unit_scales(cuda, hq, hkv):
     v[:, torch.arange(d), :, torch.arange(d)] = 1
     ones = torch.ones((b, s, hkv, 1), device=cuda)
     lengths = torch.full((b,), n, dtype=torch.int32, device=cuda)
-    out = tda.decode_attention(q, k, v, lengths, 1.0, k_scale=ones, v_scale=ones, q_int8=True)
+    out = tda.decode_attention(q, k, v, lengths, 1.0, k_scale=ones, v_scale=ones, q_int8=True,
+                               arm=arm)
     torch.cuda.synchronize()
     want = torch.einsum("bkgd,bskd->bkgs", q.double().reshape(b, hkv, hq // hkv, d),
                         k[:, :n].double()).reshape(b, hq, n)
     got = torch.log(out[..., :n].double() / out[..., :1].double())
     assert torch.equal(torch.round(got), want - want[..., :1])
     assert (got - torch.round(got)).abs().max() < 1e-2
+
+
+# the split arm at its split boundaries (SPLIT_ROWS = 64) and max_seq 256
+_SPLIT_LENGTHS = ([0, 1, 64, 256], [63, 65, 128, 129], [256, 0, 2, 192])
+
+
+def _attn_case(dev, kind, b=4, s=256, hq=8, hkv=2, d=128, seed=0):
+    """q, k, v and the keyword arguments of one cache arm."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=g, device=dev)
+               for shape in ((b, hq, d), (b, s, hkv, d), (b, s, hkv, d)))
+    if kind == "bf16":
+        return q, k.to(torch.bfloat16), v.to(torch.bfloat16), {}
+    if kind == "f32":
+        return q, k, v, {}
+    (k, ks), (v, vs) = _quant(k), _quant(v)
+    return q, k, v, dict(k_scale=ks, v_scale=vs, q_int8=kind == "q8")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8", "q8"])
+def test_decode_attention_split_arm_under_a_graph_whose_lengths_change(cuda, kind):
+    """The split arm captured once in a CUDA graph (its grid follows
+    max_seq alone), replayed with new lengths on the device each time: each
+    replay equals an eager launch bit for bit (a fixed merge order, no
+    atomics) and the plain version within the kernel's bounds; empty slots
+    give zeros."""
+    q, k, v, kw = _attn_case(cuda, kind)
+    lengths = torch.tensor(_SPLIT_LENGTHS[0], dtype=torch.int32, device=cuda)
+    tda.decode_attention(q, k, v, lengths, 0.088, **kw)  # built and warm before the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tda.decode_attention(q, k, v, lengths, 0.088, **kw)
+    for lens in _SPLIT_LENGTHS:
+        lengths.copy_(torch.tensor(lens, dtype=torch.int32))
+        graph.replay()
+        eager = tda.decode_attention(q, k, v, lengths, 0.088, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager), lens
+        want = tda.decode_attention_plain(q, k, v, lengths, 0.088, **kw)
+        torch.testing.assert_close(out, want, rtol=1e-4, atol=1e-5)
+        for i, n in enumerate(lens):
+            if n == 0:
+                assert torch.equal(out[i], torch.zeros_like(out[i]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int8", "bf16"])
+def test_decode_attention_split_arm_at_the_serving_shape(cuda, kind):
+    """8 slots of max_seq 2048, 32 heads of 128, lengths up to 2048: both
+    kernel arms against the plain version and each other."""
+    q, k, v, kw = _attn_case(cuda, kind, b=8, s=2048, hq=32, hkv=32, seed=5)
+    lengths = torch.tensor([512, 134, 56, 153, 212, 417, 2048, 0], dtype=torch.int32, device=cuda)
+    split = tda.decode_attention(q, k, v, lengths, 0.088, **kw)
+    slot = tda.decode_attention(q, k, v, lengths, 0.088, **kw, arm="slot")
+    torch.cuda.synchronize()
+    want = tda.decode_attention_plain(q, k, v, lengths, 0.088, **kw)
+    torch.testing.assert_close(split, want, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(slot, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_decode_attention_refuses_an_unknown_arm(cuda):
+    q, k, v, kw = _attn_case(cuda, "f32")
+    with pytest.raises(ValueError, match="unknown arm"):
+        tda.decode_attention(q, k, v, torch.ones(4, dtype=torch.int32, device=cuda), 0.1,
+                             arm="flash")
 
 
 @pytest.mark.cuda
@@ -884,7 +1029,8 @@ def _stacked(dev, side_bits=8, n=3):
     return layers, [stacking.StackedPackedLinearV2(sp, li, idx[li : li + 1]) for li in range(n)]
 
 
-_STACKED_COUNTER = {"dp4a": "stacked_launches", "tc": "stacked_tc_launches"}
+_STACKED_COUNTER = {"dp4a": "stacked_launches", "tc": "stacked_tc_launches",
+                    "split": "stacked_split_launches"}
 _STACKED_F32_COUNTER = {"cores": "stacked_f32_launches", "tc": "stacked_f32_tc_launches"}
 
 
@@ -904,12 +1050,13 @@ def test_stacked_kernels_match_plain_and_the_flat_kernels(cuda, side_bits, m):
         torch.cuda.synchronize()
         assert (getattr(packed_matmul, counter), getattr(packed_matmul, f32_counter)) == (
             before[0] + 1, before[1] + 1)
-        ops = packed_matmul.prepare_int8(x, p, arm)
+        ops = packed_matmul.prepare_int8(x, p, packed_matmul.layout_of(arm))
         assert torch.equal(i8, packed_matmul.int8_matmul_plain(ops, p))
-        assert torch.equal(i8, packed_matmul.launch_int8(ops, p))  # stacked = flat, same operands
-        for layout in ("dp4a", "tc"):  # both arms of the stacked entry, the same bits
+        # stacked = flat, same operands
+        assert torch.equal(i8, packed_matmul.launch_int8(ops, p, arm))
+        for other in _arms_for(p, m):  # every arm of the stacked entry, the same bits
             assert torch.equal(i8, packed_matmul.launch_int8_stacked(
-                packed_matmul.to_layout(ops, p, layout), mk)), layout
+                packed_matmul.to_layout(ops, p, packed_matmul.layout_of(other)), mk, other)), other
         want = packed_matmul.pb_int8_matmul_stacked_plain(x, mk)
         assert (i8 - want).abs().max() <= 1e-6 * want.abs().max()
         torch.testing.assert_close(f32, packed_matmul.pb_f32_matmul_stacked_plain(x, mk),
@@ -921,8 +1068,8 @@ def test_stacked_kernels_match_plain_and_the_flat_kernels(cuda, side_bits, m):
 def test_decode_arms_and_stacked_dispatch_on_the_card_take_the_kernels(cuda):
     """decode_dot pair / dma on a CUDA tensor launch their kernels (pair at
     8 rows its "split" arm); a stacked marker launches the stacked int8
-    kernel on "int8" and the stacked f32 kernel on the other arms, at
-    m <= 256 (8 rows: the CUDA-core arms)."""
+    kernel on "int8" (8 rows: the arm `int8_arm` picks) and the stacked f32
+    kernel on the other arms (8 rows: its CUDA-core arm), at m <= 256."""
     from pb_llm_tpu_torch.ops import binary_matmul, decode_arms
     from pb_llm_tpu_torch.ops.kernel_config import KernelConfig, use_kernels
 
@@ -931,9 +1078,11 @@ def test_decode_arms_and_stacked_dispatch_on_the_card_take_the_kernels(cuda):
     _, markers = _stacked(cuda)
     xs = torch.randn((8, 512), device=cuda)
 
+    stacked = _STACKED_COUNTER[packed_matmul.int8_arm(8, packed_matmul.stacked_layer(markers[1]))]
+
     def counts():
         return (decode_arms.pair_split_launches, decode_arms.dma_launches,
-                packed_matmul.stacked_launches, packed_matmul.stacked_f32_launches)
+                getattr(packed_matmul, stacked), packed_matmul.stacked_f32_launches)
 
     for arm, want in (("pair", (1, 0, 0, 1)), ("dma", (0, 1, 0, 1)), ("int8", (0, 0, 1, 0))):
         before = counts()
@@ -1035,7 +1184,8 @@ def test_prep_int8_cuda_tensor_never_takes_the_plain_version(cuda, monkeypatch):
     p = _layer("side8", cuda)
 
     def counts():
-        return (packed_matmul.prep_launches, packed_matmul.launches + packed_matmul.tc_launches)
+        return (packed_matmul.prep_launches, packed_matmul.launches + packed_matmul.tc_launches
+                + packed_matmul.split_launches)
 
     for m in (4, 300):  # both arms
         before = counts()

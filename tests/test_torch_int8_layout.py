@@ -171,17 +171,19 @@ def test_tensor_core_index_arithmetic_gives_the_exact_dots(layers, name):
 
 
 def test_int8_arm_picks_by_rows_and_layout(layers):
-    """The arm rule: the tensor cores from M_TC rows (16, set from the card's
-    crossover: decode's 8 slots stay on the dp4a arm) where the layout
-    allows, the dp4a arm otherwise."""
-    assert pm.M_TC == 16
+    """The arm rule: where the layout allows, the tensor cores from M_TC
+    rows (16, set from the card's crossover) and below it DECODE_ARM (the
+    arm the graphed decode step ran faster: the tensor cores' K-split arm);
+    the dp4a arm otherwise."""
+    assert pm.M_TC == 16 and pm.DECODE_ARM == "split"
     p = layers["side8"]
-    assert pm.int8_arm(pm.M_TC - 1, p) == "dp4a"
+    assert pm.int8_arm(1, p) == pm.int8_arm(pm.M_TC - 1, p) == "split"
     assert pm.int8_arm(pm.M_TC, p) == pm.int8_arm(1024, p) == "tc"
     assert pm.int8_arm(1024, layers["rowgroups"]) == "tc"       # col_tile 128: one group a tile
     assert pm.int8_arm(1024, layers["side4_rowgroups"]) == "dp4a"  # col_tile 64 splits a tile
+    assert pm.int8_arm(8, layers["side4_rowgroups"]) == "dp4a"
     odd = random_packed_v2(256, 136, torch.Generator().manual_seed(0))
-    assert pm.int8_arm(1024, odd) == "dp4a"                     # oc not a multiple of 16
+    assert pm.int8_arm(1024, odd) == pm.int8_arm(8, odd) == "dp4a"  # oc not a multiple of 16
     assert pm.tc_layout_ok(layers["multiblock"]) and pm.tc_layout_ok(layers["ragged"])
 
 
