@@ -27,9 +27,12 @@ raises and the exit code is not 0:
    continuation, GQA; int8, f32 and bf16 pages;
    windows on the tensor-core arm, timed beside the CUDA-core arm), the
    PBW-v1 planar and select matmuls (OPT-1.3B's and llama-7b's MLP
-   shapes; the select kernel's two arms, bf16 tensor cores with x and w in
-   bf16 terms and f32 CUDA cores, and their crossover SELECT_TC), and the
-   int8 path's x preparation, bit for bit;
+   shapes; the planar kernel's two arms at 1-255 rows, bf16 tensor cores
+   with C, M, V exact and x in three bf16 terms in both column tiles, and
+   f32 CUDA cores, with select "tc" on the same x; the select kernel's two
+   arms, bf16 tensor cores with x and w in bf16 terms and f32 CUDA cores,
+   and their crossover SELECT_TC), and the int8 path's x preparation, bit
+   for bit;
 3. the same 2-layer full-width llama-7b engine on the card (kernels) and on
    the CPU (the kernels' plain versions): prefill logits, teacher-forced
    NLL and 8 greedy tokens; once on the int8 arms, once on the exact arms
@@ -61,9 +64,9 @@ raises and the exit code is not 0:
    128) and random biases on the card (kernels) and on the CPU (plain
    versions): prefill logits, teacher-forced NLL, 8 greedy tokens;
 7b. end to end, PBW-v1 serving: the 24-layer full-width OPT-1.3B through
-   `ContinuousBatcher`, int8 strips, phase 4's request mix; planar, select
-   (by arm) and decode-attention launches must match the forwards run, by
-   rows; the prefill forwards' synchronised time (`prefill_ms_total`), and
+   `ContinuousBatcher`, int8 strips, phase 4's request mix; planar and
+   select (by arm) and decode-attention launches must match the forwards
+   run, by rows; the prefill forwards' synchronised time (`prefill_ms_total`), and
    the mix served again with the select arm forced to "cores" and back;
 8. end to end, the PBW-v1 producer: a 2-layer OPT-1.3B-width model
    calibrated by GPTQ-PB (element masks, groups of 128) into PBW v1, then
@@ -76,8 +79,9 @@ raises and the exit code is not 0:
    versions (phase 3's bounds);
 9b. end to end on the 32-layer model of phase 4, int8 strips, phase 4's
    request mix, three passes: scan_layers (the stacked int8 kernel),
-   fuse_linears + decode_dot pair, decode_dot dma; every launch counter
-   must match the forwards run, by rows;
+   fuse_linears + decode_dot pair, decode_dot dma (its arm "split" and that
+   arm's x preparation); every launch counter must match the forwards run,
+   by rows;
 10a. the bf16 and q8 KV arms on a 2-layer full-width llama-7b, card against
    CPU under phase 3's bounds, in three engines: int8 strips with
    decode_attention "pallas_q8", bf16 strips, a bf16 paged pool with the
@@ -91,8 +95,9 @@ raises and the exit code is not 0:
 11a. the graphed decode step against `step_graph.eager()` on a 2-layer
    full-width llama-7b, in eight engines (int8 strips; scan_layers;
    fuse_linears + pair; dma; pallas_q8; bf16 strips; int8 and bf16 pages
-   with the prefix cache): 18 decode steps with slots admitted and released
-   between them, equal greedy tokens, bitwise-equal logits, equal launches;
+   with the prefix cache), and on 7a's 2-layer OPT-1.3B (planar "tc"): 18
+   decode steps with slots admitted and released between them, equal
+   greedy tokens, bitwise-equal logits, equal launches;
 11b. paged windows on the tensor cores, card against CPU on 2 full-width
    layers over int8 and bf16 pages with prefill_chunk 64 and the prefix
    cache: on the exact matmul arms greedy tokens equal; on the int8 arms
@@ -102,12 +107,19 @@ raises and the exit code is not 0:
 Phases 6b, 7b, 9b and 10b serve graphed: the default on the card.
 
 Phase 2 also holds the pair kernel's three arms ("mma", and the wgmma
-"split" and "tc" arms: crossover PAIR_TC), the dma kernel and the stacked
-int8 / f32 kernels (phase 9's paths) at llama-7b's shapes, each with its
-operands' preparation time where an arm has its own layout.
+"split" and "tc" arms: crossover PAIR_TC), the dma kernel's two arms
+("split", the bf16 tensor cores with a K split in a cluster, and "cores"
+at 1-255 rows, with the split arm's x preparation) and the stacked int8 /
+f32 kernels (phase 9's paths) at llama-7b's shapes, each with its
+operands' preparation time where an arm has its own layout.  The graphed
+9b dma pass and 7b by arm, in turns: scripts/torch_v1_dma_arm_ab.py.
 
 The last two lines are the `kernels` JSON line and
-`{"ok": true, "device": {...}}`.  Without CUDA it exits 1 before any phase.
+`{"ok": true, "device": {...}}`.  A row of the `kernels` line counts its own
+arm's launches (each arm's beside, as arm_launches); a row marked
+"yardstick" is an arm kept to time the path's arm against and may count 0,
+every other row must have launched.  Without CUDA it exits 1 before any
+phase.
 """
 
 from __future__ import annotations
@@ -222,6 +234,8 @@ ARM_MS = (8, 256)
 ARM_LAYERS = 2        # stacked kernels: layers of the [L] planes they index
 PAIR_REL = 1e-5       # of max|y|: x rounds to bf16 on both sides, only the f32 sum order differs
 PAIR_MS = (1, 8, 16, 32, 64, 128, 255)  # the pair arms' crossover rows (it serves m < 256)
+DMA_MS = (1, 8, 15, 64, 255)  # the dma arms' rows (it serves m < 256)
+V1_MS = (1, 8, 64, 255)       # the planar arms' rows (it serves m < 256)
 
 
 def log(msg: str) -> None:
@@ -359,6 +373,18 @@ def check_matmul(timer: Timer, card: str):
     return rows
 
 
+def wall_ms(fn, iters: int = 20) -> float:
+    """The host's wall ms of a call, the device synchronised after ``iters``
+    calls queued back to back (what an eager sequence costs a step)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3 / iters
+
+
 def check_prep(timer: Timer, card: str):
     """The int8 path's x preparation (`csrc/pb_prep_int8.cu`) against the
     eager `prepare_int8_plain`: codes and scales bit for bit, the row sums
@@ -370,15 +396,6 @@ def check_prep(timer: Timer, card: str):
     from pb_llm_tpu_torch.core.pbw import gather_x_v2, merge_packed_linears_v2
     from pb_llm_tpu_torch.data.synthetic import random_packed_v2
     from pb_llm_tpu_torch.ops import packed_matmul as pm
-
-    def wall_ms(fn, iters=20):
-        fn()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t) * 1e3 / iters
 
     gen = torch.Generator(device=DEV).manual_seed(22)
     rows = []
@@ -418,6 +435,58 @@ def check_prep(timer: Timer, card: str):
             rows.append(row)
         del ps, p
     return rows
+
+
+def check_dma_prep(timer: Timer, card: str):
+    """The dma arm "split"'s x preparation (`pb_prep_dma` in
+    `csrc/pb_dma_v2.cu`) against its plain version (`packed_matmul.
+    prepare_tc` with three terms) at DMA_MS's rows on 4096 and 11008
+    columns of x: the terms bit for bit, the row sums within
+    `packed_matmul.sum_bound`; its device time, the plain sequence's, and
+    the host's wall time of a call of each (the eager step's cost).  No
+    single PyTorch call computes it: library_ms is null.  Returns the row
+    at HEADLINE_SHAPE."""
+    from pb_llm_tpu_torch.core.pbw import gather_x_v2
+    from pb_llm_tpu_torch.data.synthetic import random_packed_v2
+    from pb_llm_tpu_torch.ops import decode_arms as da
+    from pb_llm_tpu_torch.ops import packed_matmul as pm
+
+    gen = torch.Generator(device=DEV).manual_seed(23)
+    head = None
+    for ic, oc in MATMUL_SHAPES[1:]:
+        p = random_packed_v2(ic, oc, gen, low_frac=0.9)
+        for m in DMA_MS:
+            x = torch.randn((m, ic), generator=gen, device=DEV)
+            got = da.prepare_dma(x, p, "split")
+            torch.cuda.synchronize()
+            want = pm.prepare_tc(x, p, 3)
+            xg = gather_x_v2(x, p).permute(2, 0, 1)
+            sum_err = max(((got.f32.rs - want.f32.rs).abs() / pm.sum_bound(x, 1)).max().item(),
+                          ((got.f32.rsg - want.f32.rsg).abs() / pm.sum_bound(xg, 2)).max().item())
+            if not (torch.equal(got.xt, want.xp) and torch.equal(got.xgp, want.xgp)
+                    and sum_err <= 1.0):
+                raise AssertionError(f"pb_prep_dma m={m} ic={ic}: terms differ from the plain "
+                                     f"version, or sums at {sum_err} of their bound")
+            nbytes = (4 * m * ic + 2 * got.xt.numel() + 2 * got.xgp.numel() + 4 * got.xt.shape[2]
+                      + 4 * p.side_idx.numel() + 8 * m)
+            bound_ms, bound_by = bound(nbytes, 6 * m * (got.xt.shape[2] + got.xgp.shape[3]),
+                                       F32_FLOPS_PER_S)
+            xf = x.contiguous()
+            row = {"kernel": "pb_prep_dma", "m": m, "ic": ic, "oc": oc, "k_pad": p.k_pad,
+                   "max_abs_err": max((got.f32.rs - want.f32.rs).abs().max().item(),
+                                      (got.f32.rsg - want.f32.rsg).abs().max().item()),
+                   "sum_err_over_bound": sum_err,
+                   "kernel_ms": timer(lambda: da.launch_prep_dma(xf, p)),
+                   "plain_ms": timer(lambda: pm.prepare_tc(x, p, 3), iters=5),
+                   "kernel_wall_ms": wall_ms(lambda: da.prepare_dma(x, p, "split")),
+                   "plain_wall_ms": wall_ms(lambda: pm.prepare_tc(x, p, 3)),
+                   "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by, "card": card}
+            log(json.dumps(row))
+            if (m, ic, oc) == HEADLINE_SHAPE:
+                head = row
+            del x, got, want
+        del p
+    return head
 
 
 def check_attention(timer: Timer, card: str):
@@ -770,15 +839,21 @@ def v1_plane_bytes(p) -> int:
 
 
 def check_v1_matmul(timer: Timer, card: str):
-    """The PBW-v1 planar kernel at decode m and the select kernel at prefill
-    m (f32 and bf16) against their plain versions, at OPT-1.3B's and
-    llama-7b's MLP shapes, whole-row and 128-row scale groups, plus one
-    nibble-code and one 2-bit-low layer; the select kernel's two arms ("tc",
-    bf16 tensor cores, x and w in bf16 terms; "cores", f32 CUDA cores) in
-    the same call, each as its wrapper's whole call, with both bounds, and
-    a crossover line per shape (SELECT_CROSS_MS).  Library: one
-    torch.matmul of x with the dense dequantized weight, f32 (TF32 off) and
-    bf16."""
+    """The PBW-v1 planar kernel at the rows of V1_MS and the select kernel
+    at prefill m (f32 and bf16) against their plain versions, at OPT-1.3B's
+    and llama-7b's MLP shapes, whole-row and 128-row scale groups, plus one
+    nibble-code and one 2-bit-low layer.  The planar kernel's two arms
+    ("tc", bf16 tensor cores, C, M, V exact and x in three terms; "cores",
+    f32 CUDA cores) and select "tc" on
+    the same x (the same function, its terms launch included) in the same
+    call; the select kernel's two arms ("tc", bf16 tensor cores, x and w in
+    bf16 terms; "cores", f32 CUDA cores) likewise; each as its wrapper's
+    whole call, with the bytes bound and each arm's operations bound
+    (planar "tc": 3 planes × 3 terms × 2·m·ic·oc at the bf16 rate; planar
+    "cores": the function's 2·m·ic·oc at the f32 rate, its own 3 products
+    beside as cores_arith_ms), and a crossover line per shape
+    (SELECT_CROSS_MS).  Library: one torch.matmul
+    of x with the dense dequantized weight, f32 (TF32 off) and bf16."""
     from pb_llm_tpu_torch.core.pbw import dequantize
     from pb_llm_tpu_torch.data.synthetic import random_packed_v1
     from pb_llm_tpu_torch.ops import packed_matmul_v1 as v1
@@ -791,14 +866,14 @@ def check_v1_matmul(timer: Timer, card: str):
         p = random_packed_v1(ic, oc, gen, low_frac=0.9, bias=True, **kw)
         w = dequantize(p)
         wb = w.to(torch.bfloat16)
-        for m, kernel, dot in ((MATMUL_MS[0], "planar", torch.float32),
-                               (MATMUL_MS[1], "select", torch.float32),
-                               (MATMUL_MS[1], "select", torch.bfloat16)):
+        for m, kernel, dot in ([(m, "planar", torch.float32) for m in V1_MS]
+                               + [(MATMUL_MS[1], "select", torch.float32),
+                                  (MATMUL_MS[1], "select", torch.bfloat16)]):
             if kw.keys() - {"groupsize"} and dot == torch.bfloat16:
                 continue
             x = torch.randn((m, ic), generator=gen, device=DEV)
             if kernel == "planar":
-                arms = {"planar": functools.partial(v1.launch_planar, x, p)}
+                arms = {a: functools.partial(v1.launch_planar, x, p, a) for a in v1.PLANAR_ARMS}
                 wrapper, plain = (functools.partial(f, x, p) for f in (
                     v1.pb_planar_v1, v1.pb_planar_v1_plain))
             else:
@@ -818,7 +893,7 @@ def check_v1_matmul(timer: Timer, card: str):
                 del got, err
             nbytes = 4 * (m * ic + m * oc) + v1_plane_bytes(p)
             peak = BF16_FLOPS_PER_S if dot == torch.bfloat16 else F32_FLOPS_PER_S
-            picked = "planar" if kernel == "planar" else v1.select_arm(m, p)
+            picked = v1.planar_arm(p) if kernel == "planar" else v1.select_arm(m, p)
             xb = x.to(torch.bfloat16)
             row = {"kernel": f"pb_{kernel}_v1", "arm": picked, "m": m, "ic": ic, "oc": oc,
                    "groupsize": p.groupsize, "sidecar_bits": p.sidecar_bits,
@@ -827,9 +902,23 @@ def check_v1_matmul(timer: Timer, card: str):
                    "plain_ms": timer(plain, iters=5),
                    "library_f32_ms": timer(lambda: x @ w), "library_bf16_ms": timer(lambda: xb @ wb),
                    "card": card}
-            # the CUDA cores' bound: 2·m·ic·oc at the f32 (or, bf16 dot, the bf16) rate; the
-            # tensor cores': the issued products × 2·m·ic·oc at the bf16 rate
-            bounds = dict.fromkeys(("cores", "planar"), bound(nbytes, 2 * m * ic * oc, peak))
+            # the CUDA cores' bound 2·m·ic·oc at the f32 (or, bf16 dot, the bf16) rate;
+            # the tensor cores' the issued products × 2·m·ic·oc at the bf16 rate (planar
+            # "tc": 3 planes × 3 terms)
+            bounds = {"cores": bound(nbytes, 2 * m * ic * oc, peak)}
+            if kernel == "planar":
+                bounds["tc"] = bound(nbytes, 9 * 2 * m * ic * oc, BF16_FLOPS_PER_S)
+                row.update({"tile": v1.PLANAR_OC, "ksplit": v1.planar_ksplit(p),
+                            "bytes_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                            "cores_arith_ms": 3 * 2 * m * ic * oc / F32_FLOPS_PER_S * 1e3,
+                            "select_tc_ms": timer(functools.partial(
+                                v1.launch_select, x, p, torch.float32, "tc"))})
+                for a in arms:
+                    row[f"{a}_max_abs_err"] = errs[a]
+                    row[f"{a}_ms"] = row["kernel_ms"] if a == picked else timer(arms[a])
+                for a in v1.PLANAR_ARMS:
+                    row[f"{a}_bound_ms"], row[f"{a}_bound_by"] = bounds[a]
+                row["share_of_bound"] = bounds[picked][0] / row["kernel_ms"]
             if kernel == "select":
                 n_tc = len(v1.select_products(dot))
                 bounds["tc"] = bound(nbytes, n_tc * 2 * m * ic * oc, BF16_FLOPS_PER_S)
@@ -944,16 +1033,81 @@ def check_pair_arms(timer: Timer, card: str):
     return rows
 
 
+def check_dma_arms(timer: Timer, card: str):
+    """The dma kernel's two arms (`decode_arms.dma_arm`: "split", the bf16
+    tensor cores with x in three exact terms and a K split in a cluster;
+    "cores", the f32 CUDA cores) at every row count of DMA_MS on llama-7b's
+    three shapes (random PBW-v2 planes, low_frac 0.9, 8-bit codes): each
+    within F32_RTOL / F32_ATOL of the plain version, with its kernel time,
+    its operands' preparation time (the split arm's one launch; the cores
+    arm's PyTorch ops), the wrapper's time, the plain version's, the f32
+    and bf16 torch.matmul on the dense weight (TF32 off), and its bound:
+    the bytes, or the arm's own arithmetic (split: three terms, 3 · 2·m·oc·
+    (ic + k_pad) at the bf16 rate; cores: 2·m·oc·(ic + k_pad) at the f32
+    rate).  ``picked`` names the arm the wrapper takes."""
+    from pb_llm_tpu_torch.core.pbw import dequantize_v2
+    from pb_llm_tpu_torch.data.synthetic import random_packed_v2
+    from pb_llm_tpu_torch.ops import decode_arms as da
+
+    gen = torch.Generator(device=DEV).manual_seed(22)
+    rows = []
+    for ic, oc in MATMUL_SHAPES:
+        p = random_packed_v2(ic, oc, gen, low_frac=0.9)
+        w = dequantize_v2(p)
+        wb = w.to(torch.bfloat16)
+        for m in DMA_MS:
+            x = torch.randn((m, ic), generator=gen, device=DEV)
+            xb = x.to(torch.bfloat16)
+            want = da.pb_dma_v2_plain(x, p)
+            n_ops = 2 * m * oc * (ic + p.k_pad)
+            nbytes = matmul_bytes(p, m)
+            row = {"kernel": "pb_dma_v2", "m": m, "ic": ic, "oc": oc, "k_pad": p.k_pad,
+                   "picked": da.dma_arm(p), "ksplit": da.dma_ksplit(p),
+                   "bytes_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                   "plain_ms": timer(lambda: da.pb_dma_v2_plain(x, p), iters=5),
+                   "wrapper_ms": timer(lambda: da.pb_dma_v2(x, p)),
+                   "library_f32_ms": timer(lambda: x @ w),
+                   "library_bf16_ms": timer(lambda: xb @ wb), "card": card}
+            for arm in da.DMA_ARMS:
+                ops = da.prepare_dma(x, p, arm)
+                got = da.launch_dma(ops, p)
+                torch.cuda.synchronize()
+                err = (got - want).abs()
+                if not (torch.isfinite(got).all()
+                        and torch.all(err <= F32_ATOL + F32_RTOL * want.abs())):
+                    raise AssertionError(f"pb_dma_v2 ({arm}) m={m} {ic}x{oc}: max|err| "
+                                         f"{err.max().item()} beyond rtol {F32_RTOL} atol "
+                                         f"{F32_ATOL}")
+                ms = timer(lambda: da.launch_dma(ops, p))
+                b_ms, b_by = (bound(nbytes, 3 * n_ops, BF16_FLOPS_PER_S) if arm == "split"
+                              else bound(nbytes, n_ops, F32_FLOPS_PER_S))
+                row.update({f"{arm}_ms": ms, f"{arm}_max_abs_err": err.max().item(),
+                            f"{arm}_prep_ms": timer(lambda: da.prepare_dma(x, p, arm)),
+                            f"{arm}_bound_ms": b_ms, f"{arm}_bound_by": b_by,
+                            f"{arm}_share_of_bound": b_ms / ms})
+                del ops, got, err
+            pk = row["picked"]
+            row.update({"arm": pk, "kernel_ms": row[f"{pk}_ms"],
+                        "max_abs_err": row[f"{pk}_max_abs_err"],
+                        "bound_ms": row[f"{pk}_bound_ms"], "bound_by": row[f"{pk}_bound_by"],
+                        "library_ms": row["library_f32_ms"]})
+            row["over_library_f32"] = row["kernel_ms"] / row["library_f32_ms"]
+            log(json.dumps(row))
+            rows.append(row)
+            del x, xb, want
+        del p, w, wb
+    return rows
+
+
 def check_v2_arms(timer: Timer, card: str):
-    """Phase 9's other kernels at llama-7b's decode shapes (random PBW-v2
-    planes, low_frac 0.9): dma, and the stacked int8 and f32 kernels on
-    layer 1 of a 2-layer stack (the stacked f32 entry in both arms).
-    Library: the bf16 torch.matmul on the dense weight for stacked int8,
-    the f32 one for dma and stacked f32 (TF32 off)."""
+    """Phase 9's stacked kernels at llama-7b's decode shapes (random PBW-v2
+    planes, low_frac 0.9): the stacked int8 and f32 kernels on layer 1 of
+    a 2-layer stack (the stacked f32 entry in both arms).  Library: the
+    bf16 torch.matmul on the dense weight for stacked int8, the f32 one for
+    stacked f32 (TF32 off).  dma: `check_dma_arms`."""
     from pb_llm_tpu_torch.core.pbw import dequantize_v2
     from pb_llm_tpu_torch.data.synthetic import random_packed_v2
     from pb_llm_tpu_torch.models import stacking
-    from pb_llm_tpu_torch.ops import decode_arms as da
     from pb_llm_tpu_torch.ops import packed_matmul as pm
 
     gen = torch.Generator(device=DEV).manual_seed(20)
@@ -992,10 +1146,6 @@ def check_v2_arms(timer: Timer, card: str):
         for m in ARM_MS:
             x = torch.randn((m, ic), generator=gen, device=DEV)
             xb = x.to(torch.bfloat16)
-            ops = da.prepare_dma(x, p)
-            record("pb_dma_v2", p, m, da.launch_dma(ops, p), da.pb_dma_v2_plain(x, p),
-                   lambda: da.launch_dma(ops, p), lambda: da.pb_dma_v2(x, p),
-                   lambda: da.pb_dma_v2_plain(x, p), lambda: x @ w, False)
             lp = pm.stacked_layer(mk)
             picked = pm.int8_arm(m, lp)
             for arm in dict.fromkeys((picked, "dp4a")):  # the picked arm, dp4a beside it
@@ -1208,6 +1358,19 @@ def pair_launches(rows, n_linear: int, p) -> dict:
     for r in rows:
         out[names[da.pair_arm(r, p)]] += n_linear
     return out
+
+
+def dma_launches(rows, n_linear: int, p) -> dict:
+    """The dma kernel's launches by arm for forwards of ``rows`` rows each
+    (all below 256), ``n_linear`` packed linears a forward, under
+    `decode_arms.dma_arm`'s rule on layer ``p``: arm "split" also launches
+    its x preparation once a linear."""
+    from pb_llm_tpu_torch.ops import decode_arms as da
+
+    n = n_linear * len(rows)
+    if da.dma_arm(p) == "split":
+        return {"pb_dma_v2": 0, "pb_dma_v2_split": n, "pb_prep_dma": n}
+    return {"pb_dma_v2": n, "pb_dma_v2_split": 0, "pb_prep_dma": 0}
 
 
 def first_linear(params):
@@ -1822,12 +1985,12 @@ def check_opt_parity(card: str):
     groups of 128, random biases, int8 strips, on the card (kernels) and on
     the CPU (plain versions).  Neither matmul rounds x to int8, so the
     exact arms' logit bound holds.  run_parity's forwards take the planar
-    kernel 11 times a linear (the 40-token prefill, 7 + 3 decode steps) and
-    the select kernel once (the 70-token prefill in bucket 256), on the arm
-    `select_arm` picks for 256 rows."""
+    kernel 11 times a linear (the 40-token prefill, 7 + 3 decode steps), on
+    the arm `planar_arm` picks, and the select kernel once (the 70-token
+    prefill in bucket 256), on the arm `select_arm` picks for 256 rows."""
     from pb_llm_tpu_torch.data.synthetic import random_packed_opt
     from pb_llm_tpu_torch.ops.kernel_config import KernelConfig
-    from pb_llm_tpu_torch.ops.packed_matmul_v1 import select_arm
+    from pb_llm_tpu_torch.ops.packed_matmul_v1 import planar_arm, select_arm
 
     cfg = opt13b(2)
     params = random_packed_opt(cfg, torch.Generator(device=DEV).manual_seed(16), groupsize=128)
@@ -1862,23 +2025,27 @@ def check_opt_parity(card: str):
         raise AssertionError(f"OPT parity: NLL {g_nll} vs {c_nll}")
     p = next(v for v in params["layers"][0].values() if hasattr(v, "sign_packed"))
     select = "pb_select_v1_tc" if select_arm(256, p) == "tc" else "pb_select_v1"
-    want = expect_launches(pb_planar_v1=11 * n_linear, **{select: n_linear},
+    want = expect_launches(**{PLANAR_COUNTERS[planar_arm(p)]: 11 * n_linear, select: n_linear},
                            **attention_launches(10 * cfg.num_hidden_layers))
     if launches != want:
         raise AssertionError(f"OPT parity: launches {launches}, expected {want}")
     return row
 
 
+PLANAR_COUNTERS = {"cores": "pb_planar_v1", "tc": "pb_planar_v1_tc"}
+
+
 def v1_launches(forwards, linears, n_layers: int) -> dict:
     """The launches a run of ``forwards`` (kind, rows) must show on PBW-v1
-    linears: planar where `use_planar`, else the select arm `select_arm`
-    picks, and one decode attention a layer a decode step."""
-    from pb_llm_tpu_torch.ops.packed_matmul_v1 import select_arm, use_planar
+    linears: the planar arm `planar_arm` picks where `use_planar`, else the
+    select arm `select_arm` picks, and one decode attention a layer a
+    decode step."""
+    from pb_llm_tpu_torch.ops.packed_matmul_v1 import planar_arm, select_arm, use_planar
 
-    counts = {"pb_planar_v1": 0, "pb_select_v1": 0, "pb_select_v1_tc": 0}
+    counts = {"pb_planar_v1": 0, "pb_planar_v1_tc": 0, "pb_select_v1": 0, "pb_select_v1_tc": 0}
     for _, m in forwards:
         for p in linears:
-            kind = "pb_planar_v1" if use_planar(m, p) else (
+            kind = PLANAR_COUNTERS[planar_arm(p)] if use_planar(m, p) else (
                 "pb_select_v1_tc" if select_arm(m, p) == "tc" else "pb_select_v1")
             counts[kind] += 1
     n_decode = sum(kind == "decode" for kind, _ in forwards)
@@ -1921,13 +2088,14 @@ def serve_v1_e2e(params, cfg, build_s: float, card: str):
            "ms_per_decode_step_mean": statistics.mean(step_ms), "decode_forwards": n_decode,
            "prefill_forward_rows": sorted(m for kind, m in forwards if kind == "prefill"),
            "prefill_ms_total": sum(prefill_ms), "SELECT_TC": v1.SELECT_TC,
+           "PLANAR_ARM": v1.PLANAR_ARM,
            "launches": launches, "planar_launches_per_decode_step": len(linears),
            "packed_plane_bytes": plane_bytes, "tied_head_bytes": head_bytes,
            "mean_kv_rows_per_step": mean_rows,
            "decode_step_bound_ms": (plane_bytes + head_bytes + mean_rows * kv_row_bytes)
            / HBM_BYTES_PER_S * 1e3,
            "build_s": build_s, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card}
-    if launches != want or not (launches["pb_planar_v1"] and launches["pb_select_v1_tc"]):
+    if launches != want or not (launches["pb_planar_v1_tc"] and launches["pb_select_v1_tc"]):
         log(json.dumps(row))
         raise AssertionError(f"v1 e2e: launches {launches}, expected {want} for {forwards}")
     if not all(v1.use_planar(m, p) for kind, m in forwards if kind == "decode" for p in linears):
@@ -2071,7 +2239,7 @@ def scan_fuse_parity(params, card: str):
     # arms (pair's prompts in 128-row windows: its "tc" arm, decode on
     # "split"), and scan_layers on the exact arms, whose 64- and 256-row
     # prefill windows take the stacked f32 entry's tensor-core arm
-    for arm, ekw, tol, kernel in (("dma", {}, LOGIT_TOL_EXACT, "pb_dma_v2"),
+    for arm, ekw, tol, kernel in (("dma", {}, LOGIT_TOL_EXACT, "pb_dma_v2_split"),
                                   ("pair", dict(buckets=(128, 256)), LOGIT_TOL, "pb_pair_v2_tc"),
                                   ("f32", dict(scan_layers=True), LOGIT_TOL_EXACT,
                                    "pb_f32_matmul_stacked_tc")):
@@ -2124,7 +2292,7 @@ def serve_scan_fuse_e2e(params, card: str):
     n_layers = cfg.num_hidden_layers
     passes = (("scan_layers", dict(scan_layers=True), None, 7, "pb_int8_matmul_stacked", 256),
               ("fuse_linears + pair", dict(fuse_linears=True), "pair", 4, "pb_pair_v2", 255),
-              ("dma", dict(), "dma", 7, "pb_dma_v2", 255))
+              ("dma", dict(), "dma", 7, "pb_dma_v2_split", 255))
     rows = []
     p0 = first_linear(params)
     for name, ekw, arm, per_layer, kernel, max_rows in passes:
@@ -2143,8 +2311,9 @@ def serve_scan_fuse_e2e(params, card: str):
             own, n_prep = int8_launches(small, n_lin, p0, kernel), len(fwds)
         elif kernel == "pb_pair_v2":  # the pair kernel's arms, by rows
             own, n_prep = pair_launches(small, n_lin, first_linear(eng.params)), len(big)
-        else:
-            own, n_prep = {kernel: n_lin * len(small)}, len(big)
+        else:  # dma: its arm ("split" on llama-7b's layouts) and that arm's x preparation
+            own = dma_launches(small, n_lin, first_linear(eng.params))
+            n_prep = len(big)
         want = expect_launches(**own, **int8_launches(big, n_lin, p0),
                                pb_prep_int8=n_lin * n_prep,
                                **attention_launches(n_layers * n_decode))
@@ -2453,6 +2622,58 @@ GRAPH_PLAN = (("admit", 0, 0), ("admit", 1, 1), ("admit", 2, 2), ("steps", 6, No
               ("release", 2, None), ("admit", 3, 4), ("steps", 6, None))
 
 
+def graph_pass(name: str, dparams, cfg, family: str, ekw: dict, kkw: dict, prompts,
+               card: str) -> dict:
+    """One graph = eager pass of phase 11a (see `graph_parity`)."""
+    from pb_llm_tpu_torch.models.registry import family_for
+    from pb_llm_tpu_torch.ops.kernel_config import KernelConfig
+    from pb_llm_tpu_torch.runtime import step_graph
+    from pb_llm_tpu_torch.runtime.engine import Engine, EngineConfig
+
+    runs = {}
+    for mode in ("eager", "graph"):
+        gc.collect()
+        eng = Engine(dparams, cfg, family_for(family),
+                     EngineConfig(n_slots=4, max_seq=256, prefill_buckets=(64, 256),
+                                  kernels=KernelConfig(**kkw), **ekw), device=DEV)
+        toks, logits = [], []
+
+        def on_forward(kind, rows_, caches, pos, lg, eng=eng):
+            if kind == "decode":  # the active slots' rows (see graph_parity)
+                logits.append(lg[torch.from_numpy(np.flatnonzero(eng.active)).to(DEV)])
+
+        restore = count_forwards(eng, on_forward)
+        zero_counters()
+        t0 = time.perf_counter()
+        with step_graph.eager() if mode == "eager" else contextlib.nullcontext():
+            for op, a, prompt in GRAPH_PLAN:
+                if op == "admit":
+                    toks.append({a: eng.prefill(a, prompts[prompt])})
+                elif op == "release":
+                    eng.release(a)
+                else:
+                    toks += [eng.decode_step() for _ in range(a)]
+        torch.cuda.synchronize()
+        runs[mode] = (toks, logits, read_counters(), eng._step.replays,
+                      time.perf_counter() - t0)
+        restore()
+        del eng
+    (gt, gl, gla, grep, gs), (et, el, ela, erep, es) = runs["graph"], runs["eager"]
+    unequal = sum(not torch.equal(a, b) for a, b in zip(gl, el))
+    row = {"phase": "graph_parity", "pass": name, "layers": cfg.num_hidden_layers,
+           "decode_steps": len(gl), "tokens_equal": gt == et, "logit_steps_unequal": unequal,
+           "max_abs_logit_diff": max((a - b).abs().max().item() for a, b in zip(gl, el)),
+           "launches_equal": gla == ela, "graph_replays": grep, "graph_s": gs,
+           "eager_s": es, "launches": gla, "card": card}
+    log(json.dumps(row))
+    if len(gl) != len(el) or len(gl) < 16 or grep == 0 or erep != 0:
+        raise AssertionError(f"phase 11a ({name}): {len(gl)} / {len(el)} steps, "
+                             f"{grep} / {erep} replays")
+    if gt != et or unequal or gla != ela:
+        raise AssertionError(f"phase 11a ({name}): graph and eager differ: {row}")
+    return row
+
+
 def graph_parity(params, card: str):
     """Phase 11a on 2 full-width llama-7b layers, the int8 matmul arms:
     each of GRAPH_PASSES twice on fresh engines, under `step_graph.eager()`
@@ -2462,63 +2683,28 @@ def graph_parity(params, card: str):
     decode step and the same launches by kind.  (An inactive slot's row is
     not an output: over pages, every inactive slot writes its token into
     the trash page at the same offset, and which duplicate write lands is
-    not fixed from run to run.)"""
+    not fixed from run to run.)  Then the same on phase 7a's 2 full-width
+    OPT-1.3B layers (PBW v1, groups of 128), whose decode takes the planar
+    kernel's arm "tc"."""
+    from pb_llm_tpu_torch.data.synthetic import random_packed_opt
     from pb_llm_tpu_torch.interop import to_device
-    from pb_llm_tpu_torch.models.registry import family_for
-    from pb_llm_tpu_torch.ops.kernel_config import KernelConfig
-    from pb_llm_tpu_torch.runtime import step_graph
-    from pb_llm_tpu_torch.runtime.engine import Engine, EngineConfig
 
     cfg = llama7b(2)
     dparams = to_device(params, DEV)
     rng = np.random.default_rng(21)
     prefix = rng.integers(0, cfg.vocab_size, SHARED_PREFIX).tolist()
     prompts = [prefix + rng.integers(0, cfg.vocab_size, n).tolist() for n in (8, 40, 20, 60, 30)]
-    rows = []
-    for name, ekw, kkw in GRAPH_PASSES:
-        runs = {}
-        for mode in ("eager", "graph"):
-            gc.collect()
-            eng = Engine(dparams, cfg, family_for("llama"),
-                         EngineConfig(n_slots=4, max_seq=256, prefill_buckets=(64, 256),
-                                      kernels=KernelConfig(**kkw), **ekw), device=DEV)
-            toks, logits = [], []
-
-            def on_forward(kind, rows_, caches, pos, lg, eng=eng):
-                if kind == "decode":  # the active slots' rows (see the docstring)
-                    logits.append(lg[torch.from_numpy(np.flatnonzero(eng.active)).to(DEV)])
-
-            restore = count_forwards(eng, on_forward)
-            zero_counters()
-            t0 = time.perf_counter()
-            with step_graph.eager() if mode == "eager" else contextlib.nullcontext():
-                for op, a, prompt in GRAPH_PLAN:
-                    if op == "admit":
-                        toks.append({a: eng.prefill(a, prompts[prompt])})
-                    elif op == "release":
-                        eng.release(a)
-                    else:
-                        toks += [eng.decode_step() for _ in range(a)]
-            torch.cuda.synchronize()
-            runs[mode] = (toks, logits, read_counters(), eng._step.replays,
-                          time.perf_counter() - t0)
-            restore()
-            del eng
-        (gt, gl, gla, grep, gs), (et, el, ela, erep, es) = runs["graph"], runs["eager"]
-        unequal = sum(not torch.equal(a, b) for a, b in zip(gl, el))
-        row = {"phase": "graph_parity", "pass": name, "layers": 2, "decode_steps": len(gl),
-               "tokens_equal": gt == et, "logit_steps_unequal": unequal,
-               "max_abs_logit_diff": max((a - b).abs().max().item() for a, b in zip(gl, el)),
-               "launches_equal": gla == ela, "graph_replays": grep, "graph_s": gs,
-               "eager_s": es, "launches": gla, "card": card}
-        log(json.dumps(row))
-        if len(gl) != len(el) or len(gl) < 16 or grep == 0 or erep != 0:
-            raise AssertionError(f"phase 11a ({name}): {len(gl)} / {len(el)} steps, "
-                                 f"{grep} / {erep} replays")
-        if gt != et or unequal or gla != ela:
-            raise AssertionError(f"phase 11a ({name}): graph and eager differ: {row}")
-        rows.append(row)
+    rows = [graph_pass(name, dparams, cfg, "llama", ekw, kkw, prompts, card)
+            for name, ekw, kkw in GRAPH_PASSES]
     del dparams
+    ocfg = opt13b(2)
+    oparams = random_packed_opt(ocfg, torch.Generator(device=DEV).manual_seed(16), groupsize=128)
+    prompts = [rng.integers(0, ocfg.vocab_size, n).tolist() for n in (40, 72, 52, 92, 62)]
+    row = graph_pass("OPT-1.3B PBW v1", oparams, ocfg, "opt", {}, {}, prompts, card)
+    if not row["launches"]["pb_planar_v1_tc"] or row["launches"]["pb_planar_v1"]:
+        raise AssertionError(f"phase 11a (OPT-1.3B): planar launches by arm {row['launches']}")
+    rows.append(row)
+    del oparams
     torch.cuda.empty_cache()
     return rows
 
@@ -2703,6 +2889,8 @@ def main(argv=None) -> int:
     pa_rows = check_paged_attention(timer, card)
     v1_rows = check_v1_matmul(timer, card)
     pair_rows = check_pair_arms(timer, card)
+    dma_rows = check_dma_arms(timer, card)
+    dma_prep = check_dma_prep(timer, card)
     arm_rows = check_v2_arms(timer, card)
     del timer
     parity_params = random_packed_llama(llama7b(2), torch.Generator().manual_seed(4))
@@ -2745,7 +2933,8 @@ def main(argv=None) -> int:
     pa = next(r for r in pa_rows if r["case"] == "decode_int8")
     planar = next(r for r in v1_rows if r["kernel"] == "pb_planar_v1" and (r["ic"], r["oc"]) ==
                   V1_HEADLINE and r["groupsize"] == V1_HEADLINE[0] and r["sidecar_bits"] == 8
-                  and r["low_bits"] == 1)
+                  and r["low_bits"] == 1 and r["m"] == 8)
+    planar_launches = {a: v1_e2e["launches"][k] for a, k in PLANAR_COUNTERS.items()}
     select = next(r for r in v1_rows if r["kernel"] == "pb_select_v1" and (r["ic"], r["oc"]) ==
                   V1_HEADLINE and r["groupsize"] == 128 and r["dot"] == "torch.float32")
     select_launches = {a: v1_e2e["launches"][k] + prod_v1["launches"][k]
@@ -2777,15 +2966,17 @@ def main(argv=None) -> int:
                   "the K stages in ksplit ranges, a cluster a tile); launches: phase 4".format(
                       *HEADLINE_SHAPE)},
         {"name": "decode_attention", "route": "cuda", "source": "pb_llm_tpu_torch/csrc/decode_attention.cu",
-         "replaces": "pb_llm_tpu/ops/decode_attention.py:78", "launches": e2e["attention_launches"],
-         "max_abs_err": att["slot_max_abs_err"], "ms": att["slot_ms"], "plain_ms": att["plain_ms"],
+         "replaces": "pb_llm_tpu/ops/decode_attention.py:78",
+         "launches": e2e["attention_launches"] - e2e["attention_split_launches"],
+         "yardstick": True, "max_abs_err": att["slot_max_abs_err"], "ms": att["slot_ms"],
+         "plain_ms": att["plain_ms"],
          "bound_ms": att["bound_ms"], "bound_by": att["bound_by"], "library_ms": att["library_ms"],
          "parity": "ok", "arm": "slot",
          "arm_launches": {"split": e2e["attention_split_launches"],
                           "slot": e2e["attention_launches"] - e2e["attention_split_launches"]},
          "shape": "B={} S={} Hq={} Hkv={} D={} int8".format(*ATTN_SHAPE)
          + f", lengths <= {ATTN_MAX_LEN}; the slot arm (a block a slot and head, only a call "
-           "that names it); launches: phase 4, both arms"},
+           "that names it); launches: phase 4, the slot arm's (both in arm_launches)"},
         {"name": "decode_attention_split", "route": "cuda",
          "source": "pb_llm_tpu_torch/csrc/decode_attention.cu",
          "replaces": "pb_llm_tpu/ops/decode_attention.py:78",
@@ -2823,13 +3014,15 @@ def main(argv=None) -> int:
                   "terms (entry pb_f32_matmul_tc in pb_f32_matmul.cu); library: f32 matmul, TF32 "
                   "off; launches: phase 3 (exact arms)".format(*PREFILL_SHAPE)},
         {"name": "flash_attention", "route": "cuda", "source": "pb_llm_tpu_torch/csrc/flash_attention.cu",
-         "replaces": "pb_llm_tpu/ops/flash_attention.py:29", "launches": sum(flash_launches.values()),
+         "replaces": "pb_llm_tpu/ops/flash_attention.py:29", "launches": flash_launches["cores"],
+         "yardstick": True,
          "max_abs_err": max(r["cores_max_abs_err"] for r in fa_rows), "ms": fa["cores_ms"],
          "plain_ms": fa["plain_ms"], "bound_ms": fa["cores_bound_ms"],
          "bound_by": fa["cores_bound_by"], "library_ms": fa["library_ms"], "parity": "ok",
          "arm": "cores", "arm_launches": flash_launches,
          "shape": "B={} T={} H={} D={} causal f32; the f32 CUDA-core arm (only a call that "
-                  "names it); launches: phases 5 and 8, both arms".format(*FLASH_CASES[0][:4])},
+                  "names it); launches: phases 5 and 8, the cores arm's (both in "
+                  "arm_launches)".format(*FLASH_CASES[0][:4])},
         {"name": "flash_attention_tc", "route": "cuda",
          "source": "pb_llm_tpu_torch/csrc/flash_attention.cu",
          "replaces": "pb_llm_tpu/ops/flash_attention.py:29", "launches": flash_launches["tc"],
@@ -2851,20 +3044,42 @@ def main(argv=None) -> int:
          "library_ms": pa["library_ms"], "parity": "ok",
          "shape": "B=8 Hq=Hkv=32 D=128 int8 pages of 16 (1025), lengths <= 512, decode"},
         {"name": "pb_planar_v1", "route": "cuda", "source": "pb_llm_tpu_torch/csrc/pb_planar_v1.cu",
-         "replaces": "pb_llm_tpu/ops/pallas_pb.py:148", "launches": v1_e2e["launches"]["pb_planar_v1"],
-         "max_abs_err": max(r["max_abs_err"] for r in v1_rows if r["kernel"] == "pb_planar_v1"),
-         "ms": planar["kernel_ms"], "plain_ms": planar["plain_ms"], "bound_ms": planar["bound_ms"],
-         "bound_by": planar["bound_by"], "library_ms": planar["library_f32_ms"], "parity": "ok",
-         "shape": "m=8 ic=2048 oc=8192 (OPT-1.3B fc1) low_frac 0.9, whole-row scales; library: "
-                  "f32 matmul on the dense weight"},
+         "replaces": "pb_llm_tpu/ops/pallas_pb.py:148", "launches": planar_launches["cores"],
+         "yardstick": True,
+         "max_abs_err": max(r["cores_max_abs_err"] for r in v1_rows
+                            if r["kernel"] == "pb_planar_v1"),
+         "ms": planar["cores_ms"], "plain_ms": planar["plain_ms"],
+         "bound_ms": planar["cores_bound_ms"], "bound_by": planar["cores_bound_by"],
+         "library_ms": planar["library_f32_ms"], "parity": "ok", "arm": "cores",
+         "arm_launches": planar_launches,
+         "shape": "m=8 ic=2048 oc=8192 (OPT-1.3B fc1) low_frac 0.9, whole-row scales; the f32 "
+                  "CUDA-core arm (layouts arm tc does not take, or a call that names it); library: "
+                  "f32 matmul on the dense weight; launches: phase 7b, the cores arm's (both in "
+                  "arm_launches)"},
+        {"name": "pb_planar_v1_tc", "route": "cuda", "source": "pb_llm_tpu_torch/csrc/pb_planar_v1.cu",
+         "replaces": "pb_llm_tpu/ops/pallas_pb.py:148", "launches": planar_launches["tc"],
+         "max_abs_err": max(r["tc_max_abs_err"] for r in v1_rows if r["kernel"] == "pb_planar_v1"),
+         "ms": planar["tc_ms"], "plain_ms": planar["plain_ms"], "bound_ms": planar["tc_bound_ms"],
+         "bound_by": planar["tc_bound_by"], "library_ms": planar["library_f32_ms"],
+         "library_bf16_ms": planar["library_bf16_ms"], "parity": "ok", "arm": "tc",
+         "cuda_cores_ms": planar["cores_ms"], "select_tc_ms": planar["select_tc_ms"],
+         "tile": planar["tile"], "ksplit": planar["ksplit"],
+         "cuda_cores_arith_ms": planar["cores_arith_ms"],
+         "PLANAR_ARM": v1.PLANAR_ARM,
+         "shape": "m=8 ic=2048 oc=8192 (OPT-1.3B fc1) low_frac 0.9, whole-row scales; bf16 tensor "
+                  "cores (entry pb_planar_v1_tc: wgmma, TMA; C, M, V exact, x in 3 bf16 terms "
+                  "stacked as N = 24, a K split in a cluster), the terms launch included; library: "
+                  "f32 matmul on the dense weight; launches: phase 7b"},
         {"name": "pb_select_v1", "route": "cuda", "source": "pb_llm_tpu_torch/csrc/pb_select_v1.cu",
-         "replaces": "pb_llm_tpu/ops/pallas_pb.py:1297", "launches": sum(select_launches.values()),
+         "replaces": "pb_llm_tpu/ops/pallas_pb.py:1297", "launches": select_launches["cores"],
+         "yardstick": True,
          "max_abs_err": max(r["cores_max_abs_err"] for r in v1_rows if r["kernel"] == "pb_select_v1"),
          "ms": select["cores_ms"], "plain_ms": select["plain_ms"], "bound_ms": select["cores_bound_ms"],
          "bound_by": select["cores_bound_by"], "library_ms": select["library_f32_ms"],
          "parity": "ok", "arm": "cores", "arm_launches": select_launches,
          "shape": "m=512 ic=2048 oc=8192 f32, groups of 128; the f32 CUDA-core arm (below "
-                  "SELECT_TC = {} rows); launches: phases 7b and 8, both arms; library: f32 "
+                  "SELECT_TC = {} rows); launches: phases 7b and 8, the cores arm's (both in "
+                  "arm_launches); library: f32 "
                   "matmul on the dense weight".format(v1.SELECT_TC)},
         {"name": "pb_select_v1_tc", "route": "cuda", "source": "pb_llm_tpu_torch/csrc/pb_select_v1.cu",
          "replaces": "pb_llm_tpu/ops/pallas_pb.py:1297", "launches": select_launches["tc"],
@@ -2920,8 +3135,45 @@ def main(argv=None) -> int:
                   "launches: phases 9a (128-row prefill windows) and 9b (its prefill forwards "
                   "below 256 rows come in 32-row windows: split)".format(*HEADLINE_SHAPE[1:])},
     ]
+    dma = next(r for r in dma_rows if (r["m"], r["ic"], r["oc"]) == HEADLINE_SHAPE)
+    dma_by_arm = {"cores": e2e_launches("pb_dma_v2", ("",)),
+                  "split": e2e_launches("pb_dma_v2", ("_split",))}
+    kernels += [
+        {"name": "pb_dma_v2", "route": "cuda", "source": "pb_llm_tpu_torch/csrc/pb_dma_v2.cu",
+         "replaces": "pb_llm_tpu/ops/pallas_pb.py:826", "launches": dma_by_arm["cores"],
+         "yardstick": True,
+         "max_abs_err": max(r["cores_max_abs_err"] for r in dma_rows), "ms": dma["cores_ms"],
+         "plain_ms": dma["plain_ms"], "bound_ms": dma["cores_bound_ms"],
+         "bound_by": dma["cores_bound_by"], "library_ms": dma["library_f32_ms"], "parity": "ok",
+         "arm": "cores", "arm_launches": dma_by_arm,
+         "shape": "m={} ic={} oc={} low_frac 0.9; the f32 CUDA-core arm (layouts the tensor cores "
+                  "do not take, or a call that names it); library: f32 matmul on the dense "
+                  "weight; launches: phase 9b, the cores arm's (both in "
+                  "arm_launches)".format(*HEADLINE_SHAPE)},
+        {"name": "pb_dma_v2_split", "route": "cuda", "source": "pb_llm_tpu_torch/csrc/pb_dma_v2.cu",
+         "replaces": "pb_llm_tpu/ops/pallas_pb.py:826", "launches": dma_by_arm["split"],
+         "max_abs_err": max(r["split_max_abs_err"] for r in dma_rows), "ms": dma["split_ms"],
+         "plain_ms": dma["plain_ms"], "bound_ms": dma["split_bound_ms"],
+         "bound_by": dma["split_bound_by"], "library_ms": dma["library_f32_ms"],
+         "library_bf16_ms": dma["library_bf16_ms"], "parity": "ok", "arm": "split",
+         "cuda_cores_ms": dma["cores_ms"], "prep_ms": dma["split_prep_ms"],
+         "ksplit": dma["ksplit"], "DMA_ARM": da.DMA_ARM,
+         "shape": "m={} ic={} oc={} low_frac 0.9; bf16 tensor cores (entry pb_dma_v2_split: "
+                  "wgmma, TMA; x in 3 exact bf16 terms stacked as N = 24, a K split in a "
+                  "cluster); library: f32 matmul on the dense weight; launches: phase "
+                  "9b".format(*HEADLINE_SHAPE)},
+        {"name": "pb_prep_dma", "route": "cuda", "source": "pb_llm_tpu_torch/csrc/pb_dma_v2.cu",
+         "replaces": "pb_llm_tpu/ops/pallas_pb.py:893",
+         "launches": e2e_launches("pb_prep_dma", ("",)),
+         "max_abs_err": dma_prep["max_abs_err"], "ms": dma_prep["kernel_ms"],
+         "plain_ms": dma_prep["plain_ms"], "bound_ms": dma_prep["bound_ms"],
+         "bound_by": dma_prep["bound_by"], "library_ms": None,
+         "parity": "terms bit for bit, sums within sum_bound",
+         "shape": "m={} ic={} oc={}: x's and xg's three bf16 terms and row sums for arm split "
+                  "(the x preparation XLA runs around the dma call); launches: phase "
+                  "9b".format(*HEADLINE_SHAPE)},
+    ]
     for name, replaces, source, launches, library in (
-            ("pb_dma_v2", 826, "pb_dma_v2.cu", e2e_launches("pb_dma_v2"), "f32"),
             ("pb_int8_matmul_stacked", 953, "pb_int8_matmul.cu",
              e2e_launches("pb_int8_matmul_stacked", ("", "_tc", "_split")), "bf16"),
             ("pb_f32_matmul_stacked", 991, "pb_f32_matmul.cu",
@@ -3022,7 +3274,10 @@ def main(argv=None) -> int:
          "shape": "m={} ic={} oc={} (the x preparation XLA fuses into the int8 call); "
                   "launches: phase 4, graphed".format(*HEADLINE_SHAPE)},
     ]
-    idle = [k["name"] for k in kernels if not k["launches"]]
+    # a yardstick row is an arm kept to time the path's arm against (its own
+    # launches, 0 where no layout of the path sends it there); every other row's
+    # arm must have run on its path
+    idle = [k["name"] for k in kernels if not k["launches"] and not k.get("yardstick")]
     if idle:
         raise AssertionError(f"kernels launched no time on the main paths: {idle}")
     log(json.dumps({"kernels": kernels}))

@@ -45,7 +45,8 @@
 //   word i; x's columns are taken word by word (k = 32*W + b for global word
 //   W), so a k16 step covers 16 bits of one word and a thread's A registers
 //   hold bits 2q, 2q+1, 2q+8, 2q+9 (+16) of two columns' words.  One fused
-//   launch (terms_kernel) writes x's bf16 terms in that order: [terms, m, ic].
+//   launch (pb_v1_terms.cuh's terms_kernel, shared with the planar arm
+//   "tc") writes x's bf16 terms in that order: [terms, m, ic].
 //   Terms.  An f32 operand v splits into bf16 terms t0 = bf16(v), t1 =
 //   bf16(v - t0), t2 = bf16(v - t0 - t1), each nearest even, each
 //   remainder exact in f32; three terms sum to v exactly (|v| >= 2^-100).
@@ -85,6 +86,7 @@
 #include <stdint.h>
 
 #include "pb_sm90.cuh"
+#include "pb_v1_terms.cuh"
 
 namespace {
 
@@ -284,26 +286,6 @@ __device__ __forceinline__ void split(float lo, float hi, unsigned* out) {
   }
 }
 
-// xt [TERMS, m, ic] bf16: x's terms with the columns taken word by word
-// (k = 32*W + b holds x at weight row (W / g)*32g + b*g + W % g)
-template <int TERMS>
-__global__ void __launch_bounds__(256)
-terms_kernel(const float* __restrict__ x, __nv_bfloat16* __restrict__ xt, int m, int ic, int g) {
-  const int k = blockIdx.x * 256 + threadIdx.x;
-  if (k >= ic) return;
-  const int w = k >> 5, b = k & 31, blk = w / g;
-  const int src = blk * 32 * g + b * g + (w - blk * g);
-  for (int row = blockIdx.y; row < m; row += gridDim.y) {
-    float v = x[(size_t)row * ic + src];
-#pragma unroll
-    for (int t = 0; t < TERMS; ++t) {
-      const __nv_bfloat16 h = __float2bfloat16_rn(v);
-      xt[((size_t)t * m + row) * ic + k] = h;
-      v = __fsub_rn(v, __bfloat162float(h));
-    }
-  }
-}
-
 template <int TERMS, int LOW_BITS, int SIDE_BITS>
 __global__ void __launch_bounds__(THREADS, 1)
 kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUtensorMap msg,
@@ -482,14 +464,6 @@ struct Args {
   int m, ic, oc, g, groupsize, n_groups, ksplit;
 };
 
-template <int TERMS>
-int launch_terms(const Args& A, cudaStream_t st) {
-  dim3 grid((A.ic + 255) / 256, A.m < 65535 ? A.m : 65535);
-  terms_kernel<TERMS><<<grid, 256, 0, st>>>((const float*)A.x, (__nv_bfloat16*)A.xt, A.m, A.ic,
-                                            A.g);
-  return (int)cudaGetLastError();
-}
-
 template <int TERMS, int LOW_BITS, int SIDE_BITS>
 int launch(const Args& A, cudaStream_t st) {
   using C = Cfg<TERMS, LOW_BITS, SIDE_BITS>;
@@ -527,7 +501,8 @@ int launch(const Args& A, cudaStream_t st) {
       !encode(&msd, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, A.side, sd_dims, sd_strides, sd_box,
               CU_TENSOR_MAP_SWIZZLE_128B))
     return (int)cudaErrorInvalidValue;
-  int e = launch_terms<TERMS>(A, st);
+  int e = v1terms::launch_terms<TERMS, 0>((const float*)A.x, A.xt, nullptr, A.m, A.ic,
+                                              A.g, st);
   if (e != 0) return e;
   dim3 grid(A.oc / OC, (A.m + TN - 1) / TN, A.ksplit);
   kern<<<grid, THREADS, C::total, st>>>(mx, msg, mmk, msd, (const float*)A.lscale,

@@ -30,13 +30,16 @@ KERNELS: Dict[str, Tuple[str, str]] = {
     "flash_attention_tc": ("flash_attention", "tc_launches"),  # the bf16 tensor-core arm
     "paged_attention_decode": ("paged_attention", "decode_launches"),
     "paged_attention_multi": ("paged_attention", "multi_launches"),
-    "pb_planar_v1": ("packed_matmul_v1", "planar_launches"),
+    "pb_planar_v1": ("packed_matmul_v1", "planar_launches"),  # the CUDA-core arm
+    "pb_planar_v1_tc": ("packed_matmul_v1", "planar_tc_launches"),  # the bf16 tensor-core arm
     "pb_select_v1": ("packed_matmul_v1", "select_launches"),  # the CUDA-core arm
     "pb_select_v1_tc": ("packed_matmul_v1", "select_tc_launches"),  # the bf16 tensor-core arm
     "pb_pair_v2": ("decode_arms", "pair_launches"),  # the mma.sync arm
     "pb_pair_v2_split": ("decode_arms", "pair_split_launches"),  # wgmma, K split over blocks
     "pb_pair_v2_tc": ("decode_arms", "pair_tc_launches"),  # wgmma
-    "pb_dma_v2": ("decode_arms", "dma_launches"),
+    "pb_dma_v2": ("decode_arms", "dma_launches"),  # the CUDA-core arm
+    "pb_dma_v2_split": ("decode_arms", "dma_split_launches"),  # bf16 tensor cores, K split
+    "pb_prep_dma": ("decode_arms", "dma_prep_launches"),  # the split arm's x preparation
     "pb_int8_matmul_stacked": ("packed_matmul", "stacked_launches"),  # dp4a
     "pb_int8_matmul_stacked_tc": ("packed_matmul", "stacked_tc_launches"),
     "pb_int8_matmul_stacked_split": ("packed_matmul", "stacked_split_launches"),

@@ -21,9 +21,19 @@ operands name their layout (`PairOperands.layout`, "mma" or "tc"), and the
 plain version on operands (`pair_matmul_plain`) reads either.
 
 dma (`pb_dma_v2`, `csrc/pb_dma_v2.cu`): the exact f32 arm's function
-(`pb_f32_matmul_plain` is its plain version), with the sign planes and x
-streamed through a two-stage shared-memory ring by bulk copies.  The kernel
-takes x in [m tile][word][bit][row] order (`dma_x_layout`).
+(`pb_f32_matmul_plain` is its plain version).  Two arms (`dma_arm`, the one
+place one is chosen): "split" wherever the tensor-core code takes the
+layout (`packed_matmul.tc_layout_ok`), the bf16 tensor cores with x and xg
+in three exact bf16 terms (`packed_matmul.split_terms`, x in
+`tc_pair_columns`' order, the three terms' rows stacked as one wgmma N),
+the K stages of a 128-column tile cut into `dma_ksplit` ranges whose
+blocks add their sums through a cluster's distributed shared memory, its
+operands written by one launch (`prepare_dma`: `pb_prep_dma` in the same source); and
+"cores" elsewhere, the f32 CUDA cores with the sign planes and x streamed
+through a two-stage shared-memory ring by bulk copies, x in [m
+tile][word][bit][row] order (`dma_x_layout`).  The operands name their
+layout (`DmaOperands.layout`, the arm's name), and the plain version on
+operands (`dma_matmul_plain`) reads either.
 
 Each wrapper launches its CUDA kernel on a CUDA tensor and runs its plain
 PyTorch version on a CPU tensor.
@@ -45,7 +55,9 @@ from .packed_matmul import F32Operands, check_operands, pb_f32_matmul_plain, pre
 pair_launches = 0  # kernel launches of pb_pair_v2's "mma" arm (plain-version calls not counted)
 pair_split_launches = 0  # kernel launches of pb_pair_v2's "split" arm
 pair_tc_launches = 0  # kernel launches of pb_pair_v2's "tc" arm
-dma_launches = 0   # kernel launches of pb_dma_v2 (plain-version calls not counted)
+dma_launches = 0   # kernel launches of pb_dma_v2's "cores" arm (plain-version calls not counted)
+dma_split_launches = 0  # kernel launches of pb_dma_v2's "split" arm
+dma_prep_launches = 0  # launches of the "split" arm's x preparation (pb_prep_dma)
 
 PAIR_TM = 16   # the "mma" arm's m tile (the MMA's 16 rows)
 # The pair kernel's arms: "split" below PAIR_TC rows, "tc" from PAIR_TC rows
@@ -57,8 +69,15 @@ PAIR_TM = 16   # the "mma" arm's m tile (the MMA's 16 rows)
 PAIR_TC = 128
 PAIR_ARMS = ("mma", "split", "tc")
 SPLIT_BLOCKS = 264  # the "split" arm cuts K so that a launch has about this many blocks
-DMA_TM = 8     # the dma kernel's m tile
-DMA_CW = 16    # the dma kernel's sign-word rows per stage
+DMA_TM = 8     # the "cores" arm's m tile
+DMA_CW = 16    # the "cores" arm's sign-word rows per stage
+# The dma kernel's arms: DMA_ARM where the tensor cores take the layout
+# (`dma_arm`), "cores" elsewhere.  "split" is the redesign for the card
+# (PERF.md: its time against "cores" in one call, and the dma pass's step
+# in turns); "cores" stays as a yardstick.
+DMA_ARM = "split"
+DMA_ARMS = ("cores", "split")
+DMA_MAX_KS = 8  # the "split" arm's K ranges a tile: a portable cluster
 
 
 def pair_permute_x(x: torch.Tensor, ic: int, pack_block: int) -> torch.Tensor:
@@ -264,41 +283,154 @@ def dma_x_layout(x: torch.Tensor, ic: int, pack_block: int) -> torch.Tensor:
 
 
 class DmaOperands(NamedTuple):
-    xt: torch.Tensor   # f32 [ceil(m/8), nwords_pad, 32, 8] (`dma_x_layout`)
-    f32: F32Operands   # xg, rs, rsg, coef (and the f32 x, m rows)
+    xt: torch.Tensor   # "cores": f32 [ceil(m/8), nwords_pad, 32, 8] (`dma_x_layout`);
+                       # "split": bf16 [3, m, icp] (`packed_matmul.tc_pair_columns`)
+    f32: F32Operands   # rs, rsg, coef (and the f32 x, m rows; "cores": xg)
+    layout: str = "cores"  # the arm these operands are laid out for
+    xgp: Optional[torch.Tensor] = None  # "split": bf16 [3, 1, m, kst], zero-padded slots
 
 
-def prepare_dma(x: torch.Tensor, p: PackedLinearV2) -> DmaOperands:
+def dma_arm(p: PackedLinearV2) -> str:
+    """The dma kernel's arm on layout ``p`` (the same for every m):
+    DMA_ARM where `packed_matmul.tc_layout_ok`, else "cores"."""
+    return DMA_ARM if pm.tc_layout_ok(p) else "cores"
+
+
+def _dma_units(p: PackedLinearV2) -> int:
+    """The "split" arm's K units: word groups of 8 sign words (padded bit
+    runs included), then chunks of TC_SLOTS sidecar slots."""
+    groups = sum(-(-rows // pm.TC_GROUP) for rows in packing.block_sizes(
+        p.ic_local, p.pack_block_local))
+    return groups + -(-p.k_pad // pm.TC_SLOTS)
+
+
+def dma_ksplit(p: PackedLinearV2) -> int:
+    """The "split" arm's K ranges a 128-column tile, from the layer's shape
+    alone (so a row's sums run in one order whatever m is): the least power
+    of two that brings the tiles times the ranges to SPLIT_BLOCKS, at most
+    DMA_MAX_KS (a portable cluster) and at most the units."""
+    units = _dma_units(p)
+    tiles = -(-p.oc_local // pm.TC_OC)
+    ks = 1
+    while ks < DMA_MAX_KS and ks * tiles < SPLIT_BLOCKS and 2 * ks <= units:
+        ks *= 2
+    return ks
+
+
+def dma_ranges(p: PackedLinearV2) -> list:
+    """The "split" arm's K ranges of layout ``p``: range r is the units
+    r·n // ks .. (r + 1)·n // ks - 1 of the n units (`_dma_units`), as the
+    kernel's block z = r reads them."""
+    n, ks = _dma_units(p), dma_ksplit(p)
+    return [(r * n // ks, (r + 1) * n // ks) for r in range(ks)]
+
+
+def prepare_dma(x: torch.Tensor, p: PackedLinearV2, layout: str = "cores") -> DmaOperands:
+    """The dma kernel's operands in ``layout`` ("cores" or "split").  For
+    "split": on a CPU tensor the plain version (`packed_matmul.prepare_tc`
+    with three terms), on a CUDA tensor one launch of `pb_prep_dma` (the
+    same terms bit for bit, the row sums within `packed_matmul.sum_bound`)."""
+    if layout == "split":
+        if x.device.type == "cpu":
+            ops = pm.prepare_tc(x, p, 3)
+            return DmaOperands(ops.xp, ops.f32, "split", ops.xgp)
+        return launch_prep_dma(x.float().contiguous(), p)
+    if layout != "cores":
+        raise ValueError(f"prepare_dma: unknown layout {layout!r}")
     ops = prepare_f32(x, p)
     return DmaOperands(dma_x_layout(ops.x, p.ic_local, p.pack_block_local), ops)
+
+
+_PREP_DMA_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+
+
+def launch_prep_dma(xf: torch.Tensor, p: PackedLinearV2) -> DmaOperands:
+    """Launch the "split" arm's x preparation on a contiguous f32 x (on the
+    card) on the current stream; counts one launch."""
+    m, ic = xf.shape
+    if xf.device.type != "cuda" or ic != p.ic_local:
+        raise ValueError(f"prepare_dma: x {tuple(xf.shape)} on {xf.device} does not fit")
+    idx = p.side_idx
+    if idx.device != xf.device or idx.dtype != torch.int32 or not idx.is_contiguous():
+        raise ValueError("prepare_dma: side_idx must be a contiguous int32 tensor on x's device")
+    dev, n_rg = xf.device, p.n_row_groups
+    cols = pm._tc_columns_on(ic, p.pack_block_local, dev)  # int64, made once a device
+    kst = -(-p.k_pad // pm.TC_SLOTS) * pm.TC_SLOTS
+    xp = torch.empty((3, m, cols.numel()), dtype=torch.bfloat16, device=dev)
+    xgp = torch.empty((3, n_rg, m, kst), dtype=torch.bfloat16, device=dev)
+    rs = torch.empty(m, dtype=torch.float32, device=dev)
+    rsg = torch.empty((n_rg, m), dtype=torch.float32, device=dev)
+    fn = _build.load("pb_dma_v2").pb_prep_dma
+    fn.argtypes = _PREP_DMA_ARGTYPES
+    fn.restype = ctypes.c_int
+    err = fn(xf.data_ptr(), cols.data_ptr(), idx.data_ptr(), xp.data_ptr(), xgp.data_ptr(),
+             rs.data_ptr(), rsg.data_ptr(), m, ic, cols.numel(), kst, p.shards_local,
+             p.k_pad_shard_local, n_rg, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "pb_prep_dma")
+    global dma_prep_launches
+    dma_prep_launches += 1
+    return DmaOperands(xp, F32Operands(xf, None, rs, rsg, pm.coef_rows(p)), "split", xgp)
+
+
+def dma_matmul_plain(ops: DmaOperands, p: PackedLinearV2) -> torch.Tensor:
+    """Plain PyTorch version of the kernel on its operands, in either
+    layout: the exact products of the x and xg they carry, the f32
+    epilogue."""
+    f = ops.f32
+    if ops.layout == "split":
+        return pm.tc_matmul_plain(pm.TcOperands(ops.xt, ops.xgp, f), p)
+    return pm.plain_given_x(f.x, f.xg, f, p)
 
 
 def pb_dma_v2(x: torch.Tensor, p: PackedLinearV2) -> torch.Tensor:
     """y = x @ dequant_v2(p) (+ bias) through the dma arm (one row group);
     x [m, ic] → f32 [m, oc].  CPU tensor: the plain version.  CUDA tensor:
-    the kernel."""
+    the kernel, in the arm `dma_arm` picks."""
     if x.device.type == "cpu":
         return pb_dma_v2_plain(x, p)
     _check(x, p, "pb_dma_v2")
     if p.n_row_groups != 1:
         raise ValueError("pb_dma_v2 needs one row group (global selection)")
-    return launch_dma(prepare_dma(x, p), p)
+    return launch_dma(prepare_dma(x, p, dma_arm(p)), p)
+
+
+_DMA_SPLIT_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
 def launch_dma(ops: DmaOperands, p: PackedLinearV2) -> torch.Tensor:
     """Launch the dma kernel on prepared operands (all on one CUDA device)
-    on the current stream; counts one launch."""
+    on the current stream, in the arm of their layout; counts one launch of
+    that arm."""
     f = ops.f32
-    m, ic = f.x.shape
-    out = torch.empty((m, p.oc_local), dtype=torch.float32, device=f.x.device)
-    fn = _build.load("pb_dma_v2").pb_dma_v2
+    m = f.rs.shape[0]
+    arm = ops.layout
+    if arm not in DMA_ARMS:
+        raise ValueError(f"pb_dma_v2: no arm takes {arm!r} operands")
+    out = torch.empty((m, p.oc_local), dtype=torch.float32, device=f.rs.device)
+    stream = torch.cuda.current_stream(out.device).cuda_stream
+    lib = _build.load("pb_dma_v2")
+    global dma_launches, dma_split_launches
+    if arm == "split":
+        if not pm.tc_layout_ok(p) or p.n_row_groups != 1:
+            raise ValueError(f"pb_dma_v2: the split arm does not take this layout "
+                             f"(oc {p.oc_local}, row groups {p.n_row_groups})")
+        fn = lib.pb_dma_v2_split
+        fn.argtypes = _DMA_SPLIT_ARGTYPES
+        fn.restype = ctypes.c_int
+        err = fn(ops.xt.data_ptr(), ops.xgp.data_ptr(), f.rs.data_ptr(), f.rsg.data_ptr(),
+                 p.sign_packed.data_ptr(), p.side_val.data_ptr(), f.coef.data_ptr(),
+                 out.data_ptr(), m, p.ic_local, p.oc_local, p.pack_block_local, p.side_bits,
+                 p.k_pad, p.k_pad_shard_local, dma_ksplit(p), stream)
+        _build.check(err, "pb_dma_v2 (split)")
+        dma_split_launches += 1
+        return out
+    fn = lib.pb_dma_v2
     fn.argtypes = _DMA_ARGTYPES
     fn.restype = ctypes.c_int
     err = fn(ops.xt.data_ptr(), f.xg.data_ptr(), f.rs.data_ptr(), f.rsg.data_ptr(),
              p.sign_packed.data_ptr(), p.side_val.data_ptr(), f.coef.data_ptr(),
-             out.data_ptr(), m, ic, p.oc_local, p.side_bits, p.k_pad, p.k_pad_shard_local,
-             torch.cuda.current_stream(out.device).cuda_stream)
-    _build.check(err, "pb_dma_v2")
-    global dma_launches
+             out.data_ptr(), m, p.ic_local, p.oc_local, p.side_bits, p.k_pad,
+             p.k_pad_shard_local, stream)
+    _build.check(err, "pb_dma_v2 (cores)")
     dma_launches += 1
     return out

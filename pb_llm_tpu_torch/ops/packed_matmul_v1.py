@@ -13,7 +13,12 @@ from {0,1} bit planes, M the salient mask plane and V the high codes (zero
 where not salient).  For 1-bit lows α = scale and β = mean − scale; for 2-
 and 4-bit lows α = scale/2 and β = −scale·zero; γ = ½(−hs·hz − β).  The
 JAX kernel's {0,2} planes carry the factor 2 that lives in 2α and 2γ here,
-which is exact.
+which is exact.  Two arms (`planar_arm`): "tc", the bf16 tensor cores with
+C, M and V as they are and x in three bf16 terms (select "tc"'s K order and
+terms, with each 128-row stage's row sum), a stage's products folded with
+its group's coefficients, the K stages of a tile cut into `planar_ksplit`
+ranges added through a cluster's distributed shared memory, where
+`planar_tc_ok` holds; "cores", the f32 CUDA cores, elsewhere.
 
 select (`pb_select_v1`, `csrc/pb_select_v1.cu`), m ≥ 256 or where the
 planar path does not fit:
@@ -60,7 +65,25 @@ SELECT_TERMS = ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0))
 _TC_OC, _TC_ROWS, _TC_STAGE = 128, 128, 64  # arm "tc": a block's columns and x rows, a stage's k
 SPLIT_MIN_STAGES = 8  # arm "tc"'s K split: the fewest stages a range takes
 
-planar_launches = 0  # kernel launches of pb_planar_v1 (plain-version calls not counted)
+# The planar kernel's arms: PLANAR_ARM where `planar_tc_ok` holds, "cores"
+# elsewhere.  "tc" is the redesign for the card (PERF.md: its time against
+# "cores" and select "tc" in one call, and phase 7b's step in turns);
+# "cores" stays as a yardstick.
+PLANAR_ARM = "tc"
+PLANAR_ARMS = ("cores", "tc")
+PLANAR_WORDS = 4     # arm "tc": sign words a stage
+PLANAR_STAGE = 32 * PLANAR_WORDS  # its k a stage
+# its K split: at least PLANAR_BLOCKS blocks (about one an SM), ranges of at
+# most PLANAR_RANGE stages, at most PLANAR_MAX_KS ranges (a portable cluster)
+PLANAR_BLOCKS = 128
+PLANAR_RANGE = 8
+PLANAR_MAX_KS = 8
+# its output columns a block (the kernel's OCT; 256, with the code plane read in
+# 256-byte runs, took longer on every shape measured on an H100: PERF.md)
+PLANAR_OC = 128
+
+planar_launches = 0  # launches of pb_planar_v1's arm "cores" (plain-version calls not counted)
+planar_tc_launches = 0  # launches of its arm "tc"
 select_launches = 0  # launches of pb_select_v1's arm "cores" (plain-version calls not counted)
 select_tc_launches = 0  # launches of its arm "tc"
 
@@ -187,35 +210,133 @@ def pb_planar_v1_plain(x: torch.Tensor, p: PackedLinear) -> torch.Tensor:
 _PLANAR_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
-def pb_planar_v1(x: torch.Tensor, p: PackedLinear) -> torch.Tensor:
+def planar_tc_ok(p: PackedLinear) -> bool:
+    """The layouts arm "tc" takes: a stage's PLANAR_WORDS sign words inside
+    one scale group (groups of a multiple of PLANAR_STAGE rows, or one
+    group), on top of what the planar path needs (`groups_hold_blocks`,
+    `kernel_supported_v1`)."""
+    return (groups_hold_blocks(p) and kernel_supported_v1(p)
+            and (p.n_groups == 1 or p.groupsize_local % PLANAR_STAGE == 0))
+
+
+def planar_arm(p: PackedLinear) -> str:
+    """The planar kernel's arm on layout ``p`` (the same for every m):
+    PLANAR_ARM where `planar_tc_ok`, else "cores".  The one place the arm
+    is chosen."""
+    return PLANAR_ARM if planar_tc_ok(p) else "cores"
+
+
+def planar_ksplit(p: PackedLinear) -> int:
+    """Arm "tc"'s K ranges a tile, from the layer's shape alone (so a row's
+    sums run in one order whatever m is): the least power of two that
+    brings the PLANAR_OC-column tiles times the ranges to
+    PLANAR_BLOCKS and cuts the stages into ranges of at most PLANAR_RANGE,
+    at most PLANAR_MAX_KS and at most the stages.  On an "NVIDIA H100 80GB
+    HBM3, 700.00 W" the fewest blocks that fill the card won where each still held about
+    PLANAR_RANGE stages; 2048×8192 took 0.030 ms in 2 ranges against 0.037
+    in 8 (PERF.md §6)."""
+    tiles = p.oc_local // PLANAR_OC
+    stages = -(-p.ic_local // PLANAR_STAGE)
+    ks = 1
+    while ks < min(PLANAR_MAX_KS, stages) and (ks * tiles < PLANAR_BLOCKS
+                                               or ks * PLANAR_RANGE < stages):
+        ks *= 2
+    return ks
+
+
+def planar_ranges(p: PackedLinear) -> list:
+    """Arm "tc"'s K ranges of layout ``p``: range r is the stages r·n // ks
+    .. (r + 1)·n // ks - 1 of the n stages of PLANAR_STAGE rows of
+    `tc_x_order`, as the kernel's block z = r reads them."""
+    n, ks = -(-p.ic_local // PLANAR_STAGE), planar_ksplit(p)
+    return [(r * n // ks, (r + 1) * n // ks) for r in range(ks)]
+
+
+def planar_stage_sums_plain(x: torch.Tensor, p: PackedLinear) -> torch.Tensor:
+    """Plain version of arm "tc"'s row sums: [ceil(ic/PLANAR_STAGE), m], the
+    f32 sum of x over each stage's weight rows (`tc_x_order`), each word's
+    32 by a tree of pairs, then the stage's words in order."""
+    xo = x.float()[:, tc_x_order(p.ic_local, p.pack_block_local).to(x.device)]
+    m, ic = xo.shape
+    pad = (-ic) % PLANAR_STAGE
+    w = torch.nn.functional.pad(xo, (0, pad)).reshape(m, -1, 32)
+    while w.shape[-1] > 1:  # the warp's shuffle tree: lane i + lane i + half
+        h = w.shape[-1] // 2
+        w = w[..., :h] + w[..., h:]
+    w = w[..., 0].reshape(m, -1, PLANAR_WORDS)
+    total = w[..., 0]
+    for i in range(1, PLANAR_WORDS):
+        total = total + w[..., i]
+    return total.t().contiguous()
+
+
+def pb_planar_v1(x: torch.Tensor, p: PackedLinear, arm: Optional[str] = None) -> torch.Tensor:
     """y = x @ dequantize(p) (+ bias) through the planar path; x [m, ic] →
-    f32 [m, oc].  CPU tensor: the plain version.  CUDA tensor: the kernel."""
+    f32 [m, oc].  CPU tensor: the plain version.  CUDA tensor: the kernel's
+    arm ``arm``, by default `planar_arm`'s."""
     if x.device.type == "cpu":
         return pb_planar_v1_plain(x, p)
     _check(x, p, "pb_planar_v1")
     if not groups_hold_blocks(p):
         raise ValueError("pb_planar_v1: scale groups must hold whole pack blocks")
-    return launch_planar(x.float().contiguous(), p)
+    return launch_planar(x.float().contiguous(), p, planar_arm(p) if arm is None else arm)
 
 
-def launch_planar(x: torch.Tensor, p: PackedLinear) -> torch.Tensor:
-    """Launch the planar kernel on a checked layer and contiguous f32 x on
-    the current stream; counts one launch."""
+_PLANAR_TC_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+
+
+def launch_planar(x: torch.Tensor, p: PackedLinear, arm: str = "cores") -> torch.Tensor:
+    """Launch arm ``arm`` of the planar kernel on a checked layer and
+    contiguous f32 x on the current stream; counts one launch of that arm."""
+    if arm not in PLANAR_ARMS:
+        raise ValueError(f"pb_planar_v1: arm {arm!r} not in {PLANAR_ARMS}")
     m, ic = x.shape
     oc = p.oc_local
     out = torch.empty((m, oc), dtype=torch.float32, device=x.device)
     coef = planar_coef(p)
-    fn = _build.load("pb_planar_v1").pb_planar_v1
-    fn.argtypes = _PLANAR_ARGTYPES
-    fn.restype = ctypes.c_int
-    err = fn(x.data_ptr(), p.sign_packed.data_ptr(), p.mask_packed.data_ptr(),
-             p.sidecar.data_ptr(), coef.data_ptr(), out.data_ptr(),
-             m, ic, oc, p.pack_block_local, p.low_bits, p.sidecar_bits, p.groupsize_local,
-             p.n_groups, torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "pb_planar_v1")
-    global planar_launches
-    planar_launches += 1
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    global planar_launches, planar_tc_launches
+    if arm == "cores":
+        fn = _build.load("pb_planar_v1").pb_planar_v1
+        fn.argtypes = _PLANAR_ARGTYPES
+        fn.restype = ctypes.c_int
+        err = fn(x.data_ptr(), p.sign_packed.data_ptr(), p.mask_packed.data_ptr(),
+                 p.sidecar.data_ptr(), coef.data_ptr(), out.data_ptr(),
+                 m, ic, oc, p.pack_block_local, p.low_bits, p.sidecar_bits, p.groupsize_local,
+                 p.n_groups, stream)
+        _build.check(err, "pb_planar_v1")
+        planar_launches += 1
+        return out
+    if not planar_tc_ok(p):
+        raise ValueError(f"pb_planar_v1 (tc): groups of {p.groupsize_local} rows (pack blocks "
+                         f"of {p.pack_block_local}) are not whole {PLANAR_STAGE}-row stages")
+    if p.sign_packed.data_ptr() % 16 or p.mask_packed.data_ptr() % 16:
+        raise ValueError("pb_planar_v1 (tc): sign and mask planes must be 16-byte aligned (TMA)")
+    _planar_tc_call(x, p, coef, out, *planar_tc_scratch(x, p), stream)
+    planar_tc_launches += 1
     return out
+
+
+def planar_tc_scratch(x: torch.Tensor, p: PackedLinear) -> tuple:
+    """Arm "tc"'s scratch for x [m, ic]: x's terms (bf16 [3, m, ic]) and
+    its stage row sums (f32 [ceil(ic/PLANAR_STAGE), m])."""
+    m, ic = x.shape
+    return (torch.empty((3, m, ic), dtype=torch.bfloat16, device=x.device),
+            torch.empty((-(-ic // PLANAR_STAGE), m), dtype=torch.float32, device=x.device))
+
+
+def _planar_tc_call(x, p, coef, out, xt, sums, stream) -> None:
+    """pb_planar_v1_tc: one launch writes x's terms and stage row sums into
+    ``xt`` and ``sums`` (`planar_tc_scratch`), the next the matmul."""
+    m, ic = x.shape
+    fn = _build.load("pb_planar_v1").pb_planar_v1_tc
+    fn.argtypes = _PLANAR_TC_ARGTYPES
+    fn.restype = ctypes.c_int
+    err = fn(x.data_ptr(), xt.data_ptr(), sums.data_ptr(), p.sign_packed.data_ptr(),
+             p.mask_packed.data_ptr(), p.sidecar.data_ptr(), coef.data_ptr(), out.data_ptr(),
+             m, ic, p.oc_local, p.pack_block_local, p.low_bits, p.sidecar_bits,
+             p.groupsize_local, p.n_groups, planar_ksplit(p), stream)
+    _build.check(err, "pb_planar_v1_tc")
 
 
 # ---------------------------------------------------------------------------

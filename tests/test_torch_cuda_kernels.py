@@ -835,11 +835,143 @@ def test_planar_v1_kernel_matches_plain(cuda, name, m):
 
     p = _v1_layer(name, cuda)
     x = torch.randn((m, p.ic), generator=torch.Generator(device=cuda).manual_seed(m), device=cuda)
-    before = v1.planar_launches
+    counter = _PLANAR_COUNTER[v1.planar_arm(p)]
+    before = getattr(v1, counter)
     got = v1.pb_planar_v1(x, p)
     torch.cuda.synchronize()
-    assert v1.planar_launches == before + 1
+    assert getattr(v1, counter) == before + 1
     _close(got, v1.pb_planar_v1_plain(x, p))
+
+
+_PLANAR_COUNTER = {"cores": "planar_launches", "tc": "planar_tc_launches"}
+# arm "tc"'s layouts: low_bits 1/2/4, nibble codes, whole-row and 128-row
+# groups, oc a multiple of 256 or not, ic below a pack block
+PLANAR_TC_LAYERS = ["whole_row", "groups128_oc384", "nibbles", "groups128_nibbles_low2",
+                    "low4_oc640", "short_ic", "wide_groups"]
+PLANAR_TC_MS = [1, 2, 7, 8, 9, 16, 17, 64, 100, 255]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", PLANAR_TC_LAYERS)
+@pytest.mark.parametrize("m", PLANAR_TC_MS)
+def test_planar_v1_tc_arm_matches_plain_and_cores(cuda, name, m):
+    """Arm "tc" (x in three bf16 terms, C, M, V exact in bf16, a fold a
+    stage, a K split in a cluster) within rtol = atol = 1e-4 of the plain
+    version and of arm "cores"."""
+    from pb_llm_tpu_torch.ops import packed_matmul_v1 as v1
+
+    p = _v1_layer(name, cuda)
+    assert v1.planar_arm(p) == "tc"
+    x = torch.randn((m, p.ic), generator=torch.Generator(device=cuda).manual_seed(m), device=cuda)
+    want = v1.pb_planar_v1_plain(x, p)
+    cores = v1.launch_planar(x, p, "cores")
+    before = v1.planar_tc_launches
+    got = v1.launch_planar(x, p, "tc")
+    torch.cuda.synchronize()
+    assert v1.planar_tc_launches == before + 1
+    _close(got, want)
+    _close(got, cores)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["whole_row", "groups128_nibbles_low2", "low4_oc640"])
+def test_planar_v1_tc_reads_an_identity_back_bit_for_bit(cuda, name):
+    """An identity x is one exact term with one weight row a row of y:
+    every product and row sum is exact, the other stages fold zeros, and y
+    equals the plain version's bit for bit, at 8 rows a block and at 16."""
+    from pb_llm_tpu_torch.ops import packed_matmul_v1 as v1
+
+    p = _v1_layer(name, cuda)
+    m = min(p.ic, 255)
+    x = torch.eye(p.ic, device=cuda)[:m].contiguous()
+    want = v1.pb_planar_v1_plain(x, p)
+    assert torch.equal(v1.launch_planar(x, p, "tc"), want)
+    assert torch.equal(v1.launch_planar(x[:8].contiguous(), p, "tc"), want[:8])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["whole_row", "groups128_oc384", "nibbles"])
+def test_planar_v1_tc_rows_do_not_depend_on_m_or_the_tile(cuda, name):
+    """The K split is fixed by the shape: a row gets the same bits at m =
+    1, 8 (8 rows a block), 9 and 100 (16 rows a block)."""
+    from pb_llm_tpu_torch.ops import packed_matmul_v1 as v1
+
+    p = _v1_layer(name, cuda)
+    x = torch.randn((100, p.ic), generator=torch.Generator(device=cuda).manual_seed(2), device=cuda)
+    full = v1.launch_planar(x, p, "tc")
+    for m in (1, 8, 9):
+        xm = x[:m].contiguous()
+        assert torch.equal(v1.launch_planar(xm, p, "tc"), full[:m]), m
+
+
+@pytest.mark.cuda
+def test_planar_v1_tc_terms_and_sums_match_their_plain_versions(cuda):
+    """The terms launch writes select "tc"'s terms bit for bit, and the
+    stage row sums of `planar_stage_sums_plain` (the same tree of pairs)."""
+    from pb_llm_tpu_torch.ops import packed_matmul_v1 as v1
+
+    p = _v1_layer("groups128_oc384", cuda)
+    x = torch.randn((9, p.ic), generator=torch.Generator(device=cuda).manual_seed(4), device=cuda)
+    xt, sums = v1.planar_tc_scratch(x, p)
+    xt.fill_(float("nan"))
+    sums.fill_(float("nan"))
+    out = torch.empty((9, p.oc), device=cuda)
+    v1._planar_tc_call(x, p, v1.planar_coef(p), out, xt, sums,
+                       torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert torch.equal(xt, v1.select_x_terms_plain(x, p))
+    assert torch.equal(sums, v1.planar_stage_sums_plain(x, p))
+
+
+@pytest.mark.cuda
+def test_planar_v1_tc_under_a_graph_equals_eager(cuda):
+    from pb_llm_tpu_torch.ops import packed_matmul_v1 as v1
+
+    p = _v1_layer("groups128_oc384", cuda)
+    x = torch.randn((8, p.ic), generator=torch.Generator(device=cuda).manual_seed(5), device=cuda)
+    eager = v1.pb_planar_v1(x, p)
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        with torch.cuda.graph(graph, stream=stream):
+            captured = v1.pb_planar_v1(x, p)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(eager, captured)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ic,oc", [(2048, 2048), (2048, 8192), (8192, 2048), (4096, 11008)])
+@pytest.mark.parametrize("groupsize", [-1, 128])
+def test_planar_v1_tc_at_full_width(cuda, ic, oc, groupsize):
+    """OPT-1.3B's shapes and llama-7b's MLP at decode rows and the most
+    the planar dispatch sends (255)."""
+    from pb_llm_tpu_torch.data.synthetic import random_packed_v1
+    from pb_llm_tpu_torch.ops import packed_matmul_v1 as v1
+
+    g = torch.Generator(device=cuda).manual_seed(ic + oc)
+    p = random_packed_v1(ic, oc, g, low_frac=0.9, groupsize=groupsize, bias=True)
+    for m in (1, 8, 255):
+        x = torch.randn((m, ic), generator=g, device=cuda)
+        assert v1.planar_arm(p) == "tc"
+        _close(v1.pb_planar_v1(x, p), v1.pb_planar_v1_plain(x, p))
+
+
+@pytest.mark.cuda
+def test_planar_v1_tc_refuses_what_it_cannot_take(cuda):
+    """Groups of 32 rows split a 128-row stage: the rule keeps "cores", and
+    the arm, asked by name, raises before anything launches."""
+    from pb_llm_tpu_torch.data.synthetic import random_packed_v1
+    from pb_llm_tpu_torch.ops import packed_matmul_v1 as v1
+
+    p = random_packed_v1(256, 128, torch.Generator(device=cuda).manual_seed(0), groupsize=32,
+                         pack_block=32)
+    x = torch.randn((8, 256), device=cuda)
+    assert v1.planar_arm(p) == "cores"
+    with pytest.raises(ValueError, match="128-row stages"):
+        v1.pb_planar_v1(x, p, arm="tc")
+    _close(v1.pb_planar_v1(x, p), v1.pb_planar_v1_plain(x, p))
 
 
 @pytest.mark.cuda
@@ -892,19 +1024,21 @@ def test_select_v1_kernel_rebuilds_the_plain_weight_bit_for_bit(cuda):
 
 @pytest.mark.cuda
 def test_v1_dispatch_on_the_card_takes_the_kernels(cuda):
-    """"auto" on a CUDA tensor: planar below 256 rows, select from 256 on
-    the arm `select_arm` picks; an unknown arm raises."""
+    """"auto" on a CUDA tensor: planar below 256 rows on the arm
+    `planar_arm` picks, select from 256 on the arm `select_arm` picks; an
+    unknown arm raises."""
     from pb_llm_tpu_torch.ops import binary_matmul
     from pb_llm_tpu_torch.ops import packed_matmul_v1 as v1
 
     p = _v1_layer("groups128_oc384", cuda)
 
     def counts():
-        return {"planar": v1.planar_launches, "cores": v1.select_launches,
-                "tc": v1.select_tc_launches}
+        return {"planar": v1.planar_launches, "planar_tc": v1.planar_tc_launches,
+                "cores": v1.select_launches, "tc": v1.select_tc_launches}
 
+    planar = "planar_tc" if v1.planar_arm(p) == "tc" else "planar"
     for m in (8, 300):
-        arm = "planar" if m < v1.V1_PLANAR_M else v1.select_arm(m, p)
+        arm = planar if m < v1.V1_PLANAR_M else v1.select_arm(m, p)
         x = torch.randn((m, p.ic), device=cuda)
         before = counts()
         got = binary_matmul.pb_matmul(x, p)
@@ -1011,11 +1145,147 @@ def test_dma_kernel_matches_plain(cuda, name, m):
 
     p = _arm_layer(name, cuda)
     x = torch.randn((m, p.ic), generator=torch.Generator(device=cuda).manual_seed(m), device=cuda)
-    before = decode_arms.dma_launches
+    counter = _DMA_COUNTER[decode_arms.dma_arm(p)]
+    before = getattr(decode_arms, counter)
     got = decode_arms.pb_dma_v2(x, p)
     torch.cuda.synchronize()
-    assert decode_arms.dma_launches == before + 1
+    assert getattr(decode_arms, counter) == before + 1
     torch.testing.assert_close(got, decode_arms.pb_dma_v2_plain(x, p), rtol=1e-4, atol=1e-4)
+
+
+_DMA_COUNTER = {"cores": "dma_launches", "split": "dma_split_launches"}
+DMA_SPLIT_MS = [1, 2, 7, 8, 9, 15, 16, 17, 64, 100, 255]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("side_bits", [8, 4])
+@pytest.mark.parametrize("m", DMA_SPLIT_MS)
+def test_dma_split_arm_matches_plain_and_cores(cuda, side_bits, bias, m):
+    """Arm "split" (x in three exact bf16 terms, the K split in a cluster)
+    within rtol = atol = 1e-4 of the plain version, of the plain version on
+    its own operands and of arm "cores", with 8- and 4-bit codes."""
+    from pb_llm_tpu_torch.ops import decode_arms
+
+    g = torch.Generator(device=cuda).manual_seed(side_bits + m)
+    p = random_packed_v2(512, 384, g, side_bits=side_bits, pack_block=128, bias=bias)
+    assert decode_arms.dma_arm(p) == "split"
+    x = torch.randn((m, 512), generator=g, device=cuda)
+    ops = decode_arms.prepare_dma(x, p, "split")
+    before = decode_arms.dma_split_launches
+    got = decode_arms.launch_dma(ops, p)
+    torch.cuda.synchronize()
+    assert decode_arms.dma_split_launches == before + 1
+    tol = dict(rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got, decode_arms.pb_dma_v2_plain(x, p), **tol)
+    torch.testing.assert_close(got, decode_arms.dma_matmul_plain(ops, p), **tol)
+    cores = decode_arms.launch_dma(decode_arms.prepare_dma(x, p, "cores"), p)
+    torch.testing.assert_close(got, cores, **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ic,oc", [(4096, 4096), (4096, 11008), (11008, 4096)])
+@pytest.mark.parametrize("side_bits", [8, 4])
+def test_dma_split_arm_at_llama_width(cuda, ic, oc, side_bits):
+    """llama-7b's three shapes (ic = 11008 packs in blocks of 1376) at the
+    rows phase 2 times: the plain version within 1e-4, every run the same bits."""
+    from pb_llm_tpu_torch.ops import decode_arms
+
+    g = torch.Generator(device=cuda).manual_seed(ic + oc + side_bits)
+    p = random_packed_v2(ic, oc, g, low_frac=0.9, side_bits=side_bits)
+    for m in (1, 8, 15, 64, 255):
+        x = torch.randn((m, ic), generator=g, device=cuda)
+        got = decode_arms.pb_dma_v2(x, p)
+        again = decode_arms.pb_dma_v2(x, p)
+        torch.testing.assert_close(got, decode_arms.pb_dma_v2_plain(x, p), rtol=1e-4, atol=1e-4)
+        assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["side8", "side4", "shards4", "multiblock"])
+def test_dma_prep_matches_its_plain_version(cuda, name):
+    """pb_prep_dma's terms equal `packed_matmul.prepare_tc`'s bit for bit;
+    its row sums lie within `sum_bound` of the plain f32 sums."""
+    from pb_llm_tpu_torch.ops import decode_arms
+
+    p = _arm_layer(name, cuda)
+    x = torch.randn((11, p.ic), generator=torch.Generator(device=cuda).manual_seed(7), device=cuda)
+    x[0, 0] = 1e-40  # a subnormal splits exactly too
+    x[1, 1] = 3.0e38
+    before = decode_arms.dma_prep_launches
+    got = decode_arms.prepare_dma(x, p, "split")
+    torch.cuda.synchronize()
+    assert decode_arms.dma_prep_launches == before + 1
+    want = packed_matmul.prepare_tc(x, p, 3)
+    assert torch.equal(got.xt, want.xp) and torch.equal(got.xgp, want.xgp)
+    assert torch.all((got.f32.rs - want.f32.rs).abs() <= packed_matmul.sum_bound(x, 1))
+    xg = want.f32.xg
+    assert torch.all((got.f32.rsg - want.f32.rsg).abs() <= packed_matmul.sum_bound(xg, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side_bits", [8, 4])
+def test_dma_split_reads_an_identity_back_bit_for_bit(cuda, side_bits):
+    """An identity x: every product, partial and row sum is exact, so y
+    equals the plain version's bit for bit (a row of the layer's weight, its
+    epilogue in the plain version's order)."""
+    from pb_llm_tpu_torch.ops import decode_arms
+
+    p = random_packed_v2(256, 384, torch.Generator(device=cuda).manual_seed(9),
+                         side_bits=side_bits, bias=True)
+    for rows in (slice(0, 8), slice(0, 255), slice(200, 256)):
+        x = torch.eye(256, device=cuda)[rows].contiguous()
+        assert torch.equal(decode_arms.pb_dma_v2(x, p), decode_arms.pb_dma_v2_plain(x, p))
+
+
+@pytest.mark.cuda
+def test_dma_split_rows_do_not_depend_on_m(cuda):
+    """The K split is fixed by the shape: a row gets the same bits at m =
+    1, 8 (8 rows a block), 9 and 100 (16 rows a block)."""
+    from pb_llm_tpu_torch.ops import decode_arms
+
+    g = torch.Generator(device=cuda).manual_seed(12)
+    p = random_packed_v2(4096, 4096, g, low_frac=0.9)
+    assert decode_arms.dma_ksplit(p) > 1
+    x = torch.randn((100, 4096), generator=g, device=cuda)
+    full = decode_arms.pb_dma_v2(x, p)
+    for m in (1, 8, 9):
+        assert torch.equal(decode_arms.pb_dma_v2(x[:m].contiguous(), p), full[:m]), m
+
+
+@pytest.mark.cuda
+def test_dma_split_under_a_graph_equals_eager(cuda):
+    from pb_llm_tpu_torch.ops import decode_arms
+
+    p = random_packed_v2(1024, 512, torch.Generator(device=cuda).manual_seed(13), side_bits=4)
+    x = torch.randn((8, 1024), generator=torch.Generator(device=cuda).manual_seed(3), device=cuda)
+    eager = decode_arms.pb_dma_v2(x, p)
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        with torch.cuda.graph(graph, stream=stream):
+            captured = decode_arms.pb_dma_v2(x, p)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(eager, captured)
+
+
+@pytest.mark.cuda
+def test_dma_split_refuses_what_it_cannot_take(cuda):
+    """A layout the tensor cores do not take keeps "cores" by rule, and
+    "split" operands meet no other arm: no silent fallback."""
+    from pb_llm_tpu_torch.ops import decode_arms
+
+    p = random_packed_v2(256, 264, torch.Generator(device=cuda).manual_seed(0))  # oc % 16 != 0
+    x = torch.randn((8, 256), device=cuda)
+    assert decode_arms.dma_arm(p) == "cores"
+    with pytest.raises(ValueError, match="split arm does not take"):
+        decode_arms.launch_dma(decode_arms.prepare_dma(x, p, "split"), p)
+    q = random_packed_v2(256, 256, torch.Generator(device=cuda).manual_seed(0))
+    ops = decode_arms.prepare_dma(x, q, "split")._replace(layout="mma")
+    with pytest.raises(ValueError, match="no arm takes"):
+        decode_arms.launch_dma(ops, q)
 
 
 def _stacked(dev, side_bits=8, n=3):
@@ -1067,7 +1337,7 @@ def test_stacked_kernels_match_plain_and_the_flat_kernels(cuda, side_bits, m):
 @pytest.mark.cuda
 def test_decode_arms_and_stacked_dispatch_on_the_card_take_the_kernels(cuda):
     """decode_dot pair / dma on a CUDA tensor launch their kernels (pair at
-    8 rows its "split" arm); a stacked marker launches the stacked int8
+    8 rows its "split" arm, dma its "split" arm); a stacked marker launches the stacked int8
     kernel on "int8" (8 rows: the arm `int8_arm` picks) and the stacked f32
     kernel on the other arms (8 rows: its CUDA-core arm), at m <= 256."""
     from pb_llm_tpu_torch.ops import binary_matmul, decode_arms
@@ -1080,8 +1350,10 @@ def test_decode_arms_and_stacked_dispatch_on_the_card_take_the_kernels(cuda):
 
     stacked = _STACKED_COUNTER[packed_matmul.int8_arm(8, packed_matmul.stacked_layer(markers[1]))]
 
+    assert decode_arms.dma_arm(p) == "split"
+
     def counts():
-        return (decode_arms.pair_split_launches, decode_arms.dma_launches,
+        return (decode_arms.pair_split_launches, decode_arms.dma_split_launches,
                 getattr(packed_matmul, stacked), packed_matmul.stacked_f32_launches)
 
     for arm, want in (("pair", (1, 0, 0, 1)), ("dma", (0, 1, 0, 1)), ("int8", (0, 0, 1, 0))):
