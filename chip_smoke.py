@@ -19,13 +19,17 @@ raises and the exit code is not 0:
    the crossover M_TC) and decode attention (serving; its int8, bf16 and
    q8 cache arms, each in the "split" and "slot" kernel arms), the
    binary-part dequant, the
-   exact f32 matmul's two arms (f32 CUDA cores, bf16 tensor cores with x in
-   three terms; crossover F32_TC) and flash attention's two arms (bf16
+   exact f32 matmul's three arms (f32 CUDA cores, bf16 tensor cores with x in
+   three terms; crossover F32_TC; below it "split", the dma kernel's device
+   code, flat and stacked, at 1-31 rows on llama-7b's shapes and a fused
+   q|k|v layer) and flash attention's two arms (bf16
    tensor cores, q, k, p, v in bf16 terms, also dots_bf16; f32 CUDA cores;
    the producers' eval windows),
    paged attention (the paged pool: decode, speculative verify, chunk
-   continuation, GQA; int8, f32 and bf16 pages;
-   windows on the tensor-core arm, timed beside the CUDA-core arm), the
+   continuation, GQA; int8, f32 and bf16 pages, every page past a slot's
+   live keys NaN; decode on the "split" arm in both of its loads, windows
+   on the tensor-core arm, each timed beside the CUDA-core arm, and "split"
+   on the verify windows of t·G <= 8 rows), the
    PBW-v1 planar and select matmuls (OPT-1.3B's and llama-7b's MLP
    shapes; the planar kernel's two arms at 1-255 rows, bf16 tensor cores
    with C, M, V exact and x in three bf16 terms in both column tiles, and
@@ -169,6 +173,7 @@ DEQUANT_DTYPES = (torch.float32, torch.bfloat16)
 # (m, col_tile): decode, global selection; prefill row-grouped and global
 F32_CASES = ((8, 0), (512, 256), (512, 0))
 F32_CROSS_MS = (8, 16, 32, 64, 128, 256, 512)  # the f32 arms' crossover rows (global selection)
+F32_SPLIT_MS = (1, 8, 15, 31)  # the f32 arms' decode rows: below F32_TC, the "split" arm
 F32_RTOL, F32_ATOL = 1e-4, 1e-4    # the JAX package's bound for its f32 kernel
 FLASH_CASES = ((4, 2048, 32, 128, True),   # B, T, H, D, causal: 4 eval windows of llama-7b
                (1, 2000, 32, 128, True),   # T not a multiple of the 64-row tile
@@ -614,9 +619,12 @@ def check_f32_matmul(timer: Timer, card: str):
     gen = torch.Generator(device=DEV).manual_seed(8)
     rows = []
 
-    def arms(x, p):  # each arm's (prepare, launch)
-        return {"cores": (lambda: pm.prepare_f32(x, p), pm.launch_f32),
-                "tc": (lambda: pm.prepare_tc(x, p, 3), pm.launch_f32_tc)}
+    def arms(x, p):  # each arm's (prepare, launch); "split" up to 64 rows (the decode arm)
+        out = {"cores": (lambda: pm.prepare_f32(x, p), pm.launch_f32),
+               "tc": (lambda: pm.prepare_tc(x, p, 3), pm.launch_f32_tc)}
+        if x.shape[0] <= 64:
+            out["split"] = (lambda: pm.prepare_split(x, p), pm.launch_f32_split)
+        return out
 
     for ic, oc in MATMUL_SHAPES:
         for m, col_tile in F32_CASES:
@@ -665,8 +673,89 @@ def check_f32_matmul(timer: Timer, card: str):
         log(json.dumps({"phase": "f32_crossover", "ic": ic, "oc": oc, "m": list(F32_CROSS_MS),
                         "cores_ms": [times[m, "cores"] for m in F32_CROSS_MS],
                         "tc_ms": [times[m, "tc"] for m in F32_CROSS_MS],
+                        "split_ms": [times.get((m, "split")) for m in F32_CROSS_MS],
                         "F32_TC": pm.F32_TC, "card": card}))
         del p
+    return rows
+
+
+def check_f32_split(timer: Timer, card: str):
+    """The exact f32 matmul's decode rows (F32_SPLIT_MS, below F32_TC) on
+    llama-7b's three shapes and a fused q|k|v layer (3 row groups): its
+    three arms ("split", the dma kernel's device code; "cores"; "tc" by
+    name), flat and, on layer 1 of a 2-layer stack, through the stacked
+    entry, on the same operands; each within F32_RTOL / F32_ATOL of the plain
+    version, the stacked launch equal to the flat one bit for bit.  Times:
+    each arm's kernel and preparation, the wrapper's, the plain version's,
+    the f32 torch.matmul on the dense weight (TF32 off), and each arm's
+    bound (the bytes, or its own arithmetic: three terms at the bf16 rate
+    for "split" and "tc", the f32 rate for "cores").  One row per layer and
+    m; ``picked`` names the arm the wrapper takes."""
+    from pb_llm_tpu_torch.core.pbw import dequantize_v2, merge_packed_linears_v2
+    from pb_llm_tpu_torch.data.synthetic import random_packed_v2
+    from pb_llm_tpu_torch.models import stacking
+    from pb_llm_tpu_torch.ops import packed_matmul as pm
+
+    gen = torch.Generator(device=DEV).manual_seed(23)
+    layers = [(f"{ic}x{oc}", [random_packed_v2(ic, oc, gen, low_frac=0.9)
+                              for _ in range(ARM_LAYERS)]) for ic, oc in MATMUL_SHAPES]
+    layers.append(("fused q|k|v", [merge_packed_linears_v2(
+        [random_packed_v2(4096, 4096, gen, low_frac=0.9) for _ in range(3)])]))
+    rows = []
+    for name, ls in layers:
+        p, mk = ls[-1], None
+        if len(ls) > 1:
+            sp = stacking.stack_layers({"layers": [{"w": q} for q in ls]})["layers_stacked"]["w"]
+            li = len(ls) - 1
+            mk = stacking.StackedPackedLinearV2(sp, li, torch.full((1,), li, dtype=torch.int32,
+                                                                   device=DEV))
+            p = pm.stacked_layer(mk)
+        ic, oc = p.ic_local, p.oc_local
+        w = dequantize_v2(p)
+        for m in F32_SPLIT_MS:
+            x = torch.randn((m, ic), generator=gen, device=DEV)
+            want = pm.pb_f32_matmul_plain(x, p)
+            n_ops, nbytes = 2 * m * oc * (ic + p.k_pad), matmul_bytes(p, m)
+            row = {"kernel": "pb_f32_matmul", "layer": name, "m": m, "ic": ic, "oc": oc,
+                   "k_pad": p.k_pad, "row_groups": p.n_row_groups, "picked": pm.f32_arm(m, p),
+                   "ksplit": pm.split_ksplit(p),
+                   "plain_ms": timer(lambda: pm.pb_f32_matmul_plain(x, p), iters=5),
+                   "wrapper_ms": timer(lambda: pm.pb_f32_matmul(x, p)),
+                   "library_ms": timer(lambda: x @ w), "library": "f32 matmul", "card": card}
+            for arm in pm.F32_ARMS:
+                ops = pm.prepare_f32_arm(x, p, arm)
+                got = pm.launch_f32(ops, p)
+                torch.cuda.synchronize()
+                err = (got - want).abs()
+                if not (torch.isfinite(got).all()
+                        and torch.all(err <= F32_ATOL + F32_RTOL * want.abs())):
+                    raise AssertionError(f"pb_f32_matmul ({arm}) m={m} {name}: max|err| "
+                                         f"{err.max().item()} beyond rtol {F32_RTOL} atol "
+                                         f"{F32_ATOL}")
+                b_ms, b_by = (bound(nbytes, n_ops, F32_FLOPS_PER_S) if arm == "cores"
+                              else bound(nbytes, 3 * n_ops, BF16_FLOPS_PER_S))
+                row.update({f"{arm}_ms": timer(lambda: pm.launch_f32(ops, p)),
+                            f"{arm}_prep_ms": timer(lambda: pm.prepare_f32_arm(x, p, arm)),
+                            f"{arm}_max_abs_err": err.max().item(), f"{arm}_bound_ms": b_ms,
+                            f"{arm}_bound_by": b_by})
+                row[f"{arm}_share_of_bound"] = b_ms / row[f"{arm}_ms"]
+                if mk is not None:
+                    sgot = pm.launch_f32_stacked(ops, mk)
+                    torch.cuda.synchronize()
+                    if not torch.equal(sgot, got):
+                        raise AssertionError(f"pb_f32_matmul_stacked ({arm}) m={m} {name}: "
+                                             "the stacked launch differs from the flat one")
+                    row[f"stacked_{arm}_ms"] = timer(lambda: pm.launch_f32_stacked(ops, mk))
+                del ops, got, err
+            pk = row["picked"]
+            row.update({"arm": pk, "kernel_ms": row[f"{pk}_ms"],
+                        "max_abs_err": row[f"{pk}_max_abs_err"], "bound_ms": row[f"{pk}_bound_ms"],
+                        "bound_by": row[f"{pk}_bound_by"]})
+            row["over_library"] = row["kernel_ms"] / row["library_ms"]
+            log(json.dumps(row))
+            rows.append(row)
+            del x, want
+        del ls, p, mk, w
     return rows
 
 
@@ -733,12 +822,56 @@ def check_flash(timer: Timer, card: str):
     return rows
 
 
+def paged_operands(b, t, hq, hkv, d, kind, max_base, gen, rng, bases=None):
+    """A PAGED_CASES case's inputs on the card: a PAGED_POOL pool of
+    ``kind`` pages (int8 with f32 scale planes, bf16 or f32), shuffled
+    tables, bases up to ``max_base`` (slot 0's the largest; or ``bases``),
+    q [B, t, Hq, D]; every page no row may read holds NaN (the values, or an
+    int8 page's scales).  Returns q, k, v, k scales, v scales, table, base."""
+    n_pages, ps, maxp = PAGED_POOL
+    kv = [torch.randn((n_pages + 1, hkv, ps, d), generator=gen, device=DEV) for _ in range(2)]
+    int8 = kind == "int8"
+    if int8:
+        scaled = []
+        for x in kv:
+            sc = torch.clamp(x.abs().amax(-1) / 127.0, min=1e-8)
+            q8 = torch.clamp(torch.round(x / sc[..., None]), -127, 127).to(torch.int8)
+            scaled += [q8, sc]
+        k, ks, v, vs = scaled
+    else:
+        (k, v), ks, vs = [x.to(torch.bfloat16 if kind == "bf16" else torch.float32)
+                          for x in kv], None, None
+    del kv
+    table = torch.randperm(n_pages, generator=gen, device=DEV)[: b * maxp].reshape(b, maxp)
+    table = table.to(torch.int32)
+    if bases is None:
+        base = torch.as_tensor(rng.integers(0, max_base + 1, b), device=DEV)
+        base[0] = max_base
+    else:
+        base = torch.as_tensor(bases, device=DEV)
+    live = torch.zeros(n_pages + 1, dtype=torch.bool, device=DEV)
+    for i, bs in enumerate(base.tolist()):
+        live[table[i, : -(-(bs + t) // ps)].long()] = True
+    if int8:  # no key past a row's limit may reach the output: poison the rest
+        ks[~live], vs[~live] = float("nan"), float("nan")
+    else:
+        k[~live], v[~live] = float("nan"), float("nan")
+    q = torch.randn((b, t, hq, d), generator=gen, device=DEV)
+    return q, k, v, ks, vs, table, base
+
+
 def check_paged_attention(timer: Timer, card: str):
     """Paged attention on a pool of 1025 pages of 16 through shuffled
     tables, at the paged serving path's shapes, over int8, f32 and bf16
-    pages.  Library: SDPA over the same K/V gathered into dense strips
-    beforehand (bf16 for int8 and bf16 pages, as for decode attention; f32
-    for f32 pages); the gather is not timed."""
+    pages; every page no row may read (the trash page, the tables' entries
+    past each slot's last live page) holds NaN (the values, or an int8
+    page's scales).  Every arm that takes a case runs on the same inputs in
+    this call and is held to its bound: decode on "split" and the CUDA
+    cores; windows on the tensor cores and the CUDA cores, and on
+    "split" where t·G <= SPLIT_MAX_ROWS (the verify_t5 cases of G = 1).
+    Library: SDPA over the same K/V gathered into dense strips beforehand
+    (bf16 for int8 and bf16 pages, as for decode attention; f32 for f32
+    pages; NaN zeroed); the gather is not timed."""
     from pb_llm_tpu_torch.ops import paged_attention as tpa
 
     n_pages, ps, maxp = PAGED_POOL
@@ -747,24 +880,7 @@ def check_paged_attention(timer: Timer, card: str):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = []
     for name, b, t, hq, hkv, d, kind, max_base in PAGED_CASES:
-        kv = [torch.randn((n_pages + 1, hkv, ps, d), generator=gen, device=DEV) for _ in range(2)]
-        int8 = kind == "int8"
-        if int8:
-            scaled = []
-            for x in kv:
-                sc = torch.clamp(x.abs().amax(-1) / 127.0, min=1e-8)
-                q8 = torch.clamp(torch.round(x / sc[..., None]), -127, 127).to(torch.int8)
-                scaled += [q8, sc]
-            k, ks, v, vs = scaled
-        else:
-            (k, v), ks, vs = [x.to(torch.bfloat16 if kind == "bf16" else torch.float32)
-                              for x in kv], None, None
-        del kv
-        table = torch.randperm(n_pages, generator=gen, device=DEV)[: b * maxp].reshape(b, maxp)
-        table = table.to(torch.int32)
-        base = torch.as_tensor(rng.integers(0, max_base + 1, b), device=DEV)
-        base[0] = max_base
-        q = torch.randn((b, t, hq, d), generator=gen, device=DEV)
+        q, k, v, ks, vs, table, base = paged_operands(b, t, hq, hkv, d, kind, max_base, gen, rng)
         scale = d ** -0.5
         got = tpa.paged_attention_multi(q, k, v, table, base, scale, ps, ks, vs)
         torch.cuda.synchronize()
@@ -773,17 +889,28 @@ def check_paged_attention(timer: Timer, card: str):
         if not (torch.isfinite(got).all() and torch.all(err <= ATTN_ATOL + ATTN_RTOL * want.abs())):
             raise AssertionError(f"paged_attention {name}: max|err| {err.max().item()} beyond "
                                  f"rtol {ATTN_RTOL} atol {ATTN_ATOL}")
-        arm = tpa.window_arm(t, k.dtype)
-        both = t > 1 and kind != "f32"  # windows the tensor-core arm takes: time both arms
+        arm = tpa.window_arm(t, k.dtype, hq // hkv, d)
+        runs = [tpa.CUDA_CORES]  # every arm that takes the case
+        if t > 1 and kind != "f32":
+            runs.append(tpa.TENSOR_CORES)
+        if tpa.split_ok(t * (hq // hkv), d):
+            runs.append(tpa.SPLIT)
         qs, bs = (q * scale).contiguous(), base.to(torch.int32)
         arm_err = {}
-        for a in (tpa.TENSOR_CORES, tpa.CUDA_CORES) if both else ():
-            e = (tpa.launch(qs, k, v, table, bs, ks, vs, _arm_for_timing=a) - want).abs()
+        for a in runs:
+            got_a = tpa.launch(qs, k, v, table, bs, ks, vs, _arm_for_timing=a)
+            e = (got_a - want).abs()
             arm_err[a] = e.max().item()
-            if a == tpa.TENSOR_CORES and not torch.all(e <= WINDOW_ATOL + WINDOW_RTOL * want.abs()):
-                raise AssertionError(f"paged_attention {name} (tensor cores): max|err| "
-                                     f"{arm_err[a]} beyond rtol {WINDOW_RTOL} atol {WINDOW_ATOL}")
-            del e
+            rtol, atol = ((WINDOW_RTOL, WINDOW_ATOL) if a == tpa.TENSOR_CORES
+                          else (ATTN_RTOL, ATTN_ATOL))
+            if not (torch.isfinite(got_a).all() and torch.all(e <= atol + rtol * want.abs())):
+                raise AssertionError(f"paged_attention {name} ({a}): max|err| {arm_err[a]} "
+                                     f"beyond rtol {rtol} atol {atol}")
+            if t == 1 and a == tpa.SPLIT:  # the arm's own plain version, too
+                sp = tpa.split_plain(q[:, 0], k, v, table, base + 1, scale, ps, ks, vs)
+                if not torch.all((got_a[:, 0] - sp).abs() <= ATTN_ATOL + ATTN_RTOL * sp.abs()):
+                    raise AssertionError(f"paged_attention {name} ({a}): beyond split_plain")
+            del e, got_a
 
         n = -(-int((base + t).max()) // ps)
         idx = table[:, :n].long()
@@ -793,7 +920,7 @@ def check_paged_attention(timer: Timer, card: str):
             x = pages[idx].transpose(2, 3).reshape(b, n * ps, hkv, d).float()
             if sc is not None:
                 x = x * sc[idx].transpose(2, 3).reshape(b, n * ps, hkv, 1)
-            return x.transpose(1, 2).to(ldt).contiguous()
+            return torch.nan_to_num(x, nan=0.0).transpose(1, 2).to(ldt).contiguous()
 
         kd, vd = dense(k, ks), dense(v, vs)
         qd = q.transpose(1, 2).to(ldt).contiguous()
@@ -808,6 +935,7 @@ def check_paged_attention(timer: Timer, card: str):
         bounds = {tpa.CUDA_CORES: bound(nbytes, 4 * d * hq * pairs, F32_FLOPS_PER_S),
                   tpa.TENSOR_CORES: bound(nbytes, WINDOW_TERMS * 4 * d * hq * pairs,
                                           BF16_FLOPS_PER_S)}
+        bounds[tpa.SPLIT] = bounds[tpa.CUDA_CORES]  # f32 on the CUDA cores too
         bound_ms, bound_by = bounds[arm]
         plain_iters = 3 if t > 8 else 5
         row = {"kernel": "paged_attention", "case": name, "arm": arm, "B": b, "t": t, "Hq": hq,
@@ -821,10 +949,10 @@ def check_paged_attention(timer: Timer, card: str):
                "library_ms": timer(lambda: sdpa(qd, kd, vd, attn_mask=mask, scale=scale,
                                                 enable_gqa=hq != hkv)),
                "bound_ms": bound_ms, "bound_by": bound_by, "card": card}
-        for a, e in arm_err.items():  # both arms on the same inputs, in the same call
-            row[f"{a}_max_abs_err"] = e
+        for a in runs:  # every arm on the same inputs, in the same call
+            row[f"{a}_max_abs_err"] = arm_err[a]
             row[f"{a}_ms"] = timer(lambda: tpa.launch(qs, k, v, table, bs, ks, vs,
-                                                        _arm_for_timing=a))
+                                                        decode=t == 1, _arm_for_timing=a))
             row[f"{a}_bound_ms"], row[f"{a}_bound_by"] = bounds[a]
         log(json.dumps(row))
         rows.append(row)
@@ -1102,7 +1230,7 @@ def check_dma_arms(timer: Timer, card: str):
 def check_v2_arms(timer: Timer, card: str):
     """Phase 9's stacked kernels at llama-7b's decode shapes (random PBW-v2
     planes, low_frac 0.9): the stacked int8 and f32 kernels on layer 1 of
-    a 2-layer stack (the stacked f32 entry in both arms).  Library: the
+    a 2-layer stack (the stacked f32 entry in every arm).  Library: the
     bf16 torch.matmul on the dense weight for stacked int8, the f32 one for
     stacked f32 (TF32 off).  dma: `check_dma_arms`."""
     from pb_llm_tpu_torch.core.pbw import dequantize_v2
@@ -1159,10 +1287,9 @@ def check_v2_arms(timer: Timer, card: str):
                                                      pm.launch_int8(ops, lp, arm)),
                        arm=arm, picked=arm == picked,
                        flat_ms=timer(lambda: pm.launch_int8(ops, lp, arm)))
-            for arm in pm.F32_ARMS:  # both arms of the stacked entry, beside the flat arm
-                prep = ((lambda: pm.prepare_tc(x, lp, 3)) if arm == "tc"
-                        else (lambda: pm.prepare_f32(x, lp)))
-                flat = pm.launch_f32_tc if arm == "tc" else pm.launch_f32
+            for arm in pm.F32_ARMS:  # every arm of the stacked entry, beside the flat arm
+                prep = functools.partial(pm.prepare_f32_arm, x, lp, arm)
+                flat = pm.launch_f32
                 ops = prep()
                 record("pb_f32_matmul_stacked", p, m, pm.launch_f32_stacked(ops, mk),
                        pm.pb_f32_matmul_stacked_plain(x, mk),
@@ -1241,13 +1368,14 @@ def check_engine_parity(params, arms: str, page_size: int = 0):
     arm_kw = (dict(decode_dot="int8", prefill="int8") if arms == "int8"
               else dict(decode_dot="f32", prefill="hybrid"))
     card_kernels = None if arms == "int8" else KernelConfig(**arm_kw)
-    pm.f32_launches = pm.f32_tc_launches = pa.launches = 0
+    pm.f32_launches = pm.f32_tc_launches = pm.f32_split_launches = pa.launches = 0
     t0 = time.perf_counter()
     g_logits, g_toks, g_nll = run_parity(params, cfg, DEV, kernels=card_kernels,
                                          page_size=page_size)
     torch.cuda.synchronize()
     gpu_s = time.perf_counter() - t0
-    f32_launches = {"cores": pm.f32_launches, "tc": pm.f32_tc_launches}
+    f32_launches = {"cores": pm.f32_launches, "tc": pm.f32_tc_launches,
+                    "split": pm.f32_split_launches}
     paged_launches = pa.launches
     plain = KernelConfig(backend="pallas_interpret", decode_attention="pallas_interpret", **arm_kw)
     t0 = time.perf_counter()
@@ -1271,7 +1399,7 @@ def check_engine_parity(params, arms: str, page_size: int = 0):
         raise AssertionError(f"engine parity ({arms}): greedy tokens differ {g_toks} vs {c_toks}")
     if abs(g_nll - c_nll) > NLL_RTOL * abs(c_nll):
         raise AssertionError(f"engine parity ({arms}): NLL {g_nll} vs {c_nll}")
-    if arms == "exact" and not all(f32_launches.values()):
+    if arms == "exact" and not (f32_launches["split"] and f32_launches["tc"]):
         raise AssertionError(f"engine parity (exact): an f32 matmul arm never launched "
                              f"{f32_launches}")
     if page_size and paged_launches == 0:
@@ -1338,6 +1466,15 @@ def int8_launches(rows, n_linear: int, p, kernel: str = "pb_int8_matmul") -> dic
     for r in rows:
         out[INT8_COUNTERS[pm.int8_arm(r, p)].replace("pb_int8_matmul", kernel)] += n_linear
     return out
+
+
+def paged_split(cfg) -> bool:
+    """Whether paged decode takes the arm "split" for ``cfg``'s heads (the
+    wrapper's rule, `paged_attention.window_arm`)."""
+    from pb_llm_tpu_torch.ops import paged_attention as tpa
+
+    g = cfg.num_attention_heads // cfg.kv_heads
+    return tpa.window_arm(1, torch.int8, g, cfg.head_dim) == tpa.SPLIT
 
 
 def attention_launches(n: int) -> dict:
@@ -1852,17 +1989,9 @@ def paged_invariants(params, card: str):
 # phase 6b: paged serving end to end
 # ---------------------------------------------------------------------------
 
-def paged_e2e(params, card: str):
-    """The 32-layer llama-7b of phase 4 behind `EngineConfig(n_slots=8,
-    max_seq=2048, page_size=16, prefix_cache=True, prefill_chunk=256)`, int8
-    pages: the same 16 requests on a fresh engine with plain decode (the
-    t = 1 kernel), then with spec_gamma 4 (every tick a t = 5 verify)."""
-    from pb_llm_tpu_torch.models.registry import family_for
-    from pb_llm_tpu_torch.runtime.batching import ContinuousBatcher, Request
-    from pb_llm_tpu_torch.runtime.engine import Engine, EngineConfig
-
-    cfg = llama7b(32)
-    v = cfg.vocab_size
+def paged_prompts(v: int):
+    """Phase 6b's 16 prompts: 8 sharing a 96-token prefix, 4 of 600-1000
+    tokens (longer than a chunk), 4 of 8-32."""
     rng = np.random.default_rng(15)
 
     def rand(lo, hi):
@@ -1875,6 +2004,28 @@ def paged_e2e(params, card: str):
     prompts = []
     for i in range(4):
         prompts += [shared[2 * i], long[i], short[i], shared[2 * i + 1]]
+    return prompts
+
+
+def paged_requests(v: int):
+    """Phase 6b's mix as requests: its prompts, E2E_NEW new tokens each."""
+    from pb_llm_tpu_torch.runtime.batching import Request
+
+    return [Request(request_id=i, prompt_ids=p, max_new_tokens=E2E_NEW)
+            for i, p in enumerate(paged_prompts(v))]
+
+
+def paged_e2e(params, card: str):
+    """The 32-layer llama-7b of phase 4 behind `EngineConfig(n_slots=8,
+    max_seq=2048, page_size=16, prefix_cache=True, prefill_chunk=256)`, int8
+    pages: the same 16 requests on a fresh engine with plain decode (the
+    t = 1 kernel), then with spec_gamma 4 (every tick a t = 5 verify)."""
+    from pb_llm_tpu_torch.models.registry import family_for
+    from pb_llm_tpu_torch.runtime.batching import ContinuousBatcher, Request
+    from pb_llm_tpu_torch.runtime.engine import Engine, EngineConfig
+
+    cfg = llama7b(32)
+    prompts = paged_prompts(cfg.vocab_size)
     n_linear, n_layers = 7 * cfg.num_hidden_layers, cfg.num_hidden_layers
     rows = []
     for gamma in (0, 4):
@@ -1960,6 +2111,7 @@ def paged_e2e(params, card: str):
             **int8_launches(fwd_rows, n_linear, first_linear(params)),
             pb_prep_int8=n_linear * n_fwd,
             paged_attention_decode=n_layers * forwards["decode"],
+            paged_attention_split=n_layers * forwards["decode"] * paged_split(cfg),
             paged_attention_multi=windows, paged_attention_window=windows)
         if launches != want:
             raise AssertionError(f"paged e2e pass {row['pass']}: launches {launches}, "
@@ -2267,11 +2419,12 @@ def scan_fuse_parity(params, card: str):
     row = {"phase": "scan_fuse_parity", "layers": 2, "arms": INV_ARMS, "checks": out,
            "launches": launches, "decode_arms_card_vs_cpu": arms,
            "stacked_f32_tc_launches": arms[-1]["launches"]["pb_f32_matmul_stacked_tc"],
+           "stacked_f32_split_launches": launches["pb_f32_matmul_stacked_split"],
            "pair_launches": {k: v for k, v in arms[1]["launches"].items() if "pair" in k},
            "seconds": time.perf_counter() - t0, "card": card}
     log(json.dumps(row))
-    if launches["pb_f32_matmul_stacked"] == 0:
-        raise AssertionError("phase 9a: the stacked f32 kernel never launched")
+    if launches["pb_f32_matmul_stacked_split"] == 0:
+        raise AssertionError("phase 9a: the stacked f32 kernel's decode arm never launched")
     return row
 
 
@@ -2555,6 +2708,7 @@ def serve_http_e2e(params, card: str, phase4: dict):
             want = expect_launches(**int8_launches(fwd_rows, n_linear, first_linear(params)),
                                    pb_prep_int8=n_linear * sum(forwards.values()),
                                    paged_attention_decode=n_layers * decode_fwd,
+                                   paged_attention_split=n_layers * decode_fwd * paged_split(cfg),
                                    paged_attention_multi=n_layers * forwards["window"],
                                    paged_attention_window=n_layers * forwards["window"],
                                    paged_attention_bf16=n_layers * (decode_fwd
@@ -2761,7 +2915,7 @@ def windows_on_cuda_cores():
     from pb_llm_tpu_torch.ops import paged_attention as tpa
 
     rule = tpa.window_arm
-    tpa.window_arm = lambda t, dtype: tpa.CUDA_CORES
+    tpa.window_arm = lambda t, *a: tpa.CUDA_CORES if t > 1 else rule(t, *a)
     try:
         yield
     finally:
@@ -2876,6 +3030,7 @@ def main(argv=None) -> int:
     from pb_llm_tpu_torch.ops import decode_arms as da
     from pb_llm_tpu_torch.ops import packed_matmul as pm
     from pb_llm_tpu_torch.ops import packed_matmul_v1 as v1
+    from pb_llm_tpu_torch.ops import paged_attention as tpa
 
     card = setup()
     timer = Timer()
@@ -2885,6 +3040,7 @@ def main(argv=None) -> int:
     att = att_rows[0]
     dq_rows = check_dequant(timer, card)
     f32_rows = check_f32_matmul(timer, card)
+    f32_split_rows = check_f32_split(timer, card)
     fa_rows = check_flash(timer, card)
     pa_rows = check_paged_attention(timer, card)
     v1_rows = check_v1_matmul(timer, card)
@@ -2926,11 +3082,15 @@ def main(argv=None) -> int:
     head, split = at_head["dp4a"], at_head["split"]
     pre = {r["arm"]: r for r in mm_rows if (r["m"], r["ic"], r["oc"]) == PREFILL_SHAPE}
     dq = next(r for r in dq_rows if (r["ic"], r["oc"], r["dtype"]) == (4096, 11008, "torch.float32"))
-    f32 = next(r for r in f32_rows if (r["m"], r["ic"], r["oc"]) == HEADLINE_SHAPE and r["picked"])
+    f32 = next(r for r in f32_rows if (r["m"], r["ic"], r["oc"]) == HEADLINE_SHAPE
+               and r["arm"] == "cores")
+    f32s = next(r for r in f32_split_rows if (r["m"], r["ic"], r["oc"]) == HEADLINE_SHAPE)
     f32_pre = {r["arm"]: r for r in f32_rows
                if (r["m"], r["ic"], r["oc"]) == PREFILL_SHAPE and r["col_tile"] == r["oc"]}
     fa = fa_rows[0]
     pa = next(r for r in pa_rows if r["case"] == "decode_int8")
+    paged_by_arm = {a: sum(r["launches"][f"paged_attention_{a}"] for r in paged)
+                    for a in ("split", "cuda_cores", "window")}
     planar = next(r for r in v1_rows if r["kernel"] == "pb_planar_v1" and (r["ic"], r["oc"]) ==
                   V1_HEADLINE and r["groupsize"] == V1_HEADLINE[0] and r["sidecar_bits"] == 8
                   and r["low_bits"] == 1 and r["m"] == 8)
@@ -2994,12 +3154,27 @@ def main(argv=None) -> int:
          "library_ms": None, "parity": "bit for bit", "shape": "ic=4096 oc=11008 f32 out"},
         {"name": "pb_f32_matmul", "route": "cuda", "source": "pb_llm_tpu_torch/csrc/pb_f32_matmul.cu",
          "replaces": "pb_llm_tpu/ops/pallas_pb.py:297",
-         "launches": exact["f32_matmul_launches"]["cores"],
+         "launches": exact["f32_matmul_launches"]["cores"], "yardstick": True,
          "max_abs_err": max(r["max_abs_err"] for r in f32_rows if r["arm"] == "cores"),
          "ms": f32["kernel_ms"], "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
          "bound_by": f32["bound_by"], "library_ms": f32["library_ms"], "parity": "ok",
-         "arm": "cores", "F32_TC": pm.F32_TC,
-         "shape": "m={} ic={} oc={} low_frac 0.9, global selection; the f32 CUDA cores; "
+         "arm": "cores", "F32_TC": pm.F32_TC, "arm_launches": exact["f32_matmul_launches"],
+         "shape": "m={} ic={} oc={} low_frac 0.9, global selection; the f32 CUDA cores (2- and "
+                  "4-bit lows, dot bf16 below F32_TC, layouts the tensor cores refuse, or a "
+                  "call that names it); launches: phase 3 (exact arms), the cores arm's (every "
+                  "arm in arm_launches)".format(*HEADLINE_SHAPE)},
+        {"name": "pb_f32_matmul_split", "route": "cuda", "source": "pb_llm_tpu_torch/csrc/pb_dma_v2.cu",
+         "replaces": "pb_llm_tpu/ops/pallas_pb.py:297",
+         "launches": exact["f32_matmul_launches"]["split"],
+         "max_abs_err": max(r["split_max_abs_err"] for r in f32_split_rows),
+         "ms": f32s["split_ms"], "plain_ms": f32s["plain_ms"], "bound_ms": f32s["split_bound_ms"],
+         "bound_by": f32s["split_bound_by"], "library_ms": f32s["library_ms"], "parity": "ok",
+         "arm": "split", "cuda_cores_ms": f32s["cores_ms"], "tc_ms": f32s["tc_ms"],
+         "prep_ms": f32s["split_prep_ms"], "ksplit": f32s["ksplit"],
+         "F32_DECODE_ARM": pm.F32_DECODE_ARM,
+         "shape": "m={} ic={} oc={} low_frac 0.9, global selection; the dma kernel's split "
+                  "device code (entry pb_dma_v2_split: wgmma bf16, x in 3 exact terms stacked as "
+                  "N = 24, a K split in a cluster); library: f32 matmul on the dense weight; "
                   "launches: phase 3 (exact arms)".format(*HEADLINE_SHAPE)},
         {"name": "pb_f32_matmul_tc", "route": "cuda", "source": "pb_llm_tpu_torch/csrc/pb_bf16_tc.cuh",
          "replaces": "pb_llm_tpu/ops/pallas_pb.py:297",
@@ -3037,12 +3212,27 @@ def main(argv=None) -> int:
                       *FLASH_CASES[0][:4])},
         {"name": "paged_attention", "route": "cuda", "source": "pb_llm_tpu_torch/csrc/paged_attention.cu",
          "replaces": "pb_llm_tpu/ops/paged_attention.py:35",
-         "launches": sum(r["launches"]["paged_attention_decode"] + r["launches"][
-             "paged_attention_multi"] - r["launches"]["paged_attention_window"] for r in paged),
-         "max_abs_err": max(r["max_abs_err"] for r in pa_rows), "ms": pa["kernel_ms"],
-         "plain_ms": pa["plain_ms"], "bound_ms": pa["bound_ms"], "bound_by": pa["bound_by"],
-         "library_ms": pa["library_ms"], "parity": "ok",
-         "shape": "B=8 Hq=Hkv=32 D=128 int8 pages of 16 (1025), lengths <= 512, decode"},
+         "launches": paged_by_arm["cuda_cores"], "yardstick": True,
+         "max_abs_err": max(r["cuda_cores_max_abs_err"] for r in pa_rows),
+         "ms": pa["cuda_cores_ms"], "plain_ms": pa["plain_ms"],
+         "bound_ms": pa["cuda_cores_bound_ms"], "bound_by": pa["cuda_cores_bound_by"],
+         "library_ms": pa["library_ms"], "parity": "ok", "arm": "cuda_cores",
+         "arm_launches": paged_by_arm,
+         "shape": "B=8 Hq=Hkv=32 D=128 int8 pages of 16 (1025), lengths <= 512, decode; the "
+                  "CUDA-core arm (f32-page windows, decode beyond the split arm's shapes, or a "
+                  "call that names it); launches: phase 6b, the CUDA-core arm's (both decode "
+                  "arms in arm_launches)"},
+        {"name": "paged_attention_split", "route": "cuda",
+         "source": "pb_llm_tpu_torch/csrc/paged_attention.cu",
+         "replaces": "pb_llm_tpu/ops/paged_attention.py:35", "launches": paged_by_arm["split"],
+         "max_abs_err": max(r["split_max_abs_err"] for r in pa_rows if "split_max_abs_err" in r),
+         "ms": pa["split_ms"], "plain_ms": pa["plain_ms"], "bound_ms": pa["split_bound_ms"],
+         "bound_by": pa["split_bound_by"], "library_ms": pa["library_ms"], "parity": "ok",
+         "arm": "split", "cuda_cores_ms": pa["cuda_cores_ms"], "SPLIT_KEYS": tpa.SPLIT_KEYS,
+         "SPLIT_GRID": tpa.SPLIT_GRID,
+         "shape": "B=8 Hq=Hkv=32 D=128 int8 pages of 16 (1025), lengths <= 512, decode; 128-key "
+                  "splits of whole pages, a merge launch (the time covers both); library: SDPA "
+                  "bf16; launches: phase 6b"},
         {"name": "pb_planar_v1", "route": "cuda", "source": "pb_llm_tpu_torch/csrc/pb_planar_v1.cu",
          "replaces": "pb_llm_tpu/ops/pallas_pb.py:148", "launches": planar_launches["cores"],
          "yardstick": True,
@@ -3187,7 +3377,7 @@ def main(argv=None) -> int:
                 "arm": w["arm"], "ms": w["kernel_ms"], "flat_ms": w["flat_ms"],
                 "bound_ms": w["bound_ms"], "library_ms": w["library_ms"]}}
         if name == "pb_f32_matmul_stacked":
-            extra = {"arm": "cores"}
+            extra = {"arm": "cores", "yardstick": True}
         kernels.append({**extra,
             "name": name, "route": "cuda", "source": f"pb_llm_tpu_torch/csrc/{source}",
             "replaces": f"pb_llm_tpu/ops/pallas_pb.py:{replaces}", "launches": launches,
@@ -3212,6 +3402,20 @@ def main(argv=None) -> int:
         "dp4a_ms": arm_row("pb_int8_matmul_stacked", row_groups=1, arm="dp4a")["kernel_ms"],
         "shape": "m={} ic={} oc={} low_frac 0.9, layer 1 of 2; the split arm; library: bf16 "
                  "matmul on the dense weight; launches: phase 9b".format(*HEADLINE_SHAPE)})
+    sf = arm_row("pb_f32_matmul_stacked", row_groups=1, arm="split")
+    kernels.append({
+        "name": "pb_f32_matmul_stacked_split", "route": "cuda",
+        "source": "pb_llm_tpu_torch/csrc/pb_dma_v2.cu", "replaces": "pb_llm_tpu/ops/pallas_pb.py:991",
+        "launches": scan_fuse["stacked_f32_split_launches"],
+        "max_abs_err": max(q["max_abs_err"] for q in arm_rows
+                           if q["kernel"] == "pb_f32_matmul_stacked" and q["arm"] == "split"),
+        "ms": sf["kernel_ms"], "plain_ms": sf["plain_ms"], "bound_ms": sf["tensor_cores_bound_ms"],
+        "bound_by": sf["tensor_cores_bound_by"], "library_ms": sf["library_ms"], "parity": "ok",
+        "arm": "split", "flat_ms": sf["flat_ms"], "prep_ms": sf["prep_ms"],
+        "cuda_cores_ms": arm_row("pb_f32_matmul_stacked", row_groups=1, arm="cores")["kernel_ms"],
+        "shape": "m={} ic={} oc={} low_frac 0.9, layer 1 of 2; the dma kernel's split device code "
+                 "(entry pb_dma_v2_split with a device layer index); library: f32 matmul on the "
+                 "dense weight; launches: phase 9a".format(*HEADLINE_SHAPE)})
     st = arm_row("pb_f32_matmul_stacked", m=ARM_MS[1], row_groups=1, arm="tc")
     kernels.append({
         "name": "pb_f32_matmul_stacked_tc", "route": "cuda",
@@ -3239,15 +3443,37 @@ def main(argv=None) -> int:
             KV_PASSES, (next(r for r in att_rows if r["arm"] == "q8"),
                         next(r for r in att_rows if r["arm"] == "bf16"),
                         next(r for r in pa_rows if r["case"] == "decode_bf16"))):
-        errs = ([q["max_abs_err"] for q in pa_rows if q["kv"] == "bf16"]
-                if name.startswith("paged") else [r["max_abs_err"]])
+        if name.startswith("paged"):  # the CUDA-core arm (row 12b); its split arm next
+            launches = http[pass_name]
+            kernels += [{
+                "name": name, "route": "cuda", "source": f"pb_llm_tpu_torch/csrc/{source}",
+                "replaces": f"pb_llm_tpu/ops/{replaces}",
+                "launches": launches["paged_attention_cuda_cores"], "yardstick": True,
+                "max_abs_err": max(q["cuda_cores_max_abs_err"] for q in pa_rows
+                                   if q["kv"] == "bf16"),
+                "ms": r["cuda_cores_ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["cuda_cores_bound_ms"], "bound_by": r["cuda_cores_bound_by"],
+                "library_ms": r["library_ms"], "parity": "ok", "arm": "cuda_cores",
+                "shape": shape + f", lengths <= {ATTN_MAX_LEN}; the CUDA-core arm; library: "
+                                 "SDPA bf16; launches: phase 10b, that arm's over bf16 pages"}, {
+                "name": name + "_split", "route": "cuda",
+                "source": f"pb_llm_tpu_torch/csrc/{source}",
+                "replaces": f"pb_llm_tpu/ops/{replaces}",
+                "launches": launches["paged_attention_split"],
+                "max_abs_err": max(q["split_max_abs_err"] for q in pa_rows
+                                   if q["kv"] == "bf16" and "split_max_abs_err" in q),
+                "ms": r["split_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["split_bound_ms"],
+                "bound_by": r["split_bound_by"], "library_ms": r["library_ms"], "parity": "ok",
+                "arm": "split", "cuda_cores_ms": r["cuda_cores_ms"],
+                "shape": shape + f", lengths <= {ATTN_MAX_LEN}; the decode arm split; library: "
+                                 "SDPA bf16; launches: phase 10b"}]
+            continue
         kernels.append({
             "name": name, "route": "cuda", "source": f"pb_llm_tpu_torch/csrc/{source}",
             "replaces": f"pb_llm_tpu/ops/{replaces}", "launches": http[pass_name][counter],
-            "max_abs_err": max(errs), "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+            "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "parity": "ok", **({} if name.startswith("paged") else {
-                "arm": "split", "slot_ms": r["slot_ms"]}),
+            "parity": "ok", "arm": "split", "slot_ms": r["slot_ms"],
             "shape": shape + f", lengths <= {ATTN_MAX_LEN}; library: SDPA bf16; "
                              "launches: phase 10b"})
     win = next(r for r in pa_rows if r["case"] == "chunk_t256_int8")

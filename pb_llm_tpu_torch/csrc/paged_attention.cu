@@ -30,9 +30,38 @@
 // 67 TFLOP/s f32, or 10 us as bf16 tensor-core operations with two terms
 // a product (see the window arm below) at 989 TFLOP/s.
 //
-// Two arms.  The CUDA-core arm takes decode (t = 1) and f32 pages; the
-// tensor-core arm (paged_attention_window) takes windows (t > 1) over int8
-// and bf16 pages; the wrapper picks by that fixed rule.
+// Three arms.  The split arm (paged_attention_split) takes decode (t = 1)
+// over every page type where G = Hq / Hkv <= 8 and D is a multiple of 8
+// (it also takes windows of t * G <= 8 rows a kv head, by name, for timing);
+// the tensor-core arm (paged_attention_window) takes windows (t > 1) over
+// int8 and bf16 pages; the CUDA-core arm the rest (f32-page windows), and
+// stays reachable for decode as the yardstick the split arm replaced.  The
+// wrapper picks by that fixed rule (ops/paged_attention.window_arm).
+//
+// Split arm (decode).  The CUDA-core arm gives a decode block a whole slot:
+// the longest slot sets the time, and each key's loads wait on the previous
+// step's softmax.  Here a slot's keys are cut into splits of whole pages
+// (SPLIT_KEYS = 128 keys, 8 pages of 16; one page above it), SPLIT_GRID = 4
+// blocks a (kv head, slot), block c taking splits c, c + 4, ...: a grid
+// fixed by the table's width (max_seq), so a captured decode step's grid
+// holds at every length; a block with no split below its slot's limit
+// returns at once.  The G query heads of the kv head share every K and V
+// load.  A split runs in chunks of 64 keys (16 lane groups x 4 keys): the
+// block requests all of a chunk's K and V slices (and int8 scales) before
+// its first dot, every address clamped to the chunk's last live key, so no
+// key at or past the limit is read (a stale or trash page's rows never
+// reach a product); then one max a chunk over the block and one set of
+// exponentials, the running max rescaled between chunks.  A lane holds 16
+// bytes of an int8 row (8 elements of a bf16 or f32 row; 8 of int8 for more
+// than two window rows, as the registers allow).  Each split's
+// (unnormalised output, max, sum) goes to a workspace [B, t, Hq, splits,
+// D + 2]; a merge launch adds each (slot, head)'s splits in split order, no
+// atomics, so a graph replay equals an eager launch bit for bit.  The lanes
+// load the rows themselves, with vector loads (a copy of this source that
+// moves each page segment by cp.async.bulk onto an mbarrier instead is
+// timed by scripts/torch_paged_split_variants.py).  Arithmetic stays f32:
+// int8 codes and bf16 elements widen exactly, the K scale multiplies the
+// score after the dot and the V scale folds into p.
 //
 // CUDA-core arm.  The TPU grid walks a slot's pages in order and carries
 // (m, l, acc) in VMEM; here one block owns (slot, kv head, a tile of up to
@@ -678,6 +707,294 @@ int launch_window_tc(dim3 grid, cudaStream_t st, const float* q, const void* kp,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The decode arm "split" (t = 1): a slot's keys cut into splits of whole pages
+// ---------------------------------------------------------------------------
+
+namespace split {
+
+constexpr int GROUPS = 16;             // lane groups a block: one key each a step
+constexpr int STEPS = 4;               // keys a lane group reads a chunk, all requested at once
+constexpr int CHUNK = GROUPS * STEPS;  // keys a chunk (a split of up to 64 keys is one chunk)
+constexpr int SMAXD = 128;
+
+// elements of a key row a lane holds: 16 bytes of int8 for one or two
+// window rows a block, else 8 elements (8 bytes of int8, as the registers of
+// more rows allow; 16 of bf16, 32 of f32)
+template <typename T, int MG>
+__host__ __device__ constexpr int epl() {
+  return sizeof(T) == 1 && MG <= 2 ? 16 : 8;
+}
+
+// a lane's slice of a row as stored, BYTES of it in 32-bit words
+template <int BYTES>
+struct Raw {
+  unsigned w[BYTES / 4];
+};
+
+// from device memory, on the read-only path
+template <int BYTES>
+__device__ __forceinline__ void raw(const void* p, Raw<BYTES>& r) {
+  if constexpr (BYTES == 8) {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+    r.w[0] = v.x;
+    r.w[1] = v.y;
+  } else {
+#pragma unroll
+    for (int i = 0; i < BYTES / 16; ++i) {
+      const uint4 v = __ldg(reinterpret_cast<const uint4*>(p) + i);
+      r.w[4 * i] = v.x;
+      r.w[4 * i + 1] = v.y;
+      r.w[4 * i + 2] = v.z;
+      r.w[4 * i + 3] = v.w;
+    }
+  }
+}
+
+// a raw slice of T as f32, element by element (exact)
+template <typename T, int BYTES>
+__device__ __forceinline__ void widen(const Raw<BYTES>& r, float* out) {
+#pragma unroll
+  for (int i = 0; i < BYTES / 4; ++i) {
+    if constexpr (sizeof(T) == 1) {
+#pragma unroll
+      for (int b = 0; b < 4; ++b) out[4 * i + b] = (float)(int8_t)(r.w[i] >> (8 * b));
+    } else if constexpr (sizeof(T) == 2) {  // a bf16 is the high half of its f32
+      out[2 * i] = __uint_as_float(r.w[i] << 16);
+      out[2 * i + 1] = __uint_as_float(r.w[i] & 0xffff0000u);
+    } else {
+      out[i] = __uint_as_float(r.w[i]);
+    }
+  }
+}
+
+// Splits c = blockIdx.x, + gridDim.x, ... of slot b = blockIdx.z, kv head
+// blockIdx.y, split c the keys c*sk .. c*sk + sk - 1 below the slot's limit
+// (a block with none returns at once; the grid follows the table's width,
+// never the lengths), for the R = t*G window rows of the kv head (row r =
+// (j, g) = (r / G, r % G), query head kvh*G + g, keys below base + 1 + j
+// allowed; MG >= R, rows past R idle): decode is t = 1, the G heads sharing
+// every load.  In chunks of 16 * STEPS keys: lane group g takes keys k0 +
+// st*16 + g, st < STEPS, every address clamped to the chunk's last live
+// key, so nothing at or past the limit is read and no load waits on a
+// branch; all of the chunk's K and V slices (and scales) are requested
+// before the first dot.  Then the scores of the R rows, one max a chunk
+// over the block, one set of exponentials, and the P.V sums per lane
+// group; at the end the groups' sums added in group order and the split's
+// unnormalised output, max and sum written to part[b, j, h, c, :D], [D],
+// [D+1].
+template <typename T, bool QUANT, int MG>
+__global__ void __launch_bounds__(GROUPS * 16, MG <= 4 ? 2 : 1)
+split_kernel(const float* __restrict__ q, const T* __restrict__ kp, const T* __restrict__ vp,
+             const float* __restrict__ ks, const float* __restrict__ vs,
+             const int* __restrict__ table, const int* __restrict__ base,
+             float* __restrict__ part, int t, int Hq, int Hkv, int D, int PS, int maxp, int sk,
+             int ns, int lpr_log2) {
+  constexpr int EPL = epl<T, MG>();
+  constexpr int LB = EPL * (int)sizeof(T);  // bytes of a lane's slice
+  __shared__ float sm_m[GROUPS][MG];
+  __shared__ float sm_l[GROUPS];
+  __shared__ __align__(16) float sm_acc[GROUPS * SMAXD];
+
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int G = Hq / Hkv;
+  const int R = t * G;
+  const int bs = base[b];
+  const int len = min(max(bs + t, 0), maxp * PS);  // the last row's limit: the block's keys
+  if ((int)blockIdx.x * sk >= len) return;
+  const int lpr = 1 << lpr_log2;
+  const int grp = threadIdx.x >> lpr_log2;
+  const int d0 = (threadIdx.x & (lpr - 1)) * EPL;
+  const bool lane_on = d0 < D;            // D % EPL == 0: a lane is wholly in or out
+  const int dl = lane_on ? d0 : D - EPL;  // the slice an idle lane reads (and discards)
+  const int* trow = table + (size_t)b * maxp;
+
+  float qr[MG][EPL];
+  int lim[MG];  // keys below lim[r] are allowed for row r
+#pragma unroll
+  for (int g = 0; g < MG; ++g) {
+    const int r = min(g, R - 1);
+    const float* qh = q + (((size_t)b * t + r / G) * Hq + kvh * G + r % G) * D;
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) qr[g][e] = (g < R && lane_on) ? qh[d0 + e] : 0.f;
+    lim[g] = g < R ? min(max(bs + 1 + g / G, 0), len) : 0;
+  }
+  // splits c, c + gridDim.x, ... that hold keys
+  for (int c = blockIdx.x; c * sk < len; c += gridDim.x) {
+    const int k_begin = c * sk;
+    const int k_end = min(k_begin + sk, len);
+    float mrun[MG], l[MG], acc[MG][EPL];
+#pragma unroll
+    for (int g = 0; g < MG; ++g) {
+      mrun[g] = NEG_INF;
+      l[g] = 0.f;
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) acc[g][e] = 0.f;
+    }
+
+    for (int k0 = k_begin; k0 < k_end; k0 += CHUNK) {
+      const int kc_end = min(k0 + CHUNK, k_end);  // the chunk's live keys: k0 .. kc_end - 1
+      Raw<LB> kr[STEPS], vr[STEPS];
+      float ksc[STEPS], vsc[STEPS];
+#pragma unroll
+      for (int st = 0; st < STEPS; ++st) {
+        const int kcl = min(k0 + st * GROUPS + grp, kc_end - 1);
+        const int pg = kcl / PS;
+        const size_t row = ((size_t)__ldg(trow + pg) * Hkv + kvh) * PS + (kcl - pg * PS);
+        raw(kp + row * D + dl, kr[st]);
+        raw(vp + row * D + dl, vr[st]);
+        if (QUANT) {
+          ksc[st] = __ldg(ks + row);
+          vsc[st] = __ldg(vs + row);
+        }
+      }
+
+      // the scores of the G heads; the chunk's max a head over the block
+      float score[STEPS][MG], mx[MG];
+#pragma unroll
+      for (int g = 0; g < MG; ++g) mx[g] = NEG_INF;
+#pragma unroll
+      for (int st = 0; st < STEPS; ++st) {
+        float kf[EPL];
+        widen<T>(kr[st], kf);
+        const int key = k0 + st * GROUPS + grp;
+        const bool in = key < kc_end;  // a key of this chunk (a split of 60 keys ends inside one)
+#pragma unroll
+        for (int g = 0; g < MG; ++g) {
+          float dot = 0.f;
+#pragma unroll
+          for (int e = 0; e < EPL; ++e) dot = fmaf(qr[g][e], kf[e], dot);
+          for (int off = lpr >> 1; off > 0; off >>= 1)
+            dot += __shfl_xor_sync(0xffffffffu, dot, off);
+          score[st][g] = in && key < lim[g] ? (QUANT ? dot * ksc[st] : dot) : NEG_INF;
+          mx[g] = fmaxf(mx[g], score[st][g]);
+        }
+      }
+      if ((threadIdx.x & (lpr - 1)) == 0) {
+#pragma unroll
+        for (int g = 0; g < MG; ++g) sm_m[grp][g] = mx[g];
+      }
+      __syncthreads();
+#pragma unroll
+      for (int g = 0; g < MG; ++g) {
+        float cm = NEG_INF;
+#pragma unroll
+        for (int gr = 0; gr < GROUPS; ++gr) cm = fmaxf(cm, sm_m[gr][g]);
+        const float m_next = fmaxf(mrun[g], cm);
+        const float alpha = expf(mrun[g] - m_next);  // 0 at the first chunk
+        mrun[g] = m_next;
+        l[g] *= alpha;
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) acc[g][e] *= alpha;
+      }
+      // one set of exponentials; the V scale folds into p; a masked key weighs 0
+#pragma unroll
+      for (int st = 0; st < STEPS; ++st) {
+        float vf[EPL];
+        widen<T>(vr[st], vf);
+        const int key = k0 + st * GROUPS + grp;
+        const bool in = key < kc_end;
+#pragma unroll
+        for (int g = 0; g < MG; ++g) {
+          float p = in && key < lim[g] ? expf(score[st][g] - mrun[g]) : 0.f;
+          l[g] += p;
+          if (QUANT) p *= vsc[st];
+#pragma unroll
+          for (int e = 0; e < EPL; ++e) acc[g][e] = fmaf(p, vf[e], acc[g][e]);
+        }
+      }
+      __syncthreads();  // sm_m is read before the next chunk writes it
+    }
+
+    // the lane groups' sums in group order, a row at a time
+#pragma unroll
+    for (int g = 0; g < MG; ++g) {
+      if (g < R) {
+        if (lane_on) {
+#pragma unroll
+          for (int e = 0; e < EPL; ++e) sm_acc[grp * D + d0 + e] = acc[g][e];
+        }
+        if ((threadIdx.x & (lpr - 1)) == 0) sm_l[grp] = l[g];
+        __syncthreads();
+        float* pp = part + ((((size_t)b * t + g / G) * Hq + kvh * G + g % G) * ns + c) * (D + 2);
+        for (int d = threadIdx.x; d < D; d += blockDim.x) {
+          float a = 0.f;
+#pragma unroll
+          for (int gr = 0; gr < GROUPS; ++gr) a += sm_acc[gr * D + d];
+          pp[d] = a;
+        }
+        if (threadIdx.x == 0) {
+          float lt = 0.f;
+#pragma unroll
+          for (int gr = 0; gr < GROUPS; ++gr) lt += sm_l[gr];
+          pp[D] = mrun[g];
+          pp[D + 1] = lt;
+        }
+        __syncthreads();
+      }
+    }
+  }  // the splits
+}
+
+// The splits of slot b, window row j, query head h merged in split order:
+// out = sum_c w_c * acc_c / sum_c w_c * l_c, w_c = exp(m_c - max_c m_c) (a
+// split with no key the row may see has m_c = NEG_INF and l_c = 0); zeros
+// for a row with no allowed key.  One thread an element of the head.
+__global__ void merge_kernel(const float* __restrict__ part, const int* __restrict__ base,
+                             float* __restrict__ out, int t, int Hq, int D, int ns, int sk,
+                             int nkeys) {
+  const int h = blockIdx.x, bj = blockIdx.y, d = threadIdx.x;
+  const int len = min(max(base[bj / t] + t, 0), nkeys);
+  const int n = (len + sk - 1) / sk;  // the splits that hold keys
+  const float* p0 = part + ((size_t)bj * Hq + h) * ns * (D + 2);
+  float mx = NEG_INF;
+  for (int c = 0; c < n; ++c) mx = fmaxf(mx, p0[(size_t)c * (D + 2) + D]);
+  float lt = 0.f, a = 0.f;
+  for (int c = 0; c < n; ++c) {
+    const float* pc = p0 + (size_t)c * (D + 2);
+    const float w = expf(pc[D] - mx);
+    lt = fmaf(w, pc[D + 1], lt);
+    if (d < D) a = fmaf(w, pc[d], a);
+  }
+  if (d < D) out[((size_t)bj * Hq + h) * D + d] = lt == 0.f ? 0.f : a / lt;
+}
+
+template <typename T, bool QUANT, int MG>
+int launch(cudaStream_t st, const float* q, const void* kp, const void* vp, const float* ks,
+           const float* vs, const int* table, const int* base, float* out, float* part, int B,
+           int t, int Hq, int Hkv, int D, int PS, int maxp, int sk, int grid_x) {
+  constexpr int EPL = epl<T, MG>();
+  if (D % EPL != 0) return (int)cudaErrorInvalidValue;
+  int lpr_log2 = 0;  // lanes a row: the least power of two that covers D
+  while ((EPL << lpr_log2) < D) ++lpr_log2;
+  const int ns = (maxp * PS + sk - 1) / sk;
+  split_kernel<T, QUANT, MG><<<dim3(min(ns, grid_x), Hkv, B), GROUPS << lpr_log2, 0, st>>>(
+      q, (const T*)kp, (const T*)vp, ks, vs, table, base, part, t, Hq, Hkv, D, PS, maxp, sk, ns,
+      lpr_log2);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  merge_kernel<<<dim3(Hq, B * t), (D + 31) & ~31, 0, st>>>(part, base, out, t, Hq, D, ns, sk,
+                                                          maxp * PS);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool QUANT>
+int by_rows(int R, cudaStream_t st, const float* q, const void* kp, const void* vp,
+            const float* ks, const float* vs, const int* table, const int* base, float* out,
+            float* part, int B, int t, int Hq, int Hkv, int D, int PS, int maxp, int sk,
+            int grid_x) {
+#define PA_SPLIT(MG) launch<T, QUANT, MG>(st, q, kp, vp, ks, vs, table, base, out, part, B, \
+                                                t, Hq, Hkv, D, PS, maxp, sk, grid_x)
+  if (R <= 1) return PA_SPLIT(1);
+  if (R <= 2) return PA_SPLIT(2);
+  if (R <= 4) return PA_SPLIT(4);
+  if (R <= 8) return PA_SPLIT(8);
+#undef PA_SPLIT
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace split
+
 }  // namespace
 
 // q: f32 [B, t, Hq, D], scaled; k_pages, v_pages: [P+1, Hkv, PS, D] of
@@ -736,4 +1053,37 @@ extern "C" int paged_attention_window(const void* q, const void* k_pages, const 
   return launch_window_tc<false>(grid, st, (const float*)q, k_pages, v_pages, nullptr, nullptr,
                                  (const int*)table, (const int*)base, (float*)out, t, Hq, Hkv, D,
                                  PS, maxp);
+}
+
+// The arm "split": the contract of paged_attention (q f32 [B, t, Hq, D]
+// scaled, out f32 [B, t, Hq, D]) for any page type, D a multiple of 8 up to
+// 128 and t * G <= 8 window rows a kv head (decode: t = 1, G = Hq / Hkv <=
+// 8); sk keys a split (whole pages: the wrapper's split_keys), grid_x
+// blocks a (slot, kv head) taking every grid_x-th split, part f32 [B, t,
+// Hq, ceil(maxp * PS / sk), D + 2] (each split's unnormalised output, max
+// and sum).  Two launches: the splits, the merge.
+extern "C" int paged_attention_split(const void* q, const void* k_pages, const void* v_pages,
+                                     const void* ks, const void* vs, const void* table,
+                                     const void* base, void* out, void* part, int B, int t,
+                                     int Hq, int Hkv, int D, int PS, int maxp, int kv_type, int sk,
+                                     int grid_x, void* stream) {
+  if (D % 8 != 0 || D > split::SMAXD || Hkv <= 0 || Hq % Hkv != 0 || t < 1 ||
+      t * (Hq / Hkv) > 8 ||
+      sk <= 0 || sk % PS != 0 || grid_x < 1 || (kv_type == KV_INT8) != (ks != nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int R = t * (Hq / Hkv);
+  cudaStream_t st = (cudaStream_t)stream;
+#define PA_ARGS R, st, (const float*)q, k_pages, v_pages, (const float*)ks, \
+    (const float*)vs, (const int*)table, (const int*)base, (float*)out, (float*)part, B, t, Hq, \
+    Hkv, D, PS, maxp, sk, grid_x
+  switch (kv_type) {
+    case KV_INT8:
+      return split::by_rows<int8_t, true>(PA_ARGS);
+    case KV_F32:
+      return split::by_rows<float, false>(PA_ARGS);
+    case KV_BF16:
+      return split::by_rows<__nv_bfloat16, false>(PA_ARGS);
+  }
+#undef PA_ARGS
+  return (int)cudaErrorInvalidValue;
 }

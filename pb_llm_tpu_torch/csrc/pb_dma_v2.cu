@@ -79,6 +79,18 @@
 //   What bounds it: the bytes of the planes (4096x11008: 5.6 MB of sign
 //   words, 4.6 MB of codes, 3 us at 3.35 TB/s); the tensor cores' work,
 //   2*3TN*oc*(ic + k_pad) a launch, is 0.003 ms at 8 rows.
+//   One code for two TPU kernels.  The same device code (and the same C
+//   entry, pb_dma_v2_split) is the exact f32 kernel's arm "split" below
+//   packed_matmul.F32_TC rows (pb_f32_matmul.cu's note): it reads each
+//   128-column tile's row group (xg's plane t * n_rg + group, rsg's row, as
+//   pb_bf16_tc.cuh does) and, for the stacked entry, the layer li from a
+//   device int32, offsetting the sign and code rows of maps that span all L
+//   layers and the coefficients, so every layer's launch has the same
+//   arguments.  At one row group the dma arm and the flat f32 arm make the
+//   same launch on the same operands, bit for bit
+//   (tests/test_torch_cuda_kernels.py::test_dma_and_f32_split_are_one_code).
+//   It replaces pallas_pb.py::_planar_v2_kernel below F32_TC rows and
+//   _stacked_f32_kernel at decode rows too.
 
 #include <cooperative_groups.h>
 #include <cuda.h>
@@ -431,15 +443,24 @@ prep_kernel(const float* __restrict__ x, const long long* __restrict__ cols,
   }
 }
 
-// One block: a 128-column tile, TN x rows, the units [u0, u1) of K range
-// blockIdx.z; the ks = gridDim.z blocks of a tile are one cluster.
-template <int SIDE_BITS, int TN>
+// One block: a 128-column tile (inside row group rgp = its first column /
+// col_tile), TN x rows, the units [u0, u1) of K range blockIdx.z; the ks =
+// gridDim.z blocks of a tile are one cluster.  STACKED: layer li = *layer
+// of the maps' [L] planes (sign rows and code rows offset by li) and of
+// coef [L, 5, oc].
+template <int SIDE_BITS, int TN, bool STACKED>
 __global__ void __launch_bounds__(THREADS, 2)
 kernel(const __grid_constant__ bf16tc::Maps M, const float* __restrict__ rs,
        const float* __restrict__ rsg, const float* __restrict__ coef, float* __restrict__ out,
-       int m, int ic, int oc, int pack_block, int k_pad, int kps) {
+       int m, int ic, int oc, int pack_block, int k_pad, int kps, int col_tile, int n_rg,
+       const int* __restrict__ layer) {
   namespace cg = cooperative_groups;
   using C = Cfg<TN>;
+  int li = 0;
+  if (STACKED) {
+    li = __ldg(layer);
+    coef += (size_t)li * 5 * oc;
+  }
   constexpr int N = C::N;
   constexpr int STAGE = C::stage;
   constexpr int STAGES = C::stages;
@@ -450,6 +471,7 @@ kernel(const __grid_constant__ bf16tc::Maps M, const float* __restrict__ rs,
   const int kst = (k_pad + SK - 1) / SK * SK;
   const int code_rows = SIDE_BITS == 4 ? k_pad / 2 : k_pad;
   const int oc0 = blockIdx.x * OC;
+  const int rgp = oc0 / col_tile;  // the tile's row group (a tile lies in one group)
   const int m0 = blockIdx.y * TN;
   const int ks = gridDim.z, rg = blockIdx.z;
   const int n_units = G.ng + kst / SK;
@@ -480,19 +502,19 @@ kernel(const __grid_constant__ bf16tc::Maps M, const float* __restrict__ rs,
       const bool full = u < G.nfull * G.ngf;
       const int blk = full ? u / G.ngf : G.nfull;
       const int s = u - blk * G.ngf;
-      tma2(sb + C::sign_at, &M.sg, oc0, blk * G.gf + 8 * s, bar);  // past g: zero x
+      tma2(sb + C::sign_at, &M.sg, oc0, li * (ic / 32) + blk * G.gf + 8 * s, bar);  // past g: zero x
     } else {  // sidecar slots j0..j0+63: xg's three terms; the code rows of those slots
       const int j0 = (u - G.ng) * SK;
       expect(bar, 3 * TN * 128 + SK * 128);
 #pragma unroll
-      for (int t = 0; t < 3; ++t) tma3(sb + t * TN * 128, &M.xg, j0, m0, t, bar);
+      for (int t = 0; t < 3; ++t) tma3(sb + t * TN * 128, &M.xg, j0, m0, t * n_rg + rgp, bar);
       uint8_t* cs = sb + C::codes_at;
       if (SIDE_BITS == 8) {  // slots past k_pad meet zero xg
-        tma2(cs, &M.cd, oc0, j0, bar);
+        tma2(cs, &M.cd, oc0, li * code_rows + j0, bar);
       } else {  // 8 slots at a time: the packed rows of a shard segment's nibble half
         for (int g = 0; g < SK / 8; ++g) {
           const int j = j0 + 8 * g, sh = j / kps, r = j - sh * kps, half = kps / 2;
-          tma2(cs + g * 1024, &M.cd, oc0, sh * half + (r % half), bar);
+          tma2(cs + g * 1024, &M.cd, oc0, li * code_rows + sh * half + (r % half), bar);
         }
       }
     }
@@ -599,17 +621,18 @@ kernel(const __grid_constant__ bf16tc::Maps M, const float* __restrict__ rs,
     }
     if (m0 + row < m && col < oc)
       out[(size_t)(m0 + row) * oc + col] =
-          bf16tc::epilogue(ab, av, m0 + row, col, m, oc, 0, rs, rsg, coef);
+          bf16tc::epilogue(ab, av, m0 + row, col, m, oc, rgp, rs, rsg, coef);
   }
   cluster.sync();  // no block leaves while another reads its shared memory
 }
 
-template <int SIDE_BITS, int TN>
+template <int SIDE_BITS, int TN, bool STACKED>
 int launch(const void* xp, const void* xgp, const void* rs, const void* rsg, const void* sign,
-           const void* side, const void* coef, void* out, int m, int ic, int oc, int pack_block,
-           int k_pad, int kps, int ks, cudaStream_t st) {
+           const void* side, const void* coef, void* out, const int* layer, int m, int ic, int oc,
+           int pack_block, int k_pad, int kps, int col_tile, int n_rg, int n_layers, int ks,
+           cudaStream_t st) {
   using C = Cfg<TN>;
-  auto kern = kernel<SIDE_BITS, TN>;
+  auto kern = kernel<SIDE_BITS, TN, STACKED>;
   static bool sized = false;  // above 48 KB of dynamic shared memory: ask once
   if (!sized) {
     cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::total);
@@ -620,7 +643,8 @@ int launch(const void* xp, const void* xgp, const void* rs, const void* rsg, con
     sized = true;
   }
   bf16tc::Maps M;
-  if (!bf16tc::maps(&M, TN, 3, SIDE_BITS, xp, xgp, sign, side, m, ic, oc, pack_block, k_pad, 1, 1))
+  if (!bf16tc::maps(&M, TN, 3, SIDE_BITS, xp, xgp, sign, side, m, ic, oc, pack_block, k_pad,
+                    n_rg, n_layers))
     return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((oc + OC - 1) / OC, (m + TN - 1) / TN, ks);
@@ -636,7 +660,7 @@ int launch(const void* xp, const void* xgp, const void* rs, const void* rsg, con
   cfg.numAttrs = 1;
   const cudaError_t e = cudaLaunchKernelEx(&cfg, kern, M, (const float*)rs, (const float*)rsg,
                                            (const float*)coef, (float*)out, m, ic, oc,
-                                           pack_block, k_pad, kps);
+                                           pack_block, k_pad, kps, col_tile, n_rg, layer);
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
@@ -661,23 +685,36 @@ extern "C" int pb_prep_dma(const void* x, const void* cols, const void* side_idx
   return (int)cudaGetLastError();
 }
 
-// Arm "split".  xp: bf16 [3, m, icp]; xgp: bf16 [3, 1, m, kst] (pb_prep_dma);
-// rs f32 [m]; rsg f32 [1, m]; sign: u32 [ic/32, oc]; side: u8 [k_pad (/2), oc];
-// coef: f32 [5, oc]; out: f32 [m, oc].  One row group; oc a multiple of 16;
-// nibble shard segments of 16 slots; ksplit 1, 2, 4 or 8.  8 x rows a block
-// up to 8 rows, else 16.
+// Arm "split", for the dma kernel and for the exact f32 kernel below
+// packed_matmul.F32_TC rows, flat and stacked (one device code: at one row
+// group the dma arm and the flat f32 arm make the same launch).  xp: bf16
+// [3, m, icp]; xgp: bf16 [3, n_rg, m, kst] (pb_prep_dma); rs f32 [m]; rsg f32
+// [n_rg, m]; sign: u32 [n_layers * ic/32, oc]; side: u8 [n_layers * k_pad
+// (/2), oc]; coef: f32 [n_layers, 5, oc]; out: f32 [m, oc].  layer: null for
+// a flat layer (n_layers 1), else a device int32, the layer li of the
+// stack.  A 128-column tile must lie in one row group (col_tile >= oc or a
+// multiple of 128); oc a multiple of 16; nibble shard segments of 16
+// slots; ksplit 1, 2, 4 or 8.  8 x rows a block up to 8 rows, else 16.
 extern "C" int pb_dma_v2_split(const void* xp, const void* xgp, const void* rs, const void* rsg,
                                const void* sign, const void* side, const void* coef, void* out,
-                               int m, int ic, int oc, int pack_block, int side_bits, int k_pad,
-                               int kps, int ksplit, void* stream) {
+                               const void* layer, int m, int ic, int oc, int pack_block,
+                               int side_bits, int k_pad, int kps, int col_tile, int n_rg,
+                               int n_layers, int ksplit, void* stream) {
   if (m <= 0 || oc % 16 || ic % 32 || pack_block % 32 || (side_bits != 8 && side_bits != 4) ||
       (side_bits == 4 && kps % 16) || ksplit < 1 || ksplit > split::MAX_KS ||
-      (ksplit & (ksplit - 1)))
+      (ksplit & (ksplit - 1)) || col_tile <= 0 || (col_tile < oc && col_tile % bf16tc::OC) ||
+      n_rg < 1 || (oc + col_tile - 1) / col_tile > n_rg || n_layers < 1 ||
+      (layer == nullptr && n_layers != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-#define PB_SPLIT(SB, TN) split::launch<SB, TN>(xp, xgp, rs, rsg, sign, side, coef, out, m, ic, \
-    oc, pack_block, k_pad, kps, ksplit, st)
-  if (m <= 8) return side_bits == 8 ? PB_SPLIT(8, 8) : PB_SPLIT(4, 8);
-  return side_bits == 8 ? PB_SPLIT(8, 16) : PB_SPLIT(4, 16);
+  const int* li = (const int*)layer;
+#define PB_SPLIT(SB, TN, ST) split::launch<SB, TN, ST>(xp, xgp, rs, rsg, sign, side, coef, out, \
+    li, m, ic, oc, pack_block, k_pad, kps, col_tile, n_rg, n_layers, ksplit, st)
+  if (li == nullptr) {
+    if (m <= 8) return side_bits == 8 ? PB_SPLIT(8, 8, false) : PB_SPLIT(4, 8, false);
+    return side_bits == 8 ? PB_SPLIT(8, 16, false) : PB_SPLIT(4, 16, false);
+  }
+  if (m <= 8) return side_bits == 8 ? PB_SPLIT(8, 8, true) : PB_SPLIT(4, 8, true);
+  return side_bits == 8 ? PB_SPLIT(8, 16, true) : PB_SPLIT(4, 16, true);
 #undef PB_SPLIT
 }

@@ -52,8 +52,14 @@
 // lows) on the bf16 tensor cores, x in three bf16 terms (one for dot bf16),
 // from packed_matmul.F32_TC rows of x on (packed_matmul.f32_arm):
 // pb_bf16_tc.cuh holds the device code and its notes.  Below F32_TC rows,
-// for 2- and 4-bit lows and for layouts the tensor-core arm does not take,
-// the kernel above runs.
+// for 1-bit lows where the tensor cores take the layout and dot f32, the
+// arm "split" runs: the dma kernel's "split" device code (pb_dma_v2.cu,
+// entry pb_dma_v2_split, flat and stacked; x and xg in three exact terms
+// stacked as one wgmma N, a shape-fixed K split summed in a cluster,
+// operands from one pb_prep_dma launch), which at one row group is the dma
+// arm's very launch.  For 2- and 4-bit lows, dot bf16 below F32_TC and
+// layouts the tensor cores do not take, the kernel above runs (arm
+// "cores", also the yardstick of the other two).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

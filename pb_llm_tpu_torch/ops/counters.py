@@ -39,7 +39,7 @@ KERNELS: Dict[str, Tuple[str, str]] = {
     "pb_pair_v2_tc": ("decode_arms", "pair_tc_launches"),  # wgmma
     "pb_dma_v2": ("decode_arms", "dma_launches"),  # the CUDA-core arm
     "pb_dma_v2_split": ("decode_arms", "dma_split_launches"),  # bf16 tensor cores, K split
-    "pb_prep_dma": ("decode_arms", "dma_prep_launches"),  # the split arm's x preparation
+    "pb_prep_dma": ("packed_matmul", "split_prep_launches"),  # dma / f32 "split"'s x preparation
     "pb_int8_matmul_stacked": ("packed_matmul", "stacked_launches"),  # dp4a
     "pb_int8_matmul_stacked_tc": ("packed_matmul", "stacked_tc_launches"),
     "pb_int8_matmul_stacked_split": ("packed_matmul", "stacked_split_launches"),
@@ -50,6 +50,10 @@ KERNELS: Dict[str, Tuple[str, str]] = {
     "paged_attention_bf16": ("paged_attention", "bf16_launches"),
     "pb_prep_int8": ("packed_matmul", "prep_launches"),
     "paged_attention_window": ("paged_attention", "window_launches"),
+    "paged_attention_split": ("paged_attention", "split_launches"),  # the decode arm "split"
+    "paged_attention_cuda_cores": ("paged_attention", "cores_launches"),  # the CUDA-core arm
+    "pb_f32_matmul_split": ("packed_matmul", "f32_split_launches"),  # dma's split device code
+    "pb_f32_matmul_stacked_split": ("packed_matmul", "stacked_f32_split_launches"),
 }
 TOTALS: Dict[str, Tuple[str, str]] = {
     "paged_attention": ("paged_attention", "launches"),

@@ -33,7 +33,11 @@ operands written by one launch (`prepare_dma`: `pb_prep_dma` in the same source)
 through a two-stage shared-memory ring by bulk copies, x in [m
 tile][word][bit][row] order (`dma_x_layout`).  The operands name their
 layout (`DmaOperands.layout`, the arm's name), and the plain version on
-operands (`dma_matmul_plain`) reads either.
+operands (`dma_matmul_plain`) reads either.  The "split" device code, its
+launch (`packed_matmul.launch_split`), its K ranges and its x preparation
+are also the exact f32 kernel's arm "split" below `packed_matmul.F32_TC`
+rows, flat and stacked: at one row group the two arms make the same
+launch.
 
 Each wrapper launches its CUDA kernel on a CUDA tensor and runs its plain
 PyTorch version on a CPU tensor.
@@ -57,7 +61,6 @@ pair_split_launches = 0  # kernel launches of pb_pair_v2's "split" arm
 pair_tc_launches = 0  # kernel launches of pb_pair_v2's "tc" arm
 dma_launches = 0   # kernel launches of pb_dma_v2's "cores" arm (plain-version calls not counted)
 dma_split_launches = 0  # kernel launches of pb_dma_v2's "split" arm
-dma_prep_launches = 0  # launches of the "split" arm's x preparation (pb_prep_dma)
 
 PAIR_TM = 16   # the "mma" arm's m tile (the MMA's 16 rows)
 # The pair kernel's arms: "split" below PAIR_TC rows, "tc" from PAIR_TC rows
@@ -68,7 +71,7 @@ PAIR_TM = 16   # the "mma" arm's m tile (the MMA's 16 rows)
 # "split" wins too (scripts/torch_pair_arm_ab.py; PERF.md).
 PAIR_TC = 128
 PAIR_ARMS = ("mma", "split", "tc")
-SPLIT_BLOCKS = 264  # the "split" arm cuts K so that a launch has about this many blocks
+SPLIT_BLOCKS = pm.SPLIT_BLOCKS  # pair "split" cuts K so that a launch has about this many blocks
 DMA_TM = 8     # the "cores" arm's m tile
 DMA_CW = 16    # the "cores" arm's sign-word rows per stage
 # The dma kernel's arms: DMA_ARM where the tensor cores take the layout
@@ -77,7 +80,6 @@ DMA_CW = 16    # the "cores" arm's sign-word rows per stage
 # in turns); "cores" stays as a yardstick.
 DMA_ARM = "split"
 DMA_ARMS = ("cores", "split")
-DMA_MAX_KS = 8  # the "split" arm's K ranges a tile: a portable cluster
 
 
 def pair_permute_x(x: torch.Tensor, ic: int, pack_block: int) -> torch.Tensor:
@@ -296,33 +298,10 @@ def dma_arm(p: PackedLinearV2) -> str:
     return DMA_ARM if pm.tc_layout_ok(p) else "cores"
 
 
-def _dma_units(p: PackedLinearV2) -> int:
-    """The "split" arm's K units: word groups of 8 sign words (padded bit
-    runs included), then chunks of TC_SLOTS sidecar slots."""
-    groups = sum(-(-rows // pm.TC_GROUP) for rows in packing.block_sizes(
-        p.ic_local, p.pack_block_local))
-    return groups + -(-p.k_pad // pm.TC_SLOTS)
-
-
-def dma_ksplit(p: PackedLinearV2) -> int:
-    """The "split" arm's K ranges a 128-column tile, from the layer's shape
-    alone (so a row's sums run in one order whatever m is): the least power
-    of two that brings the tiles times the ranges to SPLIT_BLOCKS, at most
-    DMA_MAX_KS (a portable cluster) and at most the units."""
-    units = _dma_units(p)
-    tiles = -(-p.oc_local // pm.TC_OC)
-    ks = 1
-    while ks < DMA_MAX_KS and ks * tiles < SPLIT_BLOCKS and 2 * ks <= units:
-        ks *= 2
-    return ks
-
-
-def dma_ranges(p: PackedLinearV2) -> list:
-    """The "split" arm's K ranges of layout ``p``: range r is the units
-    r·n // ks .. (r + 1)·n // ks - 1 of the n units (`_dma_units`), as the
-    kernel's block z = r reads them."""
-    n, ks = _dma_units(p), dma_ksplit(p)
-    return [(r * n // ks, (r + 1) * n // ks) for r in range(ks)]
+# the "split" arm's K ranges: the packed matmul module's rule, shared with
+# the exact f32 kernel's arm "split" (the same device code)
+dma_ksplit = pm.split_ksplit
+dma_ranges = pm.split_ranges
 
 
 def prepare_dma(x: torch.Tensor, p: PackedLinearV2, layout: str = "cores") -> DmaOperands:
@@ -331,45 +310,20 @@ def prepare_dma(x: torch.Tensor, p: PackedLinearV2, layout: str = "cores") -> Dm
     with three terms), on a CUDA tensor one launch of `pb_prep_dma` (the
     same terms bit for bit, the row sums within `packed_matmul.sum_bound`)."""
     if layout == "split":
-        if x.device.type == "cpu":
-            ops = pm.prepare_tc(x, p, 3)
-            return DmaOperands(ops.xp, ops.f32, "split", ops.xgp)
-        return launch_prep_dma(x.float().contiguous(), p)
+        ops = pm.prepare_split(x, p)
+        return DmaOperands(ops.xp, ops.f32, "split", ops.xgp)
     if layout != "cores":
         raise ValueError(f"prepare_dma: unknown layout {layout!r}")
     ops = prepare_f32(x, p)
     return DmaOperands(dma_x_layout(ops.x, p.ic_local, p.pack_block_local), ops)
 
 
-_PREP_DMA_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-
-
 def launch_prep_dma(xf: torch.Tensor, p: PackedLinearV2) -> DmaOperands:
-    """Launch the "split" arm's x preparation on a contiguous f32 x (on the
-    card) on the current stream; counts one launch."""
-    m, ic = xf.shape
-    if xf.device.type != "cuda" or ic != p.ic_local:
-        raise ValueError(f"prepare_dma: x {tuple(xf.shape)} on {xf.device} does not fit")
-    idx = p.side_idx
-    if idx.device != xf.device or idx.dtype != torch.int32 or not idx.is_contiguous():
-        raise ValueError("prepare_dma: side_idx must be a contiguous int32 tensor on x's device")
-    dev, n_rg = xf.device, p.n_row_groups
-    cols = pm._tc_columns_on(ic, p.pack_block_local, dev)  # int64, made once a device
-    kst = -(-p.k_pad // pm.TC_SLOTS) * pm.TC_SLOTS
-    xp = torch.empty((3, m, cols.numel()), dtype=torch.bfloat16, device=dev)
-    xgp = torch.empty((3, n_rg, m, kst), dtype=torch.bfloat16, device=dev)
-    rs = torch.empty(m, dtype=torch.float32, device=dev)
-    rsg = torch.empty((n_rg, m), dtype=torch.float32, device=dev)
-    fn = _build.load("pb_dma_v2").pb_prep_dma
-    fn.argtypes = _PREP_DMA_ARGTYPES
-    fn.restype = ctypes.c_int
-    err = fn(xf.data_ptr(), cols.data_ptr(), idx.data_ptr(), xp.data_ptr(), xgp.data_ptr(),
-             rs.data_ptr(), rsg.data_ptr(), m, ic, cols.numel(), kst, p.shards_local,
-             p.k_pad_shard_local, n_rg, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "pb_prep_dma")
-    global dma_prep_launches
-    dma_prep_launches += 1
-    return DmaOperands(xp, F32Operands(xf, None, rs, rsg, pm.coef_rows(p)), "split", xgp)
+    """Launch the "split" arm's x preparation (`packed_matmul.
+    launch_prep_split`, `pb_prep_dma`) on a contiguous f32 x on the card;
+    counts one launch."""
+    ops = pm.launch_prep_split(xf, p)
+    return DmaOperands(ops.xp, ops.f32, "split", ops.xgp)
 
 
 def dma_matmul_plain(ops: DmaOperands, p: PackedLinearV2) -> torch.Tensor:
@@ -394,9 +348,6 @@ def pb_dma_v2(x: torch.Tensor, p: PackedLinearV2) -> torch.Tensor:
     return launch_dma(prepare_dma(x, p, dma_arm(p)), p)
 
 
-_DMA_SPLIT_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-
-
 def launch_dma(ops: DmaOperands, p: PackedLinearV2) -> torch.Tensor:
     """Launch the dma kernel on prepared operands (all on one CUDA device)
     on the current stream, in the arm of their layout; counts one launch of
@@ -406,25 +357,17 @@ def launch_dma(ops: DmaOperands, p: PackedLinearV2) -> torch.Tensor:
     arm = ops.layout
     if arm not in DMA_ARMS:
         raise ValueError(f"pb_dma_v2: no arm takes {arm!r} operands")
-    out = torch.empty((m, p.oc_local), dtype=torch.float32, device=f.rs.device)
-    stream = torch.cuda.current_stream(out.device).cuda_stream
-    lib = _build.load("pb_dma_v2")
     global dma_launches, dma_split_launches
     if arm == "split":
         if not pm.tc_layout_ok(p) or p.n_row_groups != 1:
             raise ValueError(f"pb_dma_v2: the split arm does not take this layout "
                              f"(oc {p.oc_local}, row groups {p.n_row_groups})")
-        fn = lib.pb_dma_v2_split
-        fn.argtypes = _DMA_SPLIT_ARGTYPES
-        fn.restype = ctypes.c_int
-        err = fn(ops.xt.data_ptr(), ops.xgp.data_ptr(), f.rs.data_ptr(), f.rsg.data_ptr(),
-                 p.sign_packed.data_ptr(), p.side_val.data_ptr(), f.coef.data_ptr(),
-                 out.data_ptr(), m, p.ic_local, p.oc_local, p.pack_block_local, p.side_bits,
-                 p.k_pad, p.k_pad_shard_local, dma_ksplit(p), stream)
-        _build.check(err, "pb_dma_v2 (split)")
+        out = pm.launch_split(pm.TcOperands(ops.xt, ops.xgp, f, "split"), p)
         dma_split_launches += 1
         return out
-    fn = lib.pb_dma_v2
+    out = torch.empty((m, p.oc_local), dtype=torch.float32, device=f.rs.device)
+    stream = torch.cuda.current_stream(out.device).cuda_stream
+    fn = _build.load("pb_dma_v2").pb_dma_v2
     fn.argtypes = _DMA_ARGTYPES
     fn.restype = ctypes.c_int
     err = fn(ops.xt.data_ptr(), f.xg.data_ptr(), f.rs.data_ptr(), f.rsg.data_ptr(),

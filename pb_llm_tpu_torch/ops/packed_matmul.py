@@ -43,14 +43,21 @@ distributed shared memory).  The operands carry their layout
 preparation writes it, and the launch takes an arm of that layout.  Every
 arm and the plain version give the same bits on the same operands.
 
-f32 arms (`f32_arm`): the exact f32 kernel, flat and stacked, runs on the
-f32 CUDA cores (select-and-add) below F32_TC rows, and from there, for
-1-bit lows where the layout allows, on the bf16 tensor cores
-(`csrc/pb_bf16_tc.cuh`, shared with the pair arm): x and xg in three bf16
-terms that carry them exactly (`split_terms`; one term, bf16(x), for dot
-bf16), x in the TPU pair kernel's order padded and grouped by word group
-(`tc_pair_columns`), operands in `TcOperands` (`prepare_tc`), their plain
-version `tc_matmul_plain`.
+f32 arms (`f32_arm`): the exact f32 kernel, flat and stacked, runs for
+1-bit lows where the layout allows on the bf16 tensor cores, x and xg in
+three bf16 terms that carry them exactly (`split_terms`; one term,
+bf16(x), for dot bf16), x in the TPU pair kernel's order padded and
+grouped by word group (`tc_pair_columns`), operands in `TcOperands`, their
+plain version `tc_matmul_plain`: from F32_TC rows on "tc"
+(`csrc/pb_bf16_tc.cuh`, shared with the pair arm; `prepare_tc`), below
+F32_TC (dot f32) "split", the dma kernel's decode device code
+(`csrc/pb_dma_v2.cu`: the three terms' rows stacked as one wgmma N, a K
+split from the layer's shape alone, `split_ksplit`, summed in a cluster;
+its operands from one `pb_prep_dma` launch, `prepare_split`).  Elsewhere
+(2- and 4-bit lows, dot bf16 below F32_TC, layouts the tensor cores
+refuse) "cores", select-and-add on the f32 CUDA cores.  The operands name
+their arm (`F32Operands`: "cores"; `TcOperands.layout`: "tc" or "split")
+and `launch_f32` / `launch_f32_stacked` dispatch on it.
 
 Each wrapper launches its CUDA kernel on a CUDA tensor and runs its plain
 PyTorch version on a CPU tensor.  The dispatch of `pb_matmul_pallas_v2`
@@ -84,6 +91,9 @@ split_launches = 0  # kernel launches of pb_int8_matmul's decode arm ("split")
 stacked_split_launches = 0  # kernel launches of pb_int8_matmul_stacked's decode arm
 f32_tc_launches = 0  # kernel launches of pb_f32_matmul's tensor-core arm
 stacked_f32_tc_launches = 0  # kernel launches of pb_f32_matmul_stacked's tensor-core arm
+f32_split_launches = 0  # kernel launches of pb_f32_matmul's decode arm ("split")
+stacked_f32_split_launches = 0  # kernel launches of pb_f32_matmul_stacked's decode arm
+split_prep_launches = 0  # launches of the "split" operands' preparation (pb_prep_dma)
 
 # The int8 kernel's arms: below M_TC rows DECODE_ARM ("split", the int8
 # tensor cores with a K split over a cluster of blocks, or "dp4a", the CUDA
@@ -581,14 +591,30 @@ def pb_f32_matmul(x: torch.Tensor, p: PackedLinearV2, dot_dtype=torch.float32) -
         raise ValueError(f"pb_f32_matmul: dot_dtype {dot_dtype} not in {_DOT_DTYPES}")
     if p.low_bits not in (1, 2, 4):
         raise ValueError(f"pb_f32_matmul: low_bits {p.low_bits} not in (1, 2, 4)")
-    if f32_arm(x.shape[0], p) == "tc":
-        return launch_f32_tc(prepare_tc(x, p, terms_of(dot_dtype)), p)
-    return launch_f32(prepare_f32(x, p), p, dot_dtype)
+    return launch_f32(prepare_f32_arm(x, p, f32_arm(x.shape[0], p, dot_dtype), dot_dtype), p,
+                      dot_dtype)
 
 
-def launch_f32(ops: F32Operands, p: PackedLinearV2, dot_dtype=torch.float32) -> torch.Tensor:
-    """Launch the f32 kernel on prepared operands (all on one CUDA device)
-    on the current stream; counts one launch."""
+def prepare_f32_arm(x: torch.Tensor, p: PackedLinearV2, arm: str, dot_dtype=torch.float32):
+    """The exact f32 kernel's operands for ``arm``: `F32Operands` for
+    "cores", `TcOperands` of that layout for "tc" and "split"."""
+    if arm == "cores":
+        return prepare_f32(x, p)
+    if arm == "tc":
+        return prepare_tc(x, p, terms_of(dot_dtype))
+    if arm == "split":
+        return prepare_split(x, p)
+    raise ValueError(f"pb_f32_matmul: unknown arm {arm!r}, not in {F32_ARMS}")
+
+
+def launch_f32(ops, p: PackedLinearV2, dot_dtype=torch.float32) -> torch.Tensor:
+    """Launch the exact f32 kernel on prepared operands (all on one CUDA
+    device) on the current stream, in the arm they are laid out for:
+    `F32Operands` the CUDA cores ("cores", ``dot_dtype`` applies),
+    `TcOperands` the tensor cores, "tc" or "split" by their layout (their
+    terms carry the dot type).  Counts one launch of that arm."""
+    if isinstance(ops, TcOperands):
+        return launch_f32_tc(ops, p) if ops.layout == "tc" else launch_f32_split(ops, p)
     m, ic = ops.x.shape
     oc = p.oc_local
     out = torch.empty((m, oc), dtype=torch.float32, device=ops.x.device)
@@ -610,24 +636,33 @@ def launch_f32(ops: F32Operands, p: PackedLinearV2, dot_dtype=torch.float32) -> 
 # the bf16 tensor-core arm (pair and exact f32; csrc/pb_bf16_tc.cuh)
 # ---------------------------------------------------------------------------
 
-# The exact f32 kernel's arms: "cores" (select-and-add on the f32 CUDA
-# cores) below F32_TC rows, "tc" (wgmma bf16, x in three bf16 terms) from
-# F32_TC rows on, for 1-bit lows where the layout allows (`f32_arm`).  On an
-# H100 (700 W) the tensor cores take less time from 32 rows on all three of
-# llama-7b's shapes, the CUDA cores at 16 on two of them (chip_smoke.py
-# phase 2; PERF.md).
+# The exact f32 kernel's arms, for 1-bit lows where the layout allows
+# (`f32_arm`): "tc" (wgmma bf16, x in three bf16 terms) from F32_TC rows on,
+# F32_DECODE_ARM below (dot f32).  On an H100 (700 W) "tc" takes less time
+# than "cores" from 32 rows on all three of llama-7b's shapes (chip_smoke.py
+# phase 2; PERF.md).  "split" is the dma kernel's decode device code, the
+# redesign of the decode rows; "cores" (select-and-add on the f32 CUDA
+# cores) takes the rest and is the yardstick.
 F32_TC = 32
-F32_ARMS = ("cores", "tc")
+F32_DECODE_ARM = "split"
+F32_ARMS = ("cores", "split", "tc")
+SPLIT_MAX_KS = 8  # the "split" arm's K ranges a tile: a portable cluster
 TC_GROUP = 256  # bf16 values of a word group (8 sign words) in a row of the arm's x
 TC_SLOTS = 64   # the arm's sidecar chunk: xg rows padded to a multiple of it
 
 
-def f32_arm(m: int, p: PackedLinearV2) -> str:
-    """The exact f32 kernel's arm for ``m`` rows of x on layout ``p``: "tc"
-    at m >= F32_TC for 1-bit lows where `tc_layout_ok`, else "cores" (the
-    reference's 2- and 4-bit ablations stay there).  The one place the arm
-    is chosen, for the flat and the stacked entry."""
-    return "tc" if m >= F32_TC and p.low_bits == 1 and tc_layout_ok(p) else "cores"
+def f32_arm(m: int, p: PackedLinearV2, dot_dtype=torch.float32) -> str:
+    """The exact f32 kernel's arm for ``m`` rows of x on layout ``p``: for
+    1-bit lows where `tc_layout_ok`, "tc" at m >= F32_TC and F32_DECODE_ARM
+    ("split") below for dot f32 (the split code carries three terms); else
+    "cores" (the reference's 2- and 4-bit ablations, dot bf16 below F32_TC,
+    layouts the tensor cores refuse).  The one place the arm is chosen, for
+    the flat and the stacked entry."""
+    if p.low_bits != 1 or not tc_layout_ok(p):
+        return "cores"
+    if m >= F32_TC:
+        return "tc"
+    return F32_DECODE_ARM if dot_dtype == torch.float32 else "cores"
 
 
 def terms_of(dot_dtype) -> int:
@@ -713,11 +748,12 @@ def tc_pair_columns(ic: int, pack_block: int) -> torch.Tensor:
 
 
 class TcOperands(NamedTuple):
-    """The bf16 tensor-core arm's operands: x and the gathered x as
+    """The bf16 tensor-core arms' operands: x and the gathered x as
     ``terms`` bf16 planes (`split_terms`), x in `tc_pair_columns`' order."""
     xp: torch.Tensor    # bf16 [terms, m, icp]
     xgp: torch.Tensor   # bf16 [terms, n_rg, m, kst]: k_pad slots, zeros to a multiple of TC_SLOTS
-    f32: F32Operands    # rs, rsg, coef (and the f32 x and xg)
+    f32: F32Operands    # rs, rsg, coef (and the f32 x; xg but from `launch_prep_split`)
+    layout: str = "tc"  # the arm they are for: "tc", or "split" (three terms)
 
 
 _tc_cols: Dict[Tuple[int, int, str], torch.Tensor] = {}
@@ -793,6 +829,123 @@ def launch_f32_tc(ops: TcOperands, p: PackedLinearV2) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# the arm "split": the dma kernel's decode device code (csrc/pb_dma_v2.cu)
+# ---------------------------------------------------------------------------
+
+def split_units(p: PackedLinearV2) -> int:
+    """The "split" arm's K units: word groups of 8 sign words (padded bit
+    runs included), then chunks of TC_SLOTS sidecar slots."""
+    groups = sum(-(-rows // TC_GROUP) for rows in packing.block_sizes(
+        p.ic_local, p.pack_block_local))
+    return groups + -(-p.k_pad // TC_SLOTS)
+
+
+def split_ksplit(p: PackedLinearV2) -> int:
+    """The "split" arm's K ranges a 128-column tile, from the layer's shape
+    alone (so a row's sums run in one order whatever m is): the least power
+    of two that brings the tiles times the ranges to SPLIT_BLOCKS, at most
+    SPLIT_MAX_KS (a portable cluster) and at most the units."""
+    units = split_units(p)
+    tiles = -(-p.oc_local // TC_OC)
+    ks = 1
+    while ks < SPLIT_MAX_KS and ks * tiles < SPLIT_BLOCKS and 2 * ks <= units:
+        ks *= 2
+    return ks
+
+
+def split_ranges(p: PackedLinearV2) -> list:
+    """The "split" arm's K ranges of layout ``p``: range r is the units
+    r·n // ks .. (r + 1)·n // ks - 1 of the n units (`split_units`), as the
+    kernel's block z = r reads them."""
+    n, ks = split_units(p), split_ksplit(p)
+    return [(r * n // ks, (r + 1) * n // ks) for r in range(ks)]
+
+
+def prepare_split(x: torch.Tensor, p: PackedLinearV2) -> TcOperands:
+    """The "split" arm's operands: on a CPU tensor the plain version
+    (`prepare_tc` with three terms), on a CUDA tensor one launch of
+    `pb_prep_dma` (the same terms bit for bit, the row sums within
+    `sum_bound`)."""
+    if x.device.type == "cpu":
+        return prepare_tc(x, p, 3)._replace(layout="split")
+    return launch_prep_split(x.float().contiguous(), p)
+
+
+_PREP_SPLIT_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+
+
+def launch_prep_split(xf: torch.Tensor, p: PackedLinearV2) -> TcOperands:
+    """Launch the "split" arm's x preparation (`pb_prep_dma`: x's and every
+    row group's gathered x's three terms, the row sums) on a contiguous f32
+    x on the card, on the current stream; counts one launch."""
+    m, ic = xf.shape
+    if xf.device.type != "cuda" or ic != p.ic_local:
+        raise ValueError(f"prepare_split: x {tuple(xf.shape)} on {xf.device} does not fit")
+    idx = p.side_idx
+    if idx.device != xf.device or idx.dtype != torch.int32 or not idx.is_contiguous():
+        raise ValueError("prepare_split: side_idx must be a contiguous int32 tensor on x's device")
+    dev, n_rg = xf.device, p.n_row_groups
+    cols = _tc_columns_on(ic, p.pack_block_local, dev)  # int64, made once a device
+    kst = -(-p.k_pad // TC_SLOTS) * TC_SLOTS
+    xp = torch.empty((3, m, cols.numel()), dtype=torch.bfloat16, device=dev)
+    xgp = torch.empty((3, n_rg, m, kst), dtype=torch.bfloat16, device=dev)
+    rs = torch.empty(m, dtype=torch.float32, device=dev)
+    rsg = torch.empty((n_rg, m), dtype=torch.float32, device=dev)
+    fn = _build.load("pb_dma_v2").pb_prep_dma
+    fn.argtypes = _PREP_SPLIT_ARGTYPES
+    fn.restype = ctypes.c_int
+    err = fn(xf.data_ptr(), cols.data_ptr(), idx.data_ptr(), xp.data_ptr(), xgp.data_ptr(),
+             rs.data_ptr(), rsg.data_ptr(), m, ic, cols.numel(), kst, p.shards_local,
+             p.k_pad_shard_local, n_rg, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "pb_prep_dma")
+    global split_prep_launches
+    split_prep_launches += 1
+    return TcOperands(xp, xgp, F32Operands(xf, None, rs, rsg, coef_rows(p)), "split")
+
+
+_SPLIT_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+
+
+def launch_split(ops: TcOperands, p: PackedLinearV2, marker=None) -> torch.Tensor:
+    """The "split" arm's launch (`pb_dma_v2_split`) on three-term operands
+    of layout ``p``: flat, or with ``marker`` layer li of its stack (the
+    whole [L] planes and coefficients, li from ``marker.idx_t``).  Counts
+    nothing: its callers count their kernel's arm."""
+    _check_tc(ops, p, "the split arm")
+    if ops.xp.shape[0] != 3:
+        raise ValueError("the split arm takes x in three terms")
+    m = ops.xp.shape[1]
+    f = ops.f32
+    out = torch.empty((m, p.oc_local), dtype=torch.float32, device=ops.xp.device)
+    if marker is None:
+        planes = (p.sign_packed, p.side_val, f.coef)
+        layer, n_layers = None, 1
+    else:
+        sp = marker.stacked
+        planes = (sp.sign_packed, sp.side_val, coef_rows(sp))
+        layer, n_layers = marker.idx_t.data_ptr(), sp.sign_packed.shape[0]
+    fn = _build.load("pb_dma_v2").pb_dma_v2_split
+    fn.argtypes = _SPLIT_ARGTYPES
+    fn.restype = ctypes.c_int
+    err = fn(ops.xp.data_ptr(), ops.xgp.data_ptr(), f.rs.data_ptr(), f.rsg.data_ptr(),
+             *(t.data_ptr() for t in planes), out.data_ptr(), layer, m, p.ic_local, p.oc_local,
+             p.pack_block_local, p.side_bits, p.k_pad, p.k_pad_shard_local, p.col_tile,
+             p.n_row_groups, n_layers, split_ksplit(p),
+             torch.cuda.current_stream(out.device).cuda_stream)
+    _build.check(err, "pb_dma_v2_split")
+    return out
+
+
+def launch_f32_split(ops: TcOperands, p: PackedLinearV2) -> torch.Tensor:
+    """Launch the exact f32 kernel's arm "split" on its operands (all on one
+    CUDA device) on the current stream; counts one launch."""
+    out = launch_split(ops, p)
+    global f32_split_launches
+    f32_split_launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
 # stacked layers (scan_layers)
 # ---------------------------------------------------------------------------
 
@@ -864,9 +1017,7 @@ def pb_f32_matmul_stacked(x: torch.Tensor, marker) -> torch.Tensor:
     if x.device.type == "cpu":
         return pb_f32_matmul_stacked_plain(x, marker)
     p = _check_stacked(x, marker, "pb_f32_matmul_stacked")
-    if f32_arm(x.shape[0], p) == "tc":
-        return launch_f32_stacked(prepare_tc(x, p, 3), marker)
-    return launch_f32_stacked(prepare_f32(x, p), marker)
+    return launch_f32_stacked(prepare_f32_arm(x, p, f32_arm(x.shape[0], p)), marker)
 
 
 _STACKED_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
@@ -902,9 +1053,17 @@ def launch_int8_stacked(ops: Int8Operands, marker, arm=None) -> torch.Tensor:
 def launch_f32_stacked(ops, marker) -> torch.Tensor:
     """Launch the stacked f32 kernel on layer li's prepared operands (as
     `launch_int8_stacked`), in the arm the operands name: `F32Operands` the
-    CUDA cores, `TcOperands` (three terms) the tensor cores.  Counts one
-    launch of that arm."""
+    CUDA cores, `TcOperands` (three terms) the tensor cores, "tc" or
+    "split" by their layout.  Counts one launch of that arm."""
     sp = marker.stacked
+    if isinstance(ops, TcOperands) and ops.layout == "split":
+        p = stacked_layer(marker)
+        if not stacked_supported_v2(sp):
+            raise ValueError("pb_f32_matmul_stacked: layout not supported by the stacked kernels")
+        out = launch_split(ops, p, marker)
+        global stacked_f32_split_launches
+        stacked_f32_split_launches += 1
+        return out
     tc = isinstance(ops, TcOperands)
     f = ops.f32 if tc else ops
     m, ic = f.x.shape

@@ -20,10 +20,18 @@ f32 and keep q, p and the sums in f32.
 `paged_attention` (decode, t = 1, ``lengths`` including the token just
 written) and `paged_attention_multi` (speculative verify, chunked prefill,
 prefix-cache suffixes) launch `csrc/paged_attention.cu` on a CUDA tensor and
-run `paged_attention_plain` on a CPU tensor.  The source has two arms, and
-`window_arm` picks one by a fixed rule: windows (t > 1) over int8 or bf16
-pages take the tensor-core arm (q and p split into two bf16 terms each, f32
-sums), decode and f32 pages the CUDA-core arm.
+run `paged_attention_plain` on a CPU tensor.  The source has three arms, and
+`window_arm` picks one by a fixed rule: decode (t = 1) takes DECODE_ARM,
+"split" (a slot's keys cut into splits of whole pages, `split_keys`, one
+block a split over a grid fixed by the table's width, `n_splits`, and a
+merge launch that adds the splits in order; `split_plain` is its
+arithmetic in PyTorch, `SPLIT_GRID` blocks a slot and kv head each taking
+every SPLIT_GRID-th split), wherever G = Hq / Hkv <= SPLIT_MAX_ROWS and the
+head dim is a multiple of 8 (the kernel also takes windows of t·G <=
+SPLIT_MAX_ROWS rows a kv head, reached only by name for timing); windows (t > 1) over int8 or bf16 pages take the
+tensor-core arm (q and p split into two bf16 terms each, f32 sums); the
+CUDA-core arm takes the rest and stays reachable for decode as the
+yardstick the split arm replaced.
 """
 
 from __future__ import annotations
@@ -38,14 +46,27 @@ from .decode_attention import KV_TYPES
 NEG_INF = -1e30
 
 # kernel launches (plain-version calls are not counted): all, by entry,
-# over bf16 pages, and of the tensor-core window arm
+# over bf16 pages, and by arm: tensor-core windows, split, CUDA cores
 launches = 0
 decode_launches = 0
 multi_launches = 0
 bf16_launches = 0
 window_launches = 0
+split_launches = 0
+cores_launches = 0
 
-TENSOR_CORES, CUDA_CORES = "tensor_cores", "cuda_cores"
+TENSOR_CORES, CUDA_CORES, SPLIT = "tensor_cores", "cuda_cores", "split"
+ARMS = (SPLIT, TENSOR_CORES, CUDA_CORES)
+# The decode arm (t = 1) where the split arm takes the shape; "split" is
+# the redesign for the card (PERF.md: both arms in one call, and 6b's pass
+# i in turns), CUDA_CORES the yardstick.
+DECODE_ARM = SPLIT
+# The split arm's shape, from the card (scripts/torch_paged_split_variants.py
+# times it beside (64, 4), (64, 8), (128, 2), (128, 8), (256, 4), (256, 8)
+# on the decode cases, PERF.md).
+SPLIT_KEYS = 128  # keys a split: SPLIT_KEYS // page whole pages (one page above it)
+SPLIT_GRID = 4    # blocks a (slot, kv head): block c takes splits c, c + SPLIT_GRID, ...
+SPLIT_MAX_ROWS = 8  # window rows t·G a kv head the split arm takes (decode: G <= 8)
 
 
 def _check_args(q, k_pages, v_pages, table, base, page_size, k_scale_pages, v_scale_pages):
@@ -109,6 +130,72 @@ def paged_attention_plain(q, k_pages, v_pages, table, base, scale, page_size,
     return out.permute(0, 3, 1, 2, 4).reshape(b, t, hq, d)
 
 
+def split_keys(page_size: int) -> int:
+    """Keys a split of the decode arm "split": whole pages, SPLIT_KEYS //
+    page of them (128 keys in 8 pages of 16), or one page above SPLIT_KEYS."""
+    return page_size * max(1, SPLIT_KEYS // page_size)
+
+
+def n_splits(table_width: int, page_size: int) -> int:
+    """The split arm's splits a slot: its grid and workspace follow the
+    table's width (max_seq) alone, never the lengths."""
+    return -(-table_width * page_size // split_keys(page_size))
+
+
+def split_plain(q, k_pages, v_pages, table, lengths, scale, page_size, k_scale_pages=None,
+                v_scale_pages=None) -> torch.Tensor:
+    """The split arm's arithmetic in plain PyTorch (f32), decode's contract
+    (q [B, Hq, D] not pre-scaled, ``lengths`` counting the token just
+    written): each slot's keys below its length cut into splits of
+    `split_keys` keys; per split its max m_c, exponential sum l_c and
+    unnormalised P·V (the K scale on the scores, the V scale on p); then the
+    merge in split order, out = Σ_c w_c·acc_c / Σ_c w_c·l_c with w_c =
+    exp(m_c − max m); a slot with no key returns 0.  Only live keys are
+    gathered: nothing at or past a slot's length is read."""
+    base = torch.as_tensor(lengths).to(q.device) - 1
+    _check_args(q[:, None], k_pages, v_pages, table, base, page_size, k_scale_pages,
+                v_scale_pages)
+    b, hq, d = q.shape
+    hkv = k_pages.shape[1]
+    g = hq // hkv
+    sk = split_keys(page_size)
+    qf = q.float() * scale
+    lens = torch.clamp(base + 1, min=0).long().clamp(max=table.shape[1] * page_size)
+    out = torch.zeros((b, hq, d), dtype=torch.float32, device=q.device)
+    for bi in range(b):
+        n = int(lens[bi])
+        parts = []
+        for k0 in range(0, n, sk):
+            key = torch.arange(k0, min(k0 + sk, n), device=q.device)
+            pg = table[bi].to(q.device).long()[key // page_size]
+            off = key % page_size
+
+            def rows(pages):  # [keys, Hq, (D)] in f32: each kv head's rows for its G heads
+                x = pages[pg, :, off].float()
+                return x.repeat_interleave(g, dim=1)
+
+            sc = torch.einsum("hd,khd->hk", qf[bi], rows(k_pages))
+            if k_scale_pages is not None:
+                sc = sc * rows(k_scale_pages).t()
+            mx = sc.amax(dim=1)
+            pw = torch.exp(sc - mx[:, None])
+            l = pw.sum(dim=1)
+            if v_scale_pages is not None:
+                pw = pw * rows(v_scale_pages).t()
+            parts.append((mx, l, torch.einsum("hk,khd->hd", pw, rows(v_pages))))
+        if not parts:
+            continue
+        top = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+        lt = torch.zeros_like(top)
+        acc = torch.zeros((hq, d), dtype=torch.float32, device=q.device)
+        for mx, l, a in parts:
+            w = torch.exp(mx - top)
+            lt = lt + w * l
+            acc = acc + w[:, None] * a
+        out[bi] = acc / lt[:, None]
+    return out
+
+
 def paged_attention(q, k_pages, v_pages, table, lengths, scale, page_size,
                     k_scale_pages=None, v_scale_pages=None) -> torch.Tensor:
     """Decode: one query token per slot, q [B, Hq, D] (not pre-scaled);
@@ -164,6 +251,7 @@ def _call(q, k_pages, v_pages, table, base, scale, page_size, k_scale_pages, v_s
 
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 _WINDOW_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_SPLIT_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 # elements of a K row one lane reads in one 16-byte load
 _EPL = {torch.int8: 16, torch.bfloat16: 8, torch.float32: 4}
 
@@ -178,10 +266,20 @@ def _tiling(rows: int):
     return 8, 3 - (groups.bit_length() - 1)
 
 
-def window_arm(t: int, dtype: torch.dtype) -> str:
-    """The arm a launch takes: windows (t > 1) over int8 or bf16 pages on
-    the tensor cores, decode and f32 pages on the CUDA cores."""
-    return TENSOR_CORES if t > 1 and dtype in (torch.int8, torch.bfloat16) else CUDA_CORES
+def split_ok(rows: int, head_dim: int) -> bool:
+    """The shapes the arm "split" takes: t·G window rows a kv head (decode:
+    G = Hq / Hkv) up to SPLIT_MAX_ROWS, the head dim a multiple of 8 up to
+    128."""
+    return rows <= SPLIT_MAX_ROWS and head_dim % 8 == 0 and head_dim <= 128
+
+
+def window_arm(t: int, dtype: torch.dtype, group: int = 1, head_dim: int = 128) -> str:
+    """The arm a launch takes, by a fixed rule: decode (t = 1) DECODE_ARM
+    where `split_ok`; windows (t > 1) over int8 or bf16 pages the tensor
+    cores; the CUDA cores the rest.  ``group`` is Hq / Hkv."""
+    if t == 1:
+        return DECODE_ARM if split_ok(group, head_dim) else CUDA_CORES
+    return TENSOR_CORES if dtype in (torch.int8, torch.bfloat16) else CUDA_CORES
 
 
 def launch(qs, k_pages, v_pages, table, base, k_scale_pages=None, v_scale_pages=None,
@@ -189,12 +287,14 @@ def launch(qs, k_pages, v_pages, table, base, k_scale_pages=None, v_scale_pages=
     """Launch the CUDA kernel on checked operands (q already scaled, int32
     table and base) on the current stream; the arm follows `window_arm`.
     ``_arm_for_timing`` forces one arm, only so that chip_smoke.py and the
-    card tests can time and check both on the same inputs.  Counts one
+    card tests can time and check every arm on the same inputs.  Counts one
     launch."""
     b, t, hq, d = qs.shape
     hkv, ps = k_pages.shape[1], k_pages.shape[2]
     quantized = k_scale_pages is not None
-    arm = _arm_for_timing or window_arm(t, k_pages.dtype)
+    arm = _arm_for_timing or window_arm(t, k_pages.dtype, hq // hkv, d)
+    if arm not in ARMS:
+        raise ValueError(f"paged_attention: unknown arm {arm!r}, not in {ARMS}")
     out = torch.empty((b, t, hq, d), dtype=torch.float32, device=qs.device)
     lib = _build.load("paged_attention")
     stream = torch.cuda.current_stream(qs.device).cuda_stream
@@ -203,7 +303,21 @@ def launch(qs, k_pages, v_pages, table, base, k_scale_pages=None, v_scale_pages=
              v_scale_pages.data_ptr() if quantized else None,
              table.data_ptr(), base.data_ptr(), out.data_ptr(), b, t, hq, hkv, d, ps,
              table.shape[1], KV_TYPES[k_pages.dtype])
-    if arm == TENSOR_CORES:
+    if arm == SPLIT:
+        if not split_ok(t * (hq // hkv), d):
+            raise ValueError(f"paged_attention: the split arm takes t·G <= {SPLIT_MAX_ROWS} rows "
+                             f"a kv head and a head dim a multiple of 8 up to 128; got t={t}, "
+                             f"G={hq // hkv}, D={d}")
+        maxp = table.shape[1]
+        # sized by the table's width alone: a captured step's workspace holds at every length
+        part = torch.empty((b, t, hq, n_splits(maxp, ps), d + 2), dtype=torch.float32,
+                           device=qs.device)
+        fn = lib.paged_attention_split
+        fn.argtypes = _SPLIT_ARGTYPES
+        fn.restype = ctypes.c_int
+        err = fn(*pages[:8], part.data_ptr(), b, t, hq, hkv, d, ps, maxp,
+                 KV_TYPES[k_pages.dtype], split_keys(ps), SPLIT_GRID, stream)
+    elif arm == TENSOR_CORES:
         fn = lib.paged_attention_window
         fn.argtypes = _WINDOW_ARGTYPES
         fn.restype = ctypes.c_int
@@ -216,9 +330,12 @@ def launch(qs, k_pages, v_pages, table, base, k_scale_pages=None, v_scale_pages=
         err = fn(*pages, rw, wk_log2, stream)
     _build.check(err, "paged_attention")
     global launches, decode_launches, multi_launches, bf16_launches, window_launches
+    global split_launches, cores_launches
     launches += 1
     bf16_launches += k_pages.dtype == torch.bfloat16
     window_launches += arm == TENSOR_CORES
+    split_launches += arm == SPLIT
+    cores_launches += arm == CUDA_CORES
     if decode:
         decode_launches += 1
     else:

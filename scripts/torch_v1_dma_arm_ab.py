@@ -16,8 +16,10 @@ arm rule in turns (new arm, "cores", "cores", new arm):
     tensor cores) or "cores".
 
 For each pass it prints the tokens/s, the decode step's median wall ms, one
-graph replay's device ms (CUDA events), the idle share of the step (1 -
-replay / step), the summed synchronised wall ms of the prefill forwards,
+graph replay's device ms (CUDA events) at the last step's inputs and its
+idle share of the step (1 - replay / step), the median, mean and deciles
+of the device ms of the replays that served the mix (CUDA events around
+each) and their idle share (1 - median replay / median step), the summed synchronised wall ms of the prefill forwards,
 the arm's launches (the other arm must show none) and whether the greedy
 streams equal the first pass's.  A pass on the same arm must give the first
 pass's streams.  The two arms sum in other orders, so their streams may
@@ -78,23 +80,33 @@ def rescore(eng, prompt, tokens, k: int) -> torch.Tensor:
     return logits.float().clone()
 
 
+def pass_name(family: str) -> str:
+    return "dma (9b)" if family == "llama" else "OPT-1.3B (7b)"
+
+
 def partings(cs, params, cfg, family: str, kernels, set_arm, arms, prompts, streams,
-             card: str) -> None:
+             card: str, name: str = None, ekw: dict = None, exact_kernels=None) -> None:
     """Where the two arms' greedy streams first part, each arm's re-scored
-    logits there, in the served config and with an f32 KV cache: printed,
-    and the arms' difference with the f32 cache held to LOGIT_TOL_EXACT."""
+    logits there, in the served config and with an f32 KV cache (and, given
+    ``exact_kernels``, also with the served cache on those kernels):
+    printed, and the arms' difference in every config but the served one
+    held to LOGIT_TOL_EXACT.  ``name``, ``ekw`` (engine options) and
+    ``exact_kernels`` as in `ab`."""
     apart = [(i, next(j for j, (a, b) in enumerate(zip(s0, s1)) if a != b))
              for i, (s0, s1) in enumerate(zip(streams[arms[0]], streams[arms[1]])) if s0 != s1]
-    caches = {"served": {}, "f32_cache": {"cache_dtype": torch.float32}}
+    caches = {"served": ({}, kernels),
+              "f32_cache": ({"cache_dtype": torch.float32}, exact_kernels or kernels)}
+    if exact_kernels is not None:
+        caches["served_cache_exact_arms"] = ({}, exact_kernels)
     logits = {}
     for arm in arms:
         set_arm(arm)
-        for name, kw in caches.items():
-            eng = engine(cs, params, cfg, family, kernels, **kw)
-            logits[name, arm] = [rescore(eng, prompts[i], streams[arm][i], k) for i, k in apart]
+        for c, (kw, kc) in caches.items():
+            eng = engine(cs, params, cfg, family, kc, **(ekw or {}), **kw)
+            logits[c, arm] = [rescore(eng, prompts[i], streams[arm][i], k) for i, k in apart]
             del eng
             torch.cuda.empty_cache()
-    name_of = "dma (9b)" if family == "llama" else "OPT-1.3B (7b)"
+    name_of = name or pass_name(family)
     worst = {c: 0.0 for c in caches}
     for n, (i, k) in enumerate(apart):
         row = {"pass": name_of, "parting": i, "token": k,
@@ -114,27 +126,59 @@ def partings(cs, params, cfg, family: str, kernels, set_arm, arms, prompts, stre
     print(json.dumps({"pass": name_of, "requests": len(prompts), "parted": len(apart),
                       "max_arms_logit_diff_over_max": worst, "bound_f32_cache": cs.LOGIT_TOL_EXACT,
                       "margin": cs.MARGIN, "card": card}), flush=True)
-    if worst["f32_cache"] > cs.LOGIT_TOL_EXACT:
-        raise AssertionError(f"{family}: with an f32 cache the arms' logits differ by "
-                             f"{worst['f32_cache']} of max|logit| > {cs.LOGIT_TOL_EXACT}")
+    for c in caches:
+        if c != "served" and worst[c] > cs.LOGIT_TOL_EXACT:
+            raise AssertionError(f"{family}: in config {c} the arms' logits differ by "
+                                 f"{worst[c]} of max|logit| > {cs.LOGIT_TOL_EXACT}")
+
+
+def time_replays(eng) -> list:
+    """Record every replay of ``eng``'s decode-step graph between CUDA
+    events (set before the graph is captured); returns the list that
+    collects the (start, end) pairs: each pair spans one served step's
+    device time, its inputs as the batcher left them."""
+    pairs = []
+
+    class Timed(eng._step.graph_cls):
+        def replay(self):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            super().replay()
+            e1.record()
+            pairs.append((e0, e1))
+
+    eng._step.graph_cls = Timed
+    return pairs
 
 
 def serve(cs, params, cfg, family: str, kernels, arm_counters, arm: str, card: str,
-          first_streams, same, profile: bool) -> list:
+          first_streams, same, profile: bool, name: str = None, ekw: dict = None,
+          requests=None) -> list:
     """One pass on a fresh engine; returns its greedy streams (``same``: the
-    streams of this arm's earlier pass, or None)."""
-    eng = engine(cs, params, cfg, family, kernels)
-    reqs = cs.e2e_requests(cfg.vocab_size)
+    streams of this arm's earlier pass, or None).  ``name``, ``ekw`` and
+    ``requests`` as in `ab`."""
+    eng = engine(cs, params, cfg, family, kernels, **(ekw or {}))
+    reqs = (requests or cs.e2e_requests)(cfg.vocab_size)
+    pairs = time_replays(eng)
     batcher, launches, _, step_ms, _, prefill_ms = cs.run_counted(eng, reqs)
+    torch.cuda.synchronize()
+    served = [a.elapsed_time(b) for a, b in pairs]  # the warm-up request's replays included
     streams = [r.output_ids for r in reqs]
     step = statistics.median(step_ms)
     replay = cs.replay_ms(eng)
+    served_ms = statistics.median(served) if served else "not measured"
     counts = {k: launches[k] for k in arm_counters.values()}
     print(json.dumps({
-        "pass": "dma (9b)" if family == "llama" else "OPT-1.3B (7b)", "arm": arm,
+        "pass": name or pass_name(family), "arm": arm,
         "tokens_per_s": batcher.stats.tokens_per_second, "wall_s": batcher.stats.wall_seconds,
         "ms_per_decode_step_median": step, "graph_replay_device_ms": replay,
-        "graph_idle_share": 1 - replay / step, "prefill_ms_total": sum(prefill_ms),
+        "graph_idle_share": 1 - replay / step, "served_replays": len(served),
+        "served_replay_device_ms_median": served_ms,
+        "served_replay_device_ms_mean": statistics.fmean(served) if served else "not measured",
+        "served_replay_device_ms_deciles": (statistics.quantiles(served, n=10)
+                                            if len(served) > 1 else "not measured"),
+        "served_idle_share": 1 - served_ms / step if served else "not measured",
+        "prefill_ms_total": sum(prefill_ms),
         "launches": counts, "streams_equal_first_pass": first_streams in (None, streams),
         "card": card}), flush=True)
     if same is not None and same != streams:
@@ -151,18 +195,28 @@ def serve(cs, params, cfg, family: str, kernels, arm_counters, arm: str, card: s
 
 
 def ab(cs, params, cfg, family: str, kernels, arms, set_arm, arm_counters, card: str,
-       profile: bool) -> None:
-    """One pass's four turns, then where the two arms' streams part."""
+       profile: bool, name: str = None, ekw: dict = None, requests=None,
+       exact_kernels=None) -> None:
+    """One pass's four turns, then where the two arms' streams part.
+    ``name`` names the pass in the output (by default after ``family``),
+    ``ekw`` adds `EngineConfig` options, ``requests(vocab)`` makes the mix
+    (by default phase 4's, `chip_smoke.e2e_requests`), ``exact_kernels``
+    replaces ``kernels`` in the f32-cache re-score and adds a re-score of
+    the served cache on them (the exact matmul arms, where the pass serves
+    on the int8 ones: their per-row rounding of x carries a last-bit
+    difference in attention into the logits, so only on the exact arms are
+    the two arms held to one bound)."""
     first, streams = None, {}
     for t in TURNS:
         arm = arms[t]
         set_arm(arm)
         got = serve(cs, params, cfg, family, kernels, arm_counters, arm, card, first,
-                    streams.get(arm), profile and arm not in streams)
+                    streams.get(arm), profile and arm not in streams, name, ekw, requests)
         streams.setdefault(arm, got)
         first = got if first is None else first
-    prompts = [r.prompt_ids for r in cs.e2e_requests(cfg.vocab_size)]
-    partings(cs, params, cfg, family, kernels, set_arm, arms, prompts, streams, card)
+    prompts = [r.prompt_ids for r in (requests or cs.e2e_requests)(cfg.vocab_size)]
+    partings(cs, params, cfg, family, kernels, set_arm, arms, prompts, streams, card, name, ekw,
+             exact_kernels)
 
 
 def main() -> int:

@@ -516,7 +516,7 @@ def test_dequant_kernel_matches_plain_bit_for_bit(cuda, name, dtype):
     assert got.dtype == dtype and torch.equal(got, want)
 
 
-_F32_COUNTER = {"cores": "f32_launches", "tc": "f32_tc_launches"}
+_F32_COUNTER = {"cores": "f32_launches", "tc": "f32_tc_launches", "split": "f32_split_launches"}
 
 
 @pytest.mark.cuda
@@ -526,7 +526,7 @@ _F32_COUNTER = {"cores": "f32_launches", "tc": "f32_tc_launches"}
 def test_f32_matmul_kernel_matches_plain(cuda, name, m, dot_dtype):
     p = _lowbit_layer(256, 384, int(name[-1]), cuda) if name.startswith("low") else _layer(name, cuda)
     x = torch.randn((m, p.ic), generator=torch.Generator(device=cuda).manual_seed(m), device=cuda)
-    counter = _F32_COUNTER[packed_matmul.f32_arm(m, p)]
+    counter = _F32_COUNTER[packed_matmul.f32_arm(m, p, dot_dtype)]
     before = getattr(packed_matmul, counter)
     got = packed_matmul.pb_f32_matmul(x, p, dot_dtype=dot_dtype)
     torch.cuda.synchronize()
@@ -1212,10 +1212,10 @@ def test_dma_prep_matches_its_plain_version(cuda, name):
     x = torch.randn((11, p.ic), generator=torch.Generator(device=cuda).manual_seed(7), device=cuda)
     x[0, 0] = 1e-40  # a subnormal splits exactly too
     x[1, 1] = 3.0e38
-    before = decode_arms.dma_prep_launches
+    before = packed_matmul.split_prep_launches
     got = decode_arms.prepare_dma(x, p, "split")
     torch.cuda.synchronize()
-    assert decode_arms.dma_prep_launches == before + 1
+    assert packed_matmul.split_prep_launches == before + 1
     want = packed_matmul.prepare_tc(x, p, 3)
     assert torch.equal(got.xt, want.xp) and torch.equal(got.xgp, want.xgp)
     assert torch.all((got.f32.rs - want.f32.rs).abs() <= packed_matmul.sum_bound(x, 1))
@@ -1301,7 +1301,8 @@ def _stacked(dev, side_bits=8, n=3):
 
 _STACKED_COUNTER = {"dp4a": "stacked_launches", "tc": "stacked_tc_launches",
                     "split": "stacked_split_launches"}
-_STACKED_F32_COUNTER = {"cores": "stacked_f32_launches", "tc": "stacked_f32_tc_launches"}
+_STACKED_F32_COUNTER = {"cores": "stacked_f32_launches", "tc": "stacked_f32_tc_launches",
+                        "split": "stacked_f32_split_launches"}
 
 
 @pytest.mark.cuda
@@ -1339,7 +1340,7 @@ def test_decode_arms_and_stacked_dispatch_on_the_card_take_the_kernels(cuda):
     """decode_dot pair / dma on a CUDA tensor launch their kernels (pair at
     8 rows its "split" arm, dma its "split" arm); a stacked marker launches the stacked int8
     kernel on "int8" (8 rows: the arm `int8_arm` picks) and the stacked f32
-    kernel on the other arms (8 rows: its CUDA-core arm), at m <= 256."""
+    kernel on the other arms (8 rows: its "split" arm), at m <= 256."""
     from pb_llm_tpu_torch.ops import binary_matmul, decode_arms
     from pb_llm_tpu_torch.ops.kernel_config import KernelConfig, use_kernels
 
@@ -1354,7 +1355,7 @@ def test_decode_arms_and_stacked_dispatch_on_the_card_take_the_kernels(cuda):
 
     def counts():
         return (decode_arms.pair_split_launches, decode_arms.dma_split_launches,
-                getattr(packed_matmul, stacked), packed_matmul.stacked_f32_launches)
+                getattr(packed_matmul, stacked), packed_matmul.stacked_f32_split_launches)
 
     for arm, want in (("pair", (1, 0, 0, 1)), ("dma", (0, 1, 0, 1)), ("int8", (0, 0, 1, 0))):
         before = counts()
@@ -1539,7 +1540,9 @@ def test_window_arm_follows_the_rule(cuda):
     from pb_llm_tpu_torch.ops import paged_attention as tpa
 
     assert tpa.window_arm(5, torch.int8) == tpa.window_arm(256, torch.bfloat16) == tpa.TENSOR_CORES
-    assert tpa.window_arm(1, torch.int8) == tpa.window_arm(1, torch.bfloat16) == tpa.CUDA_CORES
+    for dt in (torch.int8, torch.bfloat16, torch.float32):
+        assert tpa.window_arm(1, dt) == tpa.window_arm(1, dt, 8, 64) == tpa.SPLIT
+        assert tpa.window_arm(1, dt, 16) == tpa.window_arm(1, dt, 1, 12) == tpa.CUDA_CORES
     assert tpa.window_arm(5, torch.float32) == tpa.CUDA_CORES
     g = torch.Generator(device=cuda).manual_seed(3)
     kp, vp, ks, vs = _paged_pool(8, 2, 16, 64, "f32", g)
@@ -1811,3 +1814,178 @@ def test_tensor_core_arms_refuse_what_they_cannot_take(cuda):
                                                              low2, 3), low2)
     with pytest.raises(ValueError, match="does not take"):
         decode_arms.launch_pair(decode_arms.prepare_pair(x, p), p, "tc")
+    with pytest.raises(ValueError, match="tensor-core arm does not take"):
+        packed_matmul.launch_f32_split(packed_matmul.prepare_split(x[:8].contiguous(), p), p)
+
+
+# ---------------------------------------------------------------------------
+# paged decode's arm "split" and the exact f32 arm "split" (dma's device code)
+# ---------------------------------------------------------------------------
+
+# name: (B, Hq, Hkv, D, page, n_pages, maxp, bases)
+SPLIT_CASES = {
+    "mha_page16": (8, 32, 32, 128, 16, 1024, 128, "len<=512"),
+    "gqa4_page16": (8, 32, 8, 128, 16, 1024, 128, "len<=512"),
+    "gqa2_page8_d64": (4, 8, 4, 64, 8, 200, 40, (-1, 0, 63, 319)),
+    "g3_page128_d96": (3, 6, 2, 96, 128, 12, 4, (511, 128, 5)),  # 64-key chunks in a page
+    "g8_page5_d40": (3, 16, 2, 40, 5, 90, 20, (99, 4, 60)),      # 25 pages of 5 a split
+}
+
+
+def _split_operands(name, kind, dev):
+    """A shuffled table over a pool whose every page no slot reads, and
+    each slot's table entries past its last live page (the trash page),
+    hold NaN (values, or the scales of int8 pages)."""
+    b, hq, hkv, d, ps, n_pages, maxp, bases = SPLIT_CASES[name]
+    g = torch.Generator(device=dev).manual_seed(len(name) + len(kind))
+    kp, vp, ks, vs = _paged_pool(n_pages, hkv, ps, d, kind, g)
+    if bases == "len<=512":
+        base = torch.randint(0, 512, (b,), generator=g, device=dev)
+        base[0] = 511
+    else:
+        base = torch.tensor(bases, device=dev)
+    table = torch.full((b, maxp), n_pages, dtype=torch.int32, device=dev)  # the trash page
+    perm = torch.randperm(n_pages, generator=g, device=dev).to(torch.int32)
+    used = 0
+    for i, bs in enumerate(base.tolist()):
+        n = -(-(bs + 1) // ps) if bs >= 0 else 0
+        table[i, :n] = perm[used: used + n]
+        used += n
+    unused = torch.ones(n_pages + 1, dtype=torch.bool, device=dev)
+    unused[perm[:used].long()] = False
+    if kind == "int8":
+        ks[unused], vs[unused] = float("nan"), float("nan")
+    else:
+        kp[unused], vp[unused] = float("nan"), float("nan")
+    q = torch.randn((b, hq, d), generator=g, device=dev)
+    return q, kp, vp, ks, vs, table, base, ps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int8", "bf16", "f32"])
+@pytest.mark.parametrize("name", sorted(SPLIT_CASES))
+def test_paged_split_arm_matches_plain(cuda, name, kind):
+    """The decode arm "split" against `split_plain` and the
+    window plain version (rtol 1e-4, atol 1e-5, the paged kernel's bound),
+    on every page type, MHA and GQA (G 1-8), pages of 5-128 keys, an empty
+    slot (length 0), with NaN in every page past a slot's last live key's
+    page; the routed decode call takes the arm and equals it bit for bit."""
+    from pb_llm_tpu_torch.ops import paged_attention as tpa
+
+    q, kp, vp, ks, vs, table, base, ps = _split_operands(name, kind, cuda)
+    if kind == "int8" and q.shape[2] % 16:
+        pytest.skip("int8 pages take head dims that are multiples of 16")
+    scale = q.shape[2] ** -0.5
+    qs = (q[:, None] * scale).contiguous()
+    before = (tpa.split_launches, tpa.decode_launches)
+    got = tpa.launch(qs, kp, vp, table, base.to(torch.int32), ks, vs, decode=True,
+                     _arm_for_timing=tpa.SPLIT)[:, 0]
+    torch.cuda.synchronize()
+    assert (tpa.split_launches, tpa.decode_launches) == (before[0] + 1, before[1] + 1)
+    assert torch.isfinite(got).all()
+    want = tpa.split_plain(q, kp, vp, table, base + 1, scale, ps, ks, vs)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    plain = tpa.paged_attention_plain(q[:, None], kp, vp, table, base, scale, ps, ks, vs)[:, 0]
+    torch.testing.assert_close(got, plain, rtol=1e-4, atol=1e-5)
+    if (base < 0).any():
+        assert not got[base < 0].any()
+    assert tpa.window_arm(1, kp.dtype, q.shape[1] // kp.shape[1], q.shape[2]) == tpa.SPLIT
+    routed = tpa.paged_attention(q, kp, vp, table, base + 1, scale, ps, ks, vs)
+    assert torch.equal(routed, got)
+    old = tpa.launch(qs, kp, vp, table, base.to(torch.int32), ks, vs, decode=True,
+                     _arm_for_timing=tpa.CUDA_CORES)[:, 0]
+    torch.testing.assert_close(got, old, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int8", "bf16"])
+def test_paged_split_arm_under_a_graph_equals_eager(cuda, kind):
+    """Captured once, replayed with other lengths (more and fewer splits,
+    an empty slot): each replay equals an eager launch bit for bit (a grid
+    and workspace fixed by the table's width, splits merged in order)."""
+    from pb_llm_tpu_torch.ops import paged_attention as tpa
+
+    q, kp, vp, ks, vs, table, base, ps = _split_operands("gqa4_page16", kind, cuda)
+    lengths = (base + 1).clone()
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        tpa.paged_attention(q, kp, vp, table, lengths, 0.125, ps, ks, vs)  # warm-up
+        with torch.cuda.graph(graph, stream=stream):
+            captured = tpa.paged_attention(q, kp, vp, table, lengths, 0.125, ps, ks, vs)
+    torch.cuda.current_stream().wait_stream(stream)
+    for new in ((base + 1) // 3, base + 1, torch.zeros_like(base)):
+        lengths.copy_(new)
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = tpa.paged_attention(q, kp, vp, table, new, 0.125, ps, ks, vs)
+        assert torch.equal(captured, eager)
+
+
+F32_SPLIT_LAYERS = ["side8", "side4", "rowgroups", "multiblock", "shards8", "shards4", "fused3"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", F32_SPLIT_LAYERS)
+def test_f32_split_arm_matches_plain(cuda, name):
+    """The exact f32 kernel below F32_TC rows (m = 1-31) through the wrapper
+    on the "split" arm: within rtol = atol = 1e-4 of the plain version and
+    of the plain version on its operands, on one and several row groups
+    (fused q|k|v, groups of 128) and nibble / sharded sidecars; a row's
+    bits the same at every m (the K split reads the shape alone)."""
+    p = _arm_layer(name, cuda)
+    x = torch.randn((31, p.ic), generator=torch.Generator(device=cuda).manual_seed(4), device=cuda)
+    full = None
+    for m in (31, 1, 8, 9, 16, 17):
+        assert packed_matmul.f32_arm(m, p) == "split"
+        xm = x[:m].contiguous()
+        before = (packed_matmul.f32_split_launches, packed_matmul.split_prep_launches)
+        got = packed_matmul.pb_f32_matmul(xm, p)
+        torch.cuda.synchronize()
+        assert (packed_matmul.f32_split_launches, packed_matmul.split_prep_launches) == (
+            before[0] + 1, before[1] + 1)
+        torch.testing.assert_close(got, packed_matmul.pb_f32_matmul_plain(xm, p),
+                                   rtol=1e-4, atol=1e-4)
+        ops = packed_matmul.prepare_split(xm, p)
+        assert ops.layout == "split"
+        torch.testing.assert_close(got, packed_matmul.tc_matmul_plain(ops, p), rtol=1e-4,
+                                   atol=1e-4)
+        full = got if full is None else full
+        assert torch.equal(got, full[:m]), m
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side_bits", [8, 4])
+def test_stacked_f32_split_arm_equals_flat(cuda, side_bits):
+    """The stacked entry's arm "split" on every layer at decode rows: the
+    flat arm's bits on the same operands (one device code, li read on the
+    card), the plain version within 1e-4, and the wrapper's pick."""
+    layers, markers = _stacked(cuda, side_bits)
+    x = torch.randn((8, 512), generator=torch.Generator(device=cuda).manual_seed(8), device=cuda)
+    for p, mk in zip(layers, markers):
+        assert packed_matmul.f32_arm(8, p) == "split"
+        ops = packed_matmul.prepare_split(x, p)
+        before = packed_matmul.stacked_f32_split_launches
+        got = packed_matmul.launch_f32_stacked(ops, mk)
+        torch.cuda.synchronize()
+        assert packed_matmul.stacked_f32_split_launches == before + 1
+        assert torch.equal(got, packed_matmul.launch_f32_split(ops, p))
+        assert torch.equal(got, packed_matmul.pb_f32_matmul_stacked(x, mk))
+        torch.testing.assert_close(got, packed_matmul.pb_f32_matmul_stacked_plain(x, mk),
+                                   rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 8, 31])
+@pytest.mark.parametrize("ic,oc", [(4096, 4096), (4096, 11008), (11008, 4096)])
+def test_dma_and_f32_split_are_one_code(cuda, ic, oc, m):
+    """At one row group the dma kernel's arm "split" and the exact f32
+    kernel's arm "split" are the same launch: equal bit for bit."""
+    from pb_llm_tpu_torch.ops import decode_arms
+
+    g = torch.Generator(device=cuda).manual_seed(ic + oc + m)
+    p = random_packed_v2(ic, oc, g, low_frac=0.9)
+    x = torch.randn((m, ic), generator=g, device=cuda)
+    assert decode_arms.dma_arm(p) == "split" and packed_matmul.f32_arm(m, p) == "split"
+    assert torch.equal(decode_arms.pb_dma_v2(x, p), packed_matmul.pb_f32_matmul(x, p))

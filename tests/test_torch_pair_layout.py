@@ -330,12 +330,15 @@ def test_pair_ksplit_follows_the_shape_alone(layers):
 
 
 def test_f32_arm_picks_by_rows_low_bits_and_layout(layers):
-    """The exact f32 rule: the tensor cores from F32_TC rows (32, set from
-    the card's crossover) for 1-bit lows where the layout allows (col_tile 256 qualifies); the CUDA cores below,
-    for 2- and 4-bit lows and other layouts."""
-    assert pm.F32_TC == 32
+    """The exact f32 rule: for 1-bit lows where the layout allows (col_tile
+    256 qualifies) the tensor cores, "tc" from F32_TC rows (32, set from the
+    card's crossover) and the dma kernel's "split" code below (dot f32; the
+    CUDA cores for dot bf16 there); the CUDA cores for 2- and 4-bit lows
+    and other layouts."""
+    assert pm.F32_TC == 32 and pm.F32_DECODE_ARM == "split"
     p = layers["side8"]
-    assert pm.f32_arm(pm.F32_TC - 1, p) == "cores"
+    assert pm.f32_arm(pm.F32_TC - 1, p) == pm.f32_arm(1, p) == "split"
+    assert pm.f32_arm(pm.F32_TC - 1, p, torch.bfloat16) == "cores"
     assert pm.f32_arm(pm.F32_TC, p) == pm.f32_arm(512, p) == "tc"
     ct256 = random_packed_v2(4096, 11008, torch.Generator().manual_seed(0), col_tile=256)
     assert ct256.n_row_groups == 43 and pm.f32_arm(512, ct256) == "tc"
@@ -347,13 +350,13 @@ def test_f32_arm_picks_by_rows_low_bits_and_layout(layers):
 
 def test_stacked_f32_arm_follows_the_flat_rule():
     """The stacked entry takes `f32_arm` on layer li's views: m = 256 (the
-    largest it serves) on the tensor cores, decode on the CUDA cores."""
+    largest it serves) on the tensor cores, decode on the "split" code."""
     g = torch.Generator().manual_seed(3)
     ls = [random_packed_v2(512, 256, g, pack_block=128) for _ in range(2)]
     sp = stacking.stack_layers({"layers": [{"w": q} for q in ls]})["layers_stacked"]["w"]
     mk = stacking.StackedPackedLinearV2(sp, 1, torch.ones(1, dtype=torch.int32))
     lp = pm.stacked_layer(mk)
-    assert pm.f32_arm(pm.STACKED_MAX_M, lp) == "tc" and pm.f32_arm(8, lp) == "cores"
+    assert pm.f32_arm(pm.STACKED_MAX_M, lp) == "tc" and pm.f32_arm(8, lp) == "split"
     x = _x(40, 512, 2)
     ops = pm.prepare_tc(x, lp, 3)
     assert torch.equal(pm.tc_matmul_plain(ops, lp), pm.pb_f32_matmul_stacked_plain(x, mk))

@@ -412,8 +412,9 @@ def test_planar_ksplit_and_ranges_follow_the_shape(ic, oc, ks):
 def test_cpu_wrappers_launch_nothing():
     """On a CPU tensor the wrappers run the plain versions and count no
     launch of any arm or of the x preparation."""
-    names = ("dma_launches", "dma_split_launches", "dma_prep_launches")
+    names = ("dma_launches", "dma_split_launches")
     before = {k: getattr(da, k) for k in names}
+    before_prep = pm.split_prep_launches
     before_v1 = (v1.planar_launches, v1.planar_tc_launches)
     p2 = random_packed_v2(256, 128, torch.Generator().manual_seed(0))
     x2 = torch.from_numpy(_x(4, 256, 0))
@@ -422,5 +423,5 @@ def test_cpu_wrappers_launch_nothing():
     p1 = random_packed_v1(256, 128, torch.Generator().manual_seed(0))
     x1 = torch.from_numpy(_x(4, 256, 1))
     assert torch.equal(v1.pb_planar_v1(x1, p1), v1.pb_planar_v1_plain(x1, p1))
-    assert {k: getattr(da, k) for k in names} == before
+    assert {k: getattr(da, k) for k in names} == before and pm.split_prep_launches == before_prep
     assert (v1.planar_launches, v1.planar_tc_launches) == before_v1
