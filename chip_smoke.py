@@ -4,9 +4,9 @@
     python3 chip_smoke.py            # the whole run, one card
     python3 chip_smoke.py --profile  # also trace three decode steps
 
-Phases (they run in order, but the producers 5 and 8 run last: they pin the
-exact prefill for the rest of the process, as run_ptq does); any failure
-raises and the exit code is not 0:
+Phases (they run in order, but 12a, 12b and then the producers 5 and 8 run
+last: the producers pin the exact prefill for the rest of the process, as
+run_ptq does); any failure raises and the exit code is not 0:
 
 1. set-up: the card's name and power limit (nvidia-smi), the kernels built
    from `pb_llm_tpu_torch/csrc/` in parallel (one nvcc each), TF32 off;
@@ -106,7 +106,20 @@ raises and the exit code is not 0:
    layers over int8 and bf16 pages with prefill_chunk 64 and the prefix
    cache: on the exact matmul arms greedy tokens equal; on the int8 arms
    the card teacher-forced on the CPU's tokens within phase 10a's bound at
-   every step, and each window arm's greedy stream logged where it parts.
+   every step, and each window arm's greedy stream logged where it parts;
+12a. an HF checkpoint directory (llama-7b's config cut to 2 layers, random
+   dense fp16 weights, `pytorch_model-*.bin` shards of at most 400 MB written
+   with torch alone) on the card against the CPU: `hf_import.from_pretrained`
+   reads every weight bit for bit; `cli.convert` on the card writes the PBW
+   v2 artifact that `rtn_pack_fn` gives in memory; the artifact served on
+   the card (int8 arms) against the CPU under phase 3's bounds, launches by
+   arm matched to the forwards; streamed GPTQ-PB equals the resident
+   pipeline bit for bit with one layer resident;
+12b. end to end from a checkpoint: the same config cut to 8 layers (fp16
+   shards of at most 1 GB), `python -m pb_llm_tpu_torch.cli.convert` as a
+   subprocess, then `from_pretrained` + `load_pbw` + `install_pbw` serving
+   phase 4's 16 requests, graphed, every launch counter matched to the
+   forwards run; its conversion and serving times.
 
 Phases 6b, 7b, 9b and 10b serve graphed: the default on the card.
 
@@ -3019,6 +3032,451 @@ def window_parity(params, card: str):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phases 12a and 12b: an HF checkpoint directory in, converted and served
+# ---------------------------------------------------------------------------
+
+HF_SHARD_12A = 400_000_000   # bytes a shard (12a): a layer's linears span two shards
+HF_SHARD_12B = 1_000_000_000  # 12b
+HF_CALIB = (4, 128)           # 12a (iv): calibration windows x tokens, ids from the seed
+HF_SCALES = ("low_scale", "low_mean", "high_scale", "high_zero")
+# runs the command in its arguments and prints its peak resident memory: a
+# child forked from this process would count this process's memory as its own
+PEAK_RSS = ("import resource, subprocess, sys; rc = subprocess.call(sys.argv[1:]); "
+            "print('peak_rss_kb', resource.getrusage(resource.RUSAGE_CHILDREN).ru_maxrss); "
+            "sys.exit(rc)")
+
+
+def hf_dir(root: str, layers: int, seed: int, shard_bytes: int):
+    """llama-7b's published config (`huggyllama/llama-7b`) cut to ``layers``
+    layers, untied head, dense N(0, 0.02) weights and norms 1 + N(0, 0.01²)
+    from a seeded generator on the card, written as an HF directory of fp16
+    `pytorch_model-0000k-of-0000n.bin` shards of at most ``shard_bytes``
+    (`data.synthetic.write_hf_checkpoint`: `hf_export.llama_to_state_dict`,
+    torch alone) under a name with "llama" (`family_for` reads the name).
+    Returns (cfg, params on the card, directory, write seconds)."""
+    import os
+
+    from pb_llm_tpu_torch.data.synthetic import write_hf_checkpoint
+    from pb_llm_tpu_torch.models.llama import init_params
+
+    cfg = llama7b(layers)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    params = init_params(cfg, gen, device=DEV)
+
+    def noisy(v):
+        return 1.0 + 0.01 * torch.randn(v.shape, generator=gen, device=DEV)
+
+    for lp in params["layers"]:
+        lp["input_layernorm"] = noisy(lp["input_layernorm"])
+        lp["post_attention_layernorm"] = noisy(lp["post_attention_layernorm"])
+    params["norm"] = noisy(params["norm"])
+    d = os.path.join(root, f"llama-7b-{layers}layers")
+    t0 = time.perf_counter()
+    write_hf_checkpoint(params, cfg, "llama", d, dtype=torch.float16, max_shard_bytes=shard_bytes)
+    return cfg, params, d, time.perf_counter() - t0
+
+
+def dir_bytes(d: str) -> int:
+    import os
+
+    return sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+
+
+def ulps_apart(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The largest distance between two f32 tensors in units in the last
+    place (0 for equal values, ±0 included)."""
+    def ordered(x):
+        i = x.float().contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    return int((ordered(a) - ordered(b)).abs().max()) if a.numel() else 0
+
+
+def assert_same_config(cfg, want, what: str) -> None:
+    """``cfg`` (from config.json) equals ``want`` field for field, with
+    num_key_value_heads resolved as `transformers` resolves it (to the head
+    count where the config omits it)."""
+    import dataclasses
+
+    if dataclasses.replace(cfg, num_key_value_heads=want.num_key_value_heads) != want or \
+            cfg.kv_heads != want.kv_heads:
+        raise AssertionError(f"{what}: config {cfg} is not {want}")
+
+
+def hf_steps(params, cfg, dev, kernels=None, forced=None, on_forward=None, **ecfg_kw):
+    """Phase 12a's engine (2 slots, strips, buckets 64 and 256): a 40-token
+    prompt prefilled into slot 0, then 7 decode steps, greedy or
+    teacher-forced on ``forced`` (another run's tokens); then a 70-token
+    prompt in slot 1 and its teacher-forced NLL over 4 tokens.  Returns the
+    argmax of every step of slot 0 (the prefill's and 7 decode steps'),
+    their logits and the NLL.  ``on_forward`` sees every forward."""
+    from pb_llm_tpu_torch.models.registry import family_for
+    from pb_llm_tpu_torch.runtime.engine import Engine, EngineConfig
+
+    eng = Engine(params, cfg, family_for("llama"),
+                 EngineConfig(n_slots=2, max_seq=256, prefill_buckets=(64, 256), kernels=kernels,
+                              **ecfg_kw), device=dev)
+    if on_forward is not None:
+        count_forwards(eng, on_forward)
+    seen = []
+    step = eng._step_logits
+
+    def recorded():
+        out = step()
+        seen.append(out[0].float().cpu().clone())
+        return out
+
+    eng._step_logits = recorded
+    rng = np.random.default_rng(3)
+    eng.prefill(0, rng.integers(0, cfg.vocab_size, 40).tolist())
+    steps = [eng._prefill_logits[0].float().cpu()]
+    if forced is None:
+        for _ in range(7):
+            eng.decode_step()
+    else:
+        eng.forced_decode_nll(0, forced[:8])
+    steps += seen[:7]
+    eng.prefill(1, rng.integers(0, cfg.vocab_size, 70).tolist())
+    nll = eng.forced_decode_nll(1, rng.integers(0, cfg.vocab_size, 4).tolist())
+    if dev == DEV:
+        torch.cuda.synchronize()
+    return [int(x.argmax()) for x in steps], torch.stack(steps), nll
+
+
+def serve_artifact(packed, cfg) -> dict:
+    """Phase 12a (iii): ``packed`` on the card (kernels) against the CPU
+    (plain versions), under phase 3's bounds.  Exact arms (decode_dot f32,
+    the hybrid prefill): greedy tokens equal, logits within
+    LOGIT_TOL_EXACT, NLL within NLL_RTOL, the f32 arms launched.  Int8 arms
+    (the serving defaults, int8 strips): prefill logits within LOGIT_TOL,
+    NLL within NLL_RTOL, launches by arm matched to the forwards run.  A
+    last-bit difference between the devices moves an int8 rounding of x,
+    and the layers' int8 roundings carry it to the scale of the int8 arms'
+    own error (Queue 3), so where the random model's top two logits lie
+    within 2·LOGIT_TOL of max|logit| the greedy streams may part there (the
+    CPU's gap is logged).  The card is then run teacher-forced on the CPU's
+    tokens on both arms: its int8 logits must lie no farther from its exact
+    logits (the reference, held to the CPU above) than twice as far as the
+    CPU's int8 logits do, at every step."""
+    from pb_llm_tpu_torch.ops import packed_matmul as pm
+    from pb_llm_tpu_torch.ops.kernel_config import KernelConfig
+
+    out = {}
+    arm_kws = {"exact": dict(decode_dot="f32", prefill="hybrid"),
+               "int8": dict(decode_dot="int8", prefill="int8")}
+    for arms, arm_kw in arm_kws.items():
+        what = f"phase 12a (iii, {arms} arms)"
+        plain = KernelConfig(backend="pallas_interpret", decode_attention="pallas_interpret",
+                             **arm_kw)
+        t0 = time.perf_counter()
+        c_toks, c_steps, c_nll = hf_steps(packed, cfg, "cpu", plain, cache_dtype=torch.int8)
+        cpu_s = time.perf_counter() - t0
+        fwds = []
+        zero_counters()
+        t0 = time.perf_counter()
+        g_toks, g_steps, g_nll = hf_steps(
+            packed, cfg, DEV, KernelConfig(**arm_kw),
+            on_forward=lambda kind, rows, *_: fwds.append((kind or "prefill", rows)))
+        gpu_s = time.perf_counter() - t0
+        launches = read_counters()
+        scale = c_steps[0].abs().max().item()
+        err = (g_steps[0] - c_steps[0]).abs().max().item()
+        part, gap = first_parting(g_toks, c_toks, c_steps)
+        row = {"phase": "hf_serve_parity", "arms": arms, "kv": "int8 strips",
+               "prefill_max_abs_logit_err": err, "prefill_max_abs_logit": scale,
+               "prefill_err_over_max_logit": err / scale, "gpu_tokens": g_toks,
+               "cpu_tokens": c_toks, "first_differing_token": part,
+               "cpu_top2_gap_over_max_logit": gap, "gpu_nll": g_nll, "cpu_nll": c_nll,
+               "gpu_s": gpu_s, "cpu_s": cpu_s,
+               "launches": {k: v for k, v in launches.items() if v}}
+        if not (np.isfinite(g_nll) and torch.isfinite(g_steps).all()):
+            raise AssertionError(f"{what}: non-finite GPU output")
+        if abs(g_nll - c_nll) > NLL_RTOL * abs(c_nll):
+            raise AssertionError(f"{what}: NLL {g_nll} vs {c_nll}")
+        if arms == "exact":
+            row["tol_over_max_logit"] = LOGIT_TOL_EXACT
+            log(json.dumps(row))
+            if err > LOGIT_TOL_EXACT * scale or part is not None:
+                raise AssertionError(f"{what}: card and CPU differ: {row}")
+            if not (launches["pb_f32_matmul_split"] and launches["pb_f32_matmul_tc"]):
+                raise AssertionError(f"{what}: an f32 matmul arm never launched {launches}")
+            out[arms] = row
+            continue
+        by_arm = int8_launches([m for _, m in fwds], 14, first_linear(packed))
+        mm = sum(by_arm.values())
+        att = cfg.num_hidden_layers * sum(k == "decode" for k, _ in fwds)
+        want = expect_launches(**by_arm, pb_prep_int8=mm, **attention_launches(att))
+        f_toks, f_steps, _ = hf_steps(packed, cfg, DEV, KernelConfig(**arm_kw), forced=c_toks)
+        _, e_steps, _ = hf_steps(packed, cfg, DEV, KernelConfig(**arm_kws["exact"]),
+                                 forced=c_toks)
+        f_scale = c_steps.abs().max().item()
+        f_err = (f_steps - c_steps).abs().max().item()
+        card_off = (f_steps - e_steps).abs().max().item()
+        cpu_off = (c_steps - e_steps).abs().max().item()
+        row.update({"tol_over_max_logit": LOGIT_TOL, "forced_max_abs_logit_err": f_err,
+                    "forced_max_abs_logit": f_scale, "forced_err_over_max_logit": f_err / f_scale,
+                    "forced_argmax_differs_at": [i for i, (a, b) in enumerate(zip(f_toks, c_toks))
+                                                 if a != b],
+                    "card_int8_from_exact_over_max_logit": card_off / f_scale,
+                    "cpu_int8_from_exact_over_max_logit": cpu_off / f_scale,
+                    "matmul_launches_by_arm": by_arm, "attention_launches": att,
+                    "M_TC": pm.M_TC, "DECODE_ARM": pm.DECODE_ARM})
+        log(json.dumps(row))
+        if err > LOGIT_TOL * scale:
+            raise AssertionError(f"{what}: prefill logits differ by {err} > {LOGIT_TOL} * {scale}")
+        if part is not None and gap > 2 * LOGIT_TOL:
+            raise AssertionError(f"{what}: the streams part at token {part}, where the CPU's top "
+                                 f"two logits lie {gap} of max|logit| apart > 2 * {LOGIT_TOL}")
+        if not torch.isfinite(f_steps).all() or card_off > 2 * cpu_off:
+            raise AssertionError(f"{what}: the card's int8 logits lie {card_off} from its exact "
+                                 f"ones, the CPU's {cpu_off}: {row}")
+        if launches != want or not (by_arm["pb_int8_matmul_split"]
+                                    and by_arm["pb_int8_matmul_tc"]):
+            raise AssertionError(f"{what}: launches {launches}, expected {want}")
+        out[arms] = row
+    return out
+
+
+def hf_parity(card: str) -> dict:
+    """Phase 12a: an HF directory of 2 full-width llama-7b layers (fp16
+    shards of at most 400 MB) on the card against the CPU.  (i) import:
+    `hf_import.from_pretrained` gives family "llama", llama7b(2)'s config
+    and every weight bit for bit the fp16 value written, widened; (ii)
+    conversion: `cli.convert.main` on the card (RTN, xnor, low_frac 0.9,
+    packed_v2) writes 14 linears, and `rtn_pack_fn` on the card applied to
+    the imported weights gives the artifact's planes, codes and salient
+    columns bit for bit, its scales within one f32 ulp; (iii) serving: the
+    artifact installed over the imported params on the card (kernels)
+    against the CPU (plain versions) under phase 3's bounds, on the exact
+    and the int8 arms (`serve_artifact`); (iv) streamed GPTQ-PB
+    (`quantize_model_ptq_streamed`) against the resident pipeline on the
+    card: masks, planes and codes bit for bit, errors within rtol 1e-5, one
+    layer resident at a time."""
+    import os
+    import shutil
+    import tempfile
+
+    from pb_llm_tpu_torch.calib.pipeline import quantize_model_ptq, quantize_model_ptq_streamed
+    from pb_llm_tpu_torch.calib.solver import SolverConfig
+    from pb_llm_tpu_torch.cli import convert
+    from pb_llm_tpu_torch.core.pbw import install_pbw, load_pbw
+    from pb_llm_tpu_torch.interop import to_device
+    from pb_llm_tpu_torch.models import hf_import, hf_stream
+    from pb_llm_tpu_torch.models.registry import family_for
+    from pb_llm_tpu_torch.ops import packed_matmul as pm
+
+    root = tempfile.mkdtemp(prefix="pb_hf_12a_")
+    try:
+        cfg, written, d, write_s = hf_dir(root, 2, 20, HF_SHARD_12A)
+        with open(os.path.join(d, "pytorch_model.bin.index.json")) as fh:
+            shards = len(set(json.load(fh)["weight_map"].values()))
+
+        # (i) import
+        t0 = time.perf_counter()
+        params, hcfg, famname = hf_import.from_pretrained(d)
+        import_s = time.perf_counter() - t0
+        if famname != "llama":
+            raise AssertionError(f"phase 12a (i): family {famname!r}")
+        assert_same_config(hcfg, cfg, "phase 12a (i)")
+        n_tensors = 0
+
+        def same(ref, got, path):
+            nonlocal n_tensors
+            if isinstance(ref, dict):
+                for k in ref:
+                    same(ref[k], got[k], f"{path}/{k}")
+            elif isinstance(ref, list):
+                for i, (r, g) in enumerate(zip(ref, got)):
+                    same(r, g, f"{path}/{i}")
+            elif ref is not None:
+                n_tensors += 1
+                if got.dtype != torch.float32 or not torch.equal(ref.half().float().cpu(), got):
+                    raise AssertionError(f"phase 12a (i): {path} is not the fp16 value written")
+
+        same(written, params, "params")
+        del written
+        torch.cuda.empty_cache()
+
+        # (ii) conversion on the card, and the same packer in memory
+        out = os.path.join(root, "pbw")
+        t0 = time.perf_counter()
+        if convert.main([d, out, "--family", "llama"]) != 0:
+            raise AssertionError("phase 12a (ii): convert failed")
+        torch.cuda.synchronize()
+        convert_s = time.perf_counter() - t0
+        layers, extra = load_pbw(out)
+        if len(layers) != 14 or extra.get("family") != "llama":
+            raise AssertionError(f"phase 12a (ii): {len(layers)} linears, {extra}")
+        pack = hf_stream.rtn_pack_fn()
+        scale_ulps, arms = 0, {}
+        for key, got in layers.items():
+            i, name = int(key.split("/")[0][6:]), key.split("/")[1]
+            want = pack(name, params["layers"][i][name]["w"].T, None)
+            for f in ("sign_packed", "side_val", "side_idx"):
+                if not torch.equal(getattr(got, f), getattr(want, f).cpu()):
+                    raise AssertionError(f"phase 12a (ii): {key} {f} differs from the packer's")
+            scale_ulps = max(scale_ulps, *(ulps_apart(getattr(got, f), getattr(want, f).cpu())
+                                           for f in HF_SCALES))
+            arms[name] = {"tc_layout_ok": pm.tc_layout_ok(got), "decode": pm.int8_arm(2, got),
+                          "prefill": [pm.int8_arm(m, got) for m in (64, 256)]}
+        if scale_ulps > 1:
+            raise AssertionError(f"phase 12a (ii): scales {scale_ulps} ulps from the packer's")
+        log(json.dumps({"phase": "hf_arms", "by_linear": arms}))
+
+        # (iii) the artifact served on the card against the CPU
+        packed = install_pbw(params, layers)
+        served = serve_artifact(packed, cfg)
+        del packed
+
+        # (iv) streamed GPTQ-PB against the resident pipeline, on the card
+        calib = np.random.default_rng(21).integers(0, cfg.vocab_size, HF_CALIB)
+        scfg = SolverConfig(low_frac=0.9, salient_metric="hessian", mask_structure="column",
+                            col_tile=0)
+        fam = family_for("llama")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        resident, rep_res = quantize_model_ptq(to_device(params, DEV), cfg, fam, calib, scfg,
+                                               fmt="packed_v2", log=None)
+        torch.cuda.synchronize()
+        resident_s = time.perf_counter() - t0
+        del params
+        loader = hf_stream.StreamedLayerLoader(d, "llama")
+        t0 = time.perf_counter()
+        rep_st = quantize_model_ptq_streamed(loader, cfg, fam, calib, scfg,
+                                             os.path.join(root, "gptq"), log=None)
+        torch.cuda.synchronize()
+        streamed_s = time.perf_counter() - t0
+        streamed, _ = load_pbw(os.path.join(root, "gptq"))
+        apart = [k for k in rep_res.masks if not np.array_equal(rep_res.masks[k], rep_st.masks[k])]
+        apart += [f"{k}:{f}" for k, p in streamed.items()
+                  for f in ("sign_packed", "side_val", "side_idx")
+                  if not torch.equal(getattr(p, f),
+                                     getattr(resident["layers"][int(k.split("/")[0][6:])]
+                                             [k.split("/")[1]], f).cpu())]
+        err_rel = max(abs(rep_res.errors[k] - rep_st.errors[k]) / max(abs(rep_res.errors[k]), 1e-30)
+                      for k in rep_res.errors)
+        del resident
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    row = {"phase": "hf_parity", "model": "llama-7b config (huggyllama/llama-7b), 2 layers, "
+           "random dense fp16 weights", "shards": shards, "write_s": write_s,
+           "from_pretrained_s": import_s, "tensors_bit_for_bit": n_tensors,
+           "convert_s": convert_s, "linears": len(layers), "scale_ulps_apart": scale_ulps,
+           "serve_first_differing_token": served["int8"]["first_differing_token"],
+           "matmul_launches_by_arm": served["int8"]["matmul_launches_by_arm"],
+           "attention_launches": served["int8"]["attention_launches"],
+           "gptq_resident_s": resident_s, "gptq_streamed_s": streamed_s,
+           "gptq_peak_resident_layers": loader.max_live, "gptq_apart": apart,
+           "gptq_error_max_rel_diff": err_rel, "card": card}
+    log(json.dumps(row))
+    if apart or err_rel > 1e-5 or loader.max_live != 1:
+        raise AssertionError(f"phase 12a (iv): streamed differs from resident: {apart}, "
+                             f"errors {err_rel}, peak layers {loader.max_live}")
+    return row
+
+
+def hf_e2e(card: str) -> dict:
+    """Phase 12b: convert, then serve.  The llama-7b config cut to 8 full
+    layers, fp16 shards of at most 1 GB in a temporary directory (its free
+    bytes printed first; both directories removed at the end); `python -m
+    pb_llm_tpu_torch.cli.convert` as a subprocess (the real entry point, on
+    the card), timed, its peak resident memory read (`PEAK_RSS`); then
+    `from_pretrained` + `load_pbw` + `install_pbw` and phase 4's 16 requests
+    of 32 new tokens through `ContinuousBatcher` on `Engine(n_slots=8,
+    max_seq=2048)`, graphed, token ids in directly, every launch counter
+    matched to the forwards run as in phase 4."""
+    import os
+    import shutil
+    import tempfile
+
+    from pb_llm_tpu_torch.core.pbw import install_pbw, load_pbw
+    from pb_llm_tpu_torch.models import hf_import
+    from pb_llm_tpu_torch.models.registry import family_for
+    from pb_llm_tpu_torch.runtime.engine import Engine, EngineConfig
+
+    root = tempfile.mkdtemp(prefix="pb_hf_12b_")
+    try:
+        free = shutil.disk_usage(root).free
+        log(json.dumps({"phase": "hf_e2e_disk", "dir": root, "free_bytes": free}))
+        cfg, written, d, write_s = hf_dir(root, 8, 22, HF_SHARD_12B)
+        del written
+        torch.cuda.empty_cache()
+        on_disk = dir_bytes(d)
+        out = os.path.join(root, "pbw")
+        cmd = [sys.executable, "-c", PEAK_RSS, sys.executable, "-m", "pb_llm_tpu_torch.cli.convert",
+               d, out, "--family", "llama"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+        convert_wall_s = time.perf_counter() - t0
+        text = proc.stdout + proc.stderr
+        log(text.rstrip())
+        done = [ln for ln in text.splitlines() if ln.startswith("packed ")]
+        if proc.returncode != 0 or not done or not done[-1].startswith("packed 56 linears"):
+            raise AssertionError(f"phase 12b: convert exited {proc.returncode}: {text[-2000:]}")
+        convert_s = float(done[-1].rsplit(" in ", 1)[1].rstrip("s"))
+        peak_rss_kb = int(text.rsplit("peak_rss_kb ", 1)[1].split()[0])
+
+        t0 = time.perf_counter()
+        params, hcfg, _ = hf_import.from_pretrained(d)
+        import_s = time.perf_counter() - t0
+        assert_same_config(hcfg, cfg, "phase 12b")
+        t0 = time.perf_counter()
+        layers, _ = load_pbw(out)
+        load_s = time.perf_counter() - t0
+        params = install_pbw(params, layers)
+        del layers
+        p0 = first_linear(params)
+        n_linear = sum(1 for lp in params["layers"] for v in lp.values() if hasattr(v, "sign_packed"))
+        plane_bytes = sum(packed_bytes(v) for lp in params["layers"] for v in lp.values()
+                          if hasattr(v, "sign_packed"))
+        eng = Engine(params, hcfg, family_for(os.path.basename(d)),
+                     EngineConfig(n_slots=8, max_seq=2048), device=DEV)
+        del params
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    reqs = e2e_requests(cfg.vocab_size)
+    batcher, launches, fwds, step_ms, kv_rows, prefill_ms = run_counted(eng, reqs)
+    forwards = {kind: sum(k == kind for k, _ in fwds) for kind in ("prefill", "decode")}
+    by_arm = int8_launches([m for _, m in fwds], n_linear, p0)
+    mm, att = sum(by_arm.values()), launches["decode_attention"]
+    want = expect_launches(**by_arm, pb_prep_int8=mm, **attention_launches(att))
+    s = batcher.stats
+    row = {"phase": "hf_e2e", "model": "llama-7b config (huggyllama/llama-7b), 8 layers, random "
+           "dense fp16 weights -> cli.convert (RTN xnor, low_frac 0.9, packed_v2)",
+           "bytes_on_disk": on_disk, "free_bytes_before": free, "write_s": write_s,
+           "convert_wall_s": convert_wall_s, "convert_s": convert_s,
+           "convert_s_per_layer": convert_s / cfg.num_hidden_layers,
+           "convert_peak_rss_gb": peak_rss_kb * 1024 / 1e9,
+           "layer_f32_bytes": 4 * sum(a * b for a, b in (
+               (cfg.hidden_size, cfg.hidden_size),) * 4 + ((cfg.hidden_size,
+                                                            cfg.intermediate_size),) * 3),
+           "from_pretrained_s": import_s, "load_pbw_s": load_s, "linears": n_linear,
+           "requests": len(reqs), "generated_tokens": s.generated_tokens,
+           "wall_s": s.wall_seconds, "tokens_per_s": s.tokens_per_second,
+           "decode_steps": len(step_ms), "ms_per_decode_step_median": statistics.median(step_ms),
+           "ms_per_decode_step_mean": statistics.mean(step_ms),
+           "prefill_forwards": forwards["prefill"], "decode_forwards": forwards["decode"],
+           "prefill_ms_total": sum(prefill_ms), "matmul_launches": mm,
+           "matmul_launches_by_arm": by_arm, "prep_launches": launches["pb_prep_int8"],
+           "attention_launches": att, "attention_split_launches": launches["decode_attention_split"],
+           "packed_plane_bytes": plane_bytes, "graph_replays": eng._step.replays,
+           "graph_replay_device_ms": replay_ms(eng), "card": card}
+    row["graph_idle_share"] = 1 - row["graph_replay_device_ms"] / row["ms_per_decode_step_median"]
+    log(json.dumps(row))
+    if mm != n_linear * (forwards["prefill"] + forwards["decode"]) or mm == 0:
+        raise AssertionError(f"phase 12b: {mm} matmul launches for {forwards} forwards")
+    if att != cfg.num_hidden_layers * forwards["decode"] or att == 0:
+        raise AssertionError(f"phase 12b: {att} attention launches for {forwards} forwards")
+    if launches != want:
+        raise AssertionError(f"phase 12b: launches {launches}, expected {want}")
+    if eng._step.replays == 0:
+        raise AssertionError("phase 12b: the graphed pass replayed no graph")
+    return row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true", help="trace three decode steps")
@@ -3075,6 +3533,8 @@ def main(argv=None) -> int:
     v1_e2e = serve_v1_e2e(opt_params, opt13b(24), time.perf_counter() - t0, card)
     del opt_params
     torch.cuda.empty_cache()
+    hf = hf_parity(card)
+    hf_serve = hf_e2e(card)
     prod = producer(card)
     prod_v1 = producer_v1(card)
 
@@ -3101,30 +3561,36 @@ def main(argv=None) -> int:
                        for a, k in (("cores", "pb_select_v1"), ("tc", "pb_select_v1_tc"))}
     flash_launches = {a: prod["launches"][k] + prod_v1["launches"][k]
                       for a, k in (("cores", "flash_attention"), ("tc", "flash_attention_tc"))}
+    # the int8 arms, strip attention's split arm and the x preparation: phase
+    # 4's launches and those of phases 12a (iii) and 12b
+    int8_by_arm = {k: e2e["matmul_launches_by_arm"][k] + hf["matmul_launches_by_arm"][k]
+                   + hf_serve["matmul_launches_by_arm"][k] for k in e2e["matmul_launches_by_arm"]}
+    att_split = (e2e["attention_split_launches"] + hf["attention_launches"]
+                 + hf_serve["attention_split_launches"])
     kernels = [
         {"name": "pb_int8_matmul", "route": "cuda", "source": "pb_llm_tpu_torch/csrc/pb_int8_matmul.cu",
-         "replaces": "pb_llm_tpu/ops/pallas_pb.py:393", "launches": e2e["matmul_launches"],
+         "replaces": "pb_llm_tpu/ops/pallas_pb.py:393", "launches": sum(int8_by_arm.values()),
          "max_abs_err": max(r["max_abs_err"] for r in mm_rows), "ms": head["kernel_ms"],
          "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
          "library_ms": head["library_ms"], "parity": "bit for bit", "arm": "dp4a",
-         "arm_launches": e2e["matmul_launches_by_arm"],
-         "shape": "m={} ic={} oc={} low_frac 0.9; the dp4a arm; launches: phase 4, every "
-                  "arm".format(*HEADLINE_SHAPE),
+         "arm_launches": int8_by_arm,
+         "shape": "m={} ic={} oc={} low_frac 0.9; the dp4a arm; launches: phases 4, 12a and "
+                  "12b, every arm".format(*HEADLINE_SHAPE),
          "prefill": {k: pre["tc"][k] for k in ("m", "ic", "oc", "arm", "kernel_ms", "bound_ms",
                                               "bound_by", "plain_ms", "library_ms")}
          | {"dp4a_ms": pre["dp4a"]["kernel_ms"], "M_TC": pm.M_TC}},
         {"name": "pb_int8_matmul_split", "route": "cuda",
          "source": "pb_llm_tpu_torch/csrc/pb_int8_matmul.cu",
          "replaces": "pb_llm_tpu/ops/pallas_pb.py:393",
-         "launches": e2e["matmul_launches_by_arm"]["pb_int8_matmul_split"],
+         "launches": int8_by_arm["pb_int8_matmul_split"],
          "max_abs_err": max(r["max_abs_err"] for r in mm_rows if r["arm"] == "split"),
          "ms": split["kernel_ms"], "plain_ms": split["plain_ms"], "bound_ms": split["bound_ms"],
          "bound_by": split["bound_by"], "library_ms": split["library_ms"], "parity": "bit for bit",
          "arm": "split", "dp4a_ms": head["kernel_ms"], "tc_ms": at_head["tc"]["kernel_ms"],
          "ksplit": split["ksplit"], "DECODE_ARM": pm.DECODE_ARM,
          "shape": "m={} ic={} oc={} low_frac 0.9; int8 tensor cores (split_kernel: wgmma, TMA, "
-                  "the K stages in ksplit ranges, a cluster a tile); launches: phase 4".format(
-                      *HEADLINE_SHAPE)},
+                  "the K stages in ksplit ranges, a cluster a tile); launches: phases 4, 12a "
+                  "and 12b".format(*HEADLINE_SHAPE)},
         {"name": "decode_attention", "route": "cuda", "source": "pb_llm_tpu_torch/csrc/decode_attention.cu",
          "replaces": "pb_llm_tpu/ops/decode_attention.py:78",
          "launches": e2e["attention_launches"] - e2e["attention_split_launches"],
@@ -3132,21 +3598,22 @@ def main(argv=None) -> int:
          "plain_ms": att["plain_ms"],
          "bound_ms": att["bound_ms"], "bound_by": att["bound_by"], "library_ms": att["library_ms"],
          "parity": "ok", "arm": "slot",
-         "arm_launches": {"split": e2e["attention_split_launches"],
+         "arm_launches": {"split": att_split,
                           "slot": e2e["attention_launches"] - e2e["attention_split_launches"]},
          "shape": "B={} S={} Hq={} Hkv={} D={} int8".format(*ATTN_SHAPE)
          + f", lengths <= {ATTN_MAX_LEN}; the slot arm (a block a slot and head, only a call "
-           "that names it); launches: phase 4, the slot arm's (both in arm_launches)"},
+           "that names it); launches: phase 4, the slot arm's (both in arm_launches, the "
+           "split arm's with phases 12a and 12b)"},
         {"name": "decode_attention_split", "route": "cuda",
          "source": "pb_llm_tpu_torch/csrc/decode_attention.cu",
          "replaces": "pb_llm_tpu/ops/decode_attention.py:78",
-         "launches": e2e["attention_split_launches"], "max_abs_err": att["max_abs_err"],
+         "launches": att_split, "max_abs_err": att["max_abs_err"],
          "ms": att["kernel_ms"], "plain_ms": att["plain_ms"], "bound_ms": att["bound_ms"],
          "bound_by": att["bound_by"], "library_ms": att["library_ms"], "parity": "ok",
          "arm": "split", "slot_ms": att["slot_ms"],
          "shape": "B={} S={} Hq={} Hkv={} D={} int8".format(*ATTN_SHAPE)
          + f", lengths <= {ATTN_MAX_LEN}; the split arm (64 rows a block, a merge launch; "
-           "the time covers both); library: SDPA bf16; launches: phase 4"},
+           "the time covers both); library: SDPA bf16; launches: phases 4, 12a and 12b"},
         {"name": "pb_dequant_v2", "route": "cuda", "source": "pb_llm_tpu_torch/csrc/pb_dequant_v2.cu",
          "replaces": "pb_llm_tpu/ops/pallas_pb.py:625", "launches": prod["launches"]["pb_dequant_v2"],
          "max_abs_err": max(r["max_abs_err"] for r in dq_rows), "ms": dq["kernel_ms"],
@@ -3493,12 +3960,13 @@ def main(argv=None) -> int:
                   "cores (2 bf16 terms); library: SDPA bf16; launches: phase 6b"},
         {"name": "pb_prep_int8", "route": "cuda", "source": "pb_llm_tpu_torch/csrc/pb_prep_int8.cu",
          "replaces": "pb_llm_tpu/ops/pallas_pb.py:478",
-         "launches": e2e["prep_launches"],
+         "launches": e2e["prep_launches"] + sum(hf["matmul_launches_by_arm"].values())
+         + hf_serve["prep_launches"],
          "max_abs_err": max(r["max_abs_err"] for r in prep_rows), "ms": prep["kernel_ms"],
          "plain_ms": prep["plain_ms"], "bound_ms": prep["bound_ms"], "bound_by": prep["bound_by"],
          "library_ms": None, "parity": "codes bit for bit, sums within sum_bound",
          "shape": "m={} ic={} oc={} (the x preparation XLA fuses into the int8 call); "
-                  "launches: phase 4, graphed".format(*HEADLINE_SHAPE)},
+                  "launches: phases 4, 12a and 12b".format(*HEADLINE_SHAPE)},
     ]
     # a yardstick row is an arm kept to time the path's arm against (its own
     # launches, 0 where no layout of the path sends it there); every other row's

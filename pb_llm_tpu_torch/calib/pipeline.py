@@ -13,10 +13,11 @@ reference's `quant_sequential`, `gptq_pb/run.py:34-189`):
         (PBW v2 planes), packed on the layer's device;
      d. the quantized layer's outputs become the next layer's inputs.
 
-The whole model stays resident on its device; activations are kept per
-``capture_batch`` windows.  The layer-streamed variant
-(`quantize_model_ptq_streamed`, which needs `hf_stream`) is not ported
-yet.
+`quantize_model_ptq` keeps the whole model resident on its device;
+`quantize_model_ptq_streamed` reads one decoder layer at a time from an HF
+checkpoint (`models.hf_stream.StreamedLayerLoader`) and writes each packed
+layer out as it finishes (`core.pbw.PBWShardWriter`).  Activations are
+kept per ``capture_batch`` windows.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from .. import resolve_device
 from ..core import pbw
 from ..interop import to_device
 from ..models.linear import apply_linear
@@ -84,6 +86,28 @@ def _capture_fold(fam: Family, cfg, lp, xs: torch.Tensor, hs: Dict[str, torch.Te
         for n in members:
             new_hs[n] = h
     return ys, new_hs
+
+
+def _capture(fam: Family, cfg, lp, inps, names, device):
+    """The capture pass of layer ``lp`` over every chunk of windows: (each
+    named linear's Hessian, the layer's original-weight outputs)."""
+    hs = {n: torch.zeros((_ic(lp[n]),) * 2, dtype=torch.float32, device=device) for n in names}
+    orig_outs = []
+    start = 0
+    for x in inps:
+        a, b = fold_coefficients(start, x.shape[0])
+        y, hs = _capture_fold(fam, cfg, lp, x, hs, a, b)
+        orig_outs.append(y)
+        start += x.shape[0]
+    return hs, orig_outs
+
+
+def _output_mse(orig_outs, outs) -> float:
+    """Mean over windows of the squared distance between a layer's
+    quantized and original-weight outputs."""
+    mse = [torch.mean((o[r] - q[r]) ** 2).item()
+           for o, q in zip(orig_outs, outs) for r in range(o.shape[0])]
+    return sum(mse) / len(mse)
 
 
 def _solve_layer_linears(lp, hs, i, solver_cfg: SolverConfig, fmt: str, pack_block, errors,
@@ -182,15 +206,7 @@ def quantize_model_ptq(
 
             _sync(device)
             tc = time.time()
-            hs = {n: torch.zeros((_ic(lp[n]),) * 2, dtype=torch.float32, device=device)
-                  for n in selected}
-            orig_outs = []
-            start = 0
-            for x in inps:
-                a, b = fold_coefficients(start, x.shape[0])
-                y, hs = _capture_fold(fam, cfg, lp, x, hs, a, b)
-                orig_outs.append(y)
-                start += x.shape[0]
+            hs, orig_outs = _capture(fam, cfg, lp, inps, selected, device)
             _sync(device)
             ts = time.time()
             pack_s = _solve_layer_linears(lp, hs, i, solver_cfg, fmt, pack_block, errors, masks, log)
@@ -202,9 +218,7 @@ def quantize_model_ptq(
                 _save_layer_ckpt(resume_dir, i, lp, names, errors, masks)
 
             inps = propagate(lp)
-            mse = [torch.mean((o[r] - q[r]) ** 2).item()
-                   for o, q in zip(orig_outs, inps) for r in range(o.shape[0])]
-            layer_mse[f"layer_{i}"] = sum(mse) / len(mse)
+            layer_mse[f"layer_{i}"] = _output_mse(orig_outs, inps)
             del orig_outs
             if log:
                 log(f"layer_{i}: output mse vs original weights {layer_mse[f'layer_{i}']:.3e}")
@@ -214,9 +228,69 @@ def quantize_model_ptq(
     return params, report
 
 
-def quantize_model_ptq_streamed(*args, **kwargs):
-    raise NotImplementedError("layer-streamed calibration needs models/hf_stream.py, which is "
-                              "not ported yet (ROADMAP Queue 1, slice 6)")
+def quantize_model_ptq_streamed(
+    loader,                          # models.hf_stream.StreamedLayerLoader
+    cfg: Any,
+    fam: Family,
+    calib_ids,                       # [nsamples, seqlen] int
+    solver_cfg: SolverConfig,
+    out_dir: str,
+    fmt: str = "packed_v2",
+    log: Optional[Callable[[str], None]] = print,
+    capture_batch: int = 8,
+    pack_block: Optional[int] = None,
+    device=None,
+) -> PTQReport:
+    """GPTQ-PB with ONE decoder layer resident at a time: each layer is read
+    from the checkpoint (`StreamedLayerLoader`), moved to ``device``
+    (default: CUDA), captured, solved, packed, written through
+    `PBWShardWriter` and freed, so a model calibrates on a host whose RAM
+    holds one layer and the calibration activations.
+
+    The protocol of `quantize_model_ptq` (the same capture fold, solver
+    and write-back, on the same device): masks and planes equal the
+    resident pipeline's bit for bit.  The artifact holds the packed
+    linears; embeddings and norms stay in the source checkpoint
+    (`cli.serve --pbw` installs the packed leaves over them)."""
+    if fmt not in ("packed", "packed_v2"):
+        raise ValueError("streamed calibration writes packed formats only")
+    if fmt == "packed_v2" and solver_cfg.mask_structure != "column":
+        raise ValueError("fmt='packed_v2' requires SolverConfig(mask_structure='column')")
+    t0 = time.time()
+    device = resolve_device(device)
+    calib = torch.as_tensor(np.asarray(calib_ids), dtype=torch.long, device=device)
+    nsamples = calib.shape[0]
+    cb = max(1, min(capture_batch, nsamples))
+    names = fam.linear_names
+    writer = pbw.PBWShardWriter(out_dir)
+
+    errors: Dict[str, float] = {}
+    masks: Dict[str, np.ndarray] = {}
+    layer_mse: Dict[str, float] = {}
+    with torch.inference_mode():
+        head = to_device(loader.non_layer_params(cfg), device)
+        head["layers"] = []
+        inps = [fam.embed(head, calib[j : j + cb], cfg) for j in range(0, nsamples, cb)]
+        del head
+        for i in range(loader.n_layers()):
+            lp = to_device(loader.layer_params(i), device)
+            hs, orig_outs = _capture(fam, cfg, lp, inps, names, device)
+            _solve_layer_linears(lp, hs, i, solver_cfg, fmt, pack_block, errors, masks, log)
+            del hs
+            for n in names:
+                writer.add_layer(f"layer_{i}/{n}", lp[n])
+            inps = [fam.decoder_layer(lp, x, cfg)[0] for x in inps]
+            layer_mse[f"layer_{i}"] = _output_mse(orig_outs, inps)
+            del orig_outs
+            if log:
+                log(f"layer_{i}: output mse vs original weights {layer_mse[f'layer_{i}']:.3e}")
+            loader.release(i)
+            del lp
+
+    writer.finalize({"source": loader.model_dir, "family": loader.family,
+                     "gptq": True, "low_frac": solver_cfg.low_frac})
+    return PTQReport(errors=errors, masks=masks, seconds=time.time() - t0, format=fmt,
+                     layer_output_mse=layer_mse)
 
 
 def _save_layer_ckpt(resume_dir: str, i: int, lp: Dict[str, Any], names, errors, masks) -> None:

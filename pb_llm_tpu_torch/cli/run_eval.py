@@ -5,9 +5,15 @@ windowed perplexity on wikitext2 / ptb / c4 under the exact hybrid prefill
     python -m pb_llm_tpu_torch.cli.run_eval --model_id llama --synthetic \\
         --eval_ppl wikitext2 --device cpu
 
-``--synthetic`` builds the JAX CLIs' tiny llama or OPT (by --model_id);
-``checkpoint`` is a dense checkpoint (`utils.checkpoint`) or a PBW v1 or v2
-directory (installed over the model's linears).  ``--scan_layers`` stacks
+``--model_id`` is an HF checkpoint (`models.hf_import.from_pretrained`: a
+local directory is read with torch alone) with its tokenizer
+(`utils.tokenizer`, which needs `transformers`), its family by name; the
+text datasets are not downloaded, so without --synthetic the loaders raise
+unless the texts are given (`data.loaders.TextSource`).  ``--synthetic``
+builds the JAX CLIs' tiny llama or OPT (by --model_id), the byte tokenizer
+and synthetic corpora.  ``checkpoint`` is a dense checkpoint
+(`utils.checkpoint`) or a PBW v1 or v2 directory (installed over the
+model's linears).  ``--scan_layers`` stacks
 the layers (`models.stacking`); the eval windows (m >= 256 rows) take each
 layer's views through the ordinary dispatch, as in JAX.  Task suites
 (--tasks) and sequence parallelism (--sp) are not ported yet.
@@ -64,15 +70,22 @@ def main(argv=None) -> int:
     device = resolve_device(args.device)
     log = MetricsLogger(args.metrics)
     fam = family_for(args.model_id)
-    if not args.synthetic:
-        raise NotImplementedError("HF model import and tokenizers are not ported yet "
-                                  "(ROADMAP Queue 1: models/hf_import.py): use --synthetic")
-    from ..data.synthetic import ByteTokenizer, synthetic_model, synthetic_source
+    if args.synthetic:
+        from ..data.synthetic import ByteTokenizer, synthetic_model, synthetic_source
 
-    cfg, params = synthetic_model(fam.name, device=device)
-    tokenizer = ByteTokenizer()
-    source = synthetic_source()
-    seqlen = args.seqlen or 64
+        cfg, params = synthetic_model(fam.name, device=device)
+        tokenizer = ByteTokenizer()
+        source = synthetic_source()
+        seqlen = args.seqlen or 64
+    else:
+        from ..models import hf_import
+        from ..utils.tokenizer import get_tokenizer
+
+        params, cfg, _ = hf_import.from_pretrained(args.model_id)
+        params = to_device(params, device)
+        tokenizer = get_tokenizer(args.model_id)
+        source = None
+        seqlen = args.seqlen or cfg.seqlen
 
     if args.checkpoint:
         if os.path.exists(os.path.join(args.checkpoint, "weights.npz")):

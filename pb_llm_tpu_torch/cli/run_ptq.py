@@ -1,17 +1,27 @@
 """PTQ CLI (port of `pb_llm_tpu/cli/run_ptq.py`): the reference's
 `gptq_pb/run.py` arguments, the JAX package's extras (--format packed /
-packed_v2, --save_pbw, --synthetic) and --device.  Runs on CUDA unless
---device cpu.
+packed_v2, --save_pbw, --synthetic, --stream) and --device.  Runs on CUDA
+unless --device cpu.
 
     python -m pb_llm_tpu_torch.cli.run_ptq facebook/opt-synth wikitext2 xnor \\
         --low_frac 0.5 --synthetic --nsamples 2 --format packed --save_pbw ck --device cpu
     python -m pb_llm_tpu_torch.cli.run_ptq huggyllama/llama-7b wikitext2 xnor \\
         --low_frac 0.5 --synthetic --nsamples 2 --format packed_v2 --device cpu
 
+    python -m pb_llm_tpu_torch.cli.run_ptq /ckpts/llama-7b c4 xnor --low_frac 0.9 \\
+        --salient_metric hessian --format packed_v2 --stream --save_pbw out/llama7b_pbw
+
 Calibrates layer by layer (GPTQ-PB), then evaluates windowed perplexity on
 wikitext2, ptb and c4 under the exact hybrid prefill (`pin_exact_prefill`).
-Offline only: --synthetic (byte tokenizer, synthetic corpora, the JAX CLIs'
-tiny random-init llama or OPT) is the one model source ported so far.
+The model is an HF checkpoint (`models.hf_import.from_pretrained`: a local
+directory is read with torch alone) with its tokenizer (`utils.tokenizer`,
+which needs `transformers`), or with --synthetic the JAX CLIs' tiny
+random-init llama or OPT, the byte tokenizer and synthetic corpora.  The
+text datasets are not downloaded: without --synthetic the loaders raise
+unless the texts are given (`data.loaders.TextSource`).  --stream calibrates
+one decoder layer at a time from a local checkpoint directory into
+--save_pbw; --save exports an HF checkpoint (`models.hf_export`, which needs
+`transformers`).
 """
 
 from __future__ import annotations
@@ -40,10 +50,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--maxlayer", type=int, default=1000)
     p.add_argument("--quant_only", type=str, default="")
     p.add_argument("--invert", action="store_true")
-    p.add_argument("--save", action="store_true", help="HF save_pretrained (not ported yet)")
-    p.add_argument("--save_dir", type=str, default=None)
+    p.add_argument("--save", action="store_true",
+                   help="HF save_pretrained of the quantized model (run.py:315-319)")
+    p.add_argument("--save_dir", type=str, default=None,
+                   help="export directory (default outputs/<config title>)")
     p.add_argument("--load_quantized", type=str, default=None,
-                   help="skip quantization; eval a dense checkpoint saved by utils.checkpoint")
+                   help="skip quantization; eval a previously saved artifact (HF dir or dense "
+                        "checkpoint; run.py:278-280)")
     p.add_argument("--disable_gptq", action="store_true")
     p.add_argument("--ppl_batch", type=int, default=4, help="eval windows per forward")
     p.add_argument("--capture_batch", type=int, default=8,
@@ -60,32 +73,36 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--synthetic", action="store_true",
                    help="offline: synthetic corpus + byte tokenizer + random-init model")
     p.add_argument("--metrics", type=str, default=None, help="JSONL metrics path")
-    p.add_argument("--stream", action="store_true", help="layer-streamed calibration (not ported yet)")
+    p.add_argument("--stream", action="store_true",
+                   help="GPTQ-PB streaming the checkpoint one decoder layer at a time (model must "
+                        "be a local HF dir; requires --save_pbw; skips the ppl eval: serve the "
+                        "artifact with `serve --pbw`)")
     p.add_argument("--device", type=str, default=None, help="default: cuda")
     return p
 
 
 def load_model_and_tokenizer(args, device):
-    """--synthetic: the JAX CLI's tiny config of the model's family, weights
-    from a torch generator seeded 0 (so they differ from the JAX CLI's)."""
+    """The HF model and its tokenizer; with --synthetic the JAX CLI's tiny
+    config of the model's family, weights from a torch generator seeded 0
+    (so they differ from the JAX CLI's)."""
     from ..models.registry import family_for
 
     fam = family_for(args.model)
-    if not args.synthetic:
-        raise NotImplementedError("HF model import and tokenizers are not ported yet "
-                                  "(ROADMAP Queue 1: models/hf_import.py): use --synthetic")
-    from ..data.synthetic import ByteTokenizer, synthetic_model
+    if args.synthetic:
+        from ..data.synthetic import ByteTokenizer, synthetic_model
 
-    cfg, params = synthetic_model(fam.name, device=device)
-    return params, cfg, fam, ByteTokenizer()
+        cfg, params = synthetic_model(fam.name, device=device)
+        return params, cfg, fam, ByteTokenizer()
+    from ..interop import to_device
+    from ..models import hf_import
+    from ..utils.tokenizer import get_tokenizer
+
+    params, cfg, _ = hf_import.from_pretrained(args.model)
+    return to_device(params, device), cfg, fam, get_tokenizer(args.model)
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    for flag, row in (("stream", "models/hf_stream.py"), ("save", "models/hf_export.py")):
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag} is not ported yet (ROADMAP Queue 1, slice 6: {row})")
-
     from .. import resolve_device
     from ..calib.pipeline import quantize_model_ptq, save_masks
     from ..core.config import PTQJobConfig
@@ -109,18 +126,24 @@ def main(argv=None) -> int:
         col_tile=args.col_tile,
     )
     log = MetricsLogger(args.metrics)
+    if args.stream:
+        return _stream(args, job, log, device)
     params, cfg, fam, tokenizer = load_model_and_tokenizer(args, device)
-    source = synthetic_source()
-    seqlen = min(cfg.seqlen, 128)
+    source = synthetic_source() if args.synthetic else None
+    seqlen = min(cfg.seqlen, 128) if args.synthetic else cfg.seqlen
 
     tick = time.time()
     if args.load_quantized:
         from ..utils.checkpoint import load_dense_checkpoint
 
         if os.path.exists(os.path.join(args.load_quantized, "config.json")):
-            raise NotImplementedError("HF checkpoints are not ported yet (ROADMAP Queue 1: "
-                                      "models/hf_import.py)")
-        params, _ = load_dense_checkpoint(args.load_quantized)
+            from ..models import hf_import
+            from ..models.registry import family_for
+
+            params, cfg, famname = hf_import.from_pretrained(args.load_quantized)
+            fam = family_for(famname)
+        else:
+            params, _ = load_dense_checkpoint(args.load_quantized)
         params = to_device(params, device)
         log.log("loaded_quantized", path=args.load_quantized)
     elif job.low_frac:
@@ -152,6 +175,45 @@ def main(argv=None) -> int:
                   for n, leaf in lp.items() if isinstance(leaf, (PackedLinear, PackedLinearV2))}
         save_pbw(args.save_pbw, layers, {"model": job.model, "config": job.save_title})
         print(f"PBW checkpoint saved to {args.save_pbw}")
+
+    if args.save:
+        from ..models import hf_export
+
+        out = args.save_dir or f"outputs/{job.save_title}"
+        hf_export.save_pretrained(params, cfg, fam.name, out,
+                                  tokenizer=None if args.synthetic else tokenizer)
+        log.log("saved_hf", path=out)
+        print(f"HF checkpoint saved to {out}")
+    return 0
+
+
+def _stream(args, job, log, device) -> int:
+    """--stream: GPTQ-PB of a local checkpoint directory one decoder layer
+    at a time, into the sharded PBW artifact --save_pbw."""
+    if not args.save_pbw:
+        raise SystemExit("--stream requires --save_pbw")
+    if args.synthetic:
+        raise SystemExit("--stream reads a real checkpoint dir; drop --synthetic")
+    from ..calib.pipeline import quantize_model_ptq_streamed, save_masks
+    from ..data.loaders import get_loaders
+    from ..models import hf_import
+    from ..models.hf_stream import StreamedLayerLoader
+    from ..models.registry import family_for
+    from ..utils.tokenizer import get_tokenizer
+
+    cfg, famname = hf_import.config_from_dir(args.model)
+    fam = family_for(famname)
+    calib, _ = get_loaders(job.dataset, get_tokenizer(args.model), nsamples=job.nsamples,
+                           seed=job.seed, seqlen=cfg.seqlen, flavor="ptq", model=job.model)
+    loader = StreamedLayerLoader(args.model, fam.name)
+    report = quantize_model_ptq_streamed(
+        loader, cfg, fam, calib, job.solver(), args.save_pbw, fmt=job.fmt,
+        log=lambda m: log.log("layer", msg=m), capture_batch=args.capture_batch, device=device)
+    log.log("quantized", seconds=report.seconds, total_error=sum(report.errors.values()))
+    if job.mask_out:
+        save_masks(job.mask_out, report.masks, job.low_frac)
+    print(f"streamed PBW checkpoint saved to {args.save_pbw} "
+          f"(peak resident layers: {loader.max_live})")
     return 0
 
 

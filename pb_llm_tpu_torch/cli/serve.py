@@ -13,13 +13,20 @@ through the continuous batcher and reports tokens/s, or serves POST
     python -m pb_llm_tpu_torch.cli.serve --model_id llama --synthetic \
         --kv_dtype bf16 --http 8000 --host 127.0.0.1
 
-Runs on CUDA unless ``--device cpu`` is given.  ``--synthetic`` builds the
-JAX CLIs' tiny llama or OPT (by ``--model_id``); ``--checkpoint`` loads a
-dense checkpoint over it (`utils.checkpoint`, JAX's layout); ``--pbw``
-installs a PBW v1 or v2 checkpoint over its linears.  ``--http 0`` binds a
-free port and prints it (the JAX CLI reads 0 as "no HTTP").  Not ported
-yet: HF import (ROADMAP Queue 1 item 2), draft models from HF ids or
-checkpoints (the same item), ``--tp`` other than 1 (Queue 1 item 5).
+    python -m pb_llm_tpu_torch.cli.serve --model_id /ckpts/llama-7b --pbw out/llama7b_pbw
+
+Runs on CUDA unless ``--device cpu`` is given.  ``--model_id`` is an HF
+checkpoint (`models.hf_import.from_pretrained`: a local directory is read
+with torch alone) served with its tokenizer (`utils.tokenizer`, which needs
+`transformers`); its family comes from the name (`family_for`, as in the
+JAX CLI).  ``--synthetic`` builds the JAX CLIs' tiny llama or OPT instead.
+``--checkpoint`` loads a dense checkpoint over the model (`utils.checkpoint`,
+JAX's layout); ``--pbw`` installs a PBW v1 or v2 checkpoint over its
+linears.  A draft model for speculative decoding comes from
+``--draft_model_id`` (with ``--draft_checkpoint`` / ``--draft_pbw`` over it)
+or ``--draft_synthetic``.  ``--http 0`` binds a free port and prints it (the
+JAX CLI reads 0 as "no HTTP").  Not ported yet: ``--tp`` other than 1
+(ROADMAP Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -67,11 +74,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "(greedy streams equal plain decode; 0 disables). Drafts come from "
                         "prompt lookup unless a --draft_* flag is given")
     p.add_argument("--draft_model_id", type=str, default=None,
-                   help="draft model for speculative decoding (HF id; not ported yet)")
+                   help="draft model for speculative decoding (HF id or checkpoint dir)")
     p.add_argument("--draft_checkpoint", type=str, default=None,
-                   help="dense checkpoint dir for the draft model (not ported yet)")
+                   help="dense checkpoint dir for the draft model (needs --draft_model_id)")
     p.add_argument("--draft_pbw", type=str, default=None,
-                   help="PBW packed checkpoint dir for the draft model (not ported yet)")
+                   help="PBW packed checkpoint dir for the draft model (needs --draft_model_id)")
     p.add_argument("--draft_synthetic", action="store_true",
                    help="with --synthetic: a 1-layer synthetic draft model")
     p.add_argument("--scan_layers", action="store_true",
@@ -128,22 +135,29 @@ def main(argv=None) -> int:
             raise SystemExit("--draft_* requires --spec_gamma > 0")
         if args.draft_synthetic and not args.synthetic:
             raise SystemExit("--draft_synthetic requires --synthetic")
-    if args.draft_model_id or args.draft_checkpoint or args.draft_pbw:
-        raise NotImplementedError("draft models from HF ids or checkpoints need hf_import, which "
-                                  "is not ported yet (ROADMAP Queue 1 slice 3): use "
-                                  "--draft_synthetic")
+    if (args.draft_checkpoint or args.draft_pbw) and not args.draft_model_id:
+        # a checkpoint alone has no config: the target's would shape the
+        # draft's KV caches (and positions) wrong
+        raise SystemExit("--draft_checkpoint/--draft_pbw need --draft_model_id "
+                         "(the draft model's config/architecture)")
     if args.tp != 1:
         raise NotImplementedError(f"--tp {args.tp}: tensor parallelism is not ported yet "
                                   "(ROADMAP Queue 1 item 5)")
     device = resolve_device(args.device)
     fam = family_for(args.model_id)
-    if not args.synthetic:
-        raise NotImplementedError("HF model import is not ported yet (ROADMAP): use --synthetic")
-    from ..data.synthetic import ByteTokenizer, synthetic_model
+    if args.synthetic:
+        from ..data.synthetic import ByteTokenizer, synthetic_model
 
-    cfg, params = synthetic_model(fam.name, args.seed, device)
-    tokenizer = ByteTokenizer()
-    max_seq = min(args.max_seq, 128)
+        cfg, params = synthetic_model(fam.name, args.seed, device)
+        tokenizer = ByteTokenizer()
+        max_seq = min(args.max_seq, 128)
+    else:
+        from ..models import hf_import
+        from ..utils.tokenizer import get_tokenizer
+
+        params, cfg, _ = hf_import.from_pretrained(args.model_id)  # the engine moves it
+        tokenizer = get_tokenizer(args.model_id)
+        max_seq = args.max_seq
     if args.checkpoint:
         from ..utils.checkpoint import load_dense_checkpoint
 
@@ -181,13 +195,17 @@ def main(argv=None) -> int:
     eng = Engine(params, cfg, fam, ecfg, SamplingParams(temperature=args.temperature),
                  device=device, seed=args.seed)
     draft_source = None
-    if args.draft_synthetic:
+    if args.draft_synthetic or args.draft_model_id:
         from ..runtime.draft import ModelDraftSource
 
-        dcfg, dparams = synthetic_model(fam.name, args.seed + 1, device, draft=True)
+        if args.draft_synthetic:
+            dcfg, dparams = synthetic_model(fam.name, args.seed + 1, device, draft=True)
+            dfam = fam
+        else:
+            dparams, dcfg, dfam = _draft_model(args)
         draft_source = ModelDraftSource(Engine(
-            dparams, dcfg, fam, EngineConfig(n_slots=args.slots, max_seq=max_seq,
-                                             prefill_buckets=buckets),
+            dparams, dcfg, dfam, EngineConfig(n_slots=args.slots, max_seq=max_seq,
+                                              prefill_buckets=buckets),
             device=device, seed=args.seed))
     if args.http is not None:
         from ..runtime.server import serve_http
@@ -225,6 +243,26 @@ def main(argv=None) -> int:
         print(f"pages={eng.pool.n_pages} prefix_hit_pages={eng.pool.prefix_hit_pages} "
               f"preemptions={s.preemptions}")
     return 0
+
+
+def _draft_model(args):
+    """(params, config, family) of the draft model: --draft_model_id (an HF
+    checkpoint, its family by name as for the target), then
+    --draft_checkpoint or --draft_pbw over it."""
+    from ..models import hf_import
+    from ..models.registry import family_for
+
+    dparams, dcfg, _ = hf_import.from_pretrained(args.draft_model_id)
+    if args.draft_checkpoint:
+        from ..utils.checkpoint import load_dense_checkpoint
+
+        dparams, _ = load_dense_checkpoint(args.draft_checkpoint)
+    if args.draft_pbw:
+        from ..core.pbw import install_pbw, load_pbw
+
+        dlayers, _ = load_pbw(args.draft_pbw)
+        dparams = install_pbw(dparams, dlayers)
+    return dparams, dcfg, family_for(args.draft_model_id)
 
 
 def _until_interrupted(server) -> None:

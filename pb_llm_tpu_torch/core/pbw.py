@@ -43,6 +43,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..quant.reduce import tree_sum
 from . import packing
 
 
@@ -322,7 +323,10 @@ def column_structured_mask(metric, low_frac: float, col_tile: int, ic_shards: in
     """Per row group of ``col_tile`` output channels, the top
     round((1-low_frac)·ic_shard) input columns of the group-summed metric
     are salient.  Returns mask [oc, ic] bool, True ⇔ binarized.  Ties keep
-    index order (stable argsort of -seg, as `jnp.argsort`)."""
+    index order (stable argsort of -seg, as `jnp.argsort`).  The group sum
+    adds in XLA's order (`quant.reduce.tree_sum`), so the selection is the
+    JAX package's and the same on every device."""
+
     metric = torch.as_tensor(metric, dtype=torch.float32)
     oc, ic = metric.shape
     if col_tile <= 0 or col_tile > oc:
@@ -335,7 +339,7 @@ def column_structured_mask(metric, low_frac: float, col_tile: int, ic_shards: in
     rows = []
     for t in range(n_groups):
         blk = metric[t * col_tile : (t + 1) * col_tile]
-        agg = torch.sum(blk, dim=0)
+        agg = tree_sum(blk, dim=0)
         salient_cols = torch.zeros(ic, dtype=torch.bool, device=metric.device)
         if k:
             for s in range(ic_shards):
@@ -621,6 +625,35 @@ def load_pbw(path: str) -> Tuple[Dict, dict]:
                   if f"{name}::{f}" in z}
         layers[name] = layer_from_arrays(static, arrays, v2)
     return layers, meta["extra"]
+
+
+class PBWShardWriter:
+    """Incremental PBW writer: one ``planes_XXXXX.npz`` per layer, written
+    the moment it is added, and ``finalize`` writes the manifest with a
+    ``files`` map, as the JAX package's writer does; `load_pbw` (either
+    package's) reads the result.  For conversions that never hold the
+    whole model (`models.hf_stream`, `calib.pipeline`'s streamed path)."""
+
+    def __init__(self, path: str):
+        self.path = path
+        os.makedirs(path, exist_ok=True)
+        self._meta: Dict[str, dict] = {}
+        self._files: Dict[str, str] = {}
+
+    def add_layer(self, name: str, p) -> str:
+        """Write layer ``p`` (v1 or v2) under ``name``; returns its file."""
+        self._meta[name] = _manifest_entry(p)
+        arrays = {f"{name}::{f}": _to_numpy(f, getattr(p, f))
+                  for f in fields_of(p) if getattr(p, f) is not None}
+        fname = f"planes_{len(self._files):05d}.npz"
+        np.savez(os.path.join(self.path, fname), **arrays)
+        self._files[name] = fname
+        return fname
+
+    def finalize(self, extra_meta: Optional[dict] = None) -> None:
+        meta = {"layers": self._meta, "files": self._files, "extra": extra_meta or {}}
+        with open(os.path.join(self.path, "manifest.json"), "w") as fh:
+            json.dump(meta, fh, indent=1)
 
 
 def install_pbw(params: Dict, layers: Dict) -> Dict:

@@ -1,11 +1,15 @@
 """Offline substitutes (port of `pb_llm_tpu/data/synthetic.py`): the byte
 tokenizer and the deterministic synthetic corpora that plug into
-`data.loaders`, the CLIs' tiny random-init models, plus random PBW v1 and
-v2 weights made on a device from a seed, for smoke runs and kernel checks at
-real widths (the recipe of the JAX package's `bench_e2e.build_packed_llama`)."""
+`data.loaders`, the CLIs' tiny random-init models, random PBW v1 and v2
+weights made on a device from a seed, for smoke runs and kernel checks at
+real widths (the recipe of the JAX package's `bench_e2e.build_packed_llama`),
+and `write_hf_checkpoint`, an HF checkpoint directory of given weights
+written with torch alone, in place of a downloaded one."""
 
 from __future__ import annotations
 
+import json
+import os
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -216,3 +220,43 @@ def synthetic_model(family: str, seed: int = 0, device=None, draft: bool = False
                           num_hidden_layers=layers, num_attention_heads=4, num_key_value_heads=4,
                           max_position_embeddings=256)
     return cfg, init_params(cfg, gen, device=device)
+
+
+def write_hf_checkpoint(params: Dict[str, Any], cfg, family: str, out_dir: str,
+                        dtype=torch.float16, max_shard_bytes: int = 0) -> str:
+    """Write ``params`` as an HF checkpoint directory with torch alone: the
+    state dict of `models.hf_export` in ``dtype`` as ``pytorch_model.bin``,
+    or with ``max_shard_bytes`` as ``pytorch_model-0000k-of-0000n.bin``
+    shards of at most that many bytes (tensors in state-dict order, so a
+    layer may span two shards) with ``pytorch_model.bin.index.json``; and a
+    ``config.json`` (`hf_export.hf_config_dict`, the architecture and the
+    dtype).  Returns ``out_dir``."""
+    from ..models import hf_export
+
+    to_sd = hf_export.llama_to_state_dict if family == "llama" else hf_export.opt_to_state_dict
+    sd = to_sd(params, cfg, dtype)
+    os.makedirs(out_dir, exist_ok=True)
+    shards, size = [[]], 0
+    for k, t in sd.items():
+        n = t.numel() * t.element_size()
+        if max_shard_bytes and shards[-1] and size + n > max_shard_bytes:
+            shards.append([])
+            size = 0
+        shards[-1].append(k)
+        size += n
+    if max_shard_bytes:
+        names = [f"pytorch_model-{i + 1:05d}-of-{len(shards):05d}.bin" for i in range(len(shards))]
+        index = {"metadata": {"total_size": sum(t.numel() * t.element_size() for t in sd.values())},
+                 "weight_map": {k: name for name, keys in zip(names, shards) for k in keys}}
+        with open(os.path.join(out_dir, "pytorch_model.bin.index.json"), "w") as fh:
+            json.dump(index, fh, indent=1)
+    else:
+        names = ["pytorch_model.bin"]
+    for name, keys in zip(names, shards):
+        torch.save({k: sd[k] for k in keys}, os.path.join(out_dir, name))
+    config = dict(hf_export.hf_config_dict(cfg, family),
+                  architectures=["LlamaForCausalLM" if family == "llama" else "OPTForCausalLM"],
+                  torch_dtype=str(dtype).rsplit(".", 1)[-1])
+    with open(os.path.join(out_dir, "config.json"), "w") as fh:
+        json.dump(config, fh, indent=1)
+    return out_dir

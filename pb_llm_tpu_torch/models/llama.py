@@ -45,6 +45,30 @@ class LlamaConfig:
     def head_dim(self) -> int:
         return self.head_dim_override or self.hidden_size // self.num_attention_heads
 
+    @classmethod
+    def from_hf(cls, hf) -> "LlamaConfig":
+        """From an HF config: a `transformers` config object, or a namespace
+        made from ``config.json`` with its class defaults filled in
+        (`models.hf_import.hf_config`).  Mistral rides this config: its one
+        architectural delta, the sliding window, comes with it."""
+        head_dim = getattr(hf, "head_dim", None)
+        return cls(
+            vocab_size=hf.vocab_size,
+            hidden_size=hf.hidden_size,
+            intermediate_size=hf.intermediate_size,
+            num_hidden_layers=hf.num_hidden_layers,
+            num_attention_heads=hf.num_attention_heads,
+            num_key_value_heads=getattr(hf, "num_key_value_heads", None),
+            max_position_embeddings=hf.max_position_embeddings,
+            rms_norm_eps=hf.rms_norm_eps,
+            rope_theta=getattr(hf, "rope_theta", 10000.0),
+            sliding_window=getattr(hf, "sliding_window", None),
+            # an explicit head_dim (mistral v0.3+, llama3) is kept where it
+            # differs from hidden / heads
+            head_dim_override=(head_dim if head_dim not in
+                               (None, hf.hidden_size // hf.num_attention_heads) else None),
+        )
+
 
 LINEAR_NAMES = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj")
 

@@ -49,6 +49,22 @@ class OPTConfig:
     def seqlen(self) -> int:
         return self.max_position_embeddings
 
+    @classmethod
+    def from_hf(cls, hf) -> "OPTConfig":
+        """From an HF config: a `transformers` config object, or a namespace
+        made from ``config.json`` with its class defaults filled in
+        (`models.hf_import.hf_config`)."""
+        return cls(
+            vocab_size=hf.vocab_size,
+            hidden_size=hf.hidden_size,
+            ffn_dim=hf.ffn_dim,
+            num_hidden_layers=hf.num_hidden_layers,
+            num_attention_heads=hf.num_attention_heads,
+            max_position_embeddings=hf.max_position_embeddings,
+            word_embed_proj_dim=getattr(hf, "word_embed_proj_dim", None),
+            do_layer_norm_before=hf.do_layer_norm_before,
+        )
+
 
 LINEAR_NAMES = ("q_proj", "k_proj", "v_proj", "out_proj", "fc1", "fc2")
 POS_OFFSET = 2  # OPTLearnedPositionalEmbedding offset

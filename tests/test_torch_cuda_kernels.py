@@ -1989,3 +1989,31 @@ def test_dma_and_f32_split_are_one_code(cuda, ic, oc, m):
     x = torch.randn((m, ic), generator=g, device=cuda)
     assert decode_arms.dma_arm(p) == "split" and packed_matmul.f32_arm(m, p) == "split"
     assert torch.equal(decode_arms.pb_dma_v2(x, p), packed_matmul.pb_f32_matmul(x, p))
+
+
+@pytest.mark.cuda
+def test_hf_dir_converts_on_the_card_as_on_the_cpu(cuda, tmp_path):
+    """A 2-layer hidden-128 HF directory written by the port (torch alone,
+    sharded fp16 bins), converted by `hf_stream` on the card and on the
+    CPU: every field of every packed linear bit for bit (the selection sums
+    in a fixed order, `quant.reduce.tree_sum`, and the rest is elementwise)."""
+    from pb_llm_tpu_torch.data.synthetic import write_hf_checkpoint
+    from pb_llm_tpu_torch.models import hf_stream, llama
+
+    cfg = llama.LlamaConfig(vocab_size=512, hidden_size=128, intermediate_size=352,
+                            num_hidden_layers=2, num_attention_heads=4,
+                            max_position_embeddings=256)
+    params = llama.init_params(cfg, torch.Generator().manual_seed(30), device="cpu")
+    d = write_hf_checkpoint(params, cfg, "llama", str(tmp_path / "llama-128"),
+                            max_shard_bytes=200_000)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        hf_stream.stream_pack_to_pbw(d, str(tmp_path / dev), "llama",
+                                     pack_fn=hf_stream.rtn_pack_fn(device=dev))
+        out[dev], _ = pbw.load_pbw(str(tmp_path / dev))
+    assert len(out["cpu"]) == 14 and set(out["cuda"]) == set(out["cpu"])
+    for key, want in out["cpu"].items():
+        got = out["cuda"][key]
+        for f in pbw.fields_of(want):
+            if getattr(want, f) is not None:
+                assert torch.equal(getattr(got, f), getattr(want, f)), (key, f)

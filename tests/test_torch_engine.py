@@ -207,12 +207,15 @@ def test_make_caches_needs_cuda_or_an_explicit_device(monkeypatch):
 
 
 @pytest.mark.parametrize("mode", ["draft_model_id"])
-def test_unported_engine_modes_raise(mode):
-    """What the port still refuses, naming the ROADMAP item: draft models
-    from HF ids (they need hf_import)."""
+def test_unported_engine_modes_raise(mode, monkeypatch):
+    """A draft model from a hub id needs transformers (blocked here, so
+    nothing is fetched): the port says so and substitutes nothing."""
+    import sys
+
     from pb_llm_tpu_torch.cli import serve
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    monkeypatch.setitem(sys.modules, "transformers", None)
+    with pytest.raises(RuntimeError, match="needs transformers"):
         serve.main(["--model_id", "llama", "--synthetic", "--device", "cpu",
                     "--spec_gamma", "2", "--draft_model_id", "huggyllama/llama-7b"])
 

@@ -359,8 +359,15 @@ def test_resume_dir_skips_solved_layers(tmp_path):
 
 
 def test_unported_pipeline_paths_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpipeline.quantize_model_ptq_streamed()
+    """The streamed pipeline writes packed formats only, and PBW v2 only
+    from column masks (as in JAX)."""
+    with pytest.raises(ValueError, match="packed formats only"):
+        tpipeline.quantize_model_ptq_streamed(None, None, None, None, tsolver.SolverConfig(),
+                                              "unused", fmt="sim")
+    with pytest.raises(ValueError, match="mask_structure='column'"):
+        tpipeline.quantize_model_ptq_streamed(None, None, None, None,
+                                              tsolver.SolverConfig(mask_structure="element"),
+                                              "unused", fmt="packed_v2")
 
 
 # ---------------------------------------------------------------------------
@@ -389,16 +396,30 @@ def test_run_ptq_then_serve_the_checkpoint(tmp_path, capsys, monkeypatch):
     assert again == pytest.approx(ppl["wikitext2"], rel=1e-6)
 
 
-@pytest.mark.parametrize("argv", [
-    ["huggyllama/llama-7b", "wikitext2", "xnor", "--device", "cpu"],
-    ["huggyllama/llama-7b", "wikitext2", "xnor", "--synthetic", "--stream"],
-    ["huggyllama/llama-7b", "wikitext2", "xnor", "--synthetic", "--save"],
-])
+# argv → what run_ptq raises: a hub id where transformers is missing (it is
+# blocked below, so nothing is fetched); --stream without --save_pbw, and
+# with --synthetic
+_PTQ_REFUSALS = {
+    ("huggyllama/llama-7b", "wikitext2", "xnor", "--device", "cpu"):
+        (RuntimeError, "needs transformers"),
+    ("huggyllama/llama-7b", "wikitext2", "xnor", "--synthetic", "--stream", "--device", "cpu"):
+        (SystemExit, "--stream requires --save_pbw"),
+    ("huggyllama/llama-7b", "wikitext2", "xnor", "--synthetic", "--stream", "--save_pbw", "unused",
+     "--device", "cpu"):
+        (SystemExit, "drop --synthetic"),
+}
+
+
+@pytest.mark.parametrize("argv", [list(a) for a in _PTQ_REFUSALS])
 def test_run_ptq_unported_options_raise(argv, monkeypatch):
+    import sys
+
     from pb_llm_tpu_torch.cli import run_ptq
 
     monkeypatch.setattr(tkc, "_field_overrides", {})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    monkeypatch.setitem(sys.modules, "transformers", None)
+    exc, match = _PTQ_REFUSALS[tuple(argv)]
+    with pytest.raises(exc, match=match):
         run_ptq.main(argv)
 
 
