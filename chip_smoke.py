@@ -4,9 +4,11 @@
     python3 chip_smoke.py            # the whole run, one card
     python3 chip_smoke.py --profile  # also trace three decode steps
 
-Phases (they run in order, but 12a, 12b and then the producers 5 and 8 run
-last: the producers pin the exact prefill for the rest of the process, as
-run_ptq does); any failure raises and the exit code is not 0:
+Phases (they run in order, but 14a runs after 11b on its model, 14b after
+10b on phase 4's, then 13a and 13b before 7a, and 12a, 12b and then the
+producers 5 and 8 run last: the producers pin the exact prefill for the rest
+of the process, as run_ptq does); any failure raises and the exit code is
+not 0:
 
 1. set-up: the card's name and power limit (nvidia-smi), the kernels built
    from `pb_llm_tpu_torch/csrc/` in parallel (one nvcc each), TF32 off;
@@ -119,7 +121,27 @@ run_ptq does); any failure raises and the exit code is not 0:
    shards of at most 1 GB), `python -m pb_llm_tpu_torch.cli.convert` as a
    subprocess, then `from_pretrained` + `load_pbw` + `install_pbw` serving
    phase 4's 16 requests, graphed, every launch counter matched to the
-   forwards run; its conversion and serving times.
+   forwards run; its conversion and serving times;
+13a. QAT card against CPU: OPT-1.3B's config cut to 2 layers
+   (`opt.init_params`, seeded), xnor_outlier at 0.1, 4 steps with remat on
+   2 x 256 ids: masks, sim-8bit masters and every frozen tensor bit for bit,
+   the losses step by step and the exported dense weights within the bounds
+   stated at QAT_LOSS_RTOL, `export_dense`'s forward = the QAT forward;
+13b. QAT end to end: OPT-1.3B's 24 layers (the reference's QAT command),
+   one batch of 2 x 2048 ids repeated for 8 steps at lr 5e-3, remat on: the
+   QAT linears' build time (the mask sorts), ms a step, tokens/s, peak
+   memory, mean bits; the loss finite and falling, the embeddings unchanged,
+   q/k/v gradients nonzero at T = 2048, `export_dense`'s logits = the QAT
+   forward's;
+14a. task scoring card against CPU: phase 3's 2-layer model scores
+   hand-built boolq, 5-shot MMLU (buckets up to 2048: flash "tc") and
+   winogrande examples through `evaluate_model_tasks` on the exact arms
+   (decode_dot f32, hybrid prefill): every pair's log-likelihood within a
+   bound from phase 3's exact-arm bound, greedy flags and each task's acc
+   equal but at printed near-ties, launches matched to the forwards;
+14b. the same scoring on phase 4's 32-layer model: pairs/s, ms a forward by
+   bucket, launches by kernel (dequant, f32 "split" / "tc", flash "tc")
+   matched to the forwards.
 
 Phases 6b, 7b, 9b and 10b serve graphed: the default on the card.
 
@@ -3477,6 +3499,507 @@ def hf_e2e(card: str) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# phases 13a / 13b: QAT
+# ---------------------------------------------------------------------------
+
+QAT_IDS = (2, 256)     # 13a: batch x tokens of ids from the seed
+QAT_STEPS_A = 4
+QAT_E2E = (2, 2048)    # 13b: the reference's per-device batch, the CLI's seqlen
+QAT_STEPS_B = 8
+QAT_LR = 5e-3          # tests/test_qat.py::test_qat_training_reduces_loss's rate
+# 13a, card against CPU.  The masks and sim-8bit masters are elementwise
+# (or one sort) on the same f32 weights: bit for bit.  The QAT matmuls are
+# f32 with TF32 off, cuBLAS against the CPU's BLAS (another order).  Adam
+# normalises each gradient, so a weight whose first moment lies within that
+# rounding of 0 steps either way on the two devices, and its exported sign
+# (sign(w)·binary scale) differs.  The clamp-fixed master holds every
+# negative weight of a row with |min| < 0.5 at exactly 0 (half of OPT's
+# init), so half the binary weights take their sign from their first
+# update alone.  Measured on the card: 5.6e-4 of the binary weights flip,
+# the binary scales (means over the flipped and moved weights) part by
+# 5.4e-5, the losses of steps 3-4 by 5.2e-5; the first two steps' losses
+# (the same weights: step 1 runs at lr 0) by f32 rounding, 1.7e-7.  The
+# bounds are ~4x those: exported binary weights within QAT_SCALE_RTOL of
+# the CPU's scale but a share QAT_SIGN_FRAC whose sign differs; outliers
+# (frozen) bit for bit; losses within QAT_LOSS_RTOL, the first two within
+# QAT_LOSS0_RTOL.
+QAT_LOSS_RTOL = 2e-4
+QAT_LOSS0_RTOL = 1e-6
+QAT_SCALE_RTOL = 2e-4
+QAT_SIGN_FRAC = 2e-3
+QAT_EXPORT_RTOL, QAT_EXPORT_ATOL = 1e-4, 1e-5  # export_dense = QAT forward (JAX's test bound)
+
+
+def qat_config(steps: int):
+    from pb_llm_tpu_torch.models.registry import family_for
+    from pb_llm_tpu_torch.train import qat as tq
+
+    fam = family_for("opt")
+    qcfg = tq.QATConfig(binarization_method="xnor_outlier", outlier_fraction=0.1,
+                        train_steps=steps, learning_rate=QAT_LR, remat=True)
+    return fam, qcfg
+
+
+def frozen_tensors(params) -> dict:
+    """Every tensor outside the decoder linears, by path."""
+    from pb_llm_tpu_torch.models.opt import LINEAR_NAMES
+
+    out = {}
+
+    def walk(node, where):
+        if isinstance(node, torch.Tensor):
+            out[where] = node
+        elif isinstance(node, dict):
+            for k, v in node.items():
+                if k not in LINEAR_NAMES:
+                    walk(v, f"{where}/{k}")
+        elif isinstance(node, list):
+            for i, v in enumerate(node):
+                walk(v, f"{where}/{i}")
+
+    walk(params, "")
+    return out
+
+
+def export_parity(params, cfg, fam, ids: torch.Tensor) -> dict:
+    """export_dense's logits against the QAT forward's on one batch, without
+    grad ("auto" attention: flash for windows of 1024 or more)."""
+    from pb_llm_tpu_torch.train import qat as tq
+
+    with torch.no_grad():
+        qat_logits, _ = fam.forward(params, ids, cfg, linear_fn=tq.qat_linear_fn)
+        dense_logits, _ = fam.forward(tq.export_dense(params, fam), ids, cfg)
+    scale = qat_logits.abs().max().item()
+    err = (dense_logits - qat_logits).abs().max().item()
+    ok = torch.allclose(dense_logits, qat_logits, rtol=QAT_EXPORT_RTOL, atol=QAT_EXPORT_ATOL)
+    finite = bool(torch.isfinite(qat_logits).all())
+    del qat_logits, dense_logits
+    return {"export_max_abs_err": err, "export_max_abs_logit": scale, "export_ok": ok,
+            "export_finite": finite}
+
+
+def qat_parity(card: str) -> dict:
+    """Phase 13a: OPT-1.3B's config cut to 2 layers (`opt.init_params`, a
+    seeded CPU generator), xnor_outlier at 0.1, 4 steps with remat on one
+    batch of 2 x 256 ids, on the card and on the CPU from the same weights."""
+    from pb_llm_tpu_torch.interop import to_device
+    from pb_llm_tpu_torch.models.opt import init_params
+    from pb_llm_tpu_torch.quant import qat as q
+    from pb_llm_tpu_torch.train import qat as tq
+
+    cfg = opt13b(2)
+    base = init_params(cfg, torch.Generator().manual_seed(23), device="cpu")
+    fam, qcfg = qat_config(QAT_STEPS_A)
+    ids = np.random.default_rng(24).integers(0, cfg.vocab_size, size=QAT_IDS)
+    runs = {}
+    for dev in (DEV, "cpu"):
+        params = to_device(base, dev)
+        frozen = {k: v.clone() for k, v in frozen_tensors(params).items()}
+        t0 = time.perf_counter()
+        params = tq.replace_linears(params, fam, qcfg)
+        masters = [(x.weight.detach().cpu().clone(), x.outlier_mask.cpu())
+                   for x in tq.qat_linears(params)]
+        params, losses = tq.train(params, cfg, fam, qcfg, iter([{"input_ids": ids}] * QAT_STEPS_A))
+        if dev == DEV:
+            torch.cuda.synchronize()
+        runs[dev] = dict(params=params, frozen=frozen, masters=masters, losses=losses,
+                         seconds=time.perf_counter() - t0)
+    g, c = runs[DEV], runs["cpu"]
+    masks_equal = all(torch.equal(gm, cm) for (_, gm), (_, cm) in zip(g["masters"], c["masters"]))
+    masters_equal = all(torch.equal(gw, cw) for (gw, _), (cw, _) in zip(g["masters"], c["masters"]))
+    # each run's frozen tensors against their copies taken before (the same
+    # bits on both devices: one CPU init)
+    frozen_equal = all(torch.equal(v.cpu(), runs[dev]["frozen"][k].cpu())
+                       for dev in (DEV, "cpu")
+                       for k, v in frozen_tensors(runs[dev]["params"]).items())
+    n_out = n_bin = flipped = zero_masters = zero_flipped = 0
+    out_equal, scale_rel = True, 0.0
+    for (cw, _), gq, cq in zip(c["masters"], tq.qat_linears(g["params"]),
+                               tq.qat_linears(c["params"])):
+        gd, cd = q.to_dense(gq)["w"].cpu().T, q.to_dense(cq)["w"].T
+        mask = cq.outlier_mask
+        out_equal = out_equal and torch.equal(gd[mask], cd[mask])
+        gs, cs = float(q.binary_scale_of(gq)), float(q.binary_scale_of(cq))
+        scale_rel = max(scale_rel, abs(gs - cs) / cs)
+        gb, cb = gd[~mask], cd[~mask]
+        same_sign = torch.sign(gb) == torch.sign(cb)
+        flipped += int((~same_sign).sum())
+        at_zero = cw[~mask] == 0
+        zero_masters += int(at_zero.sum())
+        zero_flipped += int((~same_sign & at_zero).sum())
+        n_bin += gb.numel()
+        n_out += int(mask.sum())
+    ids_t = torch.as_tensor(ids, device=DEV)
+    export = export_parity(g["params"], cfg, fam, ids_t)
+    gl, cl = np.asarray(g["losses"]), np.asarray(c["losses"])
+    row = {"phase": "qat_parity", "model": "OPT-1.3B config (facebook/opt-1.3b), 2 layers, "
+           "opt.init_params seed 23", "method": "xnor_outlier 0.1, remat", "ids": list(QAT_IDS),
+           "steps": QAT_STEPS_A, "lr": QAT_LR, "gpu_losses": g["losses"], "cpu_losses": c["losses"],
+           "loss_max_rel_diff": float(np.max(np.abs(gl - cl) / np.abs(cl))),
+           "loss_rtol": QAT_LOSS_RTOL, "loss0_rtol": QAT_LOSS0_RTOL,
+           "masks_bit_for_bit": masks_equal,
+           "masters_bit_for_bit": masters_equal, "frozen_bit_for_bit": frozen_equal,
+           "export_outliers_bit_for_bit": out_equal, "outlier_weights": n_out,
+           "binary_weights": n_bin, "binary_sign_flips": flipped,
+           "binary_masters_at_zero": zero_masters, "sign_flips_from_zero": zero_flipped,
+           "sign_flip_frac": flipped / n_bin, "sign_frac_bound": QAT_SIGN_FRAC,
+           "binary_scale_max_rel_diff": scale_rel, "scale_rtol": QAT_SCALE_RTOL,
+           "gpu_s": g["seconds"], "cpu_s": c["seconds"], **export, "card": card}
+    log(json.dumps(row))
+    if not (masks_equal and masters_equal and frozen_equal and out_equal):
+        raise AssertionError(f"phase 13a: masks {masks_equal}, masters {masters_equal}, frozen "
+                             f"{frozen_equal}, exported outliers {out_equal} not bit for bit")
+    if not (np.isfinite(gl).all() and np.isfinite(cl).all()):
+        raise AssertionError(f"phase 13a: non-finite losses {gl} / {cl}")
+    rel = np.abs(gl - cl) / np.abs(cl)
+    if rel.max() > QAT_LOSS_RTOL or rel[:2].max() > QAT_LOSS0_RTOL:
+        raise AssertionError(f"phase 13a: losses {gl} vs {cl} beyond rtol {QAT_LOSS_RTOL} "
+                             f"({QAT_LOSS0_RTOL} for the first two)")
+    if scale_rel > QAT_SCALE_RTOL or row["sign_flip_frac"] > QAT_SIGN_FRAC:
+        raise AssertionError(f"phase 13a: exported binary weights: scale {scale_rel}, sign flips "
+                             f"{flipped} of {n_bin}")
+    if not (export["export_ok"] and export["export_finite"]):
+        raise AssertionError(f"phase 13a: export_dense's logits differ from the QAT forward's "
+                             f"by {export['export_max_abs_err']}")
+    return row
+
+
+def qat_e2e(card: str) -> dict:
+    """Phase 13b: QAT end to end at OPT-1.3B's full 24 layers (the
+    reference's QAT command), xnor_outlier at 0.1, one batch of 2 x 2048 ids
+    from the seed repeated for 8 steps at lr 5e-3, remat on: the time to
+    build the QAT linears (the mask sorts), ms a step (median of steps 2-8),
+    tokens/s, peak memory, mean bits; the loss finite and falling, the
+    frozen embeddings unchanged, q/k/v gradients nonzero at T = 2048,
+    export_dense's logits = the QAT forward's."""
+    from pb_llm_tpu_torch.models.opt import init_params
+    from pb_llm_tpu_torch.train import qat as tq
+
+    cfg = opt13b(24)
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(25), device=DEV)
+    fam, qcfg = qat_config(QAT_STEPS_B)
+    embed = params["embed_tokens"].clone()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = tq.replace_linears(params, fam, qcfg)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    bits = tq.mean_bits_report(params, fam)
+    n_train = sum(x.weight.numel() + (x.bias.numel() if x.bias is not None else 0)
+                  for x in tq.qat_linears(params))
+    ids = np.random.default_rng(26).integers(0, cfg.vocab_size, size=QAT_E2E)
+    torch.cuda.reset_peak_memory_stats()
+    stamps = [time.perf_counter()]
+    params, losses = tq.train(params, cfg, fam, qcfg, iter([{"input_ids": ids}] * QAT_STEPS_B),
+                              log=lambda i, loss: stamps.append(time.perf_counter()))
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    qkv = {n: float(params["layers"][0][n].weight.grad.abs().max())
+           for n in ("q_proj", "k_proj", "v_proj")}
+    for x in tq.qat_linears(params):
+        x.weight.grad = None
+        if x.bias is not None:
+            x.bias.grad = None
+    torch.cuda.empty_cache()
+    export = export_parity(params, cfg, fam, torch.as_tensor(ids, device=DEV))
+    med = statistics.median(step_ms[1:])
+    tokens = QAT_E2E[0] * QAT_E2E[1]
+    row = {"phase": "qat_e2e", "model": "OPT-1.3B config (facebook/opt-1.3b), 24 layers, "
+           "opt.init_params seed 25", "method": "xnor_outlier 0.1, remat, AdamW",
+           "batch": list(QAT_E2E), "steps": QAT_STEPS_B, "lr": QAT_LR, "losses": losses,
+           "step_ms": step_ms, "ms_per_step_median_2_8": med, "tokens_per_s": tokens / med * 1e3,
+           "peak_mem_gb": peak / 1e9, "mean_bits": bits, "qat_params": n_train,
+           "qat_build_s": build_s, "qkv_grad_max_layer0": qkv, **export, "card": card}
+    log(json.dumps(row))
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"phase 13b: non-finite losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"phase 13b: the loss did not fall: {losses}")
+    if not torch.equal(params["embed_tokens"], embed):
+        raise AssertionError("phase 13b: the frozen embeddings changed")
+    if not all(v > 0 for v in qkv.values()):
+        raise AssertionError(f"phase 13b: q/k/v got no gradient at T = {QAT_E2E[1]}: {qkv}")
+    if not (export["export_ok"] and export["export_finite"]):
+        raise AssertionError(f"phase 13b: export_dense's logits differ from the QAT forward's "
+                             f"by {export['export_max_abs_err']}")
+    return row
+
+
+# ---------------------------------------------------------------------------
+# phases 14a / 14b: task scoring
+# ---------------------------------------------------------------------------
+
+TASK_EXACT = dict(decode_dot="f32", prefill="hybrid")  # the exact arms, as phase 3's "exact"
+# 14a, card against CPU on the exact arms: each logit within LOGIT_TOL_EXACT
+# of max|logit| (phase 3's bound), so each log-probability (a logit minus a
+# logsumexp) within twice that, and a pair's summed log-likelihood within
+# 2 · LOGIT_TOL_EXACT · max|logit| · its continuation's tokens
+TASK_MMLU_SHOTS = 5
+
+
+def task_examples():
+    """Hand-built examples, strings from a seed (`data.synthetic`): boolq
+    yes/no over passages of 2, 20 and 130 words (buckets 64, 256, 1024; the
+    64 bucket's two rows take the exact f32 kernel, the rest the hybrid
+    prefill, 1024 flash "tc"), winogrande-style per-choice contexts (64), and
+    an MMLU-style question with 4 letters and 5 shots from 5 short training
+    questions (2048: flash "tc")."""
+    from pb_llm_tpu_torch.data.synthetic import synthetic_texts
+    from pb_llm_tpu_torch.eval import tasks
+
+    def text(n, seed):
+        return synthetic_texts(1, seed, n, n + 1)[0]
+
+    fmt = tasks.TASK_FORMATTERS
+    boolq = [fmt["boolq"]({"passage": text(n, 100 + i), "question": text(3, 200 + i),
+                           "answer": i % 2}) for i, n in enumerate((2, 20, 130))]
+    wino = [fmt["winogrande"]({"sentence": f"The {text(2, 300 + i)} _ {text(2, 400 + i)}.",
+                               "option1": text(1, 500 + i), "option2": text(1, 600 + i),
+                               "answer": str(1 + i % 2)}) for i in range(4)]
+
+    def mmlu(n, seed, answer):
+        return fmt["hendrycksTest-anatomy"]({"question": text(n, seed),
+                                             "choices": [text(2, seed + 10 * k) for k in range(1, 5)],
+                                             "answer": answer})
+
+    shots = [mmlu(12, 700 + i, i % 4) for i in range(TASK_MMLU_SHOTS)]
+    return ({"boolq": boolq, "winogrande": wino}, {"hendrycksTest-anatomy": [mmlu(150, 900, 2)]},
+            {"hendrycksTest-anatomy": shots})
+
+
+@contextlib.contextmanager
+def recorded_scoring(fam):
+    """Yields (a Family whose forward records each call's ids shape, max
+    |logit| and synchronised wall ms, the records, the scored pairs): the
+    scorer's `score_many` is wrapped for the run to keep each pair with its
+    (log-likelihood, greedy)."""
+    import dataclasses
+
+    from pb_llm_tpu_torch.eval import tasks
+
+    forwards, scored = [], []
+
+    def forward(params, ids, cfg, *a, **kw):
+        if ids.device.type == "cuda":
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, caches = fam.forward(params, ids, cfg, *a, **kw)
+        if ids.device.type == "cuda":
+            torch.cuda.synchronize()
+        forwards.append({"rows": tuple(ids.shape), "ms": (time.perf_counter() - t) * 1e3,
+                         "max_abs_logit": float(logits.abs().max())})
+        return logits, caches
+
+    orig = tasks.LoglikelihoodScorer.score_many
+
+    def score_many(self, pairs):
+        out = orig(self, pairs)
+        scored.extend(zip(pairs, out))
+        return out
+
+    tasks.LoglikelihoodScorer.score_many = score_many
+    try:
+        yield dataclasses.replace(fam, forward=forward), forwards, scored
+    finally:
+        tasks.LoglikelihoodScorer.score_many = orig
+
+
+def run_tasks(params, cfg, fam, kernels):
+    """The examples of `task_examples` through `evaluate_model_tasks` under
+    ``kernels``: boolq and winogrande 0-shot, MMLU 5-shot from its training
+    examples.  Returns (results, forwards, scored pairs, wall s, the choices
+    of each example in scoring order)."""
+    from pb_llm_tpu_torch.data.synthetic import ByteTokenizer
+    from pb_llm_tpu_torch.eval.tasks import evaluate_model_tasks
+    from pb_llm_tpu_torch.ops import kernel_config as kc
+
+    zero_shot, few_shot, train = task_examples()
+    sizes = [len(ex.choices) for group in (zero_shot, few_shot) for t in group
+             for ex in group[t]]
+    tok = ByteTokenizer()
+    with recorded_scoring(fam) as (rfam, forwards, scored), kc.use_kernels(kernels):
+        t0 = time.perf_counter()
+        out = evaluate_model_tasks(params, cfg, rfam, tok, list(zero_shot),
+                                   examples_by_task=zero_shot)
+        out5 = evaluate_model_tasks(params, cfg, rfam, tok, list(few_shot),
+                                    examples_by_task=few_shot, train_examples_by_task=train,
+                                    num_fewshot=TASK_MMLU_SHOTS)
+        wall = time.perf_counter() - t0
+    return {**out["results"], **out5["results"]}, forwards, scored, wall, sizes
+
+
+def task_launches(forwards, n_linear: int, n_layers: int, p) -> dict:
+    """Each kernel's launches for scoring forwards of ``forwards``' shapes on
+    the exact arms: per linear, the dequant kernel at 256 rows or more (the
+    hybrid prefill), the exact f32 kernel's arm (`f32_arm`) below; flash
+    "tc" per layer at windows of 1024 or more."""
+    from pb_llm_tpu_torch.ops import packed_matmul as pm
+
+    counts = {}
+
+    def add(k, n):
+        counts[k] = counts.get(k, 0) + n
+
+    for f in forwards:
+        b, t = f["rows"]
+        m = b * t
+        if m >= pm.V2_PREFILL_M:
+            add("pb_dequant_v2", n_linear)
+        else:
+            arm = pm.f32_arm(m, p)
+            add({"cores": "pb_f32_matmul", "tc": "pb_f32_matmul_tc",
+                 "split": "pb_f32_matmul_split"}[arm], n_linear)
+            if arm == "split":
+                add("pb_prep_dma", n_linear)
+        if t >= 1024:
+            add("flash_attention_tc", n_layers)
+    return counts
+
+
+def by_bucket(forwards) -> dict:
+    out = {}
+    for f in forwards:
+        out.setdefault(f"{f['rows'][1]}x{f['rows'][0]}", []).append(f["ms"])
+    return {k: statistics.median(v) for k, v in sorted(out.items(), key=lambda kv: (
+        int(kv[0].split("x")[0]), int(kv[0].split("x")[1])))}
+
+
+def task_parity(params, card: str) -> dict:
+    """Phase 14a: the 2-layer full-width llama-7b of phase 3 (random PBW-v2
+    planes) scoring `task_examples` on the card (the exact arms) and on the
+    CPU (their plain versions): every pair's log-likelihood within the bound
+    above, the greedy flags equal but where the CPU's top-2 logits at a
+    continuation token lie within the logit bound (a near-tie), each task's
+    acc exactly (an example whose choice differs must be a near-tie of its
+    two best choices, and is printed); launches matched to the forwards."""
+    from pb_llm_tpu_torch.interop import to_device
+    from pb_llm_tpu_torch.models.registry import family_for
+    from pb_llm_tpu_torch.ops import kernel_config as kc
+
+    cfg, fam = llama7b(2), family_for("llama")
+    gparams = to_device(params, DEV)
+    n_linear = 7 * cfg.num_hidden_layers
+    zero_counters()
+    g_res, g_fwd, g_scored, g_s, sizes = run_tasks(gparams, cfg, fam,
+                                                   kc.KernelConfig(**TASK_EXACT))
+    launches = read_counters()
+    del gparams
+    plain = kc.KernelConfig(backend="pallas_interpret", attention="flash_interpret", **TASK_EXACT)
+    c_res, c_fwd, c_scored, c_s, _ = run_tasks(params, cfg, fam, plain)
+    if read_counters() != launches:
+        raise AssertionError("phase 14a: the CPU's plain versions launched a kernel")
+    want = expect_launches(**task_launches(g_fwd, n_linear, cfg.num_hidden_layers,
+                                           first_linear(params)))
+    max_logit = max(f["max_abs_logit"] for f in c_fwd)
+    logit_bound = LOGIT_TOL_EXACT * max_logit
+    worst, flag_ties, flag_fail = 0.0, [], []
+    from pb_llm_tpu_torch.data.synthetic import ByteTokenizer
+    from pb_llm_tpu_torch.eval.tasks import LoglikelihoodScorer
+
+    scorer = LoglikelihoodScorer(params, cfg, fam, ByteTokenizer())
+    for ((pair, (gl, gg)), (cpair, (cl, cg))) in zip(g_scored, c_scored):
+        assert pair == cpair
+        ids, start, n_cont, _ = scorer._prepare(*pair)
+        bound = 2 * logit_bound * n_cont
+        worst = max(worst, abs(gl - cl) / bound)
+        if gg != cg:
+            gap = top2_gap(params, cfg, fam, ids, start, n_cont, plain)
+            (flag_ties if gap <= 2 * logit_bound else flag_fail).append(
+                {"pair": [pair[0][-40:], pair[1]], "gap": gap})
+    ties = choice_ties(g_scored, c_scored, sizes, scorer, logit_bound)
+    row = {"phase": "task_parity", "model": "llama-7b widths, 2 layers, random PBW-v2 planes",
+           "arms": TASK_EXACT, "pairs": len(g_scored), "forwards": [f["rows"] for f in g_fwd],
+           "gpu_acc": {t: r["acc"] for t, r in g_res.items()},
+           "cpu_acc": {t: r["acc"] for t, r in c_res.items()},
+           "max_abs_logit": max_logit, "logit_bound": logit_bound,
+           "ll_max_err_over_bound": worst,
+           "ll_max_abs_err": max(abs(g[1][0] - c[1][0]) for g, c in zip(g_scored, c_scored)),
+           "greedy_near_ties": flag_ties, "choice_near_ties": ties, "launches": launches,
+           "gpu_s": g_s, "cpu_s": c_s, "card": card}
+    log(json.dumps(row))
+    if not all(np.isfinite(s[1][0]) for s in g_scored):
+        raise AssertionError("phase 14a: a non-finite log-likelihood on the card")
+    if worst > 1.0:
+        raise AssertionError(f"phase 14a: log-likelihoods differ beyond the bound ({worst:.3g}x)")
+    if flag_fail:
+        raise AssertionError(f"phase 14a: greedy flags differ away from a near-tie: {flag_fail}")
+    if not ties and row["gpu_acc"] != row["cpu_acc"]:
+        raise AssertionError(f"phase 14a: acc {row['gpu_acc']} vs {row['cpu_acc']}")
+    buckets = {f["rows"][1] for f in g_fwd}
+    if not {1024, 2048} <= buckets or not want["pb_f32_matmul_tc"]:
+        raise AssertionError(f"phase 14a: the buckets {buckets} reach flash 'tc' at 1024 and "
+                             f"2048 and the f32 kernel below 256 rows: {want}")
+    if launches != want:
+        raise AssertionError(f"phase 14a: launches {launches}, expected {want}")
+    return row
+
+
+def top2_gap(params, cfg, fam, ids, start: int, n_cont: int, kernels) -> float:
+    """The least gap between the two highest logits (the CPU's plain
+    versions) over the continuation tokens of one scored row."""
+    from pb_llm_tpu_torch.ops import kernel_config as kc
+
+    with torch.inference_mode(), kc.use_kernels(kernels):
+        logits, _ = fam.forward(params, torch.as_tensor(ids[None]), cfg)
+    top = torch.topk(logits[0, start - 1 : start - 1 + n_cont].float(), 2, dim=-1).values
+    return float((top[:, 0] - top[:, 1]).min())
+
+
+def choice_ties(g_scored, c_scored, sizes, scorer, logit_bound: float) -> list:
+    """Examples (``sizes``: each one's choices, in scoring order) whose best
+    choice differs between the devices; each must be a near-tie: the CPU's
+    two best log-likelihoods within the pairs' bound."""
+    ties, i = [], 0
+    for n in sizes:
+        j = i + n
+        g = [s[1][0] for s in g_scored[i:j]]
+        c = [s[1][0] for s in c_scored[i:j]]
+        if int(np.argmax(g)) != int(np.argmax(c)):
+            order = np.argsort(c)[::-1]
+            n_cont = max(scorer._prepare(*c_scored[i + k][0])[2] for k in order[:2])
+            gap = c[order[0]] - c[order[1]]
+            if gap > 2 * 2 * logit_bound * n_cont:
+                raise AssertionError(f"phase 14a: an example's choice differs away from a "
+                                     f"near-tie: card {g}, CPU {c}")
+            ties.append({"context": c_scored[i][0][0][-40:], "gpu": g, "cpu": c})
+        i = j
+    if i != len(c_scored):
+        raise AssertionError(f"phase 14a: {len(c_scored)} pairs scored, {i} chosen among")
+    return ties
+
+
+def task_e2e(params, card: str) -> dict:
+    """Phase 14b: the same scoring on phase 4's 32-layer llama-7b, on the
+    card's exact arms: pairs/s, ms a forward by bucket (synchronised), and
+    every kernel's launches matched to the forwards (dequant, f32 "split" /
+    "tc", flash "tc")."""
+    from pb_llm_tpu_torch.models.registry import family_for
+    from pb_llm_tpu_torch.ops import kernel_config as kc
+
+    cfg, fam = llama7b(len(params["layers"])), family_for("llama")
+    zero_counters()
+    res, fwd, scored, wall, _ = run_tasks(params, cfg, fam, kc.KernelConfig(**TASK_EXACT))
+    launches = read_counters()
+    want = expect_launches(**task_launches(fwd, 7 * cfg.num_hidden_layers, cfg.num_hidden_layers,
+                                           first_linear(params)))
+    row = {"phase": "task_e2e", "model": "llama-7b PBW-v2 (random planes, low_frac 0.9), 32 layers",
+           "arms": TASK_EXACT, "pairs": len(scored), "wall_s": wall,
+           "pairs_per_s": len(scored) / wall, "forwards": len(fwd),
+           "forward_ms_by_bucket": by_bucket(fwd), "forward_ms_total": sum(f["ms"] for f in fwd),
+           "acc": {t: r["acc"] for t, r in res.items()}, "launches": launches,
+           "launches_by_kernel": {k: v for k, v in launches.items() if v},
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card}
+    log(json.dumps(row))
+    if not all(np.isfinite(s[1][0]) for s in scored):
+        raise AssertionError("phase 14b: a non-finite log-likelihood")
+    if launches != want:
+        raise AssertionError(f"phase 14b: launches {launches}, expected {want}")
+    return row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true", help="trace three decode steps")
@@ -3520,11 +4043,18 @@ def main(argv=None) -> int:
     check_kv_parity(parity_params, card)
     graph_parity(parity_params, card)
     window_parity(parity_params, card)
+    tasks_a = task_parity(parity_params, card)
     del parity_params
     paged = paged_e2e(params, card)
     arms_e2e = serve_scan_fuse_e2e(params, card)
     http_e2e = serve_http_e2e(params, card, e2e)
+    tasks_b = task_e2e(params, card)
     del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    qat_parity(card)
+    qat_e2e(card)
+    gc.collect()
     torch.cuda.empty_cache()
     check_opt_parity(card)
     t0 = time.perf_counter()
@@ -3559,8 +4089,12 @@ def main(argv=None) -> int:
                   V1_HEADLINE and r["groupsize"] == 128 and r["dot"] == "torch.float32")
     select_launches = {a: v1_e2e["launches"][k] + prod_v1["launches"][k]
                        for a, k in (("cores", "pb_select_v1"), ("tc", "pb_select_v1_tc"))}
-    flash_launches = {a: prod["launches"][k] + prod_v1["launches"][k]
+    # phases 14a and 14b's launches (scoring on the exact arms), by kernel
+    scoring = {k: tasks_a["launches"][k] + tasks_b["launches"][k] for k in tasks_a["launches"]}
+    flash_launches = {a: prod["launches"][k] + prod_v1["launches"][k] + scoring[k]
                       for a, k in (("cores", "flash_attention"), ("tc", "flash_attention_tc"))}
+    f32_launches = {a: exact["f32_matmul_launches"][a] + scoring[k] for a, k in (
+        ("cores", "pb_f32_matmul"), ("tc", "pb_f32_matmul_tc"), ("split", "pb_f32_matmul_split"))}
     # the int8 arms, strip attention's split arm and the x preparation: phase
     # 4's launches and those of phases 12a (iii) and 12b
     int8_by_arm = {k: e2e["matmul_launches_by_arm"][k] + hf["matmul_launches_by_arm"][k]
@@ -3615,24 +4149,26 @@ def main(argv=None) -> int:
          + f", lengths <= {ATTN_MAX_LEN}; the split arm (64 rows a block, a merge launch; "
            "the time covers both); library: SDPA bf16; launches: phases 4, 12a and 12b"},
         {"name": "pb_dequant_v2", "route": "cuda", "source": "pb_llm_tpu_torch/csrc/pb_dequant_v2.cu",
-         "replaces": "pb_llm_tpu/ops/pallas_pb.py:625", "launches": prod["launches"]["pb_dequant_v2"],
+         "replaces": "pb_llm_tpu/ops/pallas_pb.py:625",
+         "launches": prod["launches"]["pb_dequant_v2"] + scoring["pb_dequant_v2"],
          "max_abs_err": max(r["max_abs_err"] for r in dq_rows), "ms": dq["kernel_ms"],
          "plain_ms": dq["plain_ms"], "bound_ms": dq["bound_ms"], "bound_by": dq["bound_by"],
-         "library_ms": None, "parity": "bit for bit", "shape": "ic=4096 oc=11008 f32 out"},
+         "library_ms": None, "parity": "bit for bit",
+         "shape": "ic=4096 oc=11008 f32 out; launches: phases 5, 14a and 14b"},
         {"name": "pb_f32_matmul", "route": "cuda", "source": "pb_llm_tpu_torch/csrc/pb_f32_matmul.cu",
          "replaces": "pb_llm_tpu/ops/pallas_pb.py:297",
-         "launches": exact["f32_matmul_launches"]["cores"], "yardstick": True,
+         "launches": f32_launches["cores"], "yardstick": True,
          "max_abs_err": max(r["max_abs_err"] for r in f32_rows if r["arm"] == "cores"),
          "ms": f32["kernel_ms"], "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
          "bound_by": f32["bound_by"], "library_ms": f32["library_ms"], "parity": "ok",
-         "arm": "cores", "F32_TC": pm.F32_TC, "arm_launches": exact["f32_matmul_launches"],
+         "arm": "cores", "F32_TC": pm.F32_TC, "arm_launches": f32_launches,
          "shape": "m={} ic={} oc={} low_frac 0.9, global selection; the f32 CUDA cores (2- and "
                   "4-bit lows, dot bf16 below F32_TC, layouts the tensor cores refuse, or a "
-                  "call that names it); launches: phase 3 (exact arms), the cores arm's (every "
-                  "arm in arm_launches)".format(*HEADLINE_SHAPE)},
+                  "call that names it); launches: phases 3, 14a and 14b (exact arms), the cores "
+                  "arm's (every arm in arm_launches)".format(*HEADLINE_SHAPE)},
         {"name": "pb_f32_matmul_split", "route": "cuda", "source": "pb_llm_tpu_torch/csrc/pb_dma_v2.cu",
          "replaces": "pb_llm_tpu/ops/pallas_pb.py:297",
-         "launches": exact["f32_matmul_launches"]["split"],
+         "launches": f32_launches["split"],
          "max_abs_err": max(r["split_max_abs_err"] for r in f32_split_rows),
          "ms": f32s["split_ms"], "plain_ms": f32s["plain_ms"], "bound_ms": f32s["split_bound_ms"],
          "bound_by": f32s["split_bound_by"], "library_ms": f32s["library_ms"], "parity": "ok",
@@ -3642,10 +4178,11 @@ def main(argv=None) -> int:
          "shape": "m={} ic={} oc={} low_frac 0.9, global selection; the dma kernel's split "
                   "device code (entry pb_dma_v2_split: wgmma bf16, x in 3 exact terms stacked as "
                   "N = 24, a K split in a cluster); library: f32 matmul on the dense weight; "
-                  "launches: phase 3 (exact arms)".format(*HEADLINE_SHAPE)},
+                  "launches: phases 3, 14a and 14b (exact arms; scoring forwards have 64 rows "
+                  "or more: none below F32_TC)".format(*HEADLINE_SHAPE)},
         {"name": "pb_f32_matmul_tc", "route": "cuda", "source": "pb_llm_tpu_torch/csrc/pb_bf16_tc.cuh",
          "replaces": "pb_llm_tpu/ops/pallas_pb.py:297",
-         "launches": exact["f32_matmul_launches"]["tc"],
+         "launches": f32_launches["tc"],
          "max_abs_err": max(r["max_abs_err"] for r in f32_rows if r["arm"] == "tc"),
          "ms": f32_pre["tc"]["kernel_ms"], "plain_ms": f32_pre["tc"]["plain_ms"],
          "bound_ms": f32_pre["tc"]["bound_ms"], "bound_by": f32_pre["tc"]["bound_by"],
@@ -3654,7 +4191,7 @@ def main(argv=None) -> int:
          "cuda_cores_bound_ms": f32_pre["tc"]["cuda_cores_bound_ms"],
          "shape": "m={} ic={} oc={} low_frac 0.9, global selection; bf16 tensor cores, x in 3 "
                   "terms (entry pb_f32_matmul_tc in pb_f32_matmul.cu); library: f32 matmul, TF32 "
-                  "off; launches: phase 3 (exact arms)".format(*PREFILL_SHAPE)},
+                  "off; launches: phases 3, 14a and 14b (exact arms)".format(*PREFILL_SHAPE)},
         {"name": "flash_attention", "route": "cuda", "source": "pb_llm_tpu_torch/csrc/flash_attention.cu",
          "replaces": "pb_llm_tpu/ops/flash_attention.py:29", "launches": flash_launches["cores"],
          "yardstick": True,
@@ -3663,7 +4200,7 @@ def main(argv=None) -> int:
          "bound_by": fa["cores_bound_by"], "library_ms": fa["library_ms"], "parity": "ok",
          "arm": "cores", "arm_launches": flash_launches,
          "shape": "B={} T={} H={} D={} causal f32; the f32 CUDA-core arm (only a call that "
-                  "names it); launches: phases 5 and 8, the cores arm's (both in "
+                  "names it); launches: phases 5, 8, 14a and 14b, the cores arm's (both in "
                   "arm_launches)".format(*FLASH_CASES[0][:4])},
         {"name": "flash_attention_tc", "route": "cuda",
          "source": "pb_llm_tpu_torch/csrc/flash_attention.cu",
@@ -3675,7 +4212,7 @@ def main(argv=None) -> int:
          "dots_bf16_ms": fa["bf16_ms"], "dots_bf16_library_ms": fa["library_bf16_ms"],
          "shape": "B={} T={} H={} D={} causal f32; bf16 tensor cores (entry flash_attention_tc: "
                   "wgmma, TMA; q, k in 3 bf16 terms, p, v in 2; 9 products), the terms launch "
-                  "included; library: SDPA f32; launches: phases 5 and 8".format(
+                  "included; library: SDPA f32; launches: phases 5, 8, 14a and 14b".format(
                       *FLASH_CASES[0][:4])},
         {"name": "paged_attention", "route": "cuda", "source": "pb_llm_tpu_torch/csrc/paged_attention.cu",
          "replaces": "pb_llm_tpu/ops/paged_attention.py:35",

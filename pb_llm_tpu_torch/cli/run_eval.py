@@ -1,6 +1,7 @@
-"""Eval CLI (port of the perplexity half of `pb_llm_tpu/cli/run_eval.py`):
-windowed perplexity on wikitext2 / ptb / c4 under the exact hybrid prefill
-(`pin_exact_prefill`).  Runs on CUDA unless --device cpu.
+"""Eval CLI (port of `pb_llm_tpu/cli/run_eval.py`): windowed perplexity on
+wikitext2 / ptb / c4 and multiple-choice task suites (boolq,piqa / llmqat /
+mmlu, `eval.tasks`) under the exact hybrid prefill (`pin_exact_prefill`).
+Runs on CUDA unless --device cpu.
 
     python -m pb_llm_tpu_torch.cli.run_eval --model_id llama --synthetic \\
         --eval_ppl wikitext2 --device cpu
@@ -15,8 +16,11 @@ and synthetic corpora.  ``checkpoint`` is a dense checkpoint
 (`utils.checkpoint`) or a PBW v1 or v2 directory (installed over the
 model's linears).  ``--scan_layers`` stacks
 the layers (`models.stacking`); the eval windows (m >= 256 rows) take each
-layer's views through the ordinary dispatch, as in JAX.  Task suites
-(--tasks) and sequence parallelism (--sp) are not ported yet.
+layer's views through the ordinary dispatch, as in JAX.  ``--tasks`` loads
+its examples with the `datasets` package (a network or a populated cache),
+and raises without it; offline, score hand-built `eval.tasks.Example`s
+through `evaluate_model_tasks(examples_by_task=...)`.  Sequence
+parallelism (--sp) is not ported yet.
 """
 
 from __future__ import annotations
@@ -26,12 +30,12 @@ import os
 
 
 def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description="Perplexity evaluation")
+    p = argparse.ArgumentParser(description="Perplexity + task evaluation")
     p.add_argument("checkpoint", type=str, nargs="?", default=None,
                    help="dense checkpoint dir (utils.checkpoint) or PBW v1/v2 dir; omit for the "
                         "base model")
     p.add_argument("--model_id", type=str, required=True)
-    p.add_argument("--tasks", type=str, default="", help="task suites (not ported yet)")
+    p.add_argument("--tasks", type=str, default="", help="comma list; suites: llmqat, mmlu")
     p.add_argument("--eval_ppl", type=str, default="wikitext2,ptb,c4")
     p.add_argument("--limit", type=int, default=-1)
     p.add_argument("--ppl_batch", type=int, default=4, help="eval windows per forward")
@@ -44,16 +48,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sp", type=int, default=1, help="sequence-parallel ways (not ported yet)")
     p.add_argument("--scan_layers", action="store_true",
                    help="stacked layers for the ppl forward (models.stacking)")
-    p.add_argument("--vocab_limit", type=int, default=50257, help="task scoring (not ported yet)")
-    p.add_argument("--num_fewshot", type=int, default=0, help="task scoring (not ported yet)")
+    p.add_argument("--vocab_limit", type=int, default=50257,
+                   help="slice logits to the first N rows during task scoring (the reference's "
+                        "evaluate.py:79; no-op when vocab <= N); 0 disables")
+    p.add_argument("--num_fewshot", type=int, default=0,
+                   help="lm-eval v0.3 few-shot prompting (labeled examples joined into each "
+                        "query context)")
     p.add_argument("--device", type=str, default=None, help="default: cuda")
     return p
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.tasks:
-        raise NotImplementedError("--tasks: eval/tasks.py is not ported yet (ROADMAP Queue 1, slice 2)")
     if args.sp > 1:
         raise NotImplementedError("--sp: perplexity_sp and ring attention are not ported yet "
                                   "(ROADMAP Queue 1, slice 5)")
@@ -61,6 +67,7 @@ def main(argv=None) -> int:
     from .. import resolve_device
     from ..data.loaders import get_eval_tokens, get_loaders
     from ..eval.ppl import perplexity
+    from ..eval.tasks import evaluate_model_tasks
     from ..interop import to_device
     from ..models.registry import family_for
     from ..ops.kernel_config import pin_exact_prefill
@@ -115,6 +122,16 @@ def main(argv=None) -> int:
                          window_limit=args.ppl_limit, window_batch=args.ppl_batch)
         log.log("ppl", dataset=ds, ppl=ppl)
         print(f"{ds} perplexity: {ppl:.4f}")
+
+    tasks = [t for t in args.tasks.split(",") if t]
+    if tasks:
+        out = evaluate_model_tasks(params, cfg, fam, tokenizer, tasks, limit=args.limit,
+                                   vocab_limit=args.vocab_limit or None,
+                                   num_fewshot=args.num_fewshot)
+        for t, r in out["results"].items():
+            print(f"{t}: acc {r['acc']:.4f} (n={r['n']})")
+            log.log("task", task=t, **r)
+        print(f"mean acc: {out['mean_acc']:.4f}")
     return 0
 
 

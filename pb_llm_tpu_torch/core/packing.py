@@ -14,6 +14,7 @@ followed by a mask.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 WORD_BITS = 32
@@ -103,3 +104,13 @@ def unpack_nibbles(bytes_arr: torch.Tensor, ic: int, block_rows: int = PACK_BLOC
         chunks.append(torch.cat([blk & 0xF, (blk >> 4) & 0xF], dim=0))
         st += h
     return torch.cat(chunks, dim=0)
+
+
+def csr_sidecar_bits(mask: np.ndarray, value_bits: int = 8, index_bits: int = 8) -> float:
+    """Effective sidecar bits/weight under a CSR encoding: col_indices +
+    values + crow_indices, each at 8 bits, divided by numel (the reference's
+    memory accounting, `quant/outlier_quantizer.py:116-123`)."""
+    n = mask.size
+    nnz = int(np.asarray(mask).sum())
+    rows = mask.shape[0]
+    return (nnz * index_bits + nnz * value_bits + (rows + 1) * index_bits) / n

@@ -139,3 +139,45 @@ def get_eval_tokens(name: str, tokenizer, source: Optional[TextSource] = None) -
     if name not in split:
         raise NotImplementedError(name)
     return np.asarray(tokenizer.encode("\n\n".join(src.get(name, split[name]))), np.int64)
+
+
+def get_qat_dataset(name: str, tokenizer, data_percent: float = 100, seqlen: int = 2048,
+                    batch_size: int = 2, seed: int = 42, source: Optional[TextSource] = None):
+    """Training batches for QAT (`datautils.py:18-49`): tokenized docs in the
+    order of `np.random.default_rng(seed).permutation`, truncated to seqlen,
+    right-padded with 0 to the batch's longest; yields {"input_ids",
+    "attention_mask"} int64 numpy batches forever.  red_pajama with
+    ``data_percent`` != 100 takes the first int(850000·percent/100) docs (a
+    fixed 850k total, not the split's length); english_quotes takes no
+    percent slice."""
+    src = source or TextSource()
+    if name in ("red_pajama", "redpajama"):
+        docs = src.get("red_pajama", "train")
+        if data_percent != 100:
+            docs = docs[: int(850000 * data_percent / 100)]
+    elif name in ("Abirate/english_quotes", "english_quotes"):
+        docs = src.get("english_quotes", "train")
+    else:
+        docs = src.get(name, "train")
+        if data_percent != 100:
+            docs = docs[: int(len(docs) * data_percent / 100)]
+    order = np.random.default_rng(seed).permutation(len(docs))
+
+    def batches():
+        i = 0
+        while True:
+            ids_list, mask_list = [], []
+            for _ in range(batch_size):
+                text = docs[order[i % len(order)]]
+                i += 1
+                ids = np.asarray(tokenizer.encode(text), np.int64)[:seqlen]
+                ids_list.append(ids)
+                mask_list.append(np.ones_like(ids))
+            maxlen = max(len(x) for x in ids_list)
+
+            def pad(xs):
+                return np.stack([np.pad(x, (0, maxlen - len(x))) for x in xs])
+
+            yield {"input_ids": pad(ids_list), "attention_mask": pad(mask_list)}
+
+    return batches()

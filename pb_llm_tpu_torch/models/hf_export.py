@@ -2,7 +2,8 @@
 `pb_llm_tpu/models/hf_export.py`), the inverse of `models.hf_import`.
 
 Packed leaves (PBW v1 and v2) are materialized to dense ``[ic, oc]``
-weights through `core.pbw.dequantize` / `dequantize_v2`, transposed back to
+weights through `core.pbw.dequantize` / `dequantize_v2`, QAT leaves through
+`quant.qat.to_dense`, transposed back to
 torch's ``[oc, ic]``, and written as HF state-dict keys.  The
 ``*_to_state_dict`` functions need torch alone; `to_hf_config`,
 `to_torch_model` and `save_pretrained` instantiate `transformers` classes and
@@ -21,17 +22,18 @@ from .opt import OPTConfig
 
 
 def _dense_leaf(lin) -> Dict[str, Any]:
-    """Any linear leaf (dense dict / PackedLinear / PackedLinearV2) as
-    {"w": [ic, oc], "b": [oc] | None}."""
+    """Any linear leaf (dense dict / PackedLinear / PackedLinearV2 /
+    QATLinear) as {"w": [ic, oc], "b": [oc] | None}: a QAT leaf as its
+    fake-quant weight (`quant.qat.to_dense`)."""
     from ..core.pbw import PackedLinear, PackedLinearV2, dequantize, dequantize_v2
+    from ..quant.qat import QATLinear, to_dense
 
     if isinstance(lin, PackedLinearV2):
         return {"w": dequantize_v2(lin), "b": lin.bias}
     if isinstance(lin, PackedLinear):
         return {"w": dequantize(lin), "b": lin.bias}
-    if type(lin).__name__ == "QATLinear":
-        raise NotImplementedError("QAT leaves are not ported yet (ROADMAP Queue 1 item 4: "
-                                  "quant/qat.py)")
+    if isinstance(lin, QATLinear):
+        return to_dense(lin)
     return lin
 
 

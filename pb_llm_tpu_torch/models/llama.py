@@ -193,8 +193,13 @@ def forward(params: Dict[str, Any], input_ids: torch.Tensor, cfg: LlamaConfig,
         for i, lp in enumerate(params["layers"]):
             cache_i = kv_caches[i] if kv_caches is not None else None
             x, _ = decoder_layer(lp, x, cfg, cos, sin, cache_i, pos, linear_fn)
+    return final_logits(params, x, cfg), kv_caches
+
+
+def final_logits(params: Dict[str, Any], x: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+    """Final norm + lm_head: the family's head (`models.registry`)."""
     x = rms_norm(x, params["norm"], cfg.rms_norm_eps)
-    return apply_linear(params["lm_head"], x), kv_caches
+    return apply_linear(params["lm_head"], x)
 
 
 def layer_rope(cfg: LlamaConfig, x: torch.Tensor, pos=0):

@@ -16,6 +16,7 @@ class Family:
     forward: Callable  # (params, ids, cfg, kv_caches=None, pos=0) -> (logits, caches)
     embed: Callable    # (params, ids, cfg) -> layer-0 input hidden states
     decoder_layer: Callable  # (lp, x, cfg, linear_fn=None) -> (hidden, None)
+    head: Callable     # (params, hidden, cfg) -> logits
     linear_names: Tuple[str, ...]
     config_cls: type
 
@@ -31,6 +32,7 @@ FAMILIES = {
         forward=_llama.forward,
         embed=lambda params, ids, cfg: params["embed_tokens"][ids],
         decoder_layer=_llama_layer,
+        head=_llama.final_logits,
         linear_names=_llama.LINEAR_NAMES,
         config_cls=_llama.LlamaConfig,
     ),
@@ -40,6 +42,7 @@ FAMILIES = {
         embed=_opt.embed,
         decoder_layer=lambda lp, x, cfg, linear_fn=None: _opt.decoder_layer(
             lp, x, cfg, linear_fn=linear_fn),
+        head=_opt.head,
         linear_names=_opt.LINEAR_NAMES,
         config_cls=_opt.OPTConfig,
     ),

@@ -128,7 +128,16 @@ def flash_attention(q, k, v, scale: float, causal: bool = True, kv_len: Optional
     l [B, T, H] f32 with ``return_residuals``).  CPU tensors: the plain
     version.  CUDA tensors: the kernel's arm `flash_arm(arm)`; arm "tc"
     writes its terms into ``scratch`` (`tc_scratch`'s three bf16 tensors,
-    made here when not given) first, in the same call."""
+    made here when not given) first, in the same call.
+
+    It has no backward (nor has the JAX kernel), and the CUDA op's output
+    carries no autograd history: under grad mode with q, k or v requiring
+    grad it raises rather than hand back a result whose gradients would be
+    silently wrong.  Training takes the masked softmax (`train.qat`)."""
+    if torch.is_grad_enabled() and any(a.requires_grad for a in (q, k, v)):
+        raise RuntimeError("flash_attention has no backward: run the forward under "
+                           "torch.no_grad(), or take attention='xla' (the masked softmax) "
+                           "to train")
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale, causal, kv_len, dots_bf16, return_residuals)
     if q.device.type != "cuda":

@@ -2017,3 +2017,94 @@ def test_hf_dir_converts_on_the_card_as_on_the_cpu(cuda, tmp_path):
         for f in pbw.fields_of(want):
             if getattr(want, f) is not None:
                 assert torch.equal(getattr(got, f), getattr(want, f)), (key, f)
+
+
+# QAT on the card: one trainer step and a few, card = CPU at a tiny size.
+# The QAT matmuls are plain f32 products with TF32 off (cuBLAS against the
+# CPU's BLAS: another summation order), the STE and fake-quant elementwise,
+# the binary scale an f64 sum (the same on both): masks and sim-8bit
+# masters bit for bit, losses within 1e-5, weights within 1e-5 (0.2% of one
+# lr-5e-3 step), the frozen tensors bit-unchanged.
+QAT_LOSS_ATOL = QAT_PARAM_ATOL = 1e-5
+
+
+def _qat_llama(max_pos=256):
+    from pb_llm_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig(vocab_size=512, hidden_size=128, intermediate_size=256,
+                            num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+                            max_position_embeddings=max_pos)
+    return cfg, llama.init_params(cfg, torch.Generator().manual_seed(40), device="cpu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("steps", [1, 4])
+def test_qat_train_steps_card_equal_cpu(cuda, steps):
+    from pb_llm_tpu_torch.interop import to_device
+    from pb_llm_tpu_torch.models.registry import family_for
+    from pb_llm_tpu_torch.train import qat as tq
+
+    cfg, params = _qat_llama()
+    fam = family_for("llama")
+    qcfg = tq.QATConfig(outlier_fraction=0.1, train_steps=4, learning_rate=5e-3, remat=True)
+    rng = np.random.default_rng(0)
+    batches = [{"input_ids": rng.integers(0, 512, size=(2, 64))} for _ in range(steps)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = tq.replace_linears(to_device(params, dev), fam, qcfg)
+        masters = [(q.weight.detach().clone(), q.outlier_mask.clone()) for q in tq.qat_linears(p)]
+        opt, sched = tq.make_optimizer(qcfg, p)
+        step = tq.make_train_step(cfg, fam, qcfg, opt, sched)
+        losses = [float(step(p, {k: torch.as_tensor(v, device=dev) for k, v in b.items()}))
+                  for b in batches]
+        out[dev] = (p, masters, losses)
+    (cp, cm, cl), (gp, gm, gl) = out["cpu"], out["cuda"]
+    for (cw, cmask), (gw, gmask) in zip(cm, gm):
+        assert torch.equal(gw.cpu(), cw) and torch.equal(gmask.cpu(), cmask)
+    np.testing.assert_allclose(gl, cl, rtol=0, atol=QAT_LOSS_ATOL)
+    for cq, gq in zip(tq.qat_linears(cp), tq.qat_linears(gp)):
+        np.testing.assert_allclose(gq.weight.detach().cpu().numpy(), cq.weight.detach().numpy(),
+                                   rtol=0, atol=QAT_PARAM_ATOL)
+    for name in ("embed_tokens", "norm"):
+        assert torch.equal(gp[name].cpu(), params[name])
+    assert torch.equal(gp["lm_head"]["w"].cpu(), params["lm_head"]["w"])
+
+
+@pytest.mark.cuda
+def test_flash_raises_under_grad_on_the_card(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(41)
+    q, k, v = (torch.randn(1, 1024, 4, 64, generator=gen, device=cuda) for _ in range(3))
+    with pytest.raises(RuntimeError, match="no backward"):
+        tfa.flash_attention(q, k, v.requires_grad_(), 0.125, causal=True)
+    with torch.no_grad():
+        assert torch.isfinite(tfa.flash_attention(q, k, v, 0.125, causal=True)).all()
+
+
+@pytest.mark.cuda
+def test_qat_qkv_gradients_at_long_windows(cuda):
+    """At T = 1024 "auto" sends a forward on the card to the flash kernel,
+    which has no backward: a QAT forward under grad outside the trainer
+    raises; the trainer's step takes the masked softmax, and q_proj, k_proj
+    and v_proj get nonzero gradients, within 1e-4 of the CPU's of max|g|."""
+    from pb_llm_tpu_torch.interop import to_device
+    from pb_llm_tpu_torch.models.registry import family_for
+    from pb_llm_tpu_torch.train import qat as tq
+
+    cfg, params = _qat_llama(max_pos=2048)
+    fam = family_for("llama")
+    qcfg = tq.QATConfig(outlier_fraction=0.1, train_steps=4, learning_rate=5e-3)
+    ids = np.random.default_rng(1).integers(0, 512, size=(1, 1024))
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        p = tq.replace_linears(to_device(params, dev), fam, qcfg)
+        if dev == "cuda":
+            with pytest.raises(RuntimeError, match="no backward"):
+                fam.forward(p, torch.as_tensor(ids, device=dev), cfg, linear_fn=tq.qat_linear_fn)
+        opt, sched = tq.make_optimizer(qcfg, p)
+        tq.make_train_step(cfg, fam, qcfg, opt, sched)(p, {"input_ids": torch.as_tensor(ids,
+                                                                                      device=dev)})
+        grads[dev] = [p["layers"][i][n].weight.grad.cpu() for i in range(2)
+                      for n in ("q_proj", "k_proj", "v_proj")]
+    for g, c in zip(grads["cuda"], grads["cpu"]):
+        assert g.abs().max() > 0
+        np.testing.assert_allclose(g.numpy(), c.numpy(), rtol=0, atol=1e-4 * c.abs().max().item())

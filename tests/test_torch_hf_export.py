@@ -145,11 +145,19 @@ def test_hf_config_dict_is_to_hf_config():
 
 
 def test_qat_leaf_is_not_ported():
-    class QATLinear:  # stands for the JAX package's QAT leaf (ROADMAP Queue 1 item 4)
-        pass
+    """QAT leaves are ported (quant/qat.py): a QATLinear exports as its
+    fake-quant weight, the JAX package's state dict within 4 ulps (the
+    binary scale: JAX's f32 sum in XLA's order against the port's f64 sum)."""
+    from pb_llm_tpu.quant import qat as jqat
+    from pb_llm_tpu_torch.quant import qat as tqat
 
     cfg, jparams = jax_llama(1)
     params = from_jax_params(jax.tree_util.tree_map(np.asarray, jparams))
-    params["layers"][0]["q_proj"] = QATLinear()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        texport.llama_to_state_dict(params, port_cfg(cfg), torch.float32)
+    w = np.array(jparams["layers"][0]["q_proj"]["w"]).T
+    jparams["layers"][0]["q_proj"] = jqat.make_qat_linear(jnp.asarray(w), None, 0.1)
+    params["layers"][0]["q_proj"] = tqat.make_qat_linear(torch.from_numpy(w), None, 0.1)
+    got = texport.llama_to_state_dict(params, port_cfg(cfg), torch.float32)
+    want = jexport.llama_to_state_dict(jparams, cfg, torch.float32)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_allclose(got[k].numpy(), want[k].numpy(), rtol=5e-7, atol=0, err_msg=k)

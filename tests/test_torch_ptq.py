@@ -424,11 +424,19 @@ def test_run_ptq_unported_options_raise(argv, monkeypatch):
 
 
 @pytest.mark.parametrize("flag", [["--tasks", "boolq"], ["--sp", "2"]])
-def test_run_eval_unported_options_raise(flag):
+def test_run_eval_unported_options_raise(flag, monkeypatch):
+    """--sp is not ported and names the ROADMAP; --tasks is (eval/tasks.py),
+    and without the `datasets` package it raises naming it (no download)."""
+    import sys
+
     from pb_llm_tpu_torch.cli import run_eval
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_eval.main(["--model_id", "llama", "--synthetic", "--device", "cpu", *flag])
+    monkeypatch.setitem(sys.modules, "datasets", None)
+    exc, match = (ImportError, "datasets") if flag[0] == "--tasks" else (NotImplementedError,
+                                                                         "ROADMAP")
+    with pytest.raises(exc, match=match):
+        run_eval.main(["--model_id", "llama", "--synthetic", "--device", "cpu", "--eval_ppl", "",
+                       *flag])
 
 
 def _gptq_readings():
