@@ -4,11 +4,11 @@
     python3 chip_smoke.py            # the whole run, one card
     python3 chip_smoke.py --profile  # also trace three decode steps
 
-Phases (they run in order, but 14a runs after 11b on its model, 14b after
-10b on phase 4's, then 13a and 13b before 7a, and 12a, 12b and then the
-producers 5 and 8 run last: the producers pin the exact prefill for the rest
-of the process, as run_ptq does); any failure raises and the exit code is
-not 0:
+Phases (they run in order, but 15b, 15a and 15c run after phase 4 (15b on
+its model), 14a runs after 11b on its model, 14b after 10b on phase 4's,
+then 13a and 13b before 7a, and 12a, 12b and then the producers 5 and 8 run
+last: the producers pin the exact prefill for the rest of the process, as
+run_ptq does); any failure raises and the exit code is not 0:
 
 1. set-up: the card's name and power limit (nvidia-smi), the kernels built
    from `pb_llm_tpu_torch/csrc/` in parallel (one nvcc each), TF32 off;
@@ -141,11 +141,34 @@ not 0:
    equal but at printed near-ties, launches matched to the forwards;
 14b. the same scoring on phase 4's 32-layer model: pairs/s, ms a forward by
    bucket, launches by kernel (dequant, f32 "split" / "tc", flash "tc")
-   matched to the forwards.
+   matched to the forwards;
+15a. tensor-parallel serving (`runtime.tp_engine`), two gloo ranks sharing
+   the card (`run_ranks`), each with its shard of 2 full-width layers
+   (pack_block 128, o/down shard-major), against one process on the same
+   planes in four engines: int8 strips and an int8 paged pool (prefix
+   cache, prefill_chunk 256, batched prefill, spec_gamma 4) teacher-forced
+   and held within phase 3's bounds to one process quantizing x per shard
+   (`shard_split_engine`), scan_layers on the exact
+   arms and OPT-1.3B on PBW v1 (groups of 128) token for token but for
+   near-ties; every rank's bits equal rank 0's, launches matched to the
+   forwards by arm at the shard shapes, no plain-reference matmul, each
+   shard's arm printed;
+15b. `TPEngine(tp=1)` over a 1-rank NCCL group on phase 4's model, graphed
+   (the all_reduce captured), phase 4's 16 requests: streams and every
+   decode step's logits equal the plain graphed engine's bit for bit, ms a
+   step beside phase 4's;
+15c. two gloo ranks with the 32-layer llama-7b (15a's planes), eager, phase
+   4's 16 requests: every request retires, launches matched, no
+   plain-reference matmul; tokens/s, ms a step, each rank's peak memory,
+   where each stream first parts from one process; ms a step in
+   collectives from a second pass (8 requests) that times them;
+   and gloo's all_reduce / all_gather of CUDA tensors checked and timed.
 
 Phases 6b, 7b, 9b and 10b serve graphed: the default on the card.
 
-Phase 2 also holds the pair kernel's three arms ("mma", and the wgmma
+Phase 2 also times the int8 matmul's decode and prefill arms and the
+exact f32 "split" arm at tp = 2's four shard shapes (`tp_shard` rows), and
+holds the pair kernel's three arms ("mma", and the wgmma
 "split" and "tc" arms: crossover PAIR_TC), the dma kernel's two arms
 ("split", the bf16 tensor cores with a K split in a cluster, and "cores"
 at 1-255 rows, with the split arm's x preparation) and the stacked int8 /
@@ -155,7 +178,8 @@ operands' preparation time where an arm has its own layout.  The graphed
 
 The last two lines are the `kernels` JSON line and
 `{"ok": true, "device": {...}}`.  A row of the `kernels` line counts its own
-arm's launches (each arm's beside, as arm_launches); a row marked
+arm's launches (each arm's beside, as arm_launches; phase 15's, summed
+over its ranks, added in and named apart as phase15_launches); a row marked
 "yardstick" is an arm kept to time the path's arm against and may count 0,
 every other row must have launched.  Without CUDA it exits 1 before any
 phase.
@@ -165,6 +189,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import functools
 import gc
 import json
@@ -529,15 +554,16 @@ def check_dma_prep(timer: Timer, card: str):
     return head
 
 
-def check_attention(timer: Timer, card: str):
-    """Decode attention at the strip serving shape, one row per cache arm:
-    int8 strips, bf16 strips, and the q8 arm (int8 q codes against int8
-    strips); each in both kernel arms, "split" (the default: kernel_ms) and
-    "slot" (slot_ms), in one call.  Library: SDPA in bf16 over the
-    dequantized (or bf16) cache."""
+def check_attention(timer: Timer, card: str, shape=ATTN_SHAPE, arms=ATTN_ARMS, tag=None):
+    """Decode attention at the strip serving shape (or ``shape``), one row
+    per cache arm of ``arms``: int8 strips, bf16 strips, and the q8 arm
+    (int8 q codes against int8 strips); each in both kernel arms, "split"
+    (the default: kernel_ms) and "slot" (slot_ms), in one call.  Library:
+    SDPA in bf16 over the dequantized (or bf16) cache.  ``tag``: keys added
+    to each row."""
     from pb_llm_tpu_torch.ops import decode_attention as da
 
-    b, s, hq, hkv, d = ATTN_SHAPE
+    b, s, hq, hkv, d = shape
     gen = torch.Generator(device=DEV).manual_seed(1)
     q = torch.randn((b, hq, d), generator=gen, device=DEV)
     x = [torch.randn((b, s, hkv, d), generator=gen, device=DEV) for _ in range(2)]
@@ -559,7 +585,7 @@ def check_attention(timer: Timer, card: str):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows_read = int(lengths.sum())
     rows = []
-    for arm in ATTN_ARMS:
+    for arm in arms:
         if arm == "bf16":
             ck, cv, kw = kb, vb, {}
             kd, vd = (t[:, :n].transpose(1, 2).contiguous() for t in (kb, vb))
@@ -593,7 +619,7 @@ def check_attention(timer: Timer, card: str):
                "plain_ms": timer(lambda: da.decode_attention_plain(q, ck, cv, lengths, scale, **kw),
                                  iters=5),
                "library_ms": timer(lambda: sdpa(qd, kd, vd, attn_mask=mask, scale=scale)),
-               "bound_ms": bound_ms, "bound_by": bound_by, "card": card}
+               "bound_ms": bound_ms, "bound_by": bound_by, "card": card, **(tag or {})}
         log(json.dumps(row))
         rows.append(row)
         del kd, vd, got, want
@@ -895,7 +921,7 @@ def paged_operands(b, t, hq, hkv, d, kind, max_base, gen, rng, bases=None):
     return q, k, v, ks, vs, table, base
 
 
-def check_paged_attention(timer: Timer, card: str):
+def check_paged_attention(timer: Timer, card: str, cases=PAGED_CASES, tag=None):
     """Paged attention on a pool of 1025 pages of 16 through shuffled
     tables, at the paged serving path's shapes, over int8, f32 and bf16
     pages; every page no row may read (the trash page, the tables' entries
@@ -906,7 +932,8 @@ def check_paged_attention(timer: Timer, card: str):
     "split" where t·G <= SPLIT_MAX_ROWS (the verify_t5 cases of G = 1).
     Library: SDPA over the same K/V gathered into dense strips beforehand
     (bf16 for int8 and bf16 pages, as for decode attention; f32 for f32
-    pages; NaN zeroed); the gather is not timed."""
+    pages; NaN zeroed); the gather is not timed.  ``cases``: PAGED_CASES'
+    form; ``tag``: keys added to each row."""
     from pb_llm_tpu_torch.ops import paged_attention as tpa
 
     n_pages, ps, maxp = PAGED_POOL
@@ -914,7 +941,7 @@ def check_paged_attention(timer: Timer, card: str):
     rng = np.random.default_rng(13)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = []
-    for name, b, t, hq, hkv, d, kind, max_base in PAGED_CASES:
+    for name, b, t, hq, hkv, d, kind, max_base in cases:
         q, k, v, ks, vs, table, base = paged_operands(b, t, hq, hkv, d, kind, max_base, gen, rng)
         scale = d ** -0.5
         got = tpa.paged_attention_multi(q, k, v, table, base, scale, ps, ks, vs)
@@ -983,7 +1010,7 @@ def check_paged_attention(timer: Timer, card: str):
                                                                    ks, vs), iters=plain_iters),
                "library_ms": timer(lambda: sdpa(qd, kd, vd, attn_mask=mask, scale=scale,
                                                 enable_gqa=hq != hkv)),
-               "bound_ms": bound_ms, "bound_by": bound_by, "card": card}
+               "bound_ms": bound_ms, "bound_by": bound_by, "card": card, **(tag or {})}
         for a in runs:  # every arm on the same inputs, in the same call
             row[f"{a}_max_abs_err"] = arm_err[a]
             row[f"{a}_ms"] = timer(lambda: tpa.launch(qs, k, v, table, bs, ks, vs,
@@ -1625,6 +1652,19 @@ def replay_ms(eng, iters: int = 20) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
+def launch_host_ms(eng, iters: int = 20) -> float:
+    """Median host time of launching ``eng``'s decode-step graph (the
+    `CUDAGraph.replay` call itself, on an idle card)."""
+    g, times = eng._step.graph, []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        g.replay()
+        times.append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def serve_e2e(params, build_s: float, card: str, profile: bool):
     """Phase 4: the same engine serves the same 16 requests twice, first
     under `step_graph.eager()` (the decode step op by op), then graphed
@@ -1700,12 +1740,13 @@ def serve_e2e(params, build_s: float, card: str, profile: bool):
     return rows["graph"]
 
 
-def profile_decode(eng, mode: str) -> None:
+def profile_decode(eng, mode: str, what: str = "phase 4") -> dict:
     """Device time by kernel over three decode steps of the full pool
     (`torch.profiler`), and the share of an unprofiled step the device sits
     idle; ``mode`` "eager" runs the steps under `step_graph.eager()`.  For
     the graph, the replay's device time (CUDA events) stands beside the
-    trace's sum."""
+    trace's sum.  Logs the row (``what`` names the engine) and returns
+    {kernel name: (device ms a step, launches a step)}."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
 
@@ -1733,7 +1774,8 @@ def profile_decode(eng, mode: str) -> None:
             by_name[ev.name] = (us + ev.time_range.elapsed_us(), n + 1)
     busy_ms = sum(us for us, _ in by_name.values()) / 1e3 / 3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    row = {"phase": "profile", "mode": mode, "steps": 3, "ctx": 100, "step_ms": step_ms,
+    row = {"phase": "profile", "engine": what, "mode": mode, "steps": 3, "ctx": 100,
+           "step_ms": step_ms,
            "device_busy_ms_per_step": busy_ms if busy_ms else "not measured",
            "device_idle_share": (1 - busy_ms / step_ms) if busy_ms else "not measured",
            "top": [{"name": k[:80], "device_ms_per_step": us / 3e3, "launches_per_step": c / 3}
@@ -1741,9 +1783,11 @@ def profile_decode(eng, mode: str) -> None:
     if mode == "graph":
         row["graph_replay_device_ms"] = replay_ms(eng)
         row["idle_share_from_replay"] = 1 - row["graph_replay_device_ms"] / step_ms
+        row["graph_launch_host_ms"] = launch_host_ms(eng)
     log(json.dumps(row))
     for slot in range(eng.ecfg.n_slots):
         eng.release(slot)
+    return {k: (us / 3e3, c / 3) for k, (us, c) in by_name.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -3500,6 +3544,906 @@ def hf_e2e(card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 2 at tp = 2's shard shapes; phases 15a, 15b, 15c: tensor-parallel
+# serving (`runtime.tp_engine`)
+# ---------------------------------------------------------------------------
+
+TP = 2
+# pack_block 128 divides 2048 and 5504: every llama-7b shard at tp = 2 (the
+# default pack_block of down_proj, 1376, and 256 do not divide 5504)
+TP_PACK_BLOCK = 128
+# a layer of each local shape at tp = 2: llama-7b's q/k/v (4096x2048), o
+# (2048x4096), gate/up (4096x5504), down (5504x4096); OPT-1.3B's q/k/v
+# (2048x1024), out (1024x2048), fc1 (2048x4096), fc2 (4096x2048)
+TP_SHARD_NAMES = {"llama": ("q_proj", "o_proj", "gate_proj", "down_proj"),
+                  "opt": ("q_proj", "out_proj", "fc1", "fc2")}
+TP_ECFG = dict(n_slots=4, max_seq=1024, prefill_buckets=(64, 256, 512))
+TP_EXACT_ARMS = dict(decode_dot="f32", prefill="hybrid")
+TP_STEPS = 8  # 15a: decode steps after the prefills
+# 15a's int8 arms: a row-parallel shard quantizes its own x columns (a
+# per-row absmax over ic/tp columns, as JAX's shard_map body does), another
+# int8 rounding than one process's.  So they are held, within phase 3's
+# LOGIT_TOL and NLL_RTOL, to the single-process engine whose row-parallel
+# linears quantize x per shard the same way (`shard_split_engine`)
+# 15a's four engines: (name, model, engine options, kernel options, held by)
+TP_ENGINES = (
+    ("int8_strips", "llama", {}, None, "forced"),
+    ("int8_paged", "llama", dict(page_size=16, prefix_cache=True, prefill_chunk=256,
+                                 max_prefill_batch=4, spec_gamma=4), None, "forced"),
+    ("scan_exact", "llama", dict(scan_layers=True, cache_dtype=torch.float32), TP_EXACT_ARMS,
+     "greedy"),
+    ("opt_v1", "opt", dict(cache_dtype=torch.float32), None, "greedy"),
+)
+
+
+def tp_rank_tree(params, family: str, rank: int):
+    """Rank ``rank``'s tree as `TPEngine` builds it from the unsharded
+    ``params``: its block of every leaf (`sharding.shard_params`) and each
+    packed decoder linear's local view (`tp_engine._local_views`)."""
+    from pb_llm_tpu_torch.parallel.mesh import Mesh
+    from pb_llm_tpu_torch.parallel.sharding import shard_params
+    from pb_llm_tpu_torch.runtime.tp_engine import _local_views
+
+    mesh = Mesh(1, TP, rank=rank)
+    return _local_views(shard_params(params, mesh, family), mesh)
+
+
+def check_tp_shards(timer: Timer, card: str):
+    """Phase 2 at tp = 2's local layouts: every kernel 15a and 15c run, on
+    each rank's local views as `TPEngine` builds them from 15's planes
+    (`tp_rank_tree`), against its plain version on the same inputs; rank
+    0's timed (both ranks' shards have the same shapes), rank 1's checked.
+
+      * llama-7b PBW v2 (pack_block 128, o/down shard-major): q/k/v
+        (4096x2048), o (2048x4096), gate/up (4096x5504), down (5504x4096).
+        The int8 matmul at m = 8 (its decode arm) and m = 512 (its prefill
+        arm), bit for bit with the plain version on its operands; the exact
+        f32 matmul at m = 8 (its decode arm "split") and the stacked f32
+        matmul (scan_layers, layer 1) at 15a's decode rows, within F32_RTOL
+        / F32_ATOL; the hybrid prefill's dequant, bit for bit.
+      * OPT-1.3B PBW v1 in groups of 128: q/k/v (2048x1024), out (1024x2048,
+        the rank's own group rows), fc1 (2048x4096), fc2 (4096x2048): the
+        planar kernel at 15a's decode rows and select (f32) at m = 512,
+        within V1_RTOL / V1_ATOL.
+      * decode attention over 16 local heads (int8 strips, 15c's 8 slots
+        of 2048) and paged attention over 16 local heads (int8 pages of 16:
+        decode, and spec_gamma 4's verify window of 5 rows).
+
+    Each row: the arm the wrapper takes, its time, the plain version's, the
+    bf16 torch.matmul of the shape (SDPA for attention; none for the
+    dequant; PBW v1 also the f32 one, TF32 off) and the bound (int8:
+    operations at the int8 rate; f32 "split" and v1 "tc": their bf16 terms
+    at the bf16 rate)."""
+    from pb_llm_tpu_torch.core.pbw import dequantize, dequantize_v2
+    from pb_llm_tpu_torch.models import stacking
+    from pb_llm_tpu_torch.ops import packed_matmul as pm
+    from pb_llm_tpu_torch.ops import packed_matmul_v1 as v1
+    from pb_llm_tpu_torch.ops import prefill as pf
+
+    gen = torch.Generator(device=DEV).manual_seed(31)
+    m_dec = TP_ECFG["n_slots"]
+    rows = []
+
+    def record(rank, kernel, name, p, m, arm, got, want, ok, launch, plain, library, bnd, **kw):
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        what = f"phase 2 shard {kernel} ({arm}) {name} rank {rank} m={m}"
+        if not (torch.isfinite(got).all() and ok):
+            raise AssertionError(f"{what}: max|err| {err}")
+        row = {"kernel": kernel, "layer": name, "rank": rank, "tp": TP, "arm": arm, "m": m,
+               "ic": p.ic_local, "oc": p.oc_local, "pack_block": p.pack_block,
+               "max_abs_err": err, "bound_ms": bnd[0], "bound_by": bnd[1], "card": card, **kw}
+        if rank == 0:
+            row.update(kernel_ms=timer(launch), plain_ms=timer(plain, iters=5),
+                       library_ms=None if library is None else timer(library),
+                       library=None if library is None else "bf16 matmul")
+            row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
+        log(json.dumps({"phase": "tp_shard", **row}))
+        rows.append(row)
+
+    llama = tp_params("llama", 2)
+    stacked = stacking.stack_layers(llama)
+    for rank in range(TP):
+        lp = tp_rank_tree(llama, "llama", rank)["layers"][0]
+        sl = tp_rank_tree(stacked, "llama", rank)["layers_stacked"]
+        for name in TP_SHARD_NAMES["llama"]:
+            p = lp[name]
+            wb = dequantize_v2(p).to(torch.bfloat16)
+            for kernel, m in (("pb_int8_matmul", 8), ("pb_int8_matmul", 512), ("pb_f32_matmul", 8)):
+                x = torch.randn((m, p.ic_local), generator=gen, device=DEV)
+                xb = x.to(torch.bfloat16)
+                if kernel == "pb_int8_matmul":
+                    arm = pm.int8_arm(m, p)
+                    ops = pm.prepare_int8(x, p, pm.layout_of(arm))
+                    got, want = pm.launch_int8(ops, p, arm), pm.int8_matmul_plain(ops, p)
+                    nbytes = (m * p.ic_local + m * p.k_pad + 4 * (3 * m + 5 * p.oc_local)
+                              + 4 * p.sign_packed.numel() + p.side_val.numel()
+                              + 4 * m * p.oc_local)
+                    record(rank, kernel, name, p, m, arm, got, want, torch.equal(got, want),
+                           functools.partial(pm.launch_int8, ops, p, arm),
+                           functools.partial(pm.pb_int8_matmul_plain, x, p), lambda: xb @ wb,
+                           bound(nbytes, 2 * m * p.oc_local * (p.ic_local + p.k_pad),
+                                 INT8_OPS_PER_S), k_pad=p.k_pad)
+                else:
+                    arm = pm.f32_arm(m, p)
+                    ops = pm.prepare_f32_arm(x, p, arm)
+                    got, want = pm.launch_f32(ops, p), pm.pb_f32_matmul_plain(x, p)
+                    record(rank, kernel, name, p, m, arm, got, want,
+                           bool(torch.all((got - want).abs() <= F32_ATOL + F32_RTOL * want.abs())),
+                           functools.partial(pm.launch_f32, ops, p),
+                           functools.partial(pm.pb_f32_matmul_plain, x, p), lambda: xb @ wb,
+                           bound(matmul_bytes(p, m), 3 * 2 * m * p.oc_local * (
+                               p.ic_local + p.k_pad), BF16_FLOPS_PER_S), k_pad=p.k_pad)
+                del x, xb, ops, got, want
+            # the stacked f32 entry (scan_layers) on layer 1 of the rank's [L] planes
+            mk = stacking.StackedPackedLinearV2(sl[name], 1,
+                                                torch.ones(1, dtype=torch.int32, device=DEV))
+            sp = pm.stacked_layer(mk)
+            x = torch.randn((m_dec, sp.ic_local), generator=gen, device=DEV)
+            arm = pm.f32_arm(m_dec, sp)
+            ops = pm.prepare_f32_arm(x, sp, arm)
+            got, want = pm.pb_f32_matmul_stacked(x, mk), pm.pb_f32_matmul_stacked_plain(x, mk)
+            xb, wsb = x.to(torch.bfloat16), dequantize_v2(sp).to(torch.bfloat16)
+            record(rank, "pb_f32_matmul_stacked", name, sp, m_dec, arm, got, want,
+                   bool(torch.all((got - want).abs() <= F32_ATOL + F32_RTOL * want.abs())),
+                   functools.partial(pm.launch_f32_stacked, ops, mk),
+                   functools.partial(pm.pb_f32_matmul_stacked_plain, x, mk), lambda: xb @ wsb,
+                   bound(matmul_bytes(sp, m_dec), 3 * 2 * m_dec * sp.oc_local * (
+                       sp.ic_local + sp.k_pad), BF16_FLOPS_PER_S))
+            del x, xb, wsb, ops, got, want
+            # the hybrid prefill's dequant of the binary part
+            got, want = pf.dequant_v2_binary(p, torch.float32), pf.dequant_v2_binary_plain(p)
+            coef = pf._dequant_coef(p)
+            record(rank, "pb_dequant_v2", name, p, 0, "f32", got, want, torch.equal(got, want),
+                   functools.partial(pf.launch_dequant, p, coef, torch.float32),
+                   functools.partial(pf.dequant_v2_binary_plain, p), None,
+                   bound(4 * p.sign_packed.numel() + 8 * p.oc_local + 4 * got.numel(),
+                         2 * p.ic_local * p.oc_local, F32_FLOPS_PER_S))
+            del got, want, wb
+    del llama, stacked, lp, sl
+    opt = tp_params("opt", 2)
+    for rank in range(TP):
+        lp = tp_rank_tree(opt, "opt", rank)["layers"][0]
+        for name in TP_SHARD_NAMES["opt"]:
+            p = lp[name]
+            w = dequantize(p)
+            wb = w.to(torch.bfloat16)
+
+            def f32(x, w=w, rank=rank):  # the f32 matmul beside the bf16 one, rank 0 timed
+                return {"library_f32_ms": timer(lambda: x @ w)} if rank == 0 else {}
+
+            def nbytes(m, p=p):
+                return 4 * (m * p.ic_local + m * p.oc_local) + v1_plane_bytes(p)
+
+            x = torch.randn((m_dec, p.ic_local), generator=gen, device=DEV)
+            xb = x.to(torch.bfloat16)
+            arm = v1.planar_arm(p)
+            got, want = v1.pb_planar_v1(x, p), v1.pb_planar_v1_plain(x, p)
+            mac = 2 * m_dec * p.ic_local * p.oc_local
+            record(rank, "pb_planar_v1", name, p, m_dec, arm, got, want,
+                   bool(torch.all((got - want).abs() <= V1_ATOL + V1_RTOL * want.abs())),
+                   functools.partial(v1.launch_planar, x, p, arm),
+                   functools.partial(v1.pb_planar_v1_plain, x, p), lambda: xb @ wb,
+                   bound(nbytes(m_dec), 9 * mac if arm == "tc" else mac,
+                         BF16_FLOPS_PER_S if arm == "tc" else F32_FLOPS_PER_S),
+                   groupsize=p.groupsize, group_rows=p.low_scale.shape[-2],
+                   use_planar=v1.use_planar(m_dec, p), **f32(x))
+            m = MATMUL_MS[1]
+            x = torch.randn((m, p.ic_local), generator=gen, device=DEV)
+            xb = x.to(torch.bfloat16)
+            arm = v1.select_arm(m, p)
+            got = v1.pb_select_v1(x, p, torch.float32)
+            want = v1.pb_select_v1_plain(x, p, torch.float32)
+            mac = 2 * m * p.ic_local * p.oc_local
+            n_tc = len(v1.select_products(torch.float32))
+            record(rank, "pb_select_v1", name, p, m, arm, got, want,
+                   bool(torch.all((got - want).abs() <= V1_ATOL + V1_RTOL * want.abs())),
+                   functools.partial(v1.launch_select, x, p, torch.float32, arm),
+                   functools.partial(v1.pb_select_v1_plain, x, p, torch.float32),
+                   lambda: xb @ wb,
+                   bound(nbytes(m), n_tc * mac if arm == "tc" else mac,
+                         BF16_FLOPS_PER_S if arm == "tc" else F32_FLOPS_PER_S),
+                   groupsize=p.groupsize, group_rows=p.low_scale.shape[-2], **f32(x))
+            del x, xb, got, want, w, wb
+    del opt, lp
+    tag = {"phase": "tp_shard", "tp": TP}
+    heads = llama7b(1).num_attention_heads // TP
+    att = check_attention(timer, card, shape=(8, 2048, heads, heads, 128), arms=("int8",),
+                          tag=tag)
+    paged = check_paged_attention(timer, card, cases=(
+        ("tp_decode", m_dec, 1, heads, heads, 128, "int8", 300),
+        ("tp_verify_t5", m_dec, 5, heads, heads, 128, "int8", 300)), tag=tag)
+    return rows + att + paged
+
+
+def tp_params(model: str, layers: int):
+    """15's random planes, made on the card from a seed (every rank makes
+    the same): llama-7b PBW v2 with pack_block 128 and o_proj / down_proj
+    shard-major for tp = 2, or OPT-1.3B PBW v1 in groups of 128."""
+    from pb_llm_tpu_torch.data.synthetic import random_packed_llama, random_packed_opt
+
+    if model == "opt":
+        return random_packed_opt(opt13b(layers), torch.Generator(device=DEV).manual_seed(16),
+                                 groupsize=128)
+    return random_packed_llama(llama7b(layers), torch.Generator(device=DEV).manual_seed(15),
+                               pack_block=TP_PACK_BLOCK, row_shards=TP)
+
+
+def tp_prompts(vocab: int):
+    """15a's four prompts: A of 300 tokens (chunked at 256), B sharing A's
+    first 256 (a prefix-cache hit once A has registered), C and D of 40 and
+    70 (one batched prefill)."""
+    rng = np.random.default_rng(15)
+    a = rng.integers(0, vocab, 300).tolist()
+    return (a, a[:256] + rng.integers(0, vocab, 24).tolist(),
+            rng.integers(0, vocab, 40).tolist(), rng.integers(0, vocab, 70).tolist())
+
+
+_REFERENCE_COUNT = {}
+
+
+def count_reference_matmuls() -> dict:
+    """Count the plain-reference matmuls the dispatch runs on a CUDA tensor
+    (`binary_matmul.matmul_reference` / `_v2`: a layout no kernel arm
+    takes), from the first call on; returns the live count."""
+    from pb_llm_tpu_torch.ops import binary_matmul as bm
+
+    if not _REFERENCE_COUNT:
+        _REFERENCE_COUNT["reference_matmuls"] = 0
+
+        def counted(fn):
+            def ref(x, p):
+                _REFERENCE_COUNT["reference_matmuls"] += x.device.type == "cuda"
+                return fn(x, p)
+            return ref
+
+        bm.matmul_reference, bm.matmul_reference_v2 = (counted(bm.matmul_reference),
+                                                       counted(bm.matmul_reference_v2))
+    return _REFERENCE_COUNT
+
+
+def tp_plan(eng, prompts, steps: int, forced=None):
+    """15a's plan on either engine: C and D in one batched prefill, A (in
+    chunks on an engine with prefill_chunk), then B (its suffix on the
+    prefix cache), then ``steps`` decode steps; with ``forced`` ({slot:
+    tokens}) every step feeds the forced tokens instead of the engine's.
+    Returns ({slot: tokens}, {slot: [prefill logits, step logits...]})."""
+    a, b, c, d = prompts
+    toks = dict(eng.prefill_batch([(2, c), (3, d)]))
+    if eng.ecfg.prefill_chunk:
+        eng.start_chunked_prefill(0, a)
+        while (t := eng.prefill_chunk_step(0)) is None:
+            pass
+        toks[0] = t
+    else:
+        toks[0] = eng.prefill(0, a)
+    toks[1] = eng.prefill(1, b)
+    out = {s: [toks[s]] for s in range(4)}
+    logits = {s: [eng._prefill_logits[s].float().cpu()] for s in range(4)}
+    inner, rec = eng._step_logits, []
+
+    def recorded():  # each step's logits, read before the next step
+        rec.append(inner())
+        return rec[-1]
+
+    eng._step_logits = recorded
+    for k in range(steps):
+        if forced is not None:
+            for s in range(4):
+                eng.last_token[s] = forced[s][k]
+            eng._grow_active(1, "forced step")
+            step = eng._step_logits()
+            for s in range(4):
+                eng.lengths[s] += 1
+                out[s].append(int(torch.argmax(step[s])))
+        else:
+            new = eng.decode_step()
+            for s in range(4):
+                out[s].append(new[s])
+        for s in range(4):
+            logits[s].append(rec[-1][s].float().cpu())
+    eng._step_logits = inner
+    for s in range(4):
+        eng.release(s)
+    return out, logits
+
+
+def tp_expected_matmuls(eng, forwards, arms: str) -> dict:
+    """The matmul kernels a TP rank must launch for ``forwards`` (kind,
+    rows): every local packed linear once a forward, on the arm the
+    dispatch's own rules pick for that forward's rows and that LOCAL layout
+    (`packed_matmul.int8_arm` / `f32_arm`, the stacked entry up to
+    STACKED_MAX_M, the hybrid prefill's dequant from V2_PREFILL_M;
+    `packed_matmul_v1.use_planar` / `planar_arm` / `select_arm`), and the
+    int8 path's x preparation once a linear."""
+    from pb_llm_tpu_torch.core.pbw import PackedLinearV2
+    from pb_llm_tpu_torch.models import stacking
+    from pb_llm_tpu_torch.ops import packed_matmul as pm
+    from pb_llm_tpu_torch.ops import packed_matmul_v1 as v1
+
+    stacked = stacking.is_stacked(eng.params)
+    if stacked:
+        layers = [(stacking.layer_view(v, 0), v) for v in eng.params["layers_stacked"].values()
+                  if hasattr(v, "sign_packed")]
+        mult = eng.params["num_layers"]
+    else:
+        layers = [(v, None) for lp in eng.params["layers"] for v in lp.values()
+                  if hasattr(v, "sign_packed")]
+        mult = 1
+    suffix = {"cores": "", "tc": "_tc", "split": "_split", "dp4a": ""}
+    out = {}
+    for _, m in forwards:
+        for p, sp in layers:
+            if not isinstance(p, PackedLinearV2):
+                name = (PLANAR_COUNTERS[v1.planar_arm(p)] if v1.use_planar(m, p) else
+                        "pb_select_v1" + suffix[v1.select_arm(m, p)])
+            elif arms == "int8":
+                base = ("pb_int8_matmul_stacked" if sp is not None and m <= pm.STACKED_MAX_M
+                        and pm.stacked_supported_v2(sp) else "pb_int8_matmul")
+                name = base + suffix[pm.int8_arm(m, p)]
+                out["pb_prep_int8"] = out.get("pb_prep_int8", 0) + mult
+            elif sp is not None and m <= pm.STACKED_MAX_M and pm.stacked_supported_v2(sp):
+                name = "pb_f32_matmul_stacked" + suffix[pm.f32_arm(m, p)]
+            elif m >= pm.V2_PREFILL_M:
+                name = "pb_dequant_v2"
+            else:
+                name = "pb_f32_matmul" + suffix[pm.f32_arm(m, p)]
+            out[name] = out.get(name, 0) + mult
+    return out
+
+
+MATMUL_COUNTERS = ("pb_int8_matmul", "pb_int8_matmul_tc", "pb_int8_matmul_split",
+                   "pb_int8_matmul_stacked", "pb_int8_matmul_stacked_tc",
+                   "pb_int8_matmul_stacked_split", "pb_prep_int8", "pb_f32_matmul",
+                   "pb_f32_matmul_tc", "pb_f32_matmul_split", "pb_f32_matmul_stacked",
+                   "pb_f32_matmul_stacked_tc", "pb_f32_matmul_stacked_split", "pb_dequant_v2",
+                   "pb_planar_v1", "pb_planar_v1_tc", "pb_select_v1", "pb_select_v1_tc",
+                   "pb_pair_v2", "pb_pair_v2_split", "pb_pair_v2_tc", "pb_dma_v2",
+                   "pb_dma_v2_split")
+
+
+def tp_engine_for(name: str, model: str, ekw: dict, kkw, mesh=None):
+    """One of 15a's engines on 2 full-width layers: the single-process
+    `Engine` (``mesh`` None) or this rank's `TPEngine`."""
+    from pb_llm_tpu_torch.models.registry import family_for
+    from pb_llm_tpu_torch.ops.kernel_config import KernelConfig
+    from pb_llm_tpu_torch.runtime.engine import Engine, EngineConfig
+    from pb_llm_tpu_torch.runtime.tp_engine import TPEngine
+
+    cfg = opt13b(2) if model == "opt" else llama7b(2)
+    ecfg = EngineConfig(**TP_ECFG, kernels=None if kkw is None else KernelConfig(**kkw), **ekw)
+    params = tp_params(model, 2)
+    if mesh is None:
+        return Engine(params, cfg, family_for(model), ecfg, device=DEV), cfg
+    return TPEngine(params, cfg, family_for(model), ecfg, mesh, device=DEV), cfg
+
+
+def shard_split_engine(name: str, model: str, ekw: dict, kkw):
+    """15a's reference for an int8 engine: the single-process `Engine` on
+    the unsharded planes, whose row-parallel linears (o_proj, down_proj)
+    run the plain int8 version over each rank's ic block of x (its own
+    per-row absmax) and that rank's local view (`collectives.local_linear`),
+    the blocks' partial sums added in rank order, then the bias.  Drive it
+    under `step_graph.eager()`: the plain version reads device values on
+    the host, which a CUDA graph cannot hold."""
+    from pb_llm_tpu_torch.models.linear import apply_linear
+    from pb_llm_tpu_torch.ops import packed_matmul as pm
+    from pb_llm_tpu_torch.ops.kernel_config import use_kernels
+    from pb_llm_tpu_torch.parallel.collectives import local_linear
+    from pb_llm_tpu_torch.parallel.mesh import Mesh
+    from pb_llm_tpu_torch.parallel.sharding import ROW_PARALLEL
+
+    eng, cfg = tp_engine_for(name, model, ekw, kkw)
+    blocks = {}
+    for lp in eng.params["layers"]:
+        for n in [n for n in lp if n in ROW_PARALLEL]:
+            views = [local_linear(n, lp[n], Mesh(1, TP, rank=r)) for r in range(TP)]
+            blocks[id(lp[n])] = [dataclasses.replace(v, bias=None) for v in views], lp[n].bias
+
+    def linear(n, lin, x):
+        if id(lin) not in blocks:
+            return apply_linear(lin, x)
+        views, bias = blocks[id(lin)]
+        xf, y, off = x.reshape(-1, x.shape[-1]), None, 0
+        for v in views:
+            part = pm.pb_int8_matmul_plain(xf[:, off:off + v.ic], v).to(x.dtype)
+            y, off = part if y is None else y + part, off + v.ic
+        y = y if bias is None else y + bias.to(y.dtype)
+        return y.reshape(*x.shape[:-1], -1)
+
+    def run(ids, caches, pos):
+        with torch.inference_mode(), use_kernels(eng.ecfg.kernels):
+            logits, _ = eng.fam.forward(eng.params, ids, eng.cfg, kv_caches=caches, pos=pos,
+                                        linear_fn=linear)
+        return logits
+
+    eng._run = run
+    return eng, cfg
+
+
+def tp_arm_table(eng, arms: str) -> dict:
+    """Each local linear's shard shape and the kernel arm it takes at a
+    decode step (n_slots rows) and at a 512-row prefill."""
+    from pb_llm_tpu_torch.core.pbw import PackedLinearV2
+    from pb_llm_tpu_torch.models import stacking
+    from pb_llm_tpu_torch.ops import packed_matmul as pm
+    from pb_llm_tpu_torch.ops import packed_matmul_v1 as v1
+
+    lp = (eng.params["layers"][0] if "layers" in eng.params else
+          {n: stacking.layer_view(v, 0) for n, v in eng.params["layers_stacked"].items()
+           if hasattr(v, "sign_packed")})
+    out, m = {}, eng.ecfg.n_slots
+    for n, p in lp.items():
+        if not hasattr(p, "sign_packed"):
+            continue
+        if not isinstance(p, PackedLinearV2):
+            arm = {"decode": "planar " + v1.planar_arm(p) if v1.use_planar(m, p) else
+                   "select " + v1.select_arm(m, p), "prefill": "select " + v1.select_arm(512, p)}
+        elif arms == "int8":
+            arm = {"decode": "int8 " + pm.int8_arm(m, p), "prefill": "int8 " + pm.int8_arm(512, p)}
+        else:
+            arm = {"decode": "f32 " + pm.f32_arm(m, p), "prefill": "hybrid dequant"}
+        out[n] = {"ic": p.ic_local, "oc": p.oc_local, **arm}
+    return out
+
+
+def tp_rank_15a(rank: int, refs: dict) -> dict:
+    """A rank of 15a: each engine of TP_ENGINES on this rank's shard, the
+    plan (teacher-forced on the single-process tokens for the int8 arms,
+    greedy for the exact arms), launches by kind against the forwards, and
+    the int8 paged engine's greedy streams through ContinuousBatcher with
+    spec_gamma 4."""
+    from pb_llm_tpu_torch.parallel import mesh as pmesh
+    from pb_llm_tpu_torch.runtime.batching import ContinuousBatcher
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    refcount = count_reference_matmuls()
+    mesh = pmesh.make_mesh(dp=1, tp=TP)
+    out = {}
+    for name, model, ekw, kkw, held in TP_ENGINES:
+        eng, cfg = tp_engine_for(name, model, ekw, kkw, mesh)
+        fwds = []
+        restore = count_forwards(eng, lambda kind, rows, *_: fwds.append((kind or "prefill", rows)))
+        zero_counters()
+        refcount["reference_matmuls"] = 0
+        toks, logits = tp_plan(eng, tp_prompts(cfg.vocab_size), TP_STEPS,
+                               refs[name]["tokens"] if held == "forced" else None)
+        torch.cuda.synchronize()
+        launches = read_counters()
+        restore()
+        arms = "exact" if kkw else "int8"
+        res = {"tokens": toks, "logits": logits, "launches": launches, "forwards": fwds,
+               "expected_matmuls": tp_expected_matmuls(eng, fwds, arms),
+               "reference_matmuls": refcount["reference_matmuls"], "describe": eng.describe(),
+               "arms": tp_arm_table(eng, arms)}
+        if name == "int8_paged":  # the verify windows: greedy streams with spec_gamma 4
+            reqs = e2e_requests(cfg.vocab_size)[:4]
+            fwds = []
+            restore = count_forwards(eng, lambda kind, rows, *_: fwds.append((kind or "prefill",
+                                                                              rows)))
+            zero_counters()
+            refcount["reference_matmuls"] = 0
+            batcher = ContinuousBatcher(eng)
+            batcher.run(reqs)
+            torch.cuda.synchronize()
+            restore()
+            res["spec"] = {"streams": [r.output_ids for r in reqs],
+                           "drafted": batcher.stats.spec_drafted, "launches": read_counters(),
+                           "forwards": fwds, "expected_matmuls": tp_expected_matmuls(eng, fwds, arms),
+                           "reference_matmuls": refcount["reference_matmuls"]}
+        out[name] = res
+        del eng
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_check_launches(what: str, res: dict) -> None:
+    """A rank's matmul launches equal `tp_expected_matmuls` by kind, an
+    attention kernel ran, and no plain-reference matmul."""
+    got = {c: res["launches"][c] for c in MATMUL_COUNTERS}
+    want = {c: res["expected_matmuls"].get(c, 0) for c in MATMUL_COUNTERS}
+    att = sum(res["launches"][c] for c in ("decode_attention", "paged_attention_split",
+                                           "paged_attention_cuda_cores",
+                                           "paged_attention_window"))
+    if got != want or not any(want.values()) or att == 0:
+        raise AssertionError(f"{what}: launches {got}, expected {want}, attention {att}")
+    if res["reference_matmuls"]:
+        raise AssertionError(f"{what}: plain-reference matmuls ran on the card")
+
+
+def tp_parity(card: str) -> dict:
+    """Phase 15a: two gloo ranks share the card (`parallel.mesh`'s backend
+    rule), each holding its shard of 2 full-width layers, in the four
+    engines of TP_ENGINES, against the single-process engine on the same
+    unsharded planes.  The int8 arms (int8 strips; an int8 paged pool with
+    the prefix cache, prefill_chunk 256, batched prefill and spec_gamma 4)
+    are teacher-forced on the single-process tokens.  Each shard quantizes
+    its own x columns, so they are held to the single-process engine that
+    does the same (`shard_split_engine`) on those tokens: the logits at
+    every prefill and step within phase 3's LOGIT_TOL of its max|logit|,
+    the forced tokens' NLL within NLL_RTOL; their distances from the plain
+    single-process int8 run and from the exact arms are logged.  The exact
+    arms (scan_layers with decode_dot f32
+    and the hybrid prefill; OPT-1.3B on PBW v1 in groups of 128, f32 KV)
+    give the single-process greedy streams token for token, but for
+    near-ties (MARGIN of max|logit| at the first parting, the reference's
+    logits there).  Every rank's tokens and logits equal rank 0's bit for
+    bit; each rank's matmul launches equal `tp_expected_matmuls` by arm,
+    attention launched, and no plain-reference matmul ran on the card."""
+    from pb_llm_tpu_torch.parallel import mesh as pmesh
+    from pb_llm_tpu_torch.runtime import step_graph
+    from pb_llm_tpu_torch.runtime.batching import ContinuousBatcher
+
+    refcount = count_reference_matmuls()
+    refs = {}
+    t0 = time.perf_counter()
+    for name, model, ekw, kkw, held in TP_ENGINES:
+        eng, cfg = tp_engine_for(name, model, ekw, kkw)
+        refcount["reference_matmuls"] = 0
+        toks, logits = tp_plan(eng, tp_prompts(cfg.vocab_size), TP_STEPS)
+        # the forced steps' inputs: the single-process tokens before each step
+        refs[name] = {"tokens": {s: t[:TP_STEPS] for s, t in toks.items()}, "all_tokens": toks,
+                      "logits": logits, "reference_matmuls": refcount["reference_matmuls"]}
+        if held == "forced":  # x quantized per shard, and the exact arms, on the same tokens
+            sx, _ = shard_split_engine(name, model, ekw, kkw)
+            with step_graph.eager():
+                refs[name]["split_logits"] = tp_plan(sx, tp_prompts(cfg.vocab_size), TP_STEPS,
+                                                     refs[name]["tokens"])[1]
+            ex, _ = tp_engine_for(name, model, ekw, TP_EXACT_ARMS)
+            refs[name]["exact_logits"] = tp_plan(ex, tp_prompts(cfg.vocab_size), TP_STEPS,
+                                                 refs[name]["tokens"])[1]
+            del sx, ex
+        if name == "int8_paged":
+            reqs = e2e_requests(cfg.vocab_size)[:4]
+            ContinuousBatcher(eng).run(reqs)
+            refs[name]["spec_streams"] = [r.output_ids for r in reqs]
+        del eng
+        torch.cuda.empty_cache()
+    single_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = pmesh.run_ranks(tp_rank_15a, TP, ({n: {"tokens": r["tokens"]}
+                                                for n, r in refs.items()},), device=DEV)
+    tp_s = time.perf_counter() - t0
+    out = {"launches": {}}
+    for name, model, ekw, kkw, held in TP_ENGINES:
+        ref, r0 = refs[name], ranks[0][name]
+        what = f"phase 15a ({name})"
+        for r in ranks[1:]:
+            same = r[name]["tokens"] == r0["tokens"] and all(
+                torch.equal(a, b) for s in r0["logits"]
+                for a, b in zip(r[name]["logits"][s], r0["logits"][s]))
+            if not same or r[name].get("spec", {}).get("streams") != r0.get("spec", {}).get(
+                    "streams"):
+                raise AssertionError(f"{what}: a rank's tokens or logits differ from rank 0's")
+        def apart(a, b):
+            return max(float((x - y).abs().max()) for s in a for x, y in zip(a[s], b[s]))
+
+        scale = max(float(x.abs().max()) for s in ref["logits"] for x in ref["logits"][s])
+        err = apart(ref["logits"], r0["logits"])
+        row = {"phase": "tp_parity", "engine": name, "model": model, "layers": 2, "tp": TP,
+               "held": held, "max_abs_logit_err": err, "max_abs_logit": scale,
+               "err_over_max_logit": err / scale, "describe": r0["describe"], "card": card}
+        if held == "forced":
+            nll = {}
+            for side, lg in (("single", ref["logits"]), ("tp", r0["logits"]),
+                             ("split", ref["split_logits"]), ("exact", ref["exact_logits"])):
+                nll[side] = float(np.mean([
+                    -float(torch.log_softmax(lg[s][k], -1)[ref["all_tokens"][s][k]])
+                    for s in lg for k in range(len(lg[s]))]))
+            split = max(float(x.abs().max()) for s in ref["split_logits"]
+                        for x in ref["split_logits"][s])
+            row.update(nll=nll, logit_tol=LOGIT_TOL, nll_rtol=NLL_RTOL,
+                       tp_from_split=apart(r0["logits"], ref["split_logits"]) / split,
+                       single_from_split=apart(ref["logits"], ref["split_logits"]) / split,
+                       single_from_exact=apart(ref["logits"], ref["exact_logits"]) / scale,
+                       tp_from_exact=apart(r0["logits"], ref["exact_logits"]) / scale,
+                       argmax_agree_split=sum(
+                           int(torch.argmax(a)) == int(torch.argmax(b))
+                           for s in ref["split_logits"]
+                           for a, b in zip(ref["split_logits"][s], r0["logits"][s])))
+            if (row["tp_from_split"] > LOGIT_TOL
+                    or abs(nll["tp"] - nll["split"]) > NLL_RTOL * abs(nll["split"])):
+                raise AssertionError(f"{what}: {row}")
+        else:
+            ties = []
+            for s in ref["all_tokens"]:
+                k, gap = first_parting(r0["tokens"][s], ref["all_tokens"][s], ref["logits"][s])
+                if k is not None:
+                    ties.append({"slot": s, "first_diff": k, "gap_over_max": gap})
+                    if gap > MARGIN:
+                        raise AssertionError(f"{what}: slot {s} parts at token {k}, top-2 gap "
+                                             f"{gap} of max|logit| > {MARGIN}")
+            row["near_ties"] = ties
+        if name == "int8_paged":
+            k = [next((i for i, (a, b) in enumerate(zip(g, w)) if a != b), None)
+                 for g, w in zip(r0["spec"]["streams"], ref["spec_streams"])]
+            row.update(spec_drafted=r0["spec"]["drafted"], spec_streams_first_parting=k)
+            if not r0["spec"]["drafted"]:
+                raise AssertionError(f"{what}: the spec pass verified no draft")
+        if ref["reference_matmuls"]:
+            raise AssertionError(f"{what}: plain-reference matmuls ran on the card")
+        for rank, r in enumerate(ranks):
+            for part in (r[name], r[name].get("spec")):
+                if part is not None:
+                    tp_check_launches(f"{what} rank {rank}", part)
+                    for c, v in part["launches"].items():
+                        out["launches"][c] = out["launches"].get(c, 0) + v
+        row["launches_rank0"] = {c: v for c, v in r0["launches"].items() if v}
+        log(json.dumps(row))
+        out[name] = row
+    for name, model, *_ in TP_ENGINES:
+        log(json.dumps({"phase": "tp_arms", "engine": name, "model": model, "tp": TP,
+                        "by_layer": ranks[0][name]["arms"]}))
+    log(json.dumps({"phase": "tp_parity_time", "single_s": single_s, "tp_ranks_s": tp_s}))
+    return out
+
+
+def tp_graph_nccl(params, card: str, phase4: dict) -> dict:
+    """Phase 15b: a 1-rank NCCL group (`parallel.mesh.multihost_initialize`,
+    the backend rule's pick for one rank on one card), `TPEngine(tp=1)` on
+    phase 4's 32-layer model, graphed (the all_reduce after each row-parallel
+    linear captured in the step's CUDA graph), serving phase 4's 16 requests
+    beside the plain `Engine` graphed on the same planes: equal streams and
+    every decode step's logits bit for bit, launches by kind as phase 4's
+    rule, none a plain-reference matmul; ms a step beside phase 4's."""
+    import torch.distributed as dist
+
+    from pb_llm_tpu_torch.models.registry import family_for
+    from pb_llm_tpu_torch.parallel import mesh as pmesh
+    from pb_llm_tpu_torch.runtime.engine import Engine, EngineConfig
+    from pb_llm_tpu_torch.runtime.tp_engine import TPEngine
+
+    cfg = llama7b(32)
+    refcount = count_reference_matmuls()
+    backend = pmesh.multihost_initialize(pmesh.free_address(), 1, 0, device=DEV)
+    try:
+        mesh = pmesh.make_mesh(dp=1, tp=1)
+        runs = {}
+        for name in ("engine", "tp"):
+            ecfg = EngineConfig(n_slots=8, max_seq=2048)
+            eng = (Engine(params, cfg, family_for("llama"), ecfg, device=DEV) if name == "engine"
+                   else TPEngine(params, cfg, family_for("llama"), ecfg, mesh, device=DEV))
+            steps, step = [], eng._step_logits
+
+            def recorded(step=step, steps=steps, eng=eng):
+                out = step()
+                steps.append(out[torch.from_numpy(eng.active).to(out.device)].cpu())
+                return out
+
+            eng._step_logits = recorded
+            refcount["reference_matmuls"] = 0
+            reqs = e2e_requests(cfg.vocab_size)
+            batcher, launches, fwds, step_ms, _, prefill_ms = run_counted(eng, reqs)
+            n_linear = 7 * cfg.num_hidden_layers
+            by_arm = int8_launches([m for _, m in fwds], n_linear, first_linear(params))
+            n_decode = sum(k == "decode" for k, _ in fwds)
+            want = expect_launches(**by_arm, pb_prep_int8=sum(by_arm.values()),
+                                   **attention_launches(cfg.num_hidden_layers * n_decode))
+            if launches != want:
+                raise AssertionError(f"phase 15b ({name}): launches {launches}, expected {want}")
+            eng._step_logits = step
+            trace = profile_decode(eng, "graph", what=f"phase 15b {name}")
+            runs[name] = {"streams": [r.output_ids for r in reqs], "steps": steps,
+                          "trace": trace, "ms_per_decode_step_median": statistics.median(step_ms),
+                          "tokens_per_s": batcher.stats.tokens_per_second,
+                          "replays": eng._step.replays, "launches": launches,
+                          "reference_matmuls": refcount["reference_matmuls"],
+                          "describe": eng.describe() if name == "tp" else None}
+            del eng
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    e, t = runs["engine"], runs["tp"]
+    equal = (e["streams"] == t["streams"] and len(e["steps"]) == len(t["steps"])
+             and all(torch.equal(a, b) for a, b in zip(e["steps"], t["steps"])))
+    # where TPEngine(tp=1)'s step spends device time the Engine's does not:
+    # each kernel's device ms a step (three traced replays of each graph)
+    names = set(e["trace"]) | set(t["trace"])
+    diff = {n: (t["trace"].get(n, (0.0, 0))[0] - e["trace"].get(n, (0.0, 0))[0],
+                t["trace"].get(n, (0.0, 0))[1] - e["trace"].get(n, (0.0, 0))[1]) for n in names}
+    log(json.dumps({"phase": "tp_graph_trace", "tp": 1, "layers": 32,
+                    "engine_device_ms_per_step": sum(v[0] for v in e["trace"].values()),
+                    "tp_device_ms_per_step": sum(v[0] for v in t["trace"].values()),
+                    "nccl_device_ms_per_step": sum(v[0] for n, v in t["trace"].items()
+                                                   if "nccl" in n.lower()),
+                    "nccl_launches_per_step": sum(v[1] for n, v in t["trace"].items()
+                                                  if "nccl" in n.lower()),
+                    "largest_differences": [
+                        {"name": n[:80], "device_ms_per_step": d, "launches_per_step": c}
+                        for n, (d, c) in sorted(diff.items(), key=lambda kv: -abs(kv[1][0]))[:8]],
+                    "card": card}))
+    row = {"phase": "tp_graph_nccl", "backend": backend, "tp": 1, "layers": 32,
+           "describe": t["describe"], "bitwise_equal": equal, "decode_steps": len(t["steps"]),
+           "tp_ms_per_decode_step_median": t["ms_per_decode_step_median"],
+           "engine_ms_per_decode_step_median": e["ms_per_decode_step_median"],
+           "phase4_ms_per_decode_step_median": phase4["ms_per_decode_step_median"],
+           "tp_tokens_per_s": t["tokens_per_s"], "engine_tokens_per_s": e["tokens_per_s"],
+           "tp_graph_replays": t["replays"], "card": card}
+    log(json.dumps(row))
+    if not equal:
+        raise AssertionError("phase 15b: TPEngine(tp=1) and Engine differ")
+    if t["reference_matmuls"] or e["reference_matmuls"]:
+        raise AssertionError("phase 15b: plain-reference matmuls ran on the card")
+    if backend != "nccl" or not t["replays"]:
+        raise AssertionError(f"phase 15b: backend {backend}, {t['replays']} replays")
+    row["launches"] = t["launches"]
+    return row
+
+
+def timed_collectives():
+    """Wrap `torch.distributed.all_reduce` / `all_gather`, which the TP
+    modules call, with a host clock (the device synchronised before each
+    call, so queued kernels are not counted).  Returns (the list of call
+    ms, a function that unwraps them)."""
+    import torch.distributed as dist
+
+    spent, inner = [], (dist.all_reduce, dist.all_gather)
+
+    def timed(fn):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            spent.append((time.perf_counter() - t) * 1e3)
+            return out
+        return call
+
+    def restore():
+        dist.all_reduce, dist.all_gather = inner
+
+    dist.all_reduce, dist.all_gather = timed(dist.all_reduce), timed(dist.all_gather)
+    return spent, restore
+
+
+def gloo_cuda_check(rank: int, mesh, iters: int = 50) -> dict:
+    """all_reduce (sum) of an [8, 4096] f32 CUDA tensor and all_gather of
+    an [8, 16000] one (a decode step's row-parallel output and half of
+    llama-7b's logits) over the rank's gloo group: right values on every
+    rank, and each call's host time (the device synchronised after it)."""
+    import torch.distributed as dist
+
+    x = torch.full((8, 4096), float(rank + 1), device=DEV)
+    dist.all_reduce(x, group=mesh.tp_group)
+    y = torch.arange(8 * 16000, dtype=torch.float32, device=DEV).reshape(8, 16000) + rank
+    parts = [torch.empty_like(y) for _ in range(mesh.tp)]
+    dist.all_gather(parts, y, group=mesh.tp_group)
+    ok = bool((x == mesh.tp * (mesh.tp + 1) / 2).all()) and all(
+        torch.equal(p, y - rank + r) for r, p in enumerate(parts))
+    out = {"ok": ok}
+    for name, call in (("all_reduce_ms", lambda: dist.all_reduce(x, group=mesh.tp_group)),
+                       ("all_gather_ms", lambda: dist.all_gather(parts, y, group=mesh.tp_group))):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(iters):
+            call()
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t) / iters * 1e3
+    return out
+
+
+def tp_rank_15c(rank: int) -> dict:
+    """A rank of 15c: its shard of the 32-layer model, phase 4's requests,
+    served once as they are (launches, tokens/s, ms a step, peak memory),
+    then the first 8 once more with the collectives timed (their ms a
+    step)."""
+    from pb_llm_tpu_torch.models.registry import family_for
+    from pb_llm_tpu_torch.parallel import mesh as pmesh
+    from pb_llm_tpu_torch.runtime.batching import ContinuousBatcher
+    from pb_llm_tpu_torch.runtime.engine import EngineConfig
+    from pb_llm_tpu_torch.runtime.tp_engine import TPEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    refcount = count_reference_matmuls()
+    mesh = pmesh.make_mesh(dp=1, tp=TP)
+    gloo = gloo_cuda_check(rank, mesh)
+    cfg = llama7b(32)
+    t0 = time.perf_counter()
+    eng = TPEngine(tp_params("llama", 32), cfg, family_for("llama"),
+                   EngineConfig(n_slots=8, max_seq=2048), mesh, device=DEV)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    refcount["reference_matmuls"] = 0
+    reqs = e2e_requests(cfg.vocab_size)
+    batcher, launches, fwds, step_ms, _, prefill_ms = run_counted(eng, reqs)
+    n_decode = sum(k == "decode" for k, _ in fwds)
+    want = expect_launches(**tp_expected_matmuls(eng, fwds, "int8"),
+                           **attention_launches(cfg.num_hidden_layers * n_decode))
+    s = batcher.stats
+    out = {"gloo": gloo, "streams": [r.output_ids for r in reqs], "launches": launches,
+           "want": want, "reference_matmuls": refcount["reference_matmuls"],
+           "describe": eng.describe(), "tokens_per_s": s.tokens_per_second,
+           "wall_s": s.wall_seconds, "generated_tokens": s.generated_tokens,
+           "decode_steps": len(step_ms), "ms_per_decode_step_median": statistics.median(step_ms),
+           "prefill_ms_total": sum(prefill_ms), "build_s": build_s,
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "done": all(r.done and len(r.output_ids) == r.max_new_tokens for r in reqs)}
+    # a second pass, of the first 8 requests (one batch: every step all-reduces
+    # the same [8, 4096] rows), for the collectives' share: each timed on the
+    # host clock between two synchronisations, which slows the step it is in
+    spent, restore = timed_collectives()
+    step_spent, step_total = [], []
+    step = eng.decode_step
+
+    def counted_step():
+        n = len(spent)
+        t = time.perf_counter()
+        res = step()
+        torch.cuda.synchronize()
+        step_total.append((time.perf_counter() - t) * 1e3)
+        step_spent.append(sum(spent[n:]))
+        return res
+
+    eng.decode_step = counted_step
+    try:
+        ContinuousBatcher(eng).run(e2e_requests(cfg.vocab_size)[:8])
+    finally:
+        restore()
+        del eng.decode_step
+    out.update(collective_ms_per_decode_step_median=statistics.median(step_spent),
+               timed_pass_ms_per_decode_step_median=statistics.median(step_total),
+               collectives_per_decode_step=2 * cfg.num_hidden_layers + 1)
+    return out
+
+
+def tp_e2e(card: str) -> dict:
+    """Phase 15c: two gloo ranks share the card, each with its shard of the
+    32-layer full-width llama-7b (15a's pack settings), eager, serving phase
+    4's 16 requests of 32 new tokens: every request retires, each rank's
+    launches match its forwards (`tp_expected_matmuls`, one decode attention
+    a layer a step), no plain-reference matmul; tokens/s, ms a step, each
+    rank's peak memory, and where each stream first parts from the
+    single-process engine (graphed) on the same planes (logged: the int8
+    arms part over 24-32 layers, ROADMAP Queue 3); ms a step in collectives
+    from a second pass of the first 8 requests that times them (`tp_rank_15c`)."""
+    from pb_llm_tpu_torch.models.registry import family_for
+    from pb_llm_tpu_torch.parallel import mesh as pmesh
+    from pb_llm_tpu_torch.runtime.batching import ContinuousBatcher
+    from pb_llm_tpu_torch.runtime.engine import Engine, EngineConfig
+
+    cfg = llama7b(32)
+    eng = Engine(tp_params("llama", 32), cfg, family_for("llama"),
+                 EngineConfig(n_slots=8, max_seq=2048), device=DEV)
+    reqs = e2e_requests(cfg.vocab_size)
+    ContinuousBatcher(eng).run(reqs)
+    single = [r.output_ids for r in reqs]
+    del eng
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = pmesh.run_ranks(tp_rank_15c, TP, (), device=DEV)
+    r0 = ranks[0]
+    log(json.dumps({"phase": "tp_gloo_check", "backend": "gloo", "ranks": TP,
+                    "by_rank": [r["gloo"] for r in ranks], "card": card}))
+    if not all(r["gloo"]["ok"] for r in ranks):
+        raise AssertionError("phase 15c: gloo all_reduce / all_gather of CUDA tensors is wrong")
+    row = {"phase": "tp_e2e", "model": "llama-7b PBW-v2 (random planes, low_frac 0.9, pack_block "
+           f"{TP_PACK_BLOCK}, o/down shard-major)", "layers": 32, "tp": TP, "slots": 8,
+           "max_seq": 2048, "requests": len(single), "describe": r0["describe"],
+           "ranks_s": time.perf_counter() - t0,
+           **{k: r0[k] for k in ("tokens_per_s", "wall_s", "generated_tokens", "decode_steps",
+                                 "ms_per_decode_step_median",
+                                 "collective_ms_per_decode_step_median",
+                                 "timed_pass_ms_per_decode_step_median",
+                                 "collectives_per_decode_step", "prefill_ms_total", "build_s")},
+           "max_memory_allocated_gb_by_rank": [r["max_memory_allocated_gb"] for r in ranks],
+           "first_parting_from_single": [next((i for i, (a, b) in enumerate(zip(g, w)) if a != b),
+                                              None) for g, w in zip(r0["streams"], single)],
+           "card": card}
+    log(json.dumps(row))
+    for rank, r in enumerate(ranks):
+        if not r["done"] or r["streams"] != r0["streams"]:
+            raise AssertionError(f"phase 15c: rank {rank} did not retire every request as rank 0")
+        if r["launches"] != r["want"]:
+            raise AssertionError(f"phase 15c: rank {rank} launches {r['launches']}, "
+                                 f"expected {r['want']}")
+        if r["reference_matmuls"]:
+            raise AssertionError(f"phase 15c: rank {rank} ran plain-reference matmuls")
+    row["launches"] = {c: sum(r["launches"][c] for r in ranks) for c in r0["launches"]}
+    return row
+
+
+# ---------------------------------------------------------------------------
 # phases 13a / 13b: QAT
 # ---------------------------------------------------------------------------
 
@@ -4029,6 +4973,7 @@ def main(argv=None) -> int:
     dma_rows = check_dma_arms(timer, card)
     dma_prep = check_dma_prep(timer, card)
     arm_rows = check_v2_arms(timer, card)
+    check_tp_shards(timer, card)
     del timer
     parity_params = random_packed_llama(llama7b(2), torch.Generator().manual_seed(4))
     check_engine_parity(parity_params, "int8")
@@ -4037,6 +4982,7 @@ def main(argv=None) -> int:
     params = random_packed_llama(llama7b(32), torch.Generator(device=DEV).manual_seed(5))
     torch.cuda.synchronize()
     e2e = serve_e2e(params, time.perf_counter() - t0, card, args.profile)
+    tp_runs = [tp_graph_nccl(params, card, e2e), tp_parity(card), tp_e2e(card)]
     check_engine_parity(parity_params, "int8", page_size=16)
     paged_invariants(parity_params, card)
     scan_fuse = scan_fuse_parity(parity_params, card)
@@ -4505,6 +5451,16 @@ def main(argv=None) -> int:
          "shape": "m={} ic={} oc={} (the x preparation XLA fuses into the int8 call); "
                   "launches: phases 4, 12a and 12b".format(*HEADLINE_SHAPE)},
     ]
+    # phase 15's launches (15b, and 15a and 15c summed over their ranks), in
+    # the rows of the kernels and arms the TP path ran
+    p15 = {c: sum(r["launches"].get(c, 0) for r in tp_runs) for c in read_counters()}
+    p15_rows = {"pb_int8_matmul": sum(p15[c] for c in INT8_COUNTERS.values()),
+                "decode_attention": p15["decode_attention"] - p15["decode_attention_split"],
+                "paged_attention": p15["paged_attention_cuda_cores"]}
+    for k in kernels:
+        n = p15_rows.get(k["name"], p15.get(k["name"], 0))
+        k["launches"] += n
+        k["phase15_launches"] = n
     # a yardstick row is an arm kept to time the path's arm against (its own
     # launches, 0 where no layout of the path sends it there); every other row's
     # arm must have run on its path

@@ -49,9 +49,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--save_hf", action="store_true",
                    help="also export an HF save_pretrained dir + tokenizer")
     p.add_argument("--synthetic", action="store_true")
-    p.add_argument("--dp", type=int, default=1, help="data-parallel mesh axis (not ported yet)")
-    p.add_argument("--tp", type=int, default=1, help="tensor-parallel mesh axis (not ported yet)")
-    p.add_argument("--fsdp", action="store_true", help="parameter sharding (not ported yet)")
+    p.add_argument("--dp", type=int, default=1,
+                   help="data-parallel mesh axis (dp·tp > 1 is not ported yet)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel mesh axis (dp·tp > 1 is not ported yet)")
+    p.add_argument("--fsdp", action="store_true",
+                   help="parameter sharding over dp (read only when dp·tp > 1, as in JAX)")
     p.add_argument("--metrics", type=str, default=None)
     p.add_argument("--device", type=str, default=None, help="default: cuda")
     return p
@@ -59,9 +62,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.dp != 1 or args.tp != 1 or args.fsdp:
-        raise NotImplementedError(f"--dp {args.dp} --tp {args.tp} --fsdp {args.fsdp}: multi-device "
-                                  "training is not ported yet (ROADMAP Queue 1 item 5)")
+    # as in JAX, the mesh (and --fsdp with it) is taken only when dp·tp > 1
+    if args.dp * args.tp > 1:
+        raise NotImplementedError(f"--dp {args.dp} --tp {args.tp}: multi-device training is not "
+                                  "ported yet (ROADMAP Queue 1 item 5c)")
 
     from .. import resolve_device
     from ..calib.pipeline import load_masks

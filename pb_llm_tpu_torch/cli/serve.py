@@ -25,8 +25,18 @@ JAX's layout); ``--pbw`` installs a PBW v1 or v2 checkpoint over its
 linears.  A draft model for speculative decoding comes from
 ``--draft_model_id`` (with ``--draft_checkpoint`` / ``--draft_pbw`` over it)
 or ``--draft_synthetic``.  ``--http 0`` binds a free port and prints it (the
-JAX CLI reads 0 as "no HTTP").  Not ported yet: ``--tp`` other than 1
-(ROADMAP Queue 1 item 5).
+JAX CLI reads 0 as "no HTTP").
+
+``--tp N`` (N > 1) serves through `runtime.tp_engine.TPEngine` over a
+(dp=1, tp=N) mesh, one process a rank (`parallel.mesh`): without a process
+group in the environment (no WORLD_SIZE) the CLI spawns its N ranks itself,
+under torchrun it takes the environment's rank.  The backend is NCCL when
+each rank has a card of its own, else gloo (the CPU, or ranks sharing a
+card); rank 0 prints it first, and prints the results.  ``--tp`` 0 or 1
+serves on one device, as in JAX.  ``--http`` with ``--tp`` > 1 raises: the
+admission broadcast it needs is ROADMAP Queue 1 item 5b.
+
+    python -m pb_llm_tpu_torch.cli.serve --model_id llama --synthetic --device cpu --tp 2
 """
 
 from __future__ import annotations
@@ -62,8 +72,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "sharing a page-aligned prompt prefix reuse its cached KV pages and "
                         "prefill only their suffix")
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel ways (only 1: TP is not ported yet, ROADMAP Queue 1 "
-                        "item 5)")
+                   help="tensor-parallel ranks (> 1: TPEngine, one process a rank, spawned "
+                        "here unless torchrun started them)")
     p.add_argument("--prefill_batch", type=int, default=4,
                    help="prefill up to K same-bucket prompts in one forward")
     p.add_argument("--prefill_chunk", type=int, default=0,
@@ -118,17 +128,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    import dataclasses
-    import time
-
-    import torch
+    import os
 
     from .. import resolve_device
-    from ..models.registry import family_for
-    from ..ops import kernel_config as _kc
-    from ..runtime.batching import ContinuousBatcher, Request
-    from ..runtime.engine import Engine, EngineConfig
-    from ..runtime.sampler import SamplingParams
+    from ..parallel import mesh as pmesh
 
     if args.draft_model_id or args.draft_checkpoint or args.draft_pbw or args.draft_synthetic:
         if not args.spec_gamma:
@@ -140,10 +143,56 @@ def main(argv=None) -> int:
         # draft's KV caches (and positions) wrong
         raise SystemExit("--draft_checkpoint/--draft_pbw need --draft_model_id "
                          "(the draft model's config/architecture)")
-    if args.tp != 1:
-        raise NotImplementedError(f"--tp {args.tp}: tensor parallelism is not ported yet "
-                                  "(ROADMAP Queue 1 item 5)")
+    if args.tp <= 1:
+        return _serve(args, resolve_device(args.device))
+    if args.http is not None:
+        raise NotImplementedError(
+            f"--http with --tp {args.tp}: requests arriving at rank 0 alone need an admission "
+            "broadcast to every rank (MultiHostBatcher, ROADMAP Queue 1 item 5b)")
     device = resolve_device(args.device)
+    if "WORLD_SIZE" not in os.environ:
+        pmesh.run_ranks(_serve_rank, args.tp, (args, device.type), device=device.type)
+        return 0
+    pmesh.multihost_initialize(device=device.type)
+    try:
+        return _serve_rank(int(os.environ["RANK"]), args, device.type)
+    finally:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+
+
+def _serve_rank(rank: int, args, device_type: str) -> int:
+    """One rank of ``serve --tp N``: its card (or the CPU) and the mesh."""
+    import os
+
+    from ..parallel import mesh as pmesh
+
+    import torch
+
+    if device_type == "cpu":  # the ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // args.tp))
+    mesh = pmesh.make_mesh(dp=1, tp=args.tp)
+    if rank == 0:
+        print(pmesh.backend_line(args.tp, device_type), flush=True)
+    return _serve(args, pmesh.rank_device(rank, device_type), mesh)
+
+
+def _serve(args, device, mesh=None) -> int:
+    """Serve on ``device``: one `Engine`, or this rank's `TPEngine` of
+    ``mesh`` (every rank serves the same requests; rank 0 prints)."""
+    import dataclasses
+    import time
+
+    import torch
+
+    from ..models.registry import family_for
+    from ..ops import kernel_config as _kc
+    from ..runtime.batching import ContinuousBatcher, Request
+    from ..runtime.engine import Engine, EngineConfig
+    from ..runtime.sampler import SamplingParams
+
+    say = print if mesh is None or mesh.rank == 0 else (lambda *a, **k: None)
     fam = family_for(args.model_id)
     if args.synthetic:
         from ..data.synthetic import ByteTokenizer, synthetic_model
@@ -192,8 +241,15 @@ def main(argv=None) -> int:
         n_pages=args.n_pages, prefix_cache=args.prefix_cache, spec_gamma=args.spec_gamma,
         prefill_chunk=args.prefill_chunk, scan_layers=args.scan_layers,
         fuse_linears=args.fuse_linears)
-    eng = Engine(params, cfg, fam, ecfg, SamplingParams(temperature=args.temperature),
-                 device=device, seed=args.seed)
+    if mesh is not None:
+        from ..runtime.tp_engine import TPEngine
+
+        eng = TPEngine(params, cfg, fam, ecfg, mesh, SamplingParams(temperature=args.temperature),
+                       device=device, seed=args.seed)
+        say(eng.describe(), flush=True)
+    else:
+        eng = Engine(params, cfg, fam, ecfg, SamplingParams(temperature=args.temperature),
+                     device=device, seed=args.seed)
     draft_source = None
     if args.draft_synthetic or args.draft_model_id:
         from ..runtime.draft import ModelDraftSource
@@ -233,15 +289,15 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
     dt = time.time() - t0
     for r in done[:4]:
-        print(f"[{r.request_id}] {tokenizer.decode(r.output_ids)!r}")
+        say(f"[{r.request_id}] {tokenizer.decode(r.output_ids)!r}")
     s = batcher.stats
-    print(f"device={device} requests={len(done)} tokens={s.generated_tokens} "
-          f"steps={s.decode_steps} wall={dt:.2f}s tokens/s={s.generated_tokens / dt:.1f}")
+    say(f"device={device} requests={len(done)} tokens={s.generated_tokens} "
+        f"steps={s.decode_steps} wall={dt:.2f}s tokens/s={s.generated_tokens / dt:.1f}")
     if args.spec_gamma:
-        print(f"spec drafted={s.spec_drafted} accepted={s.spec_accepted}")
+        say(f"spec drafted={s.spec_drafted} accepted={s.spec_accepted}")
     if eng.pool is not None:
-        print(f"pages={eng.pool.n_pages} prefix_hit_pages={eng.pool.prefix_hit_pages} "
-              f"preemptions={s.preemptions}")
+        say(f"pages={eng.pool.n_pages} prefix_hit_pages={eng.pool.prefix_hit_pages} "
+            f"preemptions={s.preemptions}")
     return 0
 
 

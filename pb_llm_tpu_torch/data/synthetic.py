@@ -64,28 +64,34 @@ def synthetic_source(n_docs: int = 200, seed: int = 0) -> TextSource:
 
 def random_packed_v2(ic: int, oc: int, generator: torch.Generator, *, low_frac: float = 0.9,
                      col_tile: int = 0, side_bits: int = 8, pack_block: int = 0,
-                     bias: bool = False) -> PackedLinearV2:
+                     bias: bool = False, ic_shards: int = 1) -> PackedLinearV2:
     """A PBW-v2 layer with random planes, made on the generator's device.
 
     Each row group of ``col_tile`` output columns (0 = one global group) has
-    round((1-low_frac)·ic) random salient input columns; sign bits are
-    random and zero at salient rows (the B' convention), codes are random.
-    Scales follow bench_e2e.py: low ±0.01 around 0, high 0.004·(code − zero).
+    round((1-low_frac)·ic_s) random salient input columns in each of the
+    ``ic_shards`` shards of ic_s = ic/ic_shards rows (the shard-major
+    sidecar of `core.pbw.pack_linear_v2`, local indices, for row-parallel
+    TP); sign bits are random and zero at salient rows (the B' convention),
+    codes are random.  Scales follow bench_e2e.py: low ±0.01 around 0, high
+    0.004·(code − zero).
     """
     dev = generator.device
     if col_tile <= 0 or col_tile > oc:
         col_tile = oc
     n_rg = -(-oc // col_tile)
-    k = int(round(ic * (1.0 - low_frac)))
+    ic_s = ic // ic_shards
+    k = int(round(ic_s * (1.0 - low_frac)))
     k_pad = max(32, -(-k // 32) * 32)
-    side_idx = torch.full((k_pad, n_rg), ic, dtype=torch.int32, device=dev)
+    side_idx = torch.full((ic_shards * k_pad, n_rg), ic_s, dtype=torch.int32, device=dev)
     bits = torch.randint(0, 2, (ic, oc), generator=generator, device=dev, dtype=torch.int32)
     for t in range(n_rg):
-        cols = torch.sort(torch.randperm(ic, generator=generator, device=dev)[:k]).values
-        side_idx[:k, t] = cols.to(torch.int32)
-        bits[cols[:, None], torch.arange(t * col_tile, min((t + 1) * col_tile, oc), device=dev)] = 0
-    pack_block = pack_block or packing.default_pack_block(ic)
-    rows = k_pad // 2 if side_bits == 4 else k_pad
+        for s in range(ic_shards):
+            cols = torch.sort(torch.randperm(ic_s, generator=generator, device=dev)[:k]).values
+            side_idx[s * k_pad : s * k_pad + k, t] = cols.to(torch.int32)
+            bits[s * ic_s + cols[:, None],
+                 torch.arange(t * col_tile, min((t + 1) * col_tile, oc), device=dev)] = 0
+    pack_block = pack_block or packing.default_pack_block(ic_s)
+    rows = ic_shards * (k_pad // 2 if side_bits == 4 else k_pad)
     side_val = torch.randint(0, 256, (rows, oc), generator=generator, device=dev,
                              dtype=torch.int32).to(torch.uint8)
 
@@ -101,10 +107,13 @@ def random_packed_v2(ic: int, oc: int, generator: torch.Generator, *, low_frac: 
         side_bits=side_bits, low_bits=1)
 
 
-def random_packed_llama(cfg, generator: torch.Generator, low_frac: float = 0.9) -> Dict[str, Any]:
+def random_packed_llama(cfg, generator: torch.Generator, low_frac: float = 0.9,
+                        pack_block: int = 0, row_shards: int = 1) -> Dict[str, Any]:
     """A llama parameter tree with every decoder linear a random PBW-v2
     layer (global salient selection) and f32 embeddings / lm_head, all made
-    on the generator's device."""
+    on the generator's device.  ``pack_block`` (0: the default) packs every
+    layer; o_proj and down_proj get ``row_shards`` shard-major sidecars
+    (their row-parallel layout for tp = row_shards)."""
     dev = generator.device
     h, ffn = cfg.hidden_size, cfg.intermediate_size
     qo, kv = cfg.num_attention_heads * cfg.head_dim, cfg.kv_heads * cfg.head_dim
@@ -119,7 +128,9 @@ def random_packed_llama(cfg, generator: torch.Generator, low_frac: float = 0.9) 
         lp = {"input_layernorm": torch.ones(h, device=dev),
               "post_attention_layernorm": torch.ones(h, device=dev)}
         for name, (ic, oc) in shapes.items():
-            lp[name] = random_packed_v2(ic, oc, generator, low_frac=low_frac)
+            lp[name] = random_packed_v2(
+                ic, oc, generator, low_frac=low_frac, pack_block=pack_block,
+                ic_shards=row_shards if name in ("o_proj", "down_proj") else 1)
         layers.append(lp)
     return {"embed_tokens": normal(cfg.vocab_size, h), "layers": layers,
             "norm": torch.ones(h, device=dev), "lm_head": {"w": normal(h, cfg.vocab_size), "b": None}}

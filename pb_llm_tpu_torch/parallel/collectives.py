@@ -1,0 +1,112 @@
+"""The Megatron pair of collectives for packed linears (port of
+`pb_llm_tpu/parallel/collectives.py`):
+
+  column-parallel: x replicated → y sharded on oc (no collective)
+  row-parallel:    x sharded on ic → partial y → all_reduce over tp
+
+`row_parallel_local` is a rank's row-parallel linear on its LOCAL x and
+layer: the port's `pb_matmul` on its block (so every kernel arm sees the
+shard's shapes, and the int8 arms quantize the rank's own x columns: a
+per-row absmax over the local columns, as JAX's body does), then the
+all_reduce, then the bias once.  `runtime.tp_engine` runs every
+row-parallel linear through it.
+
+`column_parallel_pb_matmul` and `row_parallel_pb_matmul` keep JAX's names
+and take the GLOBAL x and layer on every rank, as JAX's take global arrays:
+each cuts this rank's block (`local_linear`: `sharding.shard_params`' rule
+with the static ``ic`` / ``oc`` / ``groupsize`` JAX's `_local_meta` gives
+the body) and x's columns, then runs the engine's own local code.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List
+
+import torch
+import torch.distributed as dist
+
+from ..core.pbw import PackedLinear, PackedLinearV2
+from ..models.linear import apply_linear
+from .mesh import Mesh
+from .sharding import COL_PARALLEL, _leaf_spec, _shard, sanitize_specs
+
+
+def _local_meta(p, col: bool, tp: int, rank: int):
+    """The static fields of a rank's block, as inside JAX's body: oc/tp
+    (column) or ic/tp and groupsize min(groupsize, ic/tp) (row).  A
+    row-parallel PBW-v1 layer's group scales are replicated
+    (`sharding._packed_spec`); its block takes the rows of its own groups."""
+    if col:
+        return dataclasses.replace(p, oc=p.oc // tp)
+    ic_l = p.ic // tp
+    if isinstance(p, PackedLinearV2):
+        return dataclasses.replace(p, ic=ic_l)
+    gs, n_groups = p.groupsize, p.low_scale.shape[-2]
+    if n_groups > 1:
+        if ic_l % gs == 0:
+            first, n = rank * ic_l // gs, ic_l // gs
+        elif gs % ic_l == 0:
+            first, n = rank * ic_l // gs, 1
+        else:
+            raise ValueError(f"groups of {gs} rows neither tile nor cover a shard of {ic_l} rows")
+        d = p.low_scale.dim() - 2
+        p = dataclasses.replace(p, low_scale=p.low_scale.narrow(d, first, n).clone(),
+                                low_mean=p.low_mean.narrow(d, first, n).clone())
+    return dataclasses.replace(p, ic=ic_l, groupsize=min(gs, ic_l))
+
+
+def check_row_blocks(name: str, p, tp: int) -> None:
+    """The bit plane's pack blocks must tile each shard (pack_block | ic/tp),
+    or a shard's word-rows would interleave rows of two shards: pack for the
+    target tp (a pack_block dividing ic/tp)."""
+    if (p.ic // tp) % p.pack_block:
+        from ..core.packing import default_pack_block
+
+        raise ValueError(
+            f"row-parallel {name} over tp={tp} needs pack_block | ic/tp (ic={p.ic}, "
+            f"pack_block={p.pack_block}); repack with a smaller pack_block, e.g. "
+            f"{default_pack_block(p.ic // tp, cap=p.pack_block)}")
+
+
+def local_linear(name: str, p, mesh: Mesh):
+    """Rank ``mesh.rank``'s view of the global packed layer ``p`` named
+    ``name``: its block and local static fields."""
+    spec = sanitize_specs({"lm": p}, {"lm": _leaf_spec(name, p)}, mesh)["lm"]
+    return _local_meta(_shard(p, spec, mesh), name in COL_PARALLEL, mesh.tp, mesh.coord("tp"))
+
+
+def all_gather_last(y: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Concatenate every tp rank's y along the last axis, in rank order."""
+    parts: List[torch.Tensor] = [torch.empty_like(y) for _ in range(mesh.tp)]
+    dist.all_gather(parts, y.contiguous(), group=mesh.tp_group)
+    return torch.cat(parts, dim=-1)
+
+
+def row_parallel_local(x: torch.Tensor, lin, bias, group=None) -> torch.Tensor:
+    """A rank's row-parallel linear: its block ``lin`` (holding no bias)
+    times its own x columns, the partial sums all-reduced over ``group``,
+    then ``bias`` once."""
+    y = apply_linear(lin, x)
+    dist.all_reduce(y, group=group)
+    return y if bias is None else y + bias.to(y.dtype)
+
+
+def column_parallel_pb_matmul(x: torch.Tensor, p, mesh: Mesh, gather: bool = False,
+                              name: str = "up_proj") -> torch.Tensor:
+    """x replicated [m, ic]; planes oc-sharded; y [m, oc/tp], this rank's
+    columns (or every rank's, gathered)."""
+    y = apply_linear(local_linear(name, p, mesh), x)
+    return all_gather_last(y, mesh) if gather else y
+
+
+def row_parallel_pb_matmul(x: torch.Tensor, p, mesh: Mesh,
+                           name: str = "down_proj") -> torch.Tensor:
+    """x [m, ic] (this rank takes its ic block); planes ic-sharded; y
+    replicated after the all_reduce, the bias added once after it."""
+    if not isinstance(p, (PackedLinear, PackedLinearV2)):
+        raise TypeError(f"row_parallel_pb_matmul: a packed layer, not {type(p).__name__}")
+    check_row_blocks(name, p, mesh.tp)
+    p_l = local_linear(name, p, mesh)
+    x_l = x.narrow(-1, mesh.coord("tp") * p_l.ic, p_l.ic)
+    return row_parallel_local(x_l, dataclasses.replace(p_l, bias=None), p_l.bias, mesh.tp_group)

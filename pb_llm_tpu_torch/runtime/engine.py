@@ -126,6 +126,8 @@ def _set_rows(caches, idx, new) -> None:
 class Engine:
     """Low-level engine: claims slots, prefills prompts, steps decode."""
 
+    mesh = None  # a TPEngine's ranks (`parallel.mesh.Mesh`); one device here
+
     def __init__(self, params, cfg, fam: Family, ecfg: EngineConfig,
                  sampling: SamplingParams = SamplingParams(), device=None, seed: int = 0):
         if ecfg.prefill_chunk:
@@ -147,7 +149,7 @@ class Engine:
         self.fam = fam
         self.ecfg = ecfg
         self.sampling = sampling
-        n_layers, kv_heads, head_dim = kvmod.cache_spec_for(cfg, fam.name)
+        n_layers, kv_heads, head_dim = self._cache_shape()
         self.cache_dtype = resolve_cache_dtype(ecfg.cache_dtype, self.device)
         self.pool = None
         if ecfg.page_size:
@@ -189,6 +191,10 @@ class Engine:
         # the decode step reads self.params and self.caches in place from
         # here on (its CUDA graph holds their addresses): never reassign them
         self._step = StepGraph(self)
+
+    def _cache_shape(self):
+        """(layers, kv heads, head dim) of the caches this engine holds."""
+        return kvmod.cache_spec_for(self.cfg, self.fam.name)
 
     def _forward(self, ids: np.ndarray, caches, pos):
         """A forward of host token ids [K, T] (prefill, chunk, verify)."""

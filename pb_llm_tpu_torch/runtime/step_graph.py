@@ -12,7 +12,9 @@ step captures the forward into a `torch.cuda.CUDAGraph` (on a side stream,
 as PyTorch requires, in a memory pool the graph owns) and replays it, and
 every later step replays it.  A failed capture or replay raises: nothing
 falls back to the eager step.  On the CPU nothing is captured and the same
-buffers feed the forward directly.
+buffers feed the forward directly.  A TP engine's step is captured only
+under NCCL, whose collectives a graph holds; under gloo (ranks sharing a
+card) it runs eagerly, as its engine states (`TPEngine.describe`).
 
 `eager()` makes every engine run its steps op by op while it is entered,
 as `jax.disable_jit()` does; it nests.
@@ -79,7 +81,10 @@ class StepGraph:
         self.ids = self.buf[0][:, None]   # [n, 1] last tokens
         self.pos = self.buf[1]            # [n] positions (the cache row each writes)
         self.params, self.caches = engine.params, engine.caches
-        self.capturable = self.device.type == "cuda"
+        # a process group's collectives are captured only under NCCL: a gloo
+        # step (ranks sharing a card, `parallel.mesh`) runs eagerly
+        self.capturable = self.device.type == "cuda" and (engine.mesh is None
+                                                          or engine.mesh.backend == "nccl")
         self.warm = False
         self.graph = None
         self.logits = None  # the graph's output

@@ -113,8 +113,20 @@ def test_run_qat_flags_equal_jax_plus_device():
 
 
 @pytest.mark.parametrize("flag", [["--dp", "2"], ["--tp", "2"], ["--fsdp"]])
-def test_run_qat_multi_device_raises(flag, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
+def test_run_qat_multi_device_raises(flag, tmp_path, qat_ckpt):
+    """dp·tp > 1 raises, naming its ROADMAP item (5c).  ``--fsdp`` at dp =
+    tp = 1 trains on one device, as JAX's CLI does (it takes the mesh only
+    when dp·tp > 1): the run of `qat_ckpt` with --fsdp writes the same
+    final loss."""
+    if flag == ["--fsdp"]:
+        assert run_qat.main(["--model_id", MODEL, "--dataset", "red_pajama", "--train_steps",
+                             "2", "--seqlen", "32", "--out_dir", str(tmp_path), "--synthetic",
+                             "--device", "cpu", *flag]) == 0
+        _, extra = load_dense_checkpoint(str(tmp_path / MODEL / "xnor_outlier_0.1_2"))
+        _, want = load_dense_checkpoint(qat_ckpt)
+        assert np.isfinite(extra["final_loss"]) and extra["final_loss"] == want["final_loss"]
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5c"):
         run_qat.main(["--model_id", MODEL, "--synthetic", "--device", "cpu", "--out_dir",
                       str(tmp_path), *flag])
 

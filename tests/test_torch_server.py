@@ -353,11 +353,40 @@ def test_serve_cli_parser_has_every_flag_of_jax(capsys):
 
 
 @pytest.mark.parametrize("tp", [2, 4])
-def test_serve_cli_tp_raises_naming_its_roadmap_item(tp):
+def test_serve_cli_tp_raises_naming_its_roadmap_item(tp, capfd):
+    """``--tp 2`` serves: the CLI spawns its two gloo ranks (TPEngine) and
+    rank 0 prints the streams that ``--tp 1`` prints.  ``--http`` with
+    ``--tp`` > 1 raises, naming the admission broadcast it needs (ROADMAP
+    Queue 1 item 5b)."""
     from pb_llm_tpu_torch.cli import serve
 
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
-        serve.main(CLI + ["--tp", str(tp)])
+    if tp == 4:
+        for t in (2, 4):
+            with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5b"):
+                serve.main(CLI + ["--http", "0", "--tp", str(t)])
+        return
+
+    def streams(out):
+        return [line for line in out.splitlines() if line.startswith("[")]
+
+    assert serve.main(CLI + ["--tp", "1"]) == 0
+    want = capfd.readouterr().out
+    assert serve.main(CLI + ["--tp", "2"]) == 0
+    got = capfd.readouterr().out
+    assert got.startswith("tp backend gloo") and "TPEngine tp=2" in got
+    assert len(streams(want)) == 3 and streams(got) == streams(want)
+    assert "requests=3 tokens=12" in got
+
+
+def test_serve_cli_tp_0_serves_on_one_device(capsys, monkeypatch):
+    """``--tp 0`` serves on one device with the plain Engine, as JAX's CLI
+    does (it shards only when tp > 1)."""
+    from pb_llm_tpu_torch.cli import serve
+
+    built = _engines(monkeypatch)
+    assert serve.main(CLI + ["--tp", "0"]) == 0
+    assert "requests=3 tokens=12" in capsys.readouterr().out
+    assert len(built) == 1 and built[0].mesh is None
 
 
 def test_serve_cli_checkpoint_gives_jax_stream(tmp_path, monkeypatch):
