@@ -39,7 +39,7 @@ run_ptq does); any failure raises and the exit code is not 0:
    arms, bf16 tensor cores with x and w in bf16 terms and f32 CUDA cores,
    and their crossover SELECT_TC), and the int8 path's x preparation, bit
    for bit;
-3. the same 2-layer full-width llama-7b engine on the card (kernels) and on
+3. the same 1-layer full-width llama-7b engine on the card (kernels) and on
    the CPU (the kernels' plain versions): prefill logits, teacher-forced
    NLL and 8 greedy tokens; once on the int8 arms, once on the exact arms
    (`serve --decode_dot f32 --prefill_kernel hybrid`), whose f32 matmul
@@ -56,7 +56,7 @@ run_ptq does); any failure raises and the exit code is not 0:
    the exact hybrid prefill, with the kernels and with their plain versions
    (which must agree); the launch counters are zeroed just before and read
    just after.  One linear is also solved on the card and on the CPU;
-6a. paged serving invariants on a 2-layer full-width llama-7b: the int8
+6a. paged serving invariants on a 1-layer full-width llama-7b: the int8
    paged engine on the card against the CPU (phase 3's bounds), then, on
    the exact arms, paged equals strip, prefix cache on equals off, chunked
    equals one-shot, speculative equals plain, a preempting pool equals an
@@ -78,7 +78,7 @@ run_ptq does); any failure raises and the exit code is not 0:
    calibrated by GPTQ-PB (element masks, groups of 128) into PBW v1, then
    its windowed perplexity with the kernels and with their plain versions;
 9a. scanned layers, fused linears and the pair / dma decode arms on a
-   2-layer full-width llama-7b: on the exact arms, scan equals unrolled
+   1-layer full-width llama-7b: on the exact arms, scan equals unrolled
    (strips and pages, the stacked f32 kernel) and fused equals unfused
    (greedy streams under the margin rule); the pair and dma arms, and
    scan_layers on the exact arms, on the card against the CPU's plain
@@ -88,7 +88,7 @@ run_ptq does); any failure raises and the exit code is not 0:
    fuse_linears + decode_dot pair, decode_dot dma (its arm "split" and that
    arm's x preparation); every launch counter must match the forwards run,
    by rows;
-10a. the bf16 and q8 KV arms on a 2-layer full-width llama-7b, card against
+10a. the bf16 and q8 KV arms on a 1-layer full-width llama-7b, card against
    CPU under phase 3's bounds, in three engines: int8 strips with
    decode_attention "pallas_q8", bf16 strips, a bf16 paged pool with the
    prefix cache (the second prompt hits two cached pages);
@@ -98,18 +98,18 @@ run_ptq does); any failure raises and the exit code is not 0:
    pages with prefill_chunk 256); every request must retire with its
    tokens, a stream must equal its output_ids, /health and /stats must
    answer, and every launch counter must match the forwards run;
-11a. the graphed decode step against `step_graph.eager()` on a 2-layer
+11a. the graphed decode step against `step_graph.eager()` on a 1-layer
    full-width llama-7b, in eight engines (int8 strips; scan_layers;
    fuse_linears + pair; dma; pallas_q8; bf16 strips; int8 and bf16 pages
    with the prefix cache), and on 7a's 2-layer OPT-1.3B (planar "tc"): 18
    decode steps with slots admitted and released between them, equal
    greedy tokens, bitwise-equal logits, equal launches;
-11b. paged windows on the tensor cores, card against CPU on 2 full-width
-   layers over int8 and bf16 pages with prefill_chunk 64 and the prefix
+11b. paged windows on the tensor cores, card against CPU on 1 full-width
+   layer over int8 and bf16 pages with prefill_chunk 64 and the prefix
    cache: on the exact matmul arms greedy tokens equal; on the int8 arms
    the card teacher-forced on the CPU's tokens within phase 10a's bound at
    every step, and each window arm's greedy stream logged where it parts;
-12a. an HF checkpoint directory (llama-7b's config cut to 2 layers, random
+12a. an HF checkpoint directory (llama-7b's config cut to 1 layer, random
    dense fp16 weights, `pytorch_model-*.bin` shards of at most 400 MB written
    with torch alone) on the card against the CPU: `hf_import.from_pretrained`
    reads every weight bit for bit; `cli.convert` on the card writes the PBW
@@ -122,7 +122,7 @@ run_ptq does); any failure raises and the exit code is not 0:
    subprocess, then `from_pretrained` + `load_pbw` + `install_pbw` serving
    phase 4's 16 requests, graphed, every launch counter matched to the
    forwards run; its conversion and serving times;
-13a. QAT card against CPU: OPT-1.3B's config cut to 2 layers
+13a. QAT card against CPU: OPT-1.3B's config cut to 1 layer
    (`opt.init_params`, seeded), xnor_outlier at 0.1, 4 steps with remat on
    2 x 256 ids: masks, sim-8bit masters and every frozen tensor bit for bit,
    the losses step by step and the exported dense weights within the bounds
@@ -133,7 +133,7 @@ run_ptq does); any failure raises and the exit code is not 0:
    memory, mean bits; the loss finite and falling, the embeddings unchanged,
    q/k/v gradients nonzero at T = 2048, `export_dense`'s logits = the QAT
    forward's;
-14a. task scoring card against CPU: phase 3's 2-layer model scores
+14a. task scoring card against CPU: phase 3's 1-layer model scores
    hand-built boolq, 5-shot MMLU (buckets up to 2048: flash "tc") and
    winogrande examples through `evaluate_model_tasks` on the exact arms
    (decode_dot f32, hybrid prefill): every pair's log-likelihood within a
@@ -157,12 +157,37 @@ run_ptq does); any failure raises and the exit code is not 0:
    (the all_reduce captured), phase 4's 16 requests: streams and every
    decode step's logits equal the plain graphed engine's bit for bit, ms a
    step beside phase 4's;
-15c. two gloo ranks with the 32-layer llama-7b (15a's planes), eager, phase
+15c. two gloo ranks with 8 full-width llama-7b layers (15a's planes), eager, phase
    4's 16 requests: every request retires, launches matched, no
    plain-reference matmul; tokens/s, ms a step, each rank's peak memory,
    where each stream first parts from one process; ms a step in
    collectives from a second pass (8 requests) that times them;
-   and gloo's all_reduce / all_gather of CUDA tensors checked and timed.
+   and gloo's all_reduce / all_gather of CUDA tensors checked and timed;
+16a. continuous batching across ranks: ONE world of two gloo ranks
+   sharing the card (reused for 17a-17c), each with replica `Engine`s of 2
+   full-width layers under `MultiHostBatcher` (rank 0 admits, the others
+   mirror): 5 requests on int8 strips (batched prefill, prompt-lookup spec,
+   chunked prefill, a sampled request), a paged pool with the prefix cache,
+   3 requests drafted by the model itself (a replica draft engine, so drafts
+   are accepted); streams, stats and engine lengths the same bytes on both
+   ranks and equal to one process's run, drafts accepted in that mix;
+16b. `serve --http 0 --tp 2` through the CLI's rank function (a second
+   world, the group timeout shortened to 5 s): 8 full-width layers
+   (15a's planes), TPEngine on gloo; 8 concurrent requests of 32 tokens (2
+   streamed, 2 sampled, 1 with a stop token): the greedy ones equal `serve
+   --tp 2`'s streams token for token; one more after 7 s idle; both ranks
+   return 0 at shutdown; HTTP tokens/s, ms a step, peak memory a rank;
+17a. ring attention at sp = 2 on [1, 2048, 32, 128] f32 (flash "tc" with
+   its (m, l) residuals inside: rank 0 a causal block, rank 1 a causal and
+   a full one) against flash over all 2048 and its plain version;
+17b. `perplexity_sp` at sp = 2 on 2 full-width layers, 4 windows of 2048,
+   the exact hybrid prefill: within 2e-5 of `perplexity`, s a window both;
+17c. `pipeline_forward` at pp = 2 on 4 stacked full-width layers, [4,
+   256] ids in 4 micro-batches (the stacked int8 kernel on each stage's
+   slice): within 2e-5 of the stacked single-device forward, launches by
+   arm summed over the stages equal to it.
+   Phases 16 and 17 run after 15c; their single-process references run on
+   the card in this process before the ranks are spawned.
 
 Phases 6b, 7b, 9b and 10b serve graphed: the default on the card.
 
@@ -176,10 +201,12 @@ f32 kernels (phase 9's paths) at llama-7b's shapes, each with its
 operands' preparation time where an arm has its own layout.  The graphed
 9b dma pass and 7b by arm, in turns: scripts/torch_v1_dma_arm_ab.py.
 
-The last two lines are the `kernels` JSON line and
+The line before the `kernels` line, `phase_seconds`, gives each phase's
+wall seconds.  The last two lines are the `kernels` JSON line and
 `{"ok": true, "device": {...}}`.  A row of the `kernels` line counts its own
-arm's launches (each arm's beside, as arm_launches; phase 15's, summed
-over its ranks, added in and named apart as phase15_launches); a row marked
+arm's launches (each arm's beside, as arm_launches; phases 15's, 16's and
+17's, summed over their ranks, added in and named apart as
+phase15_launches, phase16_launches and phase17_launches); a row marked
 "yardstick" is an arm kept to time the path's arm against and may count 0,
 every other row must have launched.  Without CUDA it exits 1 before any
 phase.
@@ -206,6 +233,10 @@ INT8_OPS_PER_S = 1979e12    # H100 SXM dense int8 tensor-core peak
 F32_FLOPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 
 DEV = "cuda"
+# layers of the card-vs-CPU parity models (phases 3, 6a, 9a, 10a, 11a, 11b,
+# 14a: llama-7b widths; 13a: OPT-1.3B's; 12a's HF directory): 1, which halves
+# their CPU references' time against 2; every check holds at either depth
+PARITY_LAYERS = 1
 MATMUL_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096))
 MATMUL_MS = (8, 512)                 # decode (8 slots) and batched prefill (4 x 128)
 INT8_MS = (1, 8, 15, 16, 32, 64, 128, 256, 512, 1024)  # the int8 arms' crossover rows, prefill
@@ -305,6 +336,19 @@ V1_MS = (1, 8, 64, 255)       # the planar arms' rows (it serves m < 256)
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+T_START = time.perf_counter()
+PHASE_SECONDS = {}  # each phase's wall seconds, printed before the kernels line
+
+
+def timed(name: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, its wall seconds kept under ``name``."""
+    t = time.perf_counter()
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        PHASE_SECONDS[name] = PHASE_SECONDS.get(name, 0.0) + time.perf_counter() - t
 
 
 def bound(nbytes: float, ops: float, peak_ops: float):
@@ -1426,7 +1470,7 @@ def check_engine_parity(params, arms: str, page_size: int = 0):
     from pb_llm_tpu_torch.ops import paged_attention as pa
     from pb_llm_tpu_torch.ops.kernel_config import KernelConfig
 
-    cfg = llama7b(2)
+    cfg = llama7b(PARITY_LAYERS)
     arm_kw = (dict(decode_dot="int8", prefill="int8") if arms == "int8"
               else dict(decode_dot="f32", prefill="hybrid"))
     card_kernels = None if arms == "int8" else KernelConfig(**arm_kw)
@@ -2010,7 +2054,7 @@ def paged_invariants(params, card: str):
 
     from pb_llm_tpu_torch.interop import to_device
 
-    cfg = llama7b(2)
+    cfg = llama7b(PARITY_LAYERS)
     params = to_device(params, DEV)  # once, not for each engine
     v = cfg.vocab_size
     rng = np.random.default_rng(14)
@@ -2436,7 +2480,7 @@ def producer_v1(card: str):
 # ---------------------------------------------------------------------------
 
 def scan_fuse_parity(params, card: str):
-    """Phase 9a on 2 full-width llama-7b layers.  On the exact arms
+    """Phase 9a on PARITY_LAYERS full-width llama-7b layers.  On the exact arms
     (INV_ARMS, f32 KV): scan_layers equals unrolled over strips and over
     pages of 16 (the stacked f32 kernel at decode), fuse_linears equals
     unfused, under the margin rule.  Then the pair and dma arms, and
@@ -2448,7 +2492,7 @@ def scan_fuse_parity(params, card: str):
     from pb_llm_tpu_torch.interop import to_device
     from pb_llm_tpu_torch.ops.kernel_config import KernelConfig
 
-    cfg = llama7b(2)
+    cfg = llama7b(PARITY_LAYERS)
     params = to_device(params, DEV)
     rng = np.random.default_rng(21)
     short = [rng.integers(0, cfg.vocab_size, int(rng.integers(20, 121))).tolist() for _ in range(8)]
@@ -2590,14 +2634,14 @@ HTTP_CLIENTS = 8    # phase 10b's client threads
 
 
 def check_kv_parity(params, card: str):
-    """Phase 10a on 2 full-width llama-7b layers, the int8 matmul arms: each
+    """Phase 10a on PARITY_LAYERS full-width llama-7b layers, the int8 matmul arms: each
     of KV_PASSES on the card (kernels) against the CPU (plain versions;
     "pallas_q8" on a CPU tensor takes the plain q8 arm) under phase 3's
     bounds.  The second prompt shares 32 tokens with the first: over pages
     it attaches two cached pages and prefills its suffix as a window."""
     from pb_llm_tpu_torch.ops.kernel_config import KernelConfig
 
-    cfg = llama7b(2)
+    cfg = llama7b(PARITY_LAYERS)
     arm_kw = dict(decode_dot="int8", prefill="int8")
     rows = []
     for name, ekw, impl, counter in KV_PASSES:
@@ -2908,7 +2952,7 @@ def graph_pass(name: str, dparams, cfg, family: str, ekw: dict, kkw: dict, promp
 
 
 def graph_parity(params, card: str):
-    """Phase 11a on 2 full-width llama-7b layers, the int8 matmul arms:
+    """Phase 11a on PARITY_LAYERS full-width llama-7b layers, the int8 matmul arms:
     each of GRAPH_PASSES twice on fresh engines, under `step_graph.eager()`
     and graphed; GRAPH_PLAN admits and releases slots between decode steps
     (prompts share a 32-token prefix: a prefix-cache hit over pages).  The
@@ -2922,7 +2966,7 @@ def graph_parity(params, card: str):
     from pb_llm_tpu_torch.data.synthetic import random_packed_opt
     from pb_llm_tpu_torch.interop import to_device
 
-    cfg = llama7b(2)
+    cfg = llama7b(PARITY_LAYERS)
     dparams = to_device(params, DEV)
     rng = np.random.default_rng(21)
     prefix = rng.integers(0, cfg.vocab_size, SHARED_PREFIX).tolist()
@@ -3012,7 +3056,7 @@ def first_parting(toks, c_toks, c_steps):
 
 
 def window_parity(params, card: str):
-    """Phase 11b on 2 full-width llama-7b layers over int8 and over bf16
+    """Phase 11b on PARITY_LAYERS full-width llama-7b layers over int8 and over bf16
     pages with prefill_chunk 64 and the prefix cache: a 150-token prompt
     prefilled in three chunks, a second one sharing its first 96 tokens (a
     prefix hit, its suffix chunked from 64), 6 decode steps after each; the
@@ -3031,7 +3075,7 @@ def window_parity(params, card: str):
     there."""
     from pb_llm_tpu_torch.ops.kernel_config import KernelConfig
 
-    cfg = llama7b(2)
+    cfg = llama7b(PARITY_LAYERS)
     rng = np.random.default_rng(23)
     first = rng.integers(0, cfg.vocab_size, 150).tolist()
     prompts = (first, first[:96] + rng.integers(0, cfg.vocab_size, 50).tolist())
@@ -3269,7 +3313,7 @@ def serve_artifact(packed, cfg) -> dict:
                 raise AssertionError(f"{what}: an f32 matmul arm never launched {launches}")
             out[arms] = row
             continue
-        by_arm = int8_launches([m for _, m in fwds], 14, first_linear(packed))
+        by_arm = int8_launches([m for _, m in fwds], 7 * cfg.num_hidden_layers, first_linear(packed))
         mm = sum(by_arm.values())
         att = cfg.num_hidden_layers * sum(k == "decode" for k, _ in fwds)
         want = expect_launches(**by_arm, pb_prep_int8=mm, **attention_launches(att))
@@ -3305,7 +3349,7 @@ def serve_artifact(packed, cfg) -> dict:
 
 
 def hf_parity(card: str) -> dict:
-    """Phase 12a: an HF directory of 2 full-width llama-7b layers (fp16
+    """Phase 12a: an HF directory of PARITY_LAYERS full-width llama-7b layers (fp16
     shards of at most 400 MB) on the card against the CPU.  (i) import:
     `hf_import.from_pretrained` gives family "llama", llama7b(2)'s config
     and every weight bit for bit the fp16 value written, widened; (ii)
@@ -3334,7 +3378,7 @@ def hf_parity(card: str) -> dict:
 
     root = tempfile.mkdtemp(prefix="pb_hf_12a_")
     try:
-        cfg, written, d, write_s = hf_dir(root, 2, 20, HF_SHARD_12A)
+        cfg, written, d, write_s = hf_dir(root, PARITY_LAYERS, 20, HF_SHARD_12A)
         with open(os.path.join(d, "pytorch_model.bin.index.json")) as fh:
             shards = len(set(json.load(fh)["weight_map"].values()))
 
@@ -3372,7 +3416,7 @@ def hf_parity(card: str) -> dict:
         torch.cuda.synchronize()
         convert_s = time.perf_counter() - t0
         layers, extra = load_pbw(out)
-        if len(layers) != 14 or extra.get("family") != "llama":
+        if len(layers) != 7 * cfg.num_hidden_layers or extra.get("family") != "llama":
             raise AssertionError(f"phase 12a (ii): {len(layers)} linears, {extra}")
         pack = hf_stream.rtn_pack_fn()
         scale_ulps, arms = 0, {}
@@ -3426,7 +3470,7 @@ def hf_parity(card: str) -> dict:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
-    row = {"phase": "hf_parity", "model": "llama-7b config (huggyllama/llama-7b), 2 layers, "
+    row = {"phase": "hf_parity", "model": f"llama-7b config (huggyllama/llama-7b), {PARITY_LAYERS} layers, "
            "random dense fp16 weights", "shards": shards, "write_s": write_s,
            "from_pretrained_s": import_s, "tensors_bit_for_bit": n_tensors,
            "convert_s": convert_s, "linears": len(layers), "scale_ulps_apart": scale_ulps,
@@ -3560,6 +3604,7 @@ TP_SHARD_NAMES = {"llama": ("q_proj", "o_proj", "gate_proj", "down_proj"),
 TP_ECFG = dict(n_slots=4, max_seq=1024, prefill_buckets=(64, 256, 512))
 TP_EXACT_ARMS = dict(decode_dot="f32", prefill="hybrid")
 TP_STEPS = 8  # 15a: decode steps after the prefills
+TP_E2E_LAYERS = 8  # 15c's model: llama-7b's widths, 8 of its 32 layers (the run's time)
 # 15a's int8 arms: a row-parallel shard quantizes its own x columns (a
 # per-row absmax over ic/tp columns, as JAX's shard_map body does), another
 # int8 rounding than one process's.  So they are held, within phase 3's
@@ -4323,7 +4368,7 @@ def gloo_cuda_check(rank: int, mesh, iters: int = 50) -> dict:
 
 
 def tp_rank_15c(rank: int) -> dict:
-    """A rank of 15c: its shard of the 32-layer model, phase 4's requests,
+    """A rank of 15c: its shard of the TP_E2E_LAYERS-layer model, phase 4's requests,
     served once as they are (launches, tokens/s, ms a step, peak memory),
     then the first 8 once more with the collectives timed (their ms a
     step)."""
@@ -4337,9 +4382,9 @@ def tp_rank_15c(rank: int) -> dict:
     refcount = count_reference_matmuls()
     mesh = pmesh.make_mesh(dp=1, tp=TP)
     gloo = gloo_cuda_check(rank, mesh)
-    cfg = llama7b(32)
+    cfg = llama7b(TP_E2E_LAYERS)
     t0 = time.perf_counter()
-    eng = TPEngine(tp_params("llama", 32), cfg, family_for("llama"),
+    eng = TPEngine(tp_params("llama", TP_E2E_LAYERS), cfg, family_for("llama"),
                    EngineConfig(n_slots=8, max_seq=2048), mesh, device=DEV)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
@@ -4389,7 +4434,7 @@ def tp_rank_15c(rank: int) -> dict:
 
 def tp_e2e(card: str) -> dict:
     """Phase 15c: two gloo ranks share the card, each with its shard of the
-    32-layer full-width llama-7b (15a's pack settings), eager, serving phase
+    TP_E2E_LAYERS full-width llama-7b layers (15a's pack settings), eager, serving phase
     4's 16 requests of 32 new tokens: every request retires, each rank's
     launches match its forwards (`tp_expected_matmuls`, one decode attention
     a layer a step), no plain-reference matmul; tokens/s, ms a step, each
@@ -4402,8 +4447,8 @@ def tp_e2e(card: str) -> dict:
     from pb_llm_tpu_torch.runtime.batching import ContinuousBatcher
     from pb_llm_tpu_torch.runtime.engine import Engine, EngineConfig
 
-    cfg = llama7b(32)
-    eng = Engine(tp_params("llama", 32), cfg, family_for("llama"),
+    cfg = llama7b(TP_E2E_LAYERS)
+    eng = Engine(tp_params("llama", TP_E2E_LAYERS), cfg, family_for("llama"),
                  EngineConfig(n_slots=8, max_seq=2048), device=DEV)
     reqs = e2e_requests(cfg.vocab_size)
     ContinuousBatcher(eng).run(reqs)
@@ -4418,7 +4463,7 @@ def tp_e2e(card: str) -> dict:
     if not all(r["gloo"]["ok"] for r in ranks):
         raise AssertionError("phase 15c: gloo all_reduce / all_gather of CUDA tensors is wrong")
     row = {"phase": "tp_e2e", "model": "llama-7b PBW-v2 (random planes, low_frac 0.9, pack_block "
-           f"{TP_PACK_BLOCK}, o/down shard-major)", "layers": 32, "tp": TP, "slots": 8,
+           f"{TP_PACK_BLOCK}, o/down shard-major)", "layers": TP_E2E_LAYERS, "tp": TP, "slots": 8,
            "max_seq": 2048, "requests": len(single), "describe": r0["describe"],
            "ranks_s": time.perf_counter() - t0,
            **{k: r0[k] for k in ("tokens_per_s", "wall_s", "generated_tokens", "decode_steps",
@@ -4524,7 +4569,7 @@ def export_parity(params, cfg, fam, ids: torch.Tensor) -> dict:
 
 
 def qat_parity(card: str) -> dict:
-    """Phase 13a: OPT-1.3B's config cut to 2 layers (`opt.init_params`, a
+    """Phase 13a: OPT-1.3B's config cut to PARITY_LAYERS layers (`opt.init_params`, a
     seeded CPU generator), xnor_outlier at 0.1, 4 steps with remat on one
     batch of 2 x 256 ids, on the card and on the CPU from the same weights."""
     from pb_llm_tpu_torch.interop import to_device
@@ -4532,7 +4577,7 @@ def qat_parity(card: str) -> dict:
     from pb_llm_tpu_torch.quant import qat as q
     from pb_llm_tpu_torch.train import qat as tq
 
-    cfg = opt13b(2)
+    cfg = opt13b(PARITY_LAYERS)
     base = init_params(cfg, torch.Generator().manual_seed(23), device="cpu")
     fam, qcfg = qat_config(QAT_STEPS_A)
     ids = np.random.default_rng(24).integers(0, cfg.vocab_size, size=QAT_IDS)
@@ -4577,7 +4622,7 @@ def qat_parity(card: str) -> dict:
     ids_t = torch.as_tensor(ids, device=DEV)
     export = export_parity(g["params"], cfg, fam, ids_t)
     gl, cl = np.asarray(g["losses"]), np.asarray(c["losses"])
-    row = {"phase": "qat_parity", "model": "OPT-1.3B config (facebook/opt-1.3b), 2 layers, "
+    row = {"phase": "qat_parity", "model": f"OPT-1.3B config (facebook/opt-1.3b), {PARITY_LAYERS} layers, "
            "opt.init_params seed 23", "method": "xnor_outlier 0.1, remat", "ids": list(QAT_IDS),
            "steps": QAT_STEPS_A, "lr": QAT_LR, "gpu_losses": g["losses"], "cpu_losses": c["losses"],
            "loss_max_rel_diff": float(np.max(np.abs(gl - cl) / np.abs(cl))),
@@ -4812,7 +4857,7 @@ def by_bucket(forwards) -> dict:
 
 
 def task_parity(params, card: str) -> dict:
-    """Phase 14a: the 2-layer full-width llama-7b of phase 3 (random PBW-v2
+    """Phase 14a: the PARITY_LAYERS-layer full-width llama-7b of phase 3 (random PBW-v2
     planes) scoring `task_examples` on the card (the exact arms) and on the
     CPU (their plain versions): every pair's log-likelihood within the bound
     above, the greedy flags equal but where the CPU's top-2 logits at a
@@ -4823,7 +4868,7 @@ def task_parity(params, card: str) -> dict:
     from pb_llm_tpu_torch.models.registry import family_for
     from pb_llm_tpu_torch.ops import kernel_config as kc
 
-    cfg, fam = llama7b(2), family_for("llama")
+    cfg, fam = llama7b(PARITY_LAYERS), family_for("llama")
     gparams = to_device(params, DEV)
     n_linear = 7 * cfg.num_hidden_layers
     zero_counters()
@@ -4854,7 +4899,7 @@ def task_parity(params, card: str) -> dict:
             (flag_ties if gap <= 2 * logit_bound else flag_fail).append(
                 {"pair": [pair[0][-40:], pair[1]], "gap": gap})
     ties = choice_ties(g_scored, c_scored, sizes, scorer, logit_bound)
-    row = {"phase": "task_parity", "model": "llama-7b widths, 2 layers, random PBW-v2 planes",
+    row = {"phase": "task_parity", "model": f"llama-7b widths, {PARITY_LAYERS} layers, random PBW-v2 planes",
            "arms": TASK_EXACT, "pairs": len(g_scored), "forwards": [f["rows"] for f in g_fwd],
            "gpu_acc": {t: r["acc"] for t, r in g_res.items()},
            "cpu_acc": {t: r["acc"] for t, r in c_res.items()},
@@ -4944,6 +4989,568 @@ def task_e2e(params, card: str) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# phases 16a-17c: inference across ranks
+# ---------------------------------------------------------------------------
+
+MH_LAYERS = 2        # 16a: the replica engines' layers (llama-7b widths)
+MH_NEW = 16          # 16a: new tokens a request
+MH_ECFG = dict(n_slots=4, max_seq=512, prefill_buckets=(64, 128, 256), max_prefill_batch=2)
+# 16a's mixes (MULTICHIP's "multihost" lines): (name, engine options, drafted by
+# the model itself).  With random weights a draft accepts only from the model's
+# own replica: "draft" then takes the multi-token emission of a speculative tick
+MH_PLANS = (
+    ("strips", dict(spec_gamma=2, prefill_chunk=128), False),  # batched, lookup spec, chunked, sampled
+    ("paged_prefix", dict(page_size=16, prefix_cache=True), False),
+    ("draft", dict(spec_gamma=3), True),
+)
+HTTP_TP_LAYERS = 8   # 16b: llama-7b widths, 8 of its layers, tp = 2
+HTTP_TP_TIMEOUT_S = 5.0  # 16b: the rank group's collective timeout ...
+HTTP_TP_IDLE_S = 7.0     # ... and the idle gap that outlasts it
+RING_SHAPE = (1, 2048, 32, 128)  # 17a: B, T, H, D (sp = 2: blocks of 1024)
+SP = PP = 2
+SP_LAYERS, SP_WINDOWS, SP_SEQLEN = 2, 4, 2048  # 17b
+SP_RTOL = 2e-5
+PP_LAYERS, PP_IDS, PP_MICRO = 4, (4, 256), 4  # 17c: a micro-batch of 256 rows (the stacked kernel's)
+PP_ATOL = 2e-5
+
+
+class IdTokenizer:
+    """16b's tokenizer: a prompt is its token ids in decimal, and so is a
+    decoded stream (the card's machine has no HF tokenizer)."""
+
+    def encode(self, text: str):
+        return [int(t) for t in text.split()]
+
+    def decode(self, ids) -> str:
+        return " ".join(str(int(t)) for t in ids)
+
+
+def mh_requests(name: str, vocab: int):
+    """16a's requests: "strips" 5 (three alike-bucket repetitive prompts
+    prefilled in pairs and drafted by prompt lookup, one of 200 tokens
+    chunked at 128, one sampled at temperature 0.937 / top_k 12),
+    "paged_prefix" 3 sharing a 64-token prefix, "draft" 3."""
+    from pb_llm_tpu_torch.runtime.batching import Request
+    from pb_llm_tpu_torch.runtime.sampler import SamplingParams
+
+    rng = np.random.default_rng(160)
+    if name == "strips":
+        motif = rng.integers(0, vocab, 10).tolist()
+        prompts = [(motif * 5)[: 40 + i] for i in range(3)] + [rng.integers(0, vocab, 200).tolist(),
+                                                               rng.integers(0, vocab, 30).tolist()]
+    elif name == "paged_prefix":
+        shared = rng.integers(0, vocab, 64).tolist()
+        prompts = [shared + rng.integers(0, vocab, 10).tolist() for _ in range(3)]
+    else:
+        prompts = [rng.integers(0, vocab, 30).tolist() for _ in range(3)]
+    return [Request(request_id=i, prompt_ids=p, max_new_tokens=MH_NEW,
+                    sampling=(SamplingParams(temperature=0.937, top_k=12)
+                              if name == "strips" and i == 4 else None))
+            for i, p in enumerate(prompts)]
+
+
+def mh_play(eng, reqs, source) -> dict:
+    """Serve ``reqs`` through `MultiHostBatcher` (queued on rank 0, mirrored
+    as shadows elsewhere), the counters zeroed just before and read just
+    after: every request this rank saw retire, the stats, the engine
+    lengths, the launches."""
+    from pb_llm_tpu_torch.runtime.multihost_batching import MultiHostBatcher
+
+    class Capturing(MultiHostBatcher):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.seen = {}
+
+        def _maybe_retire(self, slot, token, **kw):
+            req = self.slot_to_request[slot]
+            self.seen[req.request_id] = req
+            super()._maybe_retire(slot, token, **kw)
+
+    b = Capturing(eng, max_prompt=MH_ECFG["max_seq"], draft_source=source)
+    zero_counters()
+    b.run(reqs)
+    torch.cuda.synchronize()
+    s = b.stats
+    return {"streams": {str(k): [int(t) for t in r.output_ids] for k, r in sorted(b.seen.items())},
+            "stats": [s.prefills, s.decode_steps, s.generated_tokens, s.spec_drafted,
+                      s.spec_accepted, s.preemptions],
+            "lengths": [int(x) for x in eng.lengths], "launches": read_counters()}
+
+
+def mh_run_all() -> dict:
+    """16a's three mixes on this process's replica engines (made from seeds
+    on the card: the same on every rank): {name: json of `mh_play`'s
+    streams, stats and lengths}, and the launches summed."""
+    from pb_llm_tpu_torch.data.synthetic import random_packed_llama
+    from pb_llm_tpu_torch.models.registry import family_for
+    from pb_llm_tpu_torch.runtime.draft import ModelDraftSource
+    from pb_llm_tpu_torch.runtime.engine import Engine, EngineConfig
+
+    fam = family_for("llama")
+    cfg = llama7b(MH_LAYERS)
+    params = random_packed_llama(cfg, torch.Generator(device=DEV).manual_seed(161))
+    out, launches = {}, {}
+    for name, ekw, self_draft in MH_PLANS:
+        eng = Engine(params, cfg, fam, EngineConfig(**MH_ECFG, **ekw), device=DEV, seed=0)
+        source = None
+        if self_draft:
+            source = ModelDraftSource(Engine(params, cfg, fam, EngineConfig(**{
+                k: MH_ECFG[k] for k in ("n_slots", "max_seq", "prefill_buckets")}),
+                device=DEV, seed=0))
+        res = mh_play(eng, mh_requests(name, cfg.vocab_size), source)
+        for c, n in res.pop("launches").items():
+            launches[c] = launches.get(c, 0) + n
+        out[name] = json.dumps(res, sort_keys=True)
+        del eng, source
+    return {"runs": out, "launches": launches}
+
+
+def ring_inputs():
+    """17a's q, k, v [1, 2048, 32, 128] f32, made on the card from a seed."""
+    gen = torch.Generator(device=DEV).manual_seed(170)
+    return tuple(torch.randn(RING_SHAPE, generator=gen, device=DEV) for _ in range(3))
+
+
+def sp_model():
+    """17b's model and text: 2 full-width llama-7b layers (random PBW v2)
+    and 4 windows of 2048 ids, from seeds."""
+    from pb_llm_tpu_torch.data.synthetic import random_packed_llama
+
+    cfg = llama7b(SP_LAYERS)
+    params = random_packed_llama(cfg, torch.Generator(device=DEV).manual_seed(171))
+    ids = np.random.default_rng(172).integers(0, cfg.vocab_size, SP_WINDOWS * SP_SEQLEN)
+    return params, cfg, ids
+
+
+def exact_prefill():
+    """Phase 5's exact hybrid prefill, scoped (`use_kernels`), not pinned
+    process-wide."""
+    from pb_llm_tpu_torch.ops import kernel_config as kc
+
+    return kc.use_kernels(dataclasses.replace(kc.current(), prefill="hybrid"))
+
+
+def pp_model():
+    """17c's stacked model (4 full-width llama-7b layers, random PBW v2) and
+    its [4, 256] ids, from seeds."""
+    from pb_llm_tpu_torch.data.synthetic import random_packed_llama
+    from pb_llm_tpu_torch.models.stacking import stack_layers
+
+    cfg = llama7b(PP_LAYERS)
+    params = stack_layers(random_packed_llama(cfg, torch.Generator(device=DEV).manual_seed(173)))
+    ids = torch.as_tensor(np.random.default_rng(174).integers(0, cfg.vocab_size, PP_IDS),
+                          device=DEV)
+    return params, cfg, ids
+
+
+def cuda_ms(fn, iters: int = 5) -> float:
+    """Median ms of ``fn`` between two device synchronisations (host clock:
+    a collective inside waits for the other rank)."""
+    fn()
+    out = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(out)
+
+
+def rank_16_17(rank: int) -> dict:
+    """A rank of the one 2-rank gloo world of phases 16a and 17a-17c."""
+    from pb_llm_tpu_torch.eval.ppl import perplexity_sp
+    from pb_llm_tpu_torch.models.registry import family_for
+    from pb_llm_tpu_torch.parallel import mesh as pmesh
+    from pb_llm_tpu_torch.parallel.pipeline import pipeline_forward, stage_params
+    from pb_llm_tpu_torch.parallel.ring_attention import local_rows, ring_attention
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    refcount = count_reference_matmuls()
+    out = {"p16": mh_run_all()}
+    # 17a
+    mesh = pmesh.make_sp_mesh(SP)
+    q, k, v = (local_rows(a, mesh) for a in ring_inputs())
+    scale = RING_SHAPE[3] ** -0.5
+    zero_counters()
+    with torch.inference_mode():
+        got = ring_attention(q, k, v, scale, mesh, inner="flash")
+    torch.cuda.synchronize()
+    ring_launches = read_counters()
+    with torch.inference_mode():
+        ring_ms = cuda_ms(lambda: ring_attention(q, k, v, scale, mesh, inner="flash"))
+    out["ring"] = {"out": got.cpu().numpy(), "launches": ring_launches, "ms": ring_ms}
+    del q, k, v, got
+    # 17b
+    params, cfg, ids = sp_model()
+    zero_counters()
+    refcount["reference_matmuls"] = 0
+    t0 = time.perf_counter()
+    with exact_prefill():
+        ppl = perplexity_sp(params, cfg, family_for("llama").forward, ids, mesh, seqlen=SP_SEQLEN)
+    torch.cuda.synchronize()
+    out["ppl"] = {"ppl": ppl, "s_per_window": (time.perf_counter() - t0) / SP_WINDOWS,
+                  "launches": read_counters(), "reference_matmuls": refcount["reference_matmuls"],
+                  "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del params
+    # 17c
+    params, cfg, ids = pp_model()
+    pmesh_pp = pmesh.make_pp_mesh(PP)
+    stage = stage_params(params, pmesh_pp)
+    del params
+    torch.cuda.empty_cache()
+    zero_counters()
+    refcount["reference_matmuls"] = 0
+    t0 = time.perf_counter()
+    logits = pipeline_forward(stage, ids, cfg, pmesh_pp, PP_MICRO)
+    torch.cuda.synchronize()
+    pp_s = time.perf_counter() - t0
+    out["pp"] = {"launches": read_counters(), "s": pp_s,
+                 "reference_matmuls": refcount["reference_matmuls"],
+                 "stage_layers": stage["num_layers"], "layer_range": stage["layer_range"],
+                 "sha1": __import__("hashlib").sha1(logits.cpu().numpy().tobytes()).hexdigest(),
+                 "logits": logits.cpu().numpy() if rank == 0 else None}
+    return out
+
+
+def rank_16b(rank: int, prompts_file: str, prompts) -> dict:
+    """A rank of phase 16b: `cli.serve._serve_rank` twice in one world, as
+    `serve --tp 2` over the prompts file, then as `serve --http 0 --tp 2`,
+    rank 0's wait for an interrupt replaced by a client (`http_16b`).  The
+    model is 16's planes in 8 layers, handed to the CLI in place of
+    `from_pretrained` (and the tokenizer in place of an HF one)."""
+    from pb_llm_tpu_torch.cli import serve
+    from pb_llm_tpu_torch.models import hf_import
+    from pb_llm_tpu_torch.runtime import multihost_batching as mhb
+    from pb_llm_tpu_torch.utils import tokenizer as tk
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    refcount = count_reference_matmuls()
+    cfg = llama7b(HTTP_TP_LAYERS)
+    hf_import.from_pretrained = lambda model_id, *a, **k: (tp_params("llama", HTTP_TP_LAYERS),
+                                                           cfg, None)
+    tk.get_tokenizer = lambda model_id, *a, **k: IdTokenizer()
+    argv = ["--model_id", "llama-7b-random-planes", "--tp", str(TP), "--max_seq", "1024",
+            "--max_new_tokens", str(E2E_NEW), "--slots", "8"]
+    served = []
+    run = mhb.MultiHostBatcher.run
+    mhb.MultiHostBatcher.run = lambda self, reqs: served.extend(reqs) or run(self, reqs)
+    rc_batch = serve._serve_rank(rank, serve.build_parser().parse_args(
+        argv + ["--prompts", prompts_file]), DEV)
+    mhb.MultiHostBatcher.run = run
+    batch = [[int(t) for t in r.output_ids] for r in served]
+    seen = {}
+
+    def drive(server):
+        seen.update(http_16b(server.server_address[1], prompts, batch))
+
+    serve._until_interrupted = drive
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    refcount["reference_matmuls"] = 0
+    rc = serve._serve_rank(rank, serve.build_parser().parse_args(
+        argv + ["--http", "0", "--host", "127.0.0.1"]), DEV)
+    torch.cuda.synchronize()
+    return {"rc_batch": rc_batch, "rc": rc, "batch": batch if rank == 0 else None, **seen,
+            "launches": read_counters(), "reference_matmuls": refcount["reference_matmuls"],
+            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def http_16b(port: int, prompts, batch) -> dict:
+    """16b's client on rank 0: a request of 5 stop ids, which the admission
+    record cannot carry (refused with HTTP 400), then 8 concurrent POSTs of
+    32 new tokens (0, 1 and 7 greedy; 2 with a stop token, its greedy
+    stream's fifth; 3 and 4 streamed NDJSON; 5 and 6 sampled), an idle gap
+    longer than the group timeout, one more greedy request, then /stats."""
+    import concurrent.futures
+    import urllib.error
+    import urllib.request
+
+    def post(payload):
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/generate",
+                                     data=json.dumps(payload).encode(),
+                                     headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=600) as r:
+                body = r.read().decode()
+        except urllib.error.HTTPError as e:
+            return {"status": e.code}
+        if payload.get("stream"):
+            lines = [json.loads(x) for x in body.splitlines() if x.strip()]
+            return {"tokens": [x["token"] for x in lines[:-1]], **lines[-1]}
+        return json.loads(body)
+
+    payloads = [{"prompt_ids": p, "max_new_tokens": E2E_NEW} for p in prompts]
+    payloads[2]["stop_token_ids"] = [batch[2][4]]
+    for i in (3, 4):
+        payloads[i]["stream"] = True
+    for i in (5, 6):
+        payloads[i].update(temperature=0.8, top_k=40)
+    refused = post({"prompt_ids": prompts[0], "max_new_tokens": E2E_NEW,
+                    "stop_token_ids": [1, 2, 3, 4, 5]})
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(payloads)) as ex:
+        answers = list(ex.map(post, payloads))
+    wall = time.perf_counter() - t0
+    time.sleep(HTTP_TP_IDLE_S)
+    late = post(payloads[0])
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/stats", timeout=60) as r:
+        stats = json.loads(r.read())
+    return {"refused": refused, "answers": answers, "late": late, "stats": stats,
+            "client_wall_s": wall,
+            "payloads": payloads}
+
+
+def http_tp_e2e(card: str) -> dict:
+    """Phase 16b: `serve --http 0 --tp 2` through the CLI's rank function,
+    two gloo ranks sharing the card, 8 full-width llama-7b layers (15's
+    planes, pack_block 128), TPEngine eager.  The greedy HTTP answers equal
+    `serve --tp 2`'s streams of the same prompts token for token, the stop
+    request stops at its token, the streamed ones stream their output_ids,
+    the sampled ones give their 32 tokens; a request of 5 stop ids is
+    refused with HTTP 400 and the server serves on; a request after an idle gap
+    longer than the group's timeout (shortened to 5 s) is answered; at
+    shutdown both ranks return 0.  HTTP tokens/s, ms a step, peak memory."""
+    import datetime
+    import os
+    import tempfile
+
+    from pb_llm_tpu_torch.parallel import mesh as pmesh
+
+    rng = np.random.default_rng(164)
+    vocab = llama7b(HTTP_TP_LAYERS).vocab_size
+    prompts = [rng.integers(0, vocab, int(rng.integers(20, 121))).tolist() for _ in range(8)]
+    saved = pmesh.GROUP_TIMEOUT
+    pmesh.GROUP_TIMEOUT = datetime.timedelta(seconds=HTTP_TP_TIMEOUT_S)
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "prompts.txt")
+            with open(path, "w") as fh:
+                fh.write("".join(" ".join(map(str, p)) + "\n" for p in prompts))
+            t0 = time.perf_counter()
+            ranks = pmesh.run_ranks(rank_16b, TP, (path, prompts), device=DEV)
+            ranks_s = time.perf_counter() - t0
+    finally:
+        pmesh.GROUP_TIMEOUT = saved
+    r0 = ranks[0]
+    batch, ans = r0["batch"], r0["answers"]
+    checks = {
+        "rc": [(r["rc_batch"], r["rc"]) for r in ranks] == [(0, 0)] * TP,
+        "refused_400": r0["refused"] == {"status": 400},
+        "greedy": all(ans[i]["output_ids"] == batch[i] for i in (0, 1, 3, 4, 7)),
+        "stop": ans[2]["output_ids"] == batch[2][: batch[2].index(batch[2][4]) + 1],
+        "streamed": all(ans[i]["tokens"] == ans[i]["output_ids"] and ans[i]["done"]
+                        for i in (3, 4)),
+        "sampled": all(len(ans[i]["output_ids"]) == E2E_NEW for i in (5, 6)),
+        "after_idle": r0["late"]["output_ids"] == batch[0],
+        "no_reference_matmul": not any(r["reference_matmuls"] for r in ranks),
+        "batch_done": len(batch) == 8 and all(len(b) == E2E_NEW for b in batch),
+    }
+    gen = sum(len(a["output_ids"]) for a in ans)
+    st = r0["stats"]
+    row = {"phase": "http_tp_e2e", "model": "llama-7b PBW-v2 (random planes, low_frac 0.9, "
+           f"pack_block {TP_PACK_BLOCK})", "layers": HTTP_TP_LAYERS, "tp": TP,
+           "backend": "gloo", "requests": len(ans), "ranks_s": ranks_s,
+           "client_wall_s": r0["client_wall_s"], "http_tokens_per_s": gen / r0["client_wall_s"],
+           "ms_per_step": 1e3 * st["wall_seconds"] / max(1, st["decode_steps"]),
+           "stats": st, "idle_gap_s": HTTP_TP_IDLE_S, "group_timeout_s": HTTP_TP_TIMEOUT_S,
+           "max_memory_allocated_gb_by_rank": [r["max_memory_allocated_gb"] for r in ranks],
+           "first_parting": [next((j for j, (a, b) in enumerate(zip(ans[i]["output_ids"],
+                                                                    batch[i])) if a != b), None)
+                             for i in (0, 1, 3, 4, 7)],
+           "checks": checks, "card": card}
+    log(json.dumps(row))
+    if not all(checks.values()):
+        raise AssertionError(f"phase 16b: {[k for k, v in checks.items() if not v]} failed")
+    row["launches"] = {c: sum(r["launches"][c] for r in ranks) for c in r0["launches"]}
+    return row
+
+
+def across_ranks(card: str) -> dict:
+    """Phases 16a and 17a-17c: the parent's single-process references on
+    the card, then ONE world of two gloo ranks sharing the card
+    (`rank_16_17`) held to them.
+
+    16a: replica `Engine`s of 2 full-width layers under `MultiHostBatcher`
+    (`mh_requests`' three mixes): every rank's streams, stats and lengths
+    the same bytes, and equal to one process's.  17a: ring attention at sp
+    = 2 on [1, 2048, 32, 128] f32, flash "tc" with residuals inside (rank 0
+    one causal block, rank 1 one causal and one full), against the flash
+    kernel over all 2048 and its plain version.  17b: `perplexity_sp` at sp
+    = 2 on 2 full-width layers, 4 windows of 2048, exact hybrid prefill:
+    within SP_RTOL of `perplexity`.  17c: `pipeline_forward` at pp = 2 on 4
+    stacked full-width layers, [4, 256] ids in 4 micro-batches (256 rows:
+    the stacked int8 kernel): within PP_ATOL of the stacked single-device
+    forward, launches by arm summed over the stages equal to it."""
+    from pb_llm_tpu_torch.eval.ppl import perplexity
+    from pb_llm_tpu_torch.models.registry import family_for
+    from pb_llm_tpu_torch.ops import flash_attention as fa
+    from pb_llm_tpu_torch.parallel import mesh as pmesh
+
+    fam = family_for("llama")
+    refcount = count_reference_matmuls()
+    t0 = time.perf_counter()
+    single16 = mh_run_all()
+    # 17a
+    q, k, v = ring_inputs()
+    scale = RING_SHAPE[3] ** -0.5
+    with torch.inference_mode():
+        want = fa.flash_attention(q, k, v, scale, causal=True)
+        plain = fa.flash_attention_plain(q, k, v, scale, causal=True)
+        flash_ms = cuda_ms(lambda: fa.flash_attention(q, k, v, scale, causal=True))
+    del q, k, v
+    # 17b
+    params, cfg, ids = sp_model()
+    t1 = time.perf_counter()
+    with exact_prefill():
+        ppl = perplexity(params, cfg, fam.forward, ids, seqlen=SP_SEQLEN)
+    torch.cuda.synchronize()
+    ppl_s = (time.perf_counter() - t1) / SP_WINDOWS
+    del params
+    # 17c
+    params, cfg, ids = pp_model()
+    zero_counters()
+    refcount["reference_matmuls"] = 0
+    t1 = time.perf_counter()
+    with torch.inference_mode():
+        ref = torch.cat([fam.forward(params, ids[i : i + PP_IDS[0] // PP_MICRO], cfg)[0].float()
+                         for i in range(0, PP_IDS[0], PP_IDS[0] // PP_MICRO)])
+    torch.cuda.synchronize()
+    pp_single_s = time.perf_counter() - t1
+    pp_single_launches = read_counters()
+    if refcount["reference_matmuls"]:
+        raise AssertionError("phase 17c: the single-device forward ran plain-reference matmuls")
+    ref = ref.cpu().numpy()
+    del params
+    torch.cuda.empty_cache()
+    refs_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = pmesh.run_ranks(rank_16_17, SP, (), device=DEV)
+    ranks_s = time.perf_counter() - t0
+
+    # 16a
+    for name in single16["runs"]:
+        if ranks[0]["p16"]["runs"][name] != ranks[1]["p16"]["runs"][name]:
+            raise AssertionError(f"phase 16a {name}: the ranks' streams/stats/lengths differ")
+        if ranks[0]["p16"]["runs"][name] != single16["runs"][name]:
+            raise AssertionError(f"phase 16a {name}: the ranks differ from one process")
+    if json.loads(single16["runs"]["draft"])["stats"][4] == 0:
+        raise AssertionError("phase 16a draft: no draft was accepted (spec_accepted 0)")
+    log(json.dumps({"phase": "multihost_parity", "ranks": SP, "backend": "gloo",
+                    "layers": MH_LAYERS, "mixes": {n: json.loads(r)["stats"] for n, r in
+                                                   single16["runs"].items()},
+                    "stats_order": ["prefills", "decode_steps", "generated", "spec_drafted",
+                                    "spec_accepted", "preemptions"],
+                    "byte_identical": True, "card": card}))
+    # 17a
+    got = torch.from_numpy(np.concatenate([r["ring"]["out"] for r in ranks], axis=1))
+    err_tc = (got - want.cpu()).abs().max().item()
+    err_plain = (got - plain.cpu()).abs().max().item()
+    tol_ok = all(torch.all((got - w.cpu()).abs() <= FLASH_ATOL + FLASH_RTOL * w.cpu().abs())
+                 for w in (want, plain))
+    kinds = [(r["ring"]["launches"]["flash_attention_residuals_causal"],
+              r["ring"]["launches"]["flash_attention_residuals_full"],
+              r["ring"]["launches"]["flash_attention_tc"]) for r in ranks]
+    row17a = {"phase": "ring_attention", "sp": SP, "shape": list(RING_SHAPE), "inner": "flash",
+              "max_abs_err_vs_flash": err_tc, "max_abs_err_vs_plain": err_plain,
+              "rtol": FLASH_RTOL, "atol": FLASH_ATOL, "launches_causal_full_tc_by_rank": kinds,
+              "ring_ms_by_rank": [r["ring"]["ms"] for r in ranks], "flash_full_ms": flash_ms,
+              "card": card}
+    log(json.dumps(row17a))
+    if not tol_ok or kinds != [(1, 0, 1), (1, 1, 2)]:
+        raise AssertionError(f"phase 17a: ring attention {row17a}")
+    # 17b
+    sp_ppl = [r["ppl"]["ppl"] for r in ranks]
+    row17b = {"phase": "perplexity_sp", "sp": SP, "layers": SP_LAYERS, "seqlen": SP_SEQLEN,
+              "windows": SP_WINDOWS, "ppl": ppl, "ppl_sp_by_rank": sp_ppl,
+              "rel_diff": abs(sp_ppl[0] - ppl) / ppl, "rtol": SP_RTOL,
+              "s_per_window": ppl_s, "sp_s_per_window_by_rank": [r["ppl"]["s_per_window"]
+                                                                 for r in ranks],
+              "flash_residual_launches_by_rank": [
+                  (r["ppl"]["launches"]["flash_attention_residuals_causal"],
+                   r["ppl"]["launches"]["flash_attention_residuals_full"]) for r in ranks],
+              "max_memory_allocated_gb_by_rank": [r["ppl"]["max_memory_allocated_gb"]
+                                                  for r in ranks], "card": card}
+    log(json.dumps(row17b))
+    if not all(abs(p - ppl) <= SP_RTOL * ppl for p in sp_ppl) or sp_ppl[0] != sp_ppl[1]:
+        raise AssertionError(f"phase 17b: perplexity_sp {sp_ppl} vs perplexity {ppl}")
+    if any(r["ppl"]["reference_matmuls"] for r in ranks):
+        raise AssertionError("phase 17b: a rank ran plain-reference matmuls")
+    if [x[0] for x in row17b["flash_residual_launches_by_rank"]] != [SP_LAYERS * SP_WINDOWS] * SP:
+        raise AssertionError("phase 17b: the ring did not run the flash kernel's residual arm")
+    # 17c
+    pp_err = float(np.abs(ranks[0]["pp"]["logits"] - ref).max())
+    pp_sum = {c: sum(r["pp"]["launches"][c] for r in ranks) for c in pp_single_launches}
+    by_arm = {c: (pp_sum[c], pp_single_launches[c]) for c in pp_single_launches
+              if pp_sum[c] or pp_single_launches[c]}
+    row17c = {"phase": "pipeline_forward", "pp": PP, "layers": PP_LAYERS, "ids": list(PP_IDS),
+              "n_micro": PP_MICRO, "max_abs_err": pp_err, "atol": PP_ATOL,
+              "stage_ranges": [r["pp"]["layer_range"] for r in ranks],
+              "launches_pipeline_vs_single": by_arm, "s_by_rank": [r["pp"]["s"] for r in ranks],
+              "single_s": pp_single_s, "card": card}
+    log(json.dumps(row17c))
+    if pp_err > PP_ATOL or ranks[0]["pp"]["sha1"] != ranks[1]["pp"]["sha1"]:
+        raise AssertionError(f"phase 17c: pipeline logits {pp_err} from the single device, or "
+                             "not replicated")
+    if pp_sum != pp_single_launches or not pp_sum.get("pb_int8_matmul_stacked_tc"):
+        raise AssertionError(f"phase 17c: launches {by_arm}")
+    if any(r["pp"]["reference_matmuls"] for r in ranks):
+        raise AssertionError("phase 17c: a rank ran plain-reference matmuls")
+    log(json.dumps({"phase": "across_ranks_time", "references_s": refs_s, "ranks_s": ranks_s,
+                    "card": card}))
+    p16 = {c: sum(r["p16"]["launches"][c] for r in ranks) for c in pp_single_launches}
+    p17 = {c: sum(r[k]["launches"][c] for r in ranks for k in ("ring", "ppl", "pp"))
+           for c in pp_single_launches}
+    return {"p16": p16, "p17": p17}
+
+
+def check_flash_residuals(timer: Timer, card: str):
+    """Phase 2 for the ring's inner: flash "tc" with its (m, l) residuals
+    on 17a's blocks [1, 1024, 32, 128] f32, causal (the diagonal) and full
+    (below it), against the plain version (out, m, l), with its time, the
+    plain version's, SDPA f32's, and the bound of `check_flash`'s rule
+    (the issued bf16 products at 989 TFLOP/s; q, k, v read and out, m, l
+    written once)."""
+    from pb_llm_tpu_torch.ops import flash_attention as fa
+
+    b, t, h, d = RING_SHAPE[0], RING_SHAPE[1] // SP, RING_SHAPE[2], RING_SHAPE[3]
+    gen = torch.Generator(device=DEV).manual_seed(175)
+    q, k, v = (torch.randn((b, t, h, d), generator=gen, device=DEV) for _ in range(3))
+    qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    scale = d ** -0.5
+    n_tc = sum(len(pr) for pr in fa.tc_products(False))
+    rows = []
+    for causal in (True, False):
+        got = fa.flash_attention(q, k, v, scale, causal=causal, return_residuals=True)
+        want = fa.flash_attention_plain(q, k, v, scale, causal=causal, return_residuals=True)
+        torch.cuda.synchronize()
+        errs = []
+        for g, w in zip(got, want):
+            err = (g - w).abs()
+            if not (torch.isfinite(g).all() and torch.all(err <= FLASH_ATOL + FLASH_RTOL * w.abs())):
+                raise AssertionError(f"flash_attention residuals causal={causal}: max|err| "
+                                     f"{err.max().item()} beyond rtol = atol = {FLASH_RTOL}")
+            errs.append(err.max().item())
+        pairs = b * h * (t * (t + 1) // 2 if causal else t * t)
+        bound_ms, bound_by = bound(4 * (4 * b * t * h * d + 2 * b * t * h),
+                                   2 * d * pairs * n_tc, BF16_FLOPS_PER_S)
+        row = {"kernel": "flash_attention_tc_residuals", "B": b, "T": t, "H": h, "D": d,
+               "causal": causal, "max_abs_err": errs[0], "m_max_abs_err": errs[1],
+               "l_max_abs_err": errs[2],
+               "kernel_ms": timer(lambda: fa.flash_attention(q, k, v, scale, causal=causal,
+                                                             return_residuals=True), iters=10),
+               "plain_ms": timer(lambda: fa.flash_attention_plain(
+                   q, k, v, scale, causal=causal, return_residuals=True), iters=3, warmup=1),
+               "library_ms": timer(lambda: sdpa(qt, kt, vt, is_causal=causal, scale=scale),
+                                   iters=10),
+               "bound_ms": bound_ms, "bound_by": bound_by, "card": card}
+        log(json.dumps(row))
+        rows.append(row)
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true", help="trace three decode steps")
@@ -4957,62 +5564,69 @@ def main(argv=None) -> int:
     from pb_llm_tpu_torch.ops import packed_matmul_v1 as v1
     from pb_llm_tpu_torch.ops import paged_attention as tpa
 
+    t = time.perf_counter()
     card = setup()
+    PHASE_SECONDS["1_setup"] = time.perf_counter() - t
     timer = Timer()
-    mm_rows = check_matmul(timer, card)
-    prep_rows = check_prep(timer, card)
-    att_rows = check_attention(timer, card)
+    mm_rows = timed("2_int8_matmul", check_matmul, timer, card)
+    prep_rows = timed("2_prep_int8", check_prep, timer, card)
+    att_rows = timed("2_decode_attention", check_attention, timer, card)
     att = att_rows[0]
-    dq_rows = check_dequant(timer, card)
-    f32_rows = check_f32_matmul(timer, card)
-    f32_split_rows = check_f32_split(timer, card)
-    fa_rows = check_flash(timer, card)
-    pa_rows = check_paged_attention(timer, card)
-    v1_rows = check_v1_matmul(timer, card)
-    pair_rows = check_pair_arms(timer, card)
-    dma_rows = check_dma_arms(timer, card)
-    dma_prep = check_dma_prep(timer, card)
-    arm_rows = check_v2_arms(timer, card)
-    check_tp_shards(timer, card)
+    dq_rows = timed("2_dequant", check_dequant, timer, card)
+    f32_rows = timed("2_f32_matmul", check_f32_matmul, timer, card)
+    f32_split_rows = timed("2_f32_split", check_f32_split, timer, card)
+    fa_rows = timed("2_flash", check_flash, timer, card)
+    fr_rows = timed("2_flash_residuals", check_flash_residuals, timer, card)
+    pa_rows = timed("2_paged_attention", check_paged_attention, timer, card)
+    v1_rows = timed("2_v1_matmul", check_v1_matmul, timer, card)
+    pair_rows = timed("2_pair", check_pair_arms, timer, card)
+    dma_rows = timed("2_dma", check_dma_arms, timer, card)
+    dma_prep = timed("2_dma_prep", check_dma_prep, timer, card)
+    arm_rows = timed("2_v2_arms", check_v2_arms, timer, card)
+    timed("2_tp_shards", check_tp_shards, timer, card)
     del timer
-    parity_params = random_packed_llama(llama7b(2), torch.Generator().manual_seed(4))
-    check_engine_parity(parity_params, "int8")
-    exact = check_engine_parity(parity_params, "exact")
+    parity_params = random_packed_llama(llama7b(PARITY_LAYERS), torch.Generator().manual_seed(4))
+    timed("3_engine_parity_int8", check_engine_parity, parity_params, "int8")
+    exact = timed("3_engine_parity_exact", check_engine_parity, parity_params, "exact")
     t0 = time.perf_counter()
     params = random_packed_llama(llama7b(32), torch.Generator(device=DEV).manual_seed(5))
     torch.cuda.synchronize()
-    e2e = serve_e2e(params, time.perf_counter() - t0, card, args.profile)
-    tp_runs = [tp_graph_nccl(params, card, e2e), tp_parity(card), tp_e2e(card)]
-    check_engine_parity(parity_params, "int8", page_size=16)
-    paged_invariants(parity_params, card)
-    scan_fuse = scan_fuse_parity(parity_params, card)
-    check_kv_parity(parity_params, card)
-    graph_parity(parity_params, card)
-    window_parity(parity_params, card)
-    tasks_a = task_parity(parity_params, card)
+    e2e = timed("4_e2e", serve_e2e, params, time.perf_counter() - t0, card, args.profile)
+    tp_runs = [timed("15b_tp_graph_nccl", tp_graph_nccl, params, card, e2e),
+               timed("15a_tp_parity", tp_parity, card), timed("15c_tp_e2e", tp_e2e, card)]
+    ranks16_17 = timed("16a_17abc_across_ranks", across_ranks, card)
+    http16 = timed("16b_http_tp_e2e", http_tp_e2e, card)
+    timed("6a_engine_parity_paged", check_engine_parity, parity_params, "int8", page_size=16)
+    timed("6a_paged_invariants", paged_invariants, parity_params, card)
+    scan_fuse = timed("9a_scan_fuse_parity", scan_fuse_parity, parity_params, card)
+    timed("10a_kv_parity", check_kv_parity, parity_params, card)
+    timed("11a_graph_parity", graph_parity, parity_params, card)
+    timed("11b_window_parity", window_parity, parity_params, card)
+    tasks_a = timed("14a_task_parity", task_parity, parity_params, card)
     del parity_params
-    paged = paged_e2e(params, card)
-    arms_e2e = serve_scan_fuse_e2e(params, card)
-    http_e2e = serve_http_e2e(params, card, e2e)
-    tasks_b = task_e2e(params, card)
+    paged = timed("6b_paged_e2e", paged_e2e, params, card)
+    arms_e2e = timed("9b_scan_fuse_e2e", serve_scan_fuse_e2e, params, card)
+    http_e2e = timed("10b_http_e2e", serve_http_e2e, params, card, e2e)
+    tasks_b = timed("14b_task_e2e", task_e2e, params, card)
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    qat_parity(card)
-    qat_e2e(card)
+    timed("13a_qat_parity", qat_parity, card)
+    timed("13b_qat_e2e", qat_e2e, card)
     gc.collect()
     torch.cuda.empty_cache()
-    check_opt_parity(card)
+    timed("7a_opt_parity", check_opt_parity, card)
     t0 = time.perf_counter()
     opt_params = random_packed_opt(opt13b(24), torch.Generator(device=DEV).manual_seed(18))
     torch.cuda.synchronize()
-    v1_e2e = serve_v1_e2e(opt_params, opt13b(24), time.perf_counter() - t0, card)
+    v1_e2e = timed("7b_v1_e2e", serve_v1_e2e, opt_params, opt13b(24), time.perf_counter() - t0,
+                   card)
     del opt_params
     torch.cuda.empty_cache()
-    hf = hf_parity(card)
-    hf_serve = hf_e2e(card)
-    prod = producer(card)
-    prod_v1 = producer_v1(card)
+    hf = timed("12a_hf_parity", hf_parity, card)
+    hf_serve = timed("12b_hf_e2e", hf_e2e, card)
+    prod = timed("5_producer", producer, card)
+    prod_v1 = timed("8_producer_v1", producer_v1, card)
 
     at_head = {r["arm"]: r for r in mm_rows if (r["m"], r["ic"], r["oc"]) == HEADLINE_SHAPE}
     head, split = at_head["dp4a"], at_head["split"]
@@ -5451,22 +6065,52 @@ def main(argv=None) -> int:
          "shape": "m={} ic={} oc={} (the x preparation XLA fuses into the int8 call); "
                   "launches: phases 4, 12a and 12b".format(*HEADLINE_SHAPE)},
     ]
-    # phase 15's launches (15b, and 15a and 15c summed over their ranks), in
-    # the rows of the kernels and arms the TP path ran
+    fr = {r["causal"]: r for r in fr_rows}
+    kernels.append({
+        "name": "flash_attention_tc_residuals", "route": "cuda",
+        "source": "pb_llm_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "pb_llm_tpu/ops/flash_attention.py:29", "launches": 0,
+        "max_abs_err": max(max(r["max_abs_err"], r["m_max_abs_err"], r["l_max_abs_err"])
+                           for r in fr_rows),
+        "ms": fr[True]["kernel_ms"], "plain_ms": fr[True]["plain_ms"],
+        "bound_ms": fr[True]["bound_ms"], "bound_by": fr[True]["bound_by"],
+        "library_ms": fr[True]["library_ms"], "parity": "ok (out, m, l)", "arm": "tc",
+        "full": {k: fr[False][k] for k in ("kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                                           "library_ms", "max_abs_err")},
+        "shape": "B=1 T=1024 H=32 D=128 f32, the ring's blocks at sp = 2 (T = 2048): causal "
+                 "(the diagonal; the full block's numbers under full); with return_residuals "
+                 "(m, l); library: SDPA f32; launches: phases 17a and 17b (ring attention)"})
+    # the launches of phases 15 (15b, and 15a and 15c summed over their ranks),
+    # 16 (16a and 16b over their ranks) and 17 (17a-17c over the ranks), in
+    # the rows of the kernels and arms those paths ran
     p15 = {c: sum(r["launches"].get(c, 0) for r in tp_runs) for c in read_counters()}
-    p15_rows = {"pb_int8_matmul": sum(p15[c] for c in INT8_COUNTERS.values()),
-                "decode_attention": p15["decode_attention"] - p15["decode_attention_split"],
-                "paged_attention": p15["paged_attention_cuda_cores"]}
+    p16 = {c: ranks16_17["p16"].get(c, 0) + http16["launches"].get(c, 0) for c in read_counters()}
+    p17 = {c: ranks16_17["p17"].get(c, 0) for c in read_counters()}
+
+    def row_launches(p, name):
+        special = {"pb_int8_matmul": sum(p[c] for c in INT8_COUNTERS.values()),
+                   "pb_int8_matmul_stacked": sum(p[c.replace("matmul", "matmul_stacked")]
+                                                 for c in INT8_COUNTERS.values()),
+                   "decode_attention": p["decode_attention"] - p["decode_attention_split"],
+                   "paged_attention": p["paged_attention_cuda_cores"],
+                   "flash_attention_tc_residuals": p["flash_attention_residuals_causal"]
+                   + p["flash_attention_residuals_full"]}
+        return special.get(name, p.get(name, 0))
+
     for k in kernels:
-        n = p15_rows.get(k["name"], p15.get(k["name"], 0))
-        k["launches"] += n
-        k["phase15_launches"] = n
+        for tag, p in (("phase15_launches", p15), ("phase16_launches", p16),
+                       ("phase17_launches", p17)):
+            n = row_launches(p, k["name"])
+            k["launches"] += n
+            k[tag] = n
     # a yardstick row is an arm kept to time the path's arm against (its own
     # launches, 0 where no layout of the path sends it there); every other row's
     # arm must have run on its path
     idle = [k["name"] for k in kernels if not k["launches"] and not k.get("yardstick")]
     if idle:
         raise AssertionError(f"kernels launched no time on the main paths: {idle}")
+    log(json.dumps({"phase_seconds": PHASE_SECONDS, "total_s": time.perf_counter() - T_START,
+                    "card": card}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -19,8 +19,17 @@ the layers (`models.stacking`); the eval windows (m >= 256 rows) take each
 layer's views through the ordinary dispatch, as in JAX.  ``--tasks`` loads
 its examples with the `datasets` package (a network or a populated cache),
 and raises without it; offline, score hand-built `eval.tasks.Example`s
-through `evaluate_model_tasks(examples_by_task=...)`.  Sequence
-parallelism (--sp) is not ported yet.
+through `evaluate_model_tasks(examples_by_task=...)`.
+
+``--sp N`` (N > 1) evaluates each perplexity window across N ranks
+(`eval.ppl.perplexity_sp`: each rank holds T/N rows through the whole
+forward, attention is the ring); seqlen must divide by N.  As ``serve
+--tp``, the CLI spawns its ranks unless torchrun started them (WORLD_SIZE
+in the environment); gloo on the CPU or for ranks sharing a card, NCCL
+with a card a rank; rank 0 prints, and runs the task suites.
+
+    python -m pb_llm_tpu_torch.cli.run_eval --model_id llama --synthetic \
+        --eval_ppl wikitext2 --device cpu --sp 2
 """
 
 from __future__ import annotations
@@ -45,7 +54,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="eval-text construction flavor (the two reference pipelines differ)")
     p.add_argument("--synthetic", action="store_true")
     p.add_argument("--metrics", type=str, default=None)
-    p.add_argument("--sp", type=int, default=1, help="sequence-parallel ways (not ported yet)")
+    p.add_argument("--sp", type=int, default=1,
+                   help="sequence-parallel ranks: each eval window's rows over N ranks with ring "
+                        "attention (seqlen must be divisible by N; spawned here unless torchrun "
+                        "started them)")
     p.add_argument("--scan_layers", action="store_true",
                    help="stacked layers for the ppl forward (models.stacking)")
     p.add_argument("--vocab_limit", type=int, default=50257,
@@ -60,22 +72,55 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.sp > 1:
-        raise NotImplementedError("--sp: perplexity_sp and ring attention are not ported yet "
-                                  "(ROADMAP Queue 1, slice 5)")
-
     from .. import resolve_device
+
+    device = resolve_device(args.device)
+    if args.sp <= 1:
+        return _evaluate(args, device)
+    from ..parallel import mesh as pmesh
+
+    if "WORLD_SIZE" not in os.environ:
+        pmesh.run_ranks(_eval_rank, args.sp, (args, device.type), device=device.type)
+        return 0
+    pmesh.multihost_initialize(device=device.type)
+    try:
+        return _eval_rank(int(os.environ["RANK"]), args, device.type)
+    finally:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+
+
+def _eval_rank(rank: int, args, device_type: str) -> int:
+    """One rank of ``run_eval --sp N``: its card (or the CPU) and the sp
+    mesh (a world larger than N holds several, each evaluating alike)."""
+    import torch
+
+    from ..parallel import mesh as pmesh
+
+    if device_type == "cpu":  # the ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // args.sp))
+    mesh = pmesh.make_sp_mesh(args.sp)
+    if rank == 0:
+        print(pmesh.backend_line(args.sp, device_type, axis="sp"), flush=True)
+    return _evaluate(args, pmesh.rank_device(rank, device_type), mesh)
+
+
+def _evaluate(args, device, mesh=None) -> int:
+    """Perplexity (and the task suites) on ``device``; with an sp ``mesh``
+    each window's rows over its ranks, rank 0 printing."""
     from ..data.loaders import get_eval_tokens, get_loaders
-    from ..eval.ppl import perplexity
+    from ..eval.ppl import perplexity, perplexity_sp
     from ..eval.tasks import evaluate_model_tasks
     from ..interop import to_device
     from ..models.registry import family_for
     from ..ops.kernel_config import pin_exact_prefill
     from ..utils.logging import MetricsLogger
 
+    lead = mesh is None or mesh.rank == 0
+    say = print if lead else (lambda *a, **k: None)
     pin_exact_prefill()  # parity: exact hybrid prefill unless the env chose an arm
-    device = resolve_device(args.device)
-    log = MetricsLogger(args.metrics)
+    log = MetricsLogger(args.metrics if lead else None)
     fam = family_for(args.model_id)
     if args.synthetic:
         from ..data.synthetic import ByteTokenizer, synthetic_model, synthetic_source
@@ -118,13 +163,17 @@ def main(argv=None) -> int:
         else:
             _, evaltok = get_loaders(ds, tokenizer, nsamples=2, seqlen=seqlen, flavor="ptq",
                                      source=source)
-        ppl = perplexity(params, cfg, fam.forward, evaltok, seqlen=seqlen,
-                         window_limit=args.ppl_limit, window_batch=args.ppl_batch)
+        if mesh is not None:
+            ppl = perplexity_sp(params, cfg, fam.forward, evaltok, mesh, seqlen=seqlen,
+                                window_limit=args.ppl_limit)
+        else:
+            ppl = perplexity(params, cfg, fam.forward, evaltok, seqlen=seqlen,
+                             window_limit=args.ppl_limit, window_batch=args.ppl_batch)
         log.log("ppl", dataset=ds, ppl=ppl)
-        print(f"{ds} perplexity: {ppl:.4f}")
+        say(f"{ds} perplexity: {ppl:.4f}")
 
     tasks = [t for t in args.tasks.split(",") if t]
-    if tasks:
+    if tasks and lead:
         out = evaluate_model_tasks(params, cfg, fam, tokenizer, tasks, limit=args.limit,
                                    vocab_limit=args.vocab_limit or None,
                                    num_fewshot=args.num_fewshot)

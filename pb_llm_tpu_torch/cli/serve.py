@@ -33,10 +33,16 @@ group in the environment (no WORLD_SIZE) the CLI spawns its N ranks itself,
 under torchrun it takes the environment's rank.  The backend is NCCL when
 each rank has a card of its own, else gloo (the CPU, or ranks sharing a
 card); rank 0 prints it first, and prints the results.  ``--tp`` 0 or 1
-serves on one device, as in JAX.  ``--http`` with ``--tp`` > 1 raises: the
-admission broadcast it needs is ROADMAP Queue 1 item 5b.
+serves on one device, as in JAX.  Across ranks the requests reach rank 0
+alone, and rank 0 admits them for every rank
+(`runtime.multihost_batching.MultiHostBatcher`, JAX's choice for a
+multi-process world).  With ``--http`` rank 0 serves HTTP and the other
+ranks follow its scheduler's loop word (`runtime.server`); interrupting
+rank 0 stops every rank.
 
     python -m pb_llm_tpu_torch.cli.serve --model_id llama --synthetic --device cpu --tp 2
+    python -m pb_llm_tpu_torch.cli.serve --model_id llama --synthetic --device cpu --tp 2 \
+        --http 0 --host 127.0.0.1
 """
 
 from __future__ import annotations
@@ -145,10 +151,6 @@ def main(argv=None) -> int:
                          "(the draft model's config/architecture)")
     if args.tp <= 1:
         return _serve(args, resolve_device(args.device))
-    if args.http is not None:
-        raise NotImplementedError(
-            f"--http with --tp {args.tp}: requests arriving at rank 0 alone need an admission "
-            "broadcast to every rank (MultiHostBatcher, ROADMAP Queue 1 item 5b)")
     device = resolve_device(args.device)
     if "WORLD_SIZE" not in os.environ:
         pmesh.run_ranks(_serve_rank, args.tp, (args, device.type), device=device.type)
@@ -180,7 +182,7 @@ def _serve_rank(rank: int, args, device_type: str) -> int:
 
 def _serve(args, device, mesh=None) -> int:
     """Serve on ``device``: one `Engine`, or this rank's `TPEngine` of
-    ``mesh`` (every rank serves the same requests; rank 0 prints)."""
+    ``mesh`` (rank 0 admits the requests for every rank and prints)."""
     import dataclasses
     import time
 
@@ -263,11 +265,20 @@ def _serve(args, device, mesh=None) -> int:
             dparams, dcfg, dfam, EngineConfig(n_slots=args.slots, max_seq=max_seq,
                                               prefill_buckets=buckets),
             device=device, seed=args.seed))
+    batcher = None
+    if mesh is not None:
+        from ..runtime.multihost_batching import MultiHostBatcher, follow
+
+        batcher = MultiHostBatcher(eng, max_prompt=max_seq, draft_source=draft_source)
+        if args.http is not None and mesh.rank != 0:
+            follow(batcher)  # rank 0's scheduler drives; its stop word ends this
+            return 0
     if args.http is not None:
         from ..runtime.server import serve_http
 
         server = serve_http(eng, host=args.host, port=args.http, encode=tokenizer.encode,
-                            decode=tokenizer.decode, draft_source=draft_source)
+                            decode=tokenizer.decode, draft_source=draft_source,
+                            batcher=batcher)
         print(f"serving on http://{args.host}:{server.server_address[1]} on {device}  "
               f"(POST /generate, GET /health, GET /stats)", flush=True)
         try:
@@ -279,7 +290,7 @@ def _serve(args, device, mesh=None) -> int:
             server.server_close()
             server.serving_loop.shutdown()
         return 0
-    batcher = ContinuousBatcher(eng, draft_source=draft_source)
+    batcher = batcher or ContinuousBatcher(eng, draft_source=draft_source)
     reqs = [Request(request_id=i, prompt_ids=tokenizer.encode(t)[: max_seq // 2],
                     max_new_tokens=args.max_new_tokens)
             for i, t in enumerate(texts)]

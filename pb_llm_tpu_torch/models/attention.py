@@ -1,6 +1,6 @@
-"""Attention helpers (port of `pb_llm_tpu/models/attention.py` without its
-sequence-parallel parts): the no-cache full-sequence dispatch (flash
-attention or the masked softmax), causal masking, the KV-cache write and
+"""Attention helpers (port of `pb_llm_tpu/models/attention.py`): the
+no-cache full-sequence dispatch (flash attention, the masked softmax, or
+under `sequence_parallel` ring attention), causal masking, the KV-cache write and
 the cached attention over strip caches or a paged pool
 (`runtime.paged_kv`), at a scalar position (prefill, chunk) or a per-slot
 position vector [B] (continuous-batching decode, speculative verify).
@@ -15,6 +15,42 @@ import torch
 Pos = Union[int, torch.Tensor]
 
 
+def set_attention_impl(impl: str) -> None:
+    """Process-default full-sequence attention arm ("auto", "flash",
+    "flash_interpret", "xla"): a per-field override on `ops.kernel_config`
+    (other fields keep their env/default resolution)."""
+    from ..ops import kernel_config as _kc
+
+    _kc.set_field_default(attention=impl)
+
+
+# the sequence-parallel context: while set, the no-cache full-sequence
+# attention is ring attention over the mesh's "sp" axis
+# (`parallel.ring_attention`), on each rank's local rows
+_SP_MESH = None
+
+
+class sequence_parallel:
+    """Context manager: ``with sequence_parallel(mesh): fam.forward(params,
+    local_ids, cfg, pos=offset)`` runs every full-sequence attention as a
+    ring over ``mesh``'s "sp" axis.  Each rank passes its own T/sp rows of
+    the window and their global offset (`eval.ppl.perplexity_sp`)."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+
+    def __enter__(self):
+        global _SP_MESH
+        self._prev = _SP_MESH
+        _SP_MESH = self.mesh
+        return self.mesh
+
+    def __exit__(self, *exc):
+        global _SP_MESH
+        _SP_MESH = self._prev
+        return False
+
+
 def _flash_eligible(q: torch.Tensor) -> bool:
     """"auto" picks flash on the card for windows of 1024 or more and head
     dims divisible by 8, the rule of the JAX package on its chip
@@ -26,15 +62,29 @@ def _flash_eligible(q: torch.Tensor) -> bool:
 
 def full_causal_attention(q, k, v, scale, window: Optional[int] = None) -> torch.Tensor:
     """No-cache path, q,k,v [B, T, H*, D].  ``window`` (sliding window)
-    keeps the masked softmax; otherwise the configured attention arm:
+    keeps the masked softmax; under `sequence_parallel` the ring (q, k, v
+    are a rank's local rows); otherwise the configured attention arm:
     "flash" the kernel, "flash_interpret" its plain version, "xla" the
     masked softmax, "auto" flash where `_flash_eligible`."""
     from ..ops import kernel_config as _kc
 
     t = q.shape[1]
     if window is not None:
+        if _SP_MESH is not None:
+            raise NotImplementedError(
+                "sliding-window attention under sequence parallelism is unsupported — "
+                "evaluate without --sp or with window=None")
         return masked_softmax_attention(q, k, v, causal_allowed(0, t, t, None, window, q.device),
                                         scale)
+    if _SP_MESH is not None:
+        from ..parallel.ring_attention import ring_attention
+
+        hq, hkv = q.shape[2], k.shape[2]
+        if hq != hkv:
+            k = torch.repeat_interleave(k, hq // hkv, dim=2)
+            v = torch.repeat_interleave(v, hq // hkv, dim=2)
+        q = q * torch.as_tensor(scale, dtype=q.dtype)  # the scale folded into q, as in JAX
+        return ring_attention(q, k, v, 1.0, _SP_MESH).to(q.dtype)
     impl = _kc.current().attention
     if impl == "auto":
         impl = "flash" if _flash_eligible(q) else "xla"

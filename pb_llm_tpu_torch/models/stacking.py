@@ -92,11 +92,39 @@ def stack_layers(params: Dict[str, Any]) -> Dict[str, Any]:
     return out
 
 
+def _take_range(v: Any, lo: int, hi: int) -> Any:
+    if isinstance(v, dict):
+        return {k: _take_range(x, lo, hi) for k, x in v.items()}
+    if isinstance(v, (PackedLinear, PackedLinearV2)):
+        # a fresh v2 leaf: its coefficient cache is remade for the range
+        return dataclasses.replace(v, **{f: None if getattr(v, f) is None
+                                         else getattr(v, f)[lo:hi].clone()
+                                         for f in fields_of(v)})
+    return None if v is None else v[lo:hi].clone()
+
+
+def take_layers(params: Dict[str, Any], lo: int, hi: int) -> Dict[str, Any]:
+    """A stacked tree cut to layers lo..hi-1 (a pipeline stage's slice):
+    its leaves are copies of their [lo:hi] rows, so the whole stack can be
+    freed, ``num_layers`` is hi - lo and the layer indices start at 0 (the
+    stacked kernels' row offsets address the slice).  ``layer_range`` keeps
+    (lo, hi, the stack's layers).  Non-mutating."""
+    n = params["num_layers"]
+    if not 0 <= lo < hi <= n:
+        raise ValueError(f"layer range [{lo}, {hi}) outside the {n} stacked layers")
+    out = {k: v for k, v in params.items() if k != "layers_stacked"}
+    out["layers_stacked"] = _take_range(params["layers_stacked"], lo, hi)
+    out["num_layers"] = hi - lo
+    out["layer_range"] = (lo, hi, n)
+    return out
+
+
 def unstack_layers(params: Dict[str, Any]) -> Dict[str, Any]:
     """Inverse of `stack_layers` (the layers are views of the stacked
     tensors)."""
     n = params["num_layers"]
-    out = {k: v for k, v in params.items() if k not in ("layers_stacked", "num_layers")}
+    out = {k: v for k, v in params.items()
+           if k not in ("layers_stacked", "num_layers", "layer_range")}
     out["layers"] = [take_layer(params["layers_stacked"], i) for i in range(n)]
     return out
 

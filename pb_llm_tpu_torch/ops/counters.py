@@ -28,6 +28,9 @@ KERNELS: Dict[str, Tuple[str, str]] = {
     "pb_f32_matmul_tc": ("packed_matmul", "f32_tc_launches"),  # the bf16 tensor-core arm
     "flash_attention": ("flash_attention", "launches"),  # the CUDA-core arm
     "flash_attention_tc": ("flash_attention", "tc_launches"),  # the bf16 tensor-core arm
+    # with the (m, l) residuals (ring attention's inner), by block kind
+    "flash_attention_residuals_causal": ("flash_attention", "residual_causal_launches"),
+    "flash_attention_residuals_full": ("flash_attention", "residual_full_launches"),
     "paged_attention_decode": ("paged_attention", "decode_launches"),
     "paged_attention_multi": ("paged_attention", "multi_launches"),
     "pb_planar_v1": ("packed_matmul_v1", "planar_launches"),  # the CUDA-core arm

@@ -42,6 +42,9 @@ FLASH_TERMS = (((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0)), ((1, 0), (0, 1)
 
 launches = 0  # launches of the kernel's arm "cores" (plain-version calls not counted)
 tc_launches = 0  # launches of its arm "tc"
+# launches (either arm) with return_residuals, by block kind: the ring's inner
+residual_causal_launches = 0
+residual_full_launches = 0
 
 
 def _allowed(t: int, s: int, kv_len: int, causal: bool, device) -> torch.Tensor:
@@ -185,5 +188,11 @@ def flash_attention(q, k, v, scale: float, causal: bool = True, kv_len: Optional
         fn.restype = ctypes.c_int
         _build.check(fn(*ptrs, *(x.data_ptr() for x in scratch), *args), "flash_attention_tc")
         tc_launches += 1
+    if return_residuals:
+        global residual_causal_launches, residual_full_launches
+        if causal:
+            residual_causal_launches += 1
+        else:
+            residual_full_launches += 1
     out = out.to(q.dtype)
     return (out, stats[0], stats[1]) if return_residuals else out

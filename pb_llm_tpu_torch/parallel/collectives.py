@@ -16,6 +16,17 @@ and take the GLOBAL x and layer on every rank, as JAX's take global arrays:
 each cuts this rank's block (`local_linear`: `sharding.shard_params`' rule
 with the static ``ic`` / ``oc`` / ``groupsize`` JAX's `_local_meta` gives
 the body) and x's columns, then runs the engine's own local code.
+
+Inference across ranks adds three collectives, each with the backend rule
+in its body and nowhere else (gloo's send/recv takes CPU tensors only, and
+NCCL's collectives CUDA tensors only):
+
+  `broadcast_one_to_all` — a numpy record from rank 0 to every rank (the
+      admission record of `runtime.multihost_batching`); under NCCL it
+      crosses as a CUDA tensor;
+  `ppermute` — a ring send/recv over a group (JAX's `lax.ppermute` with a
+      shift); under gloo a CUDA tensor crosses through one host copy;
+  `all_sum` — a sum over a group (JAX's `psum`), in place.
 """
 
 from __future__ import annotations
@@ -23,6 +34,7 @@ from __future__ import annotations
 import dataclasses
 from typing import List
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -110,3 +122,62 @@ def row_parallel_pb_matmul(x: torch.Tensor, p, mesh: Mesh,
     p_l = local_linear(name, p, mesh)
     x_l = x.narrow(-1, mesh.coord("tp") * p_l.ic, p_l.ic)
     return row_parallel_local(x_l, dataclasses.replace(p_l, bias=None), p_l.bias, mesh.tp_group)
+
+
+def _world() -> int:
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
+def broadcast_one_to_all(arr: np.ndarray) -> np.ndarray:
+    """Rank 0's ``arr`` on every rank (every rank passes an array of the
+    same shape and dtype).  The identity without a process group or with a
+    world of 1, as JAX's `_broadcast`.  gloo carries it as a CPU tensor,
+    NCCL as a tensor on the rank's current card."""
+    if _world() == 1:
+        return arr
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    backend = dist.get_backend()
+    if backend == "nccl":
+        t = t.to(torch.device("cuda", torch.cuda.current_device()))
+    elif backend != "gloo":
+        raise NotImplementedError(f"broadcast_one_to_all: backend {backend!r}")
+    dist.broadcast(t, src=0)
+    return t.cpu().numpy()
+
+
+def ppermute(t: torch.Tensor, group=None, shift: int = 1) -> torch.Tensor:
+    """The ring send/recv of ``group`` (default: the world): the group's
+    rank i sends ``t`` to rank i + shift and returns what rank i - shift
+    sent (same shape and dtype).  A group of one returns ``t``.  Under
+    gloo a CUDA tensor goes through one host copy each way; under NCCL a
+    CPU tensor raises."""
+    n = dist.get_world_size(group) if _world() > 1 else 1
+    if n == 1:
+        return t
+    backend = dist.get_backend(group)
+    if backend == "gloo":
+        send = t.detach().to("cpu").contiguous()
+    elif backend == "nccl":
+        if t.device.type != "cuda":
+            raise ValueError(f"ppermute under nccl needs a CUDA tensor, not {t.device}")
+        send = t.contiguous()
+    else:
+        raise NotImplementedError(f"ppermute: backend {backend!r}")
+    me = dist.get_rank(group)
+    grp = group if group is not None else dist.group.WORLD
+    to = dist.get_global_rank(grp, (me + shift) % n)
+    frm = dist.get_global_rank(grp, (me - shift) % n)
+    recv = torch.empty_like(send)
+    reqs = dist.batch_isend_irecv([dist.P2POp(dist.isend, send, to, group),
+                                   dist.P2POp(dist.irecv, recv, frm, group)])
+    for r in reqs:
+        r.wait()
+    return recv.to(t.device) if recv.device != t.device else recv
+
+
+def all_sum(t: torch.Tensor, group=None) -> torch.Tensor:
+    """``t`` summed over ``group`` in place (JAX's `psum`); the identity
+    without a process group."""
+    if _world() > 1:
+        dist.all_reduce(t, group=group)
+    return t

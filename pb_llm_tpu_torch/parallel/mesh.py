@@ -31,9 +31,11 @@ CUDA graph; gloo's cannot, so under gloo the step runs eagerly
 (`runtime.step_graph`).
 
 `make_mesh` builds the groups of an initialised process group;
-`multihost_initialize` initialises one (an explicit rank, world size and
-``tcp://127.0.0.1:<port>``, or torchrun's environment); `run_ranks` spawns a
-world of ranks on this host and collects what each returns.
+`make_sp_mesh` / `make_pp_mesh` build 1-D meshes (`AxisMesh`) over it for
+ring attention and the pipeline; `multihost_initialize` initialises one (an
+explicit rank, world size and ``tcp://127.0.0.1:<port>``, or torchrun's
+environment) with a collective timeout of ``GROUP_TIMEOUT``; `run_ranks`
+spawns a world of ranks on this host and collects what each returns.
 """
 
 from __future__ import annotations
@@ -52,6 +54,10 @@ import torch
 import torch.distributed as dist
 
 from .. import resolve_device
+
+# how long a collective waits for its peers before it fails (gloo and NCCL);
+# `run_ranks` hands the parent's value to the ranks it spawns
+GROUP_TIMEOUT = datetime.timedelta(minutes=10)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,9 +118,9 @@ def backend_for(world_size: int, device) -> str:
     return "gloo"
 
 
-def backend_line(world_size: int, device) -> str:
-    """The backend rule's outcome for ``world_size`` ranks on ``device``, in
-    words (rank 0 prints it first)."""
+def backend_line(world_size: int, device, axis: str = "tp") -> str:
+    """The backend rule's outcome for ``world_size`` ranks on ``device``
+    along ``axis``, in words (rank 0 prints it first)."""
     device = torch.device(device)
     backend = backend_for(world_size, device)
     if backend == "nccl":
@@ -124,7 +130,7 @@ def backend_line(world_size: int, device) -> str:
                "a rank; CUDA tensors cross through the host, and the decode step runs eagerly")
     else:
         why = f"{world_size} ranks on the CPU"
-    return f"tp backend {backend}: {why}"
+    return f"{axis} backend {backend}: {why}"
 
 
 def rank_device(rank: int, device) -> torch.device:
@@ -164,7 +170,7 @@ def multihost_initialize(coordinator_address: Optional[str] = None,
         torch.cuda.set_device(dev)
         kw["device_id"] = dev
     dist.init_process_group(backend, init_method=init, world_size=world, rank=rank,
-                            timeout=datetime.timedelta(minutes=10), **kw)
+                            timeout=GROUP_TIMEOUT, **kw)
     return backend
 
 
@@ -195,6 +201,60 @@ def make_mesh(dp: int = 1, tp: Optional[int] = None) -> Mesh:
     return Mesh(dp, tp, rank, dist.get_backend(), tp_group, dp_group)
 
 
+@dataclasses.dataclass(frozen=True)
+class AxisMesh:
+    """A 1-D mesh of ``size`` ranks along ``axis`` ("sp" or "pp"): this
+    rank's place in it and its group, whose ranks are ``ranks`` (global
+    ranks, in axis order)."""
+
+    axis: str
+    size: int
+    rank: int = 0
+    backend: str = "gloo"
+    group: Any = None
+    ranks: tuple = (0,)
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {self.axis: self.size}
+
+    def coord(self, axis: str) -> int:
+        """This rank's index along ``axis``."""
+        if axis != self.axis:
+            raise KeyError(f"mesh has axis {self.axis!r}, not {axis!r}")
+        return self.ranks.index(self.rank)
+
+
+def make_axis_mesh(axis: str, size: Optional[int] = None) -> AxisMesh:
+    """A 1-D mesh of ``size`` consecutive ranks (default: the world) along
+    ``axis``.  A world larger than ``size`` splits into world/size such
+    meshes, each rank in one (every rank creates every group, in order)."""
+    if not dist.is_initialized():
+        raise RuntimeError(f"make_{axis}_mesh needs an initialised process group "
+                           "(parallel.mesh.multihost_initialize)")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    size = size or world
+    if world % size:
+        raise ValueError(f"{axis}={size} does not divide the world of {world} ranks")
+    mine = None
+    for g in range(world // size):
+        ranks = tuple(range(g * size, (g + 1) * size))
+        group = dist.group.WORLD if size == world else dist.new_group(list(ranks))
+        if rank in ranks:
+            mine = (group, ranks)
+    return AxisMesh(axis, size, rank, dist.get_backend(), *mine)
+
+
+def make_sp_mesh(sp: Optional[int] = None) -> AxisMesh:
+    """The sequence-parallel mesh (JAX's `ring_attention.make_sp_mesh`)."""
+    return make_axis_mesh("sp", sp)
+
+
+def make_pp_mesh(pp: Optional[int] = None) -> AxisMesh:
+    """The pipeline mesh (JAX's `pipeline.make_pp_mesh`)."""
+    return make_axis_mesh("pp", pp)
+
+
 def replicated(mesh: Mesh) -> NamedSharding:
     return NamedSharding(mesh, ())
 
@@ -203,8 +263,12 @@ def shard_batch(mesh: Mesh) -> NamedSharding:
     return NamedSharding(mesh, ("dp",))
 
 
-def _rank_entry(fn, rank: int, world: int, address: str, device, args, results) -> None:
+def _rank_entry(fn, rank: int, world: int, address: str, device, args, results,
+                group_timeout=None) -> None:
+    global GROUP_TIMEOUT
     try:
+        if group_timeout is not None:
+            GROUP_TIMEOUT = group_timeout
         multihost_initialize(address, world, rank, device)
         try:
             # pickled here, tensors by value: a tensor put on the queue as it
@@ -224,13 +288,15 @@ def run_ranks(fn: Callable, world: int, args: Sequence = (), device=None,
     process group (`multihost_initialize` on ``device``, CUDA unless the
     caller names another, a free local port) and return each rank's result,
     by rank.  ``fn`` and ``args`` are
-    pickled: a module-level function and plain data.  A rank that raises
-    stops the others, and its traceback is raised here."""
+    pickled: a module-level function and plain data.  The ranks' groups
+    take this process's ``GROUP_TIMEOUT``.  A rank that raises stops the
+    others, and its traceback is raised here."""
     device = resolve_device(device).type
     ctx = torch.multiprocessing.get_context("spawn")
     results = ctx.Queue()
     address = free_address()
-    procs = [ctx.Process(target=_rank_entry, args=(fn, r, world, address, device, args, results))
+    procs = [ctx.Process(target=_rank_entry, args=(fn, r, world, address, device, args, results,
+                                                   GROUP_TIMEOUT))
              for r in range(world)]
     for p in procs:
         p.start()

@@ -78,7 +78,12 @@ class ContinuousBatcher:
         self._prefilling: Dict[int, Request] = {}  # chunked prefill jobs in flight
 
     def submit(self, req: Request) -> None:
+        self.check(req)
         self.queue.append(req)
+
+    def check(self, req: Request) -> None:
+        """Raise ValueError for a request this batcher cannot carry (every
+        request fits here; `MultiHostBatcher`'s admission record is bounded)."""
 
     def _admit(self) -> None:
         """Admit queued requests into free slots; consecutive same-bucket
@@ -243,6 +248,8 @@ class ContinuousBatcher:
     def _check_admissible(self) -> None:
         """Nothing runs and the head request still cannot be admitted: it
         can never fit (pool smaller than its footprint), so fail loudly."""
+        if not self.queue:
+            return
         req = self.queue[0]
         n = len(req.prompt_ids)
         chunk = self.engine.ecfg.prefill_chunk
@@ -292,7 +299,7 @@ class ContinuousBatcher:
         self._admit()
         if self._prefilling and not self._step_prefill_chunk():
             return
-        if self.queue and not self.slot_to_request and not self._prefilling:
+        if not self.slot_to_request and not self._prefilling:
             self._check_admissible()
         gamma = self.engine.ecfg.spec_gamma
         if gamma and self.slot_to_request and self._spec_tick(gamma):
@@ -310,12 +317,16 @@ class ContinuousBatcher:
                 self._emit(slot, req, tok)
         self.stats.decode_steps += 1
 
+    def pending(self) -> bool:
+        """Any work left: queued, decoding or prefilling in chunks."""
+        return bool(self.queue or self.slot_to_request or self._prefilling)
+
     def run(self, requests: Sequence[Request]) -> List[Request]:
         """Serve all requests to completion; returns them with outputs."""
         for r in requests:
             self.submit(r)
         t0 = time.time()
-        while self.queue or self.slot_to_request or self._prefilling:
+        while self.pending():
             self.step()
         self.stats.wall_seconds += time.time() - t0
         return list(requests)

@@ -18,6 +18,14 @@ All device work stays on the scheduler thread: the engine enters
 `torch.inference_mode` and its `KernelConfig` (both thread-local) in each of
 its calls, on that thread, and hands the batcher Python ints, so a handler
 thread never touches a CUDA tensor.
+
+Across ranks (`serve --http --tp N`), rank 0 serves HTTP over a
+`runtime.multihost_batching.MultiHostBatcher`, and its scheduler thread
+broadcasts a loop word on EVERY iteration (`MultiHostBatcher.tick`): a step
+follows, nothing this time (at the 50 ms idle wait), or stop (at
+`shutdown`).  The ranks > 0 run `multihost_batching.follow`, a step for
+each step word; so no rank waits in a collective longer than an idle wait,
+however long the server idles, and a stop word lets every rank leave.
 """
 
 from __future__ import annotations
@@ -36,8 +44,12 @@ from .engine import Engine
 class ServingLoop:
     """Thread-safe wrapper: one scheduler thread owns all engine calls."""
 
-    def __init__(self, engine: Engine, draft_source=None):
-        self.batcher = ContinuousBatcher(engine, draft_source=draft_source)
+    def __init__(self, engine: Engine, draft_source=None, batcher=None):
+        """``batcher``: a `MultiHostBatcher` on rank 0 of a serving world
+        (its loop word is broadcast each iteration); by default a
+        `ContinuousBatcher` over ``engine``."""
+        self.batcher = batcher or ContinuousBatcher(engine, draft_source=draft_source)
+        self._tick = getattr(self.batcher, "tick", None)
         self._cond = threading.Condition()
         self._pending: list = []  # handler → scheduler handoff; under _cond
         self._stop = False
@@ -66,17 +78,32 @@ class ServingLoop:
     def _run(self) -> None:
         """Scheduler thread, the sole owner of the batcher and the engine.
         The lock is held only for the handoff and notifications, never
-        across a device step, so handlers submit without waiting on decode."""
+        across a device step or a broadcast, so handlers submit without
+        waiting on decode."""
+        from .multihost_batching import TICK_IDLE, TICK_STOP, TICK_WORK
+
         while True:
             with self._cond:
-                if self._stop:
-                    return
+                stop = self._stop
                 for req in self._pending:
                     self.batcher.submit(req)
                 self._pending.clear()
-                if not self._has_work():
-                    self._cond.wait(timeout=0.05)
-                    continue
+                work = not stop and self._has_work()
+            try:
+                if self._tick is not None:
+                    self._tick(TICK_STOP if stop else TICK_WORK if work else TICK_IDLE)
+            except Exception as e:
+                with self._cond:
+                    self._error, self._stop = e, True
+                    self._cond.notify_all()
+                return
+            if stop:
+                return
+            if not work:
+                with self._cond:
+                    if not (self._stop or self._pending):
+                        self._cond.wait(timeout=0.05)
+                continue
             try:
                 t0 = time.time()
                 self.batcher.step()  # outside the lock: device work
@@ -104,6 +131,9 @@ class ServingLoop:
                           max_new_tokens=max_new_tokens, eos_token_id=eos_token_id,
                           on_token=on_token, sampling=sampling,
                           stop_token_ids=stop_token_ids, logprobs=logprobs)
+            # refused here, on the caller's thread, and not in a step: across
+            # ranks a raise in a step would come on rank 0 alone
+            self.batcher.check(req)
             self._pending.append(req)
             self._cond.notify_all()
             return req
@@ -264,12 +294,14 @@ def make_handler(loop: ServingLoop,
 
 
 def serve_http(engine: Engine, host: str = "0.0.0.0", port: int = 8000,
-               encode=None, decode=None, draft_source=None) -> ThreadingHTTPServer:
+               encode=None, decode=None, draft_source=None,
+               batcher=None) -> ThreadingHTTPServer:
     """Start the scheduler loop and the HTTP server; returns the running
     server (port 0 binds a free port: read it from ``server_address``).
+    ``batcher``: rank 0's `MultiHostBatcher` in a serving world.
 
     Stop with `server.shutdown()`, then `server.serving_loop.shutdown()`."""
-    loop = ServingLoop(engine, draft_source=draft_source).start()
+    loop = ServingLoop(engine, draft_source=draft_source, batcher=batcher).start()
     server = ThreadingHTTPServer((host, port), make_handler(loop, encode, decode))
     server.serving_loop = loop
     threading.Thread(target=server.serve_forever, daemon=True).start()

@@ -423,17 +423,17 @@ def test_run_ptq_unported_options_raise(argv, monkeypatch):
         run_ptq.main(argv)
 
 
-@pytest.mark.parametrize("flag", [["--tasks", "boolq"], ["--sp", "2"]])
+@pytest.mark.parametrize("flag", [["--tasks", "boolq"]])
 def test_run_eval_unported_options_raise(flag, monkeypatch):
-    """--sp is not ported and names the ROADMAP; --tasks is (eval/tasks.py),
-    and without the `datasets` package it raises naming it (no download)."""
+    """--tasks is ported (eval/tasks.py), and without the `datasets` package
+    it raises naming it (no download).  (--sp is ported: tests/
+    test_torch_ring_pp.py.)"""
     import sys
 
     from pb_llm_tpu_torch.cli import run_eval
 
     monkeypatch.setitem(sys.modules, "datasets", None)
-    exc, match = (ImportError, "datasets") if flag[0] == "--tasks" else (NotImplementedError,
-                                                                         "ROADMAP")
+    exc, match = ImportError, "datasets"
     with pytest.raises(exc, match=match):
         run_eval.main(["--model_id", "llama", "--synthetic", "--device", "cpu", "--eval_ppl", "",
                        *flag])

@@ -4,7 +4,8 @@ package, plus `cli.serve`'s flags that reach them.
 
 The ports of tests/test_server.py (all five tests) and of the HTTP,
 logprobs and stop tests of tests/test_serving_api.py (its multi-host test
-waits for the port of multi-host serving).  The tiny model is JAX's
+is tests/test_torch_multihost.py's), and `serve --http 0 --tp 2` across
+two gloo ranks (`tests/_torch_multihost_worker.http_rank`).  The tiny model is JAX's
 `init_params` carried over with `interop.from_jax_params`
 (`tests/_torch_serving.TinyLlama`); greedy output over HTTP equals JAX's
 `ServingLoop.generate` on the same parameters and prompts.
@@ -352,30 +353,66 @@ def test_serve_cli_parser_has_every_flag_of_jax(capsys):
     assert set(kv.choices) == {"auto", "int8", "bf16", "f32"}
 
 
-@pytest.mark.parametrize("tp", [2, 4])
-def test_serve_cli_tp_raises_naming_its_roadmap_item(tp, capfd):
-    """``--tp 2`` serves: the CLI spawns its two gloo ranks (TPEngine) and
-    rank 0 prints the streams that ``--tp 1`` prints.  ``--http`` with
-    ``--tp`` > 1 raises, naming the admission broadcast it needs (ROADMAP
-    Queue 1 item 5b)."""
+@pytest.mark.parametrize("mode", ["batch", "http"])
+def test_serve_cli_tp_2_serves_the_streams_of_tp_1_and_over_http(mode, capfd, monkeypatch):
+    """``--tp 2`` serves: the CLI spawns its two gloo ranks (TPEngine),
+    rank 0 admits the requests for both (MultiHostBatcher) and prints the
+    streams that ``--tp 1`` prints.  ``--http 0 --tp 2`` (the CLI's rank
+    function in one world of two gloo ranks, after a ``--tp 2`` run there):
+    8 concurrent requests (2 streamed, 2 sampled, 1 with a stop token) and
+    one more after an idle gap longer than the group timeout (shortened to
+    3 s) answer, after three that the admission record cannot carry (5 stop
+    ids, an eos past int32, a temperature past its fixed point) were
+    refused with HTTP 400; the greedy ones equal ``--tp 2``'s streams; at shutdown
+    rank 0's stop word ends both ranks, each returning 0."""
     from pb_llm_tpu_torch.cli import serve
-
-    if tp == 4:
-        for t in (2, 4):
-            with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5b"):
-                serve.main(CLI + ["--http", "0", "--tp", str(t)])
-        return
 
     def streams(out):
         return [line for line in out.splitlines() if line.startswith("[")]
 
-    assert serve.main(CLI + ["--tp", "1"]) == 0
-    want = capfd.readouterr().out
-    assert serve.main(CLI + ["--tp", "2"]) == 0
-    got = capfd.readouterr().out
-    assert got.startswith("tp backend gloo") and "TPEngine tp=2" in got
-    assert len(streams(want)) == 3 and streams(got) == streams(want)
-    assert "requests=3 tokens=12" in got
+    if mode == "batch":
+        assert serve.main(CLI + ["--tp", "1"]) == 0
+        want = capfd.readouterr().out
+        assert serve.main(CLI + ["--tp", "2"]) == 0
+        got = capfd.readouterr().out
+        assert got.startswith("tp backend gloo") and "TPEngine tp=2" in got
+        assert len(streams(want)) == 3 and streams(got) == streams(want)
+        assert "requests=3 tokens=12" in got
+        return
+
+    import datetime
+
+    from pb_llm_tpu_torch.parallel import mesh as pmesh
+    from _torch_multihost_worker import http_rank
+
+    texts = [f"request {i}: the quick brown fox" for i in range(3)]
+    payloads = [{"prompt": t, "max_new_tokens": 4} for t in texts]
+    payloads += [{"prompt": texts[i], "max_new_tokens": 4, "stream": True} for i in (0, 1)]
+    payloads += [{"prompt": texts[i], "max_new_tokens": 4, "temperature": 0.8, "top_k": 20}
+                 for i in (1, 2)]
+    payloads += [{"prompt": texts[2], "max_new_tokens": 4, "stop_token_ids": [21]}]
+    refused = [{"prompt": texts[0], "max_new_tokens": 4, "stop_token_ids": [21, 22, 23, 24, 25]},
+               {"prompt": texts[0], "max_new_tokens": 4, "eos_token_id": 2**31},
+               {"prompt": texts[0], "max_new_tokens": 4, "temperature": 1e4, "stream": True}]
+    monkeypatch.setattr(pmesh, "GROUP_TIMEOUT", datetime.timedelta(seconds=3))
+    ranks = pmesh.run_ranks(http_rank, 2, (CLI + ["--tp", "2"], payloads, 4.0, payloads[0],
+                                           refused), device="cpu", timeout=600)
+    assert [(r["rc_batch"], r["rc"]) for r in ranks] == [(0, 0), (0, 0)]
+    # refused at the edge (HTTP 400), before rank 0 queues them: the requests
+    # after them are answered
+    assert [(r["status"], w in r["error"]) for r, w in zip(
+        ranks[0]["refused"], ("at most 4 stop_token_ids", "eos_token_id", "temperature"))] \
+        == [(400, True)] * 3
+    want = [line.split(" ", 1)[1] for line in streams(ranks[0]["batch"])]
+    ans = ranks[0]["answers"]
+    assert [repr(a["text"]) for a in ans[:3]] == want
+    for a, i in zip(ans[3:5], (0, 1)):  # streamed: the tokens, then the tail line
+        assert a["done"] and a["tokens"] == a["output_ids"] == ans[i]["output_ids"]
+    assert all(len(a["output_ids"]) == 4 for a in ans[5:7])
+    full = ans[2]["output_ids"]
+    assert 21 in full[:-1] and ans[7]["output_ids"] == full[: full.index(21) + 1]
+    assert repr(ranks[0]["late"]["text"]) == want[0]  # after the idle gap
+    assert ranks[0]["stats"]["generated_tokens"] >= 8 * 3 + 4
 
 
 def test_serve_cli_tp_0_serves_on_one_device(capsys, monkeypatch):
