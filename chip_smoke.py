@@ -188,6 +188,24 @@ run_ptq does); any failure raises and the exit code is not 0:
    arm summed over the stages equal to it.
    Phases 16 and 17 run after 15c; their single-process references run on
    the card in this process before the ranks are spawned.
+18a. QAT across ranks (`train.qat` under a mesh): OPT-1.3B's widths cut
+   to 2 layers, 3 steps of 2 x 2048 ids, ONE world of two gloo ranks
+   sharing the card (reused for 18b), at (dp 1, tp 2) and then (dp 2, tp 1)
+   with fsdp, against the one-process card run: losses within 13a's
+   QAT_LOSS_RTOL, masks bit for bit, exported binary signs and scales
+   within 13a's QAT_* bounds; ms a step, ms in collectives, each rank's
+   peak memory and QAT-state bytes (fsdp about half of one process's);
+18b. sharded checkpoints (`utils.orbax_ckpt` on torch.distributed.checkpoint):
+   16a's two full-width llama-7b layers as PBW v2, their tp = 2 blocks
+   saved with `save_sharded`, restored at tp = 2 and in one process bit for
+   bit, the restored blocks serving phase 4's requests through `TPEngine`
+   with the never-saved engine's streams and launches; save s, restore s,
+   bytes on disk.  18a and 18b run after 13b;
+18c. the utilities, after 14b on phase 4's model: `pb_roofline` beside
+   `bound` at the headline shape, `sync_time` of that launch, `trace` of one
+   graphed decode step (its three longest device ops), the compile cache's
+   build directory, the native host packer bit for bit the numpy forms at
+   4096 x 11008 with both routes' seconds.
 
 Phases 6b, 7b, 9b and 10b serve graphed: the default on the card.
 
@@ -204,9 +222,10 @@ operands' preparation time where an arm has its own layout.  The graphed
 The line before the `kernels` line, `phase_seconds`, gives each phase's
 wall seconds.  The last two lines are the `kernels` JSON line and
 `{"ok": true, "device": {...}}`.  A row of the `kernels` line counts its own
-arm's launches (each arm's beside, as arm_launches; phases 15's, 16's and
-17's, summed over their ranks, added in and named apart as
-phase15_launches, phase16_launches and phase17_launches); a row marked
+arm's launches (each arm's beside, as arm_launches; phases 15's, 16's,
+17's and 18's, summed over their ranks, added in and named apart as
+phase15_launches, phase16_launches, phase17_launches and
+phase18_launches); a row marked
 "yardstick" is an arm kept to time the path's arm against and may count 0,
 every other row must have launched.  Without CUDA it exits 1 before any
 phase.
@@ -220,6 +239,7 @@ import dataclasses
 import functools
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -4316,13 +4336,13 @@ def tp_graph_nccl(params, card: str, phase4: dict) -> dict:
 
 
 def timed_collectives():
-    """Wrap `torch.distributed.all_reduce` / `all_gather`, which the TP
-    modules call, with a host clock (the device synchronised before each
+    """Wrap `torch.distributed.all_reduce` / `all_gather` / `reduce_scatter`,
+    which the TP modules and the sharded trainer call, with a host clock (the device synchronised before each
     call, so queued kernels are not counted).  Returns (the list of call
     ms, a function that unwraps them)."""
     import torch.distributed as dist
 
-    spent, inner = [], (dist.all_reduce, dist.all_gather)
+    spent, inner = [], (dist.all_reduce, dist.all_gather, dist.reduce_scatter)
 
     def timed(fn):
         def call(*a, **k):
@@ -4335,9 +4355,9 @@ def timed_collectives():
         return call
 
     def restore():
-        dist.all_reduce, dist.all_gather = inner
+        dist.all_reduce, dist.all_gather, dist.reduce_scatter = inner
 
-    dist.all_reduce, dist.all_gather = timed(dist.all_reduce), timed(dist.all_gather)
+    dist.all_reduce, dist.all_gather, dist.reduce_scatter = map(timed, inner)
     return spent, restore
 
 
@@ -5505,6 +5525,442 @@ def across_ranks(card: str) -> dict:
     return {"p16": p16, "p17": p17}
 
 
+# ---------------------------------------------------------------------------
+# phases 18a-18c: QAT across ranks, sharded checkpoints, the utilities
+# ---------------------------------------------------------------------------
+
+QAT_SHARD_LAYERS = 2   # 18a: OPT-1.3B's widths (the reference's QAT command) cut to 2 layers
+QAT_SHARD_STEPS = 3    # 18a: steps on QAT_E2E's batch (2 x 2048), lr QAT_LR
+QAT_SHARD_LAYOUTS = ((1, 2, False), (2, 1, True))  # 18a: (dp, tp, fsdp) of the two gloo ranks
+CKPT_LAYERS = 2        # 18b: 16a's two full-width llama-7b layers, PBW v2 packed for tp = 2
+
+
+def qat_shard_model():
+    """18a's model and batch, made on the card from seeds (every rank the
+    same)."""
+    from pb_llm_tpu_torch.models.opt import init_params
+
+    cfg = opt13b(QAT_SHARD_LAYERS)
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(27), device=DEV)
+    ids = np.random.default_rng(28).integers(0, cfg.vocab_size, size=QAT_E2E)
+    return cfg, params, torch.as_tensor(ids, device=DEV)
+
+
+def qat_state_bytes(params, opt) -> int:
+    """The bytes this process holds of the QAT weights and biases and of
+    their two Adam moments."""
+    from pb_llm_tpu_torch.train import qat as tq
+
+    n = 0
+    for x in tq.qat_linears(params):
+        for t in (x.weight, x.bias):
+            if t is None:
+                continue
+            n += t.numel() * t.element_size()
+            n += sum(v.numel() * v.element_size() for k, v in opt.state.get(t, {}).items()
+                     if k in ("exp_avg", "exp_avg_sq"))
+    return n
+
+
+def qat_shard_run(mesh=None, fsdp: bool = False) -> dict:
+    """18a's training: QAT_SHARD_STEPS steps of xnor_outlier on 18a's model,
+    in one process or as this rank's blocks of ``mesh``.  Returns the
+    losses, ms a step, ms in collectives (host clock, the card
+    synchronised around each call), peak memory, the QAT state's bytes and
+    the trained QAT linears (gathered back on a mesh)."""
+    from pb_llm_tpu_torch.parallel import sharding
+    from pb_llm_tpu_torch.train import qat as tq
+
+    fam, qcfg = qat_config(QAT_SHARD_STEPS)
+    cfg, params, ids = qat_shard_model()
+    params = tq.replace_linears(params, fam, qcfg)
+    specs = None
+    if mesh is not None:
+        specs = sharding.param_specs(params, fam.name, mesh, fsdp=fsdp)
+        params = sharding.shard_params(params, mesh, fam.name, fsdp=fsdp)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tq.freeze_base(params)
+    opt, sched = tq.make_optimizer(qcfg, params)
+    step = tq.make_train_step(cfg, fam, qcfg, opt, sched, mesh, specs)
+    batch = {"input_ids": ids}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    spent, restore = timed_collectives() if mesh is not None else ([], lambda: None)
+    losses, step_ms = [], []
+    try:
+        for _ in range(QAT_SHARD_STEPS):
+            t = time.perf_counter()
+            losses.append(float(step(params, batch)))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+    finally:
+        restore()
+    peak = torch.cuda.max_memory_allocated()
+    nbytes = qat_state_bytes(params, opt)
+    for x in tq.qat_linears(params):
+        x.weight.grad = None
+        if x.bias is not None:
+            x.bias.grad = None
+    del opt, sched, step
+    if mesh is not None:
+        params = sharding.gather_params(params, mesh, specs)
+    return {"losses": losses, "step_ms": step_ms, "collective_ms": sum(spent) / QAT_SHARD_STEPS,
+            "collectives": len(spent) // QAT_SHARD_STEPS, "peak_mem_gb": peak / 1e9,
+            "state_bytes": nbytes, "linears": tq.qat_linears(params)}
+
+
+def qat_flip_stats(ref: dict, linears) -> dict:
+    """18a's held numbers of trained QAT linears against one process's
+    (``ref``: its weights and masks on the host): masks bit for bit,
+    exported outliers bit for bit, the binary scales' largest relative
+    difference and the share of exported binary weights whose sign
+    differs (phase 13a's measures)."""
+    from pb_llm_tpu_torch.quant import qat as q
+
+    masks = out_equal = True
+    n_bin = flipped = 0
+    scale_rel = 0.0
+    for w, m, got in zip(ref["weights"], ref["masks"], linears):
+        refq = q.QATLinear(weight=w.to(DEV), bias=None, outlier_mask=m.to(DEV))
+        masks = masks and torch.equal(got.outlier_mask.cpu(), m)
+        gd, cd = q.quant_weight(got).detach(), q.quant_weight(refq).detach()
+        mask = refq.outlier_mask
+        out_equal = out_equal and torch.equal(gd[mask], cd[mask])
+        gs, cs = float(q.binary_scale_of(got)), float(q.binary_scale_of(refq))
+        scale_rel = max(scale_rel, abs(gs - cs) / cs)
+        flipped += int((torch.sign(gd[~mask]) != torch.sign(cd[~mask])).sum())
+        n_bin += int((~mask).sum())
+    return {"masks_bit_for_bit": masks, "outliers_bit_for_bit": out_equal,
+            "binary_scale_max_rel_diff": scale_rel, "binary_sign_flips": flipped,
+            "binary_weights": n_bin, "sign_flip_frac": flipped / n_bin}
+
+
+def same_bits(a, b) -> bool:
+    """Every tensor of two trees equal bit for bit (dtype and shape too)."""
+    from pb_llm_tpu_torch.utils.orbax_ckpt import _walk
+
+    la, lb = dict(_walk(a)), dict(_walk(b))
+
+    def raw(t):
+        t = t.detach().contiguous()
+        return t.view(torch.uint8) if t.dtype.is_floating_point else t
+
+    return la.keys() == lb.keys() and all(
+        la[k].dtype == lb[k].dtype and la[k].shape == lb[k].shape
+        and torch.equal(raw(la[k]), raw(lb[k])) for k in la)
+
+
+def serve_tp(eng) -> dict:
+    """Phase 4's requests through ``eng`` (a `TPEngine`): the streams and
+    the launches, the counters zeroed just before and read just after."""
+    from pb_llm_tpu_torch.runtime.batching import ContinuousBatcher
+
+    reqs = e2e_requests(eng.cfg.vocab_size)
+    zero_counters()
+    t = time.perf_counter()
+    ContinuousBatcher(eng).run(reqs)
+    torch.cuda.synchronize()
+    return {"streams": [list(r.output_ids) for r in reqs], "launches": read_counters(),
+            "s": time.perf_counter() - t}
+
+
+def rank_18(rank: int, ref_path: str, ckpt_dir: str) -> dict:
+    """One of 18a and 18b's two gloo ranks sharing the card.  18a: each
+    layout of QAT_SHARD_LAYOUTS trains 18a's model (rank 0 holds the
+    gathered linears to the one-process run saved at ``ref_path``).  18b:
+    the tp = 2 blocks of CKPT_LAYERS llama-7b layers saved with
+    `save_sharded` under ``ckpt_dir``, restored at tp = 2 (bit for bit the
+    saved blocks), then phase 4's requests served by a `TPEngine` on the
+    restored blocks and by one on the never-saved tree."""
+    import torch.distributed as dist
+
+    from pb_llm_tpu_torch.models.registry import family_for
+    from pb_llm_tpu_torch.parallel import sharding
+    from pb_llm_tpu_torch.parallel.mesh import make_mesh
+    from pb_llm_tpu_torch.runtime.engine import EngineConfig
+    from pb_llm_tpu_torch.runtime.tp_engine import TPEngine
+    from pb_llm_tpu_torch.utils.orbax_ckpt import restore_sharded, save_sharded
+
+    out = {"18a": []}
+    ref = torch.load(ref_path) if rank == 0 else None
+    for dp, tp, fsdp in QAT_SHARD_LAYOUTS:
+        run = qat_shard_run(make_mesh(dp=dp, tp=tp), fsdp)
+        linears = run.pop("linears")
+        if rank == 0:
+            run.update(qat_flip_stats(ref, linears))
+        del linears
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["18a"].append(dict(run, dp=dp, tp=tp, fsdp=fsdp))
+    del ref
+    # 18b
+    mesh = make_mesh(dp=1, tp=TP)
+    tree = tp_params("llama", CKPT_LAYERS)
+    specs = sharding.param_specs(tree, "llama", mesh)
+    blocks = sharding.shard_params(tree, mesh, "llama")
+    torch.cuda.synchronize()
+    dist.barrier()
+    t = time.perf_counter()
+    save_sharded(ckpt_dir, blocks, mesh, specs)
+    dist.barrier()
+    save_s = time.perf_counter() - t
+    t = time.perf_counter()
+    restored = restore_sharded(ckpt_dir, tree, mesh, specs)
+    torch.cuda.synchronize()
+    dist.barrier()
+    restore_s = time.perf_counter() - t
+    bits = same_bits(restored, blocks)
+    del blocks
+    cfg, fam = llama7b(CKPT_LAYERS), family_for("llama")
+    ecfg = EngineConfig(n_slots=8, max_seq=2048)
+    runs = {}
+    for name, src, sharded in (("never_saved", tree, False), ("restored", restored, True)):
+        eng = TPEngine(src, cfg, fam, ecfg, mesh, device=DEV, sharded=sharded)
+        runs[name] = serve_tp(eng)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["18b"] = {"save_s": save_s, "restore_s": restore_s, "restored_bit_for_bit": bits,
+                  **runs}
+    return out
+
+
+def qat_ckpt_across_ranks(card: str) -> dict:
+    """Phases 18a and 18b: the parent's references on the card, then ONE
+    world of two gloo ranks sharing the card (`rank_18`).
+
+    18a: QAT across ranks on OPT-1.3B's widths cut to QAT_SHARD_LAYERS
+    layers, 3 steps of 2 x 2048 ids, at (dp 1, tp 2) and at (dp 2, tp 1)
+    with fsdp, against the one-process card run of the same model and
+    batch: losses within QAT_LOSS_RTOL, masks bit for bit, the trained
+    weights' exported binary signs within QAT_SIGN_FRAC and scales within
+    QAT_SCALE_RTOL (phase 13a's bounds: Adam steps a weight whose first
+    moment lies within rounding of 0 either way, and the ranks sum in
+    another order).  ms a step, ms in collectives, each rank's peak memory
+    and QAT state bytes (under fsdp about half of one process's).
+
+    18b: the tp = 2 blocks of 16a's two full-width llama-7b layers (PBW v2,
+    pack_block 128, shard-major) saved with `save_sharded`, restored at tp
+    = 2 on the ranks and whole in this process, each bit for bit; the
+    restored blocks serve phase 4's requests through `TPEngine` with the
+    never-saved engine's streams and launches (int8 "split" and decode
+    attention among them).  Save s, restore s, bytes on disk."""
+    import shutil
+    import tempfile
+
+    from pb_llm_tpu_torch.parallel import mesh as pmesh
+    from pb_llm_tpu_torch.utils.orbax_ckpt import bytes_on_disk, restore_sharded
+
+    tmp = tempfile.mkdtemp(prefix="pb_18_")
+    try:
+        t0 = time.perf_counter()
+        one = qat_shard_run()
+        ref_path = os.path.join(tmp, "ref.pt")
+        torch.save({"weights": [x.weight.detach().cpu() for x in one["linears"]],
+                    "masks": [x.outlier_mask.cpu() for x in one["linears"]]}, ref_path)
+        del one["linears"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        refs_s = time.perf_counter() - t0
+        ckpt = os.path.join(tmp, "ckpt")
+        t0 = time.perf_counter()
+        ranks = pmesh.run_ranks(rank_18, TP, (ref_path, ckpt), device=DEV)
+        ranks_s = time.perf_counter() - t0
+        # 18a
+        ol = np.asarray(one["losses"])
+        for i, (dp, tp, fsdp) in enumerate(QAT_SHARD_LAYOUTS):
+            runs = [r["18a"][i] for r in ranks]
+            held = runs[0]
+            rel = [float(np.max(np.abs(np.asarray(r["losses"]) - ol) / np.abs(ol))) for r in runs]
+            row = {"phase": "qat_across_ranks", "dp": dp, "tp": tp, "fsdp": fsdp,
+                   "backend": "gloo", "model": f"OPT-1.3B config (facebook/opt-1.3b), "
+                   f"{QAT_SHARD_LAYERS} layers, opt.init_params seed 27",
+                   "method": "xnor_outlier 0.1, remat, AdamW", "batch": list(QAT_E2E),
+                   "steps": QAT_SHARD_STEPS, "lr": QAT_LR, "one_process_losses": one["losses"],
+                   "losses_by_rank": [r["losses"] for r in runs], "loss_max_rel_diff": max(rel),
+                   "loss_rtol": QAT_LOSS_RTOL,
+                   "ms_per_step_by_rank": [r["step_ms"] for r in runs],
+                   "one_process_ms_per_step": one["step_ms"],
+                   "collective_ms_per_step_by_rank": [r["collective_ms"] for r in runs],
+                   "collectives_per_step": [r["collectives"] for r in runs],
+                   "peak_mem_gb_by_rank": [r["peak_mem_gb"] for r in runs],
+                   "one_process_peak_mem_gb": one["peak_mem_gb"],
+                   "qat_state_bytes_by_rank": [r["state_bytes"] for r in runs],
+                   "one_process_qat_state_bytes": one["state_bytes"],
+                   "state_share_by_rank": [r["state_bytes"] / one["state_bytes"] for r in runs],
+                   **{k: held[k] for k in ("masks_bit_for_bit", "outliers_bit_for_bit",
+                                           "binary_scale_max_rel_diff", "binary_sign_flips",
+                                           "binary_weights", "sign_flip_frac")},
+                   "sign_frac_bound": QAT_SIGN_FRAC, "scale_rtol": QAT_SCALE_RTOL, "card": card}
+            log(json.dumps(row))
+            if not all(np.isfinite(r["losses"]).all() for r in runs) or max(rel) > QAT_LOSS_RTOL:
+                raise AssertionError(f"phase 18a ({dp}x{tp}, fsdp {fsdp}): losses {row}")
+            if runs[0]["losses"] != runs[1]["losses"]:
+                raise AssertionError(f"phase 18a ({dp}x{tp}): the ranks' losses differ")
+            if not (held["masks_bit_for_bit"] and held["outliers_bit_for_bit"]):
+                raise AssertionError(f"phase 18a ({dp}x{tp}): masks or outliers not bit for bit")
+            if (held["binary_scale_max_rel_diff"] > QAT_SCALE_RTOL
+                    or held["sign_flip_frac"] > QAT_SIGN_FRAC):
+                raise AssertionError(f"phase 18a ({dp}x{tp}): binary weights {row}")
+            if fsdp and not all(s < 0.6 for s in row["state_share_by_rank"]):
+                raise AssertionError(f"phase 18a: fsdp kept {row['state_share_by_rank']} of the "
+                                     "QAT state on a rank")
+        # 18b
+        t = time.perf_counter()
+        tree = tp_params("llama", CKPT_LAYERS)
+        whole = restore_sharded(ckpt, tree)
+        torch.cuda.synchronize()
+        one_restore_s = time.perf_counter() - t
+        whole_bits = same_bits(whole, tree)
+        del whole, tree
+        b = [r["18b"] for r in ranks]
+        never, restored = b[0]["never_saved"], b[0]["restored"]
+        row = {"phase": "sharded_checkpoint", "tp": TP, "backend": "gloo",
+               "model": f"llama-7b config, {CKPT_LAYERS} layers, PBW v2 pack_block "
+               f"{TP_PACK_BLOCK} shard-major", "bytes_on_disk": bytes_on_disk(ckpt),
+               "save_s_by_rank": [x["save_s"] for x in b],
+               "restore_s_by_rank": [x["restore_s"] for x in b],
+               "one_process_restore_s": one_restore_s,
+               "restored_bit_for_bit_by_rank": [x["restored_bit_for_bit"] for x in b],
+               "one_process_bit_for_bit": whole_bits,
+               "streams_equal": all(x["restored"]["streams"] == x["never_saved"]["streams"]
+                                    for x in b),
+               "ranks_equal": b[0]["restored"]["streams"] == b[1]["restored"]["streams"],
+               "serve_s_by_rank": [x["restored"]["s"] for x in b],
+               "launches_restored": {k: v for k, v in restored["launches"].items() if v},
+               "card": card}
+        log(json.dumps(row))
+        if not (all(row["restored_bit_for_bit_by_rank"]) and whole_bits):
+            raise AssertionError(f"phase 18b: a restore differs from the saved bits: {row}")
+        if not (row["streams_equal"] and row["ranks_equal"]):
+            raise AssertionError("phase 18b: the restored engine's streams differ")
+        for x in b:
+            if x["restored"]["launches"] != x["never_saved"]["launches"]:
+                raise AssertionError("phase 18b: the restored engine's launches differ")
+        if not (restored["launches"]["pb_int8_matmul_split"]
+                and restored["launches"]["decode_attention_split"]):
+            raise AssertionError(f"phase 18b: no int8 split or decode attention launches: "
+                                 f"{row['launches_restored']}")
+        log(json.dumps({"phase": "qat_ckpt_across_ranks_time", "references_s": refs_s,
+                        "ranks_s": ranks_s, "card": card}))
+        return {"p18": {c: sum(x[k]["launches"][c] for x in b for k in ("never_saved",
+                                                                          "restored"))
+                        for c in read_counters()}}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def utilities(params, card: str) -> dict:
+    """Phase 18c: `utils.profiling`, `utils.compile_cache` and the native
+    host packer on the card.  `pb_roofline` at HEADLINE_SHAPE beside
+    `bound` for the int8 matmul there; `sync_time` of that launch; `trace`
+    over one graphed decode step of phase 4's model (``params``): the trace
+    file written, its three longest device ops named;
+    `enable_compile_cache()` returning the build directory; the native
+    `pack_bits` and `build_planes` bit for bit the numpy forms at
+    4096 x 11008, each route's seconds."""
+    import shutil
+    import tempfile
+
+    from pb_llm_tpu_torch import native
+    from pb_llm_tpu_torch.core import packing
+    from pb_llm_tpu_torch.data.synthetic import random_packed_v2
+    from pb_llm_tpu_torch.models.registry import family_for
+    from pb_llm_tpu_torch.ops import _build
+    from pb_llm_tpu_torch.ops import packed_matmul as pm
+    from pb_llm_tpu_torch.runtime.engine import Engine, EngineConfig
+    from pb_llm_tpu_torch.utils import compile_cache, profiling
+
+    m, ic, oc = HEADLINE_SHAPE
+    roof = profiling.pb_roofline(m, ic, oc)
+    p = random_packed_v2(ic, oc, torch.Generator(device=DEV).manual_seed(30), low_frac=0.9)
+    nbytes = (m * ic + p.n_row_groups * m * p.k_pad + 4 * (2 * m + p.n_row_groups * m + 5 * oc)
+              + 4 * p.sign_packed.numel() + p.side_val.numel() + 4 * m * oc)
+    smoke_ms, smoke_by = bound(nbytes, 2 * m * oc * (ic + p.k_pad), INT8_OPS_PER_S)
+    x = torch.randn((m, ic), device=DEV)
+    pm.pb_int8_matmul(x, p)
+    sync_s, y = profiling.sync_time(pm.pb_int8_matmul, x, p)
+    if not torch.isfinite(y).all():
+        raise AssertionError("phase 18c: sync_time's launch gave non-finite values")
+    # trace one graphed decode step of phase 4's model
+    cfg = llama7b(32)
+    eng = Engine(params, cfg, family_for("llama"), EngineConfig(n_slots=8, max_seq=2048),
+                 device=DEV)
+    for slot in range(eng.ecfg.n_slots):
+        eng.prefill(slot, list(range(1, 101)))
+    for _ in range(3):
+        eng.decode_step()
+    torch.cuda.synchronize()
+    logdir = tempfile.mkdtemp(prefix="pb_trace_")
+    replays = eng._step.replays
+    with profiling.trace(logdir) as prof:
+        eng.decode_step()
+        torch.cuda.synchronize()
+    by_name = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+    trace_file = os.path.join(logdir, "trace.json")
+    trace_bytes = os.path.getsize(trace_file) if os.path.exists(trace_file) else 0
+    graphed = eng._step.replays > replays
+    shutil.rmtree(logdir, ignore_errors=True)
+    for slot in range(eng.ecfg.n_slots):
+        eng.release(slot)
+    del eng
+    # the compile cache: unset, the build directory the kernels were built in
+    cache = compile_cache.enable_compile_cache()
+    # the native packer against the numpy forms
+    rng = np.random.default_rng(31)
+    bits = rng.integers(0, 2, size=(4096, 11008)).astype(np.uint8)
+    native.pack_bits(bits, 2048)  # warm (the build, the thread pool)
+    t = time.perf_counter()
+    got = native.pack_bits(bits, 2048)
+    native_pack_s = time.perf_counter() - t
+    t = time.perf_counter()
+    want = packing.pack_bits_np(bits.astype(np.uint32), 2048)
+    numpy_pack_s = time.perf_counter() - t
+    pack_equal = np.array_equal(got, want)
+    w_q = rng.standard_normal((11008, 4096)).astype(np.float32)
+    mask = (np.abs(w_q) <= np.quantile(np.abs(w_q[:64]), 0.9)).astype(np.uint8)
+    mean = (0.01 * rng.standard_normal(11008)).astype(np.float32)
+    hscale = (0.02 + 0.01 * rng.random(11008)).astype(np.float32)
+    hzero = np.round(128 + 4 * rng.standard_normal(11008)).astype(np.float32)
+    t = time.perf_counter()
+    got = native.build_planes(w_q, mask, mean, hscale, hzero, 2048)
+    native_planes_s = time.perf_counter() - t
+    t = time.perf_counter()
+    want = native.build_planes_np(w_q, mask, mean, hscale, hzero, 2048)
+    numpy_planes_s = time.perf_counter() - t
+    planes_equal = all(np.array_equal(a, b) for a, b in zip(got, want))
+    row = {"phase": "utilities", "shape": list(HEADLINE_SHAPE),
+           "pb_roofline_bound_ms": roof.time_bound_s() * 1e3,
+           "pb_roofline": {"bytes_weights": roof.bytes_weights,
+                           "bytes_activations": roof.bytes_activations, "flops": roof.flops,
+                           "vpu_ops": roof.vpu_ops},
+           "chip_smoke_bound_ms": smoke_ms, "chip_smoke_bound_by": smoke_by,
+           "sync_time_ms": sync_s * 1e3, "trace_file_bytes": trace_bytes,
+           "trace_graphed": graphed,
+           "trace_top3_device_us": [[k[:80], us] for k, us in top],
+           "compile_cache": cache, "build_dir": _build.BUILD_DIR,
+           "native_available": native.available(),
+           "pack_bits_native_s": native_pack_s, "pack_bits_numpy_s": numpy_pack_s,
+           "pack_bits_equal": pack_equal, "build_planes_native_s": native_planes_s,
+           "build_planes_numpy_s": numpy_planes_s, "build_planes_equal": planes_equal,
+           "card": card}
+    log(json.dumps(row))
+    if not (trace_bytes and len(top) == 3 and graphed):
+        raise AssertionError(f"phase 18c: the trace: {row}")
+    if cache is None or cache != _build.DEFAULT_BUILD_DIR or cache != _build.BUILD_DIR:
+        raise AssertionError(f"phase 18c: enable_compile_cache() gave {cache}")
+    if not (native.available() and pack_equal and planes_equal):
+        raise AssertionError(f"phase 18c: the native packer: {row}")
+    if not (np.isfinite(row["pb_roofline_bound_ms"]) and row["pb_roofline_bound_ms"] > 0):
+        raise AssertionError(f"phase 18c: pb_roofline {row}")
+    return row
+
+
 def check_flash_residuals(timer: Timer, card: str):
     """Phase 2 for the ring's inner: flash "tc" with its (m, l) residuals
     on 17a's blocks [1, 1024, 32, 128] f32, causal (the diagonal) and full
@@ -5608,11 +6064,15 @@ def main(argv=None) -> int:
     arms_e2e = timed("9b_scan_fuse_e2e", serve_scan_fuse_e2e, params, card)
     http_e2e = timed("10b_http_e2e", serve_http_e2e, params, card, e2e)
     tasks_b = timed("14b_task_e2e", task_e2e, params, card)
+    timed("18c_utilities", utilities, params, card)
     del params
     gc.collect()
     torch.cuda.empty_cache()
     timed("13a_qat_parity", qat_parity, card)
     timed("13b_qat_e2e", qat_e2e, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks18 = timed("18ab_qat_ckpt_across_ranks", qat_ckpt_across_ranks, card)
     gc.collect()
     torch.cuda.empty_cache()
     timed("7a_opt_parity", check_opt_parity, card)
@@ -6086,6 +6546,7 @@ def main(argv=None) -> int:
     p15 = {c: sum(r["launches"].get(c, 0) for r in tp_runs) for c in read_counters()}
     p16 = {c: ranks16_17["p16"].get(c, 0) + http16["launches"].get(c, 0) for c in read_counters()}
     p17 = {c: ranks16_17["p17"].get(c, 0) for c in read_counters()}
+    p18 = {c: ranks18["p18"].get(c, 0) for c in read_counters()}
 
     def row_launches(p, name):
         special = {"pb_int8_matmul": sum(p[c] for c in INT8_COUNTERS.values()),
@@ -6099,7 +6560,7 @@ def main(argv=None) -> int:
 
     for k in kernels:
         for tag, p in (("phase15_launches", p15), ("phase16_launches", p16),
-                       ("phase17_launches", p17)):
+                       ("phase17_launches", p17), ("phase18_launches", p18)):
             n = row_launches(p, k["name"])
             k["launches"] += n
             k[tag] = n

@@ -35,6 +35,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
+    from ..utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     args = build_parser().parse_args(argv)
     from ..models.hf_stream import rtn_pack_fn, stream_pack_to_pbw
 

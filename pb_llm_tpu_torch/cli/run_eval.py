@@ -71,6 +71,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
+    from ..utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     args = build_parser().parse_args(argv)
     from .. import resolve_device
 

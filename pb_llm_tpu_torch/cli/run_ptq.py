@@ -102,6 +102,9 @@ def load_model_and_tokenizer(args, device):
 
 
 def main(argv=None) -> int:
+    from ..utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     args = build_parser().parse_args(argv)
     from .. import resolve_device
     from ..calib.pipeline import quantize_model_ptq, save_masks

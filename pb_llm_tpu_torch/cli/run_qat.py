@@ -17,7 +17,20 @@ with torch alone) with its tokenizer (`utils.tokenizer`, which needs
 `transformers`), or with --synthetic the JAX CLIs' tiny random-init llama
 or OPT, the byte tokenizer and synthetic corpora.  The training texts are
 not downloaded: without --synthetic the loader raises unless the texts are
-given (`data.loaders.TextSource`).  --dp, --tp and --fsdp are not ported.
+given (`data.loaders.TextSource`).
+
+With --dp·--tp > 1 the QAT tree is placed on a (dp, tp) mesh
+(`parallel.sharding.shard_params`, --fsdp also splitting its weights and
+their Adam moments over dp), as JAX's CLI does, and each rank trains its
+block (`train.qat` under a mesh).  The ranks are spawned on this host
+(`parallel.mesh.run_ranks`: gloo on the CPU or on a shared card, NCCL with
+a card a rank), or, in a process group set up by torchrun (WORLD_SIZE in
+the environment), this process is one of them.  Rank 0 prints and writes
+the checkpoints, from the tree gathered back (`sharding.gather_params`);
+every rank returns 0.  --fsdp at dp = tp = 1 trains on one device.
+
+    python -m pb_llm_tpu_torch.cli.run_qat --model_id facebook/opt-synth --synthetic \
+        --device cpu --train_steps 2 --seqlen 32 --dp 2 --tp 2 --fsdp
 """
 
 from __future__ import annotations
@@ -50,24 +63,62 @@ def build_parser() -> argparse.ArgumentParser:
                    help="also export an HF save_pretrained dir + tokenizer")
     p.add_argument("--synthetic", action="store_true")
     p.add_argument("--dp", type=int, default=1,
-                   help="data-parallel mesh axis (dp·tp > 1 is not ported yet)")
+                   help="data-parallel mesh axis (the batch rows split over dp ranks)")
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel mesh axis (dp·tp > 1 is not ported yet)")
+                   help="tensor-parallel mesh axis (Megatron column / row linears over tp ranks)")
     p.add_argument("--fsdp", action="store_true",
-                   help="parameter sharding over dp (read only when dp·tp > 1, as in JAX)")
+                   help="ZeRO-3-style sharding of the QAT weights and their Adam moments over "
+                        "dp (read only when dp·tp > 1, as in JAX); numerics unchanged")
     p.add_argument("--metrics", type=str, default=None)
     p.add_argument("--device", type=str, default=None, help="default: cuda")
     return p
 
 
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
-    # as in JAX, the mesh (and --fsdp with it) is taken only when dp·tp > 1
-    if args.dp * args.tp > 1:
-        raise NotImplementedError(f"--dp {args.dp} --tp {args.tp}: multi-device training is not "
-                                  "ported yet (ROADMAP Queue 1 item 5c)")
+    from ..utils.compile_cache import enable_compile_cache
 
+    enable_compile_cache()
+    args = build_parser().parse_args(argv)
     from .. import resolve_device
+
+    device = resolve_device(args.device)
+    world = args.dp * args.tp
+    # as in JAX, the mesh (and --fsdp with it) is taken only when dp·tp > 1
+    if world == 1:
+        return _train(args, device)
+    from ..parallel import mesh as pmesh
+
+    if "WORLD_SIZE" not in os.environ:
+        pmesh.run_ranks(_train_rank, world, (args, device.type), device=device.type)
+        return 0
+    pmesh.multihost_initialize(device=device.type)
+    try:
+        return _train_rank(int(os.environ["RANK"]), args, device.type)
+    finally:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+
+
+def _train_rank(rank: int, args, device_type: str) -> int:
+    """One rank of ``run_qat --dp D --tp T``: its card (or the CPU) and the
+    mesh."""
+    import torch
+
+    from ..parallel import mesh as pmesh
+
+    world = args.dp * args.tp
+    if device_type == "cpu":  # the ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    mesh = pmesh.make_mesh(dp=args.dp, tp=args.tp)
+    if rank == 0:
+        print(pmesh.backend_line(world, device_type, axis="dp x tp"), flush=True)
+    return _train(args, pmesh.rank_device(rank, device_type), mesh)
+
+
+def _train(args, device, mesh=None) -> int:
+    """Train on ``device``: the whole tree, or this rank's blocks of it on
+    ``mesh`` (rank 0 prints and writes)."""
     from ..calib.pipeline import load_masks
     from ..data.loaders import get_qat_dataset
     from ..interop import to_device
@@ -76,7 +127,8 @@ def main(argv=None) -> int:
     from ..utils.checkpoint import save_dense_checkpoint
     from ..utils.logging import MetricsLogger
 
-    device = resolve_device(args.device)
+    lead = mesh is None or mesh.rank == 0
+    say = print if lead else (lambda *a, **k: None)
     log = MetricsLogger(args.metrics)
     fam = family_for(args.model_id)
     if args.synthetic:
@@ -109,13 +161,25 @@ def main(argv=None) -> int:
     params = tq.replace_linears(params, fam, qcfg, gptq_masks)
     bits = tq.mean_bits_report(params, fam)
     # the reference's report format (qat/run_qat.py:110)
-    print(f"mean_bit: {bits} frac: {bits / 16}")
+    say(f"mean_bit: {bits} frac: {bits / 16}")
     log.log("mean_bits", bits=bits)
+
+    specs = None
+    if mesh is not None:
+        from ..parallel import sharding
+
+        specs = sharding.param_specs(params, fam.name, mesh, fsdp=args.fsdp)
+        params = sharding.shard_params(params, mesh, fam.name, fsdp=args.fsdp)
 
     data = get_qat_dataset(args.dataset, tokenizer, args.data_percent, seqlen=seqlen,
                            batch_size=args.batch_size, source=source)
     params, losses = tq.train(params, cfg, fam, qcfg, data,
-                              log=lambda i, l: log.log("train", step=i, loss=l))
+                              log=lambda i, l: log.log("train", step=i, loss=l),
+                              mesh=mesh, specs=specs)
+    if mesh is not None:
+        params = sharding.gather_params(params, mesh, specs)
+        if not lead:
+            return 0
 
     dense = tq.export_dense(params, fam)
     save_dir = os.path.join(

@@ -1,7 +1,6 @@
 """Typed job configs (port of `pb_llm_tpu/core/config.py`): the dataclass
 replacement for the reference's argparse globals.  Re-exports the
-per-subsystem configs the port has (`SolverConfig`, `EngineConfig`; QAT is
-not ported yet)."""
+per-subsystem configs (`SolverConfig`, `EngineConfig`, `QATConfig`)."""
 
 from __future__ import annotations
 
@@ -10,6 +9,7 @@ from typing import Optional, Sequence
 
 from ..calib.solver import SolverConfig
 from ..runtime.engine import EngineConfig  # noqa: F401
+from ..train.qat import QATConfig  # noqa: F401
 
 
 @dataclasses.dataclass(frozen=True)

@@ -106,6 +106,77 @@ def unpack_nibbles(bytes_arr: torch.Tensor, ic: int, block_rows: int = PACK_BLOC
     return torch.cat(chunks, dim=0)
 
 
+def pack_bits_np(bits: np.ndarray, block_rows: int = PACK_BLOCK) -> np.ndarray:
+    """Numpy twin of :func:`pack_bits` (host-side checkpoint conversion):
+    uint32 words [ic // 32, oc]."""
+    ic, oc = bits.shape
+    _check_rows(ic)
+    bits = bits.astype(np.uint32)
+    chunks, st = [], 0
+    for r in block_sizes(ic, block_rows):
+        g = r // WORD_BITS
+        b3 = bits[st : st + r].reshape(WORD_BITS, g, oc)
+        shifts = np.arange(WORD_BITS, dtype=np.uint32).reshape(WORD_BITS, 1, 1)
+        chunks.append(np.bitwise_or.reduce(b3 << shifts, axis=0).astype(np.uint32))
+        st += r
+    return np.concatenate(chunks, axis=0)
+
+
+def unpack_bits_np(words: np.ndarray, ic: int, block_rows: int = PACK_BLOCK) -> np.ndarray:
+    """Numpy twin of :func:`unpack_bits`: {0, 1} [ic, oc]."""
+    gtot, oc = words.shape
+    if gtot * WORD_BITS != ic:
+        raise ValueError(f"word rows {gtot} inconsistent with ic={ic}")
+    chunks, st = [], 0
+    for r in block_sizes(ic, block_rows):
+        g = r // WORD_BITS
+        shifts = np.arange(WORD_BITS, dtype=np.uint32).reshape(WORD_BITS, 1, 1)
+        rows = (words[st : st + g][None, :, :] >> shifts) & np.uint32(1)
+        chunks.append(rows.reshape(r, oc))
+        st += g
+    return np.concatenate(chunks, axis=0)
+
+
+def pack_nibbles_np(codes: np.ndarray, block_rows: int = PACK_BLOCK) -> np.ndarray:
+    """Pack 4-bit codes [ic, oc] (values 0..15) into bytes [ic // 2, oc],
+    block-strided like the bit planes: within a block of r rows (h = r // 2
+    byte rows), nibble j (0 low, 1 high) of byte row g holds row j·h + g."""
+    ic, oc = codes.shape
+    if ic % 2:
+        raise ValueError("nibble packing requires even ic")
+    codes = codes.astype(np.uint8)
+    chunks, st = [], 0
+    for r in block_sizes(ic, block_rows):
+        h = r // 2
+        blk = codes[st : st + r]
+        chunks.append((blk[:h] | (blk[h:] << 4)).astype(np.uint8))
+        st += r
+    return np.concatenate(chunks, axis=0)
+
+
+def unpack_nibbles_np(bytes_arr: np.ndarray, ic: int, block_rows: int = PACK_BLOCK) -> np.ndarray:
+    """Numpy twin of :func:`unpack_nibbles`: codes [ic, oc]."""
+    chunks, st = [], 0
+    for r in block_sizes(ic, block_rows):
+        h = r // 2
+        blk = bytes_arr[st : st + h]
+        chunks.append(np.concatenate([blk & 0xF, blk >> 4], axis=0).astype(np.uint8))
+        st += h
+    return np.concatenate(chunks, axis=0)
+
+
+def pad_rows(x, multiple: int):
+    """Zero-pad axis 0 of ``x`` (a numpy array or a tensor) up to the next
+    multiple.  Returns (padded, orig_rows)."""
+    rows = x.shape[0]
+    target = -(-rows // multiple) * multiple
+    if target == rows:
+        return x, rows
+    if isinstance(x, torch.Tensor):
+        return torch.cat([x, x.new_zeros((target - rows, *x.shape[1:]))]), rows
+    return np.pad(x, [(0, target - rows)] + [(0, 0)] * (x.ndim - 1)), rows
+
+
 def csr_sidecar_bits(mask: np.ndarray, value_bits: int = 8, index_bits: int = 8) -> float:
     """Effective sidecar bits/weight under a CSR encoding: col_indices +
     values + crow_indices, each at 8 bits, divided by numel (the reference's

@@ -196,6 +196,13 @@ def forward(params: Dict[str, Any], input_ids: torch.Tensor, cfg: LlamaConfig,
     return final_logits(params, x, cfg), kv_caches
 
 
+def hidden_states_prefix(params: Dict[str, Any], input_ids: torch.Tensor,
+                         cfg: LlamaConfig) -> torch.Tensor:
+    """Embedding output: layer 0's input, the calibration entry point (the
+    functional analogue of the reference's Catcher, `gptq_pb/run.py:72-89`)."""
+    return params["embed_tokens"][input_ids]
+
+
 def final_logits(params: Dict[str, Any], x: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
     """Final norm + lm_head: the family's head (`models.registry`)."""
     x = rms_norm(x, params["norm"], cfg.rms_norm_eps)

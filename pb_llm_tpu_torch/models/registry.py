@@ -30,7 +30,7 @@ FAMILIES = {
     "llama": Family(
         name="llama",
         forward=_llama.forward,
-        embed=lambda params, ids, cfg: params["embed_tokens"][ids],
+        embed=_llama.hidden_states_prefix,
         decoder_layer=_llama_layer,
         head=_llama.final_logits,
         linear_names=_llama.LINEAR_NAMES,

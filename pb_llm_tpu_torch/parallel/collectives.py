@@ -27,6 +27,27 @@ NCCL's collectives CUDA tensors only):
   `ppermute` — a ring send/recv over a group (JAX's `lax.ppermute` with a
       shift); under gloo a CUDA tensor crosses through one host copy;
   `all_sum` — a sum over a group (JAX's `psum`), in place.
+
+Training across ranks (`train.qat` under a mesh) adds the autograd-aware
+collectives, `torch.autograd.Function`s over the mesh's groups (JAX's
+GSPMD inserts the same collectives into the jitted step):
+
+  `copy_to_tp` — identity forward, all_reduce of the gradient over tp
+      backward: the input of a column-parallel linear;
+  `reduce_from_tp` — all_reduce over tp forward, identity backward: the
+      output of a row-parallel linear (its bias added after it);
+  `gather_from_tp` — all_gather of the last dimension over tp forward, the
+      rank's slice of the gradient backward: vocab-parallel logits;
+  `fsdp_gather` — all_gather over dp along a dimension forward,
+      reduce-scatter of the gradient backward: an FSDP-split weight, whose
+      gradient is then summed over dp and left in the rank's block;
+  `all_reduce_sum` — all_reduce forward and backward: a statistic summed
+      over the ranks' blocks whose every rank's use feeds the gradient (a
+      row-parallel weight's row mean, `quant.qat`).
+
+Each is the identity over an axis of one rank.  They run under gloo and
+NCCL; under gloo a CUDA gradient crosses the reduce-scatter through one
+host copy, as `ppermute` does.
 """
 
 from __future__ import annotations
@@ -181,3 +202,120 @@ def all_sum(t: torch.Tensor, group=None) -> torch.Tensor:
     if _world() > 1:
         dist.all_reduce(t, group=group)
     return t
+
+
+def _size(group) -> int:
+    return dist.get_world_size(group) if _world() > 1 else 1
+
+
+def _gather_dim(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every rank's ``t`` of ``group`` concatenated along ``dim``, in rank
+    order."""
+    parts = [torch.empty_like(t) for _ in range(_size(group))]
+    dist.all_gather(parts, t.contiguous(), group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def _reduce_scatter_dim(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """``t`` summed over ``group``, this rank's block of ``dim`` kept."""
+    n = _size(group)
+    dev = t.device
+    if dist.get_backend(group) == "gloo" and dev.type == "cuda":
+        t = t.cpu()
+    parts = [c.contiguous() for c in t.chunk(n, dim=dim)]
+    out = torch.empty_like(parts[0])
+    dist.reduce_scatter(out, parts, group=group)
+    return out.to(dev)
+
+
+class _CopyToTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _GatherDim(torch.autograd.Function):
+    """all_gather along ``dim`` forward; backward the rank's slice of the
+    gradient (``scatter=False``: every rank's gradient is the same) or the
+    reduce-scatter of the ranks' gradients (``scatter=True``)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, scatter):
+        ctx.dim, ctx.group, ctx.scatter, ctx.n = dim, group, scatter, x.shape[dim]
+        return _gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.scatter:
+            return _reduce_scatter_dim(g, ctx.dim, ctx.group), None, None, None
+        me = dist.get_rank(ctx.group)
+        return g.narrow(ctx.dim, me * ctx.n, ctx.n).contiguous(), None, None, None
+
+
+def copy_to_tp(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """A column-parallel linear's input: the identity forward, its gradient
+    all-reduced over tp backward."""
+    return x if mesh.tp == 1 else _CopyToTP.apply(x, mesh.tp_group)
+
+
+def reduce_from_tp(y: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """A row-parallel linear's partial output summed over tp; the gradient
+    passes unchanged (every tp rank holds the same one)."""
+    return y if mesh.tp == 1 else _ReduceFromTP.apply(y, mesh.tp_group)
+
+
+def gather_from_tp(y: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Vocab-parallel logits gathered along the last dimension over tp;
+    backward each rank keeps its slice of the gradient."""
+    return y if mesh.tp == 1 else _GatherDim.apply(y, y.dim() - 1, mesh.tp_group, False)
+
+
+def fsdp_gather(t: torch.Tensor, dim: int, mesh: Mesh) -> torch.Tensor:
+    """An FSDP block gathered over dp along ``dim`` (the dimension the fsdp
+    spec split); backward the gradient is reduce-scattered over dp, so the
+    block's gradient is the sum over dp of its rows' gradients."""
+    if mesh.dp == 1:
+        return t
+    if not t.requires_grad:  # a frozen leaf (the outlier mask, the base model)
+        return _gather_dim(t, dim, mesh.dp_group)
+    return _GatherDim.apply(t, dim, mesh.dp_group, True)
+
+
+def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` summed over ``group``, forward and backward (a statistic every
+    rank uses in its own way); a new tensor, the identity over one rank."""
+    return t if _size(group) == 1 else _AllReduceSum.apply(t, group)

@@ -18,7 +18,8 @@ QATLinear whose tensor fields hold specs and whose static fields are the
 leaf's, or a dense ``{"w", "b"}`` dict of specs.
 
 `shard_params` slices each tensor to THIS rank's block (`parallel.mesh`'s
-execution model: every rank holds the unsharded tree and keeps its block);
+execution model: every rank holds the unsharded tree and keeps its block),
+and `gather_params` is its inverse (every rank gets the whole tree back);
 the static ``ic`` / ``oc`` / ``groupsize`` of its packed leaves stay the
 global ones, as in JAX's sharded tree.  The local view a rank computes with
 (those fields as JAX's `_local_meta` makes them inside the body) is
@@ -31,6 +32,7 @@ import dataclasses
 from typing import Any, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..core.pbw import PackedLinear, PackedLinearV2
 from ..quant.qat import QATLinear
@@ -222,9 +224,9 @@ def param_specs(params: Dict[str, Any], family_name: str, mesh: Optional[Mesh] =
     vocab-parallel lm_head): placement and compute must use the SAME
     sanitized tree.
 
-    ``fsdp=True`` also shards every >=2-D trainable leaf's first free
-    divisible dimension over ``dp`` (the specs only: the trainer that
-    gathers them is ROADMAP Queue 1 item 5c)."""
+    ``fsdp=True`` also shards every >=2-D leaf's first free divisible
+    dimension over ``dp`` (FSDP / ZeRO-3 storage); the trainer gathers each
+    where it is used (`train.qat` under a mesh, `collectives.fsdp_gather`)."""
     specs: Dict[str, Any] = {}
     for key, val in params.items():
         if key == "layers":
@@ -323,8 +325,11 @@ def _shard(leaf: Any, spec: Any, mesh: Mesh) -> Any:
         return leaf
     if isinstance(leaf, torch.Tensor):
         block = local_block(leaf, spec, mesh)
-        # a sharded block is copied, so that the unsharded tree can go
-        return leaf if block.shape == leaf.shape else block.clone()
+        # a sharded block is copied, so that the unsharded tree can go; a
+        # trainable leaf's block is a leaf that trains
+        if block.shape == leaf.shape:
+            return leaf
+        return block.detach().clone().requires_grad_(leaf.requires_grad)
     if isinstance(leaf, _STRUCTURED):
         return dataclasses.replace(leaf, **{
             f.name: _shard(getattr(leaf, f.name), getattr(spec, f.name), mesh)
@@ -343,6 +348,43 @@ def shard_params(params: Dict[str, Any], mesh: Mesh, family_name: str,
     (JAX's `shard_params` places the global arrays; here each rank keeps
     its own block, the `addressable_shards` of its device)."""
     return _shard(params, param_specs(params, family_name, mesh, fsdp=fsdp), mesh)
+
+
+def _unshard(leaf: Any, spec: Any, mesh: Mesh) -> Any:
+    if leaf is None or spec is None or isinstance(leaf, (int, float, str)):
+        return leaf
+    if isinstance(leaf, torch.Tensor):
+        groups = {"tp": mesh.tp_group, "dp": mesh.dp_group}
+        for d in reversed(range(len(spec))):  # a tuple entry: its minor axis first
+            for ax in reversed(spec[d] if isinstance(spec[d], tuple) else (spec[d],)):
+                if ax is None or mesh.shape[ax] == 1:
+                    continue
+                parts = [torch.empty_like(leaf) for _ in range(mesh.shape[ax])]
+                dist.all_gather(parts, leaf.contiguous(), group=groups[ax])
+                leaf = torch.cat(parts, dim=d)
+        return leaf
+    if isinstance(leaf, _STRUCTURED):
+        return dataclasses.replace(leaf, **{
+            f.name: _unshard(getattr(leaf, f.name), getattr(spec, f.name), mesh)
+            for f in dataclasses.fields(leaf)
+            if f.init and isinstance(getattr(leaf, f.name), torch.Tensor)})
+    if isinstance(leaf, dict):
+        return {k: _unshard(v, spec[k], mesh) for k, v in leaf.items()}
+    if isinstance(leaf, (list, tuple)):
+        return [_unshard(v, s, mesh) for v, s in zip(leaf, spec)]
+    raise TypeError(f"gather_params: unexpected leaf {type(leaf).__name__}")
+
+
+def gather_params(params: Dict[str, Any], mesh: Mesh, specs: Dict[str, Any]) -> Dict[str, Any]:
+    """The inverse of `shard_params`: every rank gets the whole tree back,
+    each block all-gathered along the dimensions ``specs`` split (a
+    collective: every rank calls it).  ``specs`` is the tree `shard_params`
+    placed the blocks by, `param_specs(global tree, family, mesh, fsdp=)`: a
+    block's shape cannot tell which dimension an axis split (under dp = 2 a
+    [3, 4] block is a [6, 4] or a [3, 8] leaf), so the specs come from the
+    global tree.  Tensors come back detached from any autograd graph."""
+    with torch.no_grad():
+        return _unshard(params, specs, mesh)
 
 
 def kv_cache_spec() -> tuple:

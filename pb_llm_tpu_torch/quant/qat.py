@@ -16,6 +16,16 @@
 JAX's `stop_gradient`s are `.detach()`s in the same places.  A QATLinear is
 a leaf the model's ``linear_fn`` dispatches on (`train.qat.qat_linear_fn`);
 its ``weight`` and ``bias`` are f32 leaf tensors that require grad.
+
+Across ranks (`train.qat` under a mesh) a QATLinear holds its tp block, and
+its statistics are made global by hand, as GSPMD does for JAX's step:
+``group`` is the process group the weight is split over, and
+``split_ic`` says that its ic (each row) is split over it (row-parallel).
+The binary scale all-reduces its f64 partial sum and its keep count over
+``group``; the per-row means of xnor, irnet and bireal all-reduce their row
+sums when ``split_ic`` (the centring mean with its gradient,
+`parallel.collectives.all_reduce_sum`).  The outlier mask is fixed before
+training and only sharded.
 """
 
 from __future__ import annotations
@@ -25,6 +35,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .ste import fda_sign, irnet_sign, ste_sign
 
@@ -102,39 +113,54 @@ def make_qat_linear(
     )
 
 
-def binary_scale_of(q: QATLinear) -> torch.Tensor:
+def binary_scale_of(q: QATLinear, group=None) -> torch.Tensor:
     """Scalar mean |non-outlier weight|, detached.  The sum accumulates in
     f64 before its f32 rounding, so it is the same on every device; JAX's
-    f32 tree sum lies within a few ulps of it (tests/test_torch_qat.py)."""
+    f32 tree sum lies within a few ulps of it (tests/test_torch_qat.py).
+    With ``group`` (the ranks the weight is split over) the f64 partial sums
+    and keep counts are all-reduced, then rounded once."""
     keep = ~q.outlier_mask
     w = q.weight.detach()
-    total = torch.sum(torch.abs(w) * keep, dtype=torch.float64).float()
-    return total / torch.clamp(keep.sum(), min=1)
+    total = torch.sum(torch.abs(w) * keep, dtype=torch.float64)
+    count = keep.sum()
+    if group is not None:
+        both = torch.stack([total, count.to(torch.float64)])
+        dist.all_reduce(both, group=group)
+        total, count = both[0], both[1].to(count.dtype)
+    return total.float() / torch.clamp(count, min=1)
 
 
-def quant_weight(q: QATLinear) -> torch.Tensor:
-    """The fake-quant weight used in the forward pass."""
+def _row_mean(w: torch.Tensor, group, split_ic: bool) -> torch.Tensor:
+    """mean over each row (ic); over a row split across ``group`` the row
+    sums are all-reduced (with the gradient when ``w`` carries one)."""
+    if not split_ic or group is None:
+        return torch.mean(w, dim=-1, keepdim=True)
+    from ..parallel.collectives import all_reduce_sum
+
+    n = w.shape[-1] * dist.get_world_size(group)
+    return all_reduce_sum(torch.sum(w, dim=-1, keepdim=True), group) / n
+
+
+def quant_weight(q: QATLinear, group=None, split_ic: bool = False) -> torch.Tensor:
+    """The fake-quant weight used in the forward pass (of this rank's block
+    when ``group`` is given: see the module docstring)."""
     w = q.weight
     if q.method in ("xnor_outlier", "xnor_outlier_hessian"):
         scaled = w * q.outlier_scale
         if not q.train_outlier:
             scaled = scaled.detach()
-        binary = ste_sign(w) * binary_scale_of(q)
+        binary = ste_sign(w) * binary_scale_of(q, group)
         return torch.where(q.outlier_mask, scaled, binary)
-    if q.method == "xnor":  # XnorBinaryLinear (quantizer.py:172-193)
-        centered = w - torch.mean(w, dim=-1, keepdim=True)
-        scale = torch.mean(torch.abs(centered), dim=-1, keepdim=True).detach()
-        return ste_sign(centered) * scale
+    if q.method in ("xnor", "irnet"):  # XnorBinaryLinear / IrBinaryLinear (quantizer.py:172-193, 89-109)
+        centered = w - _row_mean(w, group, split_ic)
+        scale = _row_mean(torch.abs(centered.detach()), group, split_ic)
+        return (ste_sign(centered) if q.method == "xnor" else irnet_sign(centered)) * scale
     if q.method == "plain":  # BinaryLinear (quantizer.py:75-86)
         return ste_sign(w)
-    if q.method == "irnet":  # IrBinaryLinear (quantizer.py:89-109)
-        centered = w - torch.mean(w, dim=-1, keepdim=True)
-        scale = torch.mean(torch.abs(centered), dim=-1, keepdim=True).detach()
-        return irnet_sign(centered) * scale
     if q.method == "fda":  # FdaBinaryLinear (quantizer.py:112-128)
         return fda_sign(w)
     if q.method == "bireal":  # BiRealLinear weight path (quantizer.py:140-149)
-        scale = torch.mean(torch.abs(w), dim=-1, keepdim=True).detach()
+        scale = _row_mean(torch.abs(w.detach()), group, split_ic)
         # jnp.clip is max then min, whose gradient at a tie (w = ±1, which
         # the sim-8bit master holds exactly) is a half; torch.clamp's is 1
         clipped = torch.minimum(torch.maximum(w, w.new_tensor(-1.0)), w.new_tensor(1.0))
@@ -155,10 +181,11 @@ def bireal_activation(x: torch.Tensor) -> torch.Tensor:
     return (out_forward - out3).detach() + out3
 
 
-def apply_qat_linear(q: QATLinear, x: torch.Tensor) -> torch.Tensor:
+def apply_qat_linear(q: QATLinear, x: torch.Tensor, group=None,
+                     split_ic: bool = False) -> torch.Tensor:
     if q.method == "bireal":  # BiReal binarizes activations too
         x = bireal_activation(x)
-    w = quant_weight(q)
+    w = quant_weight(q, group, split_ic)
     y = x @ w.T.to(x.dtype)
     if q.bias is not None:
         y = y + q.bias.to(x.dtype)

@@ -161,10 +161,11 @@ def _local_views(params, mesh: Mesh):
                                 for lp in params["layers"]])
 
 
-def _check_layout(params, tp: int) -> None:
-    """What the unsharded tree must satisfy for tp ranks: row-parallel pack
-    blocks and v2 sidecars split on shard boundaries; multi-bit v2
-    row-parallel layers, which the specs replicate, refused."""
+def _check_layout(params, tp: int, sharded: bool = False) -> None:
+    """What the unsharded tree (or, ``sharded``, a rank's blocks of it)
+    must satisfy for tp ranks: row-parallel pack blocks and v2 sidecars
+    split on shard boundaries; multi-bit v2 row-parallel layers, which the
+    specs replicate, refused."""
     for name, p, _ in _packed_leaves(params):
         if name not in ROW_PARALLEL or tp == 1:
             continue
@@ -173,8 +174,8 @@ def _check_layout(params, tp: int) -> None:
                 f"{name}: {p.low_bits}-bit v2 row-parallel layers are replicated by the specs "
                 "(plane-major sign rows); serve them without --tp")
         check_row_blocks(name, p, tp)
-        if isinstance(p, PackedLinearV2) and (
-                p.side_val.shape[-2] * (8 // p.side_bits) != tp * p.k_pad_shard):
+        if isinstance(p, PackedLinearV2) and (p.side_val.shape[-2] * (tp if sharded else 1)
+                                              * (8 // p.side_bits) != tp * p.k_pad_shard):
             raise ValueError(f"row-parallel {name} over tp={tp} needs a shard-major sidecar: "
                              f"pack it with ic_shards={tp}")
 
@@ -203,15 +204,21 @@ class TPEngine(Engine):
     Construct it on every rank with the same UNSHARDED tree (a row-parallel
     packed layer packed with pack_block | ic/tp, a v2 one with
     ic_shards=tp): each rank keeps its block, its caches hold its kv heads,
-    and every forward is the rank's share of the Megatron math."""
+    and every forward is the rank's share of the Megatron math.  With
+    ``sharded=True`` the tree is already this rank's blocks, placed by
+    `sharding.param_specs` over ``mesh`` (`shard_params`, or
+    `utils.orbax_ckpt.restore_sharded` with those specs)."""
 
     def __init__(self, params, cfg, fam: Family, ecfg: EngineConfig, mesh: Mesh,
-                 sampling: SamplingParams = SamplingParams(), device=None, seed: int = 0):
+                 sampling: SamplingParams = SamplingParams(), device=None, seed: int = 0,
+                 sharded: bool = False):
         if ecfg.fuse_linears:
             raise NotImplementedError(
                 "fuse_linears under TP is unsupported: the Megatron shardings are per-name and "
                 "a fused layer's oc shards would cross row-group boundaries; use per-name "
                 "layers with --tp")
+        if sharded and ecfg.scan_layers and not stacking.is_stacked(params):
+            raise ValueError("scan_layers over a sharded tree: stack the layers before sharding")
         if ecfg.scan_layers and not stacking.is_stacked(params):
             # stack BEFORE sharding: the specs place stacked leaves with the
             # [L] axis prepended, and the layer loop runs the stacked kernels
@@ -223,8 +230,8 @@ class TPEngine(Engine):
             raise ValueError(f"tp={tp} must divide attention heads "
                              f"({cfg.num_attention_heads} q / {kvh} kv)")
         device = resolve_device(device)
-        _check_layout(params, tp)
-        local = _local_views(shard_params(params, mesh, fam.name), mesh)
+        _check_layout(params, tp, sharded)
+        local = _local_views(params if sharded else shard_params(params, mesh, fam.name), mesh)
         if device.type == "cuda" and (ecfg.kernels or current_kernels()).backend in ("auto",
                                                                                   "pallas"):
             _check_kernels(local)

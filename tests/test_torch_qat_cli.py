@@ -112,23 +112,30 @@ def test_run_qat_flags_equal_jax_plus_device():
     assert got == want
 
 
-@pytest.mark.parametrize("flag", [["--dp", "2"], ["--tp", "2"], ["--fsdp"]])
-def test_run_qat_multi_device_raises(flag, tmp_path, qat_ckpt):
-    """dp·tp > 1 raises, naming its ROADMAP item (5c).  ``--fsdp`` at dp =
-    tp = 1 trains on one device, as JAX's CLI does (it takes the mesh only
-    when dp·tp > 1): the run of `qat_ckpt` with --fsdp writes the same
-    final loss."""
+@pytest.mark.parametrize("flag", [["--dp", "2", "--tp", "2"], ["--dp", "2", "--tp", "2", "--fsdp"],
+                                  ["--fsdp"]])
+def test_run_qat_across_ranks_writes_the_one_process_loss(flag, tmp_path, qat_ckpt, capfd):
+    """--dp 2 --tp 2 (with and without --fsdp) trains on four gloo ranks
+    the CLI spawns; rank 0 prints the backend line and writes the dense
+    checkpoint, gathered from the blocks, whose final loss is within rtol
+    1e-5 of the one-process run's (`qat_ckpt`; the order of sums differs
+    across ranks).  --fsdp at dp = tp = 1 trains on one device, as JAX's
+    CLI does (it takes the mesh only when dp·tp > 1): the same final loss."""
+    assert run_qat.main(["--model_id", MODEL, "--dataset", "red_pajama", "--train_steps", "2",
+                         "--seqlen", "32", "--out_dir", str(tmp_path), "--synthetic",
+                         "--device", "cpu", *flag]) == 0
+    got, extra = load_dense_checkpoint(str(tmp_path / MODEL / "xnor_outlier_0.1_2"))
+    want, want_extra = load_dense_checkpoint(qat_ckpt)
+    assert np.isfinite(extra["final_loss"])
     if flag == ["--fsdp"]:
-        assert run_qat.main(["--model_id", MODEL, "--dataset", "red_pajama", "--train_steps",
-                             "2", "--seqlen", "32", "--out_dir", str(tmp_path), "--synthetic",
-                             "--device", "cpu", *flag]) == 0
-        _, extra = load_dense_checkpoint(str(tmp_path / MODEL / "xnor_outlier_0.1_2"))
-        _, want = load_dense_checkpoint(qat_ckpt)
-        assert np.isfinite(extra["final_loss"]) and extra["final_loss"] == want["final_loss"]
+        assert extra["final_loss"] == want_extra["final_loss"]
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5c"):
-        run_qat.main(["--model_id", MODEL, "--synthetic", "--device", "cpu", "--out_dir",
-                      str(tmp_path), *flag])
+    assert "dp x tp backend gloo: 4 ranks on the CPU" in capfd.readouterr().out
+    np.testing.assert_allclose(extra["final_loss"], want_extra["final_loss"], rtol=1e-5)
+    assert torch.equal(got["embed_tokens"], want["embed_tokens"])
+    for i, lp in enumerate(want["layers"]):
+        for name in ("q_proj", "out_proj", "fc1", "fc2"):
+            assert got["layers"][i][name]["w"].shape == lp[name]["w"].shape
 
 
 def test_run_qat_gptq_masks_hessian_variant(tmp_path, capsys):
