@@ -11,6 +11,9 @@ each slot drafts γ tokens by prompt lookup (the most recent continuation of
 its trailing n-gram in its own history) or from a ``draft_source``
 (`runtime.draft.ModelDraftSource`), and one verify forward accepts the
 exact-greedy prefix.
+
+Each tick records a `batcher.step` span with its admission and emission
+inside (`runtime.tracing`); `BatcherStats` reads the engine's row counts.
 """
 
 from __future__ import annotations
@@ -22,7 +25,8 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
-from .engine import Engine, PoolExhausted
+from . import tracing
+from .engine import Engine, EngineCounts, PoolExhausted
 
 
 @dataclasses.dataclass
@@ -57,6 +61,11 @@ class BatcherStats:
     spec_drafted: int = 0   # draft tokens verified
     spec_accepted: int = 0  # draft tokens accepted
     wall_seconds: float = 0.0
+    queue_depth: int = 0      # requests waiting, at the last step's admission
+    queue_depth_max: int = 0
+    # the engine's rows run and computed, and its graph captures (the
+    # engine's own object: its calls update it)
+    engine: EngineCounts = dataclasses.field(default_factory=EngineCounts)
 
     @property
     def tokens_per_second(self) -> float:
@@ -72,7 +81,7 @@ class ContinuousBatcher:
         self.draft_source = draft_source
         self.queue: deque = deque()
         self.slot_to_request: Dict[int, Request] = {}
-        self.stats = BatcherStats()
+        self.stats = BatcherStats(engine=engine.counts)
         self._admit_seq = 0
         self._admitted_at: Dict[int, int] = {}
         self._prefilling: Dict[int, Request] = {}  # chunked prefill jobs in flight
@@ -296,7 +305,20 @@ class ContinuousBatcher:
     def step(self) -> None:
         """One scheduler tick: admit new work, advance one chunked-prefill
         job (if any), then one batched decode (or speculative) step."""
+        sp = tracing.on and tracing.begin("batcher.step")
+        try:
+            self._step()
+        finally:
+            if sp:
+                tracing.end(sp)
+
+    def _step(self) -> None:
+        self.stats.queue_depth_max = max(self.stats.queue_depth_max, len(self.queue))
+        sp = tracing.on and tracing.begin("batcher.admit")
         self._admit()
+        if sp:
+            tracing.end(sp)
+        self.stats.queue_depth = len(self.queue)
         if self._prefilling and not self._step_prefill_chunk():
             return
         if not self.slot_to_request and not self._prefilling:
@@ -311,10 +333,13 @@ class ContinuousBatcher:
             if not self._preempt_one():
                 raise
             return
+        sp = tracing.on and tracing.begin("batcher.emit")
         for slot, tok in toks.items():
             req = self.slot_to_request.get(slot)
             if req is not None:
                 self._emit(slot, req, tok)
+        if sp:
+            tracing.end(sp)
         self.stats.decode_steps += 1
 
     def pending(self) -> bool:

@@ -14,6 +14,10 @@ updated in place.  ``scan_layers`` stacks the layers and the caches
 (`models.stacking`: the forward loops over layer views, PBW-v2 linears
 through the stacked kernels); ``fuse_linears`` merges q|k|v and gate|up
 (`models.fusion`).
+
+Each prefill, chunk, decode and speculative call records a span, with its
+stages as child spans (`runtime.tracing`); `counts` (`EngineCounts`) sums
+the rows the calls ran and computed.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from ..interop import to_device
 from ..models.registry import Family
 from ..ops.kernel_config import use_kernels
 from . import kv_cache as kvmod
+from . import tracing
 from .sampler import SamplingParams, sample, sample_vec, spec_verify_sample
 from .step_graph import StepGraph
 
@@ -37,6 +42,20 @@ def _chosen_logprob(logits: torch.Tensor, toks: torch.Tensor) -> torch.Tensor:
     """log P(tok) under log-softmax(logits); logits [..., V], toks [...]."""
     lp = torch.log_softmax(logits.float(), dim=-1)
     return torch.gather(lp, -1, toks[..., None].long())[..., 0]
+
+
+@dataclasses.dataclass
+class EngineCounts:
+    """What the engine's calls cost, summed since it was built: prompt
+    tokens prefilled against the rows computed for them (each call pads its
+    prompts to one bucket; a chunk to the chunk size), active slots summed
+    over plain decode steps against the rows those steps computed (every
+    slot's), and the decode-step CUDA graphs captured."""
+    prefill_rows: int = 0
+    prefill_rows_computed: int = 0
+    decode_rows: int = 0
+    decode_rows_computed: int = 0
+    graph_captures: int = 0
 
 
 @dataclasses.dataclass
@@ -188,6 +207,7 @@ class Engine:
         self._prefill_logits: Dict[int, torch.Tensor] = {}
         self._chunk_jobs: Dict[int, list] = {}  # slot -> [prompt_ids, offset]
         self.token_logprobs: Dict[int, List[float]] = {}
+        self.counts = EngineCounts()
         # the decode step reads self.params and self.caches in place from
         # here on (its CUDA graph holds their addresses): never reassign them
         self._step = StepGraph(self)
@@ -304,6 +324,7 @@ class Engine:
         pos 0 and write their K/V: through the slots' pages (paged pool) or
         into the slots' strip rows [0, bucket).  Returns the next-token
         logits [K, V]."""
+        sp = tracing.on and tracing.begin("prefill.gather")
         lens = [len(p) for _, p in pairs]
         bucket = self._bucket(max(lens))
         ids = np.zeros((len(pairs), bucket), np.int64)
@@ -314,14 +335,24 @@ class Engine:
             # grows into the already-owned tail before allocating more
             self._ensure_pages([(s, bucket) for s, _ in pairs])
             slot_pages = self._tensor(np.stack([self.pool.table[s] for s, _ in pairs]))
-            logits = self._forward(ids, _with_extras(self.caches, slot_pages=slot_pages), 0)
+            caches = _with_extras(self.caches, slot_pages=slot_pages)
         else:
             idx = (torch.as_tensor([s for s, _ in pairs], device=self.device), slice(None, bucket))
-            rows = _rows(self.caches, idx)
-            logits = self._forward(ids, rows, 0)
-            _set_rows(self.caches, idx, rows)
+            caches = _rows(self.caches, idx)
+        if sp:
+            tracing.end(sp)
+        sp = tracing.on and tracing.begin("prefill.forward")
+        logits = self._forward(ids, caches, 0)
         last = torch.as_tensor([n - 1 for n in lens], device=self.device)
-        return logits[torch.arange(len(pairs), device=self.device), last]
+        logits = logits[torch.arange(len(pairs), device=self.device), last]
+        if sp:
+            tracing.end(sp)
+        if self.pool is None:
+            sp = tracing.on and tracing.begin("prefill.scatter")
+            _set_rows(self.caches, idx, caches)
+            if sp:
+                tracing.end(sp)
+        return logits
 
     def _finish_prompt(self, slot: int, n: int, next_logits: torch.Tensor) -> int:
         """Common prefill tail: sample the first token, activate the slot,
@@ -348,21 +379,36 @@ class Engine:
         for _, p in pairs:
             if len(p) >= self.ecfg.max_seq:
                 raise ValueError("prompt longer than max_seq")
+        sp = tracing.on and tracing.begin("engine.prefill")
         out: Dict[int, int] = {}
         rest = []
-        for s, p in pairs:
-            matched, pages = self._match_prefix(p)
-            if matched:
-                out[s] = self._prefill_suffix(s, p, matched, pages)
-            else:
-                rest.append((s, p))
-        if rest:
-            next_logits = self._prefill_rows(rest)
-            for r, (s, p) in enumerate(rest):
-                out[s] = self._finish_prompt(s, len(p), next_logits[r])
-                if self.pool is not None:
-                    self.pool.register_chain(s, p)
-        return out
+        rows = computed = 0
+        try:
+            for s, p in pairs:
+                matched, pages = self._match_prefix(p)
+                if matched:
+                    out[s] = self._prefill_suffix(s, p, matched, pages)
+                    n = len(p) - matched * self.ecfg.page_size
+                    rows, computed = rows + n, computed + self._bucket(n)
+                else:
+                    rest.append((s, p))
+            if rest:
+                next_logits = self._prefill_rows(rest)
+                rows += sum(len(p) for _, p in rest)
+                computed += len(rest) * self._bucket(max(len(p) for _, p in rest))
+                fin = tracing.on and tracing.begin("prefill.finish")
+                for r, (s, p) in enumerate(rest):
+                    out[s] = self._finish_prompt(s, len(p), next_logits[r])
+                    if self.pool is not None:
+                        self.pool.register_chain(s, p)
+                if fin:
+                    tracing.end(fin)
+            return out
+        finally:
+            self.counts.prefill_rows += rows
+            self.counts.prefill_rows_computed += computed
+            if sp:
+                tracing.end(sp, rows, computed)
 
     # ---------------- chunked prefill and prefix-cache suffixes ----------------
 
@@ -411,30 +457,39 @@ class Engine:
         """Advance ``slot``'s prefill by one chunk.  Returns None while the
         prompt is unfinished; on the final chunk, activates the slot and
         returns the first generated token."""
-        ids, offset = self._chunk_jobs[slot]
-        c = self.ecfg.prefill_chunk
-        n = len(ids)
-        end = min(offset + c, n)
-        chunk = np.zeros(c, np.int64)
-        chunk[: end - offset] = ids[offset:end]
-        chunk_pages = None
-        if self.pool is not None:
-            need = max(0, self.pool.pages_needed(end) - len(self.pool.owned[slot]))
-            if need > self.pool.free_pages:
-                raise PoolExhausted(f"prefill chunk needs {need} new pages, pool has "
-                                    f"{self.pool.free_pages} free — preempt a request")
-            self._ensure_pages([(slot, end)])
-            ps = self.ecfg.page_size
-            chunk_pages = self.pool.table[slot][offset // ps : (offset + c) // ps]
-        next_logits = self._run_window(slot, chunk, offset, end - offset, chunk_pages)
-        if end < n:
-            self._chunk_jobs[slot][1] = end
-            return None
-        del self._chunk_jobs[slot]
-        tok = self._finish_prompt(slot, n, next_logits)
-        if self.pool is not None:
-            self.pool.register_chain(slot, ids)
-        return tok
+        sp = tracing.on and tracing.begin("engine.prefill_chunk")
+        rows = computed = 0
+        try:
+            ids, offset = self._chunk_jobs[slot]
+            c = self.ecfg.prefill_chunk
+            n = len(ids)
+            end = min(offset + c, n)
+            chunk = np.zeros(c, np.int64)
+            chunk[: end - offset] = ids[offset:end]
+            chunk_pages = None
+            if self.pool is not None:
+                need = max(0, self.pool.pages_needed(end) - len(self.pool.owned[slot]))
+                if need > self.pool.free_pages:
+                    raise PoolExhausted(f"prefill chunk needs {need} new pages, pool has "
+                                        f"{self.pool.free_pages} free — preempt a request")
+                self._ensure_pages([(slot, end)])
+                ps = self.ecfg.page_size
+                chunk_pages = self.pool.table[slot][offset // ps : (offset + c) // ps]
+            next_logits = self._run_window(slot, chunk, offset, end - offset, chunk_pages)
+            rows, computed = end - offset, c
+            if end < n:
+                self._chunk_jobs[slot][1] = end
+                return None
+            del self._chunk_jobs[slot]
+            tok = self._finish_prompt(slot, n, next_logits)
+            if self.pool is not None:
+                self.pool.register_chain(slot, ids)
+            return tok
+        finally:
+            self.counts.prefill_rows += rows
+            self.counts.prefill_rows_computed += computed
+            if sp:
+                tracing.end(sp, rows, computed)
 
     def _match_prefix(self, prompt_ids: Sequence[int]):
         """(matched_pages, page_ids) from the pool's prefix cache, capped so
@@ -491,24 +546,43 @@ class Engine:
         """Advance every active slot one token.  Returns {slot: token}."""
         if not self.active.any():
             return {}
-        self._grow_active(1, "decode step")
-        logits = self._step_logits()
-        if self._slot_sampling:
-            toks = sample_vec(logits, self.generator, *self._sampling_vectors())
-        else:
-            toks = sample(logits, self.generator, self.sampling)
-        active = torch.as_tensor(self.active, device=self.device)
-        toks = torch.where(active, toks, torch.zeros_like(toks))
-        lps = _chosen_logprob(logits, toks).cpu().numpy()
-        toks = toks.cpu().numpy()
-        out = {}
-        for i in range(self.ecfg.n_slots):
-            if self.active[i]:
-                self.lengths[i] += 1  # cache row written at the old length
-                self.last_token[i] = int(toks[i])
-                out[i] = int(toks[i])
-                self.token_logprobs[i] = [float(lps[i])]
-        return out
+        sp = tracing.on and tracing.begin("engine.decode")
+        rows = computed = 0
+        try:
+            self._grow_active(1, "decode step")
+            logits = self._step_logits()
+            t = tracing.on and tracing.begin("decode.sample")
+            if self._slot_sampling:
+                toks = sample_vec(logits, self.generator, *self._sampling_vectors())
+            else:
+                toks = sample(logits, self.generator, self.sampling)
+            active = torch.as_tensor(self.active, device=self.device)
+            toks = torch.where(active, toks, torch.zeros_like(toks))
+            lps = _chosen_logprob(logits, toks)
+            if t:
+                tracing.end(t)
+            t = tracing.on and tracing.begin("decode.read")
+            lps = lps.cpu().numpy()
+            toks = toks.cpu().numpy()
+            if t:
+                tracing.end(t)
+            t = tracing.on and tracing.begin("decode.slots")
+            out = {}
+            for i in range(self.ecfg.n_slots):
+                if self.active[i]:
+                    self.lengths[i] += 1  # cache row written at the old length
+                    self.last_token[i] = int(toks[i])
+                    out[i] = int(toks[i])
+                    self.token_logprobs[i] = [float(lps[i])]
+            if t:
+                tracing.end(t)
+            rows, computed = len(out), self.ecfg.n_slots
+            return out
+        finally:
+            self.counts.decode_rows += rows
+            self.counts.decode_rows_computed += computed
+            if sp:
+                tracing.end(sp, rows, computed)
 
     def forced_decode_nll(self, slot: int, tokens: Sequence[int]) -> float:
         """Teacher-forced decode: mean NLL per token of ``tokens`` after the
@@ -553,27 +627,32 @@ class Engine:
         if not self.active.any():
             return {}
         gamma = drafts.shape[1]
-        logits = self._verify_logits(drafts)
-        if self.greedy_ok():
-            preds = torch.argmax(logits, dim=-1)
-            lps = _chosen_logprob(logits, preds).cpu().numpy()
-            preds = preds.cpu().numpy()
-            accept = drafts == preds[:, :gamma]
-            corr, lp_d, lp_c = preds, lps, lps
-        else:
-            acc, corr, lp_d, lp_c = spec_verify_sample(
-                logits, self._tensor(drafts), self.generator, *self._sampling_vectors())
-            accept, corr, lp_d, lp_c = (a.cpu().numpy() for a in (acc, corr, lp_d, lp_c))
-        out: Dict[int, List[int]] = {}
-        for i in range(self.ecfg.n_slots):
-            if not self.active[i]:
-                continue
-            k = 0
-            while k < gamma and bool(accept[i, k]):
-                k += 1
-            toks = [int(t) for t in drafts[i, :k]] + [int(corr[i, k])]
-            self.lengths[i] += len(toks)
-            self.last_token[i] = toks[-1]
-            out[i] = toks
-            self.token_logprobs[i] = [float(lp_d[i, j]) for j in range(k)] + [float(lp_c[i, k])]
-        return out
+        sp = tracing.on and tracing.begin("engine.spec_decode")
+        try:
+            logits = self._verify_logits(drafts)
+            if self.greedy_ok():
+                preds = torch.argmax(logits, dim=-1)
+                lps = _chosen_logprob(logits, preds).cpu().numpy()
+                preds = preds.cpu().numpy()
+                accept = drafts == preds[:, :gamma]
+                corr, lp_d, lp_c = preds, lps, lps
+            else:
+                acc, corr, lp_d, lp_c = spec_verify_sample(
+                    logits, self._tensor(drafts), self.generator, *self._sampling_vectors())
+                accept, corr, lp_d, lp_c = (a.cpu().numpy() for a in (acc, corr, lp_d, lp_c))
+            out: Dict[int, List[int]] = {}
+            for i in range(self.ecfg.n_slots):
+                if not self.active[i]:
+                    continue
+                k = 0
+                while k < gamma and bool(accept[i, k]):
+                    k += 1
+                toks = [int(t) for t in drafts[i, :k]] + [int(corr[i, k])]
+                self.lengths[i] += len(toks)
+                self.last_token[i] = toks[-1]
+                out[i] = toks
+                self.token_logprobs[i] = [float(lp_d[i, j]) for j in range(k)] + [float(lp_c[i, k])]
+            return out
+        finally:
+            if sp:
+                tracing.end(sp)

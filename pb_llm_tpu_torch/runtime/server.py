@@ -10,10 +10,18 @@ queued, and a stdlib `ThreadingHTTPServer` exposes
                      With "stream": true, tokens arrive as NDJSON lines the
                      moment the batcher emits them (Connection: close).
     GET  /health     {"status": "ok"}
-    GET  /stats      batcher counters (tokens, steps, prefills, tokens/s)
+    GET  /stats      batcher counters (tokens, steps, prefills, tokens/s) and
+                     what the work cost: prefill_rows against
+                     prefill_rows_computed (prompt tokens against the rows
+                     their bucket padding made the card compute),
+                     decode_rows against decode_rows_computed (active slots
+                     against every slot's row, summed over decode steps),
+                     queue_depth and queue_depth_max (requests waiting for
+                     a slot), graph_captures (decode-step CUDA graphs)
 
 Requests from concurrent handlers land in the one batcher queue and share
-decode steps.  No third-party package: threads and one condition variable.
+decode steps.  The scheduler records its handoff and idle waits as spans
+(`runtime.tracing`).  No third-party package: threads and one condition variable.
 All device work stays on the scheduler thread: the engine enters
 `torch.inference_mode` and its `KernelConfig` (both thread-local) in each of
 its calls, on that thread, and hands the batcher Python ints, so a handler
@@ -30,6 +38,7 @@ however long the server idles, and a stop word lets every rank leave.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import queue as queue_mod
 import threading
@@ -37,6 +46,7 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, List, Optional
 
+from . import tracing
 from .batching import ContinuousBatcher, Request
 from .engine import Engine
 
@@ -83,12 +93,15 @@ class ServingLoop:
         from .multihost_batching import TICK_IDLE, TICK_STOP, TICK_WORK
 
         while True:
+            sp = tracing.on and tracing.begin("loop.handoff")
             with self._cond:
                 stop = self._stop
                 for req in self._pending:
                     self.batcher.submit(req)
                 self._pending.clear()
                 work = not stop and self._has_work()
+            if sp:
+                tracing.end(sp)
             try:
                 if self._tick is not None:
                     self._tick(TICK_STOP if stop else TICK_WORK if work else TICK_IDLE)
@@ -100,9 +113,12 @@ class ServingLoop:
             if stop:
                 return
             if not work:
+                sp = tracing.on and tracing.begin("loop.idle")
                 with self._cond:
                     if not (self._stop or self._pending):
                         self._cond.wait(timeout=0.05)
+                if sp:
+                    tracing.end(sp)
                 continue
             try:
                 t0 = time.time()
@@ -203,6 +219,9 @@ def make_handler(loop: ServingLoop,
                     "spec_accepted": s.spec_accepted,
                     "wall_seconds": round(s.wall_seconds, 3),
                     "tokens_per_second": round(s.tokens_per_second, 2),
+                    "queue_depth": s.queue_depth,
+                    "queue_depth_max": s.queue_depth_max,
+                    **dataclasses.asdict(s.engine),
                 }
                 pool = loop.batcher.engine.pool
                 if pool is not None and pool.prefix_cache:

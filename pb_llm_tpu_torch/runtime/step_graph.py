@@ -28,7 +28,9 @@ under capture must not read a device value on the host (``.item()``,
 Launch counters: capture runs the kernel wrappers, which count their
 launches, but launches nothing; a replay launches the kernels but runs no
 Python.  So the counters (`ops.counters`) are restored after capture, and
-each replay adds the launches the capture recorded.
+each replay adds the launches the capture recorded.  Each call records
+its copy-in and its eager run, capture or replay as spans
+(`runtime.tracing`); a capture counts in the engine's `graph_captures`.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ import numpy as np
 import torch
 
 from ..ops import counters
+from . import tracing
 
 _eager_depth = 0
 
@@ -100,16 +103,29 @@ class StepGraph:
         if eng.params is not self.params or eng.caches is not self.caches:
             raise RuntimeError("the engine's params or caches were replaced: the decode step "
                                "reads them in place (and its CUDA graph holds their addresses)")
+        sp = tracing.on and tracing.begin("step_graph.copy_in")
         host = torch.from_numpy(np.stack([tokens, positions]).astype(np.int64))
         self.buf.copy_(host)
+        if sp:
+            tracing.end(sp)
         if not self.capturable or is_eager() or not self.warm:
             self.warm = True
-            return self._forward()
+            sp = tracing.on and tracing.begin("step_graph.eager")
+            logits = self._forward()
+            if sp:
+                tracing.end(sp)
+            return logits
         if self.graph is None:
+            sp = tracing.on and tracing.begin("step_graph.capture")
             self._capture()
+            if sp:
+                tracing.end(sp)
+        sp = tracing.on and tracing.begin("step_graph.replay")
         self.graph.replay()
         counters.add(self.deltas)
         self.replays += 1
+        if sp:
+            tracing.end(sp)
         return self.logits
 
     def _capture(self) -> None:
@@ -126,3 +142,4 @@ class StepGraph:
             counters.restore(before)
         self.deltas = {k: after[k] - before[k] for k in before}
         self.graph, self.logits = graph, logits
+        self._engine().counts.graph_captures += 1

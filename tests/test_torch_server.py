@@ -114,6 +114,13 @@ def test_http_generate_matches_jax_serving_loop(engine, server, jax_streams):
     stats = _get(server, "/stats")
     assert stats["generated_tokens"] == 18 and stats["prefills"] == 3
     assert stats["decode_steps"] > 0 and stats["tokens_per_second"] > 0
+    # what the work cost: 11 prompt tokens in bucket-8 rows; 15 tokens from
+    # decode steps of 2 rows each; nothing left waiting; no graph on the CPU
+    assert stats["prefill_rows"] == 11 and stats["prefill_rows_computed"] == 3 * 8
+    assert stats["decode_rows"] == 18 - 3
+    assert stats["decode_rows_computed"] == 2 * stats["decode_steps"]
+    assert stats["queue_depth"] == 0 and 1 <= stats["queue_depth_max"] <= 3
+    assert stats["graph_captures"] == 0
 
 
 def test_http_direct_greedy_equals_the_serving_loop(engine, jax_streams):

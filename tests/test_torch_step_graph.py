@@ -33,6 +33,7 @@ from pb_llm_tpu.quant.low_quant import low_calibrate, low_quantize
 from pb_llm_tpu_torch.interop import packed_from_fields
 from pb_llm_tpu_torch.ops import counters, packed_matmul
 from pb_llm_tpu_torch.runtime import step_graph
+from pb_llm_tpu_torch.runtime.engine import EngineCounts
 
 from _torch_serving import TinyLlama, greedy, random_prompts, serve
 
@@ -174,6 +175,7 @@ class _FakeEngine:
         self.ecfg = type("E", (), {"n_slots": 2})()
         self.device = torch.device("cpu")
         self.params, self.caches = {}, []
+        self.counts = EngineCounts()
         self.forwards = 0
 
     def _run(self, ids, caches, pos):
@@ -202,6 +204,7 @@ def test_graph_counters_restore_after_capture_and_add_per_replay(monkeypatch):
         assert launched() == (start[0] + 7 * step, start[1] + 7 * step)
     # the eager first step and the capture ran the forward; replays did not
     assert eng.forwards == 2 and sg.replays == 3 and sg.graph.replays == 3
+    assert eng.counts.graph_captures == 1
     assert sg.deltas["pb_int8_matmul"] == sg.deltas["pb_prep_int8"] == 7
     assert sum(v != 0 for v in sg.deltas.values()) == 2
     assert out is sg.logits
