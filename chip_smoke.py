@@ -46,8 +46,9 @@ run_ptq does); any failure raises and the exit code is not 0:
    launches are counted;
 4. end to end, serving: a 32-layer full-width random PBW-v2 llama-7b
    serving 16 requests through `ContinuousBatcher`, twice on one engine:
-   under `step_graph.eager()` (the decode step op by op), then graphed (the
-   default: one CUDA graph replayed a step); the launch counters are zeroed
+   under `step_graph.eager()` (the decode step and prefill op by op), then
+   graphed (the default: one CUDA graph replayed a step, one a strip-prefill
+   shape); the launch counters are zeroed
    just before each pass and read just after, and must match the forwards
    run (the int8 matmul by arm, by each forward's rows), and the prefill
    forwards' synchronised wall time is summed (`prefill_ms_total`);
@@ -73,7 +74,8 @@ run_ptq does); any failure raises and the exit code is not 0:
    `ContinuousBatcher`, int8 strips, phase 4's request mix; planar and
    select (by arm) and decode-attention launches must match the forwards
    run, by rows; the prefill forwards' synchronised time (`prefill_ms_total`), and
-   the mix served again with the select arm forced to "cores" and back;
+   the mix served again on fresh engines with the select arm forced to
+   "cores" and back;
 8. end to end, the PBW-v1 producer: a 2-layer OPT-1.3B-width model
    calibrated by GPTQ-PB (element masks, groups of 128) into PBW v1, then
    its windowed perplexity with the kernels and with their plain versions;
@@ -1545,22 +1547,37 @@ def packed_bytes(p) -> int:
 
 def count_forwards(eng, on_forward, forward_ms=None):
     """Route each forward of ``eng`` through ``on_forward(kind, rows, caches,
-    pos, logits)``: ``_forward`` runs prefills, chunk and prefix-suffix
-    windows and speculative verifies, ``_step_logits`` the decode steps
-    (graphed or eager).  With a list ``forward_ms``, each ``_forward`` runs
-    between two device synchronisations and its wall ms is appended before
-    ``on_forward`` sees it.  Returns a function that restores the methods."""
-    fwd, step = eng._forward, eng._step_logits
+    pos, logits)``: ``_forward`` runs eager prefills, chunk and prefix-suffix
+    windows and speculative verifies, ``_prefill_rows`` the graphed strip
+    prefills (`step_graph.PrefillGraphs`: the buffer's fill, the eager run
+    and capture or the replay; its logits are the last rows' [K, V]),
+    ``_step_logits`` the decode steps (graphed or eager).  With a list
+    ``forward_ms``, each prefill, window or verify runs between two device
+    synchronisations and its wall ms is appended before ``on_forward`` sees
+    it.  Returns a function that restores the methods."""
+    fwd, step, rows_fn = eng._forward, eng._step_logits, eng._prefill_rows
+
+    def timed(run):
+        if forward_ms is None:
+            return run()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        forward_ms.append((time.perf_counter() - t) * 1e3)
+        return out
 
     def counted_forward(ids, caches, pos):
-        if forward_ms is not None:
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-        logits = fwd(ids, caches, pos)
-        if forward_ms is not None:
-            torch.cuda.synchronize()
-            forward_ms.append((time.perf_counter() - t) * 1e3)
+        logits = timed(lambda: fwd(ids, caches, pos))
         on_forward(None, int(np.asarray(ids).size), caches, pos, logits)
+        return logits
+
+    def counted_rows(pairs):
+        if eng.pool is not None or not eng._prefill.engaged():
+            return rows_fn(pairs)  # an eager prefill: its forward is a `_forward`
+        logits = timed(lambda: rows_fn(pairs))
+        rows = len(pairs) * eng._bucket(max(len(p) for _, p in pairs))
+        on_forward(None, rows, eng.caches, 0, logits)
         return logits
 
     def counted_step():
@@ -1568,10 +1585,10 @@ def count_forwards(eng, on_forward, forward_ms=None):
         on_forward("decode", eng.ecfg.n_slots, None, None, logits)
         return logits
 
-    eng._forward, eng._step_logits = counted_forward, counted_step
+    eng._forward, eng._step_logits, eng._prefill_rows = counted_forward, counted_step, counted_rows
 
     def restore():
-        del eng._forward, eng._step_logits  # the class's methods again
+        del eng._forward, eng._step_logits, eng._prefill_rows  # the class's methods again
 
     return restore
 
@@ -2354,8 +2371,9 @@ def serve_v1_e2e(params, cfg, build_s: float, card: str):
     linear, which kernel (and select arm) it must have launched
     (`use_planar`, `select_arm`); the prefill forwards' synchronised time is
     summed (`prefill_ms_total`).  The mix is then served twice more on the
-    same engine, the select kernel's arm forced to "cores" and back to the
-    rule's, for the two arms' prefill time in turns."""
+    engines of its own, the select kernel's arm forced to "cores" and back
+    to the rule's, for the two arms' prefill time in turns (a fresh engine
+    each turn: its prefill graphs capture the turn's arm)."""
     from pb_llm_tpu_torch.core.pbw import PackedLinear
     from pb_llm_tpu_torch.models.registry import family_for
     from pb_llm_tpu_torch.ops import packed_matmul_v1 as v1
@@ -2401,7 +2419,10 @@ def serve_v1_e2e(params, cfg, build_s: float, card: str):
     for name, tc in (("cores", 1 << 30), ("rule", rule)):
         v1.SELECT_TC = tc
         try:
-            _, got, fwd, t_ms, _, p_ms = run_counted(eng, e2e_requests(cfg.vocab_size))
+            turn = Engine(params, cfg, family_for("opt"), EngineConfig(n_slots=8, max_seq=2048),
+                          device=DEV)
+            _, got, fwd, t_ms, _, p_ms = run_counted(turn, e2e_requests(cfg.vocab_size))
+            del turn
         finally:
             v1.SELECT_TC = rule
         ok = (got == v1_launches(fwd, linears, cfg.num_hidden_layers) if name == "rule"

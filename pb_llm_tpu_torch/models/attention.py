@@ -230,7 +230,9 @@ def cached_attention(kv_cache: Dict[str, torch.Tensor], q, k_new, v_new, pos: Po
         return _paged_attention(kv_cache, q, k_new, v_new, pos, scale, window)
     b, t, hq, d = q.shape
     s = kv_cache["k"].shape[1]
-    p = torch.as_tensor(pos, device=q.device)
+    # an int pos made on the device (a fill, not a copy from the host: the
+    # strip prefill runs under CUDA graph capture, `runtime.step_graph`)
+    p = pos if isinstance(pos, torch.Tensor) else torch.full((), pos, device=q.device)
     if p.dim() == 1 and t == 1 and window is None:
         from ..ops import kernel_config as _kc
 

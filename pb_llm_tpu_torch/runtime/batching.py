@@ -63,8 +63,8 @@ class BatcherStats:
     wall_seconds: float = 0.0
     queue_depth: int = 0      # requests waiting, at the last step's admission
     queue_depth_max: int = 0
-    # the engine's rows run and computed, and its graph captures (the
-    # engine's own object: its calls update it)
+    # the engine's rows run and computed, its graph captures and prefill
+    # replays (the engine's own object: its calls update it)
     engine: EngineCounts = dataclasses.field(default_factory=EngineCounts)
 
     @property

@@ -8,8 +8,11 @@ Each call runs the forward under this engine's `KernelConfig`
 (`ops.kernel_config.use_kernels`).  The decode step's forward, the program
 JAX jits once per engine, runs as one CUDA graph on the card
 (`runtime.step_graph`: captured on the second step, replayed from static
-buffers; `step_graph.eager()` runs it op by op); prefill buckets, chunks,
-speculative verify and sampling run eagerly.  The KV caches and pages are
+buffers; `step_graph.eager()` runs it op by op), and so does each
+(K, bucket) shape of the strip prefill (`_strip_prefill`: captured on the
+shape's first call, after its eager run).  The paged pool's prefill,
+chunks, prefix-cache suffixes, speculative verify and sampling run
+eagerly.  The KV caches and pages are
 updated in place.  ``scan_layers`` stacks the layers and the caches
 (`models.stacking`: the forward loops over layer views, PBW-v2 linears
 through the stacked kernels); ``fuse_linears`` merges q|k|v and gate|up
@@ -35,7 +38,7 @@ from ..ops.kernel_config import use_kernels
 from . import kv_cache as kvmod
 from . import tracing
 from .sampler import SamplingParams, sample, sample_vec, spec_verify_sample
-from .step_graph import StepGraph
+from .step_graph import PrefillGraphs, StepGraph
 
 
 def _chosen_logprob(logits: torch.Tensor, toks: torch.Tensor) -> torch.Tensor:
@@ -50,12 +53,16 @@ class EngineCounts:
     tokens prefilled against the rows computed for them (each call pads its
     prompts to one bucket; a chunk to the chunk size), active slots summed
     over plain decode steps against the rows those steps computed (every
-    slot's), and the decode-step CUDA graphs captured."""
+    slot's), the CUDA graphs captured (the decode step's and one for each
+    strip-prefill shape), and the prefill calls whose forward was a graph's
+    replay (against the `engine.prefill` calls: how far the prefill graphs
+    engage)."""
     prefill_rows: int = 0
     prefill_rows_computed: int = 0
     decode_rows: int = 0
     decode_rows_computed: int = 0
     graph_captures: int = 0
+    prefill_replays: int = 0
 
 
 @dataclasses.dataclass
@@ -208,9 +215,11 @@ class Engine:
         self._chunk_jobs: Dict[int, list] = {}  # slot -> [prompt_ids, offset]
         self.token_logprobs: Dict[int, List[float]] = {}
         self.counts = EngineCounts()
-        # the decode step reads self.params and self.caches in place from
-        # here on (its CUDA graph holds their addresses): never reassign them
+        # the decode step and the strip prefill read self.params and
+        # self.caches in place from here on (their CUDA graphs hold their
+        # addresses): never reassign them
         self._step = StepGraph(self)
+        self._prefill = PrefillGraphs(self)
 
     def _cache_shape(self):
         """(layers, kv heads, head dim) of the caches this engine holds."""
@@ -323,13 +332,19 @@ class Engine:
         """Run ``pairs`` [(slot, prompt_ids)] as one [K, bucket] forward at
         pos 0 and write their K/V: through the slots' pages (paged pool) or
         into the slots' strip rows [0, bucket).  Returns the next-token
-        logits [K, V]."""
+        logits [K, V].  Strips on a capturable engine run through the
+        prefill graphs (`step_graph.PrefillGraphs`)."""
         sp = tracing.on and tracing.begin("prefill.gather")
         lens = [len(p) for _, p in pairs]
         bucket = self._bucket(max(lens))
         ids = np.zeros((len(pairs), bucket), np.int64)
         for r, (_, p) in enumerate(pairs):
             ids[r, : len(p)] = p
+        if self.pool is None and self._prefill.engaged():
+            shape = self._prefill.load(ids, [s for s, _ in pairs], [n - 1 for n in lens])
+            if sp:
+                tracing.end(sp)
+            return self._prefill(shape)
         if self.pool is not None:
             # pages for the whole bucket: page-aligned writes, and decode
             # grows into the already-owned tail before allocating more
@@ -353,6 +368,18 @@ class Engine:
             if sp:
                 tracing.end(sp)
         return logits
+
+    def _strip_prefill(self, ids: torch.Tensor, slots: torch.Tensor,
+                       last: torch.Tensor) -> torch.Tensor:
+        """The strip prefill's device work, from device tensors: ids [K,
+        bucket] run at pos 0 on copies of the strip rows [0, bucket) of
+        ``slots`` [K], which are written back; returns the logits [K, V] at
+        each prompt's ``last`` row.  What a prefill graph captures."""
+        idx = (slots, slice(None, ids.shape[1]))
+        caches = _rows(self.caches, idx)
+        logits = self._run(ids, caches, 0)
+        _set_rows(self.caches, idx, caches)
+        return logits[torch.arange(ids.shape[0], device=ids.device), last]
 
     def _finish_prompt(self, slot: int, n: int, next_logits: torch.Tensor) -> int:
         """Common prefill tail: sample the first token, activate the slot,

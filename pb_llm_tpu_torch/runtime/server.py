@@ -17,7 +17,9 @@ queued, and a stdlib `ThreadingHTTPServer` exposes
                      decode_rows against decode_rows_computed (active slots
                      against every slot's row, summed over decode steps),
                      queue_depth and queue_depth_max (requests waiting for
-                     a slot), graph_captures (decode-step CUDA graphs)
+                     a slot), graph_captures (the decode step's CUDA graph
+                     and one for each strip-prefill shape), prefill_replays
+                     (prefill calls run as a graph's replay)
 
 Requests from concurrent handlers land in the one batcher queue and share
 decode steps.  The scheduler records its handoff and idle waits as spans

@@ -258,10 +258,14 @@ class TPEngine(Engine):
         return logits
 
     def describe(self) -> str:
-        """One line: the mesh, the backend and how the decode step runs."""
+        """One line: the mesh, the backend and how the decode step and the
+        prefill run."""
         step = ("graphed (collectives captured)" if self._step.capturable else
                 "eager: gloo collectives cannot be captured in a CUDA graph"
                 if self.device.type == "cuda" else "eager (the CPU)")
+        prefill = ("eager (the paged pool)" if self.pool is not None else
+                   "graphed a (K, bucket) shape" if self._prefill.capturable else step)
         return (f"TPEngine tp={self.mesh.tp} backend={self.mesh.backend} device={self.device} "
-                f"local heads {self.lcfg.num_attention_heads}; decode step {step}")
+                f"local heads {self.lcfg.num_attention_heads}; decode step {step}; "
+                f"prefill {prefill}")
 

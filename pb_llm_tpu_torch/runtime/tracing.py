@@ -15,7 +15,12 @@ The sites, from the scheduler thread down:
       batcher.emit      a decode step's tokens: `_emit`, `on_token`, retirement
     engine.prefill    `Engine.prefill_batch`; children prefill.gather (ids and
                       the strip rows), prefill.forward, prefill.scatter (the rows
-                      written back), prefill.finish (first tokens, two reads each)
+                      written back), prefill.finish (first tokens, two reads each);
+                      on the graphed strip prefill (`step_graph.PrefillGraphs`)
+                      prefill.gather (the host's fill of the shape's buffer), then
+                      prefill.forward and prefill.capture on the shape's first call
+                      (its eager run, then its capture) or prefill.replay (the
+                      replay and the copy of its logits), then prefill.finish
     engine.decode     `Engine.decode_step`; children step_graph.copy_in, one of
                       step_graph.eager / step_graph.capture / step_graph.replay
                       (a capture is followed by its first replay), decode.sample

@@ -45,8 +45,8 @@ once) lie within `packed_matmul.sum_bound` of the plain f32 sums, and x
 through both kernels within 1e-6 of max|y| of the plain versions
 (chip_smoke.py's MATMUL_TOL).  Paged attention's tensor-core window arm keeps rtol =
 atol = 2e-5 (the JAX oracle's bound) and the CUDA-core arm's rtol 1e-4,
-atol 1e-5.  The graphed decode step equals the eager one bit for bit (the
-same kernels on the same inputs).
+atol 1e-5.  The graphed decode step and the graphed strip prefill equal
+the eager ones bit for bit (the same kernels on the same inputs).
 """
 
 import contextlib
@@ -1662,6 +1662,80 @@ def test_step_graph_capture_that_meets_a_host_sync_raises(cuda, monkeypatch):
     with pytest.raises(RuntimeError):
         eng.decode_step()  # captures
     assert eng._step.graph is None
+
+
+PREFILL_SHAPES = [(bucket, k) for bucket in (32, 128, 512) for k in (1, 3, 4)]
+
+
+def _padded_bytes(t: torch.Tensor) -> int:
+    return -(-t.numel() * t.element_size() // 512) * 512  # the allocator's 512-byte blocks
+
+
+@pytest.mark.cuda
+def test_prefill_graphs_equal_eager(cuda):
+    """Each bucket x K = 1, 3, 4 of the strip prefill on a PBW-v2 llama with
+    int8 strips: the shape's second call, a replay of the graph its first
+    call captured, against the same prompts under `step_graph.eager()`:
+    the same first tokens, strip rows and scales, logits bit for bit (the
+    same kernels on the same inputs).  The captures leave allocated no more
+    than the shapes' static buffers and outputs."""
+    from pb_llm_tpu_torch.data.synthetic import random_packed_llama
+    from pb_llm_tpu_torch.models.llama import LlamaConfig
+    from pb_llm_tpu_torch.models.registry import family_for
+    from pb_llm_tpu_torch.runtime import step_graph
+    from pb_llm_tpu_torch.runtime.engine import Engine, EngineConfig
+
+    cfg = LlamaConfig(vocab_size=256, hidden_size=512, intermediate_size=1024,
+                      num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=1,
+                      max_position_embeddings=1024)  # GQA 4:1, head dim 128, as Mistral's
+    params = random_packed_llama(cfg, torch.Generator().manual_seed(0))
+    eng = Engine(params, cfg, family_for("llama"),
+                 EngineConfig(n_slots=4, max_seq=1024, prefill_buckets=(32, 128, 512)),
+                 device=cuda)
+    assert eng.cache_dtype == torch.int8
+    r = np.random.default_rng(3)
+
+    def pairs(bucket, k):
+        lens = r.integers(bucket // 4 + 1, bucket + 1, k)
+        return [(int(s), r.integers(0, 256, int(n)).tolist())
+                for s, n in zip(r.permutation(4)[:k], lens)]
+
+    def run(call):
+        toks = eng.prefill_batch(call)
+        bucket = eng._bucket(max(len(p) for _, p in call))
+        logits = {s: eng._prefill_logits[s].cpu() for s, _ in call}
+        rows = {s: [{n: c[n][s, :bucket].cpu() for n in c} for c in eng.caches] for s, _ in call}
+        for s, _ in call:
+            eng.release(s)
+        return toks, logits, rows
+
+    calls = {shape: (pairs(*shape), pairs(*shape)) for shape in PREFILL_SHAPES}
+    with step_graph.eager():
+        want = {shape: run(calls[shape][1]) for shape in PREFILL_SHAPES}
+    assert eng.counts.graph_captures == 0 and not eng._prefill.shapes
+    # a process's first captures allocate what every later one shares (the
+    # CUDA generator's graph-safe seed and offset, cuBLAS's workspace on the
+    # capture stream, 32 MiB): make them here
+    first, a = torch.cuda.CUDAGraph(), torch.ones((2, 8, 8), device=cuda)
+    with torch.cuda.graph(first):
+        torch.bmm(a, a) @ a[0]
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(cuda)
+    got = {}
+    for shape in PREFILL_SHAPES:
+        run(calls[shape][0])  # eager, then captured
+        got[shape] = run(calls[shape][1])  # replayed
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated(cuda) - before
+    assert eng.counts.graph_captures == eng.counts.prefill_replays == len(PREFILL_SHAPES)
+    for shape in PREFILL_SHAPES:
+        (gt, gl, gr), (wt, wl, wr) = got[shape], want[shape]
+        assert gt == wt, shape
+        assert all(torch.equal(gl[s], wl[s]) for s in wl), shape
+        assert all(torch.equal(g[n], w[n]) for s in wr for g, w in zip(gr[s], wr[s]) for n in w)
+    static = sum(_padded_bytes(s.buf) + _padded_bytes(s.logits)
+                 for s in eng._prefill.shapes.values())
+    assert 0 < grown <= static, (grown, static)
 
 
 # ---------------------------------------------------------------------------

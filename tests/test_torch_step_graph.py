@@ -19,6 +19,7 @@ prefix hit reads int8-quantized K/V on both sides).
 """
 
 import contextlib
+import time
 
 import jax
 import jax.numpy as jnp
@@ -32,7 +33,7 @@ from pb_llm_tpu.quant.high_quant import high_calibrate, high_quantize
 from pb_llm_tpu.quant.low_quant import low_calibrate, low_quantize
 from pb_llm_tpu_torch.interop import packed_from_fields
 from pb_llm_tpu_torch.ops import counters, packed_matmul
-from pb_llm_tpu_torch.runtime import step_graph
+from pb_llm_tpu_torch.runtime import step_graph, tracing
 from pb_llm_tpu_torch.runtime.engine import EngineCounts
 
 from _torch_serving import TinyLlama, greedy, random_prompts, serve
@@ -187,7 +188,7 @@ class _FakeEngine:
 
 def test_graph_counters_restore_after_capture_and_add_per_replay(monkeypatch):
     monkeypatch.setattr(step_graph.StepGraph, "graph_cls", _StandInGraph)
-    monkeypatch.setattr(step_graph, "capture", lambda graph: contextlib.nullcontext())
+    monkeypatch.setattr(step_graph, "capture", lambda graph, fn, pool: fn())
     eng = _FakeEngine()
     sg = step_graph.StepGraph(eng)
     sg.capturable = True
@@ -216,7 +217,7 @@ def test_graph_counters_restore_after_capture_and_add_per_replay(monkeypatch):
 
 def test_failed_capture_restores_the_counters_and_keeps_no_graph(monkeypatch):
     monkeypatch.setattr(step_graph.StepGraph, "graph_cls", _StandInGraph)
-    monkeypatch.setattr(step_graph, "capture", lambda graph: contextlib.nullcontext())
+    monkeypatch.setattr(step_graph, "capture", lambda graph, fn, pool: fn())
     eng = _FakeEngine()
     sg = step_graph.StepGraph(eng)
     sg.capturable = True
@@ -232,6 +233,165 @@ def test_failed_capture_restores_the_counters_and_keeps_no_graph(monkeypatch):
     with pytest.raises(RuntimeError, match="capturing"):
         sg(tok, pos)
     assert counters.read(totals=True) == before and sg.graph is None
+
+
+# ---------------------------------------------------------------------------
+# the strip prefill's graphs, one a (K, bucket) shape, with stand-in graphs
+# ---------------------------------------------------------------------------
+
+class _PooledStandIn(_StandInGraph):
+    def pool(self):
+        return ("pool of", id(self))
+
+
+class _FakePrefillEngine(_FakeEngine):
+    """An engine whose strip prefill counts launches as kernel wrappers do
+    and returns a row a prompt that its ids, slot and last row decide."""
+
+    def _strip_prefill(self, ids, slots, last):
+        self.forwards += 1
+        packed_matmul.launches += 3
+        return (ids.sum(1) + 1000 * slots + last).float()[:, None]
+
+
+def _prefill_call(pg, k, bucket, seed):
+    r = np.random.default_rng(seed)
+    ids = r.integers(0, 100, (k, bucket))
+    slots, last = r.permutation(4)[:k], r.integers(0, bucket, k)
+    return pg(pg.load(ids, slots, last)), ids.sum(1) + 1000 * slots + last
+
+
+def test_prefill_graphs_capture_each_shape_once_then_replay(monkeypatch):
+    """A shape's first call runs eagerly and captures (into the pool the
+    first graph made), every later call replays and returns a copy of the
+    graph's output; the launch counters are restored after each capture
+    and each replay adds its capture's launches."""
+    monkeypatch.setattr(step_graph.PrefillGraphs, "graph_cls", _PooledStandIn)
+    pools = []
+    monkeypatch.setattr(step_graph, "capture",
+                        lambda graph, fn, pool: (pools.append(pool), fn())[1])
+    eng = _FakePrefillEngine()
+    pg = step_graph.PrefillGraphs(eng)
+    pg.capturable = True
+    start = counters.read(totals=True)["pb_int8_matmul"]
+    shapes = [(2, 8), (1, 8), (2, 8), (2, 16), (1, 8), (2, 16), (2, 8)]
+    for n, (k, bucket) in enumerate(shapes, 1):
+        out, want = _prefill_call(pg, k, bucket, n)
+        first = shapes.index((k, bucket)) == n - 1
+        if first:  # the eager run's own logits
+            np.testing.assert_array_equal(out[:, 0].numpy(), want)
+        shape = pg.shapes[(k, bucket)]
+        assert out is not shape.logits and torch.equal(out, shape.logits)
+        assert counters.read(totals=True)["pb_int8_matmul"] == start + 3 * n
+    # three shapes: an eager run and a capture each; four replays
+    assert eng.forwards == 6 and eng.counts.graph_captures == 3
+    assert eng.counts.prefill_replays == 4
+    assert [pg.shapes[s].graph.replays for s in [(2, 8), (1, 8), (2, 16)]] == [2, 1, 1]
+    assert all(s.deltas["pb_int8_matmul"] == 3 and sum(s.deltas.values()) == 3
+               for s in pg.shapes.values())
+    first_pool = pg.shapes[(2, 8)].graph.pool()
+    assert pools == [None, first_pool, first_pool] and pg.pool == first_pool
+
+
+def test_failed_prefill_capture_restores_the_counters_and_keeps_no_graph(monkeypatch):
+    monkeypatch.setattr(step_graph.PrefillGraphs, "graph_cls", _PooledStandIn)
+
+    def failing(graph, fn, pool):
+        packed_matmul.launches += 7
+        raise RuntimeError("operation not permitted when stream is capturing")
+
+    monkeypatch.setattr(step_graph, "capture", failing)
+    eng = _FakePrefillEngine()
+    pg = step_graph.PrefillGraphs(eng)
+    pg.capturable = True
+    before = counters.read(totals=True)
+    with pytest.raises(RuntimeError, match="capturing"):
+        _prefill_call(pg, 2, 8, 0)
+    after = counters.read(totals=True)
+    assert after["pb_int8_matmul"] == before["pb_int8_matmul"] + 3  # the eager run's
+    assert {k: v for k, v in after.items() if k != "pb_int8_matmul"} == {
+        k: v for k, v in before.items() if k != "pb_int8_matmul"}
+    assert pg.shapes[(2, 8)].graph is None and pg.pool is None
+    assert eng.counts.graph_captures == 0 and eng.counts.prefill_replays == 0
+
+
+class _RerunGraph:
+    """A stand-in graph whose replay re-runs the captured call, reading the
+    static buffers, into the graph's output (see `_rerun_capture`)."""
+
+    def pool(self):
+        return "the prefill pool"
+
+    def replay(self):
+        self.out.copy_(self.body())
+
+
+def _rerun_capture(graph, fn, pool):
+    graph.body, graph.out = fn, fn()
+    return graph.out
+
+
+def _prefill_children(ns0):
+    return [[k.name for k in tracing.children(p)]
+            for p in tracing.spans("engine.prefill", ns0=ns0)]
+
+
+def test_graphed_strip_prefill_equals_the_eager_engine(tiny, monkeypatch):
+    """Two calls of one (K, bucket) shape with other prompts, lengths and
+    slots, graphed (the second a replay) against an eager engine: the
+    same first tokens, prefill logits and strip rows and scales; a third
+    call, a replay, leaves the kept logits of the first two as they were,
+    and teacher-forced decodes after it score as the eager engine's."""
+    monkeypatch.setattr(step_graph.PrefillGraphs, "graph_cls", _RerunGraph)
+    monkeypatch.setattr(step_graph, "capture", _rerun_capture)
+    ekw = dict(n_slots=6, max_seq=128, prefill_buckets=(16, 64), cache_dtype="int8")
+    graphed, eager = tiny.port_engine(**ekw), tiny.port_engine(**ekw)
+    graphed._prefill.capturable = True
+    p = random_prompts(11, (5, 14, 9, 16, 12, 3))
+    calls = [[(0, p[0]), (2, p[1])], [(3, p[2]), (1, p[3])], [(5, p[4]), (4, p[5])]]
+    ns0 = time.time_ns()
+    for n, pairs in enumerate(calls):
+        if n == 2:
+            kept = {s: graphed._prefill_logits[s].clone() for s in range(4)}
+        assert graphed.prefill_batch(pairs) == eager.prefill_batch(pairs)
+        for s, _ in pairs:
+            assert torch.equal(graphed._prefill_logits[s], eager._prefill_logits[s])
+        for g, e in zip(graphed.caches, eager.caches):
+            assert g.keys() == e.keys() == {"k", "v", "k_scale", "v_scale"}
+            assert all(torch.equal(g[k], e[k]) for k in g)
+    assert all(torch.equal(graphed._prefill_logits[s], kept[s]) for s in kept)
+    assert graphed.counts.graph_captures == 1 and graphed.counts.prefill_replays == 2
+    assert eager.counts.graph_captures == eager.counts.prefill_replays == 0
+    children = _prefill_children(ns0)  # the graphed engine's call, then the eager one's
+    replayed = ["prefill.gather", "prefill.replay", "prefill.finish"]
+    assert children[0::2] == [["prefill.gather", "prefill.forward", "prefill.capture",
+                                "prefill.finish"], replayed, replayed]
+    assert children[1::2] == 3 * [["prefill.gather", "prefill.forward", "prefill.scatter",
+                                   "prefill.finish"]]
+    forced = random_prompts(12, (6,))[0]
+    for s in (3, 0):
+        assert graphed.forced_decode_nll(s, forced) == eager.forced_decode_nll(s, forced)
+
+
+def test_no_prefill_graph_under_eager_or_on_pages(tiny, monkeypatch):
+    """Under `eager()`, and on the paged pool, a capturable engine's
+    prefill runs op by op with the eager spans and captures nothing."""
+    monkeypatch.setattr(step_graph.PrefillGraphs, "graph_cls", _RerunGraph)
+    monkeypatch.setattr(step_graph, "capture", _rerun_capture)
+    eager_children = ["prefill.gather", "prefill.forward", "prefill.scatter", "prefill.finish"]
+    p = random_prompts(13, (5, 14))
+    for kw in (dict(), dict(page_size=8)):
+        eng = tiny.port_engine(n_slots=2, max_seq=128, prefill_buckets=(16, 64), **kw)
+        eng._prefill.capturable = True
+        ns0 = time.time_ns()
+        for _ in range(2):
+            with step_graph.eager() if not kw else contextlib.nullcontext():
+                eng.prefill_batch([(0, p[0]), (1, p[1])])
+            eng.release(0), eng.release(1)
+        want = eager_children if not kw else [c for c in eager_children if c != "prefill.scatter"]
+        assert _prefill_children(ns0) == [want, want]
+        assert not eng._prefill.shapes and eng.counts.graph_captures == 0
+        assert eng.counts.prefill_replays == 0
 
 
 def test_eager_nests_and_restores():

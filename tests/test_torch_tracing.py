@@ -174,7 +174,7 @@ def test_a_captured_step_shows_its_capture_then_replays(params, monkeypatch):
     """The step's second call captures and replays, every later one replays
     (a stand-in graph on the CPU: the spans and counters, not the tokens)."""
     monkeypatch.setattr(step_graph.StepGraph, "graph_cls", _StandInGraph)
-    monkeypatch.setattr(step_graph, "capture", lambda graph: contextlib.nullcontext())
+    monkeypatch.setattr(step_graph, "capture", lambda graph, fn, pool: fn())
     run = serve(params, capturable=True)
     launches = [[k.name for k in tracing.children(d)][1:-3]
                 for d in named(run.spans, "engine.decode")]
